@@ -1,0 +1,52 @@
+"""Dispatching wrappers for the hand-written kernels (the torch twin of
+``repro/kernels/ops.py``).
+
+A wrapper takes the plain PyTorch version only when its input lies on
+the CPU (the tests' path).  On a CUDA tensor it launches the kernel or
+raises; there is no fallback.  Each wrapper counts its kernel launches
+in an integer attribute ``launches`` — the count a run reads to show
+that its path went through the kernels.  Reset it by assignment
+(``ops.ragged_attention.launches = 0``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import confidence_gate as _gate
+from repro_torch.kernels import ragged_attention as _ragged
+
+
+def _on_cpu(t, name: str) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def confidence_gate(logits):
+    """logits [..., V] -> dict(conf, entropy, argmax, logz), each [...]."""
+    if _on_cpu(logits, "confidence_gate"):
+        return _gate.confidence_gate_ref(logits)
+    out = _gate.confidence_gate(logits)
+    confidence_gate.launches += 1
+    return out
+
+
+confidence_gate.launches = 0
+
+
+def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
+                     k_scale=None, v_scale=None, window=None):
+    """One ragged flat-token step over a block-paged KV pool; see
+    :mod:`repro_torch.kernels.ragged_attention` for the contract."""
+    if _on_cpu(q, "ragged_attention"):
+        return _ragged.ragged_attention_ref(
+            q, k_pages, v_pages, page_table, q_start, q_len,
+            k_scale=k_scale, v_scale=v_scale, window=window)
+    out = _ragged.ragged_attention(
+        q, k_pages, v_pages, page_table, q_start, q_len,
+        k_scale=k_scale, v_scale=v_scale, window=window)
+    ragged_attention.launches += 1
+    return out
+
+
+ragged_attention.launches = 0

@@ -1,0 +1,7 @@
+"""Plain PyTorch versions of the ported kernels, under the JAX package's
+names (``repro/kernels/ref.py``): the ground truth the kernel tests and
+``chip_smoke.py`` compare against."""
+from repro_torch.kernels.confidence_gate import confidence_gate_ref
+from repro_torch.kernels.ragged_attention import ragged_attention_ref
+
+__all__ = ["confidence_gate_ref", "ragged_attention_ref"]

@@ -1,0 +1,267 @@
+"""Asynchronous cascade serving under Poisson traffic (the torch port's
+entry point; the JAX package's ``repro/launch/serve_async.py`` is the
+reference).
+
+Drives :class:`repro_torch.serving.CascadeEngine` with open-loop
+arrivals: requests arrive at rate ``--rate`` req/s (exponential
+inter-arrival times), are admitted into ``--slots`` KV rows per tier as
+they free up (continuous batching), and low-confidence sequences are
+escalated to the expensive tier.  ``--length-dist
+{uniform,lognormal,bimodal}`` samples per-request prompt lengths in
+``[--min-prompt-len, --prompt-len]``; chunked paged prefill advances
+``--prefill-chunk`` tokens per row per tick, and each tick runs as ONE
+ragged flat token-batch step per tier through the hand-written CUDA
+kernels.  The gate threshold comes from an escalation budget by default
+(δ = the budget-quantile of recent sequence confidences); ``--delta``
+fixes it instead.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_async \\
+        --requests 64 --rate 8 --slots 8 --length-dist lognormal
+
+runs the smoke variants on the card; ``--variant ''`` serves the
+published widths and ``--device cpu`` runs on the CPU with the kernels'
+plain versions.  Reports latency/TTFT percentiles, throughput, per-tier
+utilization, launches and host syncs per tick, the escalation rate and
+Eq 7 FLOPs/request.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import bigram_lm
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import init_params
+from repro_torch.serving import CascadeEngine, TierSpec
+from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
+
+# Prompt tokens are drawn from the first PROMPT_VOCAB ids: bigram_lm's
+# trigram table is vocab x vocab int64 (320 GB at phi4-mini's 200064), so
+# the published vocabularies cannot seed it.  Smoke vocabs (512) are
+# below the cap and give the JAX package's prompts exactly.
+PROMPT_VOCAB = 4096
+
+
+def build_engine(args, clock=None):
+    """Both tiers' configs and random f32 weights (drawn on the device),
+    and the engine; returns (engine, vocab shared by both tiers)."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # f32 end to end: no TF32 in the matrix products
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    fast_cfg = get_config(args.fast, args.variant)
+    exp_cfg = get_config(args.expensive, args.variant)
+    fast_params = init_params(fast_cfg, args.seed, torch.float32, device)
+    exp_seed = args.seed + 1 if args.expensive_seed is None \
+        else args.expensive_seed
+    exp_params = init_params(exp_cfg, exp_seed, torch.float32, device)
+    gate_kw = ({"deltas": [args.delta]} if args.delta is not None
+               else {"escalation_budget": args.escalation_budget})
+    engine = CascadeEngine(
+        [TierSpec(args.fast, fast_cfg, fast_params),
+         TierSpec(args.expensive, exp_cfg, exp_params)],
+        slots=args.slots, prompt_len=args.prompt_len, gen_len=args.gen_len,
+        kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+        prefill_chunk=args.prefill_chunk,
+        prefill_token_budget=args.prefill_token_budget,
+        clock=clock if clock is not None else WallClock(),
+        device=device, **gate_kw)
+    return engine, min(fast_cfg.vocab_size, exp_cfg.vocab_size)
+
+
+def poisson_arrivals(n: int, rate: float, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / rate, size=n))
+
+
+def sample_lengths(dist: str, n: int, max_len: int, min_len: int,
+                   seed: int) -> np.ndarray:
+    """Per-request prompt lengths in [min_len, max_len].
+
+    uniform   — every prompt at max_len
+    lognormal — median ~ max_len/4, σ=0.8: the heavy right tail of chat /
+                search traffic (most prompts short, a few near the cap)
+    bimodal   — half short (~max_len/8), half long (~0.8·max_len)
+    """
+    if dist == "uniform":
+        return np.full(n, max_len, np.int64)
+    rng = np.random.default_rng(seed + 1_000_003)
+    if dist == "lognormal":
+        lens = rng.lognormal(mean=np.log(max(max_len / 4.0, 1.0)),
+                             sigma=0.8, size=n)
+    elif dist == "bimodal":
+        short = rng.normal(max_len / 8.0, max_len / 16.0, size=n)
+        long = rng.normal(0.8 * max_len, max_len / 10.0, size=n)
+        lens = np.where(rng.random(n) < 0.5, short, long)
+    else:
+        raise ValueError(f"unknown length distribution {dist!r}")
+    return np.clip(np.rint(lens), min_len, max_len).astype(np.int64)
+
+
+def stream_checksum(engine) -> str:
+    """Order-independent digest of every request's final (tier, state,
+    token stream) — two runs serving the same workload identically
+    agree on it, whichever package served it."""
+    h = hashlib.sha256()
+    for req in sorted(engine.requests, key=lambda r: r.rid):
+        h.update(f"{req.rid}:{req.tier}:{req.state.name}:".encode())
+        h.update(np.asarray(req.tokens, np.int64).tobytes())
+        h.update(b"|")
+    return h.hexdigest()
+
+
+def _launch_counts() -> dict:
+    return {"ragged_attention": kernel_ops.ragged_attention.launches,
+            "confidence_gate": kernel_ops.confidence_gate.launches}
+
+
+def run(args, clock=None) -> dict:
+    """Build, warm up, serve the synthetic workload, and summarise.
+    ``kernel_launches`` counts the kernel launches after warmup;
+    ``per_request`` lists each request's final tier, state and tokens."""
+    engine, vocab = build_engine(args, clock)
+    prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
+                        vocab=min(vocab, PROMPT_VOCAB), seed=args.seed)
+    lengths = sample_lengths(args.length_dist, args.requests,
+                             args.prompt_len, args.min_prompt_len,
+                             args.seed)
+    arrivals = poisson_arrivals(args.requests, args.rate, args.seed)
+    # warmup runs every bucket width and then resets the clock, so
+    # arrival timestamps are relative to the start of serving
+    engine.warmup()
+    warm = _launch_counts()
+    for p, n, t in zip(prompts, lengths, arrivals):
+        engine.submit(p[:int(n)], arrival_time=float(t))
+    summary = engine.run()
+    summary["kernel_launches"] = {k: v - warm[k]
+                                  for k, v in _launch_counts().items()}
+    summary["host_syncs_total"] = engine.host_syncs
+    summary["rate"] = args.rate
+    summary["offered_rate"] = (
+        args.requests / float(arrivals[-1] - arrivals[0])
+        if args.requests > 1 and arrivals[-1] > arrivals[0]
+        else float("nan"))
+    summary["slots"] = args.slots
+    summary["gen_len"] = args.gen_len
+    summary["length_dist"] = args.length_dist
+    summary["max_prompt_len"] = args.prompt_len
+    summary["prefill_chunk"] = engine.prefill_chunk
+    summary["flat_buckets"] = [rt.flat_buckets for rt in engine.runtimes]
+    summary["escalation_budget"] = (None if args.delta is not None
+                                    else args.escalation_budget)
+    summary["delta"] = [engine.scheduler.delta(g)
+                        for g in range(len(engine.scheduler.gates))]
+    summary["kv_arena"] = engine.memory_stats()
+    summary["stream_checksum"] = stream_checksum(engine)
+    summary["device"] = str(engine.device)
+    summary["device_name"] = (torch.cuda.get_device_name(engine.device)
+                              if engine.device.type == "cuda" else "cpu")
+    summary["per_request"] = [
+        {"rid": r.rid, "tier": r.tier, "state": r.state.name,
+         "tokens": list(r.tokens)} for r in engine.requests]
+    return summary
+
+
+def report(s: dict) -> None:
+    print(f"served {s['completed']}/{s['requests']} requests "
+          f"in {s['elapsed']:.2f}s over {s['steps']} engine steps "
+          f"(rate {s['rate']}/s, {s['slots']} slots/tier, "
+          f"{s['device_name']})")
+    print(f"  latency  p50 {s['latency_p50']:.3f}s  "
+          f"p95 {s['latency_p95']:.3f}s   "
+          f"ttft p50 {s['ttft_p50']:.3f}s  p95 {s['ttft_p95']:.3f}s")
+    print(f"  prompts {s['length_dist']} (mean {s['prompt_len_mean']:.1f}"
+          f"/{s['max_prompt_len']} tok, chunk {s['prefill_chunk']})  "
+          f"tick p50 {s['tick_duration_p50']:.4f}s  "
+          f"p95 {s['tick_duration_p95']:.4f}s")
+    print(f"  throughput {s['throughput']:.2f} req/s   tier utilization "
+          + "  ".join(f"{n}={u:.2f}" for n, u in
+                      zip(s['tier_names'], s['tier_utilization'])))
+    print("  launches/tick "
+          + "  ".join(f"{n}={l:.2f}" for n, l in
+                      zip(s["tier_names"], s["launches_per_tick"]))
+          + "   host-syncs/tick "
+          + "  ".join(f"{n}={h:.2f}" for n, h in
+                      zip(s["tier_names"], s["host_syncs_per_tick"]))
+          + "   kernel launches "
+          + "  ".join(f"{k}={v}" for k, v in s["kernel_launches"].items()))
+    print(f"  token slots  live {s['step_live_tokens']}"
+          f"/{s['step_processed_tokens']} processed "
+          f"(wasted-slot ratio {s['wasted_slot_ratio']:.3f})")
+    rates = ", ".join(f"{r:.3f}" for r in s["escalation_rates"])
+    deltas = ", ".join(f"{d:.4f}" for d in s["delta"])
+    target = ("" if s.get("escalation_budget") is None
+              else f" (budget target {s['escalation_budget']:.3f})")
+    print(f"  escalation rate [{rates}] at δ=[{deltas}]{target}")
+    print(f"  Eq7 FLOPs/request: cascade {s['flops_per_request_cascade']:.3e} "
+          f"(always-fast {s['flops_per_request_always_fast']:.3e}, "
+          f"always-expensive {s['flops_per_request_always_expensive']:.3e})")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fast", default="gemma3-1b")
+    ap.add_argument("--expensive", default="phi4-mini-3.8b")
+    ap.add_argument("--variant", default="smoke",
+                    help="'smoke' (the default), 'long', or '' for the "
+                         "published config")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' raises without a card")
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="Poisson arrival rate, requests/s")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="KV rows per tier")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="maximum prompt length")
+    ap.add_argument("--min-prompt-len", type=int, default=1)
+    ap.add_argument("--length-dist", default="uniform",
+                    choices=("uniform", "lognormal", "bimodal"),
+                    help="per-request prompt length distribution over "
+                         "[min-prompt-len, prompt-len]")
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="prompt tokens a row advances per tick")
+    ap.add_argument("--prefill-token-budget", type=int, default=None,
+                    help="tokens admitted per tier per tick "
+                         "(default slots * prefill-chunk)")
+    ap.add_argument("--delta", type=float, default=None,
+                    help="fixed gate threshold (overrides the budget)")
+    ap.add_argument("--escalation-budget", type=float, default=0.25,
+                    help="target escalation rate; δ is calibrated online")
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="tokens per KV block")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="KV arena size in blocks per tier (default: fully "
+                         "provisioned; smaller over-subscribes)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--expensive-seed", type=int, default=None,
+                    help="weight seed of the expensive tier "
+                         "(default --seed + 1)")
+    ap.add_argument("--json", default=None,
+                    help="also write the summary dict to this path")
+    ap.add_argument("--virtual-clock", action="store_true",
+                    help="deterministic 1-tick-per-step clock (arrival "
+                         "times are then in ticks, not seconds)")
+    return ap
+
+
+def main() -> None:
+    args = make_parser().parse_args()
+    clock = VirtualClock() if args.virtual_clock else None
+    summary = run(args, clock)
+    report(summary)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(summary, f, indent=2, default=float)
+        print(f"wrote {args.json}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,156 @@
+"""Parameter declaration and initialisation (the torch twin of
+``repro/models/params.py``).
+
+Every block declares its parameters as a tree of :class:`P` (shape +
+logical axes + init rule); the tree's keys, shapes and init rules are
+the JAX package's, so a JAX parameter tree converts leaf for leaf with
+:func:`from_jax`.  The repeated ``period`` carries a leading stacked
+``num_periods`` dim; with ``tie_embeddings`` the LM head is ``embed``.
+
+Only the mixers and FFNs of the served models are declared here:
+attention, and dense ``swiglu``/``gelu`` FFNs.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+class P(NamedTuple):
+    shape: tuple
+    axes: tuple            # logical axis name per dim (or None)
+    init: str = "fan_in"   # fan_in | zeros | ones | normal:<s>
+
+
+def _attn_decl(cfg: ModelConfig, m) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": P((d, H * hd), ("d_model", "fused_heads")),
+        "wk": P((d, KV * hd), ("d_model", "fused_heads")),
+        "wv": P((d, KV * hd), ("d_model", "fused_heads")),
+        "wo": P((H * hd, d), ("fused_heads", "d_model")),
+    }
+
+
+def _dense_decl(cfg: ModelConfig, f) -> dict:
+    d = cfg.d_model
+    if f.act == "swiglu":
+        return {
+            "wi0": P((d, f.d_ff), ("d_model", "ffn")),
+            "wi1": P((d, f.d_ff), ("d_model", "ffn")),
+            "wo": P((f.d_ff, d), ("ffn", "ffn2")),
+        }
+    if f.act == "gelu":
+        return {
+            "wi": P((d, f.d_ff), ("d_model", "ffn")),
+            "wo": P((f.d_ff, d), ("ffn", "ffn2")),
+        }
+    raise NotImplementedError(f"dense ffn act {f.act!r} is not ported")
+
+
+def _layer_decl(cfg: ModelConfig, layer) -> dict:
+    if layer.mixer.kind != "attn" or layer.ffn.kind != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: only attention mixers with dense FFNs are ported "
+            f"(got {layer.mixer.kind}/{layer.ffn.kind})")
+    return {
+        "norm1": P((cfg.d_model,), (None,), "ones"),
+        "mixer": _attn_decl(cfg, layer.mixer),
+        "norm2": P((cfg.d_model,), (None,), "ones"),
+        "ffn": _dense_decl(cfg, layer.ffn),
+    }
+
+
+def tree_map(fn, tree):
+    """Map `fn` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict in key-insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def _stack(decl: dict, n: int):
+    """Prepend a `stack` dim of size n to every leaf (period weights)."""
+    return tree_map(lambda p: P((n,) + p.shape, ("stack",) + p.axes, p.init),
+                    decl)
+
+
+def declare_model(cfg: ModelConfig) -> dict:
+    d, V = cfg.d_model, cfg.vocab_size
+    if cfg.frontend or cfg.early_exit_periods:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends and early-exit heads are not "
+            "ported")
+    decl = {
+        "embed": P((V, d), ("vocab", "d_model"), "normal:0.02"),
+        "final_norm": P((d,), (None,), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        decl["lm_head"] = P((d, V), ("d_model", "vocab"))
+    if cfg.head:
+        decl["head"] = {f"layer{i}": _layer_decl(cfg, l)
+                        for i, l in enumerate(cfg.head)}
+    if cfg.num_periods:
+        period = {f"block{i}": _layer_decl(cfg, l)
+                  for i, l in enumerate(cfg.period)}
+        decl["period"] = _stack(period, cfg.num_periods)
+    if cfg.tail:
+        decl["tail"] = {f"layer{i}": _layer_decl(cfg, l)
+                        for i, l in enumerate(cfg.tail)}
+    return decl
+
+
+def _init_leaf(p: P, gen: torch.Generator, dtype, device):
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init.startswith("normal:"):
+        s = float(p.init.split(":")[1])
+    else:  # fan_in
+        fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(p.shape[:-1])
+        if "stack" in p.axes:
+            fan_in //= p.shape[0]
+        s = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(s).to(dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int, dtype=torch.float32,
+                device="cuda"):
+    """Random weights by the JAX package's init rules (``ones``,
+    ``normal:s``, fan-in).  The draws come from a ``torch.Generator``
+    seeded with `seed` on `device`, so billions of parameters are drawn
+    on the card, not the host; they differ from the JAX package's
+    ``jax.random`` draws — use :func:`from_jax` for equal weights."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return tree_map(lambda p: _init_leaf(p, gen, dtype, device),
+                    declare_model(cfg))
+
+
+def from_jax(tree, device="cpu", dtype=None):
+    """Convert a JAX parameter tree (leaves anything ``np.asarray``
+    takes) into the same tree of torch tensors on `device` — the weight
+    bridge the parity tests use."""
+    def leaf(a):
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(device=device, dtype=dtype or t.dtype)
+    return tree_map(leaf, tree)
+
+
+def param_count_from_decl(cfg: ModelConfig) -> int:
+    return sum(math.prod(p.shape) for p in tree_leaves(declare_model(cfg)))

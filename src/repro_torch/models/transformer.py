@@ -1,0 +1,107 @@
+"""Model stack: embeddings -> head layers -> periods -> tail -> LM head
+(the torch twin of the serving half of ``repro/models/transformer.py``).
+
+The repeated ``period`` runs as a Python loop over weights (and cache)
+stacked on a leading ``num_periods`` dim; indexing the stack gives
+views, so the in-place KV writes of each period land in the stacked
+pools.  The one entry point the serving engine calls is
+:func:`ragged_step`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.params import tree_map
+
+
+def _apply_unrolled(params, cfg, layers, x, cache, pos, mode, pages=None):
+    new_cache = {}
+    for i, layer in enumerate(layers):
+        key = f"layer{i}"
+        x, new_cache[key] = blocks.apply_layer(
+            params[key], cfg, layer, x, cache[key], pos, mode, pages=pages)
+    return x, new_cache
+
+
+def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
+                   pages=None):
+    """Loop over the stacked period weights (+cache).  ``pages`` is the
+    same for every layer."""
+    for i in range(cfg.num_periods):
+        p_i = tree_map(lambda a: a[i], params["period"])
+        c_i = tree_map(lambda a: a[i], cache)
+        for j, layer in enumerate(cfg.period):
+            key = f"block{j}"
+            x, _ = blocks.apply_layer(p_i[key], cfg, layer, x, c_i[key],
+                                      pos, mode, pages=pages)
+    return x, cache
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ lm_proj(params, cfg)
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens.long()]
+
+
+def lm_proj(params, cfg: ModelConfig):
+    """The output projection matrix [D, V] (tied or separate)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
+            cache, pos, pages):
+    """Returns (logits, cache).  Only ``mode="ragged_step"`` is ported:
+    ``batch = {"tokens": [1, W] int32}``, ``pos [1, W]`` absolute
+    positions, ``pages = {"page_table": [R, P], "q_len": [R],
+    "q_start": [R]}`` over a block-paged cache (updated in place)."""
+    if mode != "ragged_step":
+        raise NotImplementedError(f"forward mode {mode!r} is not ported")
+    x = _embed(params, cfg, batch["tokens"])
+    new_cache = {}
+    if cfg.head:
+        x, new_cache["head"] = _apply_unrolled(
+            params["head"], cfg, cfg.head, x, cache["head"], pos, mode,
+            pages)
+    if cfg.num_periods:
+        x, new_cache["period"] = _apply_periods(
+            params, cfg, x, cache["period"], pos, mode, pages)
+    if cfg.tail:
+        x, new_cache["tail"] = _apply_unrolled(
+            params["tail"], cfg, cfg.tail, x, cache["tail"], pos, mode,
+            pages)
+    return _logits(params, cfg, x), new_cache
+
+
+def last_slot_gather(logits, q_len):
+    """Gather each engine row's logits at its last live slot of the flat
+    batch: logits [1,W,V], row b owns flat slots ``[row_start[b],
+    row_start[b] + q_len[b])``, so its last live slot is ``cumsum(q_len)
+    - 1``, clipped into the flat width.  Rows with ``q_len == 0`` gather
+    unspecified logits; callers discard them."""
+    csum = torch.cumsum(q_len, 0)
+    last = (csum - 1).clamp(0, logits.shape[1] - 1)
+    return logits[0, last]
+
+
+def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
+    """One ragged flat token-batch prefill+decode step (O(live tokens)).
+
+    tokens [1, W] int32 — the tick's live tokens packed contiguously:
+    engine row b's ``pages['q_len'][b]`` tokens occupy flat slots
+    ``[row_start[b], row_start[b] + q_len[b])``; the tail past
+    ``sum(q_len)`` is bucket padding.  pos [1, W] per-token absolute
+    positions; pages {"page_table": [R, P], "q_len": [R], "q_start": [R]}
+    over a block-paged cache.  Scatters every live token's KV through its
+    row's page table, runs the ragged attention kernel in every layer,
+    and returns (last_logits [R, V], cache) in engine-row order.
+    ``q_len == 0`` rows return unspecified logits.
+    """
+    logits, cache = forward(params, cfg, {"tokens": tokens},
+                            mode="ragged_step", cache=cache, pos=pos,
+                            pages=pages)
+    return last_slot_gather(logits, pages["q_len"]), cache

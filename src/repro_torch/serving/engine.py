@@ -1,0 +1,631 @@
+"""CascadeEngine: request-level cascade inference on one device (the torch
+port of the main path of ``repro/serving/engine.py``).
+
+One engine step (tick) per tier:
+
+  1. **admit** — pop queued/escalated requests into free KV rows
+     (continuous batching: admission happens while other rows are mid
+     decode).  Prompts of any length up to ``prompt_len`` are accepted;
+     admission is bounded by a per-tick **token budget** (pre-charged
+     with the tick's carried load: decode tokens + in-flight prefill
+     chunks, one currency) and by free KV blocks for the first chunk.
+  2. **plan** — a :class:`StepPlan` is built on the host: every live row
+     gets its tick's work — the next ``prefill_chunk`` tokens of its
+     prompt (or the shorter tail), its single decode token, or a stall
+     (block exhaustion) — and the live tokens of all rows are packed
+     contiguously into one flat ``[1, W]`` batch, ``W`` the smallest
+     power-of-two bucket that holds them.
+  3. **execute** — ONE ragged step per tier per tick
+     (:func:`repro_torch.models.transformer.ragged_step`: every attention
+     layer through the ragged paged attention kernel, KV written in place
+     through the page tables), then the confidence gate kernel on each
+     row's last-slot logits, and ONE blocking device->host fetch of the
+     emitted (token, confidence) pairs (:attr:`CascadeEngine.host_syncs`).
+     A row's first token is emitted when its last prompt chunk
+     completes; it decodes from the next tick.
+  4. **gate** — requests that reach ``gen_len`` aggregate their token
+     confidences; at non-final tiers the scheduler's gate (fixed δ or
+     escalation budget) decides DONE vs ESCALATED.  Escalated requests
+     join the next tier's queue and are decoded there from scratch.
+
+The clock is injectable: ``WallClock`` for real Poisson traffic,
+``VirtualClock`` for deterministic tests (one tick per step).
+
+Not ported from the JAX engine (later work): the padded and split
+executors, dense arenas, meshes, prefix caching, speculation,
+preemption, load shedding, launch retry, fault injection and the tracer.
+A launch error propagates.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import transformer
+from repro_torch.serving.metrics import ServingMetrics, TierCost
+from repro_torch.serving.request import Request, RequestState
+from repro_torch.serving.scheduler import CascadeScheduler, GateSpec
+from repro_torch.serving.slots import TierSlotPool
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device when there is no
+    card: nothing falls back to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    return dev
+
+
+@dataclass
+class TierSpec:
+    """One cascade member: model config + its parameter tree (on the
+    engine's device)."""
+    name: str
+    cfg: ModelConfig
+    params: object
+
+    def flops_per_request(self, gen_len: int) -> float:
+        """Eq 7 cost: FLOPs/token = 2 * active params."""
+        return 2.0 * self.cfg.active_param_count() * gen_len
+
+
+class WallClock:
+    def __init__(self):
+        self._t0 = time.perf_counter()
+
+    def reset(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def wait_until(self, t: float) -> None:
+        time.sleep(min(max(t - self.now(), 0.0), 0.05))
+
+    def step_done(self) -> None:
+        pass
+
+
+class VirtualClock:
+    """Deterministic clock: one tick per engine step."""
+
+    def __init__(self, dt: float = 1.0):
+        self.t = 0.0
+        self.dt = dt
+
+    def reset(self) -> None:
+        self.t = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    def wait_until(self, t: float) -> None:
+        self.t = max(self.t, t)
+
+    def step_done(self) -> None:
+        self.t += self.dt
+
+
+# per-row kinds in a StepPlan
+KIND_IDLE, KIND_PREFILL, KIND_DECODE, KIND_STALL = 0, 1, 2, 3
+
+
+@dataclass
+class StepPlan:
+    """One tier's tick, planned on the host before anything launches:
+    per-row kind (idle / prefill chunk / decode token / stalled), the
+    per-row token slots, live counts, and the flat packing the ragged
+    launch consumes — every live row's tokens concatenated into
+    ``flat_tokens [1, W]`` (``W`` a bucketed power-of-two width)."""
+    width: int                  # token slots per row (chunk; 1 decode-only)
+    kind: np.ndarray            # [capacity] int8 KIND_*
+    tokens: np.ndarray          # [capacity, width] int32
+    pos: np.ndarray             # [capacity, width] int32 abs positions
+    q_len: np.ndarray           # [capacity] int32 live tokens per row
+    prefill_rows: List[int]     # live prefill rows (q_len > 0)
+    decode_rows: List[int]      # decode rows (stalls excluded)
+    finishing: List[int]        # prefill rows whose last chunk completes
+    flat_width: int             # bucketed W >= sum(q_len)
+    flat_tokens: np.ndarray     # [1, W] int32
+    flat_pos: np.ndarray        # [1, W] int32 abs positions
+    q_start: np.ndarray         # [capacity] int32 each row's first pos
+
+    @property
+    def live_prefill_tokens(self) -> int:
+        return int(self.q_len[self.prefill_rows].sum()) \
+            if self.prefill_rows else 0
+
+    @property
+    def live_tokens(self) -> int:
+        """Real tokens this tick computes (prefill chunks + decode)."""
+        return int(self.q_len.sum())
+
+
+class _TierRuntime:
+    """Per-tier model, KV arena, and host-side row state."""
+
+    def __init__(self, spec: TierSpec, capacity: int, prompt_len: int,
+                 max_seq: int, device, *, block_size: int = 16,
+                 kv_blocks: Optional[int] = None, prefill_chunk: int = 128):
+        self.spec = spec
+        self.capacity = capacity
+        self.device = device
+        self.chunk = min(prefill_chunk, prompt_len)
+        self.flat_buckets = self._default_buckets()
+        self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
+                                 block_size=block_size, num_blocks=kv_blocks,
+                                 device=device)
+        self.params = spec.params
+        self.slot_req: List[Optional[Request]] = [None] * capacity
+        self.tok = np.zeros(capacity, np.int32)
+        self.pos = np.zeros(capacity, np.int32)
+        self.prefill_pos = np.zeros(capacity, np.int32)   # tokens written
+
+    def pick(self, logits2d):
+        """Each row's (argmax token, max-softmax confidence), from the
+        confidence gate kernel."""
+        gate = kernel_ops.confidence_gate(logits2d)
+        return gate["argmax"], gate["conf"]
+
+    def ragged_fn(self, tokens, pos, page_table, q_len, q_start):
+        """The ragged flat token-batch step: the tick's live tokens packed
+        in ``[1, W]``; returns per-row last-position picks in engine-row
+        order."""
+        pages = {"page_table": page_table, "q_len": q_len,
+                 "q_start": q_start}
+        logits, self.pool.cache = transformer.ragged_step(
+            self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
+        return self.pick(logits)
+
+    # -- ragged flat-width buckets ------------------------------------------
+
+    def _default_buckets(self) -> List[int]:
+        """Powers of two from 8 up to the first covering the worst-case
+        tick (every row prefilling a full chunk = capacity * chunk live
+        tokens)."""
+        worst = max(self.capacity * self.chunk, 1)
+        buckets, w = [], 8
+        while w < worst:
+            buckets.append(w)
+            w *= 2
+        buckets.append(w)
+        return buckets
+
+    def bucket_width(self, live_tokens: int) -> int:
+        """Smallest bucket holding `live_tokens` (>= 1 slot)."""
+        need = max(int(live_tokens), 1)
+        for b in self.flat_buckets:
+            if b >= need:
+                return b
+        return self.flat_buckets[-1]
+
+    # -- device placement ---------------------------------------------------
+
+    def put(self, *arrays):
+        """Host int32 arrays onto the tier's device in ONE copy (pinned and
+        asynchronous on CUDA); returns device views in the given shapes."""
+        flat = np.concatenate([np.asarray(a, np.int32).ravel()
+                               for a in arrays])
+        host = torch.from_numpy(flat)
+        if self.device.type == "cuda":
+            dev = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            dev = host.to(self.device)
+        out, o = [], 0
+        for a in arrays:
+            n = int(np.prod(np.shape(a)))
+            out.append(dev[o:o + n].view(np.shape(a)))
+            o += n
+        return out
+
+    def run_ragged(self, flat_tokens, flat_pos, qlen, qstart):
+        """The tick's one ragged launch at a bucketed flat width."""
+        tokens, pos, pt, ql, qs = self.put(flat_tokens, flat_pos,
+                                           self.pool.page_table, qlen,
+                                           qstart)
+        return self.ragged_fn(tokens, pos, pt, ql, qs)
+
+    def occupied(self) -> List[int]:
+        return [s for s, r in enumerate(self.slot_req) if r is not None]
+
+    def decoding(self) -> List[int]:
+        return [s for s, r in enumerate(self.slot_req)
+                if r is not None and r.state is RequestState.DECODE
+                and not r.decode_finished]
+
+    def prefilling(self) -> List[int]:
+        return [s for s, r in enumerate(self.slot_req)
+                if r is not None and r.state is RequestState.PREFILL]
+
+
+class CascadeEngine:
+    """M-tier cascade with continuous batching and per-request gating."""
+
+    def __init__(self, tiers: Sequence[TierSpec], *,
+                 slots: int | Sequence[int] = 8,
+                 prompt_len: int = 32, gen_len: int = 16,
+                 deltas: Optional[Sequence[float]] = None,
+                 escalation_budget: Optional[float] = None,
+                 conf_reduce: str = "mean",
+                 kv_block_size: int = 16,
+                 kv_blocks: Optional[int | Sequence[Optional[int]]] = None,
+                 prefill_chunk: int = 128,
+                 prefill_token_budget: Optional[int] = None,
+                 clock=None,
+                 device="cuda"):
+        """``prompt_len`` is the maximum prompt length: ``submit`` takes
+        any length in ``[1, prompt_len]``.  ``kv_blocks`` sizes each
+        tier's arena in KV blocks of ``kv_block_size`` tokens — None fully
+        provisions (``slots * ceil(max_seq / block_size) + 1``); fewer
+        over-subscribes it (admission is then block-limited and rows may
+        stall a tick waiting for a block).  ``prefill_token_budget``
+        bounds admission per tier per tick (default ``slots *
+        prefill_chunk``).  Tokens and confidences come from the
+        confidence gate kernel.  The gate is a fixed ``deltas`` per
+        non-final tier, an ``escalation_budget`` (δ = that quantile of
+        recent sequence confidences), or δ = 0.5.  ``device`` must hold every tier's
+        params; a CUDA device without a card raises."""
+        if not tiers:
+            raise ValueError("need at least one tier")
+        self.device = resolve_device(device)
+        self.tiers = list(tiers)
+        m = len(self.tiers)
+        for t in self.tiers:
+            dev = t.params["embed"].device
+            if dev.type != self.device.type or (
+                    dev.index is not None and self.device.index is not None
+                    and dev.index != self.device.index):
+                raise ValueError(f"tier {t.name}: params on {dev}, engine "
+                                 f"on {self.device}")
+        if prefill_chunk <= 0:
+            raise ValueError("prefill_chunk must be positive")
+        slots_per_tier = ([int(slots)] * m if np.isscalar(slots)
+                          else [int(s) for s in slots])
+        kv_blocks_per_tier = (
+            [kv_blocks] * m if kv_blocks is None or np.isscalar(kv_blocks)
+            else [None if b is None else int(b) for b in kv_blocks])
+        if len(slots_per_tier) != m or len(kv_blocks_per_tier) != m:
+            raise ValueError(
+                f"per-tier sequences must match the {m} tiers: got "
+                f"{len(slots_per_tier)} slots, "
+                f"{len(kv_blocks_per_tier)} kv_blocks entries")
+        if deltas is not None:
+            gates = [GateSpec(delta=float(d)) for d in deltas]
+        elif escalation_budget is not None:
+            gates = [GateSpec(budget=float(escalation_budget))
+                     for _ in range(m - 1)]
+        else:
+            gates = [GateSpec(delta=0.5) for _ in range(m - 1)]
+        if len(gates) != m - 1:
+            raise ValueError("one gate per non-final tier")
+
+        self.prompt_len = prompt_len        # max prompt length
+        self.gen_len = gen_len
+        self.conf_reduce = conf_reduce
+        self.prefill_chunk = min(prefill_chunk, prompt_len)
+        self.prefill_token_budget = (
+            prefill_token_budget if prefill_token_budget is not None
+            else max(slots_per_tier) * self.prefill_chunk)
+        self.metrics = ServingMetrics(
+            [TierCost(t.name, t.flops_per_request(gen_len))
+             for t in self.tiers], slots_per_tier)
+        self.scheduler = CascadeScheduler(slots_per_tier, gates)
+        self.clock = clock if clock is not None else WallClock()
+        self.tick_id = 0
+        max_seq = prompt_len + gen_len
+        self.runtimes = [
+            _TierRuntime(spec, cap, prompt_len, max_seq, self.device,
+                         block_size=kv_block_size,
+                         kv_blocks=nb, prefill_chunk=self.prefill_chunk)
+            for spec, cap, nb in zip(self.tiers, slots_per_tier,
+                                     kv_blocks_per_tier)]
+        self.requests: List[Request] = []
+        self._rid = 0
+        # per-tier token-budget window state, reset each tick: tokens
+        # charged (seeded with the tick's carried decode+chunk load) and
+        # requests admitted (never-starve guard)
+        self._budget_used = [0] * m
+        self._admitted = [0] * m
+        self.host_syncs = 0                 # blocking device->host fetches
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, prompt, arrival_time: float = 0.0) -> Request:
+        """Queue one request (a 1D prompt of 1..prompt_len tokens)."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or not 1 <= prompt.shape[0] <= self.prompt_len:
+            raise ValueError(
+                f"prompt must be 1D with 1..{self.prompt_len} tokens, "
+                f"got shape {prompt.shape}")
+        req = Request(rid=self._rid, prompt=prompt, gen_len=self.gen_len,
+                      arrival_time=float(arrival_time))
+        self._rid += 1
+        self.requests.append(req)
+        self.scheduler.submit(req)
+        self.metrics.record_submitted()
+        return req
+
+    # -- one engine tick ---------------------------------------------------
+
+    def _fetch(self, tier: int, tok, conf):
+        """The tick's one blocking device->host transfer: the int32
+        tokens ride bit-cast beside the f32 confidences in a single copy
+        (counted overall and per tier)."""
+        self.host_syncs += 1
+        self.metrics.record_host_sync(tier)
+        both = torch.cat([tok.to(torch.int32).view(torch.float32),
+                          conf.to(torch.float32)]).cpu()
+        n = tok.shape[0]
+        return both[:n].view(torch.int32).numpy(), both[n:].numpy()
+
+    def _admit_requests(self, tier: int, now: float) -> None:
+        """Bind rows one at a time, bounded by free rows, free KV blocks
+        for the *first chunk* (later chunks grow lazily), and the tier's
+        per-tick token budget.  The budget window is pre-charged with the
+        tick's carried load (see :meth:`_tick_load`) and a new request
+        bills only its first chunk; the window's first admitted request
+        is always admitted, so a long prompt cannot starve.  No compute
+        here — the token batch runs in :meth:`_tier_step`."""
+        rt = self.runtimes[tier]
+        fresh = 0
+        while True:
+            head = self.scheduler.peek(tier, now)
+            if head is None:
+                break
+            plen = head.prompt_tokens
+            if not rt.pool.can_admit(min(rt.chunk, plen)):
+                break               # no blocks for the first chunk
+            reqs, slot_ids = self.scheduler.admit(
+                tier, now, limit=1,
+                token_budget=self.prefill_token_budget,
+                budget_used=self._budget_used[tier],
+                admitted_before=self._admitted[tier],
+                token_cost=lambda r: min(rt.chunk, r.prompt_tokens))
+            if not reqs:
+                break               # over budget this tick
+            req, slot = reqs[0], slot_ids[0]
+            rt.pool.bind(slot, min(rt.chunk, plen),
+                         row_tokens=plen + self.gen_len)
+            rt.slot_req[slot] = req
+            rt.prefill_pos[slot] = 0
+            self._budget_used[tier] += min(rt.chunk, plen)
+            self._admitted[tier] += 1
+            fresh += 1
+        if fresh:
+            self.metrics.record_admission(tier, fresh)
+
+    def _tick_load(self, rt: _TierRuntime) -> int:
+        """Tokens the tier's live rows already claim this tick: one per
+        decoding row plus each mid-prefill row's next chunk."""
+        load = len(rt.decoding())
+        for s in rt.prefilling():
+            req = rt.slot_req[s]
+            load += min(rt.chunk, req.prompt_tokens - int(rt.prefill_pos[s]))
+        return load
+
+    def _build_plan(self, rt: _TierRuntime) -> Optional[StepPlan]:
+        """Plan one tier's tick on the host: which rows prefill a chunk,
+        which decode a token, which stall — plus the flat token batch the
+        launch consumes.  Rows denied KV blocks (over-subscribed arena)
+        are marked ``KIND_STALL`` and retry next tick.  Page tables grow
+        lazily here — prefill rows in slot order first, then decode rows
+        oldest-bound-first."""
+        pre = rt.prefilling()
+        dec = rt.decoding()
+        if not pre and not dec:
+            return None
+        cap = rt.capacity
+        kind = np.zeros(cap, np.int8)
+        qlen = np.zeros(cap, np.int32)
+        prefill_rows: List[int] = []
+        finishing: List[int] = []
+        chunks: List[tuple] = []              # (slot, chunk start, length)
+        for s in pre:
+            req = rt.slot_req[s]
+            st = int(rt.prefill_pos[s])
+            n = min(rt.chunk, req.prompt_tokens - st)
+            if not rt.pool.ensure_blocks(s, st + n - 1):
+                kind[s] = KIND_STALL          # replay the chunk next tick
+                continue
+            kind[s] = KIND_PREFILL
+            qlen[s] = n
+            prefill_rows.append(s)
+            chunks.append((s, st, n))
+            if st + n == req.prompt_tokens:
+                finishing.append(s)
+        decode_rows: List[int] = []
+        dec_set = set(dec)
+        for s in rt.pool.bound_rows():
+            if s not in dec_set:
+                continue
+            p = int(rt.pos[s])
+            if not rt.pool.ensure_blocks(s, p):
+                kind[s] = KIND_STALL          # stall: retry next tick
+                continue
+            kind[s] = KIND_DECODE
+            qlen[s] = 1
+            decode_rows.append(s)
+        # batch width: the chunk when any prefill row survived its block
+        # check, else 1 (a decode-only tick)
+        width = rt.chunk if prefill_rows else 1
+        tokens = np.zeros((cap, width), np.int32)
+        pos = np.zeros((cap, width), np.int32)
+        for s, st, n in chunks:
+            tokens[s, :n] = rt.slot_req[s].prompt[st:st + n]
+            pos[s] = st + np.arange(width)    # row's q_start is pos[s, 0]
+        for s in decode_rows:
+            tokens[s, 0] = rt.tok[s]
+            pos[s] = int(rt.pos[s]) + np.arange(width)
+        # flat packing: live tokens of all rows concatenated in slot
+        # order, padded up to the smallest bucket width (padding scatters
+        # to the null block and emits nothing)
+        flat_width = rt.bucket_width(int(qlen.sum()))
+        flat_tokens = np.zeros((1, flat_width), np.int32)
+        flat_pos = np.zeros((1, flat_width), np.int32)
+        q_start = pos[:, 0].astype(np.int32).copy()
+        o = 0
+        for s in range(cap):
+            n = int(qlen[s])
+            if n:
+                flat_tokens[0, o:o + n] = tokens[s, :n]
+                flat_pos[0, o:o + n] = pos[s, :n]
+                o += n
+        return StepPlan(width=width, kind=kind, tokens=tokens, pos=pos,
+                        q_len=qlen, prefill_rows=prefill_rows,
+                        decode_rows=decode_rows, finishing=finishing,
+                        flat_width=flat_width, flat_tokens=flat_tokens,
+                        flat_pos=flat_pos, q_start=q_start)
+
+    def _tier_step(self, tier: int, now: float) -> int:
+        """One tier's compute for a tick: plan on the host, then the one
+        ragged launch.  Returns the number of decode tokens emitted."""
+        rt = self.runtimes[tier]
+        plan = self._build_plan(rt)
+        if plan is None:
+            return 0
+        return self._exec_ragged(tier, rt, plan)
+
+    def _exec_ragged(self, tier: int, rt: _TierRuntime,
+                     plan: StepPlan) -> int:
+        """ONE ragged launch serves every live row — each contributes its
+        next prefill chunk or its single decode token — and one blocking
+        fetch brings back every emitted (token, confidence) pair.  A row
+        finishing prefill emits its first token from its last-slot
+        logits.  Mid-prompt-only ticks skip the fetch; ticks where every
+        live row stalled skip the launch too."""
+        if not plan.prefill_rows and not plan.decode_rows:
+            return 0                    # every live row stalled
+        tok, conf = rt.run_ragged(plan.flat_tokens, plan.flat_pos,
+                                  plan.q_len, plan.q_start)
+        self.metrics.record_launches(tier, 1)
+        self.metrics.record_step_tokens(tier, plan.live_tokens,
+                                        plan.flat_width)
+        if plan.prefill_rows:
+            self.metrics.record_prefill_tokens(plan.live_prefill_tokens,
+                                               plan.live_prefill_tokens)
+        # host state advances on host-known lengths only
+        for s in plan.prefill_rows:
+            rt.prefill_pos[s] += int(plan.q_len[s])
+        t_dec = self.clock.now()
+        for s in plan.finishing:
+            req = rt.slot_req[s]
+            req.start_decode(t_dec)
+            rt.pos[s] = req.prompt_tokens   # next decode writes here
+        if not plan.finishing and not plan.decode_rows:
+            return 0                        # mid-prompt chunks only
+        tok, conf = self._fetch(tier, tok, conf)
+        t_emit = self.clock.now()           # post-compute
+        for s in plan.finishing + plan.decode_rows:
+            rt.slot_req[s].emit(int(tok[s]), float(conf[s]), t_emit)
+            rt.tok[s] = tok[s]
+        for s in plan.decode_rows:
+            rt.pos[s] += 1
+        return len(plan.decode_rows)
+
+    def _finish_requests(self, tier: int, now: float):
+        """Gate every row whose decode finished: escalate it to the next
+        tier's queue or complete it; free its row and blocks either way."""
+        rt = self.runtimes[tier]
+        last = tier == len(self.tiers) - 1
+        done = esc = 0
+        for slot in rt.occupied():
+            req = rt.slot_req[slot]
+            if not (req.state is RequestState.DECODE and req.decode_finished):
+                continue
+            seq_conf = req.gate(self.conf_reduce)
+            if not last and self.scheduler.gate_decision(tier, seq_conf):
+                req.escalate(now)
+                self.scheduler.push_escalated(req)
+                esc += 1
+            else:
+                # post-compute time: the final decode step belongs to this
+                # request's latency (`now` was sampled at step start)
+                req.complete(self.clock.now())
+                self.metrics.record_completion(req)
+                done += 1
+            rt.slot_req[slot] = None
+            rt.tok[slot] = 0
+            rt.pos[slot] = 0
+            rt.prefill_pos[slot] = 0
+            rt.pool.release(slot)
+            self.scheduler.release(tier, slot)
+        return done, esc
+
+    def step(self, now: Optional[float] = None) -> None:
+        now = self.clock.now() if now is None else now
+        self.tick_id += 1
+        # open each tier's token-budget window, pre-charged with the
+        # tick's carried decode+chunk load (one currency)
+        self._budget_used = [self._tick_load(rt) for rt in self.runtimes]
+        self._admitted = [0] * len(self.tiers)
+        active = []
+        for tier in range(len(self.tiers)):
+            self._admit_requests(tier, now)
+            active.append(self._tier_step(tier, now))
+            self._finish_requests(tier, now)
+        # trailing admission pass: requests escalated this tick enter the
+        # next tier's rows immediately (their prefill starts next tick)
+        for tier in range(len(self.tiers)):
+            self._admit_requests(tier, now)
+        self.metrics.record_step(active, now)
+        self.metrics.sync_gate_stats(self.scheduler.gate_stats)
+
+    # -- run loop ----------------------------------------------------------
+
+    def _any_occupied(self) -> bool:
+        return any(rt.occupied() for rt in self.runtimes)
+
+    def _done(self) -> bool:
+        return self.scheduler.pending == 0 and not self._any_occupied()
+
+    def memory_stats(self) -> List[dict]:
+        """Per-tier KV arena accounting."""
+        return [dict(tier=rt.spec.name, **rt.pool.memory_stats())
+                for rt in self.runtimes]
+
+    def reset_clock(self) -> None:
+        """Restart the clock at t=0 (after set-up, before timed
+        requests)."""
+        self.clock.reset()
+
+    def warmup(self) -> None:
+        """Run the ragged step once at every bucket width per tier with
+        all rows idle (the dummy writes land in the null block), so the
+        allocator and the matrix-product heuristics are warm before the
+        clock starts; ends by resetting the clock."""
+        for rt in self.runtimes:
+            zr = np.zeros(rt.capacity, np.int32)
+            for w in rt.flat_buckets:
+                z = np.zeros((1, w), np.int32)
+                rt.run_ragged(z, z, zr, zr)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset_clock()
+
+    def run(self, max_steps: int = 1_000_000) -> dict:
+        """Drive to completion; returns ``metrics.summary()``."""
+        steps = 0
+        while not self._done():
+            now = self.clock.now()
+            if not self._any_occupied() and not any(
+                    self.scheduler.admissible(t, now)
+                    for t in range(len(self.tiers))):
+                # idle: jump/sleep to the arrival of the queue head
+                self.clock.wait_until(self.scheduler.queues[0][0].arrival_time)
+                continue
+            self.step(self.clock.now())
+            self.clock.step_done()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(
+                    f"engine did not drain after {steps} steps")
+        return self.metrics.summary()

@@ -1,0 +1,213 @@
+"""Serving metrics: latency percentiles, throughput, utilization, and the
+paper's Eq 7 cost accounting (the torch port's copy of the JAX package's
+``repro/serving/metrics.py``, without its gate-calibration, speculation,
+prefix-cache and overload blocks).
+
+Cost convention (Eq 7)::
+
+    cost/request  = Σ_m (N_m / N) · cost_m      N_m = requests reaching m
+    always-exp    = Σ_m cost_m                  (escalate everything)
+    always-fast   = cost_0
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.server import GateStats, ServerStats
+from repro_torch.serving.request import Request
+
+
+def percentile(values: Sequence[float], q: float) -> float:
+    if not values:
+        return float("nan")
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def length_bucket(n: int) -> str:
+    """Power-of-two prompt-length bucket label ("1", "2", "3-4", "5-8",
+    "9-16", ...)."""
+    hi = 1
+    while hi < n:
+        hi *= 2
+    lo = hi // 2 + 1
+    return str(hi) if lo >= hi else f"{lo}-{hi}"
+
+
+@dataclass
+class TierCost:
+    name: str
+    flops_per_request: float
+
+
+class ServingMetrics:
+    """Aggregates per-request records + per-step occupancy counters."""
+
+    def __init__(self, tiers: Sequence[TierCost],
+                 slots_per_tier: Sequence[int]):
+        self.tiers = list(tiers)
+        self.slots_per_tier = list(slots_per_tier)
+        n_gates = len(tiers) - 1
+        self.stats = ServerStats(gates=[GateStats() for _ in range(n_gates)])
+        self.latencies: List[float] = []
+        self.ttfts: List[float] = []
+        self.ttft_by_bucket: Dict[str, List[float]] = {}
+        self.prompt_lens: List[int] = []
+        self.tier_requests = [0] * len(tiers)   # N_m: requests reaching m
+        self.busy_slot_steps = [0] * len(tiers)
+        # live prompt tokens vs token slots the prefill launches processed
+        self.prefill_live_tokens = 0
+        self.prefill_processed_tokens = 0
+        # per tier: live tokens each launch computed vs the token slots of
+        # its bucketed flat width (the wasted-slot ratio is 1 - live/proc)
+        self.step_live_tokens = [0] * len(tiers)
+        self.step_processed_tokens = [0] * len(tiers)
+        # one launch + one blocking device->host fetch per active tier per
+        # tick is the ragged step's budget
+        self.launches_by_tier = [0] * len(tiers)
+        self.host_syncs_by_tier = [0] * len(tiers)
+        self.submitted = 0
+        # per-tick intervals in the engine's clock domain (seconds, or
+        # ticks under a VirtualClock)
+        self.tick_durations: List[float] = []
+        self._last_step_time: Optional[float] = None
+        self.steps = 0
+        # throughput window: first arrival -> last completion (makespan)
+        self.first_arrival: Optional[float] = None
+        self.last_finish: Optional[float] = None
+
+    # -- recording ---------------------------------------------------------
+
+    def record_admission(self, tier: int, n: int = 1) -> None:
+        self.tier_requests[tier] += n
+        self.stats.cost += self.tiers[tier].flops_per_request * n
+        if tier == 0:
+            self.stats.requests += n
+
+    def record_submitted(self, n: int = 1) -> None:
+        self.submitted += n
+
+    def record_step(self, active_per_tier: Sequence[int], now: float) -> None:
+        self.steps += 1
+        for t, n in enumerate(active_per_tier):
+            self.busy_slot_steps[t] += n
+        if self._last_step_time is not None and now >= self._last_step_time:
+            self.tick_durations.append(now - self._last_step_time)
+        self._last_step_time = now
+
+    def record_prefill_tokens(self, live: int, processed: int) -> None:
+        """One prefill execution: `live` real prompt tokens inside a
+        batch of `processed` token slots."""
+        self.prefill_live_tokens += int(live)
+        self.prefill_processed_tokens += int(processed)
+
+    def record_step_tokens(self, tier: int, live: int,
+                           processed: int) -> None:
+        """One token-batch launch of `tier`: `live` real tokens inside a
+        launch that processed `processed` token slots."""
+        self.step_live_tokens[tier] += int(live)
+        self.step_processed_tokens[tier] += int(processed)
+
+    def record_launches(self, tier: int, n: int = 1) -> None:
+        self.launches_by_tier[tier] += n
+
+    def record_host_sync(self, tier: int, n: int = 1) -> None:
+        """One blocking device->host fetch paid by `tier`."""
+        self.host_syncs_by_tier[tier] += n
+
+    def record_completion(self, req: Request) -> None:
+        self.latencies.append(req.latency)
+        self.prompt_lens.append(req.prompt_tokens)
+        if req.ttft is not None:
+            self.ttfts.append(req.ttft)
+            self.ttft_by_bucket.setdefault(
+                length_bucket(req.prompt_tokens), []).append(req.ttft)
+        if self.first_arrival is None \
+                or req.arrival_time < self.first_arrival:
+            self.first_arrival = req.arrival_time
+        if self.last_finish is None or req.finish_time > self.last_finish:
+            self.last_finish = req.finish_time
+
+    def sync_gate_stats(self, gate_stats: Sequence[GateStats]) -> None:
+        """Mirror the scheduler's gate counters into ServerStats."""
+        for mine, theirs in zip(self.stats.gates, gate_stats):
+            mine.seen = theirs.seen
+            mine.escalated = theirs.escalated
+
+    # -- summary -----------------------------------------------------------
+
+    @property
+    def elapsed(self) -> float:
+        """First arrival -> last completion (makespan)."""
+        if self.first_arrival is None or self.last_finish is None:
+            return 0.0
+        return self.last_finish - self.first_arrival
+
+    def summary(self) -> dict:
+        n = max(self.stats.requests, 1)
+        elapsed = self.elapsed
+        util = [self.busy_slot_steps[t] / max(self.steps * c, 1)
+                for t, c in enumerate(self.slots_per_tier)]
+        live, proc = sum(self.step_live_tokens), \
+            sum(self.step_processed_tokens)
+        return {
+            "requests": self.stats.requests,
+            "completed": len(self.latencies),
+            "submitted": self.submitted,
+            "steps": self.steps,
+            "elapsed": elapsed,
+            "throughput": (len(self.latencies) / elapsed
+                           if elapsed > 0 else float("nan")),
+            "latency_p50": percentile(self.latencies, 50),
+            "latency_p95": percentile(self.latencies, 95),
+            "ttft_p50": percentile(self.ttfts, 50),
+            "ttft_p95": percentile(self.ttfts, 95),
+            "ttft_p50_by_prompt_bucket": {
+                b: percentile(v, 50)
+                for b, v in sorted(
+                    self.ttft_by_bucket.items(),
+                    key=lambda kv: int(kv[0].split("-")[0]))},
+            "prompt_len_mean": (float(np.mean(self.prompt_lens))
+                                if self.prompt_lens else float("nan")),
+            "prompt_len_max": (max(self.prompt_lens)
+                               if self.prompt_lens else 0),
+            "prefill_live_tokens": self.prefill_live_tokens,
+            "prefill_processed_tokens": self.prefill_processed_tokens,
+            "prefill_live_token_ratio": (
+                self.prefill_live_tokens / self.prefill_processed_tokens
+                if self.prefill_processed_tokens else float("nan")),
+            "step_live_tokens": live,
+            "step_processed_tokens": proc,
+            "step_live_tokens_by_tier": list(self.step_live_tokens),
+            "step_processed_tokens_by_tier":
+                list(self.step_processed_tokens),
+            "wasted_slot_ratio": 1.0 - live / proc if proc else float("nan"),
+            "wasted_slot_ratio_by_tier": [
+                1.0 - l / p if p else float("nan")
+                for l, p in zip(self.step_live_tokens,
+                                self.step_processed_tokens)],
+            "launches": list(self.launches_by_tier),
+            "launches_per_tick": [
+                n_ / self.steps if self.steps else float("nan")
+                for n_ in self.launches_by_tier],
+            "host_syncs": list(self.host_syncs_by_tier),
+            "host_syncs_per_tick": [
+                n_ / self.steps if self.steps else float("nan")
+                for n_ in self.host_syncs_by_tier],
+            "tick_duration_p50": percentile(self.tick_durations, 50),
+            "tick_duration_p95": percentile(self.tick_durations, 95),
+            "tick_duration_max": (max(self.tick_durations)
+                                  if self.tick_durations else float("nan")),
+            "tier_names": [t.name for t in self.tiers],
+            "tier_requests": list(self.tier_requests),
+            "tier_utilization": util,
+            "escalation_rates": [g.escalation_rate
+                                 for g in self.stats.gates],
+            "flops_per_request_cascade": self.stats.cost / n,   # Eq 7
+            "flops_per_request_always_fast":
+                self.tiers[0].flops_per_request,
+            "flops_per_request_always_expensive":
+                sum(t.flops_per_request for t in self.tiers),
+        }

@@ -1,0 +1,274 @@
+"""The torch port's model stack against the JAX package, on the CPU.
+
+Weights come from the JAX package's ``init_params`` and cross through
+:func:`repro_torch.models.params.from_jax`; inputs and KV pools are
+numpy arrays from a seed.  The attention path is the serving one,
+``mode="ragged_step"``, whose kernels run as their plain versions here.
+"""
+import dataclasses
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import blocks as jax_blocks  # noqa: E402
+from repro.models import cache as jax_cache  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import blocks, params, transformer  # noqa: E402
+from repro_torch.models.cache import init_paged_cache  # noqa: E402
+
+MODELS = ("gemma3-1b", "phi4-mini-3.8b")
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.fixture(scope="module", params=MODELS)
+def model(request):
+    name = request.param
+    jcfg = jax_get_config(name, "smoke")
+    jp = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32))
+    return name, jcfg, get_config(name, "smoke"), jp, params.from_jax(jp)
+
+
+def test_configs_are_the_reference_configs():
+    for name in MODELS:
+        for variant in ("", "smoke", "long"):
+            mine = dataclasses.asdict(get_config(name, variant))
+            ref = dataclasses.asdict(jax_get_config(name, variant))
+            assert mine == ref, (name, variant)
+
+
+def test_from_jax_round_trip(model):
+    """Same keys, shapes and values both ways; the port's declaration
+    (and its own init) has the JAX tree's keys and shapes."""
+    name, _, cfg, jp, tp = model
+    jl, tl = _leaves(jp), _leaves(tp)
+    assert jl.keys() == tl.keys()
+    for k in jl:
+        assert tl[k].dtype == torch.float32
+        np.testing.assert_array_equal(tl[k].numpy(), jl[k])
+    decl = _leaves(params.declare_model(cfg))
+    mine = _leaves(params.init_params(cfg, 0, device="cpu"))
+    assert decl.keys() == jl.keys() == mine.keys()
+    for k in jl:
+        assert tuple(decl[k].shape) == jl[k].shape == tuple(mine[k].shape)
+    assert params.param_count_from_decl(cfg) == cfg.param_count()
+
+
+def test_init_params_rules():
+    cfg = get_config("phi4-mini-3.8b", "smoke")
+    p = params.init_params(cfg, 3, device="cpu")
+    assert torch.equal(p["final_norm"], torch.ones(cfg.d_model))
+    assert torch.equal(p["period"]["block0"]["norm1"],
+                       torch.ones(cfg.num_periods, cfg.d_model))
+    assert abs(p["embed"].std().item() - 0.02) < 0.002
+    wq = p["period"]["block0"]["mixer"]["wq"]     # fan-in of d_model
+    assert abs(wq.std().item() - cfg.d_model ** -0.5) < 0.1 * \
+        cfg.d_model ** -0.5
+    again = params.init_params(cfg, 3, device="cpu")
+    assert torch.equal(again["embed"], p["embed"])   # seeded
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_dense_ffn_matches_jax(act):
+    rng = np.random.default_rng(0)
+    d, f = 32, 48
+    spec = dataclasses.replace(
+        jax_get_config("gemma3-1b", "smoke").period[0].ffn, d_ff=f, act=act)
+    names = ("wi0", "wi1", "wo") if act == "swiglu" else ("wi", "wo")
+    p = {n: rng.standard_normal((f, d) if n == "wo" else (d, f)).astype(
+        np.float32) * 0.2 for n in names}
+    x = rng.standard_normal((1, 5, d)).astype(np.float32)
+    want, _, _ = jax_blocks.dense_ffn(
+        {k: jnp.asarray(v) for k, v in p.items()}, None, spec,
+        jnp.asarray(x), None, "ragged_step")
+    got = blocks.dense_ffn({k: torch.from_numpy(v) for k, v in p.items()},
+                           None, spec, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rmsnorm_rope_and_quant_match_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((1, 6, 4, 32)).astype(np.float32)
+    sc = rng.standard_normal(32).astype(np.float32)
+    np.testing.assert_allclose(
+        blocks.rmsnorm(torch.from_numpy(x), torch.from_numpy(sc)).numpy(),
+        np.asarray(jax_blocks.rmsnorm(jnp.asarray(x), jnp.asarray(sc))),
+        rtol=1e-6, atol=1e-6)
+    cfg = get_config("gemma3-1b", "smoke")
+    pos = np.array([[0, 1, 7, 300, 511, 640]], np.int32)
+    k = x[:, :, :1]
+    got = blocks.apply_rope(torch.from_numpy(x), torch.from_numpy(k),
+                            torch.from_numpy(pos), cfg, "rope")
+    want = jax_blocks.apply_rope(jnp.asarray(x), jnp.asarray(k),
+                                 jnp.asarray(pos), jax_get_config(
+                                     "gemma3-1b", "smoke"), "rope")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+    gq, gs = blocks._quant_i8(torch.from_numpy(x))
+    wq, ws = jax_blocks._quant_i8(jnp.asarray(x))
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-7)
+
+
+# --------------------------------------------------------------------------
+# ragged step
+# --------------------------------------------------------------------------
+
+
+def _plan(rng, vocab, qlens, R, P, bs):
+    """A random ragged plan: page tables, per-row starts, flat tokens."""
+    N = R * P + 1
+    pt = rng.permutation(np.arange(1, N))[:R * P].reshape(R, P).astype(
+        np.int32)
+    q_len = np.asarray(qlens, np.int32)
+    q_start = np.asarray([int(rng.integers(0, P * bs - max(q_len) + 1))
+                          for _ in range(R)], np.int32)
+    total = int(q_len.sum())
+    W = max(8, 1 << (max(total, 1) - 1).bit_length())
+    toks = np.zeros((1, W), np.int32)
+    pos = np.zeros((1, W), np.int32)
+    o = 0
+    for b in range(R):
+        n = int(q_len[b])
+        toks[0, o:o + n] = rng.integers(0, vocab, n)
+        pos[0, o:o + n] = q_start[b] + np.arange(n)
+        o += n
+    return N, pt, q_len, q_start, toks, pos
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_attention_ragged_step_matches_jax(model, kv_quant):
+    """One attention layer in ragged_step mode: the output and every pool
+    row a live token wrote (block 0 takes the padding writes and is never
+    compared)."""
+    name, jcfg, cfg, jp, tp = model
+    jcfg = dataclasses.replace(jcfg, kv_quant=kv_quant)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    rng = np.random.default_rng(2)
+    R, P, bs = 4, 6, 4
+    N, pt, q_len, q_start, _, pos = _plan(rng, cfg.vocab_size,
+                                          [5, 0, 1, 7], R, P, bs)
+    W = pos.shape[1]
+    x = rng.standard_normal((1, W, cfg.d_model)).astype(np.float32)
+    pool = _np_tree(jax_cache.init_paged_cache(jcfg, R, N, bs,
+                                               jnp.float32))
+    pool = pool["period"]["block0"]["mixer"]
+    pool = {k: v[0] for k, v in pool.items()}
+    for k in ("k", "v"):
+        pool[k] = (rng.integers(-127, 128, pool[k].shape).astype(np.int8)
+                   if kv_quant else
+                   rng.standard_normal(pool[k].shape).astype(np.float32))
+    for k in ("k_scale", "v_scale"):
+        if k in pool:
+            pool[k] = rng.uniform(0.01, 0.05, pool[k].shape).astype(
+                np.float32)
+    lp = jax.tree.map(lambda a: a[0], jp["period"]["block0"]["mixer"])
+    spec = cfg.period[0].mixer
+    pages = {"page_table": pt, "q_len": q_len, "q_start": q_start}
+    want_y, want_c = jax_blocks.attention(
+        jax.tree.map(jnp.asarray, lp), jcfg, jcfg.period[0].mixer,
+        jnp.asarray(x), jax.tree.map(jnp.asarray, pool), jnp.asarray(pos),
+        "ragged_step", pages=jax.tree.map(jnp.asarray, pages))
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in pool.items()}
+    got_y, got_c = blocks.attention(
+        params.from_jax(lp), cfg, spec, torch.from_numpy(x), tcache,
+        torch.from_numpy(pos), "ragged_step",
+        pages={k: torch.from_numpy(v) for k, v in pages.items()})
+    assert got_c is tcache                      # updated in place
+    total = int(q_len.sum())
+    np.testing.assert_allclose(got_y.numpy()[0, :total],
+                               np.asarray(want_y)[0, :total],
+                               rtol=1e-4, atol=1e-4)
+    live = np.zeros(N, bool)
+    live[pt[q_len > 0].ravel()] = True           # blocks of live rows
+    for k in pool:
+        np.testing.assert_allclose(
+            got_c[k].numpy()[live], np.asarray(want_c[k])[live],
+            rtol=1e-5, atol=1e-5, err_msg=k)
+    written = got_c["k"].numpy()[live] != pool["k"][live]
+    assert written.any()
+
+
+@pytest.mark.parametrize("qlens", [[5, 0, 1, 7], [1, 1, 1, 1], [8, 8, 0, 0],
+                                   [0, 0, 3, 0]])
+def test_ragged_step_logits_match_jax(model, qlens):
+    """Last-slot logits of a whole ragged step on live rows, plus the KV
+    pools it wrote, against ``transformer.ragged_step`` of the JAX
+    package."""
+    name, jcfg, cfg, jp, tp = model
+    rng = np.random.default_rng(sum(qlens))
+    R, P, bs = 4, 6, 4
+    N, pt, q_len, q_start, toks, pos = _plan(rng, cfg.vocab_size, qlens,
+                                             R, P, bs)
+    pool = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32),
+        _np_tree(jax_cache.init_paged_cache(jcfg, R, N, bs, jnp.float32)))
+    pages = {"page_table": pt, "q_len": q_len, "q_start": q_start}
+    want, want_c = jax_transformer.ragged_step(
+        jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(toks),
+        jax.tree.map(jnp.asarray, pool), jnp.asarray(pos),
+        jax.tree.map(jnp.asarray, pages))
+    tcache = params.from_jax(pool)
+    got, got_c = transformer.ragged_step(
+        tp, cfg, torch.from_numpy(toks), tcache, torch.from_numpy(pos),
+        {k: torch.from_numpy(v) for k, v in pages.items()})
+    live = q_len > 0
+    assert got.shape == (R, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=1e-4, rtol=1e-4)
+    blk = np.zeros(N, bool)
+    blk[pt[live].ravel()] = True
+    for (k, g), w in zip(_leaves(got_c).items(),
+                         _leaves(_np_tree(want_c)).values()):
+        np.testing.assert_allclose(g.numpy()[:, blk], w[:, blk],
+                                   atol=1e-5, rtol=1e-5, err_msg=k)
+
+
+def test_last_slot_gather_matches_jax():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((1, 16, 9)).astype(np.float32)
+    for q_len in ([3, 0, 5, 2], [0, 0, 0, 0], [16, 0, 0, 0]):
+        q_len = np.asarray(q_len, np.int32)
+        want = jax_transformer.last_slot_gather(
+            jnp.asarray(logits), jnp.asarray(q_len), flat=True)
+        got = transformer.last_slot_gather(torch.from_numpy(logits),
+                                           torch.from_numpy(q_len))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_init_paged_cache_layout(model):
+    name, jcfg, cfg, _, _ = model
+    for quant in (None, "int8"):
+        jc = jax_cache.init_paged_cache(
+            dataclasses.replace(jcfg, kv_quant=quant), 3, 9, 4, jnp.float32)
+        tc = init_paged_cache(dataclasses.replace(cfg, kv_quant=quant), 3, 9,
+                              4, torch.float32, "cpu")
+        jl, tl = _leaves(_np_tree(jc)), _leaves(tc)
+        assert jl.keys() == tl.keys()
+        for k in jl:
+            assert tuple(tl[k].shape) == jl[k].shape
+            assert str(tl[k].dtype).split(".")[-1] == str(jl[k].dtype)
+            assert not tl[k].any()

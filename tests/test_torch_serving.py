@@ -1,0 +1,379 @@
+"""The torch port's serving layer against the JAX package, on the CPU.
+
+Unit cases for the allocators, the slot pool (audited by the JAX suite's
+own invariant checker) and the scheduler, then **stream parity**: the JAX
+``CascadeEngine`` and the port's engine serve the same workloads on the
+same weights (``from_jax``) under a ``VirtualClock`` at a fixed δ, and
+must agree on ``stream_checksum`` — every request's final tier, state
+and token stream.  The smoke weights are used as initialised (nothing is
+rescaled); because their logits are nearly flat, the test also asserts
+that at every emitted step the port's top-1/top-2 logit margin is more
+than twice the measured difference between the two packages' logits, so
+the equal argmaxes are not luck.
+"""
+import functools
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.launch import serve_async as jax_serve_async  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro.serving import CascadeEngine as JaxEngine  # noqa: E402
+from repro.serving import TierSpec as JaxTierSpec  # noqa: E402
+from repro.serving import CascadeScheduler as JaxScheduler  # noqa: E402
+from repro.serving import GateSpec as JaxGateSpec  # noqa: E402
+from repro.serving.engine import VirtualClock as JaxVirtualClock  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.server import delta_for_escalation_rate  # noqa: E402
+from repro_torch.data import bigram_lm  # noqa: E402
+from repro_torch.launch import serve_async  # noqa: E402
+from repro_torch.models.params import from_jax  # noqa: E402
+from repro_torch.serving import (BlockAllocator, CascadeEngine,  # noqa: E402
+                                 CascadeScheduler, GateSpec, Request,
+                                 SlotAllocator, TierSlotPool, TierSpec)
+from repro_torch.serving.engine import VirtualClock  # noqa: E402
+from repro_torch.serving.request import RequestState  # noqa: E402
+from tests.test_slots_properties import check_invariants  # noqa: E402
+
+FAST, EXP = "gemma3-1b", "phi4-mini-3.8b"
+
+
+# ---------------------------------------------------------------------------
+# allocators and the slot pool
+# ---------------------------------------------------------------------------
+
+
+def test_slot_allocator_exhaustion_and_reuse():
+    a = SlotAllocator(3)
+    got = [a.alloc() for _ in range(3)]
+    assert got == [0, 1, 2] and a.alloc() is None
+    a.free(got[1])
+    assert a.num_free == 1 and a.alloc() == got[1]     # free-list reuse
+    with pytest.raises(ValueError):
+        a.free(99)                      # stray free
+    a.free(got[0])
+    with pytest.raises(ValueError):
+        a.free(got[0])                  # double free
+    assert a.utilization == 2 / 3
+
+
+def test_block_allocator_null_block_and_refcounts():
+    a = BlockAllocator(4)               # blocks 1..3 usable, 0 = null
+    assert sorted(a.alloc() for _ in range(3)) == [1, 2, 3]
+    assert a.alloc() is None
+    a.ref(2)
+    a.free(2)
+    assert a.refcount(2) == 1 and a.num_shared == 0
+    a.free(2)
+    assert a.alloc() == 2 and a.high_water == 3
+    with pytest.raises(ValueError):
+        a.free(0)
+
+
+@pytest.mark.parametrize("num_blocks", [None, 12, 9])
+def test_tier_slot_pool_invariants_under_random_ops(num_blocks):
+    """bind / ensure_blocks / release in a random order, over a fully
+    provisioned and two over-subscribed arenas: the JAX suite's
+    ``check_invariants`` audits the port's pool after every step, and the
+    oldest bound row is never denied a block."""
+    cfg = get_config(FAST, "smoke")
+    pool = TierSlotPool(cfg, 4, 24, block_size=4, num_blocks=num_blocks,
+                        device="cpu")
+    rng = np.random.default_rng(0 if num_blocks is None else num_blocks)
+    want = {}                           # slot -> tokens its row will need
+    for _ in range(300):
+        free = [s for s in range(4) if s not in want]
+        op = rng.integers(3)
+        if op == 0 and free:
+            n = int(rng.integers(1, 9))
+            if pool.can_admit(n):
+                s = free[0]
+                pool.bind(s, n, row_tokens=n + int(rng.integers(0, 16)))
+                want[s] = n
+        elif op == 1 and want:
+            s = list(want)[int(rng.integers(len(want)))]
+            limit = pool._row_demand[s] * pool.block_size - 1
+            pos = min(want[s] + int(rng.integers(0, 6)), limit)
+            if pool.ensure_blocks(s, pos):
+                want[s] = max(want[s], pos + 1)
+            else:
+                assert pool.bound_rows()[0] != s   # oldest never stalls
+        elif op == 2 and want:
+            s = list(want)[int(rng.integers(len(want)))]
+            pool.release(s)
+            del want[s]
+        check_invariants(pool)
+    for s in list(want):
+        pool.release(s)
+    check_invariants(pool)
+    assert pool.blocks.num_used == 0
+    with pytest.raises(ValueError):
+        pool.release(0)                 # double release
+
+
+def test_tier_slot_pool_cache_is_on_the_device_and_sized():
+    cfg = get_config(EXP, "smoke")
+    pool = TierSlotPool(cfg, 3, 10, block_size=4, device="cpu")
+    assert pool.num_blocks == 3 * 3 + 1
+    k = pool.cache["period"]["block0"]["mixer"]["k"]
+    assert tuple(k.shape) == (cfg.num_periods, pool.num_blocks, 4,
+                              cfg.num_kv_heads, cfg.head_dim)
+    st = pool.memory_stats()
+    assert st["kv_bytes_per_block"] == (2 * cfg.num_layers * 4
+                                        * cfg.num_kv_heads * cfg.head_dim * 4)
+
+
+# ---------------------------------------------------------------------------
+# scheduler
+# ---------------------------------------------------------------------------
+
+
+def _req(rid, arrival=0.0, gen_len=2):
+    return Request(rid=rid, prompt=np.zeros(4, np.int32), gen_len=gen_len,
+                   arrival_time=arrival)
+
+
+def test_scheduler_admits_mid_decode_and_respects_arrivals():
+    sched = CascadeScheduler([2, 1], [GateSpec(delta=0.5)])
+    for r in [_req(i) for i in range(3)] + [_req(3, arrival=5.0)]:
+        sched.submit(r)
+    got, slots = sched.admit(0, now=0.0)
+    assert [r.rid for r in got] == [0, 1]
+    sched.check_invariant(0.0)
+    got[0].start_decode()
+    got[0].emit(7, 0.9, 1.0)
+    got[0].emit(7, 0.9, 2.0)
+    assert not sched.gate_decision(0, got[0].gate())   # 0.9 > δ
+    got[0].complete(2.0)
+    sched.release(0, slots[0])
+    more, more_slots = sched.admit(0, now=2.0)
+    assert [r.rid for r in more] == [2] and more_slots == [slots[0]]
+    assert sched.peek(0, 2.0) is None                  # tier full
+    assert sched.pending == 1
+
+
+def test_scheduler_token_budget_and_escalation_queue():
+    sched = CascadeScheduler([4, 2], [GateSpec(delta=0.5)])
+    for i in range(4):
+        sched.submit(_req(i, gen_len=1))
+    got, _ = sched.admit(0, 0.0, token_budget=6, token_cost=lambda r: 4,
+                         admitted_before=0)
+    assert [r.rid for r in got] == [0]     # the window's first always fits
+    more, _ = sched.admit(0, 0.0, token_budget=6, budget_used=4,
+                          token_cost=lambda r: 1, admitted_before=1)
+    assert [r.rid for r in more] == [1, 2]     # 4 + 1 + 1 fills the 6
+    last, _ = sched.admit(0, 0.0, token_budget=6, token_cost=lambda r: 1,
+                          admitted_before=0)
+    assert [r.rid for r in last] == [3]
+    for r in got + more + last:
+        slot = r.slot
+        r.start_decode()
+        r.emit(1, 0.1 if r.rid % 2 == 0 else 0.9, 0.0)
+        if sched.gate_decision(0, r.gate()):
+            r.escalate()
+            sched.push_escalated(r)
+        else:
+            r.complete(0.0)
+        sched.release(0, slot)
+    packed, slots = sched.admit(1, now=1.0)
+    assert [r.rid for r in packed] == [0, 2] and slots == [0, 1]
+    assert sched.gate_stats[0].escalated == 2
+
+
+def test_budget_gate_matches_jax_scheduler():
+    """The escalation-budget gate makes the JAX scheduler's decisions on
+    the same confidence stream, δ for δ."""
+    mine = CascadeScheduler([1, 1], [GateSpec(budget=0.2, window=64)])
+    ref = JaxScheduler([1, 1], [JaxGateSpec(budget=0.2, window=64)])
+    rng = np.random.default_rng(0)
+    for c in rng.random(300):
+        assert mine.gate_decision(0, float(c)) == \
+            ref.gate_decision(0, float(c))
+        assert mine.delta(0) == ref.delta(0)
+    assert abs(mine.gate_stats[0].escalation_rate - 0.2) < 0.08
+    assert delta_for_escalation_rate([], 0.3) == 0.5
+    with pytest.raises(ValueError):
+        GateSpec()
+    with pytest.raises(ValueError):
+        GateSpec(delta=0.5, budget=0.2)
+
+
+# ---------------------------------------------------------------------------
+# stream parity with the JAX engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def weights():
+    out = {}
+    for i, name in enumerate((FAST, EXP)):
+        cfg = jax_get_config(name, "smoke")
+        jp = jax.tree.map(np.asarray, jax_init_params(
+            cfg, jax.random.PRNGKey(i), jnp.float32))
+        out[name] = (cfg, jp, from_jax(jp))
+    return out
+
+
+ENGINE_KW = dict(slots=3, prompt_len=16, gen_len=4, kv_block_size=4,
+                 prefill_chunk=5)
+
+
+def _workload(dist, n=6, seed=0):
+    prompts = bigram_lm(num_seqs=n, seq_len=16, vocab=512, seed=seed)
+    lens = serve_async.sample_lengths(dist, n, 16, 1, seed)
+    arrivals = serve_async.poisson_arrivals(n, 2.0, seed)
+    return [(p[:int(k)], float(t)) for p, k, t in zip(prompts, lens,
+                                                      arrivals)]
+
+
+def _drain(eng, work):
+    eng.warmup()
+    for p, t in work:
+        eng.submit(p, arrival_time=t)
+    eng.run(max_steps=500)
+    assert all(r.state.name == "DONE" for r in eng.requests)
+    return eng
+
+
+def _jax_engine(weights, delta):
+    return JaxEngine([JaxTierSpec(n, weights[n][0], weights[n][1])
+                      for n in (FAST, EXP)], deltas=[delta],
+                     clock=JaxVirtualClock(), **ENGINE_KW)
+
+
+def _torch_engine(weights, delta):
+    return CascadeEngine([TierSpec(n, get_config(n, "smoke"), weights[n][2])
+                          for n in (FAST, EXP)], deltas=[delta],
+                         clock=VirtualClock(), device="cpu", **ENGINE_KW)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "lognormal"])
+def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
+    work = _workload(dist)
+    # δ mid-gap of a JAX probe run's tier-0 confidences (δ = 0: nothing
+    # escalates), so the gate splits the workload
+    probe = _drain(_jax_engine(weights, 0.0), work)
+    confs = sorted(r.seq_conf_by_tier[0] for r in probe.requests)
+    i = int(np.argmax(np.diff(confs)))
+    delta = float((confs[i] + confs[i + 1]) / 2)
+
+    # record each package's last-slot logits per launch, per tier
+    jax_logits = {FAST: [], EXP: []}
+    recording = [False]
+    orig = jax_transformer.ragged_step
+
+    def tap(name, logits):
+        if recording[0]:
+            jax_logits[name].append(np.array(logits))
+
+    def ragged_step(params, cfg, *a):
+        logits, cache = orig(params, cfg, *a)
+        jax.debug.callback(functools.partial(
+            tap, cfg.name.removesuffix("-smoke")), logits)
+        return logits, cache
+
+    monkeypatch.setattr(jax_transformer, "ragged_step", ragged_step)
+    ref = _jax_engine(weights, delta)
+    ref.warmup()
+    recording[0] = True
+    for p, t in work:
+        ref.submit(p, arrival_time=t)
+    ref.run(max_steps=500)
+    jax.effects_barrier()
+
+    mine = _torch_engine(weights, delta)
+    torch_logits = {FAST: [], EXP: []}
+    emitted = {FAST: [], EXP: []}
+    for rt in mine.runtimes:
+        pick = rt.pick
+
+        def tapped(logits2d, pick=pick, name=rt.spec.name):
+            torch_logits[name].append(logits2d.numpy().copy())
+            return pick(logits2d)
+        rt.pick = tapped
+    exec_ragged = mine._exec_ragged
+
+    def record_rows(tier, rt, plan):
+        if plan.prefill_rows or plan.decode_rows:
+            emitted[rt.spec.name].append(plan.finishing + plan.decode_rows)
+        return exec_ragged(tier, rt, plan)
+    mine._exec_ragged = record_rows
+    _drain(mine, [])                    # warmup, then nothing queued
+    for name in torch_logits:           # drop the warmup launches
+        torch_logits[name].clear()
+        emitted[name].clear()
+    for p, t in work:
+        mine.submit(p, arrival_time=t)
+    mine.run(max_steps=500)
+
+    assert all(r.state is RequestState.DONE for r in mine.requests)
+    assert {r.tier for r in mine.requests} == {0, 1}   # the gate splits
+    assert serve_async.stream_checksum(mine) == \
+        jax_serve_async.stream_checksum(ref)
+    for a, b in zip(mine.requests, ref.requests):
+        np.testing.assert_allclose(a.token_conf, b.token_conf, rtol=1e-4)
+    steps = 0
+    for name in (FAST, EXP):
+        assert len(torch_logits[name]) == len(jax_logits[name]) \
+            == len(emitted[name])
+        for got, want, rows in zip(torch_logits[name], jax_logits[name],
+                                   emitted[name]):
+            for s in rows:
+                err = np.abs(got[s] - want[s]).max()
+                top2 = np.sort(got[s])[-2:]
+                assert err < 1e-4
+                assert top2[1] - top2[0] > 2 * err, (name, s, err, top2)
+                steps += 1
+    # every emitted token of every tier was checked
+    assert steps == sum(len(t) for r in mine.requests
+                        for t in r.tokens_by_tier)
+
+
+def test_host_syncs_one_per_active_tier_per_tick(weights):
+    eng = _drain(_torch_engine(weights, 0.5), _workload("lognormal"))
+    s = eng.metrics.summary()
+    assert s["completed"] == 6
+    assert all(h <= l for h, l in zip(s["host_syncs"], s["launches"]))
+    assert max(s["launches_per_tick"]) <= 1.0
+    assert eng.host_syncs == sum(s["host_syncs"])
+
+
+# ---------------------------------------------------------------------------
+# device selection: no silent CPU fallback
+# ---------------------------------------------------------------------------
+
+
+def test_default_device_raises_without_a_card(weights, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiers = [TierSpec(n, get_config(n, "smoke"), weights[n][2])
+             for n in (FAST, EXP)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        CascadeEngine(tiers, **ENGINE_KW)
+    args = serve_async.make_parser().parse_args([])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_async.build_engine(args)
+
+
+def test_cli_runs_on_cpu_when_asked(capsys):
+    args = serve_async.make_parser().parse_args(
+        ["--device", "cpu", "--requests", "4", "--slots", "2",
+         "--prompt-len", "12", "--gen-len", "3", "--length-dist",
+         "lognormal", "--virtual-clock"])
+    s = serve_async.run(args, VirtualClock())
+    serve_async.report(s)
+    assert s["completed"] == 4 and s["device"] == "cpu"
+    assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
+               for r in s["per_request"])
+    assert s["kernel_launches"] == {"ragged_attention": 0,
+                                    "confidence_gate": 0}
+    assert "served 4/4 requests" in capsys.readouterr().out
