@@ -8,19 +8,26 @@ Phases (each raises on failure, and the script then exits non-zero
 without printing a result):
 
   1. environment: card name and power limit (``nvidia-smi``), torch and
-     CUDA versions, and the build of both CUDA kernels from
+     CUDA versions, and the build of the four CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (gemma3-1b and phi4-mini-3.8b), with
      CUDA-event times for the kernel and the plain version;
-  3. the port's ragged step end to end on the card against the same step
-     on the CPU (plain versions), at the smoke widths;
+  3. the port's ragged, padded (``mixed_step``) and split
+     (``prefill_chunk`` then ``decode_step``) steps end to end on the
+     card against the same steps on the CPU (plain versions), at the
+     smoke widths;
   4. the main path at full width: ``repro_torch.launch.serve_async.run``
      serving 16 requests through the published gemma3-1b ->
-     phi4-mini-3.8b cascade (random f32 weights from a seed), with the
-     kernels' launch counters set to 0 just before and read just after;
-  5. the same workload once more under ``torch.profiler`` with a virtual
-     clock: device time by kernel kind and the device's idle share.
+     phi4-mini-3.8b cascade (random f32 weights from a seed) on the
+     default ragged executor, with the kernels' launch counters set to 0
+     just before and read just after;
+  5. the same workload, on the same weights, under the padded
+     (``--no-ragged-step``) and the split (``--split-step``) executors,
+     each with the counters set to 0 just before and read just after;
+  6. the workload once more under each executor inside
+     ``torch.profiler``, with a virtual clock: device time by kernel kind
+     and the device's idle share.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -45,7 +52,9 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import bigram_lm  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.launch import serve_async  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
@@ -93,17 +102,10 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
 # --------------------------------------------------------------------------
 
 
-def ragged_case(gen, dev, *, KV, G, hd, qlens, q_start, window, dtype,
-                kv_dtype, R=8, P=41, bs=16):
-    """Inputs at main-path layout: R engine rows, P pages of bs tokens
-    per row (prompt 640 + gen 8 -> 41 pages), N = R*P + 1 blocks."""
+def paged_pool(gen, dev, *, KV, hd, kv_dtype, R, P, bs):
+    """Random KV pools of N = R*P + 1 blocks (int8 with scales, or float)
+    and a page table [R, P] of shuffled blocks (block 0 never mapped)."""
     N = R * P + 1
-    qlen = torch.tensor(qlens, dtype=torch.int32)
-    total = int(qlen.sum())
-    W = 8
-    while W < max(total, 1):
-        W *= 2
-    q = torch.randn(W, KV, G, hd, generator=gen, device=dev).to(dtype)
     if kv_dtype == torch.int8:
         kp = torch.randint(-127, 128, (N, bs, KV, hd), generator=gen,
                            device=dev, dtype=torch.int8)
@@ -119,37 +121,59 @@ def ragged_case(gen, dev, *, KV, G, hd, qlens, q_start, window, dtype,
         ks = vs = None
     perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
     pt = perm[:R * P].reshape(R, P).to(torch.int32).contiguous()
+    return kp, vp, ks, vs, pt
+
+
+def ragged_case(gen, dev, *, KV, G, hd, qlens, q_start, window, dtype,
+                kv_dtype, R=8, P=41, bs=16):
+    """Inputs at main-path layout: R engine rows, P pages of bs tokens
+    per row (prompt 640 + gen 8 -> 41 pages), N = R*P + 1 blocks."""
+    qlen = torch.tensor(qlens, dtype=torch.int32)
+    total = int(qlen.sum())
+    W = 8
+    while W < max(total, 1):
+        W *= 2
+    q = torch.randn(W, KV, G, hd, generator=gen, device=dev).to(dtype)
+    kp, vp, ks, vs, pt = paged_pool(gen, dev, KV=KV, hd=hd,
+                                    kv_dtype=kv_dtype, R=R, P=P, bs=bs)
     args = (q, kp, vp, pt, torch.tensor(q_start, dtype=torch.int32,
                                         device=dev), qlen.to(dev))
     kw = dict(k_scale=ks, v_scale=vs, window=window)
     return args, kw
 
 
-def ragged_work(args, kw):
-    """(bytes, f32 ops) this call's data needs: q read and out written
-    for the W slots, every K/V page some live token of a row can see
-    read once (with its scales), and per live (token, visible key) pair
-    2*hd multiply-adds for q.k and for p.v per query head."""
-    q, kp, vp, pt, qs, ql = args
-    W, KV, G, hd = q.shape
+def attention_work(q, kp, pt, queries, kw):
+    """(bytes, f32 ops) one paged attention call's data needs: q read
+    and out written once, every K/V page some live query of a row can
+    see read once (with its scales), the page table and per-row scalars
+    once, and per live (query, visible key) pair 2*hd multiply-adds for
+    q.k and for p.v per query head.  ``queries`` lists (page-table row,
+    position) of every live query."""
+    KV, G, hd = q.shape[-3:]
     bs = kp.shape[1]
     window = kw["window"]
-    ql_h, qs_h, pt_h = ql.cpu().numpy(), qs.cpu().numpy(), pt.cpu().numpy()
+    pt_h = pt.cpu().numpy()
     pages, pairs = set(), 0
-    for b in range(len(ql_h)):
-        for i in range(int(ql_h[b])):
-            pos = int(qs_h[b]) + i
-            lo = max(0, pos - window + 1) if window else 0
-            pairs += pos - lo + 1
-            for j in range(lo // bs, pos // bs + 1):
-                pages.add(int(pt_h[b, j]))
+    for b, pos in queries:
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += pos - lo + 1
+        for j in range(lo // bs, pos // bs + 1):
+            pages.add(int(pt_h[b, j]))
     kv_bytes = len(pages) * bs * KV * hd * kp.element_size() * 2
     if kw["k_scale"] is not None:
         kv_bytes += len(pages) * bs * KV * 4 * 2
     nbytes = 2 * q.numel() * q.element_size() + kv_bytes + \
-        4 * (pt.numel() + qs.numel() + ql.numel())
-    ops_ = pairs * KV * G * 4 * hd
-    return nbytes, ops_
+        4 * (pt.numel() + 2 * pt.shape[0])
+    return nbytes, pairs * KV * G * 4 * hd
+
+
+def ragged_work(args, kw):
+    """The ragged call's work: every live flat token of a row."""
+    q, kp, vp, pt, qs, ql = args
+    ql_h, qs_h = ql.cpu().numpy(), qs.cpu().numpy()
+    queries = [(b, int(qs_h[b]) + i) for b in range(len(ql_h))
+               for i in range(int(ql_h[b]))]
+    return attention_work(q, kp, pt, queries, kw)
 
 
 def bound(nbytes: float, nops: float):
@@ -157,34 +181,65 @@ def bound(nbytes: float, nops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def time_case(name, timed, kernel, plain, work, flush):
+    """CUDA-event times of the kernel (20 calls) and its plain version (5
+    calls), L2 flushed before each, beside the bound of this call's
+    work."""
+    ms = time_ms(kernel, 20, flush)
+    plain_ms = time_ms(plain, 5, flush)
+    nbytes, nops = work
+    b_ms, b_by = bound(nbytes, nops)
+    timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, bytes=nbytes, ops=nops)
+    return timed[name]
+
+
+GEMMA = dict(KV=1, G=4, hd=256)
+PHI4 = dict(KV=8, G=3, hd=128)
+NEAR600 = [590, 595, 600, 605, 610, 615, 620, 625]     # decode ticks
+# (atol, rtol) against the plain version by case kind; bf16 cases hold
+# the kernel on bf16 inputs against the plain version in f32 on the same
+# values, so only the output's rounding to bf16 (2^-9 relative) separates
+# them
+TOLS = {"f32": (1e-4, 1e-4), "bf16": (1e-3, 1e-2),
+        "int8+scales": (1e-4, 1e-4)}
+TOL_TEXT = ("atol=rtol=1e-4 (f32, int8+scales); atol 1e-3, rtol 1e-2 "
+            "(bf16)")
+
+
+def close(got, want, kind):
+    """``got`` (any float dtype) within the kind's tolerance of ``want``
+    (f32), and its max abs error."""
+    atol, rtol = TOLS[kind]
+    err = (got.float() - want).abs().max().item() if got.numel() else 0.0
+    return err, bool(torch.allclose(got.float(), want, atol=atol, rtol=rtol))
+
+
 def check_ragged(dev, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
-    gemma = dict(KV=1, G=4, hd=256)
-    phi4 = dict(KV=8, G=3, hd=128)
+    gemma, phi4, near600 = GEMMA, PHI4, NEAR600
     mixed = [64, 0, 64, 1, 1, 37, 0, 64]       # 0-rows, padded tail
     late = [580, 0, 0, 580, 17, 600, 3, 520]   # positions past 512
     full = [64] * 8
-    near600 = [590, 595, 600, 605, 610, 615, 620, 625]   # decode ticks
     cases = [
-        ("gemma window=512 f32", gemma, mixed, late, 512, f32, f32, 1e-4),
-        ("gemma global f32", gemma, mixed, late, None, f32, f32, 1e-4),
+        ("gemma window=512 f32", gemma, mixed, late, 512, "f32"),
+        ("gemma global f32", gemma, mixed, late, None, "f32"),
         ("gemma window=512 full bucket f32", gemma, full,
-         [0, 100, 200, 300, 400, 500, 560, 580], 512, f32, f32, 1e-4),
-        ("gemma window=512 decode f32", gemma, [1] * 8, near600, 512, f32,
-         f32, 1e-4),
-        ("gemma all-idle f32", gemma, [0] * 8, late, 512, f32, f32, 1e-4),
-        ("phi4 f32", phi4, mixed, late, None, f32, f32, 1e-4),
+         [0, 100, 200, 300, 400, 500, 560, 580], 512, "f32"),
+        ("gemma window=512 decode f32", gemma, [1] * 8, near600, 512, "f32"),
+        ("gemma all-idle f32", gemma, [0] * 8, late, 512, "f32"),
+        ("phi4 f32", phi4, mixed, late, None, "f32"),
         ("phi4 full bucket f32", phi4, full,
-         [0, 100, 200, 300, 400, 500, 560, 580], None, f32, f32, 1e-4),
-        ("phi4 decode f32", phi4, [1] * 8, near600, None, f32, f32, 1e-4),
-        ("gemma window=512 bf16", gemma, mixed, late, 512, bf16, bf16, 2e-2),
-        ("phi4 bf16", phi4, mixed, late, None, bf16, bf16, 2e-2),
-        ("phi4 int8+scales", phi4, mixed, late, None, f32, i8, 1e-4),
+         [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
+        ("phi4 decode f32", phi4, [1] * 8, near600, None, "f32"),
+        ("gemma window=512 bf16", gemma, mixed, late, 512, "bf16"),
+        ("phi4 bf16", phi4, mixed, late, None, "bf16"),
+        ("phi4 int8+scales", phi4, mixed, late, None, "int8+scales"),
     ]
     worst, timed = 0.0, {}
-    for name, shape, qlens, qstart, window, dt, kvdt, tol in cases:
+    for name, shape, qlens, qstart, window, kind in cases:
+        dt, kvdt = dtypes_of(kind)
         args, kw = ragged_case(gen, dev, qlens=qlens, q_start=qstart,
                                window=window, dtype=dt, kv_dtype=kvdt,
                                **shape)
@@ -194,31 +249,153 @@ def check_ragged(dev, flush):
         # (bf16-rounded) values
         fargs = (args[0].float(),) + args[1:]
         want = ragged_mod.ragged_attention_ref(*fargs, **kw)
-        err = (got.float() - want).abs().max().item()
-        ok = torch.allclose(got.float(), want, atol=tol, rtol=tol)
+        err, ok = close(got, want, kind)
         if sum(qlens) == 0 and got.abs().max().item() != 0.0:
             ok = False
         emit(check="ragged_attention", case=name, W=int(args[0].shape[0]),
-             max_abs_err=err, tol=tol, ok=bool(ok))
+             max_abs_err=err, atol_rtol=TOLS[kind], ok=ok)
         if not ok:
             raise AssertionError(f"ragged_attention {name}: max abs err "
-                                 f"{err} > tol {tol}")
-        if tol == 1e-4:
+                                 f"{err} past (atol, rtol) {TOLS[kind]}")
+        if kind != "bf16":
             worst = max(worst, err)
         # timed: the full prefill bucket (8 rows x 64 tokens) and the
         # decode tick (one token per row), the two ends of a tick's load
         if name.endswith(("full bucket f32", "decode f32")):
-            ms = time_ms(lambda: ragged_mod.ragged_attention(*args, **kw),
-                         20, flush)
-            plain_ms = time_ms(
-                lambda: ragged_mod.ragged_attention_ref(*args, **kw), 5,
-                flush)
-            nbytes, nops = ragged_work(args, kw)
-            b_ms, b_by = bound(nbytes, nops)
-            timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, bytes=nbytes, ops=nops)
-            emit(timing="ragged_attention", case=name, **timed[name])
+            t = time_case(
+                name, timed,
+                lambda: ragged_mod.ragged_attention(*args, **kw),
+                lambda: ragged_mod.ragged_attention_ref(*args, **kw),
+                ragged_work(args, kw), flush)
+            emit(timing="ragged_attention", case=name, **t)
         del args, kw, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def dtypes_of(kind):
+    """(q dtype, pool dtype) of a case kind: f32, bf16 or int8+scales."""
+    return {"f32": (torch.float32, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16),
+            "int8+scales": (torch.float32, torch.int8)}[kind]
+
+
+# (label, shape, window, kinds) of the attention layers on the main
+# path: gemma3's sliding-window layers, its global layers (1 in 6) and
+# phi4's layers
+LAYERS = (("gemma", GEMMA, 512, ("f32", "bf16", "int8+scales")),
+          ("gemma", GEMMA, None, ("f32",)),
+          ("phi4", PHI4, None, ("f32", "bf16", "int8+scales")))
+
+
+def check_paged(dev, flush):
+    """paged_attention at the decode tick the ragged kernel is timed at
+    (8 rows, one token each at positions 590-625) plus, in the checked
+    cases, a ninth row masked to the null block as the split decode step
+    masks a mid-prefill row (its output is not compared)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    worst, timed = 0.0, {}
+    for shape_name, shape, window, kinds in LAYERS:
+        for kind in kinds:
+            dt, kvdt = dtypes_of(kind)
+            kp, vp, ks, vs, pt = paged_pool(gen, dev, kv_dtype=kvdt, R=9,
+                                            P=41, bs=16, KV=shape["KV"],
+                                            hd=shape["hd"])
+            pt[8] = 0                                   # the masked row
+            pos = torch.tensor(NEAR600 + [300], dtype=torch.int32,
+                               device=dev)
+            q = torch.randn(9, shape["KV"], shape["G"], shape["hd"],
+                            generator=gen, device=dev).to(dt)
+            kw = dict(k_scale=ks, v_scale=vs, window=window)
+            got = paged_mod.paged_attention(q, kp, vp, pt, pos, **kw)
+            torch.cuda.synchronize()
+            want = paged_mod.paged_attention_ref(q.float(), kp, vp, pt, pos,
+                                                 **kw)
+            err, ok = close(got[:8], want[:8], kind)
+            ok = ok and bool(torch.isfinite(got.float()).all())
+            name = f"{shape_name} decode {kind}" + (
+                f" window={window}" if window else
+                " global" if shape is GEMMA else "")
+            emit(check="paged_attention", case=name, rows=9, masked_rows=1,
+                 max_abs_err=err, atol_rtol=TOLS[kind], ok=ok)
+            if not ok:
+                raise AssertionError(f"paged_attention {name}: max abs err "
+                                     f"{err} past (atol, rtol) {TOLS[kind]}")
+            if kind != "bf16":
+                worst = max(worst, err)
+            if kind == "f32":
+                # timed on the 8 live rows: the ragged kernel's decode case
+                a8 = (q[:8].contiguous(), kp, vp, pt[:8].contiguous(),
+                      pos[:8].contiguous())
+                t = time_case(
+                    name, timed,
+                    lambda: paged_mod.paged_attention(*a8, **kw),
+                    lambda: paged_mod.paged_attention_ref(*a8, **kw),
+                    attention_work(a8[0], kp, a8[3],
+                                   list(enumerate(NEAR600)), kw), flush)
+                emit(timing="paged_attention", case=name, **t)
+            del kp, vp, ks, vs, pt, q, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def check_mixed(dev, flush):
+    """mixed_attention at the padded executor's [8, 64] bucket: a full
+    prefill bucket, a mix of q_len in {0, 1, 64, tail} at positions past
+    512, and the width-1 decode batch of a decode-only tick.  Live slots
+    are compared; dead ones must be zero."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    full = ([64] * 8, [0, 100, 200, 300, 400, 500, 560, 580], 64)
+    mixed = ([64, 0, 64, 1, 1, 37, 0, 64],
+             [580, 0, 0, 580, 17, 600, 3, 520], 64)
+    decode = ([1] * 8, NEAR600, 1)
+    worst, timed = 0.0, {}
+    for shape_name, shape, window, kinds in LAYERS:
+        # the timed cases on the windowed and phi4 layers only
+        cases = [("full bucket", full, "f32"), ("decode width 1", decode,
+                                               "f32")] if len(kinds) > 1 \
+            else []
+        cases += [("mixed q_len", mixed, k) for k in kinds]
+        for label, (qlens, starts, C), kind in cases:
+            dt, kvdt = dtypes_of(kind)
+            kp, vp, ks, vs, pt = paged_pool(gen, dev, kv_dtype=kvdt, R=8,
+                                            P=41, bs=16, KV=shape["KV"],
+                                            hd=shape["hd"])
+            q = torch.randn(8, C, shape["KV"], shape["G"], shape["hd"],
+                            generator=gen, device=dev).to(dt)
+            qs = torch.tensor(starts, dtype=torch.int32, device=dev)
+            ql = torch.tensor(qlens, dtype=torch.int32, device=dev)
+            kw = dict(k_scale=ks, v_scale=vs, window=window)
+            args = (q, kp, vp, pt, qs, ql)
+            got = mixed_mod.mixed_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = mixed_mod.mixed_attention_ref(q.float(), *args[1:], **kw)
+            live = (torch.arange(C, device=dev)[None, :] < ql[:, None])
+            err, ok = close(got[live], want[live], kind)
+            ok = ok and not got[~live].any().item()
+            name = f"{shape_name} {label} [8, {C}] {kind}" + (
+                f" window={window}" if window else
+                " global" if shape is GEMMA else "")
+            emit(check="mixed_attention", case=name, max_abs_err=err,
+                 atol_rtol=TOLS[kind], ok=ok)
+            if not ok:
+                raise AssertionError(f"mixed_attention {name}: max abs err "
+                                     f"{err} past (atol, rtol) {TOLS[kind]} "
+                                     "(or dead slots not zero)")
+            if kind != "bf16":
+                worst = max(worst, err)
+            if label in ("full bucket", "decode width 1"):
+                queries = [(b, starts[b] + i) for b in range(8)
+                           for i in range(qlens[b])]
+                t = time_case(
+                    name, timed,
+                    lambda: mixed_mod.mixed_attention(*args, **kw),
+                    lambda: mixed_mod.mixed_attention_ref(*args, **kw),
+                    attention_work(q, kp, pt, queries, kw), flush)
+                emit(timing="mixed_attention", case=name, **t)
+            del kp, vp, ks, vs, pt, q, got, want, args
     torch.cuda.empty_cache()
     return worst, timed
 
@@ -231,7 +408,10 @@ def check_gate(dev, flush):
         # random logits at a spread where the max is well separated
         x = torch.randn(8, V, generator=gen, device=dev) * 3.0
         got = gate_mod.confidence_gate(x)
-        want = gate_mod.confidence_gate_ref(x)
+        # the plain version in f64, rounded to f32: agreement does not
+        # hang on the order of the f32 sums
+        want = {k: v.float() if v.is_floating_point() else v
+                for k, v in gate_mod.confidence_gate_ref(x.double()).items()}
         torch.cuda.synchronize()
         errs = {k: (got[k] - want[k]).abs().max().item()
                 for k in ("conf", "entropy", "logz")}
@@ -322,23 +502,108 @@ def check_ragged_step(dev):
             raise AssertionError(f"ragged_step {name}: err {err}")
 
 
+def check_padded_steps(dev):
+    """The padded executor's ``mixed_step`` and the split executor's
+    ``prefill_chunk`` then ``decode_step(pages=)`` (one row masked to the
+    null block) on the card against the CPU, at the smoke widths: live
+    rows' logits within 1e-4."""
+    rng = np.random.default_rng(1)
+    for name in ("gemma3-1b", "phi4-mini-3.8b"):
+        cfg = get_config(name, "smoke")
+        params_cpu = init_params(cfg, 0, torch.float32, "cpu")
+        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+        R, bs, P, C = 4, 4, 8, 7
+        N = R * P + 1
+        cache_cpu = tree_map(lambda t: torch.from_numpy(
+            rng.standard_normal(tuple(t.shape)).astype(np.float32)),
+            init_paged_cache(cfg, R, N, bs, torch.float32, "cpu"))
+        pt = torch.from_numpy(rng.permutation(np.arange(1, N))[:R * P]
+                              .reshape(R, P).astype(np.int32))
+        qlen = torch.tensor([5, 0, 1, 7], dtype=torch.int32)
+        qs = torch.tensor([0, 0, 20, 11], dtype=torch.int32)
+        pos = qs[:, None] + torch.arange(C, dtype=torch.int32)[None, :]
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (R, C)).astype(np.int32))
+        dec_pt = pt.clone()
+        dec_pt[1] = 0                                   # masked row
+        dec_pos = torch.tensor([[5], [3], [21], [18]], dtype=torch.int32)
+        dec_tok = toks[:, :1].contiguous()
+        results = {}
+        for where, params in (("cpu", params_cpu), ("card", params_dev)):
+            mv = (lambda t: t) if where == "cpu" else (lambda t: t.to(dev))
+            cache = tree_map(lambda t: mv(t.clone()), cache_cpu)
+            pages = {"page_table": mv(pt), "q_len": mv(qlen)}
+            mixed, _ = transformer.mixed_step(params, cfg, mv(toks),
+                                              tree_map(lambda t: t.clone(),
+                                                       cache),
+                                              mv(pos), pages)
+            chunk, cache = transformer.prefill_chunk(params, cfg, mv(toks),
+                                                     cache, mv(pos), pages)
+            dec, _ = transformer.decode_step(
+                params, cfg, mv(dec_tok), cache, mv(dec_pos),
+                pages={"page_table": mv(dec_pt)})
+            results[where] = [t.cpu() for t in (mixed, chunk, dec)]
+        slots = torch.arange(C)[None, :] < qlen[:, None]
+        live = {"mixed_step": qlen > 0, "prefill_chunk": slots,
+                "decode_step": torch.tensor([True, False, True, True])}
+        for i, step in enumerate(live):
+            got = results["card"][i][live[step]]
+            want = results["cpu"][i][live[step]]
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+            emit(check=f"{step} card vs cpu", model=f"{name}-smoke",
+                 max_abs_err=err, tol=1e-4, ok=bool(ok))
+            if not ok:
+                raise AssertionError(f"{step} {name}: err {err}")
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path at full width
 # --------------------------------------------------------------------------
 
 
-def main_path_args() -> Namespace:
+def main_path_args(**executor) -> Namespace:
+    """The phase-4 workload; ``executor`` adds the CLI's executor flags
+    (``ragged_step=False`` or ``split_step=True``)."""
     return Namespace(
         fast="gemma3-1b", expensive="phi4-mini-3.8b", variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
         min_prompt_len=1, length_dist="lognormal", gen_len=8,
         prefill_chunk=64, prefill_token_budget=None, delta=None,
         escalation_budget=0.25, kv_block_size=16, kv_blocks=None,
-        seed=0, expensive_seed=None)
+        seed=0, expensive_seed=None, **executor)
 
 
-def main_path(card: str):
-    args = main_path_args()
+EXECUTORS = {"ragged": {}, "padded": {"ragged_step": False},
+             "split": {"split_step": True}}
+COUNTED = ("ragged_attention", "mixed_attention", "paged_attention",
+           "confidence_gate")
+
+
+def expected_launches(layers, kinds, warm=None):
+    """Attention launches each kernel must count over a run whose tier
+    launches by kind are ``kinds``: every attention layer of a tier
+    launch goes through the executor's kernel(s).  ``warm`` adds the
+    warmup's launches per tier."""
+    out = dict.fromkeys(COUNTED[:3], 0)
+    for t, n in enumerate(layers):
+        k = dict(kinds[t])
+        if warm is not None:
+            for kind, w in warm[t].items():
+                k[kind] = k.get(kind, 0) + w
+        out["ragged_attention"] += n * k.get("ragged", 0)
+        out["mixed_attention"] += n * (k.get("mixed", 0) + k.get("chunk", 0))
+        out["paged_attention"] += n * k.get("step", 0)
+    return out
+
+
+def serve(card: str, params, executor: str):
+    """Serve the phase-4 workload on ``params`` under one executor, with
+    every kernel counter set to 0 just before and read just after; check
+    that every request completed, that the gate split them, and that the
+    counters prove each tier launch went through the executor's kernels
+    (and through nothing else)."""
+    args = main_path_args(**EXECUTORS[executor])
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
                                       args.seed)
@@ -346,22 +611,30 @@ def main_path(card: str):
         raise AssertionError("workload must hold a prompt over 512 tokens "
                              "(past gemma3's 512-token window)")
     torch.cuda.reset_peak_memory_stats()
-    ops.ragged_attention.launches = 0
-    ops.confidence_gate.launches = 0
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
     t0 = time.perf_counter()
-    s = serve_async.run(args)
+    s = serve_async.run(args, params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"ragged_attention": ops.ragged_attention.launches,
-              "confidence_gate": ops.confidence_gate.launches}
+    counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = torch.cuda.max_memory_allocated()
 
-    layers = [get_config(args.fast).num_layers,
-              get_config(args.expensive).num_layers]
+    layers = [get_config(args.fast, args.variant).num_layers,
+              get_config(args.expensive, args.variant).num_layers]
     tier_launches = s["launches"]
-    warm = [len(b) for b in s["flat_buckets"]]
+    kinds = s["launches_by_kind"]
+    # the warmup's launches per tier: every bucket width (ragged), the
+    # chunk width and width 1 (padded), one chunk and one decode (split)
+    warm = [{"ragged": len(b)} if b is not None else
+            {"mixed": 2} if s["unified_step"] else {"chunk": 1, "step": 1}
+            for b in s["flat_buckets"]]
     per_req = s["per_request"]
     problems = []
+    if (s["unified_step"], s["ragged_step"]) != {
+            "ragged": (True, True), "padded": (True, False),
+            "split": (False, False)}[executor]:
+        problems.append(f"engine ran the wrong executor: {s}")
     if not all(r["state"] == "DONE" and len(r["tokens"]) == args.gen_len
                for r in per_req):
         problems.append("a request is not DONE with gen_len tokens")
@@ -369,53 +642,81 @@ def main_path(card: str):
     if 1 not in tiers or 0 not in tiers:
         problems.append(f"need escalated and non-escalated requests: "
                         f"{tiers}")
-    want_ragged = sum(n * l for n, l in zip(layers, tier_launches))
-    if s["kernel_launches"]["ragged_attention"] != want_ragged:
-        problems.append(f"ragged launches after warmup "
-                        f"{s['kernel_launches']['ragged_attention']} != "
-                        f"{want_ragged}")
+    want = expected_launches(layers, kinds)
+    got = {k: s["kernel_launches"][k] for k in want}
+    if got != want:
+        problems.append(f"attention launches after warmup {got} != {want}")
     if s["kernel_launches"]["confidence_gate"] != sum(tier_launches):
         problems.append("gate launches != tier launches")
-    # the whole window: the warmup runs every bucket width once per tier
-    if counts["ragged_attention"] != want_ragged + sum(
-            n * w for n, w in zip(layers, warm)):
-        problems.append(f"ragged launch count {counts} off")
-    if counts["confidence_gate"] != sum(tier_launches) + sum(warm):
+    want_window = expected_launches(layers, kinds, warm)
+    if {k: counts[k] for k in want_window} != want_window:
+        problems.append(f"launch counts {counts} != {want_window} "
+                        "(warmup included)")
+    if counts["confidence_gate"] != sum(tier_launches) + sum(
+            sum(w.values()) for w in warm):
         problems.append(f"gate launch count {counts} off")
-    if any(h > l for h, l in zip(s["host_syncs"], tier_launches)):
+    if any(h > a for h, a in zip(s["host_syncs"], s["active_ticks"])):
         problems.append(f"host syncs {s['host_syncs']} exceed one per "
-                        f"active tier per tick {tier_launches}")
+                        f"active tier per tick {s['active_ticks']}")
     gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
     record = dict(
-        phase="main path", card=card, configs=[args.fast, args.expensive],
+        phase="main path" if executor == "ragged" else "executor",
+        executor=executor, card=card, configs=[args.fast, args.expensive],
         requests=args.requests, completed=s["completed"],
         tier_requests=s["tier_requests"], steps=s["steps"],
-        tier_launches=tier_launches, host_syncs=s["host_syncs"],
+        tier_launches=tier_launches, launches_by_kind=kinds,
+        active_ticks=s["active_ticks"], host_syncs=s["host_syncs"],
         kernel_launches_after_warmup=s["kernel_launches"],
-        kernel_launches_window=counts, warmup_widths=s["flat_buckets"],
+        kernel_launches_window=counts, warmup_launches=warm,
         escalation_rate=s["escalation_rates"], delta=s["delta"],
         prompt_len_max=s["prompt_len_max"],
         makespan_s=s["elapsed"], generated_tokens=gen_tokens,
         generated_tokens_per_s=gen_tokens / s["elapsed"],
         live_tokens_per_s=s["step_live_tokens"] / s["elapsed"],
+        wasted_slot_ratio=s["wasted_slot_ratio"],
         tick_p50_s=s["tick_duration_p50"], tick_p95_s=s["tick_duration_p95"],
         latency_p50_s=s["latency_p50"], ttft_p50_s=s["ttft_p50"],
         max_memory_allocated_bytes=peak, wall_s_incl_init=wall,
         stream_checksum=s["stream_checksum"], problems=problems)
     emit(**record)
     if problems:
-        raise AssertionError("; ".join(problems))
-    return counts
+        raise AssertionError(f"{executor}: " + "; ".join(problems))
+    return counts, per_req
 
 
-def profile_ticks(card: str, args: Namespace):
-    """Where a tick's device time goes: the same workload served again
-    under a VirtualClock (no waiting for arrivals) inside
-    ``torch.profiler``; kernel time summed by kind, and the device's idle
-    share of the serving loop's wall time."""
+def compare_streams(runs: dict) -> None:
+    """Record how the executors' token streams compare on the card.  The
+    budget gate's δ follows the confidences seen so far, so under a wall
+    clock the executors may escalate different requests; a request that
+    ends at the same tier under two executors was decoded by the same
+    model from the same prompt, and its tokens are compared."""
+    base = {r["rid"]: r for r in runs["ragged"]}
+    for ex, per_req in runs.items():
+        same_tier = [r for r in per_req
+                     if r["tier"] == base[r["rid"]]["tier"]]
+        differ = [r["rid"] for r in same_tier
+                  if r["tokens"] != base[r["rid"]]["tokens"]]
+        emit(check="token streams against ragged", executor=ex,
+             escalated=sorted(r["rid"] for r in per_req if r["tier"] > 0),
+             same_tier_requests=len(same_tier), differing_rids=differ)
+
+
+# profiler kernel names of each attention kernel and the gate
+KERNEL_NAMES = {"ragged_attention": "ragged_kernel",
+                "mixed_attention": "mixed_kernel",
+                "paged_attention": "paged_decode_kernel",
+                "confidence_gate": "gate_kernel"}
+
+
+def profile_ticks(card: str, params, executor: str):
+    """Where a tick's device time goes under one executor: the phase-4
+    workload served again under a VirtualClock (no waiting for arrivals)
+    inside ``torch.profiler``; kernel time summed by kind, and the
+    device's idle share of the serving loop's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine, vocab = serve_async.build_engine(args, VirtualClock())
+    args = main_path_args(**EXECUTORS[executor])
+    engine, vocab = serve_async.build_engine(args, VirtualClock(), params)
     prompts = bigram_lm(
         num_seqs=args.requests, seq_len=args.prompt_len,
         vocab=min(vocab, serve_async.PROMPT_VOCAB), seed=args.seed)
@@ -430,8 +731,8 @@ def profile_ticks(card: str, args: Namespace):
         s = engine.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"ragged_attention": 0.0, "confidence_gate": 0.0,
-             "matrix products": 0.0, "other": 0.0}
+    kinds = dict.fromkeys(list(KERNEL_NAMES) + ["matrix products",
+                                                "other"], 0.0)
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -441,10 +742,10 @@ def profile_ticks(card: str, args: Namespace):
             continue
         name = e.key
         rows.append((us, e.count, name))
-        if "ragged_kernel" in name:
-            kinds["ragged_attention"] += us / 1e3
-        elif "gate_kernel" in name:
-            kinds["confidence_gate"] += us / 1e3
+        kind = next((k for k, n in KERNEL_NAMES.items() if n in name),
+                    None)
+        if kind is not None:
+            kinds[kind] += us / 1e3
         elif any(k in name.lower() for k in ("gemm", "gemv", "cutlass",
                                              "xmma")):
             kinds["matrix products"] += us / 1e3
@@ -452,8 +753,9 @@ def profile_ticks(card: str, args: Namespace):
             kinds["other"] += us / 1e3
     rows.sort(reverse=True)
     busy = sum(kinds.values())
-    emit(phase="profile", card=card, clock="virtual",
+    emit(phase="profile", executor=executor, card=card, clock="virtual",
          ticks=s["steps"], tier_launches=s["launches"],
+         stream_checksum=serve_async.stream_checksum(engine),
          serving_wall_ms=wall_ms, device_kernel_ms=busy,
          device_idle_share=(1.0 - busy / wall_ms) if busy else None,
          kernel_ms_by_kind=kinds,
@@ -468,6 +770,28 @@ def timed_cases(timed: dict) -> list:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     return [dict(case=name, library_ms=None, **{k: t[k] for k in keys})
             for name, t in timed.items()]
+
+
+def kernel_entry(name, launches, err, tol, timed, key, shape):
+    """One kernel's entry of the ``kernels`` line: its main-path launches,
+    its worst error against the plain version, and the timed cases, the
+    one named by ``key`` at the top level."""
+    t = timed[key]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "tolerance": tol, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": shape, "cases": timed_cases(timed)}
+
+
+REPLACES = {
+    "ragged_attention": "src/repro/kernels/ragged_attention.py:180",
+    "confidence_gate": "src/repro/kernels/confidence_gate.py:83",
+    "paged_attention": "src/repro/kernels/paged_attention.py:93",
+    "mixed_attention": "src/repro/kernels/mixed_attention.py:118",
+}
 
 
 def main() -> int:
@@ -494,41 +818,55 @@ def main() -> int:
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)   # > 50 MB L2
     r_err, r_time = check_ragged(dev, flush)
     g_err, g_time = check_gate(dev, flush)
+    p_err, p_time = check_paged(dev, flush)
+    m_err, m_time = check_mixed(dev, flush)
     del flush
     torch.cuda.empty_cache()
     check_ragged_step(dev)
-    counts = main_path(card)
+    check_padded_steps(dev)
+    # both tiers' f32 weights (19.4 GB) are drawn once and serve every
+    # executor and the profiles
+    params = serve_async.build_params(main_path_args())
+    runs = {ex: serve(card, params, ex) for ex in EXECUTORS}
+    counts = {ex: c for ex, (c, _) in runs.items()}
+    compare_streams({ex: r for ex, (_, r) in runs.items()})
     torch.cuda.empty_cache()
-    profile_ticks(card, main_path_args())
+    for ex in EXECUTORS:
+        profile_ticks(card, params, ex)
+    for name, ex in (("ragged_attention", ("ragged",)),
+                     ("mixed_attention", ("padded", "split")),
+                     ("paged_attention", ("split",)),
+                     ("confidence_gate", tuple(EXECUTORS))):
+        if not all(counts[e][name] > 0 for e in ex):
+            raise AssertionError(f"{name} was not launched on {ex}: "
+                                 f"{counts}")
 
-    rt = r_time["phi4 full bucket f32"]
-    gt = g_time["gemma3-1b"]
-    here = "src/repro_torch/csrc"
-    print(json.dumps({"kernels": [
-        {"name": "ragged_attention", "route": "cuda",
-         "source": f"{here}/ragged_attention.cu",
-         "replaces": "src/repro/kernels/ragged_attention.py:180",
-         "launches": counts["ragged_attention"], "max_abs_err": r_err,
-         "tolerance": "atol=rtol=1e-4 (f32)",
-         "ms": rt["ms"], "plain_ms": rt["plain_ms"],
-         "bound_ms": rt["bound_ms"], "bound_by": rt["bound_by"],
-         "library_ms": None,
-         "shape": "phi4-mini-3.8b: q [512, 8, 3, 128] f32, 8 rows x 64 "
-                  "tokens, pools [329, 16, 8, 128]",
-         "cases": timed_cases(r_time)},
-        {"name": "confidence_gate", "route": "cuda",
-         "source": f"{here}/confidence_gate.cu",
-         "replaces": "src/repro/kernels/confidence_gate.py:83",
-         "launches": counts["confidence_gate"],
-         "max_abs_err": max(g_err.values()),
-         "tolerance": "conf/logz rtol 1e-5, entropy atol 1e-4, argmax "
-                      "exact",
-         "ms": gt["ms"], "plain_ms": gt["plain_ms"],
-         "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"],
-         "library_ms": None,
-         "shape": "gemma3-1b: logits [8, 262144] f32",
-         "cases": timed_cases(g_time)},
-    ]}), flush=True)
+    by_path = {name: {ex: c[name] for ex, c in counts.items() if c[name]}
+               for name in COUNTED}
+    entries = [
+        kernel_entry("ragged_attention", counts["ragged"]["ragged_attention"],
+                     r_err, TOL_TEXT, r_time, "phi4 full bucket f32",
+                     "phi4-mini-3.8b: q [512, 8, 3, 128] f32, 8 rows x 64 "
+                     "tokens, pools [329, 16, 8, 128]"),
+        kernel_entry("confidence_gate",
+                     sum(c["confidence_gate"] for c in counts.values()),
+                     max(g_err.values()),
+                     "conf/logz rtol 1e-5, entropy atol 1e-4, argmax exact",
+                     g_time, "gemma3-1b", "gemma3-1b: logits [8, 262144] f32"),
+        kernel_entry("paged_attention", counts["split"]["paged_attention"],
+                     p_err, TOL_TEXT, p_time, "phi4 decode f32",
+                     "phi4-mini-3.8b: q [8, 8, 3, 128] f32, positions "
+                     "590-625, pools [329, 16, 8, 128]"),
+        kernel_entry("mixed_attention",
+                     counts["padded"]["mixed_attention"]
+                     + counts["split"]["mixed_attention"], m_err, TOL_TEXT,
+                     m_time, "phi4 full bucket [8, 64] f32",
+                     "phi4-mini-3.8b: q [8, 64, 8, 3, 128] f32, pools "
+                     "[329, 16, 8, 128]"),
+    ]
+    for e in entries:
+        e["launches_by_path"] = by_path[e["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

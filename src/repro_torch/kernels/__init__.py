@@ -7,10 +7,12 @@ of the checkout, each library named by a hash of its source and flags,
 and loaded with ``ctypes``.  Nothing is compiled when this package is
 imported: the CPU tests import every module and never build.
 
-Each kernel module (``confidence_gate.py``, ``ragged_attention.py``)
-holds the kernel's launcher and its plain PyTorch version; ``ops.py``
-holds the dispatching wrappers the model calls, with their launch
-counters.
+Each kernel module (``confidence_gate.py``, ``ragged_attention.py``,
+``paged_attention.py``, ``mixed_attention.py``) holds the kernel's
+launcher and its plain PyTorch version; ``prefill_attention.py``
+delegates to ``mixed_attention.py``; ``ops.py`` holds the dispatching
+wrappers the model calls, with their launch counters.  Device code
+shared between kernels lives in ``csrc/*.cuh``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-KERNELS = ("confidence_gate", "ragged_attention")
+KERNELS = ("confidence_gate", "ragged_attention", "paged_attention",
+           "mixed_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,9 +53,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of the source
-    and the compiler flags, so an edited source rebuilds."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of the source,
+    every shared header in ``csrc/`` and the compiler flags, so an edited
+    source or header rebuilds."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

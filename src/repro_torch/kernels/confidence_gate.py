@@ -34,8 +34,9 @@ _SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
 
 
 def confidence_gate_ref(logits):
-    """logits [..., V] -> dict(conf, entropy, argmax, logz), each [...]."""
-    x = logits.float()
+    """logits [..., V] -> dict(conf, entropy, argmax, logz), each [...],
+    computed in f32 (in f64 for f64 logits)."""
+    x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     p = torch.softmax(x, dim=-1)
     return {
         "conf": p.amax(dim=-1),

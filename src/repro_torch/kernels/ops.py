@@ -6,11 +6,16 @@ the CPU (the tests' path).  On a CUDA tensor it launches the kernel or
 raises; there is no fallback.  Each wrapper counts its kernel launches
 in an integer attribute ``launches`` — the count a run reads to show
 that its path went through the kernels.  Reset it by assignment
-(``ops.ragged_attention.launches = 0``).
+(``ops.ragged_attention.launches = 0``).  ``paged_prefill_attention``
+launches the mixed kernel, so it counts into
+``mixed_attention.launches``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import confidence_gate as _gate
+from repro_torch.kernels import mixed_attention as _mixed
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import prefill_attention as _prefill
 from repro_torch.kernels import ragged_attention as _ragged
 
 
@@ -50,3 +55,54 @@ def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
 
 
 ragged_attention.launches = 0
+
+
+def paged_attention(q, k_pages, v_pages, page_table, pos, *, k_scale=None,
+                    v_scale=None, window=None):
+    """One paged decode step (one query per row at ``pos``); see
+    :mod:`repro_torch.kernels.paged_attention` for the contract."""
+    if _on_cpu(q, "paged_attention"):
+        return _paged.paged_attention_ref(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, window=window)
+    out = _paged.paged_attention(
+        q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+        v_scale=v_scale, window=window)
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
+def mixed_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
+                    k_scale=None, v_scale=None, window=None):
+    """One padded mixed prefill+decode step over a block-paged KV pool;
+    see :mod:`repro_torch.kernels.mixed_attention` for the contract."""
+    if _on_cpu(q, "mixed_attention"):
+        return _mixed.mixed_attention_ref(
+            q, k_pages, v_pages, page_table, q_start, q_len,
+            k_scale=k_scale, v_scale=v_scale, window=window)
+    out = _mixed.mixed_attention(
+        q, k_pages, v_pages, page_table, q_start, q_len, k_scale=k_scale,
+        v_scale=v_scale, window=window)
+    mixed_attention.launches += 1
+    return out
+
+
+mixed_attention.launches = 0
+
+
+def paged_prefill_attention(q, k_pages, v_pages, page_table, q_start, q_len,
+                            *, k_scale=None, v_scale=None, window=None):
+    """One chunked-prefill step: the mixed kernel, counted in
+    ``mixed_attention.launches``."""
+    if _on_cpu(q, "paged_prefill_attention"):
+        return _prefill.paged_prefill_attention_ref(
+            q, k_pages, v_pages, page_table, q_start, q_len,
+            k_scale=k_scale, v_scale=v_scale, window=window)
+    out = _prefill.paged_prefill_attention(
+        q, k_pages, v_pages, page_table, q_start, q_len, k_scale=k_scale,
+        v_scale=v_scale, window=window)
+    mixed_attention.launches += 1
+    return out

@@ -17,7 +17,9 @@ scales.
 flattened the (tile, row) incidence into a host-side work list so a
 sequential grid could keep each output tile resident; CUDA blocks run in
 parallel, so the kernel instead gives each (flat token, KV head) its own
-block, which finds its row from the prefix sum of ``q_len`` itself.
+block, which finds its row from the prefix sum of ``q_len`` itself and
+then attends as one query of the paged kernels does (the warp-split page
+walk of ``csrc/paged_attend.cuh``).
 
 :func:`ragged_attention` launches the kernel on CUDA tensors only;
 :func:`ragged_attention_ref` is the plain PyTorch version (the CPU path
@@ -32,9 +34,9 @@ import math
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels.paged_attention import (
+    KV_DTYPES, Q_DTYPES, check_paged_args, gather_pages)
 
-_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
@@ -48,17 +50,9 @@ def ragged_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len,
     int32.  Returns [W, KV, G, hd] in q's dtype, zeros past sum(q_len).
     """
     W, KV, G, hd = q.shape
-    R, P = page_table.shape
-    bs = k_pages.shape[1]
-    pt = page_table.long()
-    k = k_pages[pt].float()                           # [R,P,bs,KV,hd]
-    v = v_pages[pt].float()
-    if k_scale is not None:
-        k = k * k_scale[pt].float()[..., None]
-        v = v * v_scale[pt].float()[..., None]
-    T = P * bs
-    k = k.reshape(R, T, KV, hd)
-    v = v.reshape(R, T, KV, hd)
+    R = page_table.shape[0]
+    k, v = gather_pages(k_pages, v_pages, page_table, k_scale, v_scale)
+    T = k.shape[1]
     q_len = q_len.long()
     csum = torch.cumsum(q_len, 0)
     tok = torch.arange(W, device=q.device)
@@ -86,40 +80,14 @@ def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     every tensor contiguous and on one card).  Every live query's own
     key must already be scattered into the pool."""
     name = "ragged_attention"
-    kernels.require_cuda(name, q, k_pages, v_pages, page_table, q_start,
-                         q_len, k_scale, v_scale)
-    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"{name}: q [W,KV,G,hd] and pools [N,bs,KV,hd] "
-                         f"expected, got {tuple(q.shape)} / "
-                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
-    W, KV, G, hd = q.shape
-    N, bs, KVp, hdp = k_pages.shape
-    R, P = page_table.shape
-    if (KVp, hdp) != (KV, hd):
-        raise ValueError(f"{name}: pool heads/dim {(KVp, hdp)} != q's "
-                         f"{(KV, hd)}")
-    if q.dtype not in _Q_DTYPES or k_pages.dtype not in _KV_DTYPES \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"{name}: unsupported dtypes q={q.dtype} "
-                        f"k={k_pages.dtype} v={v_pages.dtype}")
-    if (k_pages.dtype == torch.int8) != (k_scale is not None) \
-            or (k_scale is None) != (v_scale is None):
-        raise ValueError(f"{name}: int8 pools need k_scale and v_scale "
-                         "(and float pools take none)")
-    if k_scale is not None and (
-            tuple(k_scale.shape) != (N, bs, KV)
-            or tuple(v_scale.shape) != (N, bs, KV)
-            or k_scale.dtype != torch.float32
-            or v_scale.dtype != torch.float32):
-        raise ValueError(f"{name}: scales must be f32 [N, bs, KV]")
-    for t, nm in ((page_table, "page_table"), (q_start, "q_start"),
-                  (q_len, "q_len")):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {nm} must be int32, got {t.dtype}")
-    if tuple(q_start.shape) != (R,) or tuple(q_len.shape) != (R,):
-        raise ValueError(f"{name}: q_start/q_len must be [R={R}]")
-    if window is not None and window <= 0:
-        raise ValueError(f"{name}: window must be positive")
+    KV, G, hd, P, bs = check_paged_args(
+        name, q, k_pages, v_pages, page_table, k_scale, v_scale, window,
+        q_dims=4, row_per_query=False)
+    kernels.require_cuda(name, q, q_start, q_len)
+    W, R = q.shape[0], page_table.shape[0]
+    for t, nm in ((q_start, "q_start"), (q_len, "q_len")):
+        if t.dtype != torch.int32 or tuple(t.shape) != (R,):
+            raise ValueError(f"{name}: {nm} must be int32 [R={R}]")
     out = torch.empty_like(q)
     fn = kernels.load(name).ragged_attention
     fn.argtypes = _SIG
@@ -128,7 +96,7 @@ def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
              p(page_table), p(q_start), p(q_len), p(out),
              W, KV, G, hd, R, P, bs, 0 if window is None else int(window),
-             _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
+             Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
              kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

@@ -11,9 +11,11 @@ escalated to the expensive tier.  ``--length-dist
 ``[--min-prompt-len, --prompt-len]``; chunked paged prefill advances
 ``--prefill-chunk`` tokens per row per tick, and each tick runs as ONE
 ragged flat token-batch step per tier through the hand-written CUDA
-kernels.  The gate threshold comes from an escalation budget by default
-(δ = the budget-quantile of recent sequence confidences); ``--delta``
-fixes it instead.
+kernels — or, with ``--no-ragged-step``, one padded mixed step per tier,
+or, with ``--split-step``, a chunk launch plus a paged decode launch per
+tier (one fetch either way).  The gate threshold comes from an
+escalation budget by default (δ = the budget-quantile of recent sequence
+confidences); ``--delta`` fixes it instead.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
@@ -47,9 +49,22 @@ from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
 PROMPT_VOCAB = 4096
 
 
-def build_engine(args, clock=None):
-    """Both tiers' configs and random f32 weights (drawn on the device),
-    and the engine; returns (engine, vocab shared by both tiers)."""
+def build_params(args):
+    """Both tiers' random f32 weights, drawn on the device from the
+    seeds: (fast tier's, expensive tier's)."""
+    device = resolve_device(args.device)
+    exp_seed = args.seed + 1 if args.expensive_seed is None \
+        else args.expensive_seed
+    return (init_params(get_config(args.fast, args.variant), args.seed,
+                        torch.float32, device),
+            init_params(get_config(args.expensive, args.variant), exp_seed,
+                        torch.float32, device))
+
+
+def build_engine(args, clock=None, params=None):
+    """Both tiers' configs and weights (``params`` from
+    :func:`build_params`, drawn here when None), and the engine; returns
+    (engine, vocab shared by both tiers)."""
     device = resolve_device(args.device)
     if device.type == "cuda":
         # f32 end to end: no TF32 in the matrix products
@@ -57,10 +72,8 @@ def build_engine(args, clock=None):
         torch.backends.cudnn.allow_tf32 = False
     fast_cfg = get_config(args.fast, args.variant)
     exp_cfg = get_config(args.expensive, args.variant)
-    fast_params = init_params(fast_cfg, args.seed, torch.float32, device)
-    exp_seed = args.seed + 1 if args.expensive_seed is None \
-        else args.expensive_seed
-    exp_params = init_params(exp_cfg, exp_seed, torch.float32, device)
+    fast_params, exp_params = (build_params(args) if params is None
+                               else params)
     gate_kw = ({"deltas": [args.delta]} if args.delta is not None
                else {"escalation_budget": args.escalation_budget})
     engine = CascadeEngine(
@@ -70,6 +83,9 @@ def build_engine(args, clock=None):
         kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_token_budget,
+        use_unified_step=False if getattr(args, "split_step", False)
+        else None,
+        use_ragged_step=getattr(args, "ragged_step", None),
         clock=clock if clock is not None else WallClock(),
         device=device, **gate_kw)
     return engine, min(fast_cfg.vocab_size, exp_cfg.vocab_size)
@@ -117,15 +133,17 @@ def stream_checksum(engine) -> str:
 
 
 def _launch_counts() -> dict:
-    return {"ragged_attention": kernel_ops.ragged_attention.launches,
-            "confidence_gate": kernel_ops.confidence_gate.launches}
+    return {name: getattr(kernel_ops, name).launches
+            for name in ("ragged_attention", "mixed_attention",
+                         "paged_attention", "confidence_gate")}
 
 
-def run(args, clock=None) -> dict:
-    """Build, warm up, serve the synthetic workload, and summarise.
+def run(args, clock=None, params=None) -> dict:
+    """Build (on ``params`` from :func:`build_params` where given), warm
+    up, serve the synthetic workload, and summarise.
     ``kernel_launches`` counts the kernel launches after warmup;
     ``per_request`` lists each request's final tier, state and tokens."""
-    engine, vocab = build_engine(args, clock)
+    engine, vocab = build_engine(args, clock, params)
     prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
                         vocab=min(vocab, PROMPT_VOCAB), seed=args.seed)
     lengths = sample_lengths(args.length_dist, args.requests,
@@ -152,7 +170,10 @@ def run(args, clock=None) -> dict:
     summary["length_dist"] = args.length_dist
     summary["max_prompt_len"] = args.prompt_len
     summary["prefill_chunk"] = engine.prefill_chunk
-    summary["flat_buckets"] = [rt.flat_buckets for rt in engine.runtimes]
+    summary["unified_step"] = engine.unified_step
+    summary["ragged_step"] = engine.ragged_step
+    summary["flat_buckets"] = [rt.flat_buckets if rt.ragged else None
+                               for rt in engine.runtimes]
     summary["escalation_budget"] = (None if args.delta is not None
                                     else args.escalation_budget)
     summary["delta"] = [engine.scheduler.delta(g)
@@ -183,7 +204,9 @@ def report(s: dict) -> None:
     print(f"  throughput {s['throughput']:.2f} req/s   tier utilization "
           + "  ".join(f"{n}={u:.2f}" for n, u in
                       zip(s['tier_names'], s['tier_utilization'])))
-    print("  launches/tick "
+    mode = ("ragged" if s.get("ragged_step")
+            else "unified" if s.get("unified_step") else "split")
+    print(f"  launches/tick [{mode}] "
           + "  ".join(f"{n}={l:.2f}" for n, l in
                       zip(s["tier_names"], s["launches_per_tick"]))
           + "   host-syncs/tick "
@@ -231,6 +254,15 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-token-budget", type=int, default=None,
                     help="tokens admitted per tier per tick "
                          "(default slots * prefill-chunk)")
+    ap.add_argument("--split-step", action="store_true",
+                    help="split chunk + decode launches instead of the "
+                         "unified one launch per tier per tick")
+    ap.add_argument("--ragged-step", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="ragged flat [1, W] token batch inside unified "
+                         "execution; --no-ragged-step keeps the padded "
+                         "[slots, width] mixed step.  Default: ragged "
+                         "whenever unified execution is on")
     ap.add_argument("--delta", type=float, default=None,
                     help="fixed gate threshold (overrides the budget)")
     ap.add_argument("--escalation-budget", type=float, default=0.25,

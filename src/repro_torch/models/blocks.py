@@ -5,12 +5,22 @@ The mixer signature is the JAX package's::
 
     y, cache = attention(p, cfg, spec, x, cache, pos, mode, pages=None)
 
-with ``mode == "ragged_step"``, the one mode the serving path runs: the
-batch is one flat ``[1, W]`` token row packed by the prefix sum of the
-per-row live counts ``q_len``, and ``pages`` carries ``{"page_table":
-[R, P], "q_len": [R], "q_start": [R]}`` over a cache from
-:func:`repro_torch.models.cache.init_paged_cache`.  The KV pools are
-updated in place and the same cache dict comes back.
+over a block-paged cache from
+:func:`repro_torch.models.cache.init_paged_cache`, in the modes the
+serving executors run:
+
+* ``"ragged_step"`` (ragged executor): one flat ``[1, W]`` token row
+  packed by the prefix sum of the per-row live counts; ``pages`` carries
+  ``{"page_table": [R, P], "q_len": [R], "q_start": [R]}``;
+* ``"mixed_step"`` (padded executor) and ``"prefill_chunk"`` (split
+  executor's chunk launch): a padded ``[B, C]`` batch, row ``b``'s
+  ``q_len[b]`` live slots at positions ``pos[b]``; ``pages`` carries
+  ``{"page_table": [B, P], "q_len": [B]}``;
+* ``"decode"`` (split executor's decode launch): one token per row at
+  ``pos [B, 1]``; ``pages`` carries ``{"page_table": [B, P]}``.
+
+The KV pools are updated in place and the same cache dict comes back.
+Dense caches (``pages=None``) are not ported.
 
 ``dense_ffn(p, cfg, spec, x) -> y`` covers the ``swiglu`` and ``gelu``
 FFNs.
@@ -77,12 +87,34 @@ def _quant_i8(x, eps=1e-8):
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
+def _write_kv(cache, blk, off, k, v):
+    """Scatter new keys/values into the pools at (block, offset), in
+    place (the JAX package writes a new cache and donates the old buffers
+    instead).  Duplicate writes to the null block 0 leave an unspecified
+    winner there; block 0 is never attended by a live query."""
+    if "k_scale" in cache:
+        kq, ksc = _quant_i8(k)
+        vq, vsc = _quant_i8(v)
+        cache["k"].index_put_((blk, off), kq)
+        cache["v"].index_put_((blk, off), vq)
+        cache["k_scale"].index_put_((blk, off), ksc)
+        cache["v_scale"].index_put_((blk, off), vsc)
+    else:
+        cache["k"].index_put_((blk, off), k.to(cache["k"].dtype))
+        cache["v"].index_put_((blk, off), v.to(cache["v"].dtype))
+
+
+def _scales(cache) -> dict:
+    return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
+
+
 def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
-    if mode != "ragged_step":
+    if mode not in ("ragged_step", "mixed_step", "prefill_chunk", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     if pages is None:
-        raise ValueError("ragged_step requires pages={'page_table', "
-                         "'q_len', 'q_start'} over a block-paged cache")
+        raise NotImplementedError(
+            f"{mode} over a dense cache is not ported: pass pages= over a "
+            "block-paged cache")
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -91,47 +123,64 @@ def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
     qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope)
     q = qr.reshape(B, S, KV, G, hd)
-
-    # Ragged flat token-batch step: engine row b's q_len[b] live tokens
-    # occupy flat slots [row_start[b], row_start[b] + q_len[b]); the tail
-    # past sum(q_len) is bucket padding.  Each flat token's owning row
-    # comes from the prefix sum; its KV write goes through that row's
-    # page table at the token's absolute position, padding to the null
-    # block 0 (duplicate writes there: the winner is unspecified and
-    # block 0 is never attended).
-    pt = pages["page_table"]                        # [R, P] int32
-    q_len = pages["q_len"]                          # [R] int32
-    q_start = pages["q_start"]                      # [R] int32
-    R, P = pt.shape
+    pt = pages["page_table"]                        # [R or B, P] int32
+    P = pt.shape[1]
     bs = cache["k"].shape[1]
-    csum = torch.cumsum(q_len, 0)
-    tok = torch.arange(S, device=x.device)
-    row = torch.searchsorted(csum, tok, right=True).clamp(max=R - 1)
-    valid = tok < csum[-1]
-    p_tok = pos[0].long()                           # [W] abs positions
-    page = (p_tok // bs).clamp(max=P - 1)
-    blk = torch.where(valid, pt[row, page].long(), 0)
-    off = p_tok % bs
-    # in place: the pools are this layer's slice of the tier's arena (the
-    # JAX package writes a new cache and donates the old buffers instead)
-    if "k_scale" in cache:
-        kq, ksc = _quant_i8(k)
-        vq, vsc = _quant_i8(v)
-        cache["k"].index_put_((blk, off), kq[0])
-        cache["v"].index_put_((blk, off), vq[0])
-        cache["k_scale"].index_put_((blk, off), ksc[0])
-        cache["v_scale"].index_put_((blk, off), vsc[0])
+
+    if mode == "ragged_step":
+        # Ragged flat token-batch step: engine row b's q_len[b] live
+        # tokens occupy flat slots [row_start[b], row_start[b] + q_len[b]);
+        # the tail past sum(q_len) is bucket padding.  Each flat token's
+        # owning row comes from the prefix sum; its KV write goes through
+        # that row's page table at the token's absolute position, padding
+        # to the null block 0.
+        q_len = pages["q_len"]                      # [R] int32
+        R = pt.shape[0]
+        csum = torch.cumsum(q_len, 0)
+        tok = torch.arange(S, device=x.device)
+        row = torch.searchsorted(csum, tok, right=True).clamp(max=R - 1)
+        valid = tok < csum[-1]
+        p_tok = pos[0].long()                       # [W] abs positions
+        page = (p_tok // bs).clamp(max=P - 1)
+        blk = torch.where(valid, pt[row, page].long(), 0)
+        _write_kv(cache, blk, p_tok % bs, k[0], v[0])
         out = kernel_ops.ragged_attention(
-            q[0], cache["k"], cache["v"], pt, q_start, q_len,
-            k_scale=cache["k_scale"], v_scale=cache["v_scale"],
-            window=spec.window)
+            q[0], cache["k"], cache["v"], pt, pages["q_start"], q_len,
+            window=spec.window, **_scales(cache))[None]
+    elif mode == "decode":
+        # Paged decode: row b's one new token at pos[b, 0] scatters into
+        # (page_table[b, pos // bs], pos % bs) — the page index clamped
+        # into the table, and unmapped pages (masked or stalled rows) hit
+        # the null block, whose output the engine discards — then the
+        # paged decode kernel attends the row's pages.
+        p_row = pos[:, 0].long()                    # [B]
+        page = (p_row // bs).clamp(max=P - 1)
+        blk = pt[torch.arange(B, device=x.device), page].long()
+        _write_kv(cache, blk, p_row % bs, k[:, 0], v[:, 0])
+        out = kernel_ops.paged_attention(
+            q[:, 0].contiguous(), cache["k"], cache["v"], pt,
+            pos[:, 0].contiguous(), window=spec.window, **_scales(cache))
     else:
-        cache["k"].index_put_((blk, off), k[0].to(cache["k"].dtype))
-        cache["v"].index_put_((blk, off), v[0].to(cache["v"].dtype))
-        out = kernel_ops.ragged_attention(
-            q[0], cache["k"], cache["v"], pt, q_start, q_len,
-            window=spec.window)
-    y = out[None].to(x.dtype).reshape(B, S, H * hd) @ p["wo"]
+        # Padded token-batch step: row b's S slots (positions pos[b],
+        # q_len[b] of them live) scatter through its page table — the
+        # page index clamped into the table and the dead slots
+        # (i >= q_len) sent to the null block 0 — then one causal flash
+        # over the live slots: the mixed kernel in mixed_step mode (decode
+        # rows ride in the batch with q_len == 1), its prefill-only
+        # contract in prefill_chunk mode.
+        q_len = pages["q_len"]                      # [B] int32
+        p_tok = pos.long()                          # [B, C]
+        page = (p_tok // bs).clamp(max=P - 1)
+        blk = torch.gather(pt.long(), 1, page)
+        valid = torch.arange(S, device=x.device)[None, :] \
+            < q_len.long()[:, None]
+        blk = torch.where(valid, blk, 0)
+        _write_kv(cache, blk, p_tok % bs, k, v)
+        attn = (kernel_ops.mixed_attention if mode == "mixed_step"
+                else kernel_ops.paged_prefill_attention)
+        out = attn(q, cache["k"], cache["v"], pt, pos[:, 0].contiguous(),
+                   q_len, window=spec.window, **_scales(cache))
+    y = out.to(x.dtype).reshape(B, S, H * hd) @ p["wo"]
     return y, cache
 
 

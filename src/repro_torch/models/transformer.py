@@ -4,8 +4,9 @@
 The repeated ``period`` runs as a Python loop over weights (and cache)
 stacked on a leading ``num_periods`` dim; indexing the stack gives
 views, so the in-place KV writes of each period land in the stacked
-pools.  The one entry point the serving engine calls is
-:func:`ragged_step`.
+pools.  The serving executors call :func:`ragged_step` (ragged),
+:func:`mixed_step` (padded), and :func:`prefill_chunk` then
+:func:`decode_step` (split).
 """
 from __future__ import annotations
 
@@ -55,11 +56,15 @@ def lm_proj(params, cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
             cache, pos, pages):
-    """Returns (logits, cache).  Only ``mode="ragged_step"`` is ported:
-    ``batch = {"tokens": [1, W] int32}``, ``pos [1, W]`` absolute
-    positions, ``pages = {"page_table": [R, P], "q_len": [R],
-    "q_start": [R]}`` over a block-paged cache (updated in place)."""
-    if mode != "ragged_step":
+    """Returns (logits, cache) over a block-paged cache (updated in
+    place).  ``batch = {"tokens": [B, S] int32}``, ``pos [B, S]`` absolute
+    positions, and ``mode`` one of the serving modes of
+    :func:`repro_torch.models.blocks.attention`: ``"ragged_step"`` (a
+    flat ``[1, W]`` batch, ``pages = {"page_table": [R, P], "q_len":
+    [R], "q_start": [R]}``), ``"mixed_step"`` / ``"prefill_chunk"`` (a
+    padded ``[B, C]`` batch, ``pages = {"page_table", "q_len"}``) or
+    ``"decode"`` (``[B, 1]``, ``pages = {"page_table"}``)."""
+    if mode not in ("ragged_step", "mixed_step", "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
     x = _embed(params, cfg, batch["tokens"])
     new_cache = {}
@@ -77,15 +82,46 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
     return _logits(params, cfg, x), new_cache
 
 
-def last_slot_gather(logits, q_len):
-    """Gather each engine row's logits at its last live slot of the flat
-    batch: logits [1,W,V], row b owns flat slots ``[row_start[b],
-    row_start[b] + q_len[b])``, so its last live slot is ``cumsum(q_len)
-    - 1``, clipped into the flat width.  Rows with ``q_len == 0`` gather
-    unspecified logits; callers discard them."""
-    csum = torch.cumsum(q_len, 0)
-    last = (csum - 1).clamp(0, logits.shape[1] - 1)
-    return logits[0, last]
+def prefill_chunk(params, cfg: ModelConfig, tokens, cache, pos, pages):
+    """One chunked-prefill step: tokens [B, C] int32 (row b's chunk,
+    padded past ``pages['q_len'][b]``); pos [B, C] per-row absolute
+    positions; pages {"page_table": [B, P], "q_len": [B]}.  Writes the
+    chunk's KV through the page tables and returns (logits [B, C, V],
+    cache); logits past a row's q_len are unspecified."""
+    return forward(params, cfg, {"tokens": tokens}, mode="prefill_chunk",
+                   cache=cache, pos=pos, pages=pages)
+
+
+def last_slot_gather(logits, q_len, *, flat: bool):
+    """Gather each engine row's logits at its last live slot.
+
+    ``flat=False``: logits [B, C, V], row b's slots are ``[0, q_len[b])``
+    of its own row, so its last live slot is ``q_len - 1`` (clamped to
+    0).  ``flat=True``: logits [1, W, V], row b owns flat slots
+    ``[row_start[b], row_start[b] + q_len[b])``, so its last live slot is
+    ``cumsum(q_len) - 1``, clipped into the flat width.  Rows with
+    ``q_len == 0`` gather unspecified logits; callers discard them."""
+    if flat:
+        csum = torch.cumsum(q_len, 0)
+        last = (csum - 1).clamp(0, logits.shape[1] - 1)
+        return logits[0, last]
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    last = (q_len.long() - 1).clamp(min=0)
+    return logits[rows, last]
+
+
+def mixed_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
+    """One padded mixed prefill+decode step: tokens [B, C] int32 — row
+    b's next prefill chunk, its decode token in slot 0, or padding —
+    with ``pages['q_len'][b]`` live slots; pos [B, C]; pages
+    {"page_table": [B, P], "q_len": [B]}.  Every attention layer runs the
+    mixed kernel; returns (last_logits [B, V], cache), each row's logits
+    at its last live slot.  ``q_len == 0`` rows return unspecified
+    logits."""
+    logits, cache = forward(params, cfg, {"tokens": tokens},
+                            mode="mixed_step", cache=cache, pos=pos,
+                            pages=pages)
+    return last_slot_gather(logits, pages["q_len"], flat=False), cache
 
 
 def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
@@ -104,4 +140,13 @@ def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
     logits, cache = forward(params, cfg, {"tokens": tokens},
                             mode="ragged_step", cache=cache, pos=pos,
                             pages=pages)
-    return last_slot_gather(logits, pages["q_len"]), cache
+    return last_slot_gather(logits, pages["q_len"], flat=True), cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None):
+    """token [B, 1] int32; pos [B, 1] per-row decode positions;
+    ``pages={"page_table": [B, P]}`` over a block-paged cache (the dense
+    cache of the JAX package is not ported).  Every attention layer runs
+    the paged decode kernel; returns (logits [B, 1, V], cache)."""
+    return forward(params, cfg, {"tokens": token}, mode="decode",
+                   cache=cache, pos=pos, pages=pages)

@@ -12,17 +12,30 @@ One engine step (tick) per tier:
   2. **plan** — a :class:`StepPlan` is built on the host: every live row
      gets its tick's work — the next ``prefill_chunk`` tokens of its
      prompt (or the shorter tail), its single decode token, or a stall
-     (block exhaustion) — and the live tokens of all rows are packed
+     (block exhaustion) — as a padded ``[capacity, width]`` batch and,
+     for the ragged executor, the live tokens of all rows packed
      contiguously into one flat ``[1, W]`` batch, ``W`` the smallest
      power-of-two bucket that holds them.
-  3. **execute** — ONE ragged step per tier per tick
-     (:func:`repro_torch.models.transformer.ragged_step`: every attention
-     layer through the ragged paged attention kernel, KV written in place
-     through the page tables), then the confidence gate kernel on each
-     row's last-slot logits, and ONE blocking device->host fetch of the
-     emitted (token, confidence) pairs (:attr:`CascadeEngine.host_syncs`).
-     A row's first token is emitted when its last prompt chunk
-     completes; it decodes from the next tick.
+  3. **execute** — by one of three executors, each ending in at most ONE
+     blocking device->host fetch of the emitted (token, confidence) pairs
+     (:attr:`CascadeEngine.host_syncs`), with the confidence gate kernel
+     on each launch's last-slot logits and the KV written in place
+     through the page tables:
+
+     * **ragged** (the default): ONE ragged step per tier per tick
+       (:func:`repro_torch.models.transformer.ragged_step`, the ragged
+       paged attention kernel in every layer).  A row's first token is
+       emitted when its last prompt chunk completes; it decodes from the
+       next tick.
+     * **padded unified** (``use_ragged_step=False``): ONE padded
+       ``mixed_step`` per tier per tick (the mixed attention kernel),
+       processing ``capacity * width`` token slots.
+     * **split** (``use_unified_step=False``): a chunk launch
+       (``prefill_chunk``, the mixed kernel) for the prefill rows, then a
+       decode launch (``decode_step``, the paged decode kernel) over every
+       row, mid-prefill rows masked to the null block.  Rows whose last
+       chunk completed decode in the same tick, their first token fed in
+       on the device; both result pairs come back in one fetch.
   4. **gate** — requests that reach ``gen_len`` aggregate their token
      confidences; at non-final tiers the scheduler's gate (fixed δ or
      escalation budget) decides DONE vs ESCALATED.  Escalated requests
@@ -31,10 +44,12 @@ One engine step (tick) per tier:
 The clock is injectable: ``WallClock`` for real Poisson traffic,
 ``VirtualClock`` for deterministic tests (one tick per step).
 
-Not ported from the JAX engine (later work): the padded and split
-executors, dense arenas, meshes, prefix caching, speculation,
-preemption, load shedding, launch retry, fault injection and the tracer.
-A launch error propagates.
+Not ported from the JAX engine (later work): one-shot dense prefill
+(``use_chunked_prefill``, and with it the error for unified execution
+without chunked prefill), dense arenas, flat-bucket overrides and
+compile statistics, meshes, prefix caching, speculation, preemption,
+load shedding, launch retry, fault injection and the tracer.  A launch
+error propagates.
 """
 from __future__ import annotations
 
@@ -123,9 +138,10 @@ KIND_IDLE, KIND_PREFILL, KIND_DECODE, KIND_STALL = 0, 1, 2, 3
 class StepPlan:
     """One tier's tick, planned on the host before anything launches:
     per-row kind (idle / prefill chunk / decode token / stalled), the
-    per-row token slots, live counts, and the flat packing the ragged
-    launch consumes — every live row's tokens concatenated into
-    ``flat_tokens [1, W]`` (``W`` a bucketed power-of-two width)."""
+    per-row token slots, live counts, and — ragged executor only, else
+    None — the flat packing the ragged launch consumes: every live row's
+    tokens concatenated into ``flat_tokens [1, W]`` (``W`` a bucketed
+    power-of-two width)."""
     width: int                  # token slots per row (chunk; 1 decode-only)
     kind: np.ndarray            # [capacity] int8 KIND_*
     tokens: np.ndarray          # [capacity, width] int32
@@ -134,10 +150,10 @@ class StepPlan:
     prefill_rows: List[int]     # live prefill rows (q_len > 0)
     decode_rows: List[int]      # decode rows (stalls excluded)
     finishing: List[int]        # prefill rows whose last chunk completes
-    flat_width: int             # bucketed W >= sum(q_len)
-    flat_tokens: np.ndarray     # [1, W] int32
-    flat_pos: np.ndarray        # [1, W] int32 abs positions
-    q_start: np.ndarray         # [capacity] int32 each row's first pos
+    flat_width: Optional[int]   # bucketed W >= sum(q_len)
+    flat_tokens: Optional[np.ndarray]   # [1, W] int32
+    flat_pos: Optional[np.ndarray]      # [1, W] int32 abs positions
+    q_start: Optional[np.ndarray]       # [capacity] int32 first pos
 
     @property
     def live_prefill_tokens(self) -> int:
@@ -155,10 +171,14 @@ class _TierRuntime:
 
     def __init__(self, spec: TierSpec, capacity: int, prompt_len: int,
                  max_seq: int, device, *, block_size: int = 16,
-                 kv_blocks: Optional[int] = None, prefill_chunk: int = 128):
+                 kv_blocks: Optional[int] = None, prefill_chunk: int = 128,
+                 use_unified_step: bool = True,
+                 use_ragged_step: bool = True):
         self.spec = spec
         self.capacity = capacity
         self.device = device
+        self.unified = bool(use_unified_step)
+        self.ragged = bool(use_ragged_step) and self.unified
         self.chunk = min(prefill_chunk, prompt_len)
         self.flat_buckets = self._default_buckets()
         self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
@@ -185,6 +205,32 @@ class _TierRuntime:
         logits, self.pool.cache = transformer.ragged_step(
             self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
         return self.pick(logits)
+
+    def mixed_fn(self, tokens, pos, page_table, q_len):
+        """The padded unified step: every live row's work — prefill chunk
+        or decode token — in one ``[capacity, width]`` batch; returns each
+        row's pick at its last live slot."""
+        pages = {"page_table": page_table, "q_len": q_len}
+        logits, self.pool.cache = transformer.mixed_step(
+            self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
+        return self.pick(logits)
+
+    def chunk_fn(self, tokens, pos, page_table, q_len):
+        """The split executor's chunk launch; the first generated token is
+        each row's pick at its last live prompt position (the host keeps
+        it for final chunks only)."""
+        logits, self.pool.cache = transformer.prefill_chunk(
+            self.params, self.spec.cfg, tokens, self.pool.cache, pos,
+            {"page_table": page_table, "q_len": q_len})
+        return self.pick(transformer.last_slot_gather(logits, q_len,
+                                                      flat=False))
+
+    def step_fn(self, tok, pos, page_table):
+        """The split executor's decode launch: one token per row."""
+        logits, self.pool.cache = transformer.decode_step(
+            self.params, self.spec.cfg, tok, self.pool.cache, pos,
+            pages={"page_table": page_table})
+        return self.pick(logits[:, 0])
 
     # -- ragged flat-width buckets ------------------------------------------
 
@@ -234,6 +280,46 @@ class _TierRuntime:
                                            qstart)
         return self.ragged_fn(tokens, pos, pt, ql, qs)
 
+    def run_mixed(self, tokens, pos, qlen):
+        """The padded unified launch: each row scatters into and attends
+        its own pages, so no page-table masking is needed."""
+        return self.mixed_fn(*self.put(tokens, pos, self.pool.page_table,
+                                       qlen))
+
+    def run_chunk(self, tokens, pos, qlen):
+        """The split executor's chunk launch over the prefill rows."""
+        return self.chunk_fn(*self.put(tokens, pos, self.pool.page_table,
+                                       qlen))
+
+    def run_step(self, tok, mask_rows=(), first=None, fresh=()):
+        """The split executor's decode launch: row s decodes ``tok[s]`` at
+        ``self.pos[s]``; rows in ``fresh`` take their token from the
+        device tensor ``first`` [capacity] instead (the chunk launch's
+        pick, never fetched).  ``mask_rows`` (rows mid-prefill) decode
+        through an all-null page-table row (:meth:`masked_page_table`)."""
+        is_fresh = np.zeros(self.capacity, np.int32)
+        is_fresh[list(fresh)] = 1
+        tok_in, is_fresh, pos, pt = self.put(
+            np.asarray(tok, np.int32)[:, None], is_fresh, self.pos[:, None],
+            self.masked_page_table(mask_rows))
+        if first is not None:
+            tok_in = torch.where(is_fresh[:, None].bool(),
+                                 first[:, None].to(torch.int32), tok_in)
+        return self.step_fn(tok_in, pos, pt)
+
+    def masked_page_table(self, mask_rows: Sequence[int] = ()):
+        """The host page tables a launch copies to the device (the JAX
+        runtime's ``page_table_device``).  ``mask_rows`` (rows mid-prefill
+        during a decode launch) are unmapped in a copy, so that launch's
+        scatter and gather for them hit the null block instead of the
+        blocks their prefill chunks are filling.  The pool's own table is
+        never masked."""
+        pt = self.pool.page_table
+        if len(mask_rows):
+            pt = pt.copy()
+            pt[list(mask_rows)] = 0
+        return pt
+
     def occupied(self) -> List[int]:
         return [s for s, r in enumerate(self.slot_req) if r is not None]
 
@@ -260,6 +346,8 @@ class CascadeEngine:
                  kv_blocks: Optional[int | Sequence[Optional[int]]] = None,
                  prefill_chunk: int = 128,
                  prefill_token_budget: Optional[int] = None,
+                 use_unified_step: Optional[bool] = None,
+                 use_ragged_step: Optional[bool] = None,
                  clock=None,
                  device="cuda"):
         """``prompt_len`` is the maximum prompt length: ``submit`` takes
@@ -273,7 +361,14 @@ class CascadeEngine:
         confidence gate kernel.  The gate is a fixed ``deltas`` per
         non-final tier, an ``escalation_budget`` (δ = that quantile of
         recent sequence confidences), or δ = 0.5.  ``device`` must hold every tier's
-        params; a CUDA device without a card raises."""
+        params; a CUDA device without a card raises.
+
+        The executor follows the JAX engine's switches and defaults:
+        ``use_unified_step`` (default on) runs one launch per tier per
+        tick, ``False`` the split chunk + decode launches;
+        ``use_ragged_step`` (default: on exactly when unified) packs that
+        launch's live tokens flat, ``False`` keeps the padded
+        ``[capacity, width]`` mixed launch.  Prefill is always chunked."""
         if not tiers:
             raise ValueError("need at least one tier")
         self.device = resolve_device(device)
@@ -288,6 +383,17 @@ class CascadeEngine:
                                  f"on {self.device}")
         if prefill_chunk <= 0:
             raise ValueError("prefill_chunk must be positive")
+        if use_unified_step is None:
+            use_unified_step = True
+        if use_ragged_step is None:
+            use_ragged_step = use_unified_step
+        elif use_ragged_step and not use_unified_step:
+            raise ValueError(
+                "the ragged flat token-batch layout runs inside unified "
+                "token-batch execution (use_unified_step=True); the split "
+                "and dense paths have no flat batch to pack")
+        self.unified_step = bool(use_unified_step)
+        self.ragged_step = bool(use_ragged_step) and self.unified_step
         slots_per_tier = ([int(slots)] * m if np.isscalar(slots)
                           else [int(s) for s in slots])
         kv_blocks_per_tier = (
@@ -325,7 +431,9 @@ class CascadeEngine:
         self.runtimes = [
             _TierRuntime(spec, cap, prompt_len, max_seq, self.device,
                          block_size=kv_block_size,
-                         kv_blocks=nb, prefill_chunk=self.prefill_chunk)
+                         kv_blocks=nb, prefill_chunk=self.prefill_chunk,
+                         use_unified_step=self.unified_step,
+                         use_ragged_step=self.ragged_step)
             for spec, cap, nb in zip(self.tiers, slots_per_tier,
                                      kv_blocks_per_tier)]
         self.requests: List[Request] = []
@@ -356,16 +464,24 @@ class CascadeEngine:
 
     # -- one engine tick ---------------------------------------------------
 
-    def _fetch(self, tier: int, tok, conf):
-        """The tick's one blocking device->host transfer: the int32
-        tokens ride bit-cast beside the f32 confidences in a single copy
-        (counted overall and per tier)."""
+    def _fetch(self, tier: int, *pairs):
+        """The tick's one blocking device->host transfer of every given
+        (token, confidence) pair — the split executor brings its chunk
+        and decode picks together: the int32 tokens ride bit-cast beside
+        the f32 confidences in a single copy (counted overall and per
+        tier).  Returns the pairs as numpy arrays, in order."""
         self.host_syncs += 1
         self.metrics.record_host_sync(tier)
-        both = torch.cat([tok.to(torch.int32).view(torch.float32),
-                          conf.to(torch.float32)]).cpu()
-        n = tok.shape[0]
-        return both[:n].view(torch.int32).numpy(), both[n:].numpy()
+        flat = torch.cat([t for tok, conf in pairs for t in (
+            tok.to(torch.int32).view(torch.float32),
+            conf.to(torch.float32))]).cpu()
+        out, o = [], 0
+        for tok, _ in pairs:
+            n = tok.shape[0]
+            out.append((flat[o:o + n].view(torch.int32).numpy(),
+                        flat[o + n:o + 2 * n].numpy()))
+            o += 2 * n
+        return out
 
     def _admit_requests(self, tier: int, now: float) -> None:
         """Bind rows one at a time, bounded by free rows, free KV blocks
@@ -373,8 +489,11 @@ class CascadeEngine:
         per-tick token budget.  The budget window is pre-charged with the
         tick's carried load (see :meth:`_tick_load`) and a new request
         bills only its first chunk; the window's first admitted request
-        is always admitted, so a long prompt cannot starve.  No compute
-        here — the token batch runs in :meth:`_tier_step`."""
+        is always admitted, so a long prompt cannot starve.  Split tiers
+        keep the JAX engine's legacy accounting instead: a window of
+        prefill tokens only, starting at zero, each request billed its
+        whole prompt.  No compute here — the token batch runs in
+        :meth:`_tier_step`."""
         rt = self.runtimes[tier]
         fresh = 0
         while True:
@@ -388,8 +507,9 @@ class CascadeEngine:
                 tier, now, limit=1,
                 token_budget=self.prefill_token_budget,
                 budget_used=self._budget_used[tier],
-                admitted_before=self._admitted[tier],
-                token_cost=lambda r: min(rt.chunk, r.prompt_tokens))
+                admitted_before=self._admitted[tier] if rt.unified else None,
+                token_cost=((lambda r: min(rt.chunk, r.prompt_tokens))
+                            if rt.unified else None))
             if not reqs:
                 break               # over budget this tick
             req, slot = reqs[0], slot_ids[0]
@@ -397,7 +517,8 @@ class CascadeEngine:
                          row_tokens=plen + self.gen_len)
             rt.slot_req[slot] = req
             rt.prefill_pos[slot] = 0
-            self._budget_used[tier] += min(rt.chunk, plen)
+            self._budget_used[tier] += (min(rt.chunk, plen) if rt.unified
+                                        else plen)
             self._admitted[tier] += 1
             fresh += 1
         if fresh:
@@ -418,7 +539,12 @@ class CascadeEngine:
         launch consumes.  Rows denied KV blocks (over-subscribed arena)
         are marked ``KIND_STALL`` and retry next tick.  Page tables grow
         lazily here — prefill rows in slot order first, then decode rows
-        oldest-bound-first."""
+        oldest-bound-first.
+
+        Under the split executor decode rows are only *listed*: their
+        blocks grow in :meth:`_decode_launch`, after the chunk launch, as
+        in the JAX engine, so an over-subscribed arena hands out blocks
+        in the same order."""
         pre = rt.prefilling()
         dec = rt.decoding()
         if not pre and not dec:
@@ -443,17 +569,20 @@ class CascadeEngine:
             if st + n == req.prompt_tokens:
                 finishing.append(s)
         decode_rows: List[int] = []
-        dec_set = set(dec)
-        for s in rt.pool.bound_rows():
-            if s not in dec_set:
-                continue
-            p = int(rt.pos[s])
-            if not rt.pool.ensure_blocks(s, p):
-                kind[s] = KIND_STALL          # stall: retry next tick
-                continue
-            kind[s] = KIND_DECODE
-            qlen[s] = 1
-            decode_rows.append(s)
+        if rt.unified:
+            dec_set = set(dec)
+            for s in rt.pool.bound_rows():
+                if s not in dec_set:
+                    continue
+                if not rt.pool.ensure_blocks(s, int(rt.pos[s])):
+                    kind[s] = KIND_STALL      # stall: retry next tick
+                    continue
+                kind[s] = KIND_DECODE
+                qlen[s] = 1
+                decode_rows.append(s)
+        else:
+            decode_rows = list(dec)
+            kind[dec] = KIND_DECODE
         # batch width: the chunk when any prefill row survived its block
         # check, else 1 (a decode-only tick)
         width = rt.chunk if prefill_rows else 1
@@ -462,23 +591,26 @@ class CascadeEngine:
         for s, st, n in chunks:
             tokens[s, :n] = rt.slot_req[s].prompt[st:st + n]
             pos[s] = st + np.arange(width)    # row's q_start is pos[s, 0]
-        for s in decode_rows:
-            tokens[s, 0] = rt.tok[s]
-            pos[s] = int(rt.pos[s]) + np.arange(width)
-        # flat packing: live tokens of all rows concatenated in slot
-        # order, padded up to the smallest bucket width (padding scatters
-        # to the null block and emits nothing)
-        flat_width = rt.bucket_width(int(qlen.sum()))
-        flat_tokens = np.zeros((1, flat_width), np.int32)
-        flat_pos = np.zeros((1, flat_width), np.int32)
-        q_start = pos[:, 0].astype(np.int32).copy()
-        o = 0
-        for s in range(cap):
-            n = int(qlen[s])
-            if n:
-                flat_tokens[0, o:o + n] = tokens[s, :n]
-                flat_pos[0, o:o + n] = pos[s, :n]
-                o += n
+        if rt.unified:      # the split chunk launch carries no decode row
+            for s in decode_rows:
+                tokens[s, 0] = rt.tok[s]
+                pos[s] = int(rt.pos[s]) + np.arange(width)
+        flat_width = flat_tokens = flat_pos = q_start = None
+        if rt.ragged:
+            # flat packing: live tokens of all rows concatenated in slot
+            # order, padded up to the smallest bucket width (padding
+            # scatters to the null block and emits nothing)
+            flat_width = rt.bucket_width(int(qlen.sum()))
+            flat_tokens = np.zeros((1, flat_width), np.int32)
+            flat_pos = np.zeros((1, flat_width), np.int32)
+            q_start = pos[:, 0].astype(np.int32).copy()
+            o = 0
+            for s in range(cap):
+                n = int(qlen[s])
+                if n:
+                    flat_tokens[0, o:o + n] = tokens[s, :n]
+                    flat_pos[0, o:o + n] = pos[s, :n]
+                    o += n
         return StepPlan(width=width, kind=kind, tokens=tokens, pos=pos,
                         q_len=qlen, prefill_rows=prefill_rows,
                         decode_rows=decode_rows, finishing=finishing,
@@ -486,32 +618,44 @@ class CascadeEngine:
                         flat_pos=flat_pos, q_start=q_start)
 
     def _tier_step(self, tier: int, now: float) -> int:
-        """One tier's compute for a tick: plan on the host, then the one
-        ragged launch.  Returns the number of decode tokens emitted."""
+        """One tier's compute for a tick: plan on the host, then the
+        unified (ragged or padded) or the split executor.  Returns the
+        number of decode tokens emitted."""
         rt = self.runtimes[tier]
         plan = self._build_plan(rt)
         if plan is None:
             return 0
-        return self._exec_ragged(tier, rt, plan)
+        if rt.unified:
+            return self._exec_unified(tier, rt, plan)
+        return self._exec_split(tier, rt, plan)
 
-    def _exec_ragged(self, tier: int, rt: _TierRuntime,
-                     plan: StepPlan) -> int:
-        """ONE ragged launch serves every live row — each contributes its
-        next prefill chunk or its single decode token — and one blocking
-        fetch brings back every emitted (token, confidence) pair.  A row
+    def _exec_unified(self, tier: int, rt: _TierRuntime,
+                      plan: StepPlan) -> int:
+        """ONE launch serves every live row — each contributes its next
+        prefill chunk or its single decode token, packed flat (ragged) or
+        in a padded ``[capacity, width]`` batch — and one blocking fetch
+        brings back every emitted (token, confidence) pair.  A row
         finishing prefill emits its first token from its last-slot
         logits.  Mid-prompt-only ticks skip the fetch; ticks where every
         live row stalled skip the launch too."""
         if not plan.prefill_rows and not plan.decode_rows:
             return 0                    # every live row stalled
-        tok, conf = rt.run_ragged(plan.flat_tokens, plan.flat_pos,
-                                  plan.q_len, plan.q_start)
-        self.metrics.record_launches(tier, 1)
-        self.metrics.record_step_tokens(tier, plan.live_tokens,
-                                        plan.flat_width)
+        if rt.ragged:
+            tok, conf = rt.run_ragged(plan.flat_tokens, plan.flat_pos,
+                                      plan.q_len, plan.q_start)
+            processed = plan.flat_width
+        else:
+            tok, conf = rt.run_mixed(plan.tokens, plan.pos, plan.q_len)
+            processed = rt.capacity * plan.width
+        self.metrics.record_launches(tier,
+                                     "ragged" if rt.ragged else "mixed")
+        # live vs processed token slots: the ragged launch computes its
+        # bucket width, the padded one capacity * width
+        self.metrics.record_step_tokens(tier, plan.live_tokens, processed)
         if plan.prefill_rows:
-            self.metrics.record_prefill_tokens(plan.live_prefill_tokens,
-                                               plan.live_prefill_tokens)
+            self.metrics.record_prefill_tokens(
+                plan.live_prefill_tokens,
+                plan.live_prefill_tokens if rt.ragged else processed)
         # host state advances on host-known lengths only
         for s in plan.prefill_rows:
             rt.prefill_pos[s] += int(plan.q_len[s])
@@ -522,7 +666,7 @@ class CascadeEngine:
             rt.pos[s] = req.prompt_tokens   # next decode writes here
         if not plan.finishing and not plan.decode_rows:
             return 0                        # mid-prompt chunks only
-        tok, conf = self._fetch(tier, tok, conf)
+        (tok, conf), = self._fetch(tier, (tok, conf))
         t_emit = self.clock.now()           # post-compute
         for s in plan.finishing + plan.decode_rows:
             rt.slot_req[s].emit(int(tok[s]), float(conf[s]), t_emit)
@@ -530,6 +674,84 @@ class CascadeEngine:
         for s in plan.decode_rows:
             rt.pos[s] += 1
         return len(plan.decode_rows)
+
+    def _exec_split(self, tier: int, rt: _TierRuntime,
+                    plan: StepPlan) -> int:
+        """Split execution: the chunk launch over the prefill rows, then
+        the decode launch — rows whose final chunk completed decode in the
+        same tick, their first token flowing into the decode input on the
+        device — then ONE blocking fetch for both result pairs.  Two
+        launches on mixed ticks, which the unified executors fuse."""
+        pf = None
+        if plan.prefill_rows:
+            tok, conf = rt.run_chunk(plan.tokens, plan.pos, plan.q_len)
+            processed = rt.capacity * plan.width
+            self.metrics.record_launches(tier, "chunk")
+            self.metrics.record_prefill_tokens(plan.live_prefill_tokens,
+                                               processed)
+            self.metrics.record_step_tokens(tier, plan.live_prefill_tokens,
+                                            processed)
+            for s in plan.prefill_rows:
+                rt.prefill_pos[s] += int(plan.q_len[s])
+            t_dec = self.clock.now()
+            for s in plan.finishing:
+                req = rt.slot_req[s]
+                req.start_decode(t_dec)
+                rt.pos[s] = req.prompt_tokens   # next decode writes here
+            pf = {"tok": tok, "conf": conf, "finished": plan.finishing}
+        dc = self._decode_launch(tier, rt, pf)
+        emit_first = pf is not None and bool(pf["finished"])
+        if not emit_first and dc is None:
+            return 0
+        pairs = ([(pf["tok"], pf["conf"])] if emit_first else []) + \
+            ([(dc["tok"], dc["conf"])] if dc is not None else [])
+        fetched = self._fetch(tier, *pairs)
+        t_emit = self.clock.now()           # post-compute
+        if emit_first:
+            ptok, pconf = fetched.pop(0)
+            for s in pf["finished"]:
+                rt.slot_req[s].emit(int(ptok[s]), float(pconf[s]), t_emit)
+                rt.tok[s] = ptok[s]
+        if dc is None:
+            return 0
+        ntok, nconf = fetched[0]
+        for s in dc["active"]:
+            rt.slot_req[s].emit(int(ntok[s]), float(nconf[s]), t_emit)
+            rt.tok[s] = ntok[s]
+            rt.pos[s] += 1
+        return len(dc["active"])
+
+    def _decode_launch(self, tier: int, rt: _TierRuntime,
+                       pf: Optional[dict]) -> Optional[dict]:
+        """The split executor's decode launch over every row.  Rows whose
+        final chunk completed this tick take their first token from the
+        chunk launch's device output.  Page tables grow here, oldest row
+        first; a row denied a block stalls (its write lands in the null
+        block, its output is discarded) and retries next tick."""
+        decoding = rt.decoding()
+        finished = pf["finished"] if pf is not None else []
+        if finished:
+            # a finishing row's first token is still on the device, so it
+            # looks one emit behind `decode_finished`: drop the rows that
+            # first token already completes (gen_len == 1)
+            decoding = [s for s in decoding if s not in finished
+                        or len(rt.slot_req[s].tokens) + 1
+                        < rt.slot_req[s].gen_len]
+        if not decoding:
+            return None
+        dec = set(decoding)
+        active = [s for s in rt.pool.bound_rows()
+                  if s in dec and rt.pool.ensure_blocks(s, int(rt.pos[s]))]
+        if not active:
+            return None
+        # rows mid-prefill share the decode batch but must not touch their
+        # partly filled pages: the launch's page-table copy unmaps them
+        tok, conf = rt.run_step(rt.tok, mask_rows=rt.prefilling(),
+                                first=pf["tok"] if finished else None,
+                                fresh=finished)
+        self.metrics.record_launches(tier, "step")
+        self.metrics.record_step_tokens(tier, len(active), rt.capacity)
+        return {"active": active, "tok": tok, "conf": conf}
 
     def _finish_requests(self, tier: int, now: float):
         """Gate every row whose decode finished: escalate it to the next
@@ -563,9 +785,11 @@ class CascadeEngine:
     def step(self, now: Optional[float] = None) -> None:
         now = self.clock.now() if now is None else now
         self.tick_id += 1
-        # open each tier's token-budget window, pre-charged with the
-        # tick's carried decode+chunk load (one currency)
-        self._budget_used = [self._tick_load(rt) for rt in self.runtimes]
+        # open each tier's token-budget window: unified tiers pre-charge
+        # the tick's carried decode+chunk load (one currency), split tiers
+        # start the legacy prefill-only window at zero
+        self._budget_used = [self._tick_load(rt) if rt.unified else 0
+                             for rt in self.runtimes]
         self._admitted = [0] * len(self.tiers)
         active = []
         for tier in range(len(self.tiers)):
@@ -598,15 +822,26 @@ class CascadeEngine:
         self.clock.reset()
 
     def warmup(self) -> None:
-        """Run the ragged step once at every bucket width per tier with
-        all rows idle (the dummy writes land in the null block), so the
-        allocator and the matrix-product heuristics are warm before the
-        clock starts; ends by resetting the clock."""
+        """Run each tier's launches once with all rows idle (the dummy
+        writes land in the null block) — the ragged step at every bucket
+        width, the padded step at the chunk width and at width 1, or the
+        split chunk and decode launches — so the allocator and the
+        matrix-product heuristics are warm before the clock starts; ends
+        by resetting the clock."""
         for rt in self.runtimes:
             zr = np.zeros(rt.capacity, np.int32)
-            for w in rt.flat_buckets:
-                z = np.zeros((1, w), np.int32)
-                rt.run_ragged(z, z, zr, zr)
+            if rt.ragged:
+                for w in rt.flat_buckets:
+                    z = np.zeros((1, w), np.int32)
+                    rt.run_ragged(z, z, zr, zr)
+            elif rt.unified:
+                for w in dict.fromkeys((rt.chunk, 1)):
+                    z = np.zeros((rt.capacity, w), np.int32)
+                    rt.run_mixed(z, z, zr)
+            else:
+                z = np.zeros((rt.capacity, rt.chunk), np.int32)
+                rt.run_chunk(z, z, zr)
+                rt.run_step(zr)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.reset_clock()

@@ -60,13 +60,19 @@ class ServingMetrics:
         # live prompt tokens vs token slots the prefill launches processed
         self.prefill_live_tokens = 0
         self.prefill_processed_tokens = 0
-        # per tier: live tokens each launch computed vs the token slots of
-        # its bucketed flat width (the wasted-slot ratio is 1 - live/proc)
+        # per tier: live tokens each launch computed vs the token slots it
+        # processed (its bucketed flat width, or capacity * width when
+        # padded; the wasted-slot ratio is 1 - live/proc)
         self.step_live_tokens = [0] * len(tiers)
         self.step_processed_tokens = [0] * len(tiers)
         # one launch + one blocking device->host fetch per active tier per
-        # tick is the ragged step's budget
+        # tick is the unified executors' budget (split: two launches, one
+        # fetch); launches also counted by kind per tier
         self.launches_by_tier = [0] * len(tiers)
+        self.launches_by_kind = [dict() for _ in tiers]
+        # ticks in which each tier launched anything, and this tick's flags
+        self.active_ticks = [0] * len(tiers)
+        self._launched = [False] * len(tiers)
         self.host_syncs_by_tier = [0] * len(tiers)
         self.submitted = 0
         # per-tick intervals in the engine's clock domain (seconds, or
@@ -93,6 +99,8 @@ class ServingMetrics:
         self.steps += 1
         for t, n in enumerate(active_per_tier):
             self.busy_slot_steps[t] += n
+            self.active_ticks[t] += self._launched[t]
+        self._launched = [False] * len(self._launched)
         if self._last_step_time is not None and now >= self._last_step_time:
             self.tick_durations.append(now - self._last_step_time)
         self._last_step_time = now
@@ -110,8 +118,13 @@ class ServingMetrics:
         self.step_live_tokens[tier] += int(live)
         self.step_processed_tokens[tier] += int(processed)
 
-    def record_launches(self, tier: int, n: int = 1) -> None:
-        self.launches_by_tier[tier] += n
+    def record_launches(self, tier: int, kind: str) -> None:
+        """One launch of `tier`, of kind ``ragged`` or ``mixed`` (the
+        unified executors) or ``chunk`` or ``step`` (the split one)."""
+        self.launches_by_tier[tier] += 1
+        self._launched[tier] = True
+        kinds = self.launches_by_kind[tier]
+        kinds[kind] = kinds.get(kind, 0) + 1
 
     def record_host_sync(self, tier: int, n: int = 1) -> None:
         """One blocking device->host fetch paid by `tier`."""
@@ -189,6 +202,8 @@ class ServingMetrics:
                 for l, p in zip(self.step_live_tokens,
                                 self.step_processed_tokens)],
             "launches": list(self.launches_by_tier),
+            "launches_by_kind": [dict(k) for k in self.launches_by_kind],
+            "active_ticks": list(self.active_ticks),
             "launches_per_tick": [
                 n_ / self.steps if self.steps else float("nan")
                 for n_ in self.launches_by_tier],

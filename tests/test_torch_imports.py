@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # every module of the slice is there to be checked
     for m in ("configs.base", "data.synthetic", "core.confidence",
               "core.server", "kernels.confidence_gate",
-              "kernels.ragged_attention", "kernels.ops", "kernels.ref",
+              "kernels.ragged_attention", "kernels.paged_attention",
+              "kernels.mixed_attention", "kernels.prefill_attention",
+              "kernels.ops", "kernels.ref",
               "models.params", "models.cache", "models.blocks",
               "models.transformer", "serving.request", "serving.slots",
               "serving.scheduler", "serving.metrics", "serving.engine",
@@ -48,7 +50,8 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(REPO, "src", "repro_torch", "csrc")
-    for name in ("confidence_gate", "ragged_attention"):
+    for name in ("confidence_gate", "ragged_attention", "paged_attention",
+                 "mixed_attention"):
         src = open(os.path.join(csrc, name + ".cu")).read()
         assert 'extern "C" int ' + name in src
         assert f"repro/kernels/{name}.py" in src     # names what it replaces

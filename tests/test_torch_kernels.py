@@ -1,13 +1,15 @@
 """The torch port's kernel modules against the JAX package.
 
 On the CPU the port's plain versions (``confidence_gate_ref``,
-``ragged_attention_ref``) are held to the JAX Pallas kernels run in
-interpret mode and to the JAX oracles in ``repro/kernels/ref.py``, on the
-same numpy inputs; the ``ops`` wrappers route CPU tensors to the plain
-versions without counting a launch.  The CUDA kernels themselves are
-checked against the plain versions by the ``cuda``-marked tests, which
-skip without a card (``chip_smoke.py`` runs the same comparison at the
-main path's full shapes).
+``ragged_attention_ref``, ``paged_attention_ref``,
+``mixed_attention_ref`` and ``paged_prefill_attention_ref``) are held to
+the JAX Pallas kernels run in interpret mode and to the JAX oracles in
+``repro/kernels/ref.py``, on the same numpy inputs; the ``ops`` wrappers
+route CPU tensors to the plain versions without counting a launch.  The
+CUDA kernels themselves are checked against the plain versions by the
+``cuda``-marked tests of ``test_torch_kernels_cuda.py``, which skip
+without a card (``chip_smoke.py`` runs the same comparison at the main
+path's full shapes).
 """
 import os
 
@@ -23,33 +25,24 @@ from repro.core import confidence as jax_confidence  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.core import confidence  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
+from repro_torch.kernels import prefill_attention as prefill_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: run `python3 chip_smoke.py` or "
-                    "`pytest -m cuda` on the H100")
-    return torch.device("cuda")
+from tests.test_torch_kernels_cuda import (MIXED_CASES,  # noqa: E402
+                                           PAGED_CASES, RAGGED_CASES,
+                                           _logits, _mixed_inputs,
+                                           _paged_inputs, _ragged_inputs,
+                                           _torch)
 
 
 # --------------------------------------------------------------------------
 # confidence gate
 # --------------------------------------------------------------------------
-
-
-def _logits(shape, seed, tie=False):
-    x = (np.random.default_rng(seed).standard_normal(shape) * 4).astype(
-        np.float32)
-    if tie:
-        # an exact tie: the first index must win
-        x[..., 3] = 99.0
-        x[..., shape[-1] - 2] = 99.0
-    return x
 
 
 @pytest.mark.parametrize("shape,tie", [
@@ -103,57 +96,6 @@ def test_sequence_confidence_matches_jax(reduce):
 # --------------------------------------------------------------------------
 
 
-def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
-                   window=None):
-    """A flat-packed batch over a random page pool, as numpy arrays."""
-    rng = np.random.default_rng(seed)
-    B = len(qlens)
-    N = B * P + 1
-    if quant:
-        kp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
-        vp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
-        ks = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
-        vs = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
-    else:
-        kp = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
-        vp = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
-        ks = vs = None
-    pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
-        np.int32)
-    q_len = np.asarray(qlens, np.int32)
-    C = max(max(qlens), 1)
-    q_start = np.asarray([int(rng.integers(0, P * bs - C + 1))
-                          for _ in range(B)], np.int32)
-    total = int(q_len.sum())
-    W = max(8, 1 << (max(total, 1) - 1).bit_length())
-    q = np.zeros((W, KV, G, hd), np.float32)
-    q[:total] = rng.standard_normal((total, KV, G, hd))
-    return (q, kp, vp, pt, q_start, q_len), dict(k_scale=ks, v_scale=vs,
-                                                  window=window)
-
-
-def _torch(args, kw):
-    t = tuple(torch.from_numpy(a) for a in args)
-    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
-           for k, v in kw.items()}
-    return t, tkw
-
-
-# (q_len per row, KV, G, hd, quant, window): the smoke shapes (gemma:
-# KV=1 G=4; phi4: KV=4 G=1), phi4's full G=3, arbitrary q_len in [0, C],
-# all-idle, a padded flat tail, sliding windows and int8 pools
-RAGGED_CASES = {
-    "gemma-smoke-mixed": ([3, 0, 16, 1, 1, 7, 0, 5], 1, 4, 32, False, None),
-    "gemma-smoke-window": ([5, 1, 0, 9], 1, 4, 32, False, 6),
-    "phi4-smoke-decode": ([1] * 6, 4, 1, 32, False, None),
-    "phi4-G3-padded-tail": ([7, 2, 0, 4], 2, 3, 32, False, None),
-    "all-idle": ([0] * 5, 1, 4, 32, False, None),
-    "single-full-row": ([16, 0, 0, 0], 2, 3, 32, False, 11),
-    "int8-scales": ([3, 0, 8, 1], 2, 3, 32, True, None),
-    "int8-scales-window": ([6, 2, 1], 1, 4, 32, True, 5),
-}
-
-
 @pytest.mark.parametrize("case", sorted(RAGGED_CASES))
 def test_ragged_attention_matches_jax(case):
     qlens, KV, G, hd, quant, window = RAGGED_CASES[case]
@@ -173,12 +115,75 @@ def test_ragged_attention_matches_jax(case):
 
 
 # --------------------------------------------------------------------------
+# paged decode and mixed (padded) attention
+# --------------------------------------------------------------------------
+
+
+def _jax(args, kw):
+    return (tuple(jnp.asarray(a) for a in args),
+            {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+             for k, v in kw.items()})
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_attention_matches_jax(case):
+    B, KV, G, hd, quant, window, masked = PAGED_CASES[case]
+    args, kw = _paged_inputs(len(case), B=B, KV=KV, G=G, hd=hd, quant=quant,
+                             window=window, masked=masked)
+    targs, tkw = _torch(args, kw)
+    got = ref.paged_attention_ref(*targs, **tkw).numpy()
+    jargs, jkw = _jax(args, kw)
+    for want in (jax_ops.paged_attention(*jargs, interpret=True, **jkw),
+                 jax_ref.paged_attention_ref(*jargs, **jkw)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+def test_mixed_attention_matches_jax(case):
+    qlens, KV, G, hd, quant, window, masked = MIXED_CASES[case]
+    args, kw = _mixed_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
+                             quant=quant, window=window, masked=masked)
+    targs, tkw = _torch(args, kw)
+    got = ref.mixed_attention_ref(*targs, **tkw).numpy()
+    np.testing.assert_array_equal(
+        ref.paged_prefill_attention_ref(*targs, **tkw).numpy(), got)
+    jargs, jkw = _jax(args, kw)
+    live = np.arange(got.shape[1])[None, :] < np.asarray(qlens)[:, None]
+    for want in (jax_ops.mixed_attention(*jargs, interpret=True, **jkw),
+                 jax_ops.paged_prefill_attention(*jargs, interpret=True,
+                                                 **jkw),
+                 jax_ref.mixed_attention_ref(*jargs, **jkw),
+                 jax_ref.paged_prefill_attention_ref(*jargs, **jkw)):
+        np.testing.assert_allclose(got[live], np.asarray(want)[live],
+                                   atol=1e-5, rtol=1e-5)
+    assert not got[~live].any()         # dead slots are zero
+
+
+def test_mixed_decode_rows_match_paged_decode():
+    """A ``q_len == 1`` row of the padded batch is a paged decode step at
+    ``q_start``, as the JAX tests pin it."""
+    args, kw = _mixed_inputs(9, qlens=[1, 1, 1, 1], KV=2, G=3, hd=32, C=3,
+                             window=7)
+    targs, tkw = _torch(args, kw)
+    q, kp, vp, pt, q_start, _ = targs
+    got = ref.mixed_attention_ref(*targs, **tkw)[:, 0]
+    want = ref.paged_attention_ref(q[:, 0].contiguous(), kp, vp, pt,
+                                   q_start, **tkw)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain version; CUDA tensors the kernel
 # --------------------------------------------------------------------------
 
 
+LAUNCHED = ("confidence_gate", "ragged_attention", "paged_attention",
+            "mixed_attention")
+
+
 def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
-    before = (ops.confidence_gate.launches, ops.ragged_attention.launches)
+    before = tuple(getattr(ops, n).launches for n in LAUNCHED)
     x = torch.from_numpy(_logits((3, 700), seed=5))
     g = ops.confidence_gate(x)
     want = ref.confidence_gate_ref(x)
@@ -188,8 +193,18 @@ def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
     targs, tkw = _torch(args, kw)
     assert torch.equal(ops.ragged_attention(*targs, **tkw),
                        ref.ragged_attention_ref(*targs, **tkw))
-    assert (ops.confidence_gate.launches,
-            ops.ragged_attention.launches) == before == (0, 0)
+    args, kw = _paged_inputs(3, B=3, KV=1, G=4, hd=32)
+    targs, tkw = _torch(args, kw)
+    assert torch.equal(ops.paged_attention(*targs, **tkw),
+                       ref.paged_attention_ref(*targs, **tkw))
+    args, kw = _mixed_inputs(3, qlens=[2, 0, 4, 1], KV=1, G=4, hd=32)
+    targs, tkw = _torch(args, kw)
+    want = ref.mixed_attention_ref(*targs, **tkw)
+    assert torch.equal(ops.mixed_attention(*targs, **tkw), want)
+    assert torch.equal(ops.paged_prefill_attention(*targs, **tkw), want)
+    assert torch.equal(ref.paged_prefill_attention_ref(*targs, **tkw), want)
+    after = tuple(getattr(ops, n).launches for n in LAUNCHED)
+    assert after == before == (0, 0, 0, 0)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -202,38 +217,24 @@ def test_kernel_launchers_refuse_cpu_tensors():
     targs, tkw = _torch(args, kw)
     with pytest.raises(ValueError, match="CUDA"):
         ragged_mod.ragged_attention(*targs, **tkw)
+    targs, tkw = _torch(*_paged_inputs(1, B=2, KV=1, G=1, hd=32))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_mod.paged_attention(*targs, **tkw)
+    targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=1, hd=32))
+    with pytest.raises(ValueError, match="CUDA"):
+        mixed_mod.mixed_attention(*targs, **tkw)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_mod.paged_prefill_attention(*targs, **tkw)
 
 
-# --------------------------------------------------------------------------
-# the CUDA kernels against the plain versions (card only)
-# --------------------------------------------------------------------------
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
-def test_cuda_ragged_attention_matches_plain(case, cuda_device):
-    qlens, KV, G, hd, quant, window = RAGGED_CASES[case]
-    args, kw = _ragged_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
-                              quant=quant, window=window)
-    targs, tkw = _torch(args, kw)
-    dargs = tuple(a.to(cuda_device) for a in targs)
-    dkw = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
-           for k, v in tkw.items()}
-    got = ragged_mod.ragged_attention(*dargs, **dkw).cpu()
-    want = ref.ragged_attention_ref(*targs, **tkw)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,tie", [((8, 262144), False),
-                                       ((8, 200064), False),
-                                       ((3, 1000), True)])
-def test_cuda_confidence_gate_matches_plain(shape, tie, cuda_device):
-    x = torch.from_numpy(_logits(shape, seed=1, tie=tie))
-    got = gate_mod.confidence_gate(x.to(cuda_device))
-    want = ref.confidence_gate_ref(x)
-    for k in ("conf", "logz"):
-        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=0)
-    torch.testing.assert_close(got["entropy"].cpu(), want["entropy"],
-                               atol=1e-4, rtol=0)
-    assert torch.equal(got["argmax"].cpu(), want["argmax"])
+def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header (``csrc/*.cuh``) must rebuild every kernel
+    that includes it: the library name hashes the headers too."""
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels.library_path(n) for n in kernels.KERNELS}
+    header = tmp_path / "paged_attend.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels.library_path(n) for n in kernels.KERNELS}
+    assert all(before[n] != after[n] for n in kernels.KERNELS)

@@ -1,0 +1,230 @@
+"""The torch port's CUDA kernels against their plain versions, on the
+card (the ``cuda``-marked tests skip themselves without one), and the
+numpy-seeded inputs the CPU tests of ``test_torch_kernels.py`` share.
+
+This file imports neither JAX nor the JAX package, so it runs on a
+machine with a card and no JAX:
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
+``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
+from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
+from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run `python3 chip_smoke.py` or "
+                    "`pytest -m cuda` on the H100")
+    return torch.device("cuda")
+
+
+def _logits(shape, seed, tie=False):
+    x = (np.random.default_rng(seed).standard_normal(shape) * 4).astype(
+        np.float32)
+    if tie:
+        # an exact tie: the first index must win
+        x[..., 3] = 99.0
+        x[..., shape[-1] - 2] = 99.0
+    return x
+
+
+def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
+                   window=None):
+    """A flat-packed batch over a random page pool, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    B = len(qlens)
+    N = B * P + 1
+    if quant:
+        kp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
+        vp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
+        ks = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
+        vs = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
+    else:
+        kp = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
+        vp = rng.standard_normal((N, bs, KV, hd)).astype(np.float32)
+        ks = vs = None
+    pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
+        np.int32)
+    q_len = np.asarray(qlens, np.int32)
+    C = max(max(qlens), 1)
+    q_start = np.asarray([int(rng.integers(0, P * bs - C + 1))
+                          for _ in range(B)], np.int32)
+    total = int(q_len.sum())
+    W = max(8, 1 << (max(total, 1) - 1).bit_length())
+    q = np.zeros((W, KV, G, hd), np.float32)
+    q[:total] = rng.standard_normal((total, KV, G, hd))
+    return (q, kp, vp, pt, q_start, q_len), dict(k_scale=ks, v_scale=vs,
+                                                  window=window)
+
+
+def _torch(args, kw):
+    t = tuple(torch.from_numpy(a) for a in args)
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    return t, tkw
+
+
+# (q_len per row, KV, G, hd, quant, window): the smoke shapes (gemma:
+# KV=1 G=4; phi4: KV=4 G=1), phi4's full G=3, arbitrary q_len in [0, C],
+# all-idle, a padded flat tail, sliding windows and int8 pools
+RAGGED_CASES = {
+    "gemma-smoke-mixed": ([3, 0, 16, 1, 1, 7, 0, 5], 1, 4, 32, False, None),
+    "gemma-smoke-window": ([5, 1, 0, 9], 1, 4, 32, False, 6),
+    "phi4-smoke-decode": ([1] * 6, 4, 1, 32, False, None),
+    "phi4-G3-padded-tail": ([7, 2, 0, 4], 2, 3, 32, False, None),
+    "all-idle": ([0] * 5, 1, 4, 32, False, None),
+    "single-full-row": ([16, 0, 0, 0], 2, 3, 32, False, 11),
+    "int8-scales": ([3, 0, 8, 1], 2, 3, 32, True, None),
+    "int8-scales-window": ([6, 2, 1], 1, 4, 32, True, 5),
+}
+
+
+def _pool(rng, N, bs, KV, hd, quant):
+    if quant:
+        kp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
+        vp = rng.integers(-127, 128, (N, bs, KV, hd)).astype(np.int8)
+        ks = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
+        vs = rng.uniform(0.01, 0.05, (N, bs, KV)).astype(np.float32)
+        return kp, vp, ks, vs
+    return (rng.standard_normal((N, bs, KV, hd)).astype(np.float32),
+            rng.standard_normal((N, bs, KV, hd)).astype(np.float32),
+            None, None)
+
+
+def _paged_inputs(seed, *, B, KV, G, hd, bs=4, P=6, quant=False,
+                  window=None, masked=()):
+    """One decode query per row at a random depth over a shuffled pool;
+    rows in ``masked`` get an all-zero page-table row (the split decode
+    step's mask), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    N = B * P + 1
+    kp, vp, ks, vs = _pool(rng, N, bs, KV, hd, quant)
+    pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
+        np.int32)
+    pt[list(masked)] = 0
+    pos = rng.integers(0, P * bs, B).astype(np.int32)
+    q = rng.standard_normal((B, KV, G, hd)).astype(np.float32)
+    return (q, kp, vp, pt, pos), dict(k_scale=ks, v_scale=vs, window=window)
+
+
+def _mixed_inputs(seed, *, qlens, KV, G, hd, C=None, bs=4, P=6,
+                  quant=False, window=None, masked=()):
+    """A padded [B, C] batch: row b's q_len[b] live slots start at a
+    random position that keeps them inside the row's pages."""
+    rng = np.random.default_rng(seed)
+    B = len(qlens)
+    C = C or max(max(qlens), 1)
+    N = B * P + 1
+    kp, vp, ks, vs = _pool(rng, N, bs, KV, hd, quant)
+    pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
+        np.int32)
+    pt[list(masked)] = 0
+    q_start = rng.integers(0, P * bs - C + 1, B).astype(np.int32)
+    q = rng.standard_normal((B, C, KV, G, hd)).astype(np.float32)
+    return (q, kp, vp, pt, q_start, np.asarray(qlens, np.int32)), dict(
+        k_scale=ks, v_scale=vs, window=window)
+
+
+# (rows, KV, G, hd, quant, window, masked rows): the smoke shapes (gemma
+# KV=1 G=4, phi4 KV=4 G=1), phi4's full G=3, windows, int8 pools and a
+# row masked to the null block
+PAGED_CASES = {
+    "gemma-smoke": (5, 1, 4, 32, False, None, ()),
+    "gemma-smoke-window": (4, 1, 4, 32, False, 6, ()),
+    "phi4-smoke": (6, 4, 1, 32, False, None, ()),
+    "G3-masked-row": (4, 2, 3, 32, False, None, (1,)),
+    "int8-scales": (4, 2, 3, 32, True, None, ()),
+    "int8-scales-window-masked": (3, 1, 4, 64, True, 5, (2,)),
+}
+
+
+# (q_len per row, KV, G, hd, quant, window, masked rows): chunk, tail,
+# decode and idle rows side by side, the gemma smoke window, G in
+# {1, 3, 4}, int8 pools and a masked row
+MIXED_CASES = {
+    "gemma-smoke-mixed": ([8, 3, 1, 0], 1, 4, 32, False, None, ()),
+    "gemma-smoke-window": ([8, 1, 5, 8], 1, 4, 32, False, 6, ()),
+    "phi4-smoke-decode": ([1] * 5, 4, 1, 32, False, None, ()),
+    "G3-tail-masked": ([6, 0, 2, 1], 2, 3, 32, False, None, (1,)),
+    "all-idle": ([0] * 3, 1, 4, 32, False, None, ()),
+    "int8-scales": ([4, 1, 2], 2, 3, 32, True, None, ()),
+    "int8-scales-window": ([7, 1, 0, 3], 1, 4, 64, True, 5, ()),
+}
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernels against the plain versions (card only)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_cuda_ragged_attention_matches_plain(case, cuda_device):
+    qlens, KV, G, hd, quant, window = RAGGED_CASES[case]
+    args, kw = _ragged_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
+                              quant=quant, window=window)
+    targs, tkw = _torch(args, kw)
+    dargs = tuple(a.to(cuda_device) for a in targs)
+    dkw = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+           for k, v in tkw.items()}
+    got = ragged_mod.ragged_attention(*dargs, **dkw).cpu()
+    want = ref.ragged_attention_ref(*targs, **tkw)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tie", [((8, 262144), False),
+                                       ((8, 200064), False),
+                                       ((3, 1000), True)])
+def test_cuda_confidence_gate_matches_plain(shape, tie, cuda_device):
+    """Against the plain version in f64 on the CPU, rounded to f32: an
+    exact enough reference that agreement does not hang on the order of
+    the sums."""
+    x = torch.from_numpy(_logits(shape, seed=1, tie=tie))
+    got = gate_mod.confidence_gate(x.to(cuda_device))
+    want = ref.confidence_gate_ref(x.double())
+    for k in ("conf", "logz"):
+        torch.testing.assert_close(got[k].cpu(), want[k].float(), rtol=1e-5,
+                                   atol=0)
+    torch.testing.assert_close(got["entropy"].cpu(), want["entropy"].float(),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(got["argmax"].cpu(), want["argmax"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_cuda_paged_attention_matches_plain(case, cuda_device):
+    B, KV, G, hd, quant, window, masked = PAGED_CASES[case]
+    args, kw = _paged_inputs(len(case), B=B, KV=KV, G=G, hd=hd, quant=quant,
+                             window=window, masked=masked)
+    targs, tkw = _torch(args, kw)
+    dargs = tuple(a.to(cuda_device) for a in targs)
+    dkw = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+           for k, v in tkw.items()}
+    got = paged_mod.paged_attention(*dargs, **dkw).cpu()
+    want = ref.paged_attention_ref(*targs, **tkw)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+def test_cuda_mixed_attention_matches_plain(case, cuda_device):
+    qlens, KV, G, hd, quant, window, masked = MIXED_CASES[case]
+    args, kw = _mixed_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
+                             quant=quant, window=window, masked=masked)
+    targs, tkw = _torch(args, kw)
+    dargs = tuple(a.to(cuda_device) for a in targs)
+    dkw = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+           for k, v in tkw.items()}
+    got = mixed_mod.mixed_attention(*dargs, **dkw).cpu()
+    want = ref.mixed_attention_ref(*targs, **tkw)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -2,8 +2,10 @@
 
 Weights come from the JAX package's ``init_params`` and cross through
 :func:`repro_torch.models.params.from_jax`; inputs and KV pools are
-numpy arrays from a seed.  The attention path is the serving one,
-``mode="ragged_step"``, whose kernels run as their plain versions here.
+numpy arrays from a seed.  The attention paths are the serving ones —
+``ragged_step`` (ragged executor), ``mixed_step`` (padded executor),
+``prefill_chunk`` and paged ``decode`` (split executor) — whose kernels
+run as their plain versions here.
 """
 import dataclasses
 import os
@@ -249,14 +251,129 @@ def test_ragged_step_logits_match_jax(model, qlens):
 
 def test_last_slot_gather_matches_jax():
     rng = np.random.default_rng(4)
-    logits = rng.standard_normal((1, 16, 9)).astype(np.float32)
+    flat = rng.standard_normal((1, 16, 9)).astype(np.float32)
+    padded = rng.standard_normal((4, 16, 9)).astype(np.float32)
     for q_len in ([3, 0, 5, 2], [0, 0, 0, 0], [16, 0, 0, 0]):
         q_len = np.asarray(q_len, np.int32)
-        want = jax_transformer.last_slot_gather(
-            jnp.asarray(logits), jnp.asarray(q_len), flat=True)
-        got = transformer.last_slot_gather(torch.from_numpy(logits),
-                                           torch.from_numpy(q_len))
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        for logits, is_flat in ((flat, True), (padded, False)):
+            want = jax_transformer.last_slot_gather(
+                jnp.asarray(logits), jnp.asarray(q_len), flat=is_flat)
+            got = transformer.last_slot_gather(torch.from_numpy(logits),
+                                               torch.from_numpy(q_len),
+                                               flat=is_flat)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --------------------------------------------------------------------------
+# padded and split steps
+# --------------------------------------------------------------------------
+
+
+def _random_pool(rng, jcfg, R, N, bs):
+    """Random KV pools (int8 values with small positive scales for an
+    int8 cache)."""
+    def fill(path, a):
+        if a.dtype == np.int8:
+            return rng.integers(-127, 128, a.shape).astype(np.int8)
+        if "scale" in jax.tree_util.keystr(path):
+            return rng.uniform(0.01, 0.05, a.shape).astype(np.float32)
+        return rng.standard_normal(a.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(
+        fill, _np_tree(jax_cache.init_paged_cache(jcfg, R, N, bs,
+                                                  jnp.float32)))
+
+
+def _check_pools(got_c, want_c):
+    """Every pool block but the null block 0, which takes the dead slots'
+    duplicate writes."""
+    for (k, g), w in zip(_leaves(got_c).items(),
+                         _leaves(_np_tree(want_c)).values()):
+        np.testing.assert_allclose(g.numpy()[:, 1:], w[:, 1:], atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["mixed_step", "prefill_chunk"])
+@pytest.mark.parametrize("qlens,kv_quant", [
+    ([5, 0, 1, 7], None),       # chunk, idle, decode, full width
+    ([1, 1, 1, 1], None),       # decode-only rows at chunk width
+    ([7, 3, 0, 1], "int8"),     # tail rows over int8 pools
+])
+def test_padded_step_logits_match_jax(model, mode, qlens, kv_quant):
+    """A padded ``[B, C]`` step (``mixed_step``, or the split executor's
+    ``prefill_chunk``) against the JAX package: the logits of live slots
+    and every pool block it wrote."""
+    name, jcfg, cfg, jp, tp = model
+    jcfg = dataclasses.replace(jcfg, kv_quant=kv_quant)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    rng = np.random.default_rng(sum(qlens) + len(mode))
+    R, P, bs, C = 4, 6, 4, 7
+    N = R * P + 1
+    pt = rng.permutation(np.arange(1, N))[:R * P].reshape(R, P).astype(
+        np.int32)
+    q_len = np.asarray(qlens, np.int32)
+    q_start = rng.integers(0, P * bs - C + 1, R).astype(np.int32)
+    pos = (q_start[:, None] + np.arange(C)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (R, C)).astype(np.int32)
+    pool = _random_pool(rng, jcfg, R, N, bs)
+    pages = {"page_table": pt, "q_len": q_len}
+    want, want_c = getattr(jax_transformer, mode)(
+        jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(toks),
+        jax.tree.map(jnp.asarray, pool), jnp.asarray(pos),
+        jax.tree.map(jnp.asarray, pages))
+    got, got_c = getattr(transformer, mode)(
+        tp, cfg, torch.from_numpy(toks), params.from_jax(pool),
+        torch.from_numpy(pos),
+        {k: torch.from_numpy(v) for k, v in pages.items()})
+    if mode == "mixed_step":
+        live = q_len > 0                        # last-slot logits [B, V]
+        assert got.shape == (R, cfg.vocab_size)
+    else:
+        live = np.arange(C)[None, :] < q_len[:, None]   # [B, C, V]
+        assert got.shape == (R, C, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=1e-4, rtol=1e-4)
+    _check_pools(got_c, want_c)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_paged_decode_step_logits_match_jax(model, kv_quant):
+    """The split executor's decode launch, ``decode_step(pages=)``, with
+    one row masked to the null block as a mid-prefill row is: live rows'
+    logits and every pool block but the null one against the JAX
+    package."""
+    name, jcfg, cfg, jp, tp = model
+    jcfg = dataclasses.replace(jcfg, kv_quant=kv_quant)
+    cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    rng = np.random.default_rng(11)
+    R, P, bs = 5, 6, 4
+    N = R * P + 1
+    pt = rng.permutation(np.arange(1, N))[:R * P].reshape(R, P).astype(
+        np.int32)
+    pt[2] = 0                                   # masked row
+    pos = rng.integers(0, P * bs, (R, 1)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (R, 1)).astype(np.int32)
+    pool = _random_pool(rng, jcfg, R, N, bs)
+    want, want_c = jax_transformer.decode_step(
+        jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(toks),
+        jax.tree.map(jnp.asarray, pool), jnp.asarray(pos),
+        pages={"page_table": jnp.asarray(pt)})
+    got, got_c = transformer.decode_step(
+        tp, cfg, torch.from_numpy(toks), params.from_jax(pool),
+        torch.from_numpy(pos), pages={"page_table": torch.from_numpy(pt)})
+    live = np.ones(R, bool)
+    live[2] = False
+    assert got.shape == (R, 1, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=1e-4, rtol=1e-4)
+    _check_pools(got_c, want_c)
+
+
+def test_dense_caches_are_not_ported(model):
+    name, _, cfg, _, tp = model
+    cache = init_paged_cache(cfg, 2, 5, 4, torch.float32, "cpu")
+    tok = torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="dense"):
+        transformer.decode_step(tp, cfg, tok, cache, tok)
 
 
 def test_init_paged_cache_layout(model):

@@ -244,20 +244,98 @@ def _drain(eng, work):
     return eng
 
 
-def _jax_engine(weights, delta):
+def _jax_engine(weights, delta, **kw):
+    kw = {**ENGINE_KW, **kw}
     return JaxEngine([JaxTierSpec(n, weights[n][0], weights[n][1])
                       for n in (FAST, EXP)], deltas=[delta],
-                     clock=JaxVirtualClock(), **ENGINE_KW)
+                     clock=JaxVirtualClock(), **kw)
 
 
-def _torch_engine(weights, delta):
+def _torch_engine(weights, delta, **kw):
+    kw = {**ENGINE_KW, **kw}
     return CascadeEngine([TierSpec(n, get_config(n, "smoke"), weights[n][2])
                           for n in (FAST, EXP)], deltas=[delta],
-                         clock=VirtualClock(), device="cpu", **ENGINE_KW)
+                         clock=VirtualClock(), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("dist", ["uniform", "lognormal"])
-def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
+# the three executors, as engine switches (both packages take the same)
+EXECUTORS = {"ragged": {},
+             "padded": {"use_ragged_step": False},
+             "split": {"use_unified_step": False}}
+
+
+def _tap_jax_logits(monkeypatch, recording):
+    """Record each JAX launch's per-row next-token logits, per tier: the
+    unified steps' last-slot logits, the chunk launch's logits at each
+    row's last live slot, the decode launch's single position."""
+    logits_by_tier = {FAST: [], EXP: []}
+
+    def tap(name, logits):
+        if recording[0]:
+            logits_by_tier[name].append(np.array(logits))
+
+    def tapped(fn, per_row):
+        def run(params, cfg, tokens, cache, pos, pages=None):
+            logits, cache = fn(params, cfg, tokens, cache, pos, pages)
+            jax.debug.callback(functools.partial(
+                tap, cfg.name.removesuffix("-smoke")), per_row(logits, pages))
+            return logits, cache
+        return run
+
+    rows = lambda lg, pages: lg                                # noqa: E731
+    for name, per_row in (
+            ("ragged_step", rows), ("mixed_step", rows),
+            ("prefill_chunk", lambda lg, pages: lg[
+                jnp.arange(lg.shape[0]),
+                jnp.maximum(pages["q_len"] - 1, 0)]),
+            ("decode_step", lambda lg, pages: lg[:, 0])):
+        monkeypatch.setattr(jax_transformer, name, tapped(
+            getattr(jax_transformer, name), per_row))
+    return logits_by_tier
+
+
+def _tap_torch_rows(eng):
+    """Record the port's per-launch logits (every launch picks once, in
+    the confidence gate) and, per launch, the rows it emits a token
+    for."""
+    logits_by_tier = {FAST: [], EXP: []}
+    emitted = {FAST: [], EXP: []}
+    for rt in eng.runtimes:
+        pick = rt.pick
+
+        def tapped(logits2d, pick=pick, name=rt.spec.name):
+            logits_by_tier[name].append(logits2d.numpy().copy())
+            return pick(logits2d)
+        rt.pick = tapped
+    exec_unified, exec_split = eng._exec_unified, eng._exec_split
+    decode_launch = eng._decode_launch
+
+    def unified(tier, rt, plan):
+        if plan.prefill_rows or plan.decode_rows:
+            emitted[rt.spec.name].append(plan.finishing + plan.decode_rows)
+        return exec_unified(tier, rt, plan)
+
+    def split(tier, rt, plan):
+        if plan.prefill_rows:           # the chunk launch emits these
+            emitted[rt.spec.name].append(list(plan.finishing))
+        return exec_split(tier, rt, plan)
+
+    def decode(tier, rt, pf):
+        dc = decode_launch(tier, rt, pf)
+        if dc is not None:
+            emitted[rt.spec.name].append(list(dc["active"]))
+        return dc
+    eng._exec_unified, eng._exec_split = unified, split
+    eng._decode_launch = decode
+    return logits_by_tier, emitted
+
+
+def _check_stream_parity(weights, dist, monkeypatch, executor):
+    """The port and the JAX engine under one executor: equal
+    ``stream_checksum`` and token confidences, and at every emitted step
+    the port's logits within 1e-4 of JAX's with a top-1/top-2 margin of
+    more than twice that difference."""
+    kw = EXECUTORS[executor]
     work = _workload(dist)
     # δ mid-gap of a JAX probe run's tier-0 confidences (δ = 0: nothing
     # escalates), so the gate splits the workload
@@ -266,23 +344,9 @@ def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
     i = int(np.argmax(np.diff(confs)))
     delta = float((confs[i] + confs[i + 1]) / 2)
 
-    # record each package's last-slot logits per launch, per tier
-    jax_logits = {FAST: [], EXP: []}
     recording = [False]
-    orig = jax_transformer.ragged_step
-
-    def tap(name, logits):
-        if recording[0]:
-            jax_logits[name].append(np.array(logits))
-
-    def ragged_step(params, cfg, *a):
-        logits, cache = orig(params, cfg, *a)
-        jax.debug.callback(functools.partial(
-            tap, cfg.name.removesuffix("-smoke")), logits)
-        return logits, cache
-
-    monkeypatch.setattr(jax_transformer, "ragged_step", ragged_step)
-    ref = _jax_engine(weights, delta)
+    jax_logits = _tap_jax_logits(monkeypatch, recording)
+    ref = _jax_engine(weights, delta, **kw)
     ref.warmup()
     recording[0] = True
     for p, t in work:
@@ -290,23 +354,8 @@ def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
     ref.run(max_steps=500)
     jax.effects_barrier()
 
-    mine = _torch_engine(weights, delta)
-    torch_logits = {FAST: [], EXP: []}
-    emitted = {FAST: [], EXP: []}
-    for rt in mine.runtimes:
-        pick = rt.pick
-
-        def tapped(logits2d, pick=pick, name=rt.spec.name):
-            torch_logits[name].append(logits2d.numpy().copy())
-            return pick(logits2d)
-        rt.pick = tapped
-    exec_ragged = mine._exec_ragged
-
-    def record_rows(tier, rt, plan):
-        if plan.prefill_rows or plan.decode_rows:
-            emitted[rt.spec.name].append(plan.finishing + plan.decode_rows)
-        return exec_ragged(tier, rt, plan)
-    mine._exec_ragged = record_rows
+    mine = _torch_engine(weights, delta, **kw)
+    torch_logits, emitted = _tap_torch_rows(mine)
     _drain(mine, [])                    # warmup, then nothing queued
     for name in torch_logits:           # drop the warmup launches
         torch_logits[name].clear()
@@ -336,6 +385,105 @@ def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
     # every emitted token of every tier was checked
     assert steps == sum(len(t) for r in mine.requests
                         for t in r.tokens_by_tier)
+    return mine
+
+
+@pytest.mark.parametrize("dist", ["uniform", "lognormal"])
+def test_stream_parity_with_jax_engine(weights, dist, monkeypatch):
+    _check_stream_parity(weights, dist, monkeypatch, "ragged")
+
+
+@pytest.mark.parametrize("executor", ["padded", "split"])
+def test_stream_parity_with_jax_engine_padded_and_split(weights, executor,
+                                                        monkeypatch):
+    """``use_ragged_step=False`` and ``use_unified_step=False`` against
+    the same switches in the JAX engine."""
+    eng = _check_stream_parity(weights, "lognormal", monkeypatch, executor)
+    assert (eng.unified_step, eng.ragged_step) == {
+        "padded": (True, False), "split": (False, False)}[executor]
+
+
+def test_split_oversubscribed_arena_matches_jax(weights):
+    """An over-subscribed arena (10 blocks where 16 hold every row): rows
+    are denied blocks and stall, so the split executor's admission (the
+    legacy prefill-only token window) and block growth (decode rows after
+    the chunk launch, oldest first) must follow the JAX engine's for the
+    streams and every request's virtual-clock TTFT and latency to
+    agree."""
+    work = _workload("bimodal", n=8, seed=3)
+    kw = dict(use_unified_step=False, kv_blocks=10)
+    ref = _drain(_jax_engine(weights, 0.5, **kw), work)
+    mine = _torch_engine(weights, 0.5, **kw)
+    denied = [0]
+    for rt in mine.runtimes:
+        grow = rt.pool.ensure_blocks
+
+        def counted(slot, pos, grow=grow):
+            ok = grow(slot, pos)
+            denied[0] += not ok
+            return ok
+        rt.pool.ensure_blocks = counted
+    _drain(mine, work)
+    assert mine.runtimes[0].pool.oversubscribed and denied[0] > 0
+    assert serve_async.stream_checksum(mine) == \
+        jax_serve_async.stream_checksum(ref)
+    np.testing.assert_allclose(   # virtual-clock ticks, to float noise
+        [(r.ttft, r.latency) for r in mine.requests],
+        [(r.ttft, r.latency) for r in ref.requests], atol=1e-9, rtol=0)
+
+
+def test_executors_agree_in_the_port(weights):
+    """ragged = padded = split: the same weights, δ and workload give the
+    same streams under all three executors."""
+    work = _workload("lognormal", n=8, seed=2)
+    sums = {name: serve_async.stream_checksum(
+        _drain(_torch_engine(weights, 0.5, **kw), work))
+        for name, kw in EXECUTORS.items()}
+    assert len(set(sums.values())) == 1, sums
+
+
+def _per_tick_counts(eng):
+    """Launches and fetches per tier for every tick of a run."""
+    ticks = []
+    step = eng.step
+
+    def counted(now=None):
+        m = eng.metrics
+        l0, h0 = list(m.launches_by_tier), list(m.host_syncs_by_tier)
+        step(now)
+        ticks.append(([a - b for a, b in zip(m.launches_by_tier, l0)],
+                      [a - b for a, b in zip(m.host_syncs_by_tier, h0)]))
+    eng.step = counted
+    return ticks
+
+
+@pytest.mark.parametrize("executor", ["padded", "split"])
+def test_launch_and_fetch_budget_per_tick(weights, executor):
+    """Padded: one launch per active tier per tick.  Split: at most two
+    launches (chunk + decode) and at most one fetch per tier per tick,
+    with both kinds of launch seen."""
+    eng = _torch_engine(weights, 0.5, **EXECUTORS[executor])
+    ticks = _per_tick_counts(eng)
+    _drain(eng, _workload("lognormal"))
+    most = 1 if executor == "padded" else 2
+    assert all(max(l) <= most and max(h) <= 1 and all(
+        hh <= ll for hh, ll in zip(h, l)) for l, h in ticks)
+    s = eng.metrics.summary()
+    want = {"mixed"} if executor == "padded" else {"chunk", "step"}
+    assert all(set(k) == want for k in s["launches_by_kind"])
+    assert s["active_ticks"] == [sum(l[t] > 0 for l, _ in ticks)
+                                 for t in range(2)]
+    assert all(h <= a for h, a in zip(s["host_syncs"], s["active_ticks"]))
+    if executor == "split":
+        assert any(max(l) == 2 for l, _ in ticks)   # a mixed tick
+
+
+def test_executor_switches_raise_like_jax(weights):
+    tiers = [TierSpec(n, get_config(n, "smoke"), weights[n][2])
+             for n in (FAST, EXP)]
+    with pytest.raises(ValueError, match="ragged flat token-batch"):
+        CascadeEngine(tiers, device="cpu", use_unified_step=False,
+                      use_ragged_step=True, **ENGINE_KW)
 
 
 def test_host_syncs_one_per_active_tier_per_tick(weights):
@@ -375,5 +523,28 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
                for r in s["per_request"])
     assert s["kernel_launches"] == {"ragged_attention": 0,
+                                    "mixed_attention": 0,
+                                    "paged_attention": 0,
                                     "confidence_gate": 0}
-    assert "served 4/4 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "served 4/4 requests" in out and "[ragged]" in out
+
+
+@pytest.mark.parametrize("flag,mode", [("--no-ragged-step", "unified"),
+                                       ("--split-step", "split")])
+def test_cli_runs_padded_and_split_on_cpu(flag, mode, capsys):
+    args = serve_async.make_parser().parse_args(
+        ["--device", "cpu", "--requests", "4", "--slots", "2",
+         "--prompt-len", "12", "--gen-len", "3", "--length-dist",
+         "lognormal", "--virtual-clock", flag])
+    s = serve_async.run(args, VirtualClock())
+    serve_async.report(s)
+    assert s["completed"] == 4 and s["ragged_step"] is False
+    assert s["unified_step"] is (mode == "unified")
+    assert s["flat_buckets"] == [None, None]
+    assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
+               for r in s["per_request"])
+    out = capsys.readouterr().out
+    assert "served 4/4 requests" in out and f"[{mode}]" in out
+    with pytest.raises(SystemExit):
+        serve_async.make_parser().parse_args(["--ragged-step=no"])
