@@ -8,15 +8,18 @@ Phases (each raises on failure, and the script then exits non-zero
 without printing a result):
 
   1. environment: card name and power limit (``nvidia-smi``), torch and
-     CUDA versions, and the build of the four CUDA kernels from
+     CUDA versions, and the build of the five CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (gemma3-1b and phi4-mini-3.8b), with
-     CUDA-event times for the kernel and the plain version;
+     shapes the main paths give it (gemma3-1b, phi4-mini-3.8b and
+     granite-moe-3b-a800m), with CUDA-event times for the kernel and the
+     plain version (for the gate and the router also back to back,
+     :func:`device_ms`);
   3. the port's ragged, padded (``mixed_step``) and split
      (``prefill_chunk`` then ``decode_step``) steps end to end on the
      card against the same steps on the CPU (plain versions), at the
-     smoke widths;
+     smoke widths, and for granite at its published widths cut to 2
+     layers;
   4. the main path at full width: ``repro_torch.launch.serve_async.run``
      serving 16 requests through the published gemma3-1b ->
      phi4-mini-3.8b cascade (random f32 weights from a seed) on the
@@ -24,10 +27,12 @@ without printing a result):
      just before and read just after;
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
-     each with the counters set to 0 just before and read just after;
-  6. the workload once more under each executor inside
-     ``torch.profiler``, with a virtual clock: device time by kernel kind
-     and the device's idle share.
+     then the gemma3-1b -> granite-moe-3b-a800m cascade (40 experts,
+     top-8) under all three, each run with the counters set to 0 just
+     before and read just after;
+  6. the workload once more inside ``torch.profiler``, with a virtual
+     clock, under each executor and for the MoE cascade under the ragged
+     one: device time by kernel kind and the device's idle share.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -36,6 +41,7 @@ imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,8 +62,9 @@ from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
+from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.launch import serve_async  # noqa: E402
-from repro_torch.models import init_params, transformer  # noqa: E402
+from repro_torch.models import blocks, init_params, transformer  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
@@ -100,6 +107,26 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
 # --------------------------------------------------------------------------
 # phase 2: kernels against plain versions
 # --------------------------------------------------------------------------
+
+
+def device_ms(fn, iters: int = 100) -> float:
+    """Mean milliseconds per call of ``fn`` with its launches queued back
+    to back on the device: the stream first spins for ~0.1 s
+    (``torch.cuda._sleep``) while the host enqueues every call, so CUDA
+    events around the calls time the device alone, without the gaps the
+    host leaves between launches (which events around one call of a
+    microsecond kernel also time)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def paged_pool(gen, dev, *, KV, hd, kv_dtype, R, P, bs):
@@ -196,6 +223,7 @@ def time_case(name, timed, kernel, plain, work, flush):
 
 GEMMA = dict(KV=1, G=4, hd=256)
 PHI4 = dict(KV=8, G=3, hd=128)
+GRANITE = dict(KV=8, G=3, hd=64)
 NEAR600 = [590, 595, 600, 605, 610, 615, 620, 625]     # decode ticks
 # (atol, rtol) against the plain version by case kind; bf16 cases hold
 # the kernel on bf16 inputs against the plain version in f32 on the same
@@ -236,6 +264,9 @@ def check_ragged(dev, flush):
         ("gemma window=512 bf16", gemma, mixed, late, 512, "bf16"),
         ("phi4 bf16", phi4, mixed, late, None, "bf16"),
         ("phi4 int8+scales", phi4, mixed, late, None, "int8+scales"),
+        ("granite full bucket f32", GRANITE, full,
+         [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
+        ("granite decode f32", GRANITE, [1] * 8, near600, None, "f32"),
     ]
     worst, timed = 0.0, {}
     for name, shape, qlens, qstart, window, kind in cases:
@@ -281,11 +312,12 @@ def dtypes_of(kind):
 
 
 # (label, shape, window, kinds) of the attention layers on the main
-# path: gemma3's sliding-window layers, its global layers (1 in 6) and
-# phi4's layers
+# paths: gemma3's sliding-window layers, its global layers (1 in 6),
+# phi4's layers and granite's (hd 64)
 LAYERS = (("gemma", GEMMA, 512, ("f32", "bf16", "int8+scales")),
           ("gemma", GEMMA, None, ("f32",)),
-          ("phi4", PHI4, None, ("f32", "bf16", "int8+scales")))
+          ("phi4", PHI4, None, ("f32", "bf16", "int8+scales")),
+          ("granite", GRANITE, None, ("f32",)))
 
 
 def check_paged(dev, flush):
@@ -404,7 +436,8 @@ def check_gate(dev, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst, timed = {"conf": 0.0, "entropy": 0.0, "logz": 0.0}, {}
-    for name, V in (("gemma3-1b", 262144), ("phi4-mini-3.8b", 200064)):
+    for name, V in (("gemma3-1b", 262144), ("phi4-mini-3.8b", 200064),
+                    ("granite-moe-3b-a800m", 49155)):
         # random logits at a spread where the max is well separated
         x = torch.randn(8, V, generator=gen, device=dev) * 3.0
         got = gate_mod.confidence_gate(x)
@@ -435,7 +468,9 @@ def check_gate(dev, flush):
         nbytes = x.numel() * 4 + 8 * 4 * 4
         b_ms, b_by = bound(nbytes, x.numel() * 5)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, bytes=nbytes, ops=x.numel() * 5)
+                           bound_by=b_by, bytes=nbytes, ops=x.numel() * 5,
+                           device_ms=device_ms(
+                               lambda: gate_mod.confidence_gate(x)))
         emit(timing="confidence_gate", case=f"{name} [8, {V}] f32",
              **timed[name])
     # an exact tie: the first index must win
@@ -454,15 +489,156 @@ def check_gate(dev, flush):
     return worst, timed
 
 
+def router_logits(rng, R, E, k, ties=False):
+    """Router logits [R, E] whose k+1 largest values per row are at least
+    1e-4 apart (the kernel ranks logits, the plain version f32
+    probabilities: a closer pair could order differently).  ``ties``
+    makes rows 0-2 exact ties: all equal, a three-way tie on the max, a
+    tie for the k-th pick (lower index first)."""
+    x = (rng.standard_normal((R, E)) * 2).astype(np.float32)
+    for r in range(R):
+        while (-np.diff(np.sort(x[r])[::-1][:k + 1])).min() < 1e-4:
+            x[r] = (rng.standard_normal(E) * 2).astype(np.float32)
+    if ties:
+        x[0] = 0.5
+        x[1, [E - 1, E // 2, 1]] = 30.0
+        x[2, E - k + 1:] = 20.0 + np.arange(k - 1)
+        x[2, [1, E - k]] = 15.0
+    return torch.from_numpy(x)
+
+
+ROUTER_TOL = "gates rtol 1e-5 (atol 0), indices exact"
+
+
+def check_router(dev, flush):
+    """router_gate against its plain version at granite's main-path
+    shapes ([512, 40] padded/split chunk and the ragged full bucket,
+    [8, 40] decode width), at E = 384 and E = 1024 (the kernel's limit),
+    and on rows of exact ties; k = 8.  Work per row for the bound: E
+    logits read and k (gate, index) pairs written; E subtractions,
+    exponentials and additions, k rounds of E comparisons, 2k
+    divisions."""
+    rng = np.random.default_rng(4)
+    worst, timed = 0.0, {}
+    cases = [("granite [512, 40]", 512, 40, False),
+             ("granite [8, 40]", 8, 40, False),
+             ("[64, 384]", 64, 384, False),
+             ("[16, 1024]", 16, 1024, False),
+             ("granite ties [8, 40]", 8, 40, True),
+             ("ties [16, 1024]", 16, 1024, True)]
+    k = 8
+    for name, R, E, ties in cases:
+        x = router_logits(rng, R, E, k, ties).to(dev)
+        gates, idx = router_mod.router_gate(x, k)
+        torch.cuda.synchronize()
+        want_g, want_i = router_mod.router_gate_ref(x, k)
+        err = (gates - want_g).abs().max().item()
+        ok = (torch.equal(idx, want_i)
+              and torch.allclose(gates, want_g, rtol=1e-5, atol=0.0))
+        if ties:
+            top = sorted({1, E // 2, E - 1})
+            i_h = idx.cpu()
+            ok = ok and i_h[0].tolist() == list(range(k)) \
+                and i_h[1, :3].tolist() == top \
+                and int(i_h[2, k - 1]) == 1
+        emit(check="router_gate", case=f"{name} k={k}", max_abs_err=err,
+             tol=ROUTER_TOL, ok=bool(ok))
+        if not ok:
+            raise AssertionError(f"router_gate {name}: max abs err {err} "
+                                 f"or indices differ")
+        worst = max(worst, err)
+        if not ties:
+            nbytes = x.numel() * 4 + R * k * 8
+            nops = R * (3 * E + k * E + 2 * k)
+            t = time_case(name, timed, lambda: router_mod.router_gate(x, k),
+                          lambda: router_mod.router_gate_ref(x, k),
+                          (nbytes, nops), flush)
+            t["device_ms"] = device_ms(lambda: router_mod.router_gate(x, k))
+            emit(timing="router_gate", case=f"{name} k={k}", **t)
+    return worst, timed
+
+
 # --------------------------------------------------------------------------
 # phase 3: the ragged step on the card against the CPU
 # --------------------------------------------------------------------------
 
 
+def step_models():
+    """(label, config) of the step checks: the smoke widths of the three
+    served models, and granite at its published widths (d 1536, 40
+    experts, top-8, vocab 49155) cut to 2 layers."""
+    granite = get_config("granite-moe-3b-a800m", "")
+    return [(f"{n}-smoke", get_config(n, "smoke"))
+            for n in ("gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
+            ] + [("granite-moe-3b-a800m 2 layers",
+                  dataclasses.replace(granite, num_periods=2))]
+
+
+class RouterTap:
+    """Records (router logits, picks) of every ``router_gate`` call the
+    model makes while the tap is open: the model's blocks see the kernel
+    wrappers through a stand-in whose ``router_gate`` records, and every
+    other name is ``ops``'s own."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        def tapped(logits, k):
+            gates, idx = ops.router_gate(logits, k)
+            self.calls.append((logits.detach().cpu(), idx.cpu()))
+            return gates, idx
+
+        class Ops:
+            router_gate = staticmethod(tapped)
+
+            def __getattr__(self, name):
+                return getattr(ops, name)
+        blocks.kernel_ops = Ops()
+        return self
+
+    def __exit__(self, *exc):
+        blocks.kernel_ops = ops
+
+
+def first_routing_difference(cpu_calls, card_calls):
+    """The first router call whose picks on the card differ from the
+    CPU's: (call, rows that differ, whether every such row is a near-tie
+    — two of the CPU's k+1 largest router logits within 1e-4), or
+    None."""
+    for n, ((lc, ic), (_, idd)) in enumerate(zip(cpu_calls, card_calls)):
+        diff = (ic != idd).any(-1).reshape(-1)
+        if diff.any():
+            top = lc.reshape(-1, lc.shape[-1])[diff].topk(
+                ic.shape[-1] + 1, dim=-1).values
+            gaps = (top[:, :-1] - top[:, 1:]).min(-1).values
+            return n, int(diff.sum()), bool((gaps < 1e-4).all())
+    return None
+
+
+def compare_step(step, label, got, want, routing):
+    """Live logits on the card within atol = rtol = 1e-4 of the CPU's —
+    unless the router first picked differently on a near-tie: that is
+    reported, and the logits, which then differ by design, are not
+    compared."""
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
+    rec = dict(check=f"{step} card vs cpu", model=label, max_abs_err=err,
+               tol=1e-4)
+    if routing is not None:
+        call, rows, near = routing
+        rec.update(routing_differs_at_call=call, routing_rows=rows,
+                   near_tie=near, logits_compared=not near)
+        ok = near
+    emit(**rec, ok=ok)
+    if not ok:
+        raise AssertionError(f"{step} {label}: err {err}, routing "
+                             f"{routing}")
+
+
 def check_ragged_step(dev):
     rng = np.random.default_rng(0)
-    for name in ("gemma3-1b", "phi4-mini-3.8b"):
-        cfg = get_config(name, "smoke")
+    for label, cfg in step_models():
         params_cpu = init_params(cfg, 0, torch.float32, "cpu")
         params_dev = tree_map(lambda t: t.to(dev), params_cpu)
         R, bs, P = 4, 4, 8
@@ -488,28 +664,27 @@ def check_ragged_step(dev):
             o += n
         pages_cpu = {"page_table": pt, "q_len": qlen, "q_start": qs}
         pages_dev = {k: v.to(dev) for k, v in pages_cpu.items()}
-        want, _ = transformer.ragged_step(params_cpu, cfg, toks, cache_cpu,
-                                          pos, pages_cpu)
-        got, _ = transformer.ragged_step(params_dev, cfg, toks.to(dev),
-                                         cache_dev, pos.to(dev), pages_dev)
+        with RouterTap() as tap_cpu:
+            want, _ = transformer.ragged_step(params_cpu, cfg, toks,
+                                              cache_cpu, pos, pages_cpu)
+        with RouterTap() as tap_dev:
+            got, _ = transformer.ragged_step(params_dev, cfg, toks.to(dev),
+                                             cache_dev, pos.to(dev),
+                                             pages_dev)
         live = qlen > 0
-        err = (got.cpu()[live] - want[live]).abs().max().item()
-        ok = torch.allclose(got.cpu()[live], want[live], atol=1e-4,
-                            rtol=1e-4)
-        emit(check="ragged_step card vs cpu", model=f"{name}-smoke",
-             max_abs_err=err, tol=1e-4, ok=bool(ok))
-        if not ok:
-            raise AssertionError(f"ragged_step {name}: err {err}")
+        compare_step("ragged_step", label, got.cpu()[live], want[live],
+                     first_routing_difference(tap_cpu.calls, tap_dev.calls))
+        del params_cpu, params_dev, cache_cpu, cache_dev
+    torch.cuda.empty_cache()
 
 
 def check_padded_steps(dev):
     """The padded executor's ``mixed_step`` and the split executor's
     ``prefill_chunk`` then ``decode_step(pages=)`` (one row masked to the
-    null block) on the card against the CPU, at the smoke widths: live
-    rows' logits within 1e-4."""
+    null block) on the card against the CPU: live rows' logits within
+    1e-4."""
     rng = np.random.default_rng(1)
-    for name in ("gemma3-1b", "phi4-mini-3.8b"):
-        cfg = get_config(name, "smoke")
+    for label, cfg in step_models():
         params_cpu = init_params(cfg, 0, torch.float32, "cpu")
         params_dev = tree_map(lambda t: t.to(dev), params_cpu)
         R, bs, P, C = 4, 4, 8, 7
@@ -528,33 +703,40 @@ def check_padded_steps(dev):
         dec_pt[1] = 0                                   # masked row
         dec_pos = torch.tensor([[5], [3], [21], [18]], dtype=torch.int32)
         dec_tok = toks[:, :1].contiguous()
-        results = {}
+        results, taps = {}, {}
         for where, params in (("cpu", params_cpu), ("card", params_dev)):
             mv = (lambda t: t) if where == "cpu" else (lambda t: t.to(dev))
             cache = tree_map(lambda t: mv(t.clone()), cache_cpu)
             pages = {"page_table": mv(pt), "q_len": mv(qlen)}
-            mixed, _ = transformer.mixed_step(params, cfg, mv(toks),
-                                              tree_map(lambda t: t.clone(),
-                                                       cache),
-                                              mv(pos), pages)
-            chunk, cache = transformer.prefill_chunk(params, cfg, mv(toks),
-                                                     cache, mv(pos), pages)
-            dec, _ = transformer.decode_step(
-                params, cfg, mv(dec_tok), cache, mv(dec_pos),
-                pages={"page_table": mv(dec_pt)})
+            tap = [RouterTap() for _ in range(3)]
+            with tap[0]:
+                mixed, _ = transformer.mixed_step(
+                    params, cfg, mv(toks), tree_map(lambda t: t.clone(),
+                                                    cache), mv(pos), pages)
+            with tap[1]:
+                chunk, cache = transformer.prefill_chunk(
+                    params, cfg, mv(toks), cache, mv(pos), pages)
+            # the dead slots' duplicate writes leave the null block 0
+            # unspecified, and the masked decode row attends it: MoE
+            # layers route that row too (ahead of rows 2-3 in the expert
+            # queues), so both sides get the same block 0
+            tree_map(lambda t: t[:, 0].zero_(), cache)
+            with tap[2]:
+                dec, _ = transformer.decode_step(
+                    params, cfg, mv(dec_tok), cache, mv(dec_pos),
+                    pages={"page_table": mv(dec_pt)})
             results[where] = [t.cpu() for t in (mixed, chunk, dec)]
+            taps[where] = [t.calls for t in tap]
         slots = torch.arange(C)[None, :] < qlen[:, None]
         live = {"mixed_step": qlen > 0, "prefill_chunk": slots,
                 "decode_step": torch.tensor([True, False, True, True])}
         for i, step in enumerate(live):
-            got = results["card"][i][live[step]]
-            want = results["cpu"][i][live[step]]
-            err = (got - want).abs().max().item()
-            ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-            emit(check=f"{step} card vs cpu", model=f"{name}-smoke",
-                 max_abs_err=err, tol=1e-4, ok=bool(ok))
-            if not ok:
-                raise AssertionError(f"{step} {name}: err {err}")
+            compare_step(step, label, results["card"][i][live[step]],
+                         results["cpu"][i][live[step]],
+                         first_routing_difference(taps["cpu"][i],
+                                                  taps["card"][i]))
+        del params_cpu, params_dev, cache_cpu
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -562,11 +744,15 @@ def check_padded_steps(dev):
 # --------------------------------------------------------------------------
 
 
-def main_path_args(**executor) -> Namespace:
-    """The phase-4 workload; ``executor`` adds the CLI's executor flags
-    (``ragged_step=False`` or ``split_step=True``)."""
+PHI4_NAME, MOE_NAME = "phi4-mini-3.8b", "granite-moe-3b-a800m"
+
+
+def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
+    """The phase-4 workload with ``expensive`` as the second tier;
+    ``executor`` adds the CLI's executor flags (``ragged_step=False`` or
+    ``split_step=True``)."""
     return Namespace(
-        fast="gemma3-1b", expensive="phi4-mini-3.8b", variant="",
+        fast="gemma3-1b", expensive=expensive, variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
         min_prompt_len=1, length_dist="lognormal", gen_len=8,
         prefill_chunk=64, prefill_token_budget=None, delta=None,
@@ -577,16 +763,17 @@ def main_path_args(**executor) -> Namespace:
 EXECUTORS = {"ragged": {}, "padded": {"ragged_step": False},
              "split": {"split_step": True}}
 COUNTED = ("ragged_attention", "mixed_attention", "paged_attention",
-           "confidence_gate")
+           "confidence_gate", "router_gate")
 
 
-def expected_launches(layers, kinds, warm=None):
-    """Attention launches each kernel must count over a run whose tier
-    launches by kind are ``kinds``: every attention layer of a tier
-    launch goes through the executor's kernel(s).  ``warm`` adds the
-    warmup's launches per tier."""
-    out = dict.fromkeys(COUNTED[:3], 0)
-    for t, n in enumerate(layers):
+def expected_launches(layers, moe_layers, kinds, warm=None):
+    """Attention and router launches each kernel must count over a run
+    whose tier launches by kind are ``kinds``: every attention layer of a
+    tier launch goes through the executor's attention kernel(s), every
+    MoE layer through ``router_gate``.  ``warm`` adds the warmup's
+    launches per tier."""
+    out = dict.fromkeys(COUNTED[:3] + ("router_gate",), 0)
+    for t, (n, n_moe) in enumerate(zip(layers, moe_layers)):
         k = dict(kinds[t])
         if warm is not None:
             for kind, w in warm[t].items():
@@ -594,16 +781,24 @@ def expected_launches(layers, kinds, warm=None):
         out["ragged_attention"] += n * k.get("ragged", 0)
         out["mixed_attention"] += n * (k.get("mixed", 0) + k.get("chunk", 0))
         out["paged_attention"] += n * k.get("step", 0)
+        out["router_gate"] += n_moe * sum(k.values())
     return out
 
 
-def serve(card: str, params, executor: str):
-    """Serve the phase-4 workload on ``params`` under one executor, with
-    every kernel counter set to 0 just before and read just after; check
-    that every request completed, that the gate split them, and that the
-    counters prove each tier launch went through the executor's kernels
-    (and through nothing else)."""
-    args = main_path_args(**EXECUTORS[executor])
+def moe_layer_count(cfg) -> int:
+    """MoE layers of a config (each routes once per tier launch)."""
+    return sum(l.ffn.kind == "moe" for l in cfg.head + cfg.tail) + \
+        cfg.num_periods * sum(l.ffn.kind == "moe" for l in cfg.period)
+
+
+def serve(card: str, params, executor: str, expensive=PHI4_NAME):
+    """Serve the phase-4 workload on ``params`` (the cascade to
+    ``expensive``) under one executor, with every kernel counter set to
+    0 just before and read just after; check that every request
+    completed, that the gate split them, and that the counters prove
+    each tier launch went through the executor's kernels (and through
+    nothing else)."""
+    args = main_path_args(expensive, **EXECUTORS[executor])
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
                                       args.seed)
@@ -620,8 +815,10 @@ def serve(card: str, params, executor: str):
     counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = torch.cuda.max_memory_allocated()
 
-    layers = [get_config(args.fast, args.variant).num_layers,
-              get_config(args.expensive, args.variant).num_layers]
+    cfgs = [get_config(args.fast, args.variant),
+            get_config(args.expensive, args.variant)]
+    layers = [c.num_layers for c in cfgs]
+    moe_layers = [moe_layer_count(c) for c in cfgs]
     tier_launches = s["launches"]
     kinds = s["launches_by_kind"]
     # the warmup's launches per tier: every bucket width (ragged), the
@@ -642,13 +839,14 @@ def serve(card: str, params, executor: str):
     if 1 not in tiers or 0 not in tiers:
         problems.append(f"need escalated and non-escalated requests: "
                         f"{tiers}")
-    want = expected_launches(layers, kinds)
+    want = expected_launches(layers, moe_layers, kinds)
     got = {k: s["kernel_launches"][k] for k in want}
     if got != want:
-        problems.append(f"attention launches after warmup {got} != {want}")
+        problems.append(f"attention/router launches after warmup {got} != "
+                        f"{want}")
     if s["kernel_launches"]["confidence_gate"] != sum(tier_launches):
         problems.append("gate launches != tier launches")
-    want_window = expected_launches(layers, kinds, warm)
+    want_window = expected_launches(layers, moe_layers, kinds, warm)
     if {k: counts[k] for k in want_window} != want_window:
         problems.append(f"launch counts {counts} != {want_window} "
                         "(warmup included)")
@@ -680,11 +878,12 @@ def serve(card: str, params, executor: str):
         stream_checksum=s["stream_checksum"], problems=problems)
     emit(**record)
     if problems:
-        raise AssertionError(f"{executor}: " + "; ".join(problems))
+        raise AssertionError(f"{executor} -> {expensive}: "
+                             + "; ".join(problems))
     return counts, per_req
 
 
-def compare_streams(runs: dict) -> None:
+def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
     """Record how the executors' token streams compare on the card.  The
     budget gate's δ follows the confidences seen so far, so under a wall
     clock the executors may escalate different requests; a request that
@@ -697,25 +896,29 @@ def compare_streams(runs: dict) -> None:
         differ = [r["rid"] for r in same_tier
                   if r["tokens"] != base[r["rid"]]["tokens"]]
         emit(check="token streams against ragged", executor=ex,
+             expensive=expensive,
              escalated=sorted(r["rid"] for r in per_req if r["tier"] > 0),
              same_tier_requests=len(same_tier), differing_rids=differ)
 
 
-# profiler kernel names of each attention kernel and the gate
+# profiler kernel names of each attention kernel, the gate and the router
 KERNEL_NAMES = {"ragged_attention": "ragged_kernel",
                 "mixed_attention": "mixed_kernel",
                 "paged_attention": "paged_decode_kernel",
-                "confidence_gate": "gate_kernel"}
+                "confidence_gate": "gate_kernel",
+                "router_gate": "router_kernel"}
 
 
-def profile_ticks(card: str, params, executor: str):
+def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
     """Where a tick's device time goes under one executor: the phase-4
-    workload served again under a VirtualClock (no waiting for arrivals)
-    inside ``torch.profiler``; kernel time summed by kind, and the
-    device's idle share of the serving loop's wall time."""
+    workload (the cascade to ``expensive``) served again under a
+    VirtualClock (no waiting for arrivals) inside ``torch.profiler``;
+    kernel time summed by kind, and the device's idle share of the
+    serving loop's wall time.  The top kernels list shows the MoE
+    cascade's expert products among the matrix products."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = main_path_args(**EXECUTORS[executor])
+    args = main_path_args(expensive, **EXECUTORS[executor])
     engine, vocab = serve_async.build_engine(args, VirtualClock(), params)
     prompts = bigram_lm(
         num_seqs=args.requests, seq_len=args.prompt_len,
@@ -733,6 +936,7 @@ def profile_ticks(card: str, params, executor: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = dict.fromkeys(list(KERNEL_NAMES) + ["matrix products",
                                                 "other"], 0.0)
+    counts = dict.fromkeys(kinds, 0)
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -744,21 +948,21 @@ def profile_ticks(card: str, params, executor: str):
         rows.append((us, e.count, name))
         kind = next((k for k, n in KERNEL_NAMES.items() if n in name),
                     None)
-        if kind is not None:
-            kinds[kind] += us / 1e3
-        elif any(k in name.lower() for k in ("gemm", "gemv", "cutlass",
-                                             "xmma")):
-            kinds["matrix products"] += us / 1e3
-        else:
-            kinds["other"] += us / 1e3
+        if kind is None:
+            kind = ("matrix products" if any(
+                k in name.lower() for k in ("gemm", "gemv", "cutlass",
+                                            "xmma")) else "other")
+        kinds[kind] += us / 1e3
+        counts[kind] += e.count
     rows.sort(reverse=True)
     busy = sum(kinds.values())
-    emit(phase="profile", executor=executor, card=card, clock="virtual",
+    emit(phase="profile", executor=executor, expensive=expensive,
+         card=card, clock="virtual",
          ticks=s["steps"], tier_launches=s["launches"],
          stream_checksum=serve_async.stream_checksum(engine),
          serving_wall_ms=wall_ms, device_kernel_ms=busy,
          device_idle_share=(1.0 - busy / wall_ms) if busy else None,
-         kernel_ms_by_kind=kinds,
+         kernel_ms_by_kind=kinds, kernel_launches_by_kind=counts,
          share_by_kind={k: v / busy for k, v in kinds.items()} if busy
          else None,
          top_kernels=[[round(us / 1e3, 3), n, name[:80]]
@@ -767,8 +971,9 @@ def profile_ticks(card: str, params, executor: str):
 
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    return [dict(case=name, library_ms=None, **{k: t[k] for k in keys})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    return [dict(case=name, library_ms=None,
+                 **{k: t[k] for k in keys if k in t})
             for name, t in timed.items()]
 
 
@@ -783,6 +988,7 @@ def kernel_entry(name, launches, err, tol, timed, key, shape):
             "max_abs_err": err, "tolerance": tol, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
+            "device_ms": t.get("device_ms"),
             "shape": shape, "cases": timed_cases(timed)}
 
 
@@ -791,6 +997,7 @@ REPLACES = {
     "confidence_gate": "src/repro/kernels/confidence_gate.py:83",
     "paged_attention": "src/repro/kernels/paged_attention.py:93",
     "mixed_attention": "src/repro/kernels/mixed_attention.py:118",
+    "router_gate": "src/repro/kernels/router_gate.py:51",
 }
 
 
@@ -820,6 +1027,7 @@ def main() -> int:
     g_err, g_time = check_gate(dev, flush)
     p_err, p_time = check_paged(dev, flush)
     m_err, m_time = check_mixed(dev, flush)
+    q_err, q_time = check_router(dev, flush)
     del flush
     torch.cuda.empty_cache()
     check_ragged_step(dev)
@@ -828,41 +1036,57 @@ def main() -> int:
     # executor and the profiles
     params = serve_async.build_params(main_path_args())
     runs = {ex: serve(card, params, ex) for ex in EXECUTORS}
-    counts = {ex: c for ex, (c, _) in runs.items()}
     compare_streams({ex: r for ex, (_, r) in runs.items()})
     torch.cuda.empty_cache()
     for ex in EXECUTORS:
         profile_ticks(card, params, ex)
-    for name, ex in (("ragged_attention", ("ragged",)),
-                     ("mixed_attention", ("padded", "split")),
-                     ("paged_attention", ("split",)),
-                     ("confidence_gate", tuple(EXECUTORS))):
+    # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
+    # from the expensive tier's seed in place of phi4's
+    moe_args = main_path_args(MOE_NAME)
+    params = (params[0], init_params(
+        get_config(MOE_NAME, moe_args.variant), moe_args.seed + 1,
+        torch.float32, dev))
+    torch.cuda.empty_cache()
+    moe_runs = {ex: serve(card, params, ex, MOE_NAME) for ex in EXECUTORS}
+    compare_streams({ex: r for ex, (_, r) in moe_runs.items()}, MOE_NAME)
+    torch.cuda.empty_cache()
+    profile_ticks(card, params, "ragged", MOE_NAME)
+    counts = {ex: c for ex, (c, _) in runs.items()}
+    counts.update({f"moe {ex}": c for ex, (c, _) in moe_runs.items()})
+    moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
+    for name, ex in (("ragged_attention", ("ragged", "moe ragged")),
+                     ("mixed_attention", ("padded", "split", "moe padded",
+                                          "moe split")),
+                     ("paged_attention", ("split", "moe split")),
+                     ("confidence_gate", tuple(counts)),
+                     ("router_gate", moe_paths)):
         if not all(counts[e][name] > 0 for e in ex):
             raise AssertionError(f"{name} was not launched on {ex}: "
                                  f"{counts}")
 
     by_path = {name: {ex: c[name] for ex, c in counts.items() if c[name]}
                for name in COUNTED}
+    total = {name: sum(by_path[name].values()) for name in COUNTED}
     entries = [
-        kernel_entry("ragged_attention", counts["ragged"]["ragged_attention"],
+        kernel_entry("ragged_attention", total["ragged_attention"],
                      r_err, TOL_TEXT, r_time, "phi4 full bucket f32",
                      "phi4-mini-3.8b: q [512, 8, 3, 128] f32, 8 rows x 64 "
                      "tokens, pools [329, 16, 8, 128]"),
-        kernel_entry("confidence_gate",
-                     sum(c["confidence_gate"] for c in counts.values()),
+        kernel_entry("confidence_gate", total["confidence_gate"],
                      max(g_err.values()),
                      "conf/logz rtol 1e-5, entropy atol 1e-4, argmax exact",
                      g_time, "gemma3-1b", "gemma3-1b: logits [8, 262144] f32"),
-        kernel_entry("paged_attention", counts["split"]["paged_attention"],
+        kernel_entry("paged_attention", total["paged_attention"],
                      p_err, TOL_TEXT, p_time, "phi4 decode f32",
                      "phi4-mini-3.8b: q [8, 8, 3, 128] f32, positions "
                      "590-625, pools [329, 16, 8, 128]"),
-        kernel_entry("mixed_attention",
-                     counts["padded"]["mixed_attention"]
-                     + counts["split"]["mixed_attention"], m_err, TOL_TEXT,
-                     m_time, "phi4 full bucket [8, 64] f32",
+        kernel_entry("mixed_attention", total["mixed_attention"], m_err,
+                     TOL_TEXT, m_time, "phi4 full bucket [8, 64] f32",
                      "phi4-mini-3.8b: q [8, 64, 8, 3, 128] f32, pools "
                      "[329, 16, 8, 128]"),
+        kernel_entry("router_gate", total["router_gate"], q_err,
+                     ROUTER_TOL, q_time, "granite [512, 40]",
+                     "granite-moe-3b-a800m: logits [512, 40] f32, k 8"),
     ]
     for e in entries:
         e["launches_by_path"] = by_path[e["name"]]

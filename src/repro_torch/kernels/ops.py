@@ -17,6 +17,7 @@ from repro_torch.kernels import mixed_attention as _mixed
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
 from repro_torch.kernels import ragged_attention as _ragged
+from repro_torch.kernels import router_gate as _router
 
 
 def _on_cpu(t, name: str) -> bool:
@@ -37,6 +38,19 @@ def confidence_gate(logits):
 
 
 confidence_gate.launches = 0
+
+
+def router_gate(logits, k: int):
+    """MoE routing: logits [..., E] -> (gates [..., k] f32 renormalised,
+    idx [..., k] int32); see :mod:`repro_torch.kernels.router_gate`."""
+    if _on_cpu(logits, "router_gate"):
+        return _router.router_gate_ref(logits, k)
+    out = _router.router_gate(logits, k)
+    router_gate.launches += 1
+    return out
+
+
+router_gate.launches = 0
 
 
 def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,

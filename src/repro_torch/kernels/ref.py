@@ -6,7 +6,8 @@ from repro_torch.kernels.mixed_attention import mixed_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention_ref
 from repro_torch.kernels.prefill_attention import paged_prefill_attention_ref
 from repro_torch.kernels.ragged_attention import ragged_attention_ref
+from repro_torch.kernels.router_gate import router_gate_ref
 
 __all__ = ["confidence_gate_ref", "mixed_attention_ref",
            "paged_attention_ref", "paged_prefill_attention_ref",
-           "ragged_attention_ref"]
+           "ragged_attention_ref", "router_gate_ref"]

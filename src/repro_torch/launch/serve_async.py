@@ -21,8 +21,9 @@ confidences); ``--delta`` fixes it instead.
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
 
 runs the smoke variants on the card; ``--variant ''`` serves the
-published widths and ``--device cpu`` runs on the CPU with the kernels'
-plain versions.  Reports latency/TTFT percentiles, throughput, per-tier
+published widths, ``--expensive granite-moe-3b-a800m`` the MoE cascade
+(its MoE layers route through the ``router_gate`` kernel), and
+``--device cpu`` runs on the CPU with the kernels' plain versions.  Reports latency/TTFT percentiles, throughput, per-tier
 utilization, launches and host syncs per tick, the escalation rate and
 Eq 7 FLOPs/request.
 """
@@ -135,7 +136,8 @@ def stream_checksum(engine) -> str:
 def _launch_counts() -> dict:
     return {name: getattr(kernel_ops, name).launches
             for name in ("ragged_attention", "mixed_attention",
-                         "paged_attention", "confidence_gate")}
+                         "paged_attention", "confidence_gate",
+                         "router_gate")}
 
 
 def run(args, clock=None, params=None) -> dict:

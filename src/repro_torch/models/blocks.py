@@ -23,15 +23,20 @@ The KV pools are updated in place and the same cache dict comes back.
 Dense caches (``pages=None``) are not ported.
 
 ``dense_ffn(p, cfg, spec, x) -> y`` covers the ``swiglu`` and ``gelu``
-FFNs.
+FFNs, ``moe_ffn(p, cfg, spec, x) -> y`` the token-choice top-k mixture of
+experts; ``apply_ffn`` picks one by the layer's FFN kind.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+
+MOE_GROUP_SIZE = 1024
 
 
 def rmsnorm(x, scale, eps=1e-6):
@@ -199,10 +204,75 @@ def dense_ffn(p, cfg: ModelConfig, spec, x):
     return h @ p["wo"]
 
 
+def moe_ffn(p, cfg: ModelConfig, spec, x):
+    """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
+    moe_ffn``), routed by the ``router_gate`` kernel.
+
+    The ``N = B·S`` token slots, padding included, split into ``G``
+    groups of ``gs = min(1024, N)``.  Each token picks its top ``k``
+    experts (renormalised gates); a (token, pick) pair's place in its
+    expert's queue is its rank in (slot, pick) order over the group, and
+    pairs at rank ``>= cap = min(gs, max(1, ceil(gs·k·capacity_factor /
+    E)))`` are dropped — their gate is not renormalised again.  The JAX
+    package's one-hot dispatch and combine einsums become an index
+    scatter into the dense ``[E, G·cap, d]`` capacity buffer and a
+    weighted sum over each token's kept picks: dispatch is 0/1 and every
+    (expert, slot) holds at most one token, so the function is the same
+    and only the order of the combine's sum differs.  The expert
+    products stay batched matrix products over the capacity buffer.
+
+    Serving reads only the output: the load-balance and z aux losses the
+    JAX function also returns (for training) are not computed.
+    """
+    B, S, D = x.shape
+    E, K = spec.num_experts, spec.top_k
+    N = B * S
+    gs = min(MOE_GROUP_SIZE, N)
+    G = N // gs
+    xg = x.reshape(G, gs, D)
+    logits = (xg @ p["router"]).float()                      # [G, gs, E]
+    gates, idx = kernel_ops.router_gate(logits, K)           # [G, gs, K]
+    cap = max(1, int(math.ceil(gs * K * spec.capacity_factor / E)))
+    cap = min(cap, gs)
+
+    # rank of each (slot, pick) pair in its expert's queue, (slot, pick)
+    # order over the group
+    pick = idx.long().reshape(G, gs * K)
+    onehot = F.one_hot(pick, E)                              # [G, gs·K, E]
+    rank = (onehot.cumsum(1) - onehot).gather(2, pick[..., None])[..., 0]
+    keep = rank < cap
+    # kept pair -> row (e·G + g)·cap + rank of the capacity buffer; a
+    # dropped pair writes the spare last row, which nothing reads
+    grp = torch.arange(G, device=x.device)[:, None]
+    dest = torch.where(keep, (pick * G + grp) * cap + rank, E * G * cap)
+    dest = dest.reshape(-1)
+    buf = x.new_zeros(E * G * cap + 1, D)
+    buf[dest] = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
+    xin = buf[:-1].view(E, G * cap, D)
+    if spec.act == "swiglu":
+        h = F.silu(torch.bmm(xin, p["wi0"])) * torch.bmm(xin, p["wi1"])
+    elif spec.act == "gelu":
+        h = F.gelu(torch.bmm(xin, p["wi"]), approximate="tanh")
+    else:
+        raise NotImplementedError(f"moe act {spec.act!r} is not ported")
+    eout = torch.bmm(h, p["wo"]).reshape(E * G * cap, D)
+    # combine: each token's kept picks, weighted by their gates
+    w = torch.where(keep, gates.reshape(G, gs * K), 0.0).to(x.dtype)
+    picked = eout[torch.where(keep, dest.reshape(G, gs * K), 0)]
+    out = (w[..., None] * picked).reshape(G, gs, K, D).sum(2)
+    return out.reshape(B, S, D)
+
+
+def apply_ffn(p, cfg: ModelConfig, spec, x):
+    if spec.kind == "moe":
+        return moe_ffn(p, cfg, spec, x)
+    return dense_ffn(p, cfg, spec, x)
+
+
 def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
                 pages=None):
     """Pre-norm residual layer: x + mixer(norm(x)); x + ffn(norm(x))."""
-    if layer.mixer.kind != "attn" or layer.ffn.kind != "dense":
+    if layer.mixer.kind != "attn" or layer.ffn.kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"{layer.mixer.kind}/{layer.ffn.kind} layers are not ported")
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
@@ -210,5 +280,5 @@ def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
                            pos, mode, pages=pages)
     x = x + y
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    x = x + dense_ffn(p["ffn"], cfg, layer.ffn, h)
+    x = x + apply_ffn(p["ffn"], cfg, layer.ffn, h)
     return x, {"mixer": new_mix, "ffn": {}}

@@ -8,7 +8,8 @@ the JAX package's, so a JAX parameter tree converts leaf for leaf with
 ``num_periods`` dim; with ``tie_embeddings`` the LM head is ``embed``.
 
 Only the mixers and FFNs of the served models are declared here:
-attention, and dense ``swiglu``/``gelu`` FFNs.
+attention, dense ``swiglu``/``gelu`` FFNs, and mixture-of-experts FFNs
+(a ``[d, E]`` router and expert weights stacked on a leading ``E`` dim).
 """
 from __future__ import annotations
 
@@ -53,16 +54,38 @@ def _dense_decl(cfg: ModelConfig, f) -> dict:
     raise NotImplementedError(f"dense ffn act {f.act!r} is not ported")
 
 
+def _moe_decl(cfg: ModelConfig, f) -> dict:
+    d, E = cfg.d_model, f.num_experts
+    decl = {"router": P((d, E), ("d_model", None), "normal:0.02")}
+    if f.act == "swiglu":
+        decl.update({
+            "wi0": P((E, d, f.d_ff), ("experts", "d_model", "ffn")),
+            "wi1": P((E, d, f.d_ff), ("experts", "d_model", "ffn")),
+            "wo": P((E, f.d_ff, d), ("experts", "ffn", "d_model")),
+        })
+    elif f.act == "gelu":
+        decl.update({
+            "wi": P((E, d, f.d_ff), ("experts", "d_model", "ffn")),
+            "wo": P((E, f.d_ff, d), ("experts", "ffn", "d_model")),
+        })
+    else:
+        raise NotImplementedError(f"moe ffn act {f.act!r} is not ported")
+    return decl
+
+
+_FFN_DECL = {"dense": _dense_decl, "moe": _moe_decl}
+
+
 def _layer_decl(cfg: ModelConfig, layer) -> dict:
-    if layer.mixer.kind != "attn" or layer.ffn.kind != "dense":
+    if layer.mixer.kind != "attn" or layer.ffn.kind not in _FFN_DECL:
         raise NotImplementedError(
-            f"{cfg.name}: only attention mixers with dense FFNs are ported "
-            f"(got {layer.mixer.kind}/{layer.ffn.kind})")
+            f"{cfg.name}: only attention mixers with dense or MoE FFNs are "
+            f"ported (got {layer.mixer.kind}/{layer.ffn.kind})")
     return {
         "norm1": P((cfg.d_model,), (None,), "ones"),
         "mixer": _attn_decl(cfg, layer.mixer),
         "norm2": P((cfg.d_model,), (None,), "ones"),
-        "ffn": _dense_decl(cfg, layer.ffn),
+        "ffn": _FFN_DECL[layer.ffn.kind](cfg, layer.ffn),
     }
 
 
@@ -118,7 +141,8 @@ def _init_leaf(p: P, gen: torch.Generator, dtype, device):
         return torch.ones(p.shape, dtype=dtype, device=device)
     if p.init.startswith("normal:"):
         s = float(p.init.split(":")[1])
-    else:  # fan_in
+    else:  # fan_in: every dim but the last (an expert leaf's E·d), per
+        # period of a stacked leaf
         fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(p.shape[:-1])
         if "stack" in p.axes:
             fan_in //= p.shape[0]

@@ -36,10 +36,12 @@ def test_port_and_chip_smoke_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     # every module of the slice is there to be checked
-    for m in ("configs.base", "data.synthetic", "core.confidence",
+    for m in ("configs.base", "configs.granite_moe_3b_a800m",
+              "data.synthetic", "core.confidence",
               "core.server", "kernels.confidence_gate",
               "kernels.ragged_attention", "kernels.paged_attention",
               "kernels.mixed_attention", "kernels.prefill_attention",
+              "kernels.router_gate",
               "kernels.ops", "kernels.ref",
               "models.params", "models.cache", "models.blocks",
               "models.transformer", "serving.request", "serving.slots",
@@ -51,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(REPO, "src", "repro_torch", "csrc")
     for name in ("confidence_gate", "ragged_attention", "paged_attention",
-                 "mixed_attention"):
+                 "mixed_attention", "router_gate"):
         src = open(os.path.join(csrc, name + ".cu")).read()
         assert 'extern "C" int ' + name in src
         assert f"repro/kernels/{name}.py" in src     # names what it replaces

@@ -2,7 +2,8 @@
 
 On the CPU the port's plain versions (``confidence_gate_ref``,
 ``ragged_attention_ref``, ``paged_attention_ref``,
-``mixed_attention_ref`` and ``paged_prefill_attention_ref``) are held to
+``mixed_attention_ref``, ``paged_prefill_attention_ref`` and
+``router_gate_ref``) are held to
 the JAX Pallas kernels run in interpret mode and to the JAX oracles in
 ``repro/kernels/ref.py``, on the same numpy inputs; the ``ops`` wrappers
 route CPU tensors to the plain versions without counting a launch.  The
@@ -24,6 +25,7 @@ import numpy as np  # noqa: E402
 from repro.core import confidence as jax_confidence  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.router_gate import router_gate as jax_router_gate  # noqa: E402,E501
 from repro_torch.core import confidence  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
@@ -33,11 +35,12 @@ from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import prefill_attention as prefill_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from tests.test_torch_kernels_cuda import (MIXED_CASES,  # noqa: E402
                                            PAGED_CASES, RAGGED_CASES,
                                            _logits, _mixed_inputs,
                                            _paged_inputs, _ragged_inputs,
-                                           _torch)
+                                           _router_logits, _torch)
 
 
 # --------------------------------------------------------------------------
@@ -89,6 +92,33 @@ def test_sequence_confidence_matches_jax(reduce):
     want = jax_confidence.sequence_confidence(jnp.asarray(c),
                                               jnp.asarray(m), reduce)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# MoE router gate
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("E,k", [(4, 2), (40, 8), (64, 6), (384, 8)])
+def test_router_gate_matches_jax(E, k):
+    """Against the TPU kernel in interpret mode and the JAX oracle, over
+    batch dims, with rows of exact ties (the lower index first): indices
+    exact, gates within rtol 1e-6 (the same f32 softmax)."""
+    x = _router_logits((2, 3, E), k, seed=E, ties=True)
+    gates, idx = ref.router_gate_ref(torch.from_numpy(x), k)
+    assert gates.shape == idx.shape == (2, 3, k)
+    assert idx.dtype == torch.int32 and gates.dtype == torch.float32
+    for want_g, want_i in (jax_router_gate(jnp.asarray(x), k, interpret=True),
+                           jax_ref.router_gate_ref(jnp.asarray(x), k)):
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+        np.testing.assert_allclose(gates.numpy(), np.asarray(want_g),
+                                   rtol=1e-6, atol=1e-7)
+    t = idx.numpy().reshape(-1, k)
+    assert (t[0] == np.arange(k)).all()             # all equal: 0..k-1
+    top = sorted({1, E // 2, E - 1})[:k]            # the three-way tie
+    assert list(t[1, :len(top)]) == top
+    assert t[2, k - 1] == 1 and E - k not in t[2]   # the k-th tie: index 1
+    np.testing.assert_allclose(gates.numpy().sum(-1), 1.0, rtol=1e-6)
 
 
 # --------------------------------------------------------------------------
@@ -179,7 +209,7 @@ def test_mixed_decode_rows_match_paged_decode():
 
 
 LAUNCHED = ("confidence_gate", "ragged_attention", "paged_attention",
-            "mixed_attention")
+            "mixed_attention", "router_gate")
 
 
 def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
@@ -203,8 +233,11 @@ def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
     assert torch.equal(ops.mixed_attention(*targs, **tkw), want)
     assert torch.equal(ops.paged_prefill_attention(*targs, **tkw), want)
     assert torch.equal(ref.paged_prefill_attention_ref(*targs, **tkw), want)
+    x = torch.from_numpy(_router_logits((5, 40), 8, seed=5))
+    for got, want in zip(ops.router_gate(x, 8), ref.router_gate_ref(x, 8)):
+        assert torch.equal(got, want)
     after = tuple(getattr(ops, n).launches for n in LAUNCHED)
-    assert after == before == (0, 0, 0, 0)
+    assert after == before == (0, 0, 0, 0, 0)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -225,6 +258,8 @@ def test_kernel_launchers_refuse_cpu_tensors():
         mixed_mod.mixed_attention(*targs, **tkw)
     with pytest.raises(ValueError, match="CUDA"):
         prefill_mod.paged_prefill_attention(*targs, **tkw)
+    with pytest.raises(ValueError, match="CUDA"):
+        router_mod.router_gate(torch.zeros(4, 40), 8)
 
 
 def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):

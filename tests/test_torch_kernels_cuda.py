@@ -17,6 +17,7 @@ from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 
 
 @pytest.fixture
@@ -35,6 +36,43 @@ def _logits(shape, seed, tie=False):
         x[..., 3] = 99.0
         x[..., shape[-1] - 2] = 99.0
     return x
+
+
+def _router_logits(shape, k, seed, ties=False):
+    """Router logits [..., E] whose k+1 largest values per row are at
+    least 1e-4 apart, so the kernel (which ranks logits) and the plain
+    version (which ranks f32 probabilities) cannot order a near-tie
+    differently.  ``ties`` overwrites rows of the first leading index
+    with exact ties: all equal, a tie on the max, and a tie across the
+    k-th/(k+1)-th boundary — the lower index must come first."""
+    rng = np.random.default_rng(seed)
+    E = shape[-1]
+    x = (rng.standard_normal(shape) * 2).astype(np.float32).reshape(-1, E)
+    n = min(k + 1, E)
+    for r in range(x.shape[0]):
+        while (-np.diff(np.sort(x[r])[::-1][:n])).min() < 1e-4:
+            x[r] = (rng.standard_normal(E) * 2).astype(np.float32)
+    if ties:
+        x[0] = 0.5                                  # every expert equal
+        x[1, [E - 1, E // 2, 1]] = 30.0             # three-way tie on top
+        # k-1 distinct leaders, then a tie for the k-th pick: index 1
+        # wins it, index E-k is left out
+        x[2, E - k + 1:] = 20.0 + np.arange(k - 1)
+        x[2, [1, E - k]] = 15.0
+    return x.reshape(shape)
+
+
+# (shape, k): the smoke MoE, granite's 40 experts at the ragged decode,
+# padded and split widths, and E up to the kernel's 1024 limit
+ROUTER_CASES = {
+    "smoke-E4": ((2, 5, 4), 2),
+    "granite-decode": ((8, 40), 8),
+    "granite-bucket": ((512, 40), 8),
+    "granite-batched": ((1, 24, 40), 8),
+    "E64-k6": ((3, 7, 64), 6),
+    "E384": ((64, 384), 8),
+    "E1024": ((16, 1024), 8),
+}
 
 
 def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
@@ -228,3 +266,20 @@ def test_cuda_mixed_attention_matches_plain(case, cuda_device):
     got = mixed_mod.mixed_attention(*dargs, **dkw).cpu()
     want = ref.mixed_attention_ref(*targs, **tkw)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,ties", [(c, False) for c in sorted(
+    ROUTER_CASES)] + [("granite-decode", True), ("E1024", True)])
+def test_cuda_router_gate_matches_plain(case, ties, cuda_device):
+    """Gates at rtol 1e-5, indices exact — ties included (lower index
+    first)."""
+    shape, k = ROUTER_CASES[case]
+    x = torch.from_numpy(_router_logits(shape, k, seed=len(case),
+                                        ties=ties))
+    gates, idx = router_mod.router_gate(x.to(cuda_device), k)
+    want_g, want_i = ref.router_gate_ref(x, k)
+    assert gates.shape == idx.shape == shape[:-1] + (k,)
+    assert idx.dtype == torch.int32 and gates.dtype == torch.float32
+    assert torch.equal(idx.cpu(), want_i)
+    torch.testing.assert_close(gates.cpu(), want_g, rtol=1e-5, atol=0)

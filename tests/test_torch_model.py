@@ -5,7 +5,8 @@ Weights come from the JAX package's ``init_params`` and cross through
 numpy arrays from a seed.  The attention paths are the serving ones —
 ``ragged_step`` (ragged executor), ``mixed_step`` (padded executor),
 ``prefill_chunk`` and paged ``decode`` (split executor) — whose kernels
-run as their plain versions here.
+run as their plain versions here.  granite-moe-3b-a800m adds the MoE
+FFN, routed by ``router_gate`` (its plain version here).
 """
 import dataclasses
 import os
@@ -20,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import blocks as jax_blocks  # noqa: E402
 from repro.models import cache as jax_cache  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
@@ -28,7 +30,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import blocks, params, transformer  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 
-MODELS = ("gemma3-1b", "phi4-mini-3.8b")
+MODELS = ("gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
 
 
 def _np_tree(tree):
@@ -133,6 +135,90 @@ def test_rmsnorm_rope_and_quant_match_jax():
     wq, ws = jax_blocks._quant_i8(jnp.asarray(x))
     np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
     np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-7)
+
+
+def test_init_params_rules_moe():
+    """The router at ``normal:0.02``; an expert leaf [E, d, F] takes the
+    JAX package's fan-in of every dim but the last, E·d (per period)."""
+    cfg = get_config("granite-moe-3b-a800m", "smoke")
+    f = cfg.period[0].ffn
+    E, d = f.num_experts, cfg.d_model
+    p = params.init_params(cfg, 5, device="cpu")["period"]["block0"]["ffn"]
+    assert tuple(p["router"].shape) == (cfg.num_periods, d, E)
+    assert abs(p["router"].std().item() - 0.02) < 0.004
+    for name, fan_in in (("wi0", E * d), ("wi1", E * d),
+                         ("wo", E * f.d_ff)):
+        assert p[name].shape[1] == E
+        std = p[name].std().item()
+        assert abs(std - fan_in ** -0.5) < 0.05 * fan_in ** -0.5, name
+
+
+def _moe_case(rng, E, K, cf, act="swiglu", d=32, f=16):
+    spec = dataclasses.replace(
+        jax_get_config("granite-moe-3b-a800m", "smoke").period[0].ffn,
+        num_experts=E, top_k=K, capacity_factor=cf, d_ff=f, act=act)
+    names = ("wi0", "wi1", "wo") if act == "swiglu" else ("wi", "wo")
+    p = {"router": rng.standard_normal((d, E)).astype(np.float32)}
+    for n in names:
+        shape = (E, f, d) if n == "wo" else (E, d, f)
+        p[n] = (rng.standard_normal(shape) * 0.2).astype(np.float32)
+    return spec, p
+
+
+def _moe_dropped(x, p, spec):
+    """How many (token, pick) pairs overflow their expert's capacity
+    (one group: N <= 1024), counted in numpy from the JAX routing."""
+    N = x.shape[0] * x.shape[1]
+    E, K = spec.num_experts, spec.top_k
+    cap = min(N, max(1, int(np.ceil(N * K * spec.capacity_factor / E))))
+    _, idx = jax_ref.router_gate_ref(
+        jnp.asarray(x.reshape(N, -1) @ p["router"]), K)
+    return int(np.maximum(np.bincount(np.asarray(idx).ravel(),
+                                      minlength=E) - cap, 0).sum())
+
+
+@pytest.mark.parametrize("cf,act,shape", [
+    (1.0, "swiglu", (2, 12)),     # cap 6 of 24 tokens x 2 picks: drops
+    (2.0, "swiglu", (3, 8)),      # cap = group size: nothing dropped
+    (1.0, "gelu", (1, 24)),
+    (0.5, "swiglu", (4, 6)),      # cap 3: most pairs dropped
+])
+def test_moe_ffn_matches_jax(cf, act, shape):
+    """The port's ``moe_ffn`` (index dispatch/combine, the router kernel's
+    plain version) against the JAX ``moe_ffn`` (one-hot einsums,
+    ``lax.top_k``) with E = 8, k = 2, within atol = rtol = 1e-5 (only the
+    order of the combine's sum differs)."""
+    rng = np.random.default_rng(int(cf * 10) + len(act))
+    spec, p = _moe_case(rng, 8, 2, cf, act)
+    x = rng.standard_normal(shape + (32,)).astype(np.float32)
+    want, _, aux = jax_blocks.moe_ffn(
+        {k: jnp.asarray(v) for k, v in p.items()}, None, spec,
+        jnp.asarray(x), None, "ragged_step")
+    got = blocks.moe_ffn({k: torch.from_numpy(v) for k, v in p.items()},
+                         None, spec, torch.from_numpy(x))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    dropped = _moe_dropped(x, p, spec)
+    assert (dropped > 0) == (cf < 2.0), dropped
+    assert set(aux) == {"lb_loss", "z_loss"}    # JAX only: not served
+
+
+def test_moe_ffn_groups_and_padding_tokens_match_jax():
+    """N = 2048 token slots split into two groups of 1024, each with its
+    own capacity; the port's padding slots route and fill queues as
+    JAX's do."""
+    rng = np.random.default_rng(7)
+    spec, p = _moe_case(rng, 4, 2, 1.0, d=16, f=8)
+    x = rng.standard_normal((4, 512, 16)).astype(np.float32)
+    x[1, 100:] = x[0, 0]                        # repeated padding rows
+    want, _, _ = jax_blocks.moe_ffn(
+        {k: jnp.asarray(v) for k, v in p.items()}, None, spec,
+        jnp.asarray(x), None, "mixed_step")
+    got = blocks.moe_ffn({k: torch.from_numpy(v) for k, v in p.items()},
+                         None, spec, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # --------------------------------------------------------------------------
@@ -366,6 +452,54 @@ def test_paged_decode_step_logits_match_jax(model, kv_quant):
     np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
                                atol=1e-4, rtol=1e-4)
     _check_pools(got_c, want_c)
+
+
+def with_capacity(cfg, cf):
+    """``cfg`` with every MoE layer's capacity factor set to ``cf``."""
+    return dataclasses.replace(cfg, period=tuple(
+        dataclasses.replace(l, ffn=dataclasses.replace(
+            l.ffn, capacity_factor=cf)) for l in cfg.period))
+
+
+@pytest.mark.parametrize("mode", ["ragged_step", "mixed_step",
+                                  "prefill_chunk"])
+def test_moe_steps_with_drops_match_jax(mode):
+    """granite's smoke stack at capacity factor 0.5 (cap = a quarter of
+    the group's slots, so experts drop pairs, padding slots' included):
+    the live slots' logits against the JAX package, atol = rtol = 1e-4."""
+    name = "granite-moe-3b-a800m"
+    jcfg = with_capacity(jax_get_config(name, "smoke"), 0.5)
+    cfg = with_capacity(get_config(name, "smoke"), 0.5)
+    jp = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(1), jnp.float32))
+    rng = np.random.default_rng(len(mode))
+    R, P, bs, C = 4, 6, 4, 7
+    if mode == "ragged_step":
+        N, pt, q_len, q_start, toks, pos = _plan(rng, cfg.vocab_size,
+                                                 [5, 0, 1, 7], R, P, bs)
+        pages = {"page_table": pt, "q_len": q_len, "q_start": q_start}
+        live = q_len > 0
+    else:
+        N = R * P + 1
+        pt = rng.permutation(np.arange(1, N))[:R * P].reshape(R, P).astype(
+            np.int32)
+        q_len = np.asarray([5, 0, 1, 7], np.int32)
+        q_start = rng.integers(0, P * bs - C + 1, R).astype(np.int32)
+        pos = (q_start[:, None] + np.arange(C)).astype(np.int32)
+        toks = rng.integers(0, cfg.vocab_size, (R, C)).astype(np.int32)
+        pages = {"page_table": pt, "q_len": q_len}
+        live = (q_len > 0 if mode == "mixed_step"
+                else np.arange(C)[None, :] < q_len[:, None])
+    pool = _random_pool(rng, jcfg, R, N, bs)
+    want, _ = getattr(jax_transformer, mode)(
+        jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(toks),
+        jax.tree.map(jnp.asarray, pool), jnp.asarray(pos),
+        jax.tree.map(jnp.asarray, pages))
+    got, _ = getattr(transformer, mode)(
+        params.from_jax(jp), cfg, torch.from_numpy(toks),
+        params.from_jax(pool), torch.from_numpy(pos),
+        {k: torch.from_numpy(v) for k, v in pages.items()})
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_dense_caches_are_not_ported(model):

@@ -9,7 +9,9 @@ and token stream.  The smoke weights are used as initialised (nothing is
 rescaled); because their logits are nearly flat, the test also asserts
 that at every emitted step the port's top-1/top-2 logit margin is more
 than twice the measured difference between the two packages' logits, so
-the equal argmaxes are not luck.
+the equal argmaxes are not luck.  The expensive tier is phi4-mini-3.8b
+or the MoE granite-moe-3b-a800m, whose routing also sees the padding
+slots, so the port's padding token ids must be the JAX engine's.
 """
 import functools
 import os
@@ -43,8 +45,9 @@ from repro_torch.serving import (BlockAllocator, CascadeEngine,  # noqa: E402
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from repro_torch.serving.request import RequestState  # noqa: E402
 from tests.test_slots_properties import check_invariants  # noqa: E402
+from tests.test_torch_model import with_capacity  # noqa: E402
 
-FAST, EXP = "gemma3-1b", "phi4-mini-3.8b"
+FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +217,18 @@ def test_budget_gate_matches_jax_scheduler():
 
 @pytest.fixture(scope="module")
 def weights():
+    """name -> (JAX config, JAX weights, port weights), and the port's
+    config under ``(name, "torch")``."""
     out = {}
-    for i, name in enumerate((FAST, EXP)):
+    for i, name in enumerate((FAST, EXP, MOE)):
         cfg = jax_get_config(name, "smoke")
         jp = jax.tree.map(np.asarray, jax_init_params(
             cfg, jax.random.PRNGKey(i), jnp.float32))
         out[name] = (cfg, jp, from_jax(jp))
+        out[name, "torch"] = get_config(name, "smoke")
+    # granite at capacity factor 0.5: experts drop pairs in every launch
+    out["drops"] = (with_capacity(out[MOE][0], 0.5),) + out[MOE][1:]
+    out["drops", "torch"] = with_capacity(out[MOE, "torch"], 0.5)
     return out
 
 
@@ -244,17 +253,17 @@ def _drain(eng, work):
     return eng
 
 
-def _jax_engine(weights, delta, **kw):
+def _jax_engine(weights, delta, exp=EXP, **kw):
     kw = {**ENGINE_KW, **kw}
     return JaxEngine([JaxTierSpec(n, weights[n][0], weights[n][1])
-                      for n in (FAST, EXP)], deltas=[delta],
+                      for n in (FAST, exp)], deltas=[delta],
                      clock=JaxVirtualClock(), **kw)
 
 
-def _torch_engine(weights, delta, **kw):
+def _torch_engine(weights, delta, exp=EXP, **kw):
     kw = {**ENGINE_KW, **kw}
-    return CascadeEngine([TierSpec(n, get_config(n, "smoke"), weights[n][2])
-                          for n in (FAST, EXP)], deltas=[delta],
+    return CascadeEngine([TierSpec(n, weights[n, "torch"], weights[n][2])
+                          for n in (FAST, exp)], deltas=[delta],
                          clock=VirtualClock(), device="cpu", **kw)
 
 
@@ -268,17 +277,18 @@ def _tap_jax_logits(monkeypatch, recording):
     """Record each JAX launch's per-row next-token logits, per tier: the
     unified steps' last-slot logits, the chunk launch's logits at each
     row's last live slot, the decode launch's single position."""
-    logits_by_tier = {FAST: [], EXP: []}
+    logits_by_tier = {0: [], 1: []}
 
-    def tap(name, logits):
+    def tap(tier, logits):
         if recording[0]:
-            logits_by_tier[name].append(np.array(logits))
+            logits_by_tier[tier].append(np.array(logits))
 
     def tapped(fn, per_row):
         def run(params, cfg, tokens, cache, pos, pages=None):
             logits, cache = fn(params, cfg, tokens, cache, pos, pages)
-            jax.debug.callback(functools.partial(
-                tap, cfg.name.removesuffix("-smoke")), per_row(logits, pages))
+            tier = int(not cfg.name.startswith(FAST))
+            jax.debug.callback(functools.partial(tap, tier),
+                               per_row(logits, pages))
             return logits, cache
         return run
 
@@ -298,13 +308,13 @@ def _tap_torch_rows(eng):
     """Record the port's per-launch logits (every launch picks once, in
     the confidence gate) and, per launch, the rows it emits a token
     for."""
-    logits_by_tier = {FAST: [], EXP: []}
-    emitted = {FAST: [], EXP: []}
-    for rt in eng.runtimes:
+    logits_by_tier = {0: [], 1: []}
+    emitted = {0: [], 1: []}
+    for tier, rt in enumerate(eng.runtimes):
         pick = rt.pick
 
-        def tapped(logits2d, pick=pick, name=rt.spec.name):
-            logits_by_tier[name].append(logits2d.numpy().copy())
+        def tapped(logits2d, pick=pick, tier=tier):
+            logits_by_tier[tier].append(logits2d.numpy().copy())
             return pick(logits2d)
         rt.pick = tapped
     exec_unified, exec_split = eng._exec_unified, eng._exec_split
@@ -312,34 +322,34 @@ def _tap_torch_rows(eng):
 
     def unified(tier, rt, plan):
         if plan.prefill_rows or plan.decode_rows:
-            emitted[rt.spec.name].append(plan.finishing + plan.decode_rows)
+            emitted[tier].append(plan.finishing + plan.decode_rows)
         return exec_unified(tier, rt, plan)
 
     def split(tier, rt, plan):
         if plan.prefill_rows:           # the chunk launch emits these
-            emitted[rt.spec.name].append(list(plan.finishing))
+            emitted[tier].append(list(plan.finishing))
         return exec_split(tier, rt, plan)
 
     def decode(tier, rt, pf):
         dc = decode_launch(tier, rt, pf)
         if dc is not None:
-            emitted[rt.spec.name].append(list(dc["active"]))
+            emitted[tier].append(list(dc["active"]))
         return dc
     eng._exec_unified, eng._exec_split = unified, split
     eng._decode_launch = decode
     return logits_by_tier, emitted
 
 
-def _check_stream_parity(weights, dist, monkeypatch, executor):
+def _check_stream_parity(weights, dist, monkeypatch, executor, exp=EXP):
     """The port and the JAX engine under one executor: equal
     ``stream_checksum`` and token confidences, and at every emitted step
     the port's logits within 1e-4 of JAX's with a top-1/top-2 margin of
     more than twice that difference."""
-    kw = EXECUTORS[executor]
+    kw = dict(EXECUTORS[executor], exp=exp)
     work = _workload(dist)
     # δ mid-gap of a JAX probe run's tier-0 confidences (δ = 0: nothing
     # escalates), so the gate splits the workload
-    probe = _drain(_jax_engine(weights, 0.0), work)
+    probe = _drain(_jax_engine(weights, 0.0, exp=exp), work)
     confs = sorted(r.seq_conf_by_tier[0] for r in probe.requests)
     i = int(np.argmax(np.diff(confs)))
     delta = float((confs[i] + confs[i + 1]) / 2)
@@ -371,16 +381,16 @@ def _check_stream_parity(weights, dist, monkeypatch, executor):
     for a, b in zip(mine.requests, ref.requests):
         np.testing.assert_allclose(a.token_conf, b.token_conf, rtol=1e-4)
     steps = 0
-    for name in (FAST, EXP):
-        assert len(torch_logits[name]) == len(jax_logits[name]) \
-            == len(emitted[name])
-        for got, want, rows in zip(torch_logits[name], jax_logits[name],
-                                   emitted[name]):
+    for tier in (0, 1):
+        assert len(torch_logits[tier]) == len(jax_logits[tier]) \
+            == len(emitted[tier])
+        for got, want, rows in zip(torch_logits[tier], jax_logits[tier],
+                                   emitted[tier]):
             for s in rows:
                 err = np.abs(got[s] - want[s]).max()
                 top2 = np.sort(got[s])[-2:]
                 assert err < 1e-4
-                assert top2[1] - top2[0] > 2 * err, (name, s, err, top2)
+                assert top2[1] - top2[0] > 2 * err, (tier, s, err, top2)
                 steps += 1
     # every emitted token of every tier was checked
     assert steps == sum(len(t) for r in mine.requests
@@ -401,6 +411,24 @@ def test_stream_parity_with_jax_engine_padded_and_split(weights, executor,
     eng = _check_stream_parity(weights, "lognormal", monkeypatch, executor)
     assert (eng.unified_step, eng.ragged_step) == {
         "padded": (True, False), "split": (False, False)}[executor]
+
+
+@pytest.mark.parametrize("executor", ["ragged", "padded", "split"])
+def test_moe_stream_parity_with_jax_engine(weights, executor, monkeypatch):
+    """gemma3-1b -> granite-moe-3b-a800m (smoke: 4 experts, top-2, no
+    drops at capacity factor 2) under each executor."""
+    _check_stream_parity(weights, "lognormal", monkeypatch, executor,
+                         exp=MOE)
+
+
+@pytest.mark.parametrize("executor", ["padded", "split"])
+def test_moe_stream_parity_with_drops(weights, executor, monkeypatch):
+    """granite at capacity factor 0.5: the padded batch's dead slots and
+    the split decode's idle rows (their stale last token) fill expert
+    queues ahead of live tokens, so equal streams need the JAX engine's
+    padding token ids."""
+    _check_stream_parity(weights, "lognormal", monkeypatch, executor,
+                         exp="drops")
 
 
 def test_split_oversubscribed_arena_matches_jax(weights):
@@ -479,7 +507,7 @@ def test_launch_and_fetch_budget_per_tick(weights, executor):
 
 
 def test_executor_switches_raise_like_jax(weights):
-    tiers = [TierSpec(n, get_config(n, "smoke"), weights[n][2])
+    tiers = [TierSpec(n, weights[n, "torch"], weights[n][2])
              for n in (FAST, EXP)]
     with pytest.raises(ValueError, match="ragged flat token-batch"):
         CascadeEngine(tiers, device="cpu", use_unified_step=False,
@@ -525,9 +553,31 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     assert s["kernel_launches"] == {"ragged_attention": 0,
                                     "mixed_attention": 0,
                                     "paged_attention": 0,
-                                    "confidence_gate": 0}
+                                    "confidence_gate": 0,
+                                    "router_gate": 0}
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out and "[ragged]" in out
+
+
+def test_cli_serves_the_moe_cascade_on_cpu(capsys):
+    """``--expensive granite-moe-3b-a800m`` under the three executors:
+    every request DONE, the same streams (no drops at the smoke
+    variant), the router counted in the report."""
+    sums = set()
+    for flag in ([], ["--no-ragged-step"], ["--split-step"]):
+        args = serve_async.make_parser().parse_args(
+            ["--device", "cpu", "--expensive", MOE, "--requests", "4",
+             "--slots", "2", "--prompt-len", "12", "--gen-len", "3",
+             "--length-dist", "lognormal", "--virtual-clock"] + flag)
+        s = serve_async.run(args, VirtualClock())
+        serve_async.report(s)
+        assert s["completed"] == 4 and s["tier_names"][1] == MOE
+        assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
+                   for r in s["per_request"])
+        assert 1 in {r["tier"] for r in s["per_request"]}
+        sums.add(s["stream_checksum"])
+    assert len(sums) == 1
+    assert "router_gate=0" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag,mode", [("--no-ragged-step", "unified"),
