@@ -8,18 +8,22 @@ Phases (each raises on failure, and the script then exits non-zero
 without printing a result):
 
   1. environment: card name and power limit (``nvidia-smi``), torch and
-     CUDA versions, and the build of the five CUDA kernels from
+     CUDA versions, and the build of the seven CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it (gemma3-1b, phi4-mini-3.8b and
-     granite-moe-3b-a800m), with CUDA-event times for the kernel and the
-     plain version (for the gate and the router also back to back,
-     :func:`device_ms`);
+     shapes the main paths give it (gemma3-1b, phi4-mini-3.8b,
+     granite-moe-3b-a800m and rwkv6-3b), with CUDA-event times for the
+     kernel and the plain version (for the gate and the router also back
+     to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
+     ``scaled_dot_product_attention`` as a yardstick);
   3. the port's ragged, padded (``mixed_step``) and split
      (``prefill_chunk`` then ``decode_step``) steps end to end on the
      card against the same steps on the CPU (plain versions), at the
      smoke widths, and for granite at its published widths cut to 2
-     layers;
+     layers; then the uniform ``prefill`` and the dense-arena
+     ``decode_step`` the same way, at the smoke widths of gemma3-1b,
+     phi4-mini-3.8b and rwkv6-3b and for rwkv6-3b at its published
+     widths cut to 2 layers;
   4. the main path at full width: ``repro_torch.launch.serve_async.run``
      serving 16 requests through the published gemma3-1b ->
      phi4-mini-3.8b cascade (random f32 weights from a seed) on the
@@ -27,12 +31,17 @@ without printing a result):
      just before and read just after;
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
-     then the gemma3-1b -> granite-moe-3b-a800m cascade (40 experts,
-     top-8) under all three, each run with the counters set to 0 just
-     before and read just after;
+     then the uniform one-shot prefill path on 16 prompts of exactly 640
+     tokens (``--no-chunked-prefill``, and ``--dense-kv`` over the dense
+     arena), then the gemma3-1b -> granite-moe-3b-a800m cascade (40
+     experts, top-8) under all three executors, then gemma3-1b ->
+     rwkv6-3b (uniform by itself: its RWKV-6 state cannot be chunked),
+     each run with the counters set to 0 just before and read just
+     after, its launches checked exactly;
   6. the workload once more inside ``torch.profiler``, with a virtual
-     clock, under each executor and for the MoE cascade under the ragged
-     one: device time by kernel kind and the device's idle share.
+     clock, under each executor (the uniform one included), for the MoE
+     cascade under the ragged one and for the RWKV-6 cascade: device
+     time by kernel kind and the device's idle share.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -58,16 +67,19 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import bigram_lm  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
 from repro_torch.launch import serve_async  # noqa: E402
 from repro_torch.models import blocks, init_params, transformer  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
-from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
+from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
 # (non-tensor-core) operations/s, at the full 700 W power limit
@@ -558,6 +570,120 @@ def check_router(dev, flush):
     return worst, timed
 
 
+def visible_pairs(S, window):
+    """(query, key) pairs a causal, optionally windowed, prefill of S
+    tokens computes."""
+    i = np.arange(S)
+    return int(np.minimum(i + 1, window if window else S).sum())
+
+
+def check_flash(dev, flush):
+    """flash_attention against its plain version at the uniform prefill's
+    shapes — 8 prompts of 640 tokens: gemma3-1b's sliding (window 512)
+    and global layers, q [8, 4, 640, 256] over k/v [8, 1, 640, 256], and
+    phi4-mini-3.8b's, q [8, 24, 640, 128] over k/v [8, 8, 640, 128] —
+    in f32 (the main path) and, untimed, bf16.  The yardstick is one
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` call (causal,
+    or a boolean window mask), which the port never calls.  Work for the
+    bound: q, k, v read and out written once; 4·d f32 operations per
+    visible (query, key) pair and query head."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = [("gemma window=512", 8, 4, 1, 256, 512, "f32"),
+             ("gemma global", 8, 4, 1, 256, None, "f32"),
+             ("phi4", 8, 24, 8, 128, None, "f32"),
+             ("phi4", 8, 24, 8, 128, None, "bf16"),
+             ("gemma window=512", 8, 4, 1, 256, 512, "bf16")]
+    S = 640
+    worst, timed = 0.0, {}
+    for label, B, H, KV, d, window, kind in cases:
+        dt = dtypes_of(kind)[0]
+        q, k, v = (torch.randn(B, n, S, d, generator=gen, device=dev).to(dt)
+                   for n in (H, KV, KV))
+        kw = dict(causal=True, window=window)
+        got = flash_mod.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_mod.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             **kw)
+        err, ok = close(got, want, kind)
+        name = f"{label} q [{B}, {H}, {S}, {d}] {kind}"
+        emit(check="flash_attention", case=name, max_abs_err=err,
+             atol_rtol=TOLS[kind], ok=ok)
+        if not ok:
+            raise AssertionError(f"flash_attention {name}: max abs err "
+                                 f"{err} past (atol, rtol) {TOLS[kind]}")
+        if kind == "bf16":
+            continue
+        worst = max(worst, err)
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+        lib_err = (library() - want).abs().max().item()
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        nops = visible_pairs(S, window) * B * H * 4 * d
+        t = time_case(name, timed,
+                      lambda: flash_mod.flash_attention(q, k, v, **kw),
+                      lambda: flash_mod.flash_attention_ref(q, k, v, **kw),
+                      (nbytes, nops), flush)
+        t["library_ms"] = time_ms(library, 20, flush)
+        t["library_max_abs_err"] = lib_err
+        emit(timing="flash_attention", case=name, **t)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+RWKV_TOL = "y and final state atol=rtol=1e-4"
+
+
+def check_rwkv(dev, flush):
+    """rwkv6_scan against its plain version at rwkv6-3b's uniform prefill:
+    r, k, v, w [8, 40, 640, 64] (w = exp(-exp(.)) in (0, 1)), u [40, 64],
+    both outputs (y and the final state) compared.  Work for the bound:
+    the five inputs read and y and the state written once; per step and
+    head 5·hd² f32 operations (2·hd² for r·S, 3·hd² for the decayed
+    update w ⊙ S + k vᵀ) and 3·hd for the bonus term, folded into one
+    scalar r·(u ⊙ k) times v.  No single PyTorch call computes the scan,
+    so there is no yardstick."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    B, H, T, hd = 8, 40, 640, 64
+    r, k, v = (torch.randn(B, H, T, hd, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, H, T, hd, generator=gen,
+                                         device=dev) * 0.5 - 0.5))
+    u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
+    y, s_T = rwkv_mod.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    want_y, want_s = rwkv_mod.rwkv6_scan_ref(r, k, v, w, u)
+    errs = {"y": (y - want_y).abs().max().item(),
+            "state": (s_T - want_s).abs().max().item()}
+    ok = bool(torch.allclose(y, want_y, atol=1e-4, rtol=1e-4)
+              and torch.allclose(s_T, want_s, atol=1e-4, rtol=1e-4))
+    name = f"rwkv6-3b [{B}, {H}, {T}, {hd}] f32"
+    emit(check="rwkv6_scan", case=name, max_abs_err=errs, tol=RWKV_TOL,
+         ok=ok)
+    if not ok:
+        raise AssertionError(f"rwkv6_scan {name}: {errs}")
+    nbytes = 4 * (5 * r.numel() + u.numel() + s_T.numel())
+    nops = (5 * hd * hd + 3 * hd) * T * B * H
+    timed = {}
+    t = time_case(name, timed, lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
+                  lambda: rwkv_mod.rwkv6_scan_ref(r, k, v, w, u),
+                  (nbytes, nops), flush)
+    emit(timing="rwkv6_scan", case=name, **t)
+    return max(errs.values()), timed
+
+
 # --------------------------------------------------------------------------
 # phase 3: the ragged step on the card against the CPU
 # --------------------------------------------------------------------------
@@ -739,56 +865,138 @@ def check_padded_steps(dev):
     torch.cuda.empty_cache()
 
 
+def uniform_models():
+    """(label, config) of the uniform-path checks: the smoke widths of
+    gemma3-1b, phi4-mini-3.8b and rwkv6-3b, and rwkv6-3b at its published
+    widths (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) cut to 2
+    layers."""
+    rwkv = get_config("rwkv6-3b", "")
+    return [(f"{n}-smoke", get_config(n, "smoke"))
+            for n in ("gemma3-1b", "phi4-mini-3.8b", "rwkv6-3b")] + [
+        ("rwkv6-3b 2 layers", dataclasses.replace(rwkv, num_periods=2))]
+
+
+def check_uniform_steps(dev):
+    """The uniform path's steps on the card against the CPU: ``prefill``
+    of 4 prompts of 40 tokens (past the smoke window of 16 and the scan
+    kernel's 32-step chunk) — last-position logits and every part-cache
+    leaf — then the part cache written into a dense arena of 48
+    positions (``DenseTierSlotPool``) and one ``decode_step`` over it,
+    rows at different positions: logits and the updated arena.  All
+    within atol = rtol = 1e-4."""
+    rng = np.random.default_rng(2)
+    B, S, T = 4, 40, 48
+    for label, cfg in uniform_models():
+        params_cpu = init_params(cfg, 0, torch.float32, "cpu")
+        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+        dec_tok = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32))
+        dec_pos = torch.tensor([[S], [S - 5], [S + 3], [S]],
+                               dtype=torch.int32)
+        out = {}
+        for where, params in (("cpu", params_cpu), ("card", params_dev)):
+            d = torch.device("cpu") if where == "cpu" else dev
+            logits, part = transformer.prefill(params, cfg,
+                                               {"tokens": toks.to(d)})
+            pool = DenseTierSlotPool(cfg, B, T, device=d)
+            pool.write_prefill(list(range(B)), part)
+            dec, _ = transformer.decode_step(params, cfg, dec_tok.to(d),
+                                             pool.cache, dec_pos.to(d))
+            out[where] = [t.cpu() for t in (logits, dec)] + [
+                [t.cpu() for t in tree_leaves(part)],
+                [t.cpu() for t in tree_leaves(pool.cache)]]
+            del part, pool
+        for i, step in enumerate(("prefill", "dense decode_step")):
+            compare_step(step, label, out["card"][i], out["cpu"][i], None)
+        for i, what in ((2, "prefill part cache"), (3, "dense arena after "
+                                                       "decode")):
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(out["card"][i], out["cpu"][i])]
+            ok = all(torch.allclose(g.float(), w.float(), atol=1e-4,
+                                    rtol=1e-4)
+                     for g, w in zip(out["card"][i], out["cpu"][i]))
+            emit(check=f"{what} card vs cpu", model=label,
+                 leaves=len(errs), max_abs_err=max(errs), tol=1e-4, ok=ok)
+            if not ok:
+                raise AssertionError(f"{what} {label}: {max(errs)}")
+        del params_cpu, params_dev, out
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path at full width
 # --------------------------------------------------------------------------
 
 
 PHI4_NAME, MOE_NAME = "phi4-mini-3.8b", "granite-moe-3b-a800m"
+RWKV_NAME = "rwkv6-3b"
 
 
 def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
     """The phase-4 workload with ``expensive`` as the second tier;
-    ``executor`` adds the CLI's executor flags (``ragged_step=False`` or
-    ``split_step=True``)."""
+    ``executor`` adds the CLI's executor flags (``ragged_step=False``,
+    ``split_step=True``, ``no_chunked_prefill=True`` or
+    ``dense_kv=True``).  The chunked executors serve lognormal prompt
+    lengths up to 640; the uniform prefill path (those two flags, or the
+    recurrent rwkv6-3b) serves every prompt at exactly 640."""
+    uniform = (executor.get("no_chunked_prefill") or executor.get("dense_kv")
+               or expensive == RWKV_NAME)
     return Namespace(
         fast="gemma3-1b", expensive=expensive, variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
-        min_prompt_len=1, length_dist="lognormal", gen_len=8,
-        prefill_chunk=64, prefill_token_budget=None, delta=None,
+        min_prompt_len=1, length_dist="uniform" if uniform else "lognormal",
+        gen_len=8, prefill_chunk=64, prefill_token_budget=None, delta=None,
         escalation_budget=0.25, kv_block_size=16, kv_blocks=None,
         seed=0, expensive_seed=None, **executor)
 
 
 EXECUTORS = {"ragged": {}, "padded": {"ragged_step": False},
              "split": {"split_step": True}}
+# the uniform one-shot prefill path (split decode): on the block-paged
+# arena, on the dense one, and as the rwkv6-3b cascade picks it by itself
+UNIFORM = {"uniform": {"no_chunked_prefill": True},
+           "dense": {"dense_kv": True}, "auto": {}}
+ALL_EXECUTORS = {**EXECUTORS, **UNIFORM}
 COUNTED = ("ragged_attention", "mixed_attention", "paged_attention",
-           "confidence_gate", "router_gate")
+           "flash_attention", "confidence_gate", "router_gate",
+           "rwkv6_scan")
 
 
-def expected_launches(layers, moe_layers, kinds, warm=None):
-    """Attention and router launches each kernel must count over a run
-    whose tier launches by kind are ``kinds``: every attention layer of a
-    tier launch goes through the executor's attention kernel(s), every
-    MoE layer through ``router_gate``.  ``warm`` adds the warmup's
-    launches per tier."""
-    out = dict.fromkeys(COUNTED[:3] + ("router_gate",), 0)
-    for t, (n, n_moe) in enumerate(zip(layers, moe_layers)):
+def layer_counts(cfg) -> dict:
+    """Layers of a config by what they launch: attention mixers, MoE
+    FFNs and RWKV-6 mixers."""
+    layers = cfg.head + cfg.tail + cfg.period * cfg.num_periods
+    return {"attn": sum(l.mixer.kind == "attn" for l in layers),
+            "moe": sum(l.ffn.kind == "moe" for l in layers),
+            "rwkv6": sum(l.mixer.kind == "rwkv6" for l in layers)}
+
+
+def expected_launches(cfgs, kinds, warm=None, paged=True):
+    """Launches each layer kernel must count over a run whose tier
+    launches by kind are ``kinds``: every attention layer of a tier
+    launch goes through the executor's attention kernel — ragged, mixed
+    (padded steps and chunks), paged decode (split decode steps over the
+    block-paged arena; the dense arena's decode is plain torch) or flash
+    (uniform prefills) — every MoE layer through ``router_gate``, every
+    RWKV-6 layer of a prefill through ``rwkv6_scan`` (its decode is
+    plain torch).  ``warm`` adds the warmup's launches per tier."""
+    out = {c: 0 for c in COUNTED if c != "confidence_gate"}
+    for t, cfg in enumerate(cfgs):
+        n = layer_counts(cfg)
         k = dict(kinds[t])
         if warm is not None:
             for kind, w in warm[t].items():
                 k[kind] = k.get(kind, 0) + w
-        out["ragged_attention"] += n * k.get("ragged", 0)
-        out["mixed_attention"] += n * (k.get("mixed", 0) + k.get("chunk", 0))
-        out["paged_attention"] += n * k.get("step", 0)
-        out["router_gate"] += n_moe * sum(k.values())
+        out["ragged_attention"] += n["attn"] * k.get("ragged", 0)
+        out["mixed_attention"] += n["attn"] * (k.get("mixed", 0)
+                                               + k.get("chunk", 0))
+        out["paged_attention"] += n["attn"] * k.get("step", 0) * paged
+        out["flash_attention"] += n["attn"] * k.get("prefill", 0)
+        out["router_gate"] += n["moe"] * sum(k.values())
+        out["rwkv6_scan"] += n["rwkv6"] * k.get("prefill", 0)
     return out
-
-
-def moe_layer_count(cfg) -> int:
-    """MoE layers of a config (each routes once per tier launch)."""
-    return sum(l.ffn.kind == "moe" for l in cfg.head + cfg.tail) + \
-        cfg.num_periods * sum(l.ffn.kind == "moe" for l in cfg.period)
 
 
 def serve(card: str, params, executor: str, expensive=PHI4_NAME):
@@ -798,7 +1006,7 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
     completed, that the gate split them, and that the counters prove
     each tier launch went through the executor's kernels (and through
     nothing else)."""
-    args = main_path_args(expensive, **EXECUTORS[executor])
+    args = main_path_args(expensive, **ALL_EXECUTORS[executor])
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
                                       args.seed)
@@ -817,20 +1025,26 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
 
     cfgs = [get_config(args.fast, args.variant),
             get_config(args.expensive, args.variant)]
-    layers = [c.num_layers for c in cfgs]
-    moe_layers = [moe_layer_count(c) for c in cfgs]
     tier_launches = s["launches"]
     kinds = s["launches_by_kind"]
     # the warmup's launches per tier: every bucket width (ragged), the
-    # chunk width and width 1 (padded), one chunk and one decode (split)
+    # chunk width and width 1 (padded), one chunk and one decode (split),
+    # one prefill and one decode (uniform)
     warm = [{"ragged": len(b)} if b is not None else
-            {"mixed": 2} if s["unified_step"] else {"chunk": 1, "step": 1}
+            {"mixed": 2} if s["unified_step"] else
+            {"chunk": 1, "step": 1} if s["chunked_prefill"] else
+            {"prefill": 1, "step": 1}
             for b in s["flat_buckets"]]
     per_req = s["per_request"]
     problems = []
-    if (s["unified_step"], s["ragged_step"]) != {
-            "ragged": (True, True), "padded": (True, False),
-            "split": (False, False)}[executor]:
+    if (s["unified_step"], s["ragged_step"], s["chunked_prefill"],
+            s["paged_kv"]) != {
+            "ragged": (True, True, True, True),
+            "padded": (True, False, True, True),
+            "split": (False, False, True, True),
+            "uniform": (False, False, False, True),
+            "dense": (False, False, False, False),
+            "auto": (False, False, False, True)}[executor]:
         problems.append(f"engine ran the wrong executor: {s}")
     if not all(r["state"] == "DONE" and len(r["tokens"]) == args.gen_len
                for r in per_req):
@@ -839,27 +1053,34 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
     if 1 not in tiers or 0 not in tiers:
         problems.append(f"need escalated and non-escalated requests: "
                         f"{tiers}")
-    want = expected_launches(layers, moe_layers, kinds)
+    paged = s["paged_kv"]
+    want = expected_launches(cfgs, kinds, paged=paged)
     got = {k: s["kernel_launches"][k] for k in want}
     if got != want:
-        problems.append(f"attention/router launches after warmup {got} != "
+        problems.append(f"layer kernel launches after warmup {got} != "
                         f"{want}")
     if s["kernel_launches"]["confidence_gate"] != sum(tier_launches):
         problems.append("gate launches != tier launches")
-    want_window = expected_launches(layers, moe_layers, kinds, warm)
+    want_window = expected_launches(cfgs, kinds, warm, paged=paged)
     if {k: counts[k] for k in want_window} != want_window:
         problems.append(f"launch counts {counts} != {want_window} "
                         "(warmup included)")
     if counts["confidence_gate"] != sum(tier_launches) + sum(
             sum(w.values()) for w in warm):
         problems.append(f"gate launch count {counts} off")
-    if any(h > a for h, a in zip(s["host_syncs"], s["active_ticks"])):
+    # one fetch per active tier per tick, plus the uniform path's own
+    # fetch after each prefill launch
+    prefills = [k.get("prefill", 0) for k in kinds]
+    if any(h > a + p for h, a, p in zip(s["host_syncs"], s["active_ticks"],
+                                        prefills)):
         problems.append(f"host syncs {s['host_syncs']} exceed one per "
-                        f"active tier per tick {s['active_ticks']}")
+                        f"active tier per tick {s['active_ticks']} plus one "
+                        f"per prefill {prefills}")
     gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
     record = dict(
         phase="main path" if executor == "ragged" else "executor",
         executor=executor, card=card, configs=[args.fast, args.expensive],
+        length_dist=args.length_dist,
         requests=args.requests, completed=s["completed"],
         tier_requests=s["tier_requests"], steps=s["steps"],
         tier_launches=tier_launches, launches_by_kind=kinds,
@@ -884,18 +1105,20 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
 
 
 def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
-    """Record how the executors' token streams compare on the card.  The
-    budget gate's δ follows the confidences seen so far, so under a wall
-    clock the executors may escalate different requests; a request that
-    ends at the same tier under two executors was decoded by the same
-    model from the same prompt, and its tokens are compared."""
-    base = {r["rid"]: r for r in runs["ragged"]}
+    """Record how the executors' token streams compare on the card
+    (against the first run given, on the same prompts).  The budget
+    gate's δ follows the confidences seen so far, so under a wall clock
+    the executors may escalate different requests; a request that ends at
+    the same tier under two executors was decoded by the same model from
+    the same prompt, and its tokens are compared."""
+    first = next(iter(runs))
+    base = {r["rid"]: r for r in runs[first]}
     for ex, per_req in runs.items():
         same_tier = [r for r in per_req
                      if r["tier"] == base[r["rid"]]["tier"]]
         differ = [r["rid"] for r in same_tier
                   if r["tokens"] != base[r["rid"]]["tokens"]]
-        emit(check="token streams against ragged", executor=ex,
+        emit(check=f"token streams against {first}", executor=ex,
              expensive=expensive,
              escalated=sorted(r["rid"] for r in per_req if r["tier"] > 0),
              same_tier_requests=len(same_tier), differing_rids=differ)
@@ -905,8 +1128,10 @@ def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
 KERNEL_NAMES = {"ragged_attention": "ragged_kernel",
                 "mixed_attention": "mixed_kernel",
                 "paged_attention": "paged_decode_kernel",
+                "flash_attention": "flash_kernel",
                 "confidence_gate": "gate_kernel",
-                "router_gate": "router_kernel"}
+                "router_gate": "router_kernel",
+                "rwkv6_scan": "wkv_kernel"}
 
 
 def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
@@ -918,7 +1143,7 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
     cascade's expert products among the matrix products."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = main_path_args(expensive, **EXECUTORS[executor])
+    args = main_path_args(expensive, **ALL_EXECUTORS[executor])
     engine, vocab = serve_async.build_engine(args, VirtualClock(), params)
     prompts = bigram_lm(
         num_seqs=args.requests, seq_len=args.prompt_len,
@@ -972,7 +1197,7 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
-    return [dict(case=name, library_ms=None,
+    return [dict(case=name, library_ms=t.get("library_ms"),
                  **{k: t[k] for k in keys if k in t})
             for name, t in timed.items()]
 
@@ -987,7 +1212,7 @@ def kernel_entry(name, launches, err, tol, timed, key, shape):
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": err, "tolerance": tol, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "device_ms": t.get("device_ms"),
             "shape": shape, "cases": timed_cases(timed)}
 
@@ -998,6 +1223,8 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention.py:93",
     "mixed_attention": "src/repro/kernels/mixed_attention.py:118",
     "router_gate": "src/repro/kernels/router_gate.py:51",
+    "flash_attention": "src/repro/kernels/flash_attention.py:75",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:54",
 }
 
 
@@ -1028,38 +1255,60 @@ def main() -> int:
     p_err, p_time = check_paged(dev, flush)
     m_err, m_time = check_mixed(dev, flush)
     q_err, q_time = check_router(dev, flush)
+    f_err, f_time = check_flash(dev, flush)
+    w_err, w_time = check_rwkv(dev, flush)
     del flush
     torch.cuda.empty_cache()
     check_ragged_step(dev)
     check_padded_steps(dev)
+    check_uniform_steps(dev)
     # both tiers' f32 weights (19.4 GB) are drawn once and serve every
     # executor and the profiles
     params = serve_async.build_params(main_path_args())
     runs = {ex: serve(card, params, ex) for ex in EXECUTORS}
     compare_streams({ex: r for ex, (_, r) in runs.items()})
+    uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
+                                                           "dense")}
+    compare_streams({ex: r for ex, (_, r) in uniform_runs.items()})
     torch.cuda.empty_cache()
-    for ex in EXECUTORS:
+    for ex in list(EXECUTORS) + ["uniform"]:
         profile_ticks(card, params, ex)
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)
+    params = (params[0], None)
+    torch.cuda.empty_cache()
     params = (params[0], init_params(
         get_config(MOE_NAME, moe_args.variant), moe_args.seed + 1,
         torch.float32, dev))
-    torch.cuda.empty_cache()
     moe_runs = {ex: serve(card, params, ex, MOE_NAME) for ex in EXECUTORS}
     compare_streams({ex: r for ex, (_, r) in moe_runs.items()}, MOE_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "ragged", MOE_NAME)
+    # the RWKV-6 cascade: rwkv6-3b's weights (12.3 GB) in place of
+    # granite's; the engine serves it on the uniform prefill path
+    params = (params[0], None)
+    torch.cuda.empty_cache()
+    params = (params[0], init_params(
+        get_config(RWKV_NAME, moe_args.variant), moe_args.seed + 1,
+        torch.float32, dev))
+    rwkv_counts, _ = serve(card, params, "auto", RWKV_NAME)
+    torch.cuda.empty_cache()
+    profile_ticks(card, params, "auto", RWKV_NAME)
     counts = {ex: c for ex, (c, _) in runs.items()}
+    counts.update({ex: c for ex, (c, _) in uniform_runs.items()})
     counts.update({f"moe {ex}": c for ex, (c, _) in moe_runs.items()})
+    counts["rwkv"] = rwkv_counts
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split")),
-                     ("paged_attention", ("split", "moe split")),
+                     ("paged_attention", ("split", "moe split", "uniform",
+                                          "rwkv")),
+                     ("flash_attention", ("uniform", "dense", "rwkv")),
                      ("confidence_gate", tuple(counts)),
-                     ("router_gate", moe_paths)):
+                     ("router_gate", moe_paths),
+                     ("rwkv6_scan", ("rwkv",))):
         if not all(counts[e][name] > 0 for e in ex):
             raise AssertionError(f"{name} was not launched on {ex}: "
                                  f"{counts}")
@@ -1087,6 +1336,13 @@ def main() -> int:
         kernel_entry("router_gate", total["router_gate"], q_err,
                      ROUTER_TOL, q_time, "granite [512, 40]",
                      "granite-moe-3b-a800m: logits [512, 40] f32, k 8"),
+        kernel_entry("flash_attention", total["flash_attention"], f_err,
+                     TOL_TEXT, f_time, "phi4 q [8, 24, 640, 128] f32",
+                     "phi4-mini-3.8b: q [8, 24, 640, 128], k/v "
+                     "[8, 8, 640, 128] f32, causal"),
+        kernel_entry("rwkv6_scan", total["rwkv6_scan"], w_err, RWKV_TOL,
+                     w_time, "rwkv6-3b [8, 40, 640, 64] f32",
+                     "rwkv6-3b: r/k/v/w [8, 40, 640, 64], u [40, 64] f32"),
     ]
     for e in entries:
         e["launches_by_path"] = by_path[e["name"]]

@@ -8,16 +8,19 @@ in an integer attribute ``launches`` — the count a run reads to show
 that its path went through the kernels.  Reset it by assignment
 (``ops.ragged_attention.launches = 0``).  ``paged_prefill_attention``
 launches the mixed kernel, so it counts into
-``mixed_attention.launches``.
+``mixed_attention.launches``; ``rwkv6_scan`` returns the final state
+beside ``y``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import confidence_gate as _gate
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mixed_attention as _mixed
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
 from repro_torch.kernels import ragged_attention as _ragged
 from repro_torch.kernels import router_gate as _router
+from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
 def _on_cpu(t, name: str) -> bool:
@@ -120,3 +123,31 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_start, q_len,
         v_scale=v_scale, window=window)
     mixed_attention.launches += 1
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Dense causal / sliding-window GQA attention: q [B, H, S, d], k/v
+    [B, KV, T, d]; see :mod:`repro_torch.kernels.flash_attention`."""
+    if _on_cpu(q, "flash_attention"):
+        return _flash.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def rwkv6_scan(r, k, v, w, u):
+    """RWKV-6 WKV scan from the zero state: r, k, v, w [B, H, T, hd], u
+    [H, hd] -> (y [B, H, T, hd], final state [B, H, hd, hd]), f32; see
+    :mod:`repro_torch.kernels.rwkv6_scan`."""
+    if _on_cpu(r, "rwkv6_scan"):
+        return _rwkv.rwkv6_scan_ref(r, k, v, w, u)
+    out = _rwkv.rwkv6_scan(r, k, v, w, u)
+    rwkv6_scan.launches += 1
+    return out
+
+
+rwkv6_scan.launches = 0

@@ -13,7 +13,13 @@ escalated to the expensive tier.  ``--length-dist
 ragged flat token-batch step per tier through the hand-written CUDA
 kernels — or, with ``--no-ragged-step``, one padded mixed step per tier,
 or, with ``--split-step``, a chunk launch plus a paged decode launch per
-tier (one fetch either way).  The gate threshold comes from an
+tier (one fetch either way).  ``--no-chunked-prefill`` prefills each
+admission in one uniform launch (the flash attention kernel in every
+attention layer) and decodes on the split path; ``--dense-kv`` does the
+same over the dense one-row-per-request arena; a tier with recurrent
+state (``--expensive rwkv6-3b``, the RWKV-6 scan kernel) takes the
+uniform path by itself.  The uniform path needs ``--length-dist
+uniform``.  The gate threshold comes from an
 escalation budget by default (δ = the budget-quantile of recent sequence
 confidences); ``--delta`` fixes it instead.
 
@@ -22,7 +28,8 @@ confidences); ``--delta`` fixes it instead.
 
 runs the smoke variants on the card; ``--variant ''`` serves the
 published widths, ``--expensive granite-moe-3b-a800m`` the MoE cascade
-(its MoE layers route through the ``router_gate`` kernel), and
+(its MoE layers route through the ``router_gate`` kernel),
+``--expensive rwkv6-3b`` the RWKV-6 cascade, and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.  Reports latency/TTFT percentiles, throughput, per-tier
 utilization, launches and host syncs per tick, the escalation rate and
 Eq 7 FLOPs/request.
@@ -77,11 +84,15 @@ def build_engine(args, clock=None, params=None):
                                else params)
     gate_kw = ({"deltas": [args.delta]} if args.delta is not None
                else {"escalation_budget": args.escalation_budget})
+    dense = getattr(args, "dense_kv", False)
     engine = CascadeEngine(
         [TierSpec(args.fast, fast_cfg, fast_params),
          TierSpec(args.expensive, exp_cfg, exp_params)],
         slots=args.slots, prompt_len=args.prompt_len, gen_len=args.gen_len,
         kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+        use_paged_kv=not dense,
+        use_chunked_prefill=False if (
+            dense or getattr(args, "no_chunked_prefill", False)) else None,
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_token_budget,
         use_unified_step=False if getattr(args, "split_step", False)
@@ -136,8 +147,8 @@ def stream_checksum(engine) -> str:
 def _launch_counts() -> dict:
     return {name: getattr(kernel_ops, name).launches
             for name in ("ragged_attention", "mixed_attention",
-                         "paged_attention", "confidence_gate",
-                         "router_gate")}
+                         "paged_attention", "flash_attention",
+                         "confidence_gate", "router_gate", "rwkv6_scan")}
 
 
 def run(args, clock=None, params=None) -> dict:
@@ -146,6 +157,14 @@ def run(args, clock=None, params=None) -> dict:
     ``kernel_launches`` counts the kernel launches after warmup;
     ``per_request`` lists each request's final tier, state and tokens."""
     engine, vocab = build_engine(args, clock, params)
+    # catches the flags and the engine's own choice of uniform prefill
+    # (a tier with recurrent state)
+    if args.length_dist != "uniform" and not engine.chunked_prefill:
+        raise ValueError(
+            "mixed prompt lengths require chunked paged prefill, but the "
+            "engine runs the uniform path (--no-chunked-prefill/--dense-kv "
+            "given, or a tier carries recurrent state) — use --length-dist "
+            "uniform")
     prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
                         vocab=min(vocab, PROMPT_VOCAB), seed=args.seed)
     lengths = sample_lengths(args.length_dist, args.requests,
@@ -172,6 +191,8 @@ def run(args, clock=None, params=None) -> dict:
     summary["length_dist"] = args.length_dist
     summary["max_prompt_len"] = args.prompt_len
     summary["prefill_chunk"] = engine.prefill_chunk
+    summary["chunked_prefill"] = engine.chunked_prefill
+    summary["paged_kv"] = engine.paged_kv
     summary["unified_step"] = engine.unified_step
     summary["ragged_step"] = engine.ragged_step
     summary["flat_buckets"] = [rt.flat_buckets if rt.ragged else None
@@ -207,7 +228,10 @@ def report(s: dict) -> None:
           + "  ".join(f"{n}={u:.2f}" for n, u in
                       zip(s['tier_names'], s['tier_utilization'])))
     mode = ("ragged" if s.get("ragged_step")
-            else "unified" if s.get("unified_step") else "split")
+            else "unified" if s.get("unified_step")
+            else "split" if s.get("chunked_prefill", True)
+            else "uniform+split" if s.get("paged_kv", True)
+            else "uniform+split dense")
     print(f"  launches/tick [{mode}] "
           + "  ".join(f"{n}={l:.2f}" for n, l in
                       zip(s["tier_names"], s["launches_per_tick"]))
@@ -256,6 +280,12 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-token-budget", type=int, default=None,
                     help="tokens admitted per tier per tick "
                          "(default slots * prefill-chunk)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="uniform one-shot prefill of each admission "
+                         "(exact-length prompts; decode on the split path)")
+    ap.add_argument("--dense-kv", action="store_true",
+                    help="dense one-row-per-request KV arena instead of the "
+                         "block-paged one (implies --no-chunked-prefill)")
     ap.add_argument("--split-step", action="store_true",
                     help="split chunk + decode launches instead of the "
                          "unified one launch per tier per tick")

@@ -1,14 +1,17 @@
-"""Transformer building blocks (the torch twin of the serving half of
-``repro/models/blocks.py``).
+"""Transformer and RWKV-6 building blocks (the torch twin of the serving
+half of ``repro/models/blocks.py``).
 
 The mixer signature is the JAX package's::
 
-    y, cache = attention(p, cfg, spec, x, cache, pos, mode, pages=None)
+    y, cache = mixer(p, cfg, spec, x, cache, pos, mode, pages=None)
 
-over a block-paged cache from
-:func:`repro_torch.models.cache.init_paged_cache`, in the modes the
-serving executors run:
+Attention runs in the modes the serving executors use:
 
+* ``"prefill"`` (uniform one-shot prefill): every row's whole prompt at
+  positions ``0..S-1``; no cache in, and the new part cache ``{"k",
+  "v"}`` (int8 with scales under ``kv_quant="int8"``) out, for
+  ``TierSlotPool.write_prefill`` to scatter; attention runs in the
+  ``flash_attention`` kernel on the unquantised keys and values;
 * ``"ragged_step"`` (ragged executor): one flat ``[1, W]`` token row
   packed by the prefix sum of the per-row live counts; ``pages`` carries
   ``{"page_table": [R, P], "q_len": [R], "q_start": [R]}``;
@@ -16,15 +19,22 @@ serving executors run:
   executor's chunk launch): a padded ``[B, C]`` batch, row ``b``'s
   ``q_len[b]`` live slots at positions ``pos[b]``; ``pages`` carries
   ``{"page_table": [B, P], "q_len": [B]}``;
-* ``"decode"`` (split executor's decode launch): one token per row at
-  ``pos [B, 1]``; ``pages`` carries ``{"page_table": [B, P]}``.
+* ``"decode"``: one token per row at ``pos [B, 1]``, over a block-paged
+  cache (``pages={"page_table": [B, P]}``, the paged decode kernel) or,
+  with ``pages=None``, the dense ``[B, max_seq, KV, hd]`` arena (plain
+  torch: the JAX package has no kernel there).
 
-The KV pools are updated in place and the same cache dict comes back.
-Dense caches (``pages=None``) are not ported.
+Decode and the paged steps update the cache in place and return the same
+dict.  The RWKV-6 time mix (:func:`rwkv6`) and channel mix
+(:func:`rwkv_cmix`) run in ``"prefill"`` (the ``rwkv6_scan`` kernel,
+from the zero state) and ``"decode"`` (one plain-torch step from the
+cached state) only: their recurrent state cannot be carried across
+chunks, and the chunked modes raise as in the JAX package.
 
 ``dense_ffn(p, cfg, spec, x) -> y`` covers the ``swiglu`` and ``gelu``
 FFNs, ``moe_ffn(p, cfg, spec, x) -> y`` the token-choice top-k mixture of
-experts; ``apply_ffn`` picks one by the layer's FFN kind.
+experts; ``apply_ffn(p, cfg, spec, x, cache, mode) -> (y, cache)`` picks
+one by the layer's FFN kind, with the channel mix's token-shift cache.
 """
 from __future__ import annotations
 
@@ -93,9 +103,9 @@ def _quant_i8(x, eps=1e-8):
 
 
 def _write_kv(cache, blk, off, k, v):
-    """Scatter new keys/values into the pools at (block, offset), in
-    place (the JAX package writes a new cache and donates the old buffers
-    instead).  Duplicate writes to the null block 0 leave an unspecified
+    """Scatter new keys/values into the pools at (block, offset) — or
+    into the dense arena at (row, position) — in place (the JAX package
+    writes a new cache and donates the old buffers instead).  Duplicate writes to the null block 0 leave an unspecified
     winner there; block 0 is never attended by a live query."""
     if "k_scale" in cache:
         kq, ksc = _quant_i8(k)
@@ -113,13 +123,31 @@ def _scales(cache) -> dict:
     return {"k_scale": cache.get("k_scale"), "v_scale": cache.get("v_scale")}
 
 
+def _gqa_scores_to_out(q, k, v, mask, k_scale=None, v_scale=None):
+    """Materialised-scores attention (the JAX package's jnp path): q
+    [B,S,KV,G,d]; k, v [B,T,KV,d]; mask [B,T] per row.  An int8 cache
+    folds its per-token scales into the scores and the probabilities,
+    and the probabilities meet the values in bf16, as the JAX package
+    computes it."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    m = mask[:, None, None, None, :]
+    scores = torch.where(m, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+        probs = probs.to(torch.bfloat16).float()
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+        return out.to(torch.bfloat16)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+
+
 def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
-    if mode not in ("ragged_step", "mixed_step", "prefill_chunk", "decode"):
+    if mode not in ("prefill", "ragged_step", "mixed_step", "prefill_chunk",
+                    "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
-    if pages is None:
-        raise NotImplementedError(
-            f"{mode} over a dense cache is not ported: pass pages= over a "
-            "block-paged cache")
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -128,6 +156,28 @@ def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
     qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope)
     q = qr.reshape(B, S, KV, G, hd)
+
+    if mode == "prefill":
+        # Uniform one-shot prefill: every row holds a whole prompt at
+        # positions 0..S-1, so the flash kernel's raw-index causal (and
+        # window) mask is the JAX package's position mask.  Its
+        # [B, H, S, d] / [B, KV, T, d] layout is made by transposes.
+        out = kernel_ops.flash_attention(
+            qr.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=True, window=spec.window)
+        y = out.transpose(1, 2).reshape(B, S, H * hd).to(x.dtype) @ p["wo"]
+        if cfg.kv_quant == "int8":
+            kq, ksc = _quant_i8(k)
+            vq, vsc = _quant_i8(v)
+            return y, {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+        return y, {"k": k, "v": v}
+
+    if pages is None:
+        if mode != "decode":
+            raise ValueError(f"{mode} requires pages= over a block-paged "
+                             "cache")
+        return _dense_decode(p, cfg, spec, x, q, k, v, cache, pos)
+
     pt = pages["page_table"]                        # [R or B, P] int32
     P = pt.shape[1]
     bs = cache["k"].shape[1]
@@ -189,9 +239,129 @@ def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     return y, cache
 
 
+def _dense_decode(p, cfg: ModelConfig, spec, x, q, k, v, cache, pos):
+    """One new token per row against the dense arena: row b's key and
+    value are written in place at ``pos[b, 0]`` of its own row, then row
+    b attends its keys at ``t <= pos`` (and ``t > pos - window``)."""
+    B, S, _ = x.shape
+    ck = cache["k"]
+    if ck.shape[0] != B:
+        raise ValueError(f"dense decode: cache has {ck.shape[0]} rows for a "
+                         f"batch of {B} (a block pool needs pages=)")
+    rows = torch.arange(B, device=x.device)
+    p_row = pos[:, 0].long()
+    _write_kv(cache, rows, p_row, k[:, 0], v[:, 0])
+    idx = torch.arange(ck.shape[1], device=x.device)[None, :]
+    mask = idx <= p_row[:, None]
+    if spec.window is not None:
+        mask &= idx > p_row[:, None] - spec.window
+    out = _gqa_scores_to_out(q, cache["k"], cache["v"], mask,
+                             **_scales(cache))
+    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(x.dtype) \
+        @ p["wo"]
+    return y, cache
+
+
+# --------------------------------------------------------------------------
+# RWKV-6 time mix
+# --------------------------------------------------------------------------
+
+_CHUNKED = ("prefill_chunk", "mixed_step", "ragged_step")
+
+
+def _recurrent_mode(name: str, mode: str) -> None:
+    if mode in _CHUNKED:
+        raise NotImplementedError(
+            "chunked/unified token-batch steps carry no recurrent state "
+            f"across chunks; {name} layers require the dense uniform "
+            "prefill path")
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"{name} mode {mode!r} is not ported")
+
+
+def _token_shift(x, x_prev, mode):
+    """Each position's previous token: ``x_prev`` [B,1,D] (the cached
+    last token) in decode, else x shifted right by one with zeros at the
+    start."""
+    if mode == "decode":
+        return x_prev
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
+    """RWKV-6 time mix (``repro/models/blocks.py::rwkv6``).  ``x`` is the
+    normed layer input; its last token is cached as ``x_prev``.  Prefill
+    runs the WKV recurrence in the ``rwkv6_scan`` kernel from the zero
+    state and returns ``{"x_prev", "state"}``; decode takes one step from
+    the cached state and writes both leaves in place."""
+    _recurrent_mode("rwkv6", mode)
+    B, S, D = x.shape
+    hd = spec.head_dim
+    H = D // hd
+    xs = _token_shift(x, cache["x_prev"] if mode == "decode" else None,
+                      mode)
+
+    def lerp(mix):
+        return x + (xs - x) * mix
+
+    r = (lerp(p["mix_r"]) @ p["wr"]).reshape(B, S, H, hd).float()
+    k = (lerp(p["mix_k"]) @ p["wk"]).reshape(B, S, H, hd).float()
+    v = (lerp(p["mix_v"]) @ p["wv"]).reshape(B, S, H, hd).float()
+    g = F.silu(lerp(p["mix_g"]) @ p["wg"])
+    # data-dependent decay (the Finch contribution), in f32: w in (0, 1)
+    xw = lerp(p["mix_w"])
+    w = torch.exp(-torch.exp((p["w0"] + torch.tanh(xw @ p["wA"]) @ p["wB"])
+                             .float())).reshape(B, S, H, hd)
+    u = p["bonus"].float()                                   # [H, hd]
+
+    if mode == "decode":
+        s0 = cache["state"].float()
+        kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]       # [B,H,hd,hd]
+        y = torch.einsum("bhk,bhkv->bhv", r[:, 0],
+                         s0 + u[..., None] * kv)[:, None]
+        cache["state"].copy_(w[:, 0, :, :, None] * s0 + kv)
+        cache["x_prev"].copy_(x[:, -1:])
+        new_cache = cache
+    else:
+        y, s1 = kernel_ops.rwkv6_scan(
+            *(t.transpose(1, 2).contiguous() for t in (r, k, v, w)), u)
+        y = y.transpose(1, 2)                                # [B,S,H,hd]
+        # a copy, so the cache does not keep the whole [B, S, D] input
+        new_cache = {"x_prev": x[:, -1:].clone(), "state": s1}
+
+    # per-head group norm (population variance), then gate + projection
+    mean = y.mean(dim=-1, keepdim=True)
+    var = y.var(dim=-1, keepdim=True, correction=0)
+    y = (y - mean) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(B, S, D) * p["ln_x"].float()
+    out = (y.to(x.dtype) * g) @ p["wo"]
+    return out, new_cache
+
+
+MIXERS = {"attn": attention, "rwkv6": rwkv6}
+
+
 # --------------------------------------------------------------------------
 # FFN and layer
 # --------------------------------------------------------------------------
+
+
+def rwkv_cmix(p, cfg: ModelConfig, spec, x, cache, mode):
+    """RWKV-6 channel mix (the ``rwkv_cmix`` branch of the JAX
+    ``dense_ffn``): token-shift lerp, squared-relu key, receptance gate.
+    Returns (y, cache): prefill a new ``{"x_prev"}``, decode the same
+    cache with ``x_prev`` written in place."""
+    _recurrent_mode("rwkv_cmix", mode)
+    xs = _token_shift(x, cache["x_prev"] if mode == "decode" else None,
+                      mode)
+    xk = x + (xs - x) * p["mix_k"]
+    xr = x + (xs - x) * p["mix_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    if mode == "decode":
+        cache["x_prev"].copy_(x[:, -1:])
+        return out, cache
+    return out, {"x_prev": x[:, -1:].clone()}
 
 
 def dense_ffn(p, cfg: ModelConfig, spec, x):
@@ -200,7 +370,10 @@ def dense_ffn(p, cfg: ModelConfig, spec, x):
     elif spec.act == "gelu":
         h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu default
     else:
-        raise NotImplementedError(f"ffn act {spec.act!r} is not ported")
+        raise NotImplementedError(
+            f"ffn act {spec.act!r} is not a stateless FFN"
+            + (" (the channel mix is rwkv_cmix)" if spec.act == "rwkv_cmix"
+               else ""))
     return h @ p["wo"]
 
 
@@ -263,22 +436,31 @@ def moe_ffn(p, cfg: ModelConfig, spec, x):
     return out.reshape(B, S, D)
 
 
-def apply_ffn(p, cfg: ModelConfig, spec, x):
+def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode):
+    """The layer's FFN: (y, cache) — the channel mix's token-shift cache,
+    or ``{}`` for the stateless FFNs."""
     if spec.kind == "moe":
-        return moe_ffn(p, cfg, spec, x)
-    return dense_ffn(p, cfg, spec, x)
+        return moe_ffn(p, cfg, spec, x), {}
+    if spec.act == "rwkv_cmix":
+        return rwkv_cmix(p, cfg, spec, x, cache, mode)
+    return dense_ffn(p, cfg, spec, x), {}
 
 
 def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
                 pages=None):
-    """Pre-norm residual layer: x + mixer(norm(x)); x + ffn(norm(x))."""
-    if layer.mixer.kind != "attn" or layer.ffn.kind not in ("dense", "moe"):
+    """Pre-norm residual layer: x + mixer(norm(x)); x + ffn(norm(x)).
+    ``cache`` is the layer's ``{"mixer", "ffn"}`` slot (None in prefill);
+    returns (x, the layer's new or in-place-updated slot)."""
+    if layer.mixer.kind not in MIXERS or layer.ffn.kind not in ("dense",
+                                                               "moe"):
         raise NotImplementedError(
             f"{layer.mixer.kind}/{layer.ffn.kind} layers are not ported")
+    mix_cache = cache.get("mixer") if cache else None
+    ffn_cache = cache.get("ffn") if cache else None
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, new_mix = attention(p["mixer"], cfg, layer.mixer, h, cache["mixer"],
-                           pos, mode, pages=pages)
+    y, new_mix = MIXERS[layer.mixer.kind](p["mixer"], cfg, layer.mixer, h,
+                                          mix_cache, pos, mode, pages=pages)
     x = x + y
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    x = x + apply_ffn(p["ffn"], cfg, layer.ffn, h)
-    return x, {"mixer": new_mix, "ffn": {}}
+    y, new_ffn = apply_ffn(p["ffn"], cfg, layer.ffn, h, ffn_cache, mode)
+    return x + y, {"mixer": new_mix, "ffn": new_ffn}

@@ -8,8 +8,9 @@ the JAX package's, so a JAX parameter tree converts leaf for leaf with
 ``num_periods`` dim; with ``tie_embeddings`` the LM head is ``embed``.
 
 Only the mixers and FFNs of the served models are declared here:
-attention, dense ``swiglu``/``gelu`` FFNs, and mixture-of-experts FFNs
-(a ``[d, E]`` router and expert weights stacked on a leading ``E`` dim).
+attention and the RWKV-6 time mix, dense ``swiglu``/``gelu`` FFNs and
+the RWKV-6 channel mix (``rwkv_cmix``), and mixture-of-experts FFNs (a
+``[d, E]`` router and expert weights stacked on a leading ``E`` dim).
 """
 from __future__ import annotations
 
@@ -38,8 +39,41 @@ def _attn_decl(cfg: ModelConfig, m) -> dict:
     }
 
 
+def _rwkv6_decl(cfg: ModelConfig, m) -> dict:
+    d = cfg.d_model
+    r = m.decay_lora
+    return {
+        # token-shift interpolation weights (data-independent part)
+        "mix_r": P((d,), (None,), "normal:0.02"),
+        "mix_k": P((d,), (None,), "normal:0.02"),
+        "mix_v": P((d,), (None,), "normal:0.02"),
+        "mix_g": P((d,), (None,), "normal:0.02"),
+        "mix_w": P((d,), (None,), "normal:0.02"),
+        "wr": P((d, d), ("d_model", "d_inner")),
+        "wk": P((d, d), ("d_model", "d_inner")),
+        "wv": P((d, d), ("d_model", "d_inner")),
+        "wg": P((d, d), ("d_model", "d_inner")),
+        "wo": P((d, d), ("d_inner", "d_model")),
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
+        "w0": P((d,), (None,), "normal:0.02"),
+        "wA": P((d, r), ("d_model", None)),
+        "wB": P((r, d), (None, "d_inner")),
+        "bonus": P((d // m.head_dim, m.head_dim), (None, None), "normal:0.02"),
+        "ln_x": P((d,), (None,), "ones"),   # per-head group norm scale
+    }
+
+
 def _dense_decl(cfg: ModelConfig, f) -> dict:
     d = cfg.d_model
+    if f.act == "rwkv_cmix":
+        # RWKV-6 channel mix: token-shift lerp + squared-relu + receptance
+        return {
+            "mix_k": P((d,), (None,), "normal:0.02"),
+            "mix_r": P((d,), (None,), "normal:0.02"),
+            "wk": P((d, f.d_ff), ("d_model", "ffn")),
+            "wv": P((f.d_ff, d), ("ffn", "ffn2")),
+            "wr": P((d, d), ("d_model", "d_inner")),
+        }
     if f.act == "swiglu":
         return {
             "wi0": P((d, f.d_ff), ("d_model", "ffn")),
@@ -73,27 +107,30 @@ def _moe_decl(cfg: ModelConfig, f) -> dict:
     return decl
 
 
+_MIXER_DECL = {"attn": _attn_decl, "rwkv6": _rwkv6_decl}
 _FFN_DECL = {"dense": _dense_decl, "moe": _moe_decl}
 
 
 def _layer_decl(cfg: ModelConfig, layer) -> dict:
-    if layer.mixer.kind != "attn" or layer.ffn.kind not in _FFN_DECL:
+    if layer.mixer.kind not in _MIXER_DECL or layer.ffn.kind not in _FFN_DECL:
         raise NotImplementedError(
-            f"{cfg.name}: only attention mixers with dense or MoE FFNs are "
-            f"ported (got {layer.mixer.kind}/{layer.ffn.kind})")
+            f"{cfg.name}: only attention and RWKV-6 mixers with dense or MoE "
+            f"FFNs are ported (got {layer.mixer.kind}/{layer.ffn.kind})")
     return {
         "norm1": P((cfg.d_model,), (None,), "ones"),
-        "mixer": _attn_decl(cfg, layer.mixer),
+        "mixer": _MIXER_DECL[layer.mixer.kind](cfg, layer.mixer),
         "norm2": P((cfg.d_model,), (None,), "ones"),
         "ffn": _FFN_DECL[layer.ffn.kind](cfg, layer.ffn),
     }
 
 
-def tree_map(fn, tree):
-    """Map `fn` over the leaves of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """Map `fn` over the leaves of a nested dict — or, given more trees
+    of the same structure, over their leaves side by side."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -3,10 +3,11 @@
 
 The repeated ``period`` runs as a Python loop over weights (and cache)
 stacked on a leading ``num_periods`` dim; indexing the stack gives
-views, so the in-place KV writes of each period land in the stacked
-pools.  The serving executors call :func:`ragged_step` (ragged),
-:func:`mixed_step` (padded), and :func:`prefill_chunk` then
-:func:`decode_step` (split).
+views, so the in-place cache writes of each period land in the stacked
+leaves.  The serving executors call :func:`ragged_step` (ragged),
+:func:`mixed_step` (padded), :func:`prefill_chunk` then
+:func:`decode_step` (split), or :func:`prefill` then :func:`decode_step`
+(the uniform one-shot prefill path, over a block-paged or dense cache).
 """
 from __future__ import annotations
 
@@ -22,21 +23,32 @@ def _apply_unrolled(params, cfg, layers, x, cache, pos, mode, pages=None):
     for i, layer in enumerate(layers):
         key = f"layer{i}"
         x, new_cache[key] = blocks.apply_layer(
-            params[key], cfg, layer, x, cache[key], pos, mode, pages=pages)
+            params[key], cfg, layer, x, None if cache is None else cache[key],
+            pos, mode, pages=pages)
     return x, new_cache
 
 
 def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
                    pages=None):
     """Loop over the stacked period weights (+cache).  ``pages`` is the
-    same for every layer."""
+    same for every layer.  Prefill starts from no cache and returns each
+    period's new part cache stacked on the leading ``num_periods`` dim
+    (the JAX package's tree); the other modes update ``cache`` in place
+    and return it."""
+    new = []
     for i in range(cfg.num_periods):
         p_i = tree_map(lambda a: a[i], params["period"])
-        c_i = tree_map(lambda a: a[i], cache)
+        c_i = None if cache is None else tree_map(lambda a: a[i], cache)
+        out_i = {}
         for j, layer in enumerate(cfg.period):
             key = f"block{j}"
-            x, _ = blocks.apply_layer(p_i[key], cfg, layer, x, c_i[key],
-                                      pos, mode, pages=pages)
+            x, out_i[key] = blocks.apply_layer(
+                p_i[key], cfg, layer, x, None if c_i is None else c_i[key],
+                pos, mode, pages=pages)
+        if mode == "prefill":
+            new.append(out_i)
+    if mode == "prefill":
+        return x, tree_map(lambda *leaves: torch.stack(leaves), *new)
     return x, cache
 
 
@@ -55,31 +67,63 @@ def lm_proj(params, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
-            cache, pos, pages):
-    """Returns (logits, cache) over a block-paged cache (updated in
-    place).  ``batch = {"tokens": [B, S] int32}``, ``pos [B, S]`` absolute
-    positions, and ``mode`` one of the serving modes of
-    :func:`repro_torch.models.blocks.attention`: ``"ragged_step"`` (a
-    flat ``[1, W]`` batch, ``pages = {"page_table": [R, P], "q_len":
-    [R], "q_start": [R]}``), ``"mixed_step"`` / ``"prefill_chunk"`` (a
-    padded ``[B, C]`` batch, ``pages = {"page_table", "q_len"}``) or
-    ``"decode"`` (``[B, 1]``, ``pages = {"page_table"}``)."""
-    if mode not in ("ragged_step", "mixed_step", "prefill_chunk", "decode"):
+            cache=None, pos=None, pages=None):
+    """Returns (logits, cache).  ``batch = {"tokens": [B, S] int32}``,
+    ``pos [B, S]`` absolute positions, and ``mode`` one of the serving
+    modes of :func:`repro_torch.models.blocks.attention`:
+
+    * ``"prefill"``: ``cache=None``, ``pos`` defaulting to ``arange(S)``
+      per row; returns the logits of the **last position only**,
+      ``[B, 1, V]`` (the engine reads nothing else, and the final norm
+      and LM head act per position, so these equal the JAX package's
+      ``logits[:, -1:]``; a gemma3 prefill of 8 x 640 tokens would
+      otherwise hold a 5.4 GB ``[8, 640, 262144]`` f32 transient), and
+      the new part cache, the JAX package's tree;
+    * ``"ragged_step"`` (a flat ``[1, W]`` batch, ``pages =
+      {"page_table": [R, P], "q_len": [R], "q_start": [R]}``),
+      ``"mixed_step"`` / ``"prefill_chunk"`` (a padded ``[B, C]`` batch,
+      ``pages = {"page_table", "q_len"}``) or ``"decode"`` (``[B, 1]``,
+      ``pages = {"page_table"}`` over a block-paged cache, or ``None``
+      over the dense arena): all positions' logits, and the cache updated
+      in place."""
+    if mode not in ("prefill", "ragged_step", "mixed_step", "prefill_chunk",
+                    "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
     x = _embed(params, cfg, batch["tokens"])
+    if pos is None:
+        if mode != "prefill":
+            raise ValueError(f"{mode} requires pos")
+        B, S = batch["tokens"].shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=x.device)[None].expand(B, S)
+    if mode != "prefill" and cache is None:
+        raise ValueError(f"{mode} requires a cache")
     new_cache = {}
+    c = cache or {}
     if cfg.head:
         x, new_cache["head"] = _apply_unrolled(
-            params["head"], cfg, cfg.head, x, cache["head"], pos, mode,
+            params["head"], cfg, cfg.head, x, c.get("head"), pos, mode,
             pages)
     if cfg.num_periods:
         x, new_cache["period"] = _apply_periods(
-            params, cfg, x, cache["period"], pos, mode, pages)
+            params, cfg, x, c.get("period"), pos, mode, pages)
     if cfg.tail:
         x, new_cache["tail"] = _apply_unrolled(
-            params["tail"], cfg, cfg.tail, x, cache["tail"], pos, mode,
+            params["tail"], cfg, cfg.tail, x, c.get("tail"), pos, mode,
             pages)
+    if mode == "prefill":
+        x = x[:, -1:]
     return _logits(params, cfg, x), new_cache
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, pos=None):
+    """Uniform one-shot prefill of ``batch["tokens"]`` [B, S] (every row
+    a whole prompt at positions ``0..S-1`` unless ``pos`` says
+    otherwise): returns (last-position logits [B, 1, V], part cache),
+    the part cache being the dense ``[B, S, ...]`` tree
+    ``TierSlotPool.write_prefill`` / ``DenseTierSlotPool.write_prefill``
+    scatter into the arena."""
+    return forward(params, cfg, batch, mode="prefill", pos=pos)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, cache, pos, pages):
@@ -145,8 +189,10 @@ def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None):
     """token [B, 1] int32; pos [B, 1] per-row decode positions;
-    ``pages={"page_table": [B, P]}`` over a block-paged cache (the dense
-    cache of the JAX package is not ported).  Every attention layer runs
-    the paged decode kernel; returns (logits [B, 1, V], cache)."""
+    ``pages={"page_table": [B, P]}`` over a block-paged cache, where
+    every attention layer runs the paged decode kernel, or ``pages=None``
+    over the dense arena (plain torch attention over each row's
+    ``[max_seq]`` keys).  Recurrent layers step their per-row state in
+    place either way.  Returns (logits [B, 1, V], cache)."""
     return forward(params, cfg, {"tokens": token}, mode="decode",
                    cache=cache, pos=pos, pages=pages)

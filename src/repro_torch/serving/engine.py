@@ -5,10 +5,20 @@ One engine step (tick) per tier:
 
   1. **admit** — pop queued/escalated requests into free KV rows
      (continuous batching: admission happens while other rows are mid
-     decode).  Prompts of any length up to ``prompt_len`` are accepted;
-     admission is bounded by a per-tick **token budget** (pre-charged
-     with the tick's carried load: decode tokens + in-flight prefill
-     chunks, one currency) and by free KV blocks for the first chunk.
+     decode).  Under chunked prefill (the default) prompts of any length
+     up to ``prompt_len`` are accepted; admission is bounded by a
+     per-tick **token budget** (pre-charged with the tick's carried load:
+     decode tokens + in-flight prefill chunks, one currency) and by free
+     KV blocks for the first chunk.  Under **uniform one-shot prefill**
+     (``use_chunked_prefill=False``; forced for tiers with recurrent
+     state, such as RWKV-6, and by the dense arena) every prompt has
+     exactly ``prompt_len`` tokens, and the admitted requests are
+     prefilled right here in ONE launch over all ``capacity`` rows
+     (:func:`repro_torch.models.transformer.prefill`, the flash attention
+     kernel in every attention layer, the RWKV-6 scan kernel in every
+     RWKV-6 layer), scattered into the arena
+     (``TierSlotPool.write_prefill``) and their first tokens fetched —
+     a blocking fetch of its own, at most two admission passes a tick.
   2. **plan** — a :class:`StepPlan` is built on the host: every live row
      gets its tick's work — the next ``prefill_chunk`` tokens of its
      prompt (or the shorter tail), its single decode token, or a stall
@@ -30,12 +40,14 @@ One engine step (tick) per tier:
      * **padded unified** (``use_ragged_step=False``): ONE padded
        ``mixed_step`` per tier per tick (the mixed attention kernel),
        processing ``capacity * width`` token slots.
-     * **split** (``use_unified_step=False``): a chunk launch
-       (``prefill_chunk``, the mixed kernel) for the prefill rows, then a
-       decode launch (``decode_step``, the paged decode kernel) over every
-       row, mid-prefill rows masked to the null block.  Rows whose last
-       chunk completed decode in the same tick, their first token fed in
-       on the device; both result pairs come back in one fetch.
+     * **split** (``use_unified_step=False``, and the only executor
+       without chunked prefill): a chunk launch (``prefill_chunk``, the
+       mixed kernel) for the prefill rows, then a decode launch
+       (``decode_step``: the paged decode kernel over the block-paged
+       arena, plain-torch attention over the dense one) over every row,
+       mid-prefill rows masked to the null block.  Rows whose last chunk
+       completed decode in the same tick, their first token fed in on the
+       device; both result pairs come back in one fetch.
   4. **gate** — requests that reach ``gen_len`` aggregate their token
      confidences; at non-final tiers the scheduler's gate (fixed δ or
      escalation budget) decides DONE vs ESCALATED.  Escalated requests
@@ -44,15 +56,18 @@ One engine step (tick) per tier:
 The clock is injectable: ``WallClock`` for real Poisson traffic,
 ``VirtualClock`` for deterministic tests (one tick per step).
 
-Not ported from the JAX engine (later work): one-shot dense prefill
-(``use_chunked_prefill``, and with it the error for unified execution
-without chunked prefill), dense arenas, flat-bucket overrides and
-compile statistics, meshes, prefix caching, speculation, preemption,
-load shedding, launch retry, fault injection and the tracer.  A launch
-error propagates.
+The arena is block-paged (``use_paged_kv=True``, the default) or dense
+(``use_paged_kv=False``: one ``[max_seq]`` row per request, uniform
+prefill only).
+
+Not ported from the JAX engine (later work): flat-bucket overrides and
+compile statistics, modality frontends, meshes, prefix caching,
+speculation, preemption, load shedding, launch retry, fault injection
+and the tracer.  A launch error propagates.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -62,11 +77,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
 from repro_torch.serving.metrics import ServingMetrics, TierCost
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import CascadeScheduler, GateSpec
-from repro_torch.serving.slots import TierSlotPool
+from repro_torch.serving.slots import DenseTierSlotPool, TierSlotPool
 
 
 def resolve_device(device) -> torch.device:
@@ -172,18 +188,25 @@ class _TierRuntime:
     def __init__(self, spec: TierSpec, capacity: int, prompt_len: int,
                  max_seq: int, device, *, block_size: int = 16,
                  kv_blocks: Optional[int] = None, prefill_chunk: int = 128,
+                 use_paged_kv: bool = True, use_chunked_prefill: bool = True,
                  use_unified_step: bool = True,
                  use_ragged_step: bool = True):
         self.spec = spec
         self.capacity = capacity
         self.device = device
+        self.paged = bool(use_paged_kv)
+        self.chunked = bool(use_chunked_prefill)
         self.unified = bool(use_unified_step)
         self.ragged = bool(use_ragged_step) and self.unified
         self.chunk = min(prefill_chunk, prompt_len)
         self.flat_buckets = self._default_buckets()
-        self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
-                                 block_size=block_size, num_blocks=kv_blocks,
-                                 device=device)
+        if self.paged:
+            self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
+                                     block_size=block_size,
+                                     num_blocks=kv_blocks, device=device)
+        else:
+            self.pool = DenseTierSlotPool(spec.cfg, capacity, max_seq,
+                                          device=device)
         self.params = spec.params
         self.slot_req: List[Optional[Request]] = [None] * capacity
         self.tok = np.zeros(capacity, np.int32)
@@ -226,11 +249,23 @@ class _TierRuntime:
                                                       flat=False))
 
     def step_fn(self, tok, pos, page_table):
-        """The split executor's decode launch: one token per row."""
+        """The split executor's decode launch: one token per row, through
+        the page tables (``page_table`` None: the dense arena)."""
+        pages = None if page_table is None else {"page_table": page_table}
         logits, self.pool.cache = transformer.decode_step(
             self.params, self.spec.cfg, tok, self.pool.cache, pos,
-            pages={"page_table": page_table})
+            pages=pages)
         return self.pick(logits[:, 0])
+
+    def prefill_fn(self, prompts):
+        """The uniform one-shot prefill of ``prompts`` [capacity,
+        prompt_len] (rows past the admitted ones are zeros): returns the
+        part cache for ``write_prefill`` and each row's first pick from
+        its last-position logits."""
+        logits, part = transformer.prefill(self.params, self.spec.cfg,
+                                           {"tokens": prompts})
+        tok, conf = self.pick(logits[:, -1])
+        return part, tok, conf
 
     # -- ragged flat-width buckets ------------------------------------------
 
@@ -286,6 +321,10 @@ class _TierRuntime:
         return self.mixed_fn(*self.put(tokens, pos, self.pool.page_table,
                                        qlen))
 
+    def run_prefill(self, prompts):
+        """The uniform prefill launch over all rows."""
+        return self.prefill_fn(*self.put(prompts))
+
     def run_chunk(self, tokens, pos, qlen):
         """The split executor's chunk launch over the prefill rows."""
         return self.chunk_fn(*self.put(tokens, pos, self.pool.page_table,
@@ -296,12 +335,16 @@ class _TierRuntime:
         ``self.pos[s]``; rows in ``fresh`` take their token from the
         device tensor ``first`` [capacity] instead (the chunk launch's
         pick, never fetched).  ``mask_rows`` (rows mid-prefill) decode
-        through an all-null page-table row (:meth:`masked_page_table`)."""
+        through an all-null page-table row (:meth:`masked_page_table`);
+        the dense arena takes no page table."""
         is_fresh = np.zeros(self.capacity, np.int32)
         is_fresh[list(fresh)] = 1
-        tok_in, is_fresh, pos, pt = self.put(
-            np.asarray(tok, np.int32)[:, None], is_fresh, self.pos[:, None],
-            self.masked_page_table(mask_rows))
+        host = [np.asarray(tok, np.int32)[:, None], is_fresh,
+                self.pos[:, None]]
+        if self.paged:
+            host.append(self.masked_page_table(mask_rows))
+        tok_in, is_fresh, pos, *pt = self.put(*host)
+        pt = pt[0] if pt else None
         if first is not None:
             tok_in = torch.where(is_fresh[:, None].bool(),
                                  first[:, None].to(torch.int32), tok_in)
@@ -346,12 +389,15 @@ class CascadeEngine:
                  kv_blocks: Optional[int | Sequence[Optional[int]]] = None,
                  prefill_chunk: int = 128,
                  prefill_token_budget: Optional[int] = None,
+                 use_paged_kv: bool = True,
+                 use_chunked_prefill: Optional[bool] = None,
                  use_unified_step: Optional[bool] = None,
                  use_ragged_step: Optional[bool] = None,
                  clock=None,
                  device="cuda"):
         """``prompt_len`` is the maximum prompt length: ``submit`` takes
-        any length in ``[1, prompt_len]``.  ``kv_blocks`` sizes each
+        any length in ``[1, prompt_len]`` under chunked prefill, exactly
+        ``prompt_len`` under uniform prefill.  ``kv_blocks`` sizes each
         tier's arena in KV blocks of ``kv_block_size`` tokens — None fully
         provisions (``slots * ceil(max_seq / block_size) + 1``); fewer
         over-subscribes it (admission is then block-limited and rows may
@@ -363,12 +409,17 @@ class CascadeEngine:
         recent sequence confidences), or δ = 0.5.  ``device`` must hold every tier's
         params; a CUDA device without a card raises.
 
-        The executor follows the JAX engine's switches and defaults:
-        ``use_unified_step`` (default on) runs one launch per tier per
-        tick, ``False`` the split chunk + decode launches;
-        ``use_ragged_step`` (default: on exactly when unified) packs that
-        launch's live tokens flat, ``False`` keeps the padded
-        ``[capacity, width]`` mixed launch.  Prefill is always chunked."""
+        The executor follows the JAX engine's switches, defaults and
+        errors: ``use_paged_kv`` (default on) picks the block-paged arena,
+        ``False`` the dense one; ``use_chunked_prefill`` (default: on
+        exactly when every tier can take it — a paged arena and no
+        recurrent state) advances prompts chunk by chunk, ``False``
+        prefills each admission in one uniform launch;
+        ``use_unified_step`` (default: on exactly when chunked) runs one
+        launch per tier per tick, ``False`` the split chunk + decode
+        launches; ``use_ragged_step`` (default: on exactly when unified)
+        packs that launch's live tokens flat, ``False`` keeps the padded
+        ``[capacity, width]`` mixed launch."""
         if not tiers:
             raise ValueError("need at least one tier")
         self.device = resolve_device(device)
@@ -383,8 +434,27 @@ class CascadeEngine:
                                  f"on {self.device}")
         if prefill_chunk <= 0:
             raise ValueError("prefill_chunk must be positive")
+        chunkable = use_paged_kv and all(
+            not cache_lib.has_recurrent_state(t.cfg) and t.cfg.frontend
+            is None for t in self.tiers)
+        if use_chunked_prefill is None:
+            use_chunked_prefill = chunkable
+        elif use_chunked_prefill and not chunkable:
+            raise ValueError(
+                "chunked prefill requires the block-paged KV arena "
+                "(use_paged_kv=True) and attention-only tiers without a "
+                "modality frontend (recurrent state cannot be carried "
+                "across prefill chunks)")
+        self.chunked_prefill = bool(use_chunked_prefill)
+        self.paged_kv = bool(use_paged_kv)
         if use_unified_step is None:
-            use_unified_step = True
+            use_unified_step = use_chunked_prefill
+        elif use_unified_step and not use_chunked_prefill:
+            raise ValueError(
+                "unified token-batch execution requires chunked paged "
+                "prefill (use_paged_kv=True, attention-only tiers); dense "
+                "and recurrent-state tiers keep the legacy split "
+                "chunk+decode path (use_unified_step=False)")
         if use_ragged_step is None:
             use_ragged_step = use_unified_step
         elif use_ragged_step and not use_unified_step:
@@ -414,7 +484,7 @@ class CascadeEngine:
         if len(gates) != m - 1:
             raise ValueError("one gate per non-final tier")
 
-        self.prompt_len = prompt_len        # max prompt length
+        self.prompt_len = prompt_len        # chunked: max prompt length
         self.gen_len = gen_len
         self.conf_reduce = conf_reduce
         self.prefill_chunk = min(prefill_chunk, prompt_len)
@@ -428,10 +498,24 @@ class CascadeEngine:
         self.clock = clock if clock is not None else WallClock()
         self.tick_id = 0
         max_seq = prompt_len + gen_len
+        if use_paged_kv:
+            ppr = math.ceil(max_seq / kv_block_size)
+            for spec, cap, nb in zip(self.tiers, slots_per_tier,
+                                     kv_blocks_per_tier):
+                if nb is not None and nb < cap * ppr + 1 \
+                        and cache_lib.has_recurrent_state(spec.cfg):
+                    raise ValueError(
+                        f"tier {spec.name}: kv_blocks={nb} over-subscribes "
+                        "the arena but the model carries recurrent state "
+                        "(mamba/rwkv), which cannot replay a stalled "
+                        "decode step — use full provisioning (kv_blocks="
+                        "None)")
         self.runtimes = [
             _TierRuntime(spec, cap, prompt_len, max_seq, self.device,
                          block_size=kv_block_size,
                          kv_blocks=nb, prefill_chunk=self.prefill_chunk,
+                         use_paged_kv=use_paged_kv,
+                         use_chunked_prefill=self.chunked_prefill,
                          use_unified_step=self.unified_step,
                          use_ragged_step=self.ragged_step)
             for spec, cap, nb in zip(self.tiers, slots_per_tier,
@@ -448,12 +532,20 @@ class CascadeEngine:
     # -- submission --------------------------------------------------------
 
     def submit(self, prompt, arrival_time: float = 0.0) -> Request:
-        """Queue one request (a 1D prompt of 1..prompt_len tokens)."""
+        """Queue one request: a 1D prompt of 1..prompt_len tokens under
+        chunked prefill, of exactly prompt_len tokens under uniform
+        prefill."""
         prompt = np.asarray(prompt, np.int32)
-        if prompt.ndim != 1 or not 1 <= prompt.shape[0] <= self.prompt_len:
+        if self.chunked_prefill:
+            if prompt.ndim != 1 or not 1 <= prompt.shape[0] <= self.prompt_len:
+                raise ValueError(
+                    f"prompt must be 1D with 1..{self.prompt_len} tokens, "
+                    f"got shape {prompt.shape}")
+        elif prompt.shape != (self.prompt_len,):
             raise ValueError(
-                f"prompt must be 1D with 1..{self.prompt_len} tokens, "
-                f"got shape {prompt.shape}")
+                f"prompt must be [{self.prompt_len}], got {prompt.shape} "
+                "(the uniform packed prefill batches one prompt length; "
+                "use chunked prefill for mixed lengths)")
         req = Request(rid=self._rid, prompt=prompt, gen_len=self.gen_len,
                       arrival_time=float(arrival_time))
         self._rid += 1
@@ -493,8 +585,11 @@ class CascadeEngine:
         keep the JAX engine's legacy accounting instead: a window of
         prefill tokens only, starting at zero, each request billed its
         whole prompt.  No compute here — the token batch runs in
-        :meth:`_tier_step`."""
+        :meth:`_tier_step`.  Uniform-prefill tiers admit and prefill in
+        :meth:`_admit_uniform` instead."""
         rt = self.runtimes[tier]
+        if not rt.chunked:
+            return self._admit_uniform(tier, rt, now)
         fresh = 0
         while True:
             head = self.scheduler.peek(tier, now)
@@ -524,6 +619,52 @@ class CascadeEngine:
         if fresh:
             self.metrics.record_admission(tier, fresh)
 
+    def _admit_uniform(self, tier: int, rt: _TierRuntime,
+                       now: float) -> None:
+        """Uniform one-shot prefill admission: bind every request that
+        fits — free rows, and on the paged arena the blocks of its whole
+        prompt — then prefill them all in ONE launch over the
+        ``[capacity, prompt_len]`` batch, scatter the part cache into the
+        arena, and fetch their first tokens in a blocking fetch of its own
+        (separate from the tick's decode fetch)."""
+        if rt.paged:
+            reqs, slot_ids = [], []
+            while self.scheduler.peek(tier, now) is not None:
+                if not rt.pool.can_admit(self.prompt_len):
+                    break
+                r, s = self.scheduler.admit(tier, now, limit=1)
+                if not r:
+                    break
+                rt.pool.bind(s[0], self.prompt_len)
+                reqs += r
+                slot_ids += s
+        else:
+            reqs, slot_ids = self.scheduler.admit(tier, now)
+        if not reqs:
+            return
+        self.metrics.record_admission(tier, len(reqs))
+        self.metrics.record_prefill_tokens(
+            len(reqs) * self.prompt_len, rt.capacity * self.prompt_len)
+        prompts = np.zeros((rt.capacity, self.prompt_len), np.int32)
+        for i, req in enumerate(reqs):
+            prompts[i] = req.prompt
+        part_cache, ftok, fconf = rt.run_prefill(prompts)
+        self.metrics.record_launches(tier, "prefill")
+        if rt.paged:
+            rt.pool.write_prefill(slot_ids, part_cache, self.prompt_len)
+        else:
+            rt.pool.write_prefill(slot_ids, part_cache)
+        del part_cache
+        # timestamp with the post-compute clock, so TTFT includes prefill
+        (ftok, fconf), = self._fetch(tier, (ftok, fconf))
+        t_emit = self.clock.now()
+        for i, (req, slot) in enumerate(zip(reqs, slot_ids)):
+            req.start_decode(t_emit)
+            req.emit(int(ftok[i]), float(fconf[i]), t_emit)
+            rt.slot_req[slot] = req
+            rt.tok[slot] = ftok[i]
+            rt.pos[slot] = self.prompt_len      # next decode writes here
+
     def _tick_load(self, rt: _TierRuntime) -> int:
         """Tokens the tier's live rows already claim this tick: one per
         decoding row plus each mid-prefill row's next chunk."""
@@ -545,7 +686,7 @@ class CascadeEngine:
         blocks grow in :meth:`_decode_launch`, after the chunk launch, as
         in the JAX engine, so an over-subscribed arena hands out blocks
         in the same order."""
-        pre = rt.prefilling()
+        pre = rt.prefilling() if rt.chunked else []
         dec = rt.decoding()
         if not pre and not dec:
             return None
@@ -727,7 +868,8 @@ class CascadeEngine:
         final chunk completed this tick take their first token from the
         chunk launch's device output.  Page tables grow here, oldest row
         first; a row denied a block stalls (its write lands in the null
-        block, its output is discarded) and retries next tick."""
+        block, its output is discarded) and retries next tick.  The dense
+        arena has every row's positions already."""
         decoding = rt.decoding()
         finished = pf["finished"] if pf is not None else []
         if finished:
@@ -739,11 +881,15 @@ class CascadeEngine:
                         < rt.slot_req[s].gen_len]
         if not decoding:
             return None
-        dec = set(decoding)
-        active = [s for s in rt.pool.bound_rows()
-                  if s in dec and rt.pool.ensure_blocks(s, int(rt.pos[s]))]
-        if not active:
-            return None
+        if rt.paged:
+            dec = set(decoding)
+            active = [s for s in rt.pool.bound_rows()
+                      if s in dec and rt.pool.ensure_blocks(s,
+                                                            int(rt.pos[s]))]
+            if not active:
+                return None
+        else:
+            active = decoding
         # rows mid-prefill share the decode batch but must not touch their
         # partly filled pages: the launch's page-table copy unmaps them
         tok, conf = rt.run_step(rt.tok, mask_rows=rt.prefilling(),
@@ -778,7 +924,8 @@ class CascadeEngine:
             rt.tok[slot] = 0
             rt.pos[slot] = 0
             rt.prefill_pos[slot] = 0
-            rt.pool.release(slot)
+            if rt.paged:
+                rt.pool.release(slot)
             self.scheduler.release(tier, slot)
         return done, esc
 
@@ -823,11 +970,12 @@ class CascadeEngine:
 
     def warmup(self) -> None:
         """Run each tier's launches once with all rows idle (the dummy
-        writes land in the null block) — the ragged step at every bucket
-        width, the padded step at the chunk width and at width 1, or the
-        split chunk and decode launches — so the allocator and the
-        matrix-product heuristics are warm before the clock starts; ends
-        by resetting the clock."""
+        writes land in the null block, or in rows that admission
+        overwrites) — the ragged step at every bucket width, the padded
+        step at the chunk width and at width 1, the split chunk and decode
+        launches, or the uniform prefill and decode launches — so the
+        allocator and the matrix-product heuristics are warm before the
+        clock starts; ends by resetting the clock."""
         for rt in self.runtimes:
             zr = np.zeros(rt.capacity, np.int32)
             if rt.ragged:
@@ -839,8 +987,12 @@ class CascadeEngine:
                     z = np.zeros((rt.capacity, w), np.int32)
                     rt.run_mixed(z, z, zr)
             else:
-                z = np.zeros((rt.capacity, rt.chunk), np.int32)
-                rt.run_chunk(z, z, zr)
+                if rt.chunked:
+                    z = np.zeros((rt.capacity, rt.chunk), np.int32)
+                    rt.run_chunk(z, z, zr)
+                else:
+                    rt.run_prefill(np.zeros((rt.capacity, self.prompt_len),
+                                            np.int32))
                 rt.run_step(zr)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -120,7 +120,8 @@ class ServingMetrics:
 
     def record_launches(self, tier: int, kind: str) -> None:
         """One launch of `tier`, of kind ``ragged`` or ``mixed`` (the
-        unified executors) or ``chunk`` or ``step`` (the split one)."""
+        unified executors), ``chunk`` or ``step`` (the split one), or
+        ``prefill`` (a uniform one-shot prefill at admission)."""
         self.launches_by_tier[tier] += 1
         self._launched[tier] = True
         kinds = self.launches_by_kind[tier]

@@ -1,5 +1,6 @@
-"""Block-paged KV-cache slot pools (the allocator half of the JAX
-package's ``repro/serving/slots.py``, host-side Python and numpy).
+"""KV-cache slot pools (the torch twin of the JAX package's
+``repro/serving/slots.py``; the allocators are host-side Python and
+numpy).
 
 Each cascade tier owns
 
@@ -11,7 +12,12 @@ Each cascade tier owns
     ``[capacity, pages_per_row]`` of block ids; entries default to the
     reserved **null block 0**, which is never allocated — unmapped pages
     (and rows stalled waiting for a block) read/write block 0 and are
-    masked or discarded.
+    masked or discarded.  Recurrent state (RWKV-6) has no sequence dim
+    and keeps one ``[capacity, ...]`` row per request.
+
+:meth:`TierSlotPool.write_prefill` scatters a uniform prefill's part
+cache into the arena; :class:`DenseTierSlotPool` is the one-row-per-
+request ``[capacity, max_seq, ...]`` arena of ``--dense-kv``.
 
 Freeing returns blocks to the free list without touching device memory.
 Reuse is safe because a block only becomes reachable through a row's page
@@ -35,13 +41,13 @@ invariant checker audits this pool unchanged.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.models import cache as cache_lib
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
 
 NULL_BLOCK = 0
 
@@ -190,6 +196,32 @@ class BlockAllocator:
         return len(self._used)
 
 
+def _write_rows(full, part, bax: int, ids):
+    """Write ``part``'s rows into ``full`` at request rows ``ids`` along
+    axis ``bax`` (in place), only the prefix of any dim where ``part`` is
+    shorter."""
+    idx = [slice(None)] * full.ndim
+    idx[bax] = ids
+    for d in range(full.ndim):
+        if d != bax and full.shape[d] != part.shape[d]:
+            idx[d] = slice(0, part.shape[d])
+    full[tuple(idx)] = part.to(full.dtype)
+
+
+def _write_paged(full, part, bax: int, blk, off):
+    """Scatter packed prefill tokens into a block pool (in place).
+    ``full`` has (kv_blocks, block) at axes (bax, bax+1); ``part`` is the
+    dense prefill leaf with (batch, seq) there; ``blk``/``off`` are
+    ``[n, prompt_len]`` index tensors (adjacent advanced indices keep
+    their place, so they line up with part's (batch, seq) dims)."""
+    idx = [slice(None)] * full.ndim
+    idx[bax], idx[bax + 1] = blk, off
+    pidx = [slice(None)] * part.ndim
+    pidx[bax] = slice(0, blk.shape[0])
+    pidx[bax + 1] = slice(0, blk.shape[1])
+    full[tuple(idx)] = part[tuple(pidx)].to(full.dtype)
+
+
 class TierSlotPool:
     """Request rows + block-paged KV arena for one cascade tier, on one
     device.
@@ -220,8 +252,19 @@ class TierSlotPool:
                 f"({self.pages_per_row} blocks) plus the null block")
         self.oversubscribed = self.num_blocks < full
         self.blocks = BlockAllocator(self.num_blocks)
+        decl = cache_lib.declare_paged_cache(cfg, capacity, self.num_blocks,
+                                             block_size, dtype)
         self.cache = cache_lib.init_paged_cache(
             cfg, capacity, self.num_blocks, block_size, dtype, device)
+        # per leaf: ("paged", kv_blocks axis) or ("row", request-row axis)
+        self._meta = tree_map(
+            lambda c: (("paged", c.axes.index("kv_blocks"))
+                       if "kv_blocks" in c.axes
+                       else ("row", c.axes.index("batch"))), decl)
+        self._per_block = sum(
+            math.prod(c.shape) // self.num_blocks
+            * torch.empty((), dtype=c.dtype).element_size()
+            for c in tree_leaves(decl) if "kv_blocks" in c.axes)
         self.page_table = np.zeros((capacity, self.pages_per_row), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(capacity)]
         self._row_demand: List[int] = [self.pages_per_row] * capacity
@@ -314,12 +357,40 @@ class TierSlotPool:
         self.page_table[slot] = NULL_BLOCK
         self._order.remove(slot)
 
+    # -- uniform prefill ---------------------------------------------------
+
+    def write_prefill(self, slot_ids: Sequence[int], part_cache,
+                      prompt_len: int) -> None:
+        """Scatter a packed prefill cache (rows ``0..n-1`` of a
+        ``[capacity, prompt_len, ...]`` tree from ``transformer.prefill``)
+        into the arena, in place: attention KV through the page tables
+        into the block pool, recurrent leaves into their request rows,
+        each sliced to the ``n`` admitted rows.  ``bind`` must have mapped
+        each slot's prompt pages already."""
+        n = len(slot_ids)
+        ids = np.asarray(slot_ids, np.int64)
+        dev = next(iter(tree_leaves(self.cache))).device
+        # token t of row i lives at (page_table[slot_i, t // bs], t % bs)
+        t = np.arange(prompt_len)
+        blk = torch.from_numpy(self.page_table[ids][:, t // self.block_size]
+                               .astype(np.int64)).to(dev)
+        off = torch.from_numpy(np.broadcast_to(
+            t % self.block_size, (n, prompt_len)).astype(np.int64)).to(dev)
+        rows = torch.from_numpy(ids).to(dev)
+
+        def write(full, part, meta):
+            kind, ax = meta
+            if kind == "paged":
+                _write_paged(full, part, ax, blk, off)
+            else:
+                _write_rows(full, part.narrow(ax, 0, n), ax, rows)
+        tree_map(write, self.cache, part_cache, self._meta)
+
     # -- memory accounting -------------------------------------------------
 
     def memory_stats(self) -> dict:
-        # every leaf has exactly one kv_blocks dim of size num_blocks
-        per_block = sum(t.numel() * t.element_size()
-                        for t in tree_leaves(self.cache)) // self.num_blocks
+        # the block pools' bytes per block (recurrent rows not counted)
+        per_block = self._per_block
         per_token = per_block // self.block_size
         return {
             "block_size": self.block_size,
@@ -329,4 +400,46 @@ class TierSlotPool:
             "kv_high_water_bytes": per_block * self.blocks.high_water,
             "kv_high_water_blocks": self.blocks.high_water,
             "dense_equiv_bytes": per_token * self.capacity * self.max_seq,
+        }
+
+
+class DenseTierSlotPool:
+    """The one-row-per-request arena (``[capacity, max_seq, ...]`` KV rows
+    and recurrent state, from :func:`repro_torch.models.cache.init_cache`)
+    of ``CascadeEngine(use_paged_kv=False)``: no blocks, no page tables;
+    a row's KV sits at its own positions."""
+
+    def __init__(self, cfg, capacity: int, max_seq: int,
+                 dtype=torch.float32, *, device="cuda"):
+        self.cfg = cfg
+        self.capacity = capacity
+        self.max_seq = max_seq
+        self.dtype = dtype
+        decl = cache_lib.declare_cache(cfg, capacity, max_seq, dtype)
+        self.cache = cache_lib.init_cache(cfg, capacity, max_seq, dtype,
+                                          device)
+        self._bax = tree_map(lambda c: c.axes.index("batch"), decl)
+        self._kv_bytes = sum(
+            math.prod(c.shape) * torch.empty((), dtype=c.dtype).element_size()
+            for c in tree_leaves(decl) if "kv_seq" in c.axes)
+
+    def write_prefill(self, slot_ids: Sequence[int], part_cache) -> None:
+        """Write a packed prefill cache's first ``len(slot_ids)`` rows into
+        those request rows (KV at positions ``0..prompt_len-1``), in
+        place."""
+        n = len(slot_ids)
+        dev = next(iter(tree_leaves(self.cache))).device
+        rows = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+        tree_map(lambda full, part, bax: _write_rows(
+            full, part.narrow(bax, 0, n), bax, rows),
+            self.cache, part_cache, self._bax)
+
+    def memory_stats(self) -> dict:
+        total = self._kv_bytes
+        return {
+            "block_size": self.max_seq,
+            "num_blocks": self.capacity,
+            "kv_arena_bytes": total,
+            "kv_high_water_bytes": total,
+            "dense_equiv_bytes": total,
         }

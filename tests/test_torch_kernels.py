@@ -2,8 +2,9 @@
 
 On the CPU the port's plain versions (``confidence_gate_ref``,
 ``ragged_attention_ref``, ``paged_attention_ref``,
-``mixed_attention_ref``, ``paged_prefill_attention_ref`` and
-``router_gate_ref``) are held to
+``mixed_attention_ref``, ``paged_prefill_attention_ref``,
+``router_gate_ref``, ``flash_attention_ref`` and ``rwkv6_scan_ref``) are
+held to
 the JAX Pallas kernels run in interpret mode and to the JAX oracles in
 ``repro/kernels/ref.py``, on the same numpy inputs; the ``ops`` wrappers
 route CPU tensors to the plain versions without counting a launch.  The
@@ -29,6 +30,7 @@ from repro.kernels.router_gate import router_gate as jax_router_gate  # noqa: E4
 from repro_torch.core import confidence  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
@@ -36,11 +38,14 @@ from repro_torch.kernels import prefill_attention as prefill_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
-from tests.test_torch_kernels_cuda import (MIXED_CASES,  # noqa: E402
-                                           PAGED_CASES, RAGGED_CASES,
-                                           _logits, _mixed_inputs,
-                                           _paged_inputs, _ragged_inputs,
-                                           _router_logits, _torch)
+from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
+from tests.test_torch_kernels_cuda import (FLASH_CASES,  # noqa: E402
+                                           MIXED_CASES, PAGED_CASES,
+                                           RAGGED_CASES, RWKV_CASES,
+                                           _flash_inputs, _logits,
+                                           _mixed_inputs, _paged_inputs,
+                                           _ragged_inputs, _router_logits,
+                                           _rwkv_inputs, _torch)
 
 
 # --------------------------------------------------------------------------
@@ -204,12 +209,75 @@ def test_mixed_decode_rows_match_paged_decode():
 
 
 # --------------------------------------------------------------------------
+# dense flash attention and the RWKV-6 scan
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(c for c in FLASH_CASES
+                                        if FLASH_CASES[c][5] <= 64))
+def test_flash_attention_matches_jax(case):
+    """Against the TPU kernel in interpret mode (128-row tiles, so S = 45,
+    100 and 130 leave partial tiles) and the JAX oracle: causal and
+    windowed, GQA, d 32 and 64, more keys than queries; atol = rtol =
+    1e-5 (the same f32 softmax, summed in another order)."""
+    B, H, KV, S, T, d, causal, window = FLASH_CASES[case]
+    q, k, v = _flash_inputs(len(case), B, H, KV, S, T, d)
+    got = ref.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=causal,
+                                  window=window).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    for want in (jax_ops.flash_attention(jq, jk, jv, causal=causal,
+                                         window=window, interpret=True),
+                 jax_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                             window=window)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in RWKV_CASES
+                                        if RWKV_CASES[c][3] == 32))
+def test_rwkv6_scan_matches_jax(case):
+    """``y`` against the TPU kernel in interpret mode (its 128-step
+    chunks: T = 130 carries the state across two) and the JAX oracle,
+    atol = rtol = 1e-5; the final state has the oracle's shape."""
+    B, H, T, hd = RWKV_CASES[case]
+    args = _rwkv_inputs(len(case), B, H, T, hd)
+    y, s_T = ref.rwkv6_scan_ref(*(torch.from_numpy(a) for a in args))
+    assert y.dtype == s_T.dtype == torch.float32
+    assert tuple(s_T.shape) == (B, H, hd, hd)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    for want in (jax_ops.rwkv6_scan(*jargs, interpret=True),
+                 jax_ref.rwkv6_scan_ref(*jargs)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_rwkv6_scan_state_is_the_recurrence_carried_on():
+    """Splitting the sequence: the state after the first part, carried
+    through the second part's steps by hand, is the state after the
+    whole (and the second part's outputs follow from it)."""
+    r, k, v, w, u = (torch.from_numpy(a) for a in _rwkv_inputs(
+        5, 1, 2, 40, 32))
+    y, s_T = ref.rwkv6_scan_ref(r, k, v, w, u)
+    y1, s1 = ref.rwkv6_scan_ref(*(a[:, :, :25] for a in (r, k, v, w)), u)
+    torch.testing.assert_close(y1, y[:, :, :25], atol=0, rtol=0)
+    S = s1
+    for t in range(25, 40):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        y_t = torch.einsum("bhk,bhkv->bhv", r[:, :, t], S + u[..., None] * kv)
+        torch.testing.assert_close(y_t, y[:, :, t], atol=1e-5, rtol=1e-5)
+        S = w[:, :, t, :, None] * S + kv
+    torch.testing.assert_close(S, s_T, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain version; CUDA tensors the kernel
 # --------------------------------------------------------------------------
 
 
 LAUNCHED = ("confidence_gate", "ragged_attention", "paged_attention",
-            "mixed_attention", "router_gate")
+            "mixed_attention", "router_gate", "flash_attention",
+            "rwkv6_scan")
 
 
 def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
@@ -236,8 +304,15 @@ def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
     x = torch.from_numpy(_router_logits((5, 40), 8, seed=5))
     for got, want in zip(ops.router_gate(x, 8), ref.router_gate_ref(x, 8)):
         assert torch.equal(got, want)
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(3, 1, 4, 2, 9, 9,
+                                                          32))
+    assert torch.equal(ops.flash_attention(q, k, v, window=4),
+                       ref.flash_attention_ref(q, k, v, window=4))
+    args = [torch.from_numpy(a) for a in _rwkv_inputs(3, 1, 2, 5, 32)]
+    for got, want in zip(ops.rwkv6_scan(*args), ref.rwkv6_scan_ref(*args)):
+        assert torch.equal(got, want)
     after = tuple(getattr(ops, n).launches for n in LAUNCHED)
-    assert after == before == (0, 0, 0, 0, 0)
+    assert after == before == (0,) * len(LAUNCHED)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -260,6 +335,13 @@ def test_kernel_launchers_refuse_cpu_tensors():
         prefill_mod.paged_prefill_attention(*targs, **tkw)
     with pytest.raises(ValueError, match="CUDA"):
         router_mod.router_gate(torch.zeros(4, 40), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention(torch.zeros(1, 2, 4, 32),
+                                  torch.zeros(1, 1, 4, 32),
+                                  torch.zeros(1, 1, 4, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv_mod.rwkv6_scan(*(torch.from_numpy(a) for a in _rwkv_inputs(
+            1, 1, 1, 3, 32)))
 
 
 def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):

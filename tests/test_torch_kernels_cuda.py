@@ -13,11 +13,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
 
 
 @pytest.fixture
@@ -199,6 +201,51 @@ MIXED_CASES = {
 }
 
 
+# (B, H, KV, S, T, d, causal, window): the smoke widths (d 32; gemma3's
+# window 16 and its global layers), S and T off every tile size, granite
+# (d 64), phi4 (d 128) and gemma3 (d 256) head widths, GQA, a sliding
+# window without causality, and more keys than queries
+FLASH_CASES = {
+    "gemma-smoke-window": (2, 4, 1, 45, 45, 32, True, 16),
+    "phi4-smoke-global": (2, 4, 4, 45, 45, 32, True, None),
+    "granite-d64-130": (1, 6, 2, 130, 130, 64, True, None),
+    "phi4-d128-gqa": (1, 6, 2, 70, 70, 128, True, None),
+    "gemma-d256-window": (1, 4, 1, 100, 100, 256, True, 33),
+    "noncausal-more-keys": (2, 2, 1, 37, 50, 64, False, None),
+    "noncausal-window": (1, 2, 2, 40, 40, 32, False, 7),
+}
+
+
+def _flash_inputs(seed, B, H, KV, S, T, d):
+    """q [B, H, S, d], k/v [B, KV, T, d] f32 from a seed."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, H, S, d), (B, KV, T, d), (B, KV, T, d)))
+
+
+# (B, H, T, hd): rwkv6-3b-smoke's heads (hd 32) over T off the 32-step
+# chunk and the TPU kernel's 128-step one, two batch rows, hd 64 (rwkv6-3b)
+# and 128, and a single step
+RWKV_CASES = {
+    "smoke-T130": (1, 2, 130, 32),
+    "two-rows": (2, 3, 33, 32),
+    "hd64": (1, 2, 70, 64),
+    "hd128": (1, 1, 40, 128),
+    "one-step": (1, 2, 1, 32),
+}
+
+
+def _rwkv_inputs(seed, B, H, T, hd):
+    """r, k, v [B, H, T, hd], w = exp(-exp(.)) in (0, 1) and u [H, hd],
+    f32, at the spreads the model gives them."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, T, hd)).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, H, T, hd)) * 0.5 - 0.5))
+    u = rng.standard_normal((H, hd)) * 0.5
+    return r, k, v, w.astype(np.float32), u.astype(np.float32)
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels against the plain versions (card only)
 # --------------------------------------------------------------------------
@@ -283,3 +330,51 @@ def test_cuda_router_gate_matches_plain(case, ties, cuda_device):
     assert idx.dtype == torch.int32 and gates.dtype == torch.float32
     assert torch.equal(idx.cpu(), want_i)
     torch.testing.assert_close(gates.cpu(), want_g, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [(c, torch.float32) for c in sorted(
+    FLASH_CASES)] + [("phi4-d128-gqa", torch.bfloat16),
+                     ("gemma-d256-window", torch.bfloat16)])
+def test_cuda_flash_attention_matches_plain(case, dtype, cuda_device):
+    """f32 within atol = rtol = 1e-4; bf16 inputs against the plain
+    version in f32 on the same values, within the output's rounding
+    (atol 1e-3, rtol 1e-2)."""
+    B, H, KV, S, T, d, causal, window = FLASH_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(dtype)
+               for a in _flash_inputs(len(case), B, H, KV, S, T, d))
+    got = flash_mod.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                    v.to(cuda_device), causal=causal,
+                                    window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(got.cpu().float(), want, atol=tol,
+                               rtol=1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_unaligned_views(cuda_device):
+    """Inputs whose storage starts one element off the 16-byte alignment
+    the kernel's vector loads need are refused, not copied."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _flash_inputs(3, 1, 4, 2, 33, 33, 64))
+    buf = torch.empty(q.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.flash_attention(shifted, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RWKV_CASES))
+def test_cuda_rwkv6_scan_matches_plain(case, cuda_device):
+    """y and the final state within atol = rtol = 1e-4 (the kernel sums
+    the u term apart from the state's)."""
+    args = [torch.from_numpy(a) for a in _rwkv_inputs(len(case),
+                                                     *RWKV_CASES[case])]
+    y, s_T = rwkv_mod.rwkv6_scan(*(a.to(cuda_device) for a in args))
+    want_y, want_s = ref.rwkv6_scan_ref(*args)
+    torch.testing.assert_close(y.cpu(), want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s_T.cpu(), want_s, atol=1e-4, rtol=1e-4)

@@ -6,9 +6,14 @@ numpy arrays from a seed.  The attention paths are the serving ones —
 ``ragged_step`` (ragged executor), ``mixed_step`` (padded executor),
 ``prefill_chunk`` and paged ``decode`` (split executor) — whose kernels
 run as their plain versions here.  granite-moe-3b-a800m adds the MoE
-FFN, routed by ``router_gate`` (its plain version here).
+FFN, routed by ``router_gate`` (its plain version here).  The uniform
+one-shot prefill (``forward(mode="prefill")``, ``flash_attention``;
+``rwkv6_scan`` for rwkv6-3b's RWKV-6 layers) and the dense-arena decode
+are held to the JAX package for gemma3-1b, phi4-mini-3.8b and rwkv6-3b,
+part-cache tree included.
 """
 import dataclasses
+import functools
 import os
 
 import pytest
@@ -28,6 +33,7 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models import transformer as jax_transformer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import blocks, params, transformer  # noqa: E402
+from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 
 MODELS = ("gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
@@ -503,11 +509,17 @@ def test_moe_steps_with_drops_match_jax(mode):
 
 
 def test_dense_caches_are_not_ported(model):
+    """Dense caches are served now (see the prefill/decode parity tests
+    below); what stays refused is a block pool handed to the dense decode
+    without its page tables — its block dim is not a row per request."""
     name, _, cfg, _, tp = model
     cache = init_paged_cache(cfg, 2, 5, 4, torch.float32, "cpu")
     tok = torch.zeros(2, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(ValueError, match="dense decode"):
         transformer.decode_step(tp, cfg, tok, cache, tok)
+    with pytest.raises(ValueError, match="requires pages"):
+        transformer.forward(tp, cfg, {"tokens": tok}, mode="mixed_step",
+                            cache=cache, pos=tok)
 
 
 def test_init_paged_cache_layout(model):
@@ -523,3 +535,183 @@ def test_init_paged_cache_layout(model):
             assert tuple(tl[k].shape) == jl[k].shape
             assert str(tl[k].dtype).split(".")[-1] == str(jl[k].dtype)
             assert not tl[k].any()
+
+
+# --------------------------------------------------------------------------
+# uniform one-shot prefill and the dense arena
+# --------------------------------------------------------------------------
+
+
+UNIFORM_MODELS = ("gemma3-1b", "phi4-mini-3.8b", "rwkv6-3b")
+# (model, kv_quant): rwkv6-3b has no KV cache to quantise
+UNIFORM_CASES = [(n, q) for n in UNIFORM_MODELS for q in (None, "int8")
+                 if not (q and n == "rwkv6-3b")]
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform_weights(name):
+    jcfg = jax_get_config(name, "smoke")
+    return jcfg, _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(2),
+                                          jnp.float32))
+
+
+def uniform_model(name, kv_quant):
+    """(name, JAX config, port config, JAX weights, port weights)."""
+    jcfg, jp = _uniform_weights(name)
+    return (name, dataclasses.replace(jcfg, kv_quant=kv_quant),
+            dataclasses.replace(get_config(name, "smoke"), kv_quant=kv_quant),
+            jp, params.from_jax(jp))
+
+
+def _check_tree(got, want, atol, rtol=1e-5):
+    got, want = _leaves(got), _leaves(_np_tree(want))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy().astype(np.float32),
+                                   want[k].astype(np.float32), atol=atol,
+                                   rtol=rtol, err_msg=k)
+
+
+@pytest.mark.parametrize("name,kv_quant", UNIFORM_CASES)
+def test_prefill_matches_jax(name, kv_quant):
+    """``forward(mode="prefill")`` (gemma3's window 16 < S = 21 in its
+    sliding layers) against the JAX package: the last position's logits
+    (all the port computes) within 1e-4, and the part-cache tree leaf for
+    leaf (k/v after RoPE, or int8 with scales: an int8 value may sit one
+    step off where the f32 keys differ by float noise at a rounding
+    midpoint; RWKV-6 ``x_prev`` and final ``state``) within 1e-5."""
+    name, jcfg, cfg, jp, tp = uniform_model(name, kv_quant)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 21)).astype(np.int32)
+    want, want_c, _ = jax_transformer.forward(
+        jax.tree.map(jnp.asarray, jp), jcfg, {"tokens": jnp.asarray(toks)},
+        mode="prefill")
+    got, got_c = transformer.prefill(tp, cfg, {"tokens":
+                                               torch.from_numpy(toks)})
+    assert got.shape == (3, 1, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, -1:],
+                               atol=1e-4, rtol=1e-4)
+    _check_tree(got_c, want_c, atol=1.0 if kv_quant else 1e-5)
+
+
+def _dense_from_part(jcfg, part, B, T):
+    """A dense ``[B, T]`` arena with a prefill's part cache in its first
+    positions (numpy), and random values past them."""
+    rng = np.random.default_rng(7)
+    full = _np_tree(jax_cache.init_cache(jcfg, B, T, jnp.float32))
+
+    def put(f, p):
+        p = np.asarray(p)
+        if f.shape == p.shape:
+            return p.copy()
+        out = (rng.standard_normal(f.shape) if f.dtype != np.int8 else
+               rng.integers(-127, 128, f.shape)).astype(f.dtype)
+        out[tuple(slice(0, n) for n in p.shape)] = p
+        return out
+    return jax.tree.map(put, full, _np_tree(part))
+
+
+@pytest.mark.parametrize("name,kv_quant", UNIFORM_CASES)
+def test_dense_decode_step_matches_jax(name, kv_quant):
+    """``decode_step(pages=None)`` over the dense arena after a prefill,
+    rows at different positions (one behind, so it overwrites a prompt
+    position): logits within 1e-4 and the whole updated cache — the
+    written KV position, the RWKV-6 state and token-shift leaves stepped
+    in place — within 1e-5.  An int8 arena's probabilities meet the
+    values in bf16 on both sides, rounded at the same places."""
+    name, jcfg, cfg, jp, tp = uniform_model(name, kv_quant)
+    rng = np.random.default_rng(4)
+    B, S, T = 3, 21, 30
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    _, part, _ = jax_transformer.forward(
+        jax.tree.map(jnp.asarray, jp), jcfg, {"tokens": jnp.asarray(toks)},
+        mode="prefill")
+    full = _dense_from_part(jcfg, part, B, T)
+    tok = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    pos = np.asarray([[S], [S - 3], [S + 4]], np.int32)
+    want, want_c = jax_transformer.decode_step(
+        jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(tok),
+        jax.tree.map(jnp.asarray, full), jnp.asarray(pos))
+    cache = params.from_jax(full)
+    got, got_c = transformer.decode_step(tp, cfg, torch.from_numpy(tok),
+                                         cache, torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    _check_tree(got_c, want_c, atol=1e-5)
+    _check_tree(cache, want_c, atol=1e-5)       # updated in place
+
+
+def test_rwkv6_block_matches_jax():
+    """The RWKV-6 time mix alone (``rwkv6_scan_ref`` inside) over T =
+    130, past the TPU kernel's 128-step chunk: the output and the new
+    cache — the final state ``S_T`` — against the JAX block's prefill,
+    then one decode step from that cache; and the chunked modes raise as
+    in the JAX package."""
+    jcfg = jax_get_config("rwkv6-3b", "smoke")
+    cfg = get_config("rwkv6-3b", "smoke")
+    spec = cfg.period[0].mixer
+    jp = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(5),
+                                  jnp.float32))["period"]
+    p = {k: v[0] for k, v in jp["block0"]["mixer"].items()}
+    x = np.random.default_rng(6).standard_normal(
+        (1, 130, cfg.d_model)).astype(np.float32)
+    want, want_c = jax_blocks.rwkv6(
+        {k: jnp.asarray(v) for k, v in p.items()}, jcfg, spec,
+        jnp.asarray(x), None, None, "prefill")
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    got, got_c = blocks.rwkv6(tp, cfg, spec, torch.from_numpy(x), None,
+                              None, "prefill")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    _check_tree(got_c, want_c, atol=1e-5)
+    x1 = x[:, :1] * 0.5
+    want1, want_c1 = jax_blocks.rwkv6(
+        {k: jnp.asarray(v) for k, v in p.items()}, jcfg, spec,
+        jnp.asarray(x1), want_c, None, "decode")
+    got1, got_c1 = blocks.rwkv6(tp, cfg, spec, torch.from_numpy(x1),
+                                {k: v.clone() for k, v in got_c.items()},
+                                None, "decode")
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=1e-5,
+                               rtol=1e-5)
+    _check_tree(got_c1, want_c1, atol=1e-5)
+    for mode in ("ragged_step", "mixed_step", "prefill_chunk"):
+        with pytest.raises(NotImplementedError, match="uniform"):
+            blocks.rwkv6(tp, cfg, spec, torch.from_numpy(x1), got_c, None,
+                         mode)
+
+
+def test_rwkv_caches_match_jax_layout():
+    """rwkv6-3b's dense and paged caches: the JAX keys, shapes and dtypes
+    (recurrent leaves keep one row per request in the paged cache), and
+    ``has_recurrent_state`` as the JAX package decides it."""
+    for name in UNIFORM_MODELS + ("granite-moe-3b-a800m",):
+        jcfg, cfg = jax_get_config(name, "smoke"), get_config(name, "smoke")
+        assert cache_lib.has_recurrent_state(cfg) == \
+            jax_cache.has_recurrent_state(jcfg) == (name == "rwkv6-3b")
+        for jc, tc in (
+                (jax_cache.init_cache(jcfg, 3, 7, jnp.float32),
+                 cache_lib.init_cache(cfg, 3, 7, torch.float32, "cpu")),
+                (jax_cache.init_paged_cache(jcfg, 3, 9, 4, jnp.float32),
+                 init_paged_cache(cfg, 3, 9, 4, torch.float32, "cpu"))):
+            jl, tl = _leaves(_np_tree(jc)), _leaves(tc)
+            assert jl.keys() == tl.keys()
+            for k in jl:
+                assert tuple(tl[k].shape) == jl[k].shape
+                assert str(tl[k].dtype).split(".")[-1] == str(jl[k].dtype)
+
+
+def test_rwkv_params_match_jax_declaration():
+    """rwkv6-3b's parameter tree: the JAX keys and shapes at the smoke and
+    published widths (3.07 B parameters), and ``from_jax`` round trip."""
+    from repro.models import params as jax_params
+    for variant in ("smoke", ""):
+        jd = jax_params.declare_model(jax_get_config("rwkv6-3b", variant))
+        td = params.declare_model(get_config("rwkv6-3b", variant))
+        jl = _leaves(jax.tree.map(lambda p: p.shape, jd,
+                                  is_leaf=lambda x: isinstance(
+                                      x, jax_params.P)))
+        tl = _leaves(params.tree_map(lambda p: p.shape, td))
+        assert jl == tl
+    assert params.param_count_from_decl(get_config("rwkv6-3b", "")) \
+        == 3_073_313_280

@@ -9,9 +9,12 @@ and token stream.  The smoke weights are used as initialised (nothing is
 rescaled); because their logits are nearly flat, the test also asserts
 that at every emitted step the port's top-1/top-2 logit margin is more
 than twice the measured difference between the two packages' logits, so
-the equal argmaxes are not luck.  The expensive tier is phi4-mini-3.8b
-or the MoE granite-moe-3b-a800m, whose routing also sees the padding
-slots, so the port's padding token ids must be the JAX engine's.
+the equal argmaxes are not luck.  The expensive tier is phi4-mini-3.8b,
+the MoE granite-moe-3b-a800m, whose routing also sees the padding
+slots, so the port's padding token ids must be the JAX engine's, or the
+recurrent rwkv6-3b, which both engines serve on the uniform one-shot
+prefill path (as they serve phi4 under ``use_chunked_prefill=False`` and
+over the dense arena, ``use_paged_kv=False``).
 """
 import functools
 import os
@@ -32,6 +35,8 @@ from repro.models import transformer as jax_transformer  # noqa: E402
 from repro.serving import CascadeEngine as JaxEngine  # noqa: E402
 from repro.serving import TierSpec as JaxTierSpec  # noqa: E402
 from repro.serving import CascadeScheduler as JaxScheduler  # noqa: E402
+from repro.serving.slots import DenseTierSlotPool as JaxDensePool  # noqa: E402
+from repro.serving.slots import TierSlotPool as JaxPool  # noqa: E402
 from repro.serving import GateSpec as JaxGateSpec  # noqa: E402
 from repro.serving.engine import VirtualClock as JaxVirtualClock  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -43,11 +48,13 @@ from repro_torch.serving import (BlockAllocator, CascadeEngine,  # noqa: E402
                                  CascadeScheduler, GateSpec, Request,
                                  SlotAllocator, TierSlotPool, TierSpec)
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
+from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
 from repro_torch.serving.request import RequestState  # noqa: E402
 from tests.test_slots_properties import check_invariants  # noqa: E402
 from tests.test_torch_model import with_capacity  # noqa: E402
 
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
+RWKV = "rwkv6-3b"
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +142,57 @@ def test_tier_slot_pool_cache_is_on_the_device_and_sized():
                                         * cfg.num_kv_heads * cfg.head_dim * 4)
 
 
+def _rand_part(jcfg, n, prompt, seed):
+    """A random packed prefill cache ``[n, prompt, ...]`` (the JAX
+    package's tree), as numpy."""
+    from repro.models import cache as jax_cache
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda c: rng.standard_normal(c.shape).astype(np.float32),
+        jax_cache.declare_cache(jcfg, n, prompt, jnp.float32),
+        is_leaf=lambda x: isinstance(x, jax_cache.CP))
+
+
+@pytest.mark.parametrize("name", [FAST, RWKV])
+@pytest.mark.parametrize("paged", [True, False])
+def test_write_prefill_partial_admission_matches_jax(name, paged):
+    """One request admitted into row 1 of 3: the packed prefill cache's
+    row 0 lands in the arena exactly as the JAX pools place it —
+    attention KV through row 1's page table (paged) or at row 1's first
+    positions (dense), RWKV-6 state and token-shift leaves in request
+    row 1, sliced to the one admitted row."""
+    jcfg, cfg = jax_get_config(name, "smoke"), get_config(name, "smoke")
+    part = _rand_part(jcfg, 3, 8, seed=4)
+    if paged:
+        want = JaxPool(jcfg, 3, 12, block_size=4)
+        mine = TierSlotPool(cfg, 3, 12, block_size=4, device="cpu")
+        for pool in (want, mine):
+            pool.bind(0, 8)
+            pool.bind(1, 8)
+        assert (want.page_table == mine.page_table).all()
+    else:
+        want = JaxDensePool(jcfg, 3, 12)
+        mine = DenseTierSlotPool(cfg, 3, 12, device="cpu")
+    want.write_prefill([1], jax.tree.map(jnp.asarray, part))
+    mine.write_prefill([1], from_jax(part), *([8] if paged else []))
+    got = jax.tree_util.tree_leaves(
+        jax.tree.map(np.asarray, mine.cache,
+                     is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    ref = jax.tree_util.tree_leaves(jax.tree.map(np.asarray, want.cache))
+    assert len(got) == len(ref) > 0
+    for g, w in zip(got, ref):
+        np.testing.assert_array_equal(g, w)
+    assert any(g.any() for g in got)
+    if name == RWKV:                    # recurrent rows: only row 1 written
+        state = mine.cache["period"]["block0"]["mixer"]["state"]
+        np.testing.assert_array_equal(
+            state[:, 1].numpy(),
+            part["period"]["block0"]["mixer"]["state"][:, 0])
+        assert not state[:, [0, 2]].any()
+    assert mine.memory_stats()["kv_arena_bytes"] == (
+        0 if name == RWKV else want.memory_stats()["kv_arena_bytes"])
+
+
 # ---------------------------------------------------------------------------
 # scheduler
 # ---------------------------------------------------------------------------
@@ -220,7 +278,7 @@ def weights():
     """name -> (JAX config, JAX weights, port weights), and the port's
     config under ``(name, "torch")``."""
     out = {}
-    for i, name in enumerate((FAST, EXP, MOE)):
+    for i, name in enumerate((FAST, EXP, MOE, RWKV)):
         cfg = jax_get_config(name, "smoke")
         jp = jax.tree.map(np.asarray, jax_init_params(
             cfg, jax.random.PRNGKey(i), jnp.float32))
@@ -271,12 +329,18 @@ def _torch_engine(weights, delta, exp=EXP, **kw):
 EXECUTORS = {"ragged": {},
              "padded": {"use_ragged_step": False},
              "split": {"use_unified_step": False}}
+# the uniform one-shot prefill path (split decode), paged and dense, and
+# the engine's own choice ("auto": uniform for a recurrent tier)
+UNIFORM = {"uniform": {"use_chunked_prefill": False},
+           "dense": {"use_paged_kv": False},
+           "auto": {}}
 
 
 def _tap_jax_logits(monkeypatch, recording):
     """Record each JAX launch's per-row next-token logits, per tier: the
     unified steps' last-slot logits, the chunk launch's logits at each
-    row's last live slot, the decode launch's single position."""
+    row's last live slot, the decode launch's single position, the
+    uniform prefill's last position."""
     logits_by_tier = {0: [], 1: []}
 
     def tap(tier, logits):
@@ -291,6 +355,17 @@ def _tap_jax_logits(monkeypatch, recording):
                                per_row(logits, pages))
             return logits, cache
         return run
+
+    forward = jax_transformer.forward
+
+    def tapped_forward(params, cfg, batch, *, mode="train", **kw):
+        out = forward(params, cfg, batch, mode=mode, **kw)
+        if mode == "prefill":
+            tier = int(not cfg.name.startswith(FAST))
+            jax.debug.callback(functools.partial(tap, tier),
+                               out[0][:, -1])
+        return out
+    monkeypatch.setattr(jax_transformer, "forward", tapped_forward)
 
     rows = lambda lg, pages: lg                                # noqa: E731
     for name, per_row in (
@@ -307,7 +382,8 @@ def _tap_jax_logits(monkeypatch, recording):
 def _tap_torch_rows(eng):
     """Record the port's per-launch logits (every launch picks once, in
     the confidence gate) and, per launch, the rows it emits a token
-    for."""
+    for (a uniform prefill's: its first ``n`` rows, the admitted
+    ones)."""
     logits_by_tier = {0: [], 1: []}
     emitted = {0: [], 1: []}
     for tier, rt in enumerate(eng.runtimes):
@@ -317,6 +393,12 @@ def _tap_torch_rows(eng):
             logits_by_tier[tier].append(logits2d.numpy().copy())
             return pick(logits2d)
         rt.pick = tapped
+        write = rt.pool.write_prefill
+
+        def written(slot_ids, part, *rest, write=write, tier=tier):
+            emitted[tier].append(list(range(len(slot_ids))))
+            return write(slot_ids, part, *rest)
+        rt.pool.write_prefill = written
     exec_unified, exec_split = eng._exec_unified, eng._exec_split
     decode_launch = eng._decode_launch
 
@@ -340,19 +422,31 @@ def _tap_torch_rows(eng):
     return logits_by_tier, emitted
 
 
+_PROBED = {}
+
+
+def _probe_delta(weights, dist):
+    """δ mid-gap of a JAX probe run's tier-0 confidences, so the gate
+    splits the workload.  At δ = 0 nothing escalates, so the probe runs
+    gemma3 alone and one probe serves every expensive tier and executor
+    of a workload."""
+    key = (id(weights), dist)
+    if key not in _PROBED:
+        probe = _drain(_jax_engine(weights, 0.0), _workload(dist))
+        confs = sorted(r.seq_conf_by_tier[0] for r in probe.requests)
+        i = int(np.argmax(np.diff(confs)))
+        _PROBED[key] = float((confs[i] + confs[i + 1]) / 2)
+    return _PROBED[key]
+
+
 def _check_stream_parity(weights, dist, monkeypatch, executor, exp=EXP):
     """The port and the JAX engine under one executor: equal
     ``stream_checksum`` and token confidences, and at every emitted step
     the port's logits within 1e-4 of JAX's with a top-1/top-2 margin of
     more than twice that difference."""
-    kw = dict(EXECUTORS[executor], exp=exp)
+    kw = dict({**EXECUTORS, **UNIFORM}[executor], exp=exp)
     work = _workload(dist)
-    # δ mid-gap of a JAX probe run's tier-0 confidences (δ = 0: nothing
-    # escalates), so the gate splits the workload
-    probe = _drain(_jax_engine(weights, 0.0, exp=exp), work)
-    confs = sorted(r.seq_conf_by_tier[0] for r in probe.requests)
-    i = int(np.argmax(np.diff(confs)))
-    delta = float((confs[i] + confs[i + 1]) / 2)
+    delta = _probe_delta(weights, dist)
 
     recording = [False]
     jax_logits = _tap_jax_logits(monkeypatch, recording)
@@ -429,6 +523,37 @@ def test_moe_stream_parity_with_drops(weights, executor, monkeypatch):
     padding token ids."""
     _check_stream_parity(weights, "lognormal", monkeypatch, executor,
                          exp="drops")
+
+
+@pytest.mark.parametrize("executor,exp", [("uniform", EXP), ("dense", EXP),
+                                          ("auto", RWKV)])
+def test_uniform_prefill_stream_parity_with_jax_engine(weights, executor,
+                                                       exp, monkeypatch):
+    """The uniform one-shot prefill path against the JAX engine: phi4
+    under ``use_chunked_prefill=False`` (block-paged arena) and under
+    ``use_paged_kv=False`` (dense arena), and the recurrent rwkv6-3b,
+    which both engines put on that path by themselves.  Every prompt is
+    ``prompt_len`` tokens long."""
+    eng = _check_stream_parity(weights, "uniform", monkeypatch, executor,
+                               exp=exp)
+    assert (eng.chunked_prefill, eng.unified_step, eng.paged_kv) == (
+        False, False, executor != "dense")
+    kinds = eng.metrics.summary()["launches_by_kind"]
+    assert all(set(k) == {"prefill", "step"} for k in kinds)
+
+
+def test_uniform_and_chunked_executors_agree_in_the_port(weights):
+    """On equal-length prompts the uniform prefill (paged and dense) and
+    the chunked default give the same streams — the JAX engine's own
+    oracle relation (ragged = padded = split is
+    ``test_executors_agree_in_the_port``)."""
+    work = _workload("uniform", n=8, seed=2)
+    sums = {name: serve_async.stream_checksum(
+        _drain(_torch_engine(weights, 0.5, **kw), work))
+        for name, kw in (("ragged", EXECUTORS["ragged"]),
+                         ("uniform", UNIFORM["uniform"]),
+                         ("dense", UNIFORM["dense"]))}
+    assert len(set(sums.values())) == 1, sums
 
 
 def test_split_oversubscribed_arena_matches_jax(weights):
@@ -512,6 +637,33 @@ def test_executor_switches_raise_like_jax(weights):
     with pytest.raises(ValueError, match="ragged flat token-batch"):
         CascadeEngine(tiers, device="cpu", use_unified_step=False,
                       use_ragged_step=True, **ENGINE_KW)
+    rwkv = [tiers[0], TierSpec(RWKV, weights[RWKV, "torch"],
+                               weights[RWKV][2])]
+    jax_tiers = [JaxTierSpec(n, weights[n][0], weights[n][1])
+                 for n in (FAST, RWKV)]
+    for kw, match in (
+            (dict(use_chunked_prefill=True), "chunked prefill requires"),
+            (dict(use_unified_step=True), "unified token-batch execution "
+             "requires chunked"),
+            (dict(kv_blocks=[None, 10]), "over-subscribes the arena")):
+        for make, t in ((CascadeEngine, rwkv), (JaxEngine, jax_tiers)):
+            extra = {"device": "cpu"} if make is CascadeEngine else {}
+            with pytest.raises(ValueError, match=match):
+                make(t, **kw, **extra, **ENGINE_KW)
+    for make, extra in ((CascadeEngine, {"device": "cpu"}), (JaxEngine, {})):
+        t = tiers if make is CascadeEngine else [
+            JaxTierSpec(n, weights[n][0], weights[n][1]) for n in (FAST, EXP)]
+        with pytest.raises(ValueError, match="chunked prefill requires"):
+            make(t, use_paged_kv=False, use_chunked_prefill=True, **extra,
+                 **ENGINE_KW)
+        with pytest.raises(ValueError, match="unified token-batch"):
+            make(t, use_chunked_prefill=False, use_unified_step=True,
+                 **extra, **ENGINE_KW)
+    eng = CascadeEngine(rwkv, device="cpu", **ENGINE_KW)
+    assert (eng.chunked_prefill, eng.unified_step, eng.ragged_step) == (
+        False, False, False)
+    with pytest.raises(ValueError, match="uniform packed prefill"):
+        eng.submit(np.arange(5))        # not prompt_len tokens
 
 
 def test_host_syncs_one_per_active_tier_per_tick(weights):
@@ -553,8 +705,10 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     assert s["kernel_launches"] == {"ragged_attention": 0,
                                     "mixed_attention": 0,
                                     "paged_attention": 0,
+                                    "flash_attention": 0,
                                     "confidence_gate": 0,
-                                    "router_gate": 0}
+                                    "router_gate": 0,
+                                    "rwkv6_scan": 0}
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out and "[ragged]" in out
 
@@ -598,3 +752,28 @@ def test_cli_runs_padded_and_split_on_cpu(flag, mode, capsys):
     assert "served 4/4 requests" in out and f"[{mode}]" in out
     with pytest.raises(SystemExit):
         serve_async.make_parser().parse_args(["--ragged-step=no"])
+
+
+@pytest.mark.parametrize("flags,exp,mode", [
+    (["--no-chunked-prefill"], EXP, "uniform+split"),
+    (["--dense-kv"], EXP, "uniform+split dense"),
+    ([], RWKV, "uniform+split")])
+def test_cli_runs_uniform_prefill_on_cpu(flags, exp, mode, capsys):
+    """``--no-chunked-prefill``, ``--dense-kv`` and the rwkv6-3b cascade
+    (uniform by itself): every request DONE, and mixed prompt lengths
+    refused."""
+    base = ["--device", "cpu", "--requests", "4", "--slots", "2",
+            "--prompt-len", "12", "--gen-len", "3", "--virtual-clock",
+            "--expensive", exp]
+    s = serve_async.run(serve_async.make_parser().parse_args(base + flags),
+                        VirtualClock())
+    serve_async.report(s)
+    assert s["completed"] == 4 and s["chunked_prefill"] is False
+    assert s["unified_step"] is False and s["paged_kv"] is ("--dense-kv"
+                                                            not in flags)
+    assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
+               for r in s["per_request"])
+    assert f"[{mode}]" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="--length-dist uniform"):
+        serve_async.run(serve_async.make_parser().parse_args(
+            base + flags + ["--length-dist", "lognormal"]), VirtualClock())
