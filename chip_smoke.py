@@ -8,11 +8,12 @@ Phases (each raises on failure, and the script then exits non-zero
 without printing a result):
 
   1. environment: card name and power limit (``nvidia-smi``), torch and
-     CUDA versions, and the build of the seven CUDA kernels from
+     CUDA versions, and the build of the eight CUDA kernels from
      ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (gemma3-1b, phi4-mini-3.8b,
-     granite-moe-3b-a800m and rwkv6-3b), with CUDA-event times for the
+     granite-moe-3b-a800m, rwkv6-3b and jamba-v0.1-52b, whose Mamba
+     layers run ``mamba_scan``), with CUDA-event times for the
      kernel and the plain version (for the gate and the router also back
      to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
      ``scaled_dot_product_attention`` as a yardstick);
@@ -22,8 +23,10 @@ without printing a result):
      smoke widths, and for granite at its published widths cut to 2
      layers; then the uniform ``prefill`` and the dense-arena
      ``decode_step`` the same way, at the smoke widths of gemma3-1b,
-     phi4-mini-3.8b and rwkv6-3b and for rwkv6-3b at its published
-     widths cut to 2 layers;
+     phi4-mini-3.8b, rwkv6-3b and jamba-v0.1-52b, on a narrow 8-layer
+     jamba period, for rwkv6-3b at its published widths cut to 2 layers
+     and for jamba at its published widths cut to its layers 4 and 6
+     (attention and Mamba, dense FFNs);
   4. the main path at full width: ``repro_torch.launch.serve_async.run``
      serving 16 requests through the published gemma3-1b ->
      phi4-mini-3.8b cascade (random f32 weights from a seed) on the
@@ -36,12 +39,15 @@ without printing a result):
      arena), then the gemma3-1b -> granite-moe-3b-a800m cascade (40
      experts, top-8) under all three executors, then gemma3-1b ->
      rwkv6-3b (uniform by itself: its RWKV-6 state cannot be chunked),
-     each run with the counters set to 0 just before and read just
-     after, its launches checked exactly;
+     then gemma3-1b -> jamba-v0.1-52b cut to 1 of its 4 periods (8
+     layers: 7 Mamba and 1 attention, 4 MoE FFNs of 16 experts, top-2;
+     53.2 GB of f32 weights) on the uniform path it picks by itself and
+     on the dense arena (``--dense-kv``), each run with the counters set
+     to 0 just before and read just after, its launches checked exactly;
   6. the workload once more inside ``torch.profiler``, with a virtual
      clock, under each executor (the uniform one included), for the MoE
-     cascade under the ragged one and for the RWKV-6 cascade: device
-     time by kernel kind and the device's idle share.
+     cascade under the ragged one and for the RWKV-6 and jamba cascades:
+     device time by kernel kind and the device's idle share.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -64,10 +70,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import Layer, get_config  # noqa: E402
 from repro_torch.data import bigram_lm  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
@@ -526,20 +533,21 @@ def check_router(dev, flush):
     """router_gate against its plain version at granite's main-path
     shapes ([512, 40] padded/split chunk and the ragged full bucket,
     [8, 40] decode width), at E = 384 and E = 1024 (the kernel's limit),
-    and on rows of exact ties; k = 8.  Work per row for the bound: E
-    logits read and k (gate, index) pairs written; E subtractions,
-    exponentials and additions, k rounds of E comparisons, 2k
-    divisions."""
+    and on rows of exact ties, k = 8; and at jamba's uniform prefill
+    (one group of 1024 of the 5120 tokens, E = 16, k = 2).  Work per row
+    for the bound: E logits read and k (gate, index) pairs written; E
+    subtractions, exponentials and additions, k rounds of E comparisons,
+    2k divisions."""
     rng = np.random.default_rng(4)
     worst, timed = 0.0, {}
-    cases = [("granite [512, 40]", 512, 40, False),
-             ("granite [8, 40]", 8, 40, False),
-             ("[64, 384]", 64, 384, False),
-             ("[16, 1024]", 16, 1024, False),
-             ("granite ties [8, 40]", 8, 40, True),
-             ("ties [16, 1024]", 16, 1024, True)]
-    k = 8
-    for name, R, E, ties in cases:
+    cases = [("granite [512, 40]", 512, 40, False, 8),
+             ("granite [8, 40]", 8, 40, False, 8),
+             ("[64, 384]", 64, 384, False, 8),
+             ("[16, 1024]", 16, 1024, False, 8),
+             ("granite ties [8, 40]", 8, 40, True, 8),
+             ("ties [16, 1024]", 16, 1024, True, 8),
+             ("jamba [1024, 16]", 1024, 16, False, 2)]
+    for name, R, E, ties, k in cases:
         x = router_logits(rng, R, E, k, ties).to(dev)
         gates, idx = router_mod.router_gate(x, k)
         torch.cuda.synchronize()
@@ -682,6 +690,71 @@ def check_rwkv(dev, flush):
                   (nbytes, nops), flush)
     emit(timing="rwkv6_scan", case=name, **t)
     return max(errs.values()), timed
+
+
+MAMBA_TOL = "y and final state atol=rtol=1e-4"
+# H100 SXM: 132 SMs, 16 exponentials per SM per clock in the special
+# function units, at the 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+
+
+def mamba_inputs(gen, dev, B, T, d, n):
+    """x [B, T, d], dt = 0.1·softplus(.) > 0, B_t and C_t [B, T, n], A =
+    -exp(.) [d, n] < 0, f32, at the spreads the model gives them."""
+    x = torch.randn(B, T, d, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, d, generator=gen, device=dev)) * 0.1
+    Bt, Ct = (torch.randn(B, T, n, generator=gen, device=dev)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(d, n, generator=gen, device=dev) * 0.3)
+    return x, dt, Bt, Ct, A
+
+
+def check_mamba(dev, flush):
+    """mamba_scan against its plain version at jamba-v0.1-52b's uniform
+    prefill, x and dt [8, 640, 8192], B_t and C_t [8, 640, 16], A [8192,
+    16], and at a small ragged case (T = 70 off the 64-step chunk, d =
+    200 off the 128-channel block, n 8): y and the final state both
+    compared.  Work for the bound: the five inputs read and y and the
+    state written once; per (b, t, channel) 7n + 1 f32 operations (dt·x,
+    and per state value dt·A, its exponential, the decayed state, the
+    input term's multiply-add and the output's).  The n exponentials per
+    (b, t, channel) also have their own bound at the SFU's rate
+    (``sfu_bound_ms``).  No single PyTorch call computes the scan, so
+    there is no yardstick."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    worst, timed = 0.0, {}
+    for label, (B, T, d, n) in (("jamba-v0.1-52b", (8, 640, 8192, 16)),
+                                ("ragged", (2, 70, 200, 8))):
+        args = mamba_inputs(gen, dev, B, T, d, n)
+        y, h_T = mamba_mod.mamba_scan(*args)
+        torch.cuda.synchronize()
+        want_y, want_h = mamba_mod.mamba_scan_ref(*args)
+        errs = {"y": (y - want_y).abs().max().item(),
+                "state": (h_T - want_h).abs().max().item()}
+        ok = bool(torch.allclose(y, want_y, atol=1e-4, rtol=1e-4)
+                  and torch.allclose(h_T, want_h, atol=1e-4, rtol=1e-4))
+        name = f"{label} [{B}, {T}, {d}] n {n} f32"
+        emit(check="mamba_scan", case=name, max_abs_err=errs, tol=MAMBA_TOL,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"mamba_scan {name}: {errs}")
+        worst = max(worst, *errs.values())
+        if label == "ragged":
+            continue
+        nbytes = 4 * (sum(a.numel() for a in args) + y.numel()
+                      + h_T.numel())
+        nops = (7 * n + 1) * B * T * d
+        t = time_case(name, timed, lambda: mamba_mod.mamba_scan(*args),
+                      lambda: mamba_mod.mamba_scan_ref(*args),
+                      (nbytes, nops), flush)
+        t["exponentials"] = B * T * d * n
+        t["sfu_bound_ms"] = B * T * d * n / SFU_EXP_PER_S * 1e3
+        emit(timing="mamba_scan", case=name, **t)
+        del args, y, h_T, want_y, want_h
+    torch.cuda.empty_cache()
+    return worst, timed
 
 
 # --------------------------------------------------------------------------
@@ -865,15 +938,40 @@ def check_padded_steps(dev):
     torch.cuda.empty_cache()
 
 
+def narrow_jamba_period(smoke):
+    """One jamba-v0.1-52b period (attention at layer 4 among 7 Mamba
+    layers, MoE FFNs on the odd layers) at d_model 64, with the smoke
+    variant ``smoke``'s Mamba (d_state 8), experts and FFN widths."""
+    mamba, dense, moe = (smoke.period[0].mixer, smoke.period[0].ffn,
+                         smoke.period[1].ffn)
+    period = tuple(Layer(l.mixer if l.mixer.kind == "attn" else mamba,
+                         moe if l.ffn.kind == "moe" else dense)
+                   for l in get_config(JAMBA_NAME, "").period)
+    return dataclasses.replace(smoke, name="jamba-narrow-period",
+                               d_model=64, num_heads=2, num_kv_heads=1,
+                               head_dim=32, period=period)
+
+
 def uniform_models():
     """(label, config) of the uniform-path checks: the smoke widths of
-    gemma3-1b, phi4-mini-3.8b and rwkv6-3b, and rwkv6-3b at its published
-    widths (d 2560, 40 heads of 64, d_ff 8960, vocab 65536) cut to 2
-    layers."""
+    gemma3-1b, phi4-mini-3.8b, rwkv6-3b and jamba-v0.1-52b (two Mamba
+    layers, a dense and an MoE FFN), the narrow 8-layer jamba period,
+    rwkv6-3b at its published widths (d 2560, 40 heads of 64, d_ff 8960,
+    vocab 65536) cut to 2 layers, and jamba at its published widths (d
+    4096, d_inner 8192, d_state 16, 32 heads, 8 KV heads of 128, d_ff
+    14336, vocab 65536) cut to its layers 4 and 6: attention and Mamba,
+    each with a dense FFN (its full-width MoE FFN runs in phase 5)."""
     rwkv = get_config("rwkv6-3b", "")
+    jamba = get_config(JAMBA_NAME, "")
     return [(f"{n}-smoke", get_config(n, "smoke"))
-            for n in ("gemma3-1b", "phi4-mini-3.8b", "rwkv6-3b")] + [
-        ("rwkv6-3b 2 layers", dataclasses.replace(rwkv, num_periods=2))]
+            for n in ("gemma3-1b", "phi4-mini-3.8b", "rwkv6-3b",
+                      JAMBA_NAME)] + [
+        ("jamba narrow period", narrow_jamba_period(
+            get_config(JAMBA_NAME, "smoke"))),
+        ("rwkv6-3b 2 layers", dataclasses.replace(rwkv, num_periods=2)),
+        ("jamba-v0.1-52b layers 4, 6", dataclasses.replace(
+            jamba, period=(jamba.period[4], jamba.period[6]),
+            num_periods=1))]
 
 
 def check_uniform_steps(dev):
@@ -883,7 +981,8 @@ def check_uniform_steps(dev):
     leaf — then the part cache written into a dense arena of 48
     positions (``DenseTierSlotPool``) and one ``decode_step`` over it,
     rows at different positions: logits and the updated arena.  All
-    within atol = rtol = 1e-4."""
+    within atol = rtol = 1e-4, unless an MoE router first picked
+    differently on a near-tie (:func:`compare_step`)."""
     rng = np.random.default_rng(2)
     B, S, T = 4, 40, 48
     for label, cfg in uniform_models():
@@ -895,21 +994,30 @@ def check_uniform_steps(dev):
             rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32))
         dec_pos = torch.tensor([[S], [S - 5], [S + 3], [S]],
                                dtype=torch.int32)
-        out = {}
+        out, taps = {}, {}
         for where, params in (("cpu", params_cpu), ("card", params_dev)):
             d = torch.device("cpu") if where == "cpu" else dev
-            logits, part = transformer.prefill(params, cfg,
-                                               {"tokens": toks.to(d)})
+            tap = [RouterTap() for _ in range(2)]
+            with tap[0]:
+                logits, part = transformer.prefill(params, cfg,
+                                                   {"tokens": toks.to(d)})
             pool = DenseTierSlotPool(cfg, B, T, device=d)
             pool.write_prefill(list(range(B)), part)
-            dec, _ = transformer.decode_step(params, cfg, dec_tok.to(d),
-                                             pool.cache, dec_pos.to(d))
+            with tap[1]:
+                dec, _ = transformer.decode_step(params, cfg, dec_tok.to(d),
+                                                 pool.cache, dec_pos.to(d))
             out[where] = [t.cpu() for t in (logits, dec)] + [
                 [t.cpu() for t in tree_leaves(part)],
                 [t.cpu() for t in tree_leaves(pool.cache)]]
+            taps[where] = [t.calls for t in tap]
             del part, pool
+        routing = [first_routing_difference(c, g)
+                   for c, g in zip(taps["cpu"], taps["card"])]
         for i, step in enumerate(("prefill", "dense decode_step")):
-            compare_step(step, label, out["card"][i], out["cpu"][i], None)
+            compare_step(step, label, out["card"][i], out["cpu"][i],
+                         routing[i])
+        if any(r is not None for r in routing):
+            continue            # the caches then differ by design
         for i, what in ((2, "prefill part cache"), (3, "dense arena after "
                                                        "decode")):
             errs = [(g.float() - w.float()).abs().max().item()
@@ -931,7 +1039,7 @@ def check_uniform_steps(dev):
 
 
 PHI4_NAME, MOE_NAME = "phi4-mini-3.8b", "granite-moe-3b-a800m"
-RWKV_NAME = "rwkv6-3b"
+RWKV_NAME, JAMBA_NAME = "rwkv6-3b", "jamba-v0.1-52b"
 
 
 def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
@@ -940,9 +1048,10 @@ def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
     ``split_step=True``, ``no_chunked_prefill=True`` or
     ``dense_kv=True``).  The chunked executors serve lognormal prompt
     lengths up to 640; the uniform prefill path (those two flags, or the
-    recurrent rwkv6-3b) serves every prompt at exactly 640."""
+    recurrent rwkv6-3b and jamba-v0.1-52b) serves every prompt at exactly
+    640."""
     uniform = (executor.get("no_chunked_prefill") or executor.get("dense_kv")
-               or expensive == RWKV_NAME)
+               or expensive in (RWKV_NAME, JAMBA_NAME))
     return Namespace(
         fast="gemma3-1b", expensive=expensive, variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
@@ -955,22 +1064,24 @@ def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
 EXECUTORS = {"ragged": {}, "padded": {"ragged_step": False},
              "split": {"split_step": True}}
 # the uniform one-shot prefill path (split decode): on the block-paged
-# arena, on the dense one, and as the rwkv6-3b cascade picks it by itself
+# arena, on the dense one, and as the rwkv6-3b and jamba cascades pick it
+# by themselves
 UNIFORM = {"uniform": {"no_chunked_prefill": True},
            "dense": {"dense_kv": True}, "auto": {}}
 ALL_EXECUTORS = {**EXECUTORS, **UNIFORM}
 COUNTED = ("ragged_attention", "mixed_attention", "paged_attention",
            "flash_attention", "confidence_gate", "router_gate",
-           "rwkv6_scan")
+           "rwkv6_scan", "mamba_scan")
 
 
 def layer_counts(cfg) -> dict:
     """Layers of a config by what they launch: attention mixers, MoE
-    FFNs and RWKV-6 mixers."""
+    FFNs, RWKV-6 mixers and Mamba mixers."""
     layers = cfg.head + cfg.tail + cfg.period * cfg.num_periods
     return {"attn": sum(l.mixer.kind == "attn" for l in layers),
             "moe": sum(l.ffn.kind == "moe" for l in layers),
-            "rwkv6": sum(l.mixer.kind == "rwkv6" for l in layers)}
+            "rwkv6": sum(l.mixer.kind == "rwkv6" for l in layers),
+            "mamba": sum(l.mixer.kind == "mamba" for l in layers)}
 
 
 def expected_launches(cfgs, kinds, warm=None, paged=True):
@@ -980,8 +1091,9 @@ def expected_launches(cfgs, kinds, warm=None, paged=True):
     (padded steps and chunks), paged decode (split decode steps over the
     block-paged arena; the dense arena's decode is plain torch) or flash
     (uniform prefills) — every MoE layer through ``router_gate``, every
-    RWKV-6 layer of a prefill through ``rwkv6_scan`` (its decode is
-    plain torch).  ``warm`` adds the warmup's launches per tier."""
+    RWKV-6 layer of a prefill through ``rwkv6_scan`` and every Mamba
+    layer of a prefill through ``mamba_scan`` (their decode is plain
+    torch).  ``warm`` adds the warmup's launches per tier."""
     out = {c: 0 for c in COUNTED if c != "confidence_gate"}
     for t, cfg in enumerate(cfgs):
         n = layer_counts(cfg)
@@ -996,16 +1108,17 @@ def expected_launches(cfgs, kinds, warm=None, paged=True):
         out["flash_attention"] += n["attn"] * k.get("prefill", 0)
         out["router_gate"] += n["moe"] * sum(k.values())
         out["rwkv6_scan"] += n["rwkv6"] * k.get("prefill", 0)
+        out["mamba_scan"] += n["mamba"] * k.get("prefill", 0)
     return out
 
 
-def serve(card: str, params, executor: str, expensive=PHI4_NAME):
+def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
     """Serve the phase-4 workload on ``params`` (the cascade to
-    ``expensive``) under one executor, with every kernel counter set to
-    0 just before and read just after; check that every request
-    completed, that the gate split them, and that the counters prove
-    each tier launch went through the executor's kernels (and through
-    nothing else)."""
+    ``expensive``, whose configs are ``cfgs`` where given) under one
+    executor, with every kernel counter set to 0 just before and read
+    just after; check that every request completed, that the gate split
+    them, and that the counters prove each tier launch went through the
+    executor's kernels (and through nothing else)."""
     args = main_path_args(expensive, **ALL_EXECUTORS[executor])
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
@@ -1017,14 +1130,13 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
     for name in COUNTED:
         getattr(ops, name).launches = 0
     t0 = time.perf_counter()
-    s = serve_async.run(args, params=params)
+    s = serve_async.run(args, params=params, cfgs=cfgs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = torch.cuda.max_memory_allocated()
 
-    cfgs = [get_config(args.fast, args.variant),
-            get_config(args.expensive, args.variant)]
+    cfgs = serve_async.tier_configs(args, cfgs)
     tier_launches = s["launches"]
     kinds = s["launches_by_kind"]
     # the warmup's launches per tier: every bucket width (ragged), the
@@ -1087,6 +1199,7 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME):
         active_ticks=s["active_ticks"], host_syncs=s["host_syncs"],
         kernel_launches_after_warmup=s["kernel_launches"],
         kernel_launches_window=counts, warmup_launches=warm,
+        layers=[layer_counts(c) for c in cfgs],
         escalation_rate=s["escalation_rates"], delta=s["delta"],
         prompt_len_max=s["prompt_len_max"],
         makespan_s=s["elapsed"], generated_tokens=gen_tokens,
@@ -1131,10 +1244,12 @@ KERNEL_NAMES = {"ragged_attention": "ragged_kernel",
                 "flash_attention": "flash_kernel",
                 "confidence_gate": "gate_kernel",
                 "router_gate": "router_kernel",
-                "rwkv6_scan": "wkv_kernel"}
+                "rwkv6_scan": "wkv_kernel",
+                "mamba_scan": "mamba_kernel"}
 
 
-def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
+def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
+                  cfgs=None):
     """Where a tick's device time goes under one executor: the phase-4
     workload (the cascade to ``expensive``) served again under a
     VirtualClock (no waiting for arrivals) inside ``torch.profiler``;
@@ -1144,7 +1259,8 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME):
     from torch.profiler import ProfilerActivity, profile
 
     args = main_path_args(expensive, **ALL_EXECUTORS[executor])
-    engine, vocab = serve_async.build_engine(args, VirtualClock(), params)
+    engine, vocab = serve_async.build_engine(args, VirtualClock(), params,
+                                             cfgs)
     prompts = bigram_lm(
         num_seqs=args.requests, seq_len=args.prompt_len,
         vocab=min(vocab, serve_async.PROMPT_VOCAB), seed=args.seed)
@@ -1225,6 +1341,7 @@ REPLACES = {
     "router_gate": "src/repro/kernels/router_gate.py:51",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:54",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:51",
 }
 
 
@@ -1257,6 +1374,7 @@ def main() -> int:
     q_err, q_time = check_router(dev, flush)
     f_err, f_time = check_flash(dev, flush)
     w_err, w_time = check_rwkv(dev, flush)
+    s_err, s_time = check_mamba(dev, flush)
     del flush
     torch.cuda.empty_cache()
     check_ragged_step(dev)
@@ -1295,20 +1413,41 @@ def main() -> int:
     rwkv_counts, _ = serve(card, params, "auto", RWKV_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", RWKV_NAME)
+    # the hybrid cascade: jamba-v0.1-52b cut to 1 of its 4 periods (its 4
+    # periods, 206 GB in f32, do not fit the card), 53.2 GB of weights in
+    # place of rwkv6-3b's; the engine serves it on the uniform path
+    jamba_cfgs = (get_config("gemma3-1b", moe_args.variant),
+                  dataclasses.replace(get_config(JAMBA_NAME,
+                                                 moe_args.variant),
+                                      num_periods=1))
+    params = (params[0], None)
+    torch.cuda.empty_cache()
+    params = (params[0], init_params(jamba_cfgs[1], moe_args.seed + 1,
+                                     torch.float32, dev))
+    jamba_runs = {ex: serve(card, params, ex, JAMBA_NAME, jamba_cfgs)
+                  for ex in ("auto", "dense")}
+    compare_streams({ex: r for ex, (_, r) in jamba_runs.items()},
+                    JAMBA_NAME)
+    torch.cuda.empty_cache()
+    profile_ticks(card, params, "auto", JAMBA_NAME, jamba_cfgs)
     counts = {ex: c for ex, (c, _) in runs.items()}
     counts.update({ex: c for ex, (c, _) in uniform_runs.items()})
     counts.update({f"moe {ex}": c for ex, (c, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
+    counts.update({f"jamba {ex}": c for ex, (c, _) in jamba_runs.items()})
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
+    jamba_paths = ("jamba auto", "jamba dense")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split")),
                      ("paged_attention", ("split", "moe split", "uniform",
-                                          "rwkv")),
-                     ("flash_attention", ("uniform", "dense", "rwkv")),
+                                          "rwkv", "jamba auto")),
+                     ("flash_attention", ("uniform", "dense", "rwkv")
+                      + jamba_paths),
                      ("confidence_gate", tuple(counts)),
-                     ("router_gate", moe_paths),
-                     ("rwkv6_scan", ("rwkv",))):
+                     ("router_gate", moe_paths + jamba_paths),
+                     ("rwkv6_scan", ("rwkv",)),
+                     ("mamba_scan", jamba_paths)):
         if not all(counts[e][name] > 0 for e in ex):
             raise AssertionError(f"{name} was not launched on {ex}: "
                                  f"{counts}")
@@ -1343,6 +1482,10 @@ def main() -> int:
         kernel_entry("rwkv6_scan", total["rwkv6_scan"], w_err, RWKV_TOL,
                      w_time, "rwkv6-3b [8, 40, 640, 64] f32",
                      "rwkv6-3b: r/k/v/w [8, 40, 640, 64], u [40, 64] f32"),
+        kernel_entry("mamba_scan", total["mamba_scan"], s_err, MAMBA_TOL,
+                     s_time, "jamba-v0.1-52b [8, 640, 8192] n 16 f32",
+                     "jamba-v0.1-52b: x/dt [8, 640, 8192], B_t/C_t "
+                     "[8, 640, 16], A [8192, 16] f32"),
     ]
     for e in entries:
         e["launches_by_path"] = by_path[e["name"]]

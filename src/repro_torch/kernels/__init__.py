@@ -9,11 +9,11 @@ imported: the CPU tests import every module and never build.
 
 Each kernel module (``confidence_gate.py``, ``ragged_attention.py``,
 ``paged_attention.py``, ``mixed_attention.py``, ``router_gate.py``,
-``flash_attention.py``, ``rwkv6_scan.py``) holds the kernel's launcher
-and its plain PyTorch version; ``prefill_attention.py``
-delegates to ``mixed_attention.py``; ``ops.py`` holds the dispatching
-wrappers the model calls, with their launch counters.  Device code
-shared between kernels lives in ``csrc/*.cuh``.
+``flash_attention.py``, ``rwkv6_scan.py``, ``mamba_scan.py``) holds
+the launcher of one of the eight kernels and its plain PyTorch version;
+``prefill_attention.py`` delegates to ``mixed_attention.py``; ``ops.py``
+holds the dispatching wrappers the model calls, with their launch
+counters.  Device code shared between kernels lives in ``csrc/*.cuh``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ from typing import Dict, Iterable, Optional
 import torch
 
 KERNELS = ("confidence_gate", "ragged_attention", "paged_attention",
-           "mixed_attention", "router_gate", "flash_attention", "rwkv6_scan")
+           "mixed_attention", "router_gate", "flash_attention", "rwkv6_scan",
+           "mamba_scan")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

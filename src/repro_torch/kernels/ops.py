@@ -8,13 +8,14 @@ in an integer attribute ``launches`` — the count a run reads to show
 that its path went through the kernels.  Reset it by assignment
 (``ops.ragged_attention.launches = 0``).  ``paged_prefill_attention``
 launches the mixed kernel, so it counts into
-``mixed_attention.launches``; ``rwkv6_scan`` returns the final state
-beside ``y``.
+``mixed_attention.launches``; ``rwkv6_scan`` and ``mamba_scan`` return
+the final state beside ``y``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import confidence_gate as _gate
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import mixed_attention as _mixed
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import prefill_attention as _prefill
@@ -151,3 +152,17 @@ def rwkv6_scan(r, k, v, w, u):
 
 
 rwkv6_scan.launches = 0
+
+
+def mamba_scan(x, dt, B_t, C_t, A):
+    """Mamba-1 selective scan from the zero state: x, dt [B, T, d], B_t,
+    C_t [B, T, n], A [d, n] -> (y [B, T, d], final state [B, d, n]), f32;
+    see :mod:`repro_torch.kernels.mamba_scan`."""
+    if _on_cpu(x, "mamba_scan"):
+        return _mamba.mamba_scan_ref(x, dt, B_t, C_t, A)
+    out = _mamba.mamba_scan(x, dt, B_t, C_t, A)
+    mamba_scan.launches += 1
+    return out
+
+
+mamba_scan.launches = 0

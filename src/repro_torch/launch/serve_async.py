@@ -17,10 +17,11 @@ tier (one fetch either way).  ``--no-chunked-prefill`` prefills each
 admission in one uniform launch (the flash attention kernel in every
 attention layer) and decodes on the split path; ``--dense-kv`` does the
 same over the dense one-row-per-request arena; a tier with recurrent
-state (``--expensive rwkv6-3b``, the RWKV-6 scan kernel) takes the
-uniform path by itself.  The uniform path needs ``--length-dist
-uniform``.  The gate threshold comes from an
-escalation budget by default (δ = the budget-quantile of recent sequence
+state (``--expensive rwkv6-3b``, the RWKV-6 scan kernel, or the
+hybrid ``--expensive jamba-v0.1-52b``, the Mamba scan kernel in its
+Mamba layers) takes the uniform path by itself.  The uniform path needs
+``--length-dist uniform``.  The gate threshold comes from an escalation
+budget by default (δ = the budget-quantile of recent sequence
 confidences); ``--delta`` fixes it instead.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
@@ -29,10 +30,12 @@ confidences); ``--delta`` fixes it instead.
 runs the smoke variants on the card; ``--variant ''`` serves the
 published widths, ``--expensive granite-moe-3b-a800m`` the MoE cascade
 (its MoE layers route through the ``router_gate`` kernel),
-``--expensive rwkv6-3b`` the RWKV-6 cascade, and
-``--device cpu`` runs on the CPU with the kernels' plain versions.  Reports latency/TTFT percentiles, throughput, per-tier
-utilization, launches and host syncs per tick, the escalation rate and
-Eq 7 FLOPs/request.
+``--expensive rwkv6-3b`` the RWKV-6 cascade, ``--expensive
+jamba-v0.1-52b`` the Mamba + attention + MoE hybrid, and
+``--device cpu`` runs on the CPU with the kernels' plain versions.
+Reports latency/TTFT percentiles, throughput, per-tier utilization,
+launches and host syncs per tick, the escalation rate and Eq 7
+FLOPs/request.
 """
 from __future__ import annotations
 
@@ -57,30 +60,40 @@ from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
 PROMPT_VOCAB = 4096
 
 
-def build_params(args):
-    """Both tiers' random f32 weights, drawn on the device from the
-    seeds: (fast tier's, expensive tier's)."""
+def tier_configs(args, cfgs=None):
+    """(fast, expensive) ``ModelConfig``: ``cfgs`` where given (a
+    configuration cut from a registered one, such as jamba-v0.1-52b at
+    1 of its 4 periods), else ``--fast``/``--expensive`` at
+    ``--variant``."""
+    if cfgs is not None:
+        return tuple(cfgs)
+    return (get_config(args.fast, args.variant),
+            get_config(args.expensive, args.variant))
+
+
+def build_params(args, cfgs=None):
+    """Both tiers' random f32 weights (configs from
+    :func:`tier_configs`), drawn on the device from the seeds: (fast
+    tier's, expensive tier's)."""
     device = resolve_device(args.device)
     exp_seed = args.seed + 1 if args.expensive_seed is None \
         else args.expensive_seed
-    return (init_params(get_config(args.fast, args.variant), args.seed,
-                        torch.float32, device),
-            init_params(get_config(args.expensive, args.variant), exp_seed,
-                        torch.float32, device))
+    fast_cfg, exp_cfg = tier_configs(args, cfgs)
+    return (init_params(fast_cfg, args.seed, torch.float32, device),
+            init_params(exp_cfg, exp_seed, torch.float32, device))
 
 
-def build_engine(args, clock=None, params=None):
-    """Both tiers' configs and weights (``params`` from
-    :func:`build_params`, drawn here when None), and the engine; returns
-    (engine, vocab shared by both tiers)."""
+def build_engine(args, clock=None, params=None, cfgs=None):
+    """Both tiers' configs (:func:`tier_configs`) and weights (``params``
+    from :func:`build_params`, drawn here when None), and the engine;
+    returns (engine, vocab shared by both tiers)."""
     device = resolve_device(args.device)
     if device.type == "cuda":
         # f32 end to end: no TF32 in the matrix products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    fast_cfg = get_config(args.fast, args.variant)
-    exp_cfg = get_config(args.expensive, args.variant)
-    fast_params, exp_params = (build_params(args) if params is None
+    fast_cfg, exp_cfg = tier_configs(args, cfgs)
+    fast_params, exp_params = (build_params(args, cfgs) if params is None
                                else params)
     gate_kw = ({"deltas": [args.delta]} if args.delta is not None
                else {"escalation_budget": args.escalation_budget})
@@ -148,15 +161,17 @@ def _launch_counts() -> dict:
     return {name: getattr(kernel_ops, name).launches
             for name in ("ragged_attention", "mixed_attention",
                          "paged_attention", "flash_attention",
-                         "confidence_gate", "router_gate", "rwkv6_scan")}
+                         "confidence_gate", "router_gate", "rwkv6_scan",
+                         "mamba_scan")}
 
 
-def run(args, clock=None, params=None) -> dict:
-    """Build (on ``params`` from :func:`build_params` where given), warm
-    up, serve the synthetic workload, and summarise.
+def run(args, clock=None, params=None, cfgs=None) -> dict:
+    """Build (on ``params`` from :func:`build_params` and the configs
+    ``cfgs`` where given), warm up, serve the synthetic workload, and
+    summarise.
     ``kernel_launches`` counts the kernel launches after warmup;
     ``per_request`` lists each request's final tier, state and tokens."""
-    engine, vocab = build_engine(args, clock, params)
+    engine, vocab = build_engine(args, clock, params, cfgs)
     # catches the flags and the engine's own choice of uniform prefill
     # (a tier with recurrent state)
     if args.length_dist != "uniform" and not engine.chunked_prefill:

@@ -1,5 +1,5 @@
-"""Transformer and RWKV-6 building blocks (the torch twin of the serving
-half of ``repro/models/blocks.py``).
+"""Transformer, Mamba and RWKV-6 building blocks (the torch twin of the
+serving half of ``repro/models/blocks.py``).
 
 The mixer signature is the JAX package's::
 
@@ -25,11 +25,12 @@ Attention runs in the modes the serving executors use:
   torch: the JAX package has no kernel there).
 
 Decode and the paged steps update the cache in place and return the same
-dict.  The RWKV-6 time mix (:func:`rwkv6`) and channel mix
-(:func:`rwkv_cmix`) run in ``"prefill"`` (the ``rwkv6_scan`` kernel,
-from the zero state) and ``"decode"`` (one plain-torch step from the
-cached state) only: their recurrent state cannot be carried across
-chunks, and the chunked modes raise as in the JAX package.
+dict.  The Mamba mixer (:func:`mamba`), the RWKV-6 time mix
+(:func:`rwkv6`) and channel mix (:func:`rwkv_cmix`) run in
+``"prefill"`` (the ``mamba_scan`` and ``rwkv6_scan`` kernels, from the
+zero state) and ``"decode"`` (one plain-torch step from the cached
+state) only: their recurrent state cannot be carried across chunks, and
+the chunked modes raise as in the JAX package.
 
 ``dense_ffn(p, cfg, spec, x) -> y`` covers the ``swiglu`` and ``gelu``
 FFNs, ``moe_ffn(p, cfg, spec, x) -> y`` the token-choice top-k mixture of
@@ -263,7 +264,7 @@ def _dense_decode(p, cfg: ModelConfig, spec, x, q, k, v, cache, pos):
 
 
 # --------------------------------------------------------------------------
-# RWKV-6 time mix
+# Recurrent mixers: Mamba and the RWKV-6 time mix
 # --------------------------------------------------------------------------
 
 _CHUNKED = ("prefill_chunk", "mixed_step", "ragged_step")
@@ -277,6 +278,69 @@ def _recurrent_mode(name: str, mode: str) -> None:
             "prefill path")
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"{name} mode {mode!r} is not ported")
+
+
+def _causal_conv(x, w, b, cache, mode):
+    """Depthwise causal conv: x [B,S,d_in], w [d_conv,d_in].  Prefill
+    sums the ``d_conv`` shifted copies of x (zeros before the start) and
+    returns a copy of the last ``d_conv-1`` inputs as the decode cache;
+    decode convolves the cached inputs and the new token and returns the
+    shifted window."""
+    d_conv = w.shape[0]
+    if mode == "decode":
+        window = torch.cat([cache, x], dim=1)               # [B,d_conv,d]
+        y = torch.einsum("bcd,cd->bd", window.float(), w.float())[:, None]
+        return (y + b).to(x.dtype), window[:, 1:]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, d_conv - 1, 0))
+    y = xp[:, 0:S].float() * w[0].float()
+    for i in range(1, d_conv):
+        y = y + xp[:, i:i + S].float() * w[i].float()
+    # a copy, so the cache does not keep the whole [B, S, d_in] input
+    return (y + b).to(x.dtype), x[:, -(d_conv - 1):].clone()
+
+
+def mamba(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
+    """Mamba-1 selective SSM mixer (``repro/models/blocks.py::mamba``).
+    Prefill runs the scan in the ``mamba_scan`` kernel from h = 0 and
+    returns ``{"conv", "ssm"}`` (the last ``d_conv-1`` conv inputs and
+    the final state); decode takes one plain-torch step from the cached
+    state and writes both leaves in place."""
+    _recurrent_mode("mamba", mode)
+    n = spec.d_state
+    dt_rank = math.ceil(cfg.d_model / 16)
+
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
+                                cache["conv"] if mode == "decode" else None,
+                                mode)
+    xi = F.silu(xi)
+    proj = xi @ p["x_proj"]                                  # [B,S,r+2n]
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
+                    + p["dt_bias"]).float()                  # [B,S,d_in]
+    Bt = proj[..., dt_rank:dt_rank + n].float()              # [B,S,n]
+    Ct = proj[..., dt_rank + n:].float()                     # [B,S,n]
+    A = -torch.exp(p["A_log"].float())                       # [d_in,n]
+    xf = xi.float()
+
+    if mode == "decode":
+        h0 = cache["ssm"].float()
+        h1 = torch.exp(dt[:, 0, :, None] * A) * h0 \
+            + (dt[:, 0] * xf[:, 0])[..., None] * Bt[:, 0, None, :]
+        y = torch.einsum("bdn,bn->bd", h1, Ct[:, 0])[:, None]
+        cache["ssm"].copy_(h1)
+        cache["conv"].copy_(new_conv)
+        new_cache = cache
+    else:
+        # the kernel takes contiguous f32: B_t and C_t are slices of proj
+        y, h1 = kernel_ops.mamba_scan(xf.contiguous(), dt.contiguous(),
+                                      Bt.contiguous(), Ct.contiguous(),
+                                      A.contiguous())
+        new_cache = {"conv": new_conv, "ssm": h1}
+
+    y = y + xf * p["D"].float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], new_cache
 
 
 def _token_shift(x, x_prev, mode):
@@ -338,7 +402,7 @@ def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     return out, new_cache
 
 
-MIXERS = {"attn": attention, "rwkv6": rwkv6}
+MIXERS = {"attn": attention, "mamba": mamba, "rwkv6": rwkv6}
 
 
 # --------------------------------------------------------------------------

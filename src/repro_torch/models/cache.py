@@ -10,6 +10,8 @@ state>}``; period entries carry a leading ``num_periods`` stack dim:
 
   * attn  -> {"k": [B,S,KV,hd], "v": [B,S,KV,hd]} (int8 adds f32
     ``k_scale``/``v_scale`` [B,S,KV])
+  * mamba -> {"conv": [B,d_conv-1,d_inner], "ssm": [B,d_inner,d_state]
+    f32}
   * rwkv6 -> {"x_prev": [B,1,D], "state": [B,H,hd,hd] f32}
   * rwkv_cmix ffn -> {"x_prev": [B,1,D]}; other ffns -> {}
 
@@ -52,6 +54,12 @@ def _mixer_cache_decl(cfg: ModelConfig, m, B: int, S: int, dtype) -> dict:
                     "k_scale": CP(sc, sax, torch.float32),
                     "v_scale": CP(sc, sax, torch.float32)}
         return {"k": CP(kv, ax, dtype), "v": CP(kv, ax, dtype)}
+    if m.kind == "mamba":
+        d_in = m.expand * cfg.d_model
+        return {"conv": CP((B, m.d_conv - 1, d_in),
+                           ("batch", None, "d_inner"), dtype),
+                "ssm": CP((B, d_in, m.d_state), ("batch", "d_inner", None),
+                          torch.float32)}
     if m.kind == "rwkv6":
         h = cfg.d_model // m.head_dim
         return {"x_prev": CP((B, 1, cfg.d_model), ("batch", None, None),

@@ -8,9 +8,12 @@ the JAX package's, so a JAX parameter tree converts leaf for leaf with
 ``num_periods`` dim; with ``tie_embeddings`` the LM head is ``embed``.
 
 Only the mixers and FFNs of the served models are declared here:
-attention and the RWKV-6 time mix, dense ``swiglu``/``gelu`` FFNs and
-the RWKV-6 channel mix (``rwkv_cmix``), and mixture-of-experts FFNs (a
-``[d, E]`` router and expert weights stacked on a leading ``E`` dim).
+attention, the Mamba-1 selective SSM and the RWKV-6 time mix, dense
+``swiglu``/``gelu`` FFNs and the RWKV-6 channel mix (``rwkv_cmix``), and
+mixture-of-experts FFNs (a ``[d, E]`` router and expert weights stacked
+on a leading ``E`` dim).  Besides the generic rules, Mamba's ``A_log``
+is ``log(1..d_state)`` (``mamba_A``) and its ``dt_bias`` the inverse
+softplus of a ``U[1e-3, 1e-1)`` draw (``mamba_dt``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 class P(NamedTuple):
     shape: tuple
     axes: tuple            # logical axis name per dim (or None)
-    init: str = "fan_in"   # fan_in | zeros | ones | normal:<s>
+    init: str = "fan_in"   # fan_in | zeros | ones | normal:<s> | mamba_*
 
 
 def _attn_decl(cfg: ModelConfig, m) -> dict:
@@ -36,6 +39,23 @@ def _attn_decl(cfg: ModelConfig, m) -> dict:
         "wk": P((d, KV * hd), ("d_model", "fused_heads")),
         "wv": P((d, KV * hd), ("d_model", "fused_heads")),
         "wo": P((H * hd, d), ("fused_heads", "d_model")),
+    }
+
+
+def _mamba_decl(cfg: ModelConfig, m) -> dict:
+    d = cfg.d_model
+    d_in = m.expand * d
+    dt_rank = math.ceil(d / 16)
+    return {
+        "in_proj": P((d, 2 * d_in), ("d_model", "d_inner")),
+        "conv_w": P((m.d_conv, d_in), (None, "d_inner")),
+        "conv_b": P((d_in,), ("d_inner",), "zeros"),
+        "x_proj": P((d_in, dt_rank + 2 * m.d_state), ("d_inner", None)),
+        "dt_proj": P((dt_rank, d_in), (None, "d_inner")),
+        "dt_bias": P((d_in,), ("d_inner",), "mamba_dt"),
+        "A_log": P((d_in, m.d_state), ("d_inner", None), "mamba_A"),
+        "D": P((d_in,), ("d_inner",), "ones"),
+        "out_proj": P((d_in, d), ("d_inner", "d_model")),
     }
 
 
@@ -107,15 +127,17 @@ def _moe_decl(cfg: ModelConfig, f) -> dict:
     return decl
 
 
-_MIXER_DECL = {"attn": _attn_decl, "rwkv6": _rwkv6_decl}
+_MIXER_DECL = {"attn": _attn_decl, "mamba": _mamba_decl,
+               "rwkv6": _rwkv6_decl}
 _FFN_DECL = {"dense": _dense_decl, "moe": _moe_decl}
 
 
 def _layer_decl(cfg: ModelConfig, layer) -> dict:
     if layer.mixer.kind not in _MIXER_DECL or layer.ffn.kind not in _FFN_DECL:
         raise NotImplementedError(
-            f"{cfg.name}: only attention and RWKV-6 mixers with dense or MoE "
-            f"FFNs are ported (got {layer.mixer.kind}/{layer.ffn.kind})")
+            f"{cfg.name}: only attention, Mamba and RWKV-6 mixers with dense "
+            f"or MoE FFNs are ported (got {layer.mixer.kind}/"
+            f"{layer.ffn.kind})")
     return {
         "norm1": P((cfg.d_model,), (None,), "ones"),
         "mixer": _MIXER_DECL[layer.mixer.kind](cfg, layer.mixer),
@@ -176,6 +198,16 @@ def _init_leaf(p: P, gen: torch.Generator, dtype, device):
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "mamba_A":
+        # S4D-real init: A = -(1..d_state), stored as log
+        n = p.shape[-1]
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(p.shape).to(dtype).contiguous()
+    if p.init == "mamba_dt":
+        # dt bias such that softplus(bias) ~ U[1e-3, 1e-1): inverse softplus
+        u = torch.rand(p.shape, generator=gen, dtype=torch.float32,
+                       device=device) * (1e-1 - 1e-3) + 1e-3
+        return (u + torch.log(-torch.expm1(-u))).to(dtype)
     if p.init.startswith("normal:"):
         s = float(p.init.split(":")[1])
     else:  # fan_in: every dim but the last (an expert leaf's E·d), per
@@ -192,10 +224,11 @@ def _init_leaf(p: P, gen: torch.Generator, dtype, device):
 def init_params(cfg: ModelConfig, seed: int, dtype=torch.float32,
                 device="cuda"):
     """Random weights by the JAX package's init rules (``ones``,
-    ``normal:s``, fan-in).  The draws come from a ``torch.Generator``
-    seeded with `seed` on `device`, so billions of parameters are drawn
-    on the card, not the host; they differ from the JAX package's
-    ``jax.random`` draws — use :func:`from_jax` for equal weights."""
+    ``normal:s``, fan-in, ``mamba_A``, ``mamba_dt``).  The draws come
+    from a ``torch.Generator`` seeded with `seed` on `device`, so
+    billions of parameters are drawn on the card, not the host; they
+    differ from the JAX package's ``jax.random`` draws — use
+    :func:`from_jax` for equal weights."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -205,8 +238,9 @@ def init_params(cfg: ModelConfig, seed: int, dtype=torch.float32,
 
 def from_jax(tree, device="cpu", dtype=None):
     """Convert a JAX parameter tree (leaves anything ``np.asarray``
-    takes) into the same tree of torch tensors on `device` — the weight
-    bridge the parity tests use."""
+    takes) into the same tree of torch tensors on `device`, leaf for
+    leaf whatever the mixer (Mamba's ``A_log``/``dt_bias``/``D`` too) —
+    the weight bridge the parity tests use."""
     def leaf(a):
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)

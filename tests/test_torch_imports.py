@@ -43,6 +43,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "kernels.mixed_attention", "kernels.prefill_attention",
               "kernels.router_gate", "kernels.flash_attention",
               "kernels.rwkv6_scan", "configs.rwkv6_3b",
+              "kernels.mamba_scan", "configs.jamba_v0_1_52b",
               "kernels.ops", "kernels.ref",
               "models.params", "models.cache", "models.blocks",
               "models.transformer", "serving.request", "serving.slots",
@@ -55,7 +56,7 @@ def test_kernel_sources_ship_with_the_package():
     csrc = os.path.join(REPO, "src", "repro_torch", "csrc")
     for name in ("confidence_gate", "ragged_attention", "paged_attention",
                  "mixed_attention", "router_gate", "flash_attention",
-                 "rwkv6_scan"):
+                 "rwkv6_scan", "mamba_scan"):
         src = open(os.path.join(csrc, name + ".cu")).read()
         assert 'extern "C" int ' + name in src
         assert f"repro/kernels/{name}.py" in src     # names what it replaces

@@ -3,8 +3,8 @@
 On the CPU the port's plain versions (``confidence_gate_ref``,
 ``ragged_attention_ref``, ``paged_attention_ref``,
 ``mixed_attention_ref``, ``paged_prefill_attention_ref``,
-``router_gate_ref``, ``flash_attention_ref`` and ``rwkv6_scan_ref``) are
-held to
+``router_gate_ref``, ``flash_attention_ref``, ``rwkv6_scan_ref`` and
+``mamba_scan_ref``) are held to
 the JAX Pallas kernels run in interpret mode and to the JAX oracles in
 ``repro/kernels/ref.py``, on the same numpy inputs; the ``ops`` wrappers
 route CPU tensors to the plain versions without counting a launch.  The
@@ -31,6 +31,7 @@ from repro_torch.core import confidence  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
@@ -40,9 +41,10 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
 from tests.test_torch_kernels_cuda import (FLASH_CASES,  # noqa: E402
-                                           MIXED_CASES, PAGED_CASES,
-                                           RAGGED_CASES, RWKV_CASES,
-                                           _flash_inputs, _logits,
+                                           MAMBA_CASES, MIXED_CASES,
+                                           PAGED_CASES, RAGGED_CASES,
+                                           RWKV_CASES, _flash_inputs,
+                                           _logits, _mamba_inputs,
                                            _mixed_inputs, _paged_inputs,
                                            _ragged_inputs, _router_logits,
                                            _rwkv_inputs, _torch)
@@ -270,6 +272,58 @@ def test_rwkv6_scan_state_is_the_recurrence_carried_on():
     torch.testing.assert_close(S, s_T, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", sorted(MAMBA_CASES))
+def test_mamba_scan_matches_jax(case):
+    """``y`` against the TPU kernel in interpret mode (its 128-step time
+    chunks and 512-channel tiles: T = 150 and d = 600 cross both) and
+    the JAX oracle, atol = rtol = 1e-5; T = 0, where the TPU kernel's
+    grid is empty, against the oracle alone.  The final state against a
+    ``lax.scan`` of the JAX block's step carried to the end, atol = rtol
+    = 1e-5."""
+    import jax
+    B, T, d, n = MAMBA_CASES[case]
+    args = _mamba_inputs(len(case), B, T, d, n)
+    y, h_T = ref.mamba_scan_ref(*(torch.from_numpy(a) for a in args))
+    assert y.dtype == h_T.dtype == torch.float32
+    assert tuple(y.shape) == (B, T, d) and tuple(h_T.shape) == (B, d, n)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    wants = [jax_ref.mamba_scan_ref(*jargs)]
+    if T:
+        wants.append(jax_ops.mamba_scan(*jargs, interpret=True))
+    for want in wants:
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+    x, dt, Bt, Ct, A = jargs
+
+    def step(h, inp):                  # repro/models/blocks.py::mamba
+        dt_t, B_t, x_t = inp
+        return (jnp.exp(dt_t[..., None] * A) * h
+                + (dt_t * x_t)[..., None] * B_t[:, None, :]), None
+    h_want, _ = jax.lax.scan(step, jnp.zeros((B, d, n), jnp.float32),
+                             (dt.transpose(1, 0, 2), Bt.transpose(1, 0, 2),
+                              x.transpose(1, 0, 2)))
+    np.testing.assert_allclose(h_T.numpy(), np.asarray(h_want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_mamba_scan_state_is_the_recurrence_carried_on():
+    """Splitting the sequence: the state after the first part, carried
+    through the second part's steps by hand, is the state after the
+    whole (and the second part's outputs follow from it)."""
+    x, dt, Bt, Ct, A = (torch.from_numpy(a)
+                        for a in _mamba_inputs(7, 2, 40, 24, 8))
+    y, h_T = ref.mamba_scan_ref(x, dt, Bt, Ct, A)
+    y1, h = ref.mamba_scan_ref(x[:, :25], dt[:, :25], Bt[:, :25],
+                               Ct[:, :25], A)
+    torch.testing.assert_close(y1, y[:, :25], atol=0, rtol=0)
+    for t in range(25, 40):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * x[:, t])[..., None] * Bt[:, t, None, :]
+        torch.testing.assert_close(torch.einsum("bdn,bn->bd", h, Ct[:, t]),
+                                   y[:, t], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, h_T, atol=1e-5, rtol=1e-5)
+
+
 # --------------------------------------------------------------------------
 # wrappers: CPU tensors take the plain version; CUDA tensors the kernel
 # --------------------------------------------------------------------------
@@ -277,7 +331,7 @@ def test_rwkv6_scan_state_is_the_recurrence_carried_on():
 
 LAUNCHED = ("confidence_gate", "ragged_attention", "paged_attention",
             "mixed_attention", "router_gate", "flash_attention",
-            "rwkv6_scan")
+            "rwkv6_scan", "mamba_scan")
 
 
 def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
@@ -311,6 +365,9 @@ def test_ops_wrappers_route_cpu_to_plain_and_count_nothing():
     args = [torch.from_numpy(a) for a in _rwkv_inputs(3, 1, 2, 5, 32)]
     for got, want in zip(ops.rwkv6_scan(*args), ref.rwkv6_scan_ref(*args)):
         assert torch.equal(got, want)
+    args = [torch.from_numpy(a) for a in _mamba_inputs(3, 2, 5, 24, 8)]
+    for got, want in zip(ops.mamba_scan(*args), ref.mamba_scan_ref(*args)):
+        assert torch.equal(got, want)
     after = tuple(getattr(ops, n).launches for n in LAUNCHED)
     assert after == before == (0,) * len(LAUNCHED)
 
@@ -342,6 +399,9 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rwkv_mod.rwkv6_scan(*(torch.from_numpy(a) for a in _rwkv_inputs(
             1, 1, 1, 3, 32)))
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_mod.mamba_scan(*(torch.from_numpy(a) for a in _mamba_inputs(
+            1, 1, 3, 24, 8)))
 
 
 def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):

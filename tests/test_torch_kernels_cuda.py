@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
 from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
@@ -246,6 +247,32 @@ def _rwkv_inputs(seed, B, H, T, hd):
     return r, k, v, w.astype(np.float32), u.astype(np.float32)
 
 
+# (B, T, d, n): the JAX suite's sweep (T off the TPU kernel's 128-step
+# chunk, d past its 512-channel tile and off it), T off the kernel's
+# 64-step chunk and 8-step register group, a ragged last group of 128
+# channels, n 8 (smoke) and 16 (published), a single step and T = 0
+MAMBA_CASES = {
+    "smoke-n8": (1, 64, 32, 8),
+    "two-rows-T150": (2, 150, 96, 16),
+    "d600": (1, 130, 600, 16),
+    "ragged-T70": (2, 70, 200, 8),
+    "one-step": (1, 1, 40, 8),
+    "empty": (2, 0, 24, 16),
+}
+
+
+def _mamba_inputs(seed, B, T, d, n):
+    """x [B, T, d], dt = 0.1·softplus(.) > 0, B_t and C_t [B, T, n], A =
+    -exp(.) [d, n] < 0, f32, as the JAX suite draws them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, d))
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, d)))) * 0.1
+    Bt = rng.standard_normal((B, T, n))
+    Ct = rng.standard_normal((B, T, n))
+    A = -np.exp(rng.standard_normal((d, n)) * 0.3)
+    return tuple(a.astype(np.float32) for a in (x, dt, Bt, Ct, A))
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels against the plain versions (card only)
 # --------------------------------------------------------------------------
@@ -378,3 +405,38 @@ def test_cuda_rwkv6_scan_matches_plain(case, cuda_device):
     want_y, want_s = ref.rwkv6_scan_ref(*args)
     torch.testing.assert_close(y.cpu(), want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s_T.cpu(), want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MAMBA_CASES) + ["jamba"])
+def test_cuda_mamba_scan_matches_plain(case, cuda_device):
+    """y and the final state within atol = rtol = 1e-4, at small ragged
+    shapes and at jamba's uniform prefill, x [8, 640, 8192], n 16 (the
+    plain version on the card there: 640 steps on the CPU would take
+    minutes)."""
+    shape = (8, 640, 8192, 16) if case == "jamba" else MAMBA_CASES[case]
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _mamba_inputs(len(case), *shape)]
+    y, h_T = mamba_mod.mamba_scan(*args)
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    assert y.shape == args[0].shape and h_T.shape == want_h.shape
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h_T, want_h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_refuses_what_it_cannot_take(cuda_device):
+    """Non-contiguous, non-f32 or unsupported-n inputs are refused, not
+    copied or cast."""
+    x, dt, Bt, Ct, A = (torch.from_numpy(a).to(cuda_device)
+                        for a in _mamba_inputs(2, 2, 9, 24, 8))
+    proj = torch.cat([Bt, Ct], dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_mod.mamba_scan(x, dt, proj[..., :8], Ct, A)
+    with pytest.raises(TypeError, match="float32"):
+        mamba_mod.mamba_scan(x.double(), dt.double(), Bt.double(),
+                             Ct.double(), A.double())
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_mod.mamba_scan(x, dt, torch.cat([Bt, Bt[..., :4]], -1),
+                             torch.cat([Ct, Ct[..., :4]], -1),
+                             torch.cat([A, A[:, :4]], -1))

@@ -8,8 +8,11 @@ numpy arrays from a seed.  The attention paths are the serving ones —
 run as their plain versions here.  granite-moe-3b-a800m adds the MoE
 FFN, routed by ``router_gate`` (its plain version here).  The uniform
 one-shot prefill (``forward(mode="prefill")``, ``flash_attention``;
-``rwkv6_scan`` for rwkv6-3b's RWKV-6 layers) and the dense-arena decode
-are held to the JAX package for gemma3-1b, phi4-mini-3.8b and rwkv6-3b,
+``rwkv6_scan`` for rwkv6-3b's RWKV-6 layers, ``mamba_scan`` for
+jamba-v0.1-52b's Mamba layers) and the dense-arena decode are held to
+the JAX package for gemma3-1b, phi4-mini-3.8b, rwkv6-3b, jamba-smoke (two
+Mamba layers, dense and MoE FFNs) and a narrow 8-layer jamba period
+(attention at layer 4 among 7 Mamba layers, MoE on the odd layers),
 part-cache tree included.
 """
 import dataclasses
@@ -37,6 +40,36 @@ from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 
 MODELS = ("gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
+JAMBA = "jamba-v0.1-52b"
+HYBRID = "jamba-narrow-period"
+
+
+def narrow_hybrid(configs):
+    """One period of jamba-v0.1-52b (the attention layer at index 4 among
+    7 Mamba layers, MoE FFNs on the odd layers) at d_model 64 with the
+    smoke variant's Mamba (d_state 8), experts and FFN widths, built
+    from ``configs`` — ``repro.configs`` or ``repro_torch.configs``,
+    which give the same configuration."""
+    full = configs.get_config(JAMBA, "")
+    smoke = configs.get_config(JAMBA, "smoke")
+    mamba, dense, moe = (smoke.period[0].mixer, smoke.period[0].ffn,
+                         smoke.period[1].ffn)
+    period = tuple(configs.Layer(
+        l.mixer if l.mixer.kind == "attn" else mamba,
+        moe if l.ffn.kind == "moe" else dense) for l in full.period)
+    return dataclasses.replace(smoke, name=HYBRID, d_model=64, num_heads=2,
+                               num_kv_heads=1, head_dim=32, period=period)
+
+
+def configs_of(name):
+    """(JAX config, port config) at the smoke widths, or the narrow
+    hybrid period."""
+    import repro.configs
+    import repro_torch.configs
+    if name == HYBRID:
+        return (narrow_hybrid(repro.configs),
+                narrow_hybrid(repro_torch.configs))
+    return jax_get_config(name, "smoke"), get_config(name, "smoke")
 
 
 def _np_tree(tree):
@@ -543,14 +576,16 @@ def test_init_paged_cache_layout(model):
 
 
 UNIFORM_MODELS = ("gemma3-1b", "phi4-mini-3.8b", "rwkv6-3b")
-# (model, kv_quant): rwkv6-3b has no KV cache to quantise
+# (model, kv_quant): rwkv6-3b and jamba-smoke (two Mamba layers) have no
+# KV cache to quantise; the narrow hybrid period has one attention layer
 UNIFORM_CASES = [(n, q) for n in UNIFORM_MODELS for q in (None, "int8")
-                 if not (q and n == "rwkv6-3b")]
+                 if not (q and n == "rwkv6-3b")] + [
+    (JAMBA, None), (HYBRID, None), (HYBRID, "int8")]
 
 
 @functools.lru_cache(maxsize=None)
 def _uniform_weights(name):
-    jcfg = jax_get_config(name, "smoke")
+    jcfg = configs_of(name)[0]
     return jcfg, _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(2),
                                           jnp.float32))
 
@@ -559,7 +594,7 @@ def uniform_model(name, kv_quant):
     """(name, JAX config, port config, JAX weights, port weights)."""
     jcfg, jp = _uniform_weights(name)
     return (name, dataclasses.replace(jcfg, kv_quant=kv_quant),
-            dataclasses.replace(get_config(name, "smoke"), kv_quant=kv_quant),
+            dataclasses.replace(configs_of(name)[1], kv_quant=kv_quant),
             jp, params.from_jax(jp))
 
 
@@ -580,7 +615,8 @@ def test_prefill_matches_jax(name, kv_quant):
     (all the port computes) within 1e-4, and the part-cache tree leaf for
     leaf (k/v after RoPE, or int8 with scales: an int8 value may sit one
     step off where the f32 keys differ by float noise at a rounding
-    midpoint; RWKV-6 ``x_prev`` and final ``state``) within 1e-5."""
+    midpoint; RWKV-6 ``x_prev`` and final ``state``; Mamba ``conv`` and
+    final ``ssm``) within 1e-5."""
     name, jcfg, cfg, jp, tp = uniform_model(name, kv_quant)
     toks = np.random.default_rng(3).integers(
         0, cfg.vocab_size, (3, 21)).astype(np.int32)
@@ -617,8 +653,9 @@ def test_dense_decode_step_matches_jax(name, kv_quant):
     """``decode_step(pages=None)`` over the dense arena after a prefill,
     rows at different positions (one behind, so it overwrites a prompt
     position): logits within 1e-4 and the whole updated cache — the
-    written KV position, the RWKV-6 state and token-shift leaves stepped
-    in place — within 1e-5.  An int8 arena's probabilities meet the
+    written KV position, the RWKV-6 state and token-shift leaves and the
+    Mamba ``conv`` window and ``ssm`` state stepped in place — within
+    1e-5.  An int8 arena's probabilities meet the
     values in bf16 on both sides, rounded at the same places."""
     name, jcfg, cfg, jp, tp = uniform_model(name, kv_quant)
     rng = np.random.default_rng(4)
@@ -715,3 +752,166 @@ def test_rwkv_params_match_jax_declaration():
         assert jl == tl
     assert params.param_count_from_decl(get_config("rwkv6-3b", "")) \
         == 3_073_313_280
+
+
+# --------------------------------------------------------------------------
+# Mamba and the jamba hybrid
+# --------------------------------------------------------------------------
+
+
+def test_jamba_configs_are_the_reference_configs():
+    """jamba-v0.1-52b at its published, smoke and long variants, and the
+    narrow hybrid period, are the JAX package's configurations."""
+    for variant in ("", "smoke", "long"):
+        assert dataclasses.asdict(get_config(JAMBA, variant)) == \
+            dataclasses.asdict(jax_get_config(JAMBA, variant))
+    jcfg, cfg = configs_of(HYBRID)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert [(l.mixer.kind, l.ffn.kind) for l in cfg.period] == [
+        ("mamba", "dense"), ("mamba", "moe")] * 2 + [
+        ("attn", "dense"), ("mamba", "moe")] + [
+        ("mamba", "dense"), ("mamba", "moe")]
+
+
+def test_mamba_block_matches_jax():
+    """The Mamba mixer alone (``mamba_scan_ref`` inside) over T = 70:
+    the output and the new cache — the last 3 conv inputs and the final
+    state — against the JAX block's prefill, then two decode steps from
+    that cache, each writing ``conv`` and ``ssm`` in place; atol = rtol
+    = 1e-5.  The chunked modes raise the JAX package's error."""
+    jcfg, cfg = configs_of(JAMBA)
+    spec = cfg.period[0].mixer
+    jp = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(5),
+                                  jnp.float32))["period"]
+    p = {k: v[0] for k, v in jp["block0"]["mixer"].items()}
+    jpp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 70, cfg.d_model)).astype(np.float32)
+    want, want_c = jax_blocks.mamba(jpp, jcfg, spec, jnp.asarray(x), None,
+                                    None, "prefill")
+    got, got_c = blocks.mamba(tp, cfg, spec, torch.from_numpy(x), None,
+                              None, "prefill")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    _check_tree(got_c, want_c, atol=1e-5)
+    assert got_c["conv"]._base is None          # a copy, not a view of x
+    cache = {k: v.clone() for k, v in got_c.items()}
+    for step in range(2):
+        x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        want, want_c = jax_blocks.mamba(jpp, jcfg, spec, jnp.asarray(x1),
+                                        want_c, None, "decode")
+        got, out_c = blocks.mamba(tp, cfg, spec, torch.from_numpy(x1),
+                                  cache, None, "decode")
+        assert out_c is cache
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5, err_msg=str(step))
+        _check_tree(cache, want_c, atol=1e-5)
+    for mode in ("ragged_step", "mixed_step", "prefill_chunk"):
+        with pytest.raises(NotImplementedError) as mine:
+            blocks.mamba(tp, cfg, spec, torch.from_numpy(x1), cache, None,
+                         mode)
+        with pytest.raises(NotImplementedError) as ref:
+            jax_blocks.mamba(jpp, jcfg, spec, jnp.asarray(x1), want_c,
+                             None, mode)
+        assert str(mine.value) == str(ref.value)
+
+
+def test_mamba_short_prompt_conv_cache():
+    """A prompt shorter than the conv window (S = 2 < d_conv - 1 = 3)
+    caches what the JAX block caches: the prompt's inputs only."""
+    jcfg, cfg = configs_of(JAMBA)
+    spec = cfg.period[0].mixer
+    jp = _np_tree(jax_init_params(jcfg, jax.random.PRNGKey(8),
+                                  jnp.float32))["period"]
+    p = {k: v[0] for k, v in jp["block0"]["mixer"].items()}
+    x = np.random.default_rng(9).standard_normal(
+        (1, 2, cfg.d_model)).astype(np.float32)
+    want, want_c = jax_blocks.mamba({k: jnp.asarray(v) for k, v in p.items()},
+                                    jcfg, spec, jnp.asarray(x), None, None,
+                                    "prefill")
+    got, got_c = blocks.mamba({k: torch.from_numpy(np.array(v))
+                               for k, v in p.items()}, cfg, spec,
+                              torch.from_numpy(x), None, None, "prefill")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    _check_tree(got_c, want_c, atol=1e-5)
+
+
+def test_init_params_rules_mamba():
+    """``A_log`` is exactly log(1..d_state) in every channel and period;
+    softplus(``dt_bias``) lies in [1e-3, 1e-1] and spreads over it;
+    ``conv_b`` is zeros, ``D`` ones; and the draws are seeded."""
+    cfg = configs_of(HYBRID)[1]
+    p = params.init_params(cfg, 4, device="cpu")["period"]
+    for key, layer in zip(sorted(p), cfg.period):
+        if layer.mixer.kind != "mamba":
+            continue
+        m = p[key]["mixer"]
+        n = layer.mixer.d_state
+        want = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+        assert torch.equal(m["A_log"], want.expand_as(m["A_log"]))
+        dt = torch.nn.functional.softplus(m["dt_bias"].double())
+        assert dt.min() >= 1e-3 * (1 - 1e-5) and dt.max() <= 1e-1 * (1 + 1e-5)
+        assert dt.max() - dt.min() > 0.05
+        assert not m["conv_b"].any() and torch.equal(
+            m["D"], torch.ones_like(m["D"]))
+    again = params.init_params(cfg, 4, device="cpu")["period"]
+    assert torch.equal(again["block0"]["mixer"]["dt_bias"],
+                       p["block0"]["mixer"]["dt_bias"])
+
+
+def test_jamba_params_match_jax_declaration():
+    """jamba-v0.1-52b's parameter tree at the published widths, 4 periods
+    and cut to 1, and at the smoke widths: the JAX keys, shapes and init
+    rules, from the declarations alone (nothing allocated), and the
+    parameter counts (51.57 B, and 13.30 B for one period): the
+    configuration's analytic count plus the conv biases it leaves out
+    (d_inner per Mamba layer)."""
+    from repro.models import params as jax_params
+    full, jfull = get_config(JAMBA, ""), jax_get_config(JAMBA, "")
+    for cfg, jcfg in ((full, jfull),
+                      (dataclasses.replace(full, num_periods=1),
+                       dataclasses.replace(jfull, num_periods=1)),
+                      configs_of(JAMBA), configs_of(HYBRID)):
+        jd = jax_params.declare_model(jcfg)
+        jl = _leaves(jax.tree.map(lambda p: (p.shape, p.init), jd,
+                                  is_leaf=lambda x: isinstance(
+                                      x, jax_params.P)))
+        tl = _leaves(params.tree_map(lambda p: (p.shape, p.init),
+                                     params.declare_model(cfg)))
+        assert jl == tl
+        conv_b = sum(l.mixer.expand * cfg.d_model for l in cfg.layers
+                     if l.mixer.kind == "mamba")
+        assert params.param_count_from_decl(cfg) == \
+            cfg.param_count() + conv_b
+    assert params.param_count_from_decl(full) == 51_570_315_264
+    assert params.param_count_from_decl(
+        dataclasses.replace(full, num_periods=1)) == 13_295_235_072
+
+
+@pytest.mark.parametrize("name", [JAMBA, HYBRID])
+def test_mamba_caches_match_jax_layout(name):
+    """The hybrid's dense and paged caches: the JAX keys, shapes and
+    dtypes — Mamba ``conv`` and ``ssm`` one row per request in the paged
+    cache too, the attention layer's KV in the block pool — and
+    ``has_recurrent_state`` true in both packages."""
+    jcfg, cfg = configs_of(name)
+    assert cache_lib.has_recurrent_state(cfg)
+    assert jax_cache.has_recurrent_state(jcfg)
+    for jc, tc in (
+            (jax_cache.init_cache(jcfg, 3, 7, jnp.float32),
+             cache_lib.init_cache(cfg, 3, 7, torch.float32, "cpu")),
+            (jax_cache.init_paged_cache(jcfg, 3, 9, 4, jnp.float32),
+             init_paged_cache(cfg, 3, 9, 4, torch.float32, "cpu"))):
+        jl, tl = _leaves(_np_tree(jc)), _leaves(tc)
+        assert jl.keys() == tl.keys()
+        for k in jl:
+            assert tuple(tl[k].shape) == jl[k].shape, k
+            assert str(tl[k].dtype).split(".")[-1] == str(jl[k].dtype)
+    paged = _leaves(init_paged_cache(cfg, 3, 9, 4, torch.float32, "cpu"))
+    d_in, n = 2 * cfg.d_model, cfg.period[0].mixer.d_state
+    assert paged["period/block0/mixer/ssm"].shape == (1, 3, d_in, n)
+    assert paged["period/block0/mixer/conv"].shape == (1, 3, 3, d_in)
+    if name == HYBRID:
+        assert paged["period/block4/mixer/k"].shape == (1, 9, 4, 1, 32)

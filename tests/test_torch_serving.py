@@ -12,9 +12,11 @@ than twice the measured difference between the two packages' logits, so
 the equal argmaxes are not luck.  The expensive tier is phi4-mini-3.8b,
 the MoE granite-moe-3b-a800m, whose routing also sees the padding
 slots, so the port's padding token ids must be the JAX engine's, or the
-recurrent rwkv6-3b, which both engines serve on the uniform one-shot
-prefill path (as they serve phi4 under ``use_chunked_prefill=False`` and
-over the dense arena, ``use_paged_kv=False``).
+recurrent rwkv6-3b or the Mamba + attention + MoE hybrid jamba-v0.1-52b
+(its smoke variant, and a narrow 8-layer period with its attention
+layer), which both engines serve on the uniform one-shot prefill path
+(as they serve phi4 under ``use_chunked_prefill=False`` and over the
+dense arena, ``use_paged_kv=False``).
 """
 import functools
 import os
@@ -28,7 +30,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.launch import serve_async as jax_serve_async  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models import transformer as jax_transformer  # noqa: E402
@@ -51,7 +52,8 @@ from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
 from repro_torch.serving.request import RequestState  # noqa: E402
 from tests.test_slots_properties import check_invariants  # noqa: E402
-from tests.test_torch_model import with_capacity  # noqa: E402
+from tests.test_torch_model import (HYBRID, JAMBA,  # noqa: E402
+                                    configs_of, with_capacity)
 
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
 RWKV = "rwkv6-3b"
@@ -153,15 +155,16 @@ def _rand_part(jcfg, n, prompt, seed):
         is_leaf=lambda x: isinstance(x, jax_cache.CP))
 
 
-@pytest.mark.parametrize("name", [FAST, RWKV])
+@pytest.mark.parametrize("name", [FAST, RWKV, JAMBA, HYBRID])
 @pytest.mark.parametrize("paged", [True, False])
 def test_write_prefill_partial_admission_matches_jax(name, paged):
     """One request admitted into row 1 of 3: the packed prefill cache's
     row 0 lands in the arena exactly as the JAX pools place it —
     attention KV through row 1's page table (paged) or at row 1's first
-    positions (dense), RWKV-6 state and token-shift leaves in request
-    row 1, sliced to the one admitted row."""
-    jcfg, cfg = jax_get_config(name, "smoke"), get_config(name, "smoke")
+    positions (dense), RWKV-6 state and token-shift leaves and Mamba
+    ``conv`` and ``ssm`` leaves in request row 1, sliced to the one
+    admitted row."""
+    jcfg, cfg = configs_of(name)
     part = _rand_part(jcfg, 3, 8, seed=4)
     if paged:
         want = JaxPool(jcfg, 3, 12, block_size=4)
@@ -183,11 +186,13 @@ def test_write_prefill_partial_admission_matches_jax(name, paged):
     for g, w in zip(got, ref):
         np.testing.assert_array_equal(g, w)
     assert any(g.any() for g in got)
-    if name == RWKV:                    # recurrent rows: only row 1 written
-        state = mine.cache["period"]["block0"]["mixer"]["state"]
+    recurrent = {RWKV: ("state",), JAMBA: ("conv", "ssm"),
+                 HYBRID: ("conv", "ssm")}.get(name, ())
+    for leaf in recurrent:              # recurrent rows: only row 1 written
+        state = mine.cache["period"]["block0"]["mixer"][leaf]
         np.testing.assert_array_equal(
             state[:, 1].numpy(),
-            part["period"]["block0"]["mixer"]["state"][:, 0])
+            part["period"]["block0"]["mixer"][leaf][:, 0])
         assert not state[:, [0, 2]].any()
     assert mine.memory_stats()["kv_arena_bytes"] == (
         0 if name == RWKV else want.memory_stats()["kv_arena_bytes"])
@@ -278,12 +283,12 @@ def weights():
     """name -> (JAX config, JAX weights, port weights), and the port's
     config under ``(name, "torch")``."""
     out = {}
-    for i, name in enumerate((FAST, EXP, MOE, RWKV)):
-        cfg = jax_get_config(name, "smoke")
+    for i, name in enumerate((FAST, EXP, MOE, RWKV, JAMBA, HYBRID)):
+        cfg, tcfg = configs_of(name)
         jp = jax.tree.map(np.asarray, jax_init_params(
             cfg, jax.random.PRNGKey(i), jnp.float32))
         out[name] = (cfg, jp, from_jax(jp))
-        out[name, "torch"] = get_config(name, "smoke")
+        out[name, "torch"] = tcfg
     # granite at capacity factor 0.5: experts drop pairs in every launch
     out["drops"] = (with_capacity(out[MOE][0], 0.5),) + out[MOE][1:]
     out["drops", "torch"] = with_capacity(out[MOE, "torch"], 0.5)
@@ -542,6 +547,23 @@ def test_uniform_prefill_stream_parity_with_jax_engine(weights, executor,
     assert all(set(k) == {"prefill", "step"} for k in kinds)
 
 
+@pytest.mark.parametrize("exp", [JAMBA, HYBRID])
+@pytest.mark.parametrize("executor", ["auto", "dense"])
+def test_hybrid_stream_parity_with_jax_engine(weights, executor, exp,
+                                              monkeypatch):
+    """gemma3-1b -> jamba-smoke (two Mamba layers, a dense and an MoE FFN)
+    and -> the narrow 8-layer jamba period (attention at layer 4, MoE on
+    the odd layers) against the JAX engine: on the block-paged arena,
+    where both engines pick the uniform prefill by themselves (Mamba
+    state cannot be chunked), and on the dense arena."""
+    eng = _check_stream_parity(weights, "uniform", monkeypatch, executor,
+                               exp=exp)
+    assert (eng.chunked_prefill, eng.unified_step, eng.ragged_step,
+            eng.paged_kv) == (False, False, False, executor == "auto")
+    kinds = eng.metrics.summary()["launches_by_kind"]
+    assert all(set(k) == {"prefill", "step"} for k in kinds)
+
+
 def test_uniform_and_chunked_executors_agree_in_the_port(weights):
     """On equal-length prompts the uniform prefill (paged and dense) and
     the chunked default give the same streams — the JAX engine's own
@@ -666,6 +688,33 @@ def test_executor_switches_raise_like_jax(weights):
         eng.submit(np.arange(5))        # not prompt_len tokens
 
 
+@pytest.mark.parametrize("exp", [JAMBA, HYBRID])
+def test_hybrid_executor_switches_raise_like_jax(weights, exp):
+    """A Mamba tier refuses chunked prefill, unified steps and an
+    over-subscribed arena (its state cannot replay a stalled step) with
+    the JAX engine's errors, and the engine picks the uniform path by
+    itself."""
+    tiers = [TierSpec(n, weights[n, "torch"], weights[n][2])
+             for n in (FAST, exp)]
+    jax_tiers = [JaxTierSpec(n, weights[n][0], weights[n][1])
+                 for n in (FAST, exp)]
+    for kw, match in (
+            (dict(use_chunked_prefill=True), "chunked prefill requires"),
+            (dict(use_unified_step=True), "unified token-batch execution "
+             "requires chunked"),
+            (dict(kv_blocks=[None, 10]), "recurrent")):
+        msgs = []
+        for make, t in ((CascadeEngine, tiers), (JaxEngine, jax_tiers)):
+            extra = {"device": "cpu"} if make is CascadeEngine else {}
+            with pytest.raises(ValueError, match=match) as err:
+                make(t, **kw, **extra, **ENGINE_KW)
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1]
+    eng = CascadeEngine(tiers, device="cpu", **ENGINE_KW)
+    assert (eng.chunked_prefill, eng.unified_step, eng.ragged_step) == (
+        False, False, False)
+
+
 def test_host_syncs_one_per_active_tier_per_tick(weights):
     eng = _drain(_torch_engine(weights, 0.5), _workload("lognormal"))
     s = eng.metrics.summary()
@@ -708,7 +757,8 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                                     "flash_attention": 0,
                                     "confidence_gate": 0,
                                     "router_gate": 0,
-                                    "rwkv6_scan": 0}
+                                    "rwkv6_scan": 0,
+                                    "mamba_scan": 0}
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out and "[ragged]" in out
 
@@ -754,14 +804,35 @@ def test_cli_runs_padded_and_split_on_cpu(flag, mode, capsys):
         serve_async.make_parser().parse_args(["--ragged-step=no"])
 
 
+def test_run_serves_given_configs_on_cpu():
+    """``run(..., cfgs=)`` serves a configuration cut from a registered
+    one — here the narrow 8-layer jamba period in place of
+    ``--expensive``'s smoke variant — on the uniform path the engine
+    picks by itself, every request DONE."""
+    args = serve_async.make_parser().parse_args(
+        ["--device", "cpu", "--expensive", JAMBA, "--requests", "4",
+         "--slots", "2", "--prompt-len", "12", "--gen-len", "3",
+         "--virtual-clock"])
+    cfgs = (get_config(FAST, "smoke"), configs_of(HYBRID)[1])
+    s = serve_async.run(args, VirtualClock(), cfgs=cfgs)
+    assert s["completed"] == 4 and s["chunked_prefill"] is False
+    assert all(r["state"] == "DONE" and len(r["tokens"]) == 3
+               for r in s["per_request"])
+    assert 1 in {r["tier"] for r in s["per_request"]}
+    assert serve_async.tier_configs(args, cfgs) == cfgs
+    assert serve_async.tier_configs(args)[1] == get_config(JAMBA, "smoke")
+
+
 @pytest.mark.parametrize("flags,exp,mode", [
     (["--no-chunked-prefill"], EXP, "uniform+split"),
     (["--dense-kv"], EXP, "uniform+split dense"),
-    ([], RWKV, "uniform+split")])
+    ([], RWKV, "uniform+split"),
+    ([], JAMBA, "uniform+split"),
+    (["--dense-kv"], JAMBA, "uniform+split dense")])
 def test_cli_runs_uniform_prefill_on_cpu(flags, exp, mode, capsys):
-    """``--no-chunked-prefill``, ``--dense-kv`` and the rwkv6-3b cascade
-    (uniform by itself): every request DONE, and mixed prompt lengths
-    refused."""
+    """``--no-chunked-prefill``, ``--dense-kv``, and the rwkv6-3b and
+    jamba-v0.1-52b cascades (uniform by themselves): every request DONE,
+    and mixed prompt lengths refused."""
     base = ["--device", "cpu", "--requests", "4", "--slots", "2",
             "--prompt-len", "12", "--gen-len", "3", "--virtual-clock",
             "--expensive", exp]
