@@ -16,7 +16,8 @@ without printing a result):
      layers run ``mamba_scan``), with CUDA-event times for the
      kernel and the plain version (for the gate and the router also back
      to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
-     ``scaled_dot_product_attention`` as a yardstick);
+     ``scaled_dot_product_attention`` as a yardstick, and its bound on
+     the tensor cores beside the one on the CUDA cores);
   3. the port's ragged, padded (``mixed_step``) and split
      (``prefill_chunk`` then ``decode_step``) steps end to end on the
      card against the same steps on the CPU (plain versions), at the
@@ -92,6 +93,9 @@ from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
 # (non-tensor-core) operations/s, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# dense TF32 on the tensor cores (NVIDIA data sheet), for the tensor-core
+# bound of flash_attention, whose f32 products take 3 TF32 products each
+TF32_OPS_PER_S = 495e12
 
 
 def emit(**record) -> None:
@@ -225,6 +229,26 @@ def ragged_work(args, kw):
 def bound(nbytes: float, nops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tc_bound_ms(nbytes: float, nops: float, kind: str) -> float:
+    """Least time of a 3xTF32 tensor-core kernel: the bytes over HBM's
+    rate against its TF32 products at the tensor cores' peak — 3 per f32
+    operation (hi.hi + hi.lo + lo.hi), 1 for bf16 inputs."""
+    terms = 3 if kind == "f32" else 1
+    return max(nbytes / HBM_BYTES_PER_S, terms * nops / TF32_OPS_PER_S) * 1e3
+
+
+def ptxas_lines(name: str) -> list:
+    """The register and spill lines of the kernel's ``-Xptxas -v`` build
+    log, each after the line that names its function (phase 1 records
+    them for every kernel)."""
+    log = kernels.library_path(name).with_suffix(".log")
+    if not log.is_file():
+        return []
+    return [l.strip() for l in log.read_text().splitlines()
+            if "registers" in l or "spill" in l
+            or "Compiling entry" in l]
 
 
 def time_case(name, timed, kernel, plain, work, flush):
@@ -594,7 +618,10 @@ def check_flash(dev, flush):
     ``scaled_dot_product_attention(..., enable_gqa=True)`` call (causal,
     or a boolean window mask), which the port never calls.  Work for the
     bound: q, k, v read and out written once; 4·d f32 operations per
-    visible (query, key) pair and query head."""
+    visible (query, key) pair and query head.  Beside the CUDA-core bound
+    (``bound_ms``, f32 at 67 TFLOP/s), each timing record carries the
+    tensor-core bound of the kernel's 3xTF32 design (``tc_bound_ms``) and
+    the kernel's ptxas register and spill lines."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev)
@@ -644,7 +671,9 @@ def check_flash(dev, flush):
                       (nbytes, nops), flush)
         t["library_ms"] = time_ms(library, 20, flush)
         t["library_max_abs_err"] = lib_err
-        emit(timing="flash_attention", case=name, **t)
+        t["tc_bound_ms"] = tc_bound_ms(nbytes, nops, kind)
+        emit(timing="flash_attention", case=name,
+             ptxas=ptxas_lines("flash_attention"), **t)
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return worst, timed
@@ -1312,7 +1341,8 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
 
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms",
+            "device_ms")
     return [dict(case=name, library_ms=t.get("library_ms"),
                  **{k: t[k] for k in keys if k in t})
             for name, t in timed.items()]
@@ -1357,14 +1387,10 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build(kernels.KERNELS)
     build_s = time.perf_counter() - t0
-    ptxas = {n: kernels.library_path(n).with_suffix(".log").read_text()
-             for n in kernels.KERNELS
-             if kernels.library_path(n).with_suffix(".log").is_file()}
     emit(phase="environment", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          build_s=build_s, built=built,
-         ptxas={n: [l for l in t.splitlines() if "registers" in l
-                    or "spill" in l] for n, t in ptxas.items()})
+         ptxas={n: ptxas_lines(n) for n in kernels.KERNELS})
 
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)   # > 50 MB L2
     r_err, r_time = check_ragged(dev, flush)

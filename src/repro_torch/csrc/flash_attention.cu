@@ -1,4 +1,5 @@
-// Dense flash attention for Hopper (sm_90a): causal / sliding-window GQA.
+// Dense flash attention for Hopper (sm_90a): causal / sliding-window GQA
+// on the tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (Pallas: grid (batch, q heads, q tiles, kv tiles) with the KV sweep
@@ -15,201 +16,377 @@
 // normalised by max(l, 1e-30); masked scores are -1e30, as in the TPU
 // kernel.
 //
-// What bounds it on this card: operations.  A (query, key) pair costs 4d
-// f32 operations per query head against 2d key/value elements read once
-// per KV head, so at the prefill's S = T = 640 the work is far above the
-// ridge of 67 TFLOP/s / 3.35 TB/s = 20 operations per byte.
+// What bounds it on this card: operations on the tensor cores.  A
+// (query, key) pair costs 4d operations per query head against 2d
+// key/value elements read once per KV head, so at the prefill's
+// S = T = 640 the work sits far above the ridge.  f32 is held to f32
+// accuracy by 3xTF32: each operand x splits into two TF32 values, hi and
+// lo = x - hi rounded (split() below), and a product is hi.hi + hi.lo +
+// lo.hi (lo.lo, about 2^-22 of it, is dropped), so an f32 product costs 3
+// TF32 MMAs: the bound is 3 x operations / 495 TFLOP/s.  A bf16 value is exact in TF32,
+// so bf16 takes 1 product for Q.K^T and 2 for P.V (P is f32).
 //
-// Design: the TPU's sequential KV sweep becomes a loop inside one block
-// per (q tile of 32 queries, head, batch row), 128 threads.  The block's
-// Q tile and each 32-key K/V tile sit in shared memory as f32, read back
-// as 16-byte vectors: Q and K rows padded to d + 4 floats, so the four
-// threads of a query row, reading four different keys, hit different
-// banks.  d is a template parameter (32, 64, 128 or 256), which sizes the
-// shared memory (104 KB at d = 256, where 64-row f32 tiles of Q, K and V
-// would take 192 KB) and keeps each thread's d/4 accumulators in
-// registers.  Thread t owns query row t / 4 and, within each key tile,
-// keys t % 4 + 4i (8 scores) and the 4-column groups 16m + 4(t % 4) of
-// the output: the four threads of a row merge their score maxima and
-// sums with two shuffles and pass probabilities through a shared-memory
-// row their warp alone writes and reads.  Key tiles that no query of the
-// block can see (past the causal diagonal, or before the window) are
-// skipped.  f32 on CUDA cores; tensor-core tiles (wgmma) are later work.
+// Design (FlashAttention-2's tiling on Ampere's warp-level MMA,
+// mma.sync.m16n8k8 tf32 with f32 accumulators):
+// - One block of 4 warps owns 64 query rows of one head; each warp owns
+//   16 of them and holds their S = Q.K^T strip (16 x BK) and their output
+//   (16 x d, d/2 registers a thread) in MMA accumulators.  A row's max and
+//   sum merge across the 4 lanes that share it in the C fragment with two
+//   shuffles.
+// - The C fragment is not the A fragment's layout, so P goes through a
+//   16 x BK f32 tile in shared memory that its warp alone writes and reads
+//   (__syncwarp).
+// - Q stays resident in shared memory; K and V tiles are double-buffered
+//   with 16-byte cp.async.cg copies, so tile j+1 loads while tile j is
+//   multiplied.  Rows past S or T are zero-filled by the copy's src-size
+//   operand (the source clamped to a valid row).  bf16 tiles are staged as
+//   bf16 (half the bytes) and widened as fragments are loaded.
+// - Rows are padded so fragment loads are free of bank conflicts: Q and K
+//   rows by 4 floats (lanes (g, t) of an A or B load hit bank 4g + t), V
+//   rows by 8 floats (lanes read V[t][g]: bank 8t + g), P rows by 4
+//   floats; bf16 rows by 8 elements (conflict-free too, two lanes to a
+//   word).
+// - Tiles: BK = 32 keys at d >= 128 (d = 256 f32: Q 65 KB + two K and two
+//   V buffers 131 KB + P 9 KB = 205 KB, 1 block per SM; d = 128: 109 KB,
+//   2 blocks per SM), BK = 64 at d <= 64.  At d = 256 each thread holds
+//   128 output accumulators; __launch_bounds__(128, 1) leaves it up to
+//   255 registers.
+// - blockIdx.x walks the q tiles from the last (the longest under a
+//   causal mask) to the first, every (head, batch row) of a tile before
+//   the next tile.  Key tiles no query of the block can see are skipped;
+//   a warp skips the MMAs of a tile none of its rows can see; the masks
+//   are applied only on tiles that cross the diagonal, the window's edge
+//   or T.  A row that sees no key of a tile it computes keeps m = -1e30
+//   there, and the next tile's correction exp(m - m_new) wipes that
+//   tile's sum.
+// TMA, wgmma and warp specialisation are the next step for this kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 32;            // queries per block
-constexpr int kBK = 32;            // keys per shared-memory tile
-constexpr int kKeysPerThread = kBK / 4;
-constexpr int kPS = kBK + 4;       // probability row stride (floats)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;    // queries per block, 16 per warp
 constexpr float kNeg = -1e30f;
 
-// four consecutive elements as f32 (16- or 8-byte aligned loads)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
+// shared-memory geometry for element type T at head width D (strides in
+// elements of T, the P tile's in floats)
+template <typename T, int D>
+struct Tiles {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kBK = D <= 64 ? 64 : 32;
+  static constexpr int kQK = D + (kF32 ? 4 : 8);   // Q and K row stride
+  static constexpr int kVS = D + 8;                // V row stride
+  static constexpr int kPS = kBK + 4;              // P row stride
+  static constexpr size_t kQ = sizeof(T) * kBQ * kQK;
+  static constexpr size_t kK = sizeof(T) * kBK * kQK;
+  static constexpr size_t kV = sizeof(T) * kBK * kVS;
+  static constexpr size_t kP = sizeof(float) * 16 * kPS;
+  static constexpr size_t kSmem = kQ + 2 * (kK + kV) + kWarps * kP;
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+  static_assert(kQ % 16 == 0 && kK % 16 == 0 && kV % 16 == 0 &&
+                    kQK * sizeof(T) % 16 == 0 && kVS * sizeof(T) % 16 == 0,
+                "cp.async needs 16-byte aligned rows");
+};
+
+// x = hi + lo in two TF32 values, both rounded to nearest.  hi is
+// Veltkamp's split at 13 bits (c = x * (2^13 + 1), hi = c - (c - x): the
+// top 11 significant bits, in plain f32 operations that keep a NaN a NaN,
+// which cvt.rna.tf32.f32 does too but in a longer sequence on sm_90a);
+// lo = x - hi is exact and finite unless x is not, and is rounded on its
+// bits (ties away from zero).  The _rn intrinsics keep the compiler from
+// fusing the split into an FMA.  |x| must stay below 4e34.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float c = __fmul_rn(x, 8193.0f);
+  const float h = __fsub_rn(c, __fsub_rn(c, x));
+  hi = __float_as_uint(h);
+  lo = (__float_as_uint(__fsub_rn(x, h)) + 0x1000u) & 0xffffe000u;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 4) + kBK * (D + 4) + kBK * D +
-                          kBQ * kPS);
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// c += a . b over one 16 x 8 x 8 tile
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte global -> shared copy; zeros when !in (src-size 0)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of a [n, D] head into a shared tile of row
+// stride STRIDE, rows at or past n zero-filled
+template <typename T, int D, int ROWS, int STRIDE>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int n) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kChunks = D / kPer;
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * kPer;
+    const int gr = row0 + r;
+    cp16(dst + r * STRIDE + c,
+         src + static_cast<long long>(min(gr, n - 1)) * D + c, gr < n);
+  }
+}
+
+// A fragment of a 16 x 8 row-major tile at p (row stride ld) for lane
+// (g, t): rows g and g + 8, columns t and t + 4; hi and lo terms
+template <bool kSplit, typename E>
+__device__ __forceinline__ void load_a(const E* p, int ld, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float x[4] = {widen(p[0]), widen(p[8 * ld]), widen(p[4]),
+                      widen(p[8 * ld + 4])};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kSplit) {
+      split(x[i], hi[i], lo[i]);
+    } else {
+      hi[i] = __float_as_uint(x[i]);
+    }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D >= 256 ? 1 : 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int H, int KV,
-             int S, int Tk, int causal, int window, float scale) {
-  constexpr int D4 = D / 4;                // float4 groups per row
-  constexpr int NG = D / 16;               // column groups per thread
+             const T* __restrict__ v, T* __restrict__ out, int B, int H,
+             int KV, int S, int Tk, int causal, int window, float scale) {
+  using G = Tiles<T, D>;
+  constexpr int BK = G::kBK;
+  constexpr int NS = BK / 8;      // key n-tiles of S
+  constexpr int NO = D / 8;       // column n-tiles of O
+  constexpr int NG = 4;           // O n-tiles multiplied together
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][D + 4]
-  float* ks = qs + kBQ * (D + 4);                // [kBK][D + 4]
-  float* vs = ks + kBK * (D + 4);                // [kBK][D]
-  float* ps = vs + kBK * D;                      // [kBQ][kPS]
+  T* qs = reinterpret_cast<T*>(smem4);             // [kBQ][kQK]
+  T* ks = qs + kBQ * G::kQK;                       // [2][BK][kQK]
+  T* vs = ks + 2 * BK * G::kQK;                    // [2][BK][kVS]
+  float* ps = reinterpret_cast<float*>(vs + 2 * BK * G::kVS);
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int hb = blockIdx.x % (H * B);
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / (H * B)) * kBQ;
+  const int h = hb % H, b = hb / H;
   const int kvh = h / (H / KV);
   const T* qb = q + (static_cast<long long>(b) * H + h) * S * D;
   const T* kb = k + (static_cast<long long>(b) * KV + kvh) * Tk * D;
   const T* vb = v + (static_cast<long long>(b) * KV + kvh) * Tk * D;
 
-  for (int e = tid; e < kBQ * D4; e += kThreads) {
-    const int r = e / D4, c = (e % D4) * 4;
-    store4(qs + r * (D + 4) + c,
-           q0 + r < S ? load4(qb + static_cast<long long>(q0 + r) * D + c)
-                      : make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-
-  const int row = tid >> 2;               // this thread's query row
-  const int sub = tid & 3;
-  const int qpos = q0 + row;
-  const float* qrow = qs + row * (D + 4);
-  float* prow = ps + row * kPS;
-  float m = kNeg, l = 0.0f;
-  float4 acc[NG];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 16 * warp;          // this warp's first query
+  const int w_last = min(S, wq0 + 16) - 1;
+  float* pw = ps + warp * 16 * G::kPS;     // this warp's P tile
 
   // the key tiles some query of this block can see
   const int q_last = min(S, q0 + kBQ) - 1;
   const int hi = causal ? min(Tk, q_last + 1) : Tk;
   int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  lo -= lo % kBK;
+  lo -= lo % BK;
+  const int ntiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
 
-  for (int t0 = lo; t0 < hi; t0 += kBK) {
-    __syncthreads();                      // the last tile's readers are done
-    for (int e = tid; e < kBK * D4; e += kThreads) {
-      const int j = e / D4, c = (e % D4) * 4;
-      const bool in = t0 + j < Tk;
-      const long long g = static_cast<long long>(t0 + j) * D + c;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      store4(ks + j * (D + 4) + c, in ? load4(kb + g) : z);
-      store4(vs + j * D + c, in ? load4(vb + g) : z);
+  load_rows<T, D, kBQ, G::kQK>(qs, qb, q0, S);
+  if (ntiles > 0) {
+    load_rows<T, D, BK, G::kQK>(ks, kb, lo, Tk);
+    load_rows<T, D, BK, G::kVS>(vs, vb, lo, Tk);
+  }
+  cp_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;  // rows g, g + 8
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int t0 = lo + j * BK;
+    if (j + 1 < ntiles) {
+      const int nb = (j + 1) & 1;
+      load_rows<T, D, BK, G::kQK>(ks + nb * BK * G::kQK, kb, t0 + BK, Tk);
+      load_rows<T, D, BK, G::kVS>(vs + nb * BK * G::kVS, vb, t0 + BK, Tk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
 
-    float s[kKeysPerThread];
+    const bool sees = wq0 < S && (!causal || t0 <= w_last) &&
+                      (window <= 0 || t0 + BK - 1 > wq0 - window);
+    if (sees) {
+      const T* kt = ks + (j & 1) * BK * G::kQK;
+      const T* vt = vs + (j & 1) * BK * G::kVS;
+
+      // S = Q . K^T for this warp's 16 rows
+      float s[NS][4];
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) s[i] = 0.0f;
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const T* qa = qs + (16 * warp + g) * G::kQK + t;
+      const T* kbf = kt + g * G::kQK + t;
 #pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 qc = *reinterpret_cast<const float4*>(qrow + c);
+      for (int c = 0; c < D; c += 8) {
+        uint32_t ah[4], al[4];
+        load_a<G::kF32>(qa + c, G::kQK, ah, al);
+        uint32_t bh[NS][2], bl[NS][2];
 #pragma unroll
-      for (int i = 0; i < kKeysPerThread; ++i) {
-        const float4 kc = *reinterpret_cast<const float4*>(
-            ks + (sub + 4 * i) * (D + 4) + c);
-        s[i] += qc.x * kc.x + qc.y * kc.y + qc.z * kc.z + qc.w * kc.w;
+        for (int n = 0; n < NS; ++n) {
+          const T* p = kbf + n * 8 * G::kQK + c;
+          const float x0 = widen(p[0]), x1 = widen(p[4]);
+          if constexpr (G::kF32) {
+            split(x0, bh[n][0], bl[n][0]);
+            split(x1, bh[n][1], bl[n][1]);
+          } else {
+            bh[n][0] = __float_as_uint(x0);
+            bh[n][1] = __float_as_uint(x1);
+          }
+        }
+        if constexpr (G::kF32) {
+#pragma unroll
+          for (int n = 0; n < NS; ++n) mma(s[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+          for (int n = 0; n < NS; ++n) mma(s[n], ah, bl[n][0], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n) mma(s[n], ah, bh[n][0], bh[n][1]);
       }
-    }
-    float mt = kNeg;
+
+      // scale, mask where the tile crosses the diagonal, the window's
+      // edge or T, and take the online softmax step
+      const bool masked = (causal && t0 + BK - 1 > wq0) ||
+                          (window > 0 && t0 <= w_last - window) ||
+                          t0 + BK > Tk;
+      float mx0 = kNeg, mx1 = kNeg;
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const int kpos = t0 + sub + 4 * i;
-      bool ok = qpos < S && kpos < Tk;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && kpos > qpos - window;
-      s[i] = ok ? s[i] * scale : kNeg;
-      mt = fmaxf(mt, s[i]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float ls = 0.0f;
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
-    for (int i = 0; i < kKeysPerThread; ++i) {
-      const float p = expf(s[i] - m_new);
-      ls += p;
-      prow[sub + 4 * i] = p;
-    }
-    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-    l = l * corr + ls;
-    m = m_new;
-    __syncwarp();                         // a row's four threads share a warp
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale;
+          if (masked) {
+            const int kpos = t0 + n * 8 + 2 * t + (e & 1);
+            const int qpos = wq0 + g + (e >> 1) * 8;
+            const bool ok = kpos < Tk && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            x = ok ? x : kNeg;
+          }
+          s[n][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+      float ls0 = 0.0f, ls1 = 0.0f;
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      acc[g].x *= corr;
-      acc[g].y *= corr;
-      acc[g].z *= corr;
-      acc[g].w *= corr;
-    }
-    const float* vcol = vs + 4 * sub;
-    for (int j = 0; j < kBK; j += 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(prow + j);
-      const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+      for (int n = 0; n < NS; ++n) {
+        const float p0 = expf(s[n][0] - mn0), p1 = expf(s[n][1] - mn0);
+        const float p2 = expf(s[n][2] - mn1), p3 = expf(s[n][3] - mn1);
+        ls0 += p0 + p1;
+        ls1 += p2 + p3;
+        *reinterpret_cast<float2*>(pw + g * G::kPS + n * 8 + 2 * t) =
+            make_float2(p0, p1);
+        *reinterpret_cast<float2*>(pw + (g + 8) * G::kPS + n * 8 + 2 * t) =
+            make_float2(p2, p3);
+      }
+      ls0 += __shfl_xor_sync(0xffffffffu, ls0, 1);
+      ls0 += __shfl_xor_sync(0xffffffffu, ls0, 2);
+      ls1 += __shfl_xor_sync(0xffffffffu, ls1, 1);
+      ls1 += __shfl_xor_sync(0xffffffffu, ls1, 2);
+      l0 = l0 * c0 + ls0;
+      l1 = l1 * c1 + ls1;
+      m0 = mn0;
+      m1 = mn1;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = vcol + (j + jj) * D;
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= c0;
+        o[n][1] *= c0;
+        o[n][2] *= c1;
+        o[n][3] *= c1;
+      }
+      __syncwarp();                       // P is written
+
+      // O += P . V, NG column n-tiles at a time so that consecutive MMAs
+      // feed different accumulators
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 16 * g);
-          acc[g].x += pj[jj] * vv.x;
-          acc[g].y += pj[jj] * vv.y;
-          acc[g].z += pj[jj] * vv.z;
-          acc[g].w += pj[jj] * vv.w;
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ah[4], al[4];
+        load_a<true>(pw + g * G::kPS + kk + t, G::kPS, ah, al);
+        const T* vr = vt + (kk + t) * G::kVS + g;
+#pragma unroll
+        for (int n0 = 0; n0 < NO; n0 += NG) {
+          uint32_t bh[NG][2], bl[NG][2];
+#pragma unroll
+          for (int i = 0; i < NG; ++i) {
+            const float x0 = widen(vr[(n0 + i) * 8]);
+            const float x1 = widen(vr[4 * G::kVS + (n0 + i) * 8]);
+            if constexpr (G::kF32) {
+              split(x0, bh[i][0], bl[i][0]);
+              split(x1, bh[i][1], bl[i][1]);
+            } else {
+              bh[i][0] = __float_as_uint(x0);
+              bh[i][1] = __float_as_uint(x1);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < NG; ++i) mma(o[n0 + i], al, bh[i][0], bh[i][1]);
+          if constexpr (G::kF32) {
+#pragma unroll
+            for (int i = 0; i < NG; ++i)
+              mma(o[n0 + i], ah, bl[i][0], bl[i][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < NG; ++i) mma(o[n0 + i], ah, bh[i][0], bh[i][1]);
         }
       }
+      __syncwarp();                       // P is rewritten next tile
     }
-    __syncwarp();                         // prow is rewritten next tile
+    __syncthreads();                      // buffer j & 1 is refilled next
   }
+  cp_wait<0>();
 
-  if (qpos < S) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* orow = out + ((static_cast<long long>(b) * H + h) * S + qpos) * D +
-              4 * sub;
+  const float i0 = 1.0f / fmaxf(l0, 1e-30f), i1 = 1.0f / fmaxf(l1, 1e-30f);
+  const int r0 = wq0 + g, r1 = wq0 + g + 8;
+  T* ob = out + (static_cast<long long>(b) * H + h) * S * D + 2 * t;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-      store4(orow + 16 * g,
-             make_float4(acc[g].x / denom, acc[g].y / denom,
-                         acc[g].z / denom, acc[g].w / denom));
+  for (int n = 0; n < NO; ++n) {
+    if (r0 < S)
+      store2(ob + static_cast<long long>(r0) * D + n * 8, o[n][0] * i0,
+             o[n][1] * i0);
+    if (r1 < S)
+      store2(ob + static_cast<long long>(r1) * D + n * 8, o[n][2] * i1,
+             o[n][3] * i1);
   }
 }
 
@@ -218,17 +395,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int KV, int S, int Tk, int causal, int window,
            cudaStream_t s) {
   auto kern = flash_kernel<T, D>;
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = Tiles<T, D>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(H), static_cast<unsigned>(B));
-  kern<<<grid, kThreads, smem, s>>>(
+  const long long blocks =
+      static_cast<long long>((S + kBQ - 1) / kBQ) * H * B;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, S, Tk, causal,
-      window, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(out), B, H, KV, S, Tk,
+      causal, window, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,9 +10,13 @@ layer.
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  The TPU grid
 swept a q tile's KV tiles in order with its online-softmax state in
-VMEM; here one block owns a 32-query tile of one head and loops over
-32-key tiles staged in shared memory, skipping tiles no query of the
-block can see.
+VMEM; here one block of 4 warps owns a 64-query tile of one head (16
+rows a warp) and loops over 32-key tiles (64 at d <= 64), double-buffered
+in shared memory by asynchronous copies, skipping tiles no query of the
+block can see.  Q.K^T and P.V run on the tensor cores (``mma.sync``
+TF32 tiles); f32 inputs keep f32 accuracy by 3xTF32 (each operand split
+into two TF32 terms, three products per f32 product), bf16 inputs, exact
+in TF32, take one product for Q.K^T and two for P.V.
 
 :func:`flash_attention` launches the kernel on CUDA tensors only;
 :func:`flash_attention_ref` is the plain PyTorch version (the CPU path
@@ -81,7 +85,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
         raise ValueError(f"{name}: no keys")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window must be positive")
-    # the kernel reads and writes 16-byte vectors
+    # the kernel copies 16-byte vectors
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start on a 16-byte "
                          "boundary")

@@ -217,6 +217,39 @@ FLASH_CASES = {
 }
 
 
+# (B, H, KV, S, T, d, causal, window, qk_scale, kind): the tensor-core
+# tiling's own cases, on the card only (FLASH_CASES also feeds the CPU
+# parity tests).  q and k scaled x4 give scores of std ~16, which a single
+# TF32 product per f32 product misses at 1e-4 and 3xTF32 holds; one
+# token; S = T = 65 and 97, off the 64-row query and 32-key tiles; more
+# keys than queries without causality at d = 256; bf16 at d = 64 (64-key
+# tiles)
+FLASH_TC_CASES = {
+    "f32-d256-x4": (1, 4, 1, 100, 100, 256, True, None, 4.0, "f32"),
+    "f32-d128-x4": (1, 6, 2, 130, 130, 128, True, None, 4.0, "f32"),
+    "one-token-d256": (1, 2, 1, 1, 1, 256, True, None, 1.0, "f32"),
+    "edge-65-window-d256": (2, 4, 1, 65, 65, 256, True, 40, 1.0, "f32"),
+    "edge-97-d128": (1, 4, 2, 97, 97, 128, True, None, 1.0, "f32"),
+    "noncausal-more-keys-d256": (1, 4, 1, 50, 97, 256, False, None, 1.0,
+                                 "f32"),
+    "bf16-d64": (2, 4, 2, 97, 97, 64, True, None, 1.0, "bf16"),
+}
+
+
+def _flash_tc_inputs(case):
+    """q (scaled), k (scaled), v of a FLASH_TC_CASES case, f32 numpy."""
+    B, H, KV, S, T, d, _, _, qk, _ = FLASH_TC_CASES[case]
+    q, k, v = _flash_inputs(len(case), B, H, KV, S, T, d)
+    return q * np.float32(qk), k * np.float32(qk), v
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away), as a
+    tensor-core operand sees an f32 value it takes in one piece."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
 def _flash_inputs(seed, B, H, KV, S, T, d):
     """q [B, H, S, d], k/v [B, KV, T, d] f32 from a seed."""
     rng = np.random.default_rng(seed)
@@ -392,6 +425,42 @@ def test_cuda_flash_attention_refuses_unaligned_views(cuda_device):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte"):
         flash_mod.flash_attention(shifted, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_TC_CASES))
+def test_cuda_flash_attention_tensor_core_tiles(case, cuda_device):
+    """The tensor-core tiling at its edges: f32 within atol = rtol = 1e-4
+    (the x4 cases hold only with 3xTF32), bf16 inputs against the plain
+    version in f32 on the same values within atol 1e-3, rtol 1e-2."""
+    B, H, KV, S, T, d, causal, window, _, kind = FLASH_TC_CASES[case]
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _flash_tc_inputs(case))
+    got = flash_mod.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                    v.to(cuda_device), causal=causal,
+                                    window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    atol, rtol = (1e-4, 1e-4) if kind == "f32" else (1e-3, 1e-2)
+    torch.testing.assert_close(got.cpu().float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in FLASH_TC_CASES
+                                        if FLASH_TC_CASES[c][8] > 1))
+def test_flash_x4_cases_defeat_one_tf32_product(case):
+    """The x4 cases prove the split: the plain version on q and k rounded
+    to TF32 (what one TF32 product per f32 product computes) misses
+    atol = rtol = 1e-4, which the card test holds the kernel to."""
+    _, _, _, _, _, _, causal, window, _, _ = FLASH_TC_CASES[case]
+    q, k, v = _flash_tc_inputs(case)
+    want = ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   causal=causal, window=window)
+    one = ref.flash_attention_ref(torch.from_numpy(_tf32(q)),
+                                  torch.from_numpy(_tf32(k)),
+                                  torch.from_numpy(v), causal=causal,
+                                  window=window)
+    assert not torch.allclose(one, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
