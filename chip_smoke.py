@@ -16,8 +16,13 @@ without printing a result):
      layers run ``mamba_scan``), with CUDA-event times for the
      kernel and the plain version (for the gate and the router also back
      to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
-     ``scaled_dot_product_attention`` as a yardstick, and its bound on
-     the tensor cores beside the one on the CUDA cores);
+     ``scaled_dot_product_attention`` as a yardstick; for the three
+     tensor-core attention kernels, ``flash_attention``,
+     ``ragged_attention`` and ``paged_attention``, their bound on the
+     tensor cores beside the one on the CUDA cores; for the ragged and
+     paged kernels also their device time from the profiler,
+     :func:`kernel_ms`, since the host's launch takes longer than a
+     decode kernel);
   3. the port's ragged, padded (``mixed_step``) and split
      (``prefill_chunk`` then ``decode_step``) steps end to end on the
      card against the same steps on the CPU (plain versions), at the
@@ -48,7 +53,10 @@ without printing a result):
   6. the workload once more inside ``torch.profiler``, with a virtual
      clock, under each executor (the uniform one included), for the MoE
      cascade under the ragged one and for the RWKV-6 and jamba cascades:
-     device time by kernel kind and the device's idle share.
+     device time by kernel kind (a kind's split-merge kernels counted
+     with it) and the device's idle share; and the split MoE cascade
+     served twice under a virtual clock, to record whether its streams
+     are equal run to run.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -152,6 +160,28 @@ def device_ms(fn, iters: int = 100) -> float:
     return a.elapsed_time(b) / iters
 
 
+def kernel_ms(fn, kind: str, flush: torch.Tensor, iters: int = 10) -> float:
+    """Device milliseconds per call of the kernels of ``kind`` (its merge
+    kernels included), L2 flushed before each call, from
+    ``torch.profiler``: the kernels' own time, without the host's launch
+    gaps that CUDA events around one call of a short kernel also time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if any(n in e.key for n in KERNEL_NAMES[kind]):
+            us += getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+    return us / 1e3 / iters
+
+
 def paged_pool(gen, dev, *, KV, hd, kv_dtype, R, P, bs):
     """Random KV pools of N = R*P + 1 blocks (int8 with scales, or float)
     and a page table [R, P] of shuffled blocks (block 0 never mapped)."""
@@ -239,16 +269,49 @@ def tc_bound_ms(nbytes: float, nops: float, kind: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, terms * nops / TF32_OPS_PER_S) * 1e3
 
 
-def ptxas_lines(name: str) -> list:
+def ptxas_lines(name: str, instance: str = "") -> list:
     """The register and spill lines of the kernel's ``-Xptxas -v`` build
     log, each after the line that names its function (phase 1 records
-    them for every kernel)."""
+    them for every kernel).  With ``instance``, a piece of one template
+    instance's mangled name (``ragged_kernelIffLi128E``: float q, float
+    pools, hd 128), only that instance's lines."""
     log = kernels.library_path(name).with_suffix(".log")
     if not log.is_file():
         return []
-    return [l.strip() for l in log.read_text().splitlines()
-            if "registers" in l or "spill" in l
-            or "Compiling entry" in l]
+    out, keep = [], True
+    for line in log.read_text().splitlines():
+        if "Compiling entry" in line:
+            keep = instance in line
+        if keep and ("registers" in line or "spill" in line
+                     or "Compiling entry" in line):
+            out.append(line.strip())
+    return out
+
+
+def launched_splits(fn, kind: str):
+    """The page-split count one call of ``fn`` launched: grid z of the
+    kind's tile kernel (its first ``KERNEL_NAMES`` entry), read from the
+    profiler's trace of that call, with the merge launches beside it
+    (none for one split).  None where the trace gives no grid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = kernels.BUILD_DIR / f"{kind}-grid-trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    tile, merge = KERNEL_NAMES[kind]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    grids = [e.get("args", {}).get("grid") for e in kern
+             if tile in e.get("name", "")]
+    merges = sum(merge in e.get("name", "") for e in kern)
+    if len(grids) != 1 or not grids[0]:
+        return None, merges
+    return int(grids[0][2]), merges
 
 
 def time_case(name, timed, kernel, plain, work, flush):
@@ -341,7 +404,17 @@ def check_ragged(dev, flush):
                 lambda: ragged_mod.ragged_attention(*args, **kw),
                 lambda: ragged_mod.ragged_attention_ref(*args, **kw),
                 ragged_work(args, kw), flush)
-            emit(timing="ragged_attention", case=name, **t)
+            t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
+            t["splits"], t["merge_launches"] = launched_splits(
+                lambda: ragged_mod.ragged_attention(*args, **kw),
+                "ragged_attention")
+            t["kernel_ms"] = kernel_ms(
+                lambda: ragged_mod.ragged_attention(*args, **kw),
+                "ragged_attention", flush)
+            emit(timing="ragged_attention", case=name,
+                 ptxas=ptxas_lines(
+                     "ragged_attention",
+                     f"ragged_kernelIffLi{args[0].shape[-1]}E"), **t)
         del args, kw, got, want
     torch.cuda.empty_cache()
     return worst, timed
@@ -409,7 +482,17 @@ def check_paged(dev, flush):
                     lambda: paged_mod.paged_attention_ref(*a8, **kw),
                     attention_work(a8[0], kp, a8[3],
                                    list(enumerate(NEAR600)), kw), flush)
-                emit(timing="paged_attention", case=name, **t)
+                t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
+                t["splits"], t["merge_launches"] = launched_splits(
+                    lambda: paged_mod.paged_attention(*a8, **kw),
+                    "paged_attention")
+                t["kernel_ms"] = kernel_ms(
+                    lambda: paged_mod.paged_attention(*a8, **kw),
+                    "paged_attention", flush)
+                emit(timing="paged_attention", case=name,
+                     ptxas=ptxas_lines(
+                         "paged_attention",
+                         f"paged_decode_kernelIffLi{shape['hd']}E"), **t)
             del kp, vp, ks, vs, pt, q, got, want
     torch.cuda.empty_cache()
     return worst, timed
@@ -673,7 +756,8 @@ def check_flash(dev, flush):
         t["library_max_abs_err"] = lib_err
         t["tc_bound_ms"] = tc_bound_ms(nbytes, nops, kind)
         emit(timing="flash_attention", case=name,
-             ptxas=ptxas_lines("flash_attention"), **t)
+             ptxas=ptxas_lines("flash_attention", f"flash_kernelIfLi{d}E"),
+             **t)
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return worst, timed
@@ -1266,15 +1350,17 @@ def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
              same_tier_requests=len(same_tier), differing_rids=differ)
 
 
-# profiler kernel names of each attention kernel, the gate and the router
-KERNEL_NAMES = {"ragged_attention": "ragged_kernel",
-                "mixed_attention": "mixed_kernel",
-                "paged_attention": "paged_decode_kernel",
-                "flash_attention": "flash_kernel",
-                "confidence_gate": "gate_kernel",
-                "router_gate": "router_kernel",
-                "rwkv6_scan": "wkv_kernel",
-                "mamba_scan": "mamba_kernel"}
+# profiler kernel names of each kernel kind (any of them, by substring):
+# the ragged and paged kinds count their split-merge kernels too
+KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
+                "mixed_attention": ("mixed_kernel",),
+                "paged_attention": ("paged_decode_kernel",
+                                    "paged_merge_kernel"),
+                "flash_attention": ("flash_kernel",),
+                "confidence_gate": ("gate_kernel",),
+                "router_gate": ("router_kernel",),
+                "rwkv6_scan": ("wkv_kernel",),
+                "mamba_scan": ("mamba_kernel",)}
 
 
 def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
@@ -1316,8 +1402,8 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
             continue
         name = e.key
         rows.append((us, e.count, name))
-        kind = next((k for k, n in KERNEL_NAMES.items() if n in name),
-                    None)
+        kind = next((k for k, ns in KERNEL_NAMES.items()
+                     if any(n in name for n in ns)), None)
         if kind is None:
             kind = ("matrix products" if any(
                 k in name.lower() for k in ("gemm", "gemv", "cutlass",
@@ -1339,10 +1425,34 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
                       for us, n, name in rows[:12]])
 
 
+def check_split_moe_determinism(card: str, params) -> None:
+    """Is the split MoE tier deterministic on the card?  In split decode
+    a masked row attends the null block 0, whose contents are written by
+    racing duplicate ``index_put_`` writes; its hidden state then routes
+    through ``router_gate`` and takes expert capacity.  The split
+    granite cascade is served twice under a VirtualClock (the same
+    arrivals and ticks) on the same weights, and whether the two runs'
+    streams are equal is recorded, not asserted."""
+    args = main_path_args(MOE_NAME, **ALL_EXECUTORS["split"])
+    runs = []
+    for _ in range(2):
+        s = serve_async.run(args, VirtualClock(), params)
+        torch.cuda.synchronize()
+        runs.append(s)
+    a, b = ({r["rid"]: (r["tier"], r["state"], r["tokens"])
+             for r in s["per_request"]} for s in runs)
+    differ = sorted(rid for rid in a if a[rid] != b.get(rid))
+    emit(check="split MoE determinism", executor="split",
+         expensive=MOE_NAME, card=card, clock="virtual", runs=2,
+         stream_checksums=[s["stream_checksum"] for s in runs],
+         equal=not differ and len(a) == len(b), differing_rids=differ,
+         tier_requests=[s["tier_requests"] for s in runs])
+
+
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms",
-            "device_ms")
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "tc_bound_ms", "device_ms", "splits")
     return [dict(case=name, library_ms=t.get("library_ms"),
                  **{k: t[k] for k in keys if k in t})
             for name, t in timed.items()]
@@ -1429,6 +1539,7 @@ def main() -> int:
     compare_streams({ex: r for ex, (_, r) in moe_runs.items()}, MOE_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "ragged", MOE_NAME)
+    check_split_moe_determinism(card, params)
     # the RWKV-6 cascade: rwkv6-3b's weights (12.3 GB) in place of
     # granite's; the engine serves it on the uniform prefill path
     params = (params[0], None)

@@ -27,10 +27,10 @@
 // return at once, so a padded decode row costs one short block per dead
 // slot.  A live slot is one decode query at its own position: the block's
 // 8 warps walk the pages its window sees side by side and merge their
-// online-softmax states at the end (paged_attend.cuh, shared with
-// paged_attention.cu and ragged_attention.cu).  Neighbouring slots of a
-// row re-read the same pages; the 50 MB L2 absorbs most of that.  Tiles
-// of slots on the tensor cores (wgmma) are later work.
+// online-softmax states at the end (paged_attend.cuh).  Neighbouring
+// slots of a row re-read the same pages; the 50 MB L2 absorbs most of
+// that.  Moving onto the tensor-core tile body of paged_tile.cuh, as the
+// ragged and paged kernels did, is the next step.
 #include "paged_attend.cuh"
 
 namespace {

@@ -1,6 +1,7 @@
-// Device code shared by paged_attention.cu, mixed_attention.cu and
-// ragged_attention.cu: one query position of one KV head attends its
-// row's pages, with the row's visible pages spread over the block's warps.
+// Device code of mixed_attention.cu, its one remaining user (the ragged
+// and paged kernels moved to the tensor-core tile body of paged_tile.cuh):
+// one query position of one KV head attends its row's pages, with the
+// row's visible pages spread over the block's warps.
 //
 // Each block holds the G query heads of one (query position, KV head).
 // The visible pages run from max(0, pos - window + 1) / bs to pos / bs;

@@ -1,4 +1,5 @@
-// Ragged flat token-batch paged attention for Hopper (sm_90a).
+// Ragged flat token-batch paged attention for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/ragged_attention.py::ragged_attention
 // (Pallas: a host-built work list of (token tile, owning row, page) grid
@@ -17,133 +18,134 @@
 // and attends the keys at positions <= its own (and > pos - window with a
 // sliding window) through row b's page table.
 //
-// What bounds it on this card: on a prefill tick, operations — the tokens
-// of one row's chunk all read the same pages, so the f32 multiply-adds of
-// q.k and p.v (4 hd per query head per visible key) outweigh the bytes:
-// at phi4-mini's shape, 8 rows x 64 tokens, ~59 operations per byte,
-// against a ridge of 67 TFLOP/s / 3.35 TB/s = 20.  On a decode tick (one
-// token per row) each page serves one token, and the bytes bound it.
+// What bounds it on this card: on a prefill tick, operations on the tensor
+// cores — the tokens of a row's chunk all read the same pages, ~59 f32
+// operations a byte at phi4-mini's 8 rows x 64 tokens, 3 TF32 products
+// each under 3xTF32; on a decode tick (one token a row) each key serves
+// one token, and the bytes bound it.
 //
-// Design: the TPU design's work list existed so a sequential grid could
-// keep one output tile resident; blocks here run in parallel, so one
-// block owns one (flat token, KV head) pair and finds its row itself by
-// scanning the prefix sum of q_len (R is the engine's slot count).  From
-// there a slot is one query at its own position, as a slot of the padded
-// mixed kernel is: the block's 8 warps walk the pages its window sees side
-// by side and merge their online-softmax states at the end
-// (paged_attend.cuh, shared with paged_attention.cu and
-// mixed_attention.cu).  Neighbouring tokens of one row re-read the same
-// pages; the 50 MB L2 absorbs most of that, and tensor-core (wgmma) tiles
-// over a token tile are later work.
-#include "paged_attend.cuh"
+// Design: the TPU's work list existed so a sequential grid could keep one
+// output tile resident; here blocks run in parallel and each finds its own
+// work item — BT = 64 / G consecutive tokens of one row, so G query heads
+// x BT tokens fill the 64 MMA rows and one page read serves the whole
+// tile — by scanning ceil(q_len[b] / BT) over the R rows (R is the
+// engine's slot count).  Grid x is ceil(W / BT) + R, a bound on the
+// items the host knows without reading q_len; a block past the last item
+// zeroes its share of the padding slots.  Grid y is the KV head, grid z
+// the split of the item's visible pages (several blocks share a decode
+// token's pages where the unsplit grid would leave the card idle; a
+// second kernel merges their states).  The item itself is the tile body
+// of paged_tile.cuh, shared with paged_attention.cu: 3xTF32 mma.sync,
+// double-buffered cp.async K/V tiles through the page table.
+#include "paged_tile.cuh"
 
 namespace {
 
-using paged::kThreads;
+using ptile::kThreads;
 
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads)
-ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-              const KT* __restrict__ vp, const float* __restrict__ ksc,
-              const float* __restrict__ vsc, const int* __restrict__ pt,
-              const int* __restrict__ q_start, const int* __restrict__ q_len,
-              QT* __restrict__ out, int KV, int G, int hd, int R, int P,
-              int bs, int window, float scale) {
-  extern __shared__ float smem[];
-  __shared__ int row_sh, start_sh;
-  const int t = blockIdx.x, h = blockIdx.y;     // flat token slot, KV head
-  const long long off = (static_cast<long long>(t) * KV + h) * G * hd;
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(kThreads, D >= 256 ? 1 : 2)
+ragged_kernel(ptile::Args<QT, KT> a, const int* __restrict__ q_start,
+              const int* __restrict__ q_len, int R) {
+  extern __shared__ float4 smem4[];
+  __shared__ ptile::Item item_sh;
   if (threadIdx.x == 0) {
-    // owning row: the first b with cumsum(q_len)[b] > t
-    int csum = 0, row = -1, start = 0;
+    // the work item: the x-th tile of ceil(q_len[b] / BT) over the rows;
+    // past the last item, row = -1, slot0 = the block's index among the
+    // blocks past it, ntok = their count and pos0 = sum(q_len)
+    const int bt = ptile::kRows / a.G;
+    const int x = blockIdx.x;
+    int items = 0, csum = 0;
+    ptile::Item it{-1, 0, 0, 0};
     for (int b = 0; b < R; ++b) {
-      const int n = q_len[b];
-      if (t < csum + n) {
-        row = b;
-        start = csum;
-        break;
+      const int n = q_len[b], nt = (n + bt - 1) / bt;
+      if (it.row < 0 && x < items + nt) {
+        const int i = x - items;
+        it = {b, csum + i * bt, min(bt, n - i * bt), q_start[b] + i * bt};
       }
+      items += nt;
       csum += n;
     }
-    row_sh = row;
-    start_sh = start;
+    if (it.row < 0) it = {-1, x - items, static_cast<int>(gridDim.x) - items,
+                          csum};
+    item_sh = it;
   }
   __syncthreads();
-  const int row = row_sh;
-  if (row < 0) {                   // bucket padding: zeros
-    paged::write_zeros(out + off, G * hd);
+  const ptile::Item it = item_sh;
+  if (it.row < 0) {
+    // bucket padding: slots sum(q_len) + slot0, + ntok, ... are zeros
+    if (blockIdx.z != 0) return;
+    const int GD = a.G * D;
+    for (int slot = it.pos0 + it.slot0; slot < a.slots; slot += it.ntok) {
+      QT* o = a.out + (static_cast<long long>(slot) * a.KV + blockIdx.y) * GD;
+      for (int i = threadIdx.x; i < GD; i += kThreads)
+        ptile::store1(o + i, 0.0f);
+    }
     return;
   }
-  paged::attend<QT, KT>(q + off, kp, vp, ksc, vsc,
-                        pt + static_cast<long long>(row) * P, P,
-                        q_start[row] + (t - start_sh), KV, h, G, hd, bs,
-                        window, scale, out + off, smem);
-}
-
-template <typename QT, typename KT>
-int launch(const void* q, const void* kp, const void* vp, const float* ksc,
-           const float* vsc, const int* pt, const int* q_start,
-           const int* q_len, void* out, int W, int KV, int G, int hd, int R,
-           int P, int bs, int window, cudaStream_t s) {
-  const size_t smem = paged::smem_bytes(G, hd, bs);
-  auto kern = ragged_kernel<QT, KT>;
-  cudaError_t e = paged::allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(static_cast<unsigned>(W), static_cast<unsigned>(KV));
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), ksc, vsc, pt, q_start, q_len,
-      static_cast<QT*>(out), KV, G, hd, R, P, bs, window,
-      1.0f / sqrtf(static_cast<float>(hd)));
-  return static_cast<int>(cudaGetLastError());
+  ptile::attend_item<QT, KT, D>(a, it, reinterpret_cast<char*>(smem4));
 }
 
 template <typename QT>
-int dispatch_kv(int kv_dtype, const void* q, const void* kp, const void* vp,
-                const float* ksc, const float* vsc, const int* pt,
-                const int* q_start, const int* q_len, void* out, int W,
-                int KV, int G, int hd, int R, int P, int bs, int window,
-                cudaStream_t s) {
-  switch (kv_dtype) {
-    case 0:
-      return launch<QT, float>(q, kp, vp, ksc, vsc, pt, q_start, q_len, out,
-                               W, KV, G, hd, R, P, bs, window, s);
-    case 1:
-      return launch<QT, __nv_bfloat16>(q, kp, vp, ksc, vsc, pt, q_start,
-                                       q_len, out, W, KV, G, hd, R, P, bs,
-                                       window, s);
-    case 2:
-      return launch<QT, int8_t>(q, kp, vp, ksc, vsc, pt, q_start, q_len, out,
-                                W, KV, G, hd, R, P, bs, window, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+__global__ void __launch_bounds__(ptile::kMergeThreads)
+ragged_merge_kernel(const float* __restrict__ acc,
+                    const float* __restrict__ ml, QT* __restrict__ out,
+                    const int* __restrict__ q_len, int R, long long rows,
+                    int KVG, int D, int splits) {
+  int total = 0;
+  for (int b = 0; b < R; ++b) total += q_len[b];
+  ptile::merge_splits(acc, ml, out, rows,
+                      static_cast<long long>(total) * KVG, D, splits);
 }
 
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (k_scale / v_scale required).  window <= 0 means
-// full causal attention.  hd must be a multiple of 32 up to 256.  Returns
-// cudaGetLastError().
+// full causal attention.  hd must be 32, 64, 128 or 256, G at most 64.
+// splits >= 1 blocks share each item's visible pages; with splits > 1
+// ws_acc [splits, W, KV, G, hd] and ws_ml [splits, W, KV, G, 2] f32 hold
+// their states until the merge.  Returns cudaGetLastError().
 extern "C" int ragged_attention(const void* q, const void* k_pages,
                                 const void* v_pages, const float* k_scale,
                                 const float* v_scale, const int* page_table,
                                 const int* q_start, const int* q_len,
-                                void* out, int W, int KV, int G, int hd,
-                                int R, int P, int bs, int window, int q_dtype,
+                                void* out, float* ws_acc, float* ws_ml,
+                                int W, int KV, int G, int hd, int R, int P,
+                                int bs, int window, int splits, int q_dtype,
                                 int kv_dtype, void* stream) {
   if (W <= 0 || KV <= 0) return 0;
-  if (hd % 32 != 0 || hd > 32 * paged::kMaxChunks)
+  if (G <= 0 || G > ptile::kRows || R <= 0 || P <= 0 || bs <= 0 ||
+      splits <= 0 || (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0)
-    return dispatch_kv<float>(kv_dtype, q, k_pages, v_pages, k_scale, v_scale,
-                              page_table, q_start, q_len, out, W, KV, G, hd,
-                              R, P, bs, window, s);
-  if (q_dtype == 1)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pages, v_pages, k_scale,
-                                      v_scale, page_table, q_start, q_len,
-                                      out, W, KV, G, hd, R, P, bs, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int bt = ptile::kRows / G;
+  const unsigned items = static_cast<unsigned>((W + bt - 1) / bt + R);
+  auto launch = [&](auto qt, auto kt, auto d) -> int {
+    using QT = decltype(qt);
+    using KT = decltype(kt);
+    constexpr int D = decltype(d)::value;
+    const size_t smem = ptile::Geom<QT, KT, D>::smem(P);
+    auto kern = ragged_kernel<QT, KT, D>;
+    cudaError_t e = ptile::allow_smem(kern, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ptile::Args<QT, KT> a{static_cast<const QT*>(q),
+                          static_cast<const KT*>(k_pages),
+                          static_cast<const KT*>(v_pages),
+                          k_scale, v_scale, page_table,
+                          static_cast<QT*>(out), ws_acc, ws_ml,
+                          W, KV, G, P, bs, window, splits,
+                          1.0f / sqrtf(static_cast<float>(D))};
+    kern<<<dim3(items, KV, splits), kThreads, smem, s>>>(a, q_start, q_len,
+                                                         R);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+    const long long rows = static_cast<long long>(W) * KV * G;
+    ragged_merge_kernel<QT><<<ptile::merge_blocks(rows, D),
+                              ptile::kMergeThreads, 0, s>>>(
+        ws_acc, ws_ml, static_cast<QT*>(out), q_len, R, rows, KV * G, D,
+        splits);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return ptile::dispatch(q_dtype, kv_dtype, hd, launch);
 }

@@ -16,8 +16,8 @@ per-token scales.
 TPU grid kept one ``[C * G, hd]`` accumulator per (row, head) in VMEM
 across an ordered page sweep; here each (row, slot, KV head) is a block
 whose warps walk that slot's visible pages side by side
-(``csrc/paged_attend.cuh``, shared with the paged decode and ragged
-kernels).
+(``csrc/paged_attend.cuh``; the paged decode and ragged kernels moved
+to the tensor-core tile body of ``csrc/paged_tile.cuh``).
 
 :func:`mixed_attention` launches the kernel on CUDA tensors only;
 :func:`mixed_attention_ref` is the plain PyTorch version (the CPU path

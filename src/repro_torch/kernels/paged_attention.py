@@ -11,8 +11,12 @@ discards their output.
 ``csrc/paged_attention.cu`` replaces the TPU kernel
 ``repro/kernels/paged_attention.py::paged_attention``.  The TPU grid
 swept a row's pages in order with its online-softmax state in VMEM; here
-one block owns a (row, KV head) and its warps walk the row's pages side
-by side, merging their states at the end (``csrc/paged_attend.cuh``).
+a row is one work item of the tensor-core tile body
+``csrc/paged_tile.cuh`` (shared with the ragged kernel): its G query
+heads are the live rows of 3xTF32 ``mma.sync`` tiles, K/V pages arrive
+by double-buffered ``cp.async``, and a row's visible pages split across
+``plan_page_splits`` blocks, whose states a second kernel merges in a
+fixed order.
 
 :func:`paged_attention` launches the kernel on CUDA tensors only;
 :func:`paged_attention_ref` is the plain PyTorch version (the CPU path
@@ -22,6 +26,7 @@ and the kernel's oracle).  Model code calls the dispatching wrapper
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,7 +35,74 @@ from repro_torch import kernels
 
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SIG = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+# the tile body of csrc/paged_tile.cuh: the head widths it is built for
+# and the MMA rows of a block ((token, query head) pairs)
+TILE_HEAD_DIMS = (32, 64, 128, 256)
+TILE_ROWS = 64
+
+
+def kv_tile_keys(hd: int) -> int:
+    """Keys of one K/V tile of the body at head width ``hd``."""
+    return 64 if hd <= 64 else 32
+
+
+def plan_page_splits(items: int, KV: int, P: int, bs: int, hd: int,
+                     sms: int) -> int:
+    """How many blocks share one work item's visible pages, from shapes
+    the host knows without reading the device: ``items`` work items (B
+    rows of a decode, or the ragged grid's ``ceil(W / BT) + R``) times
+    ``KV`` heads is the unsplit grid, on a card of ``sms`` SMs.  One
+    split when that grid already gives 2 blocks per SM; otherwise as many
+    as fit in 2 blocks per SM (one wave: blocks past it queue behind the
+    first wave; times by split count come from
+    ``scripts/torch_paged_splits.py``), but never so many that a split
+    would get fewer than 2 of the ``ceil(P * bs / BK)`` K/V tiles a row's
+    page table spans."""
+    blocks = items * KV
+    target = 2 * sms
+    if blocks >= target:
+        return 1
+    tiles = -(-P * bs // kv_tile_keys(hd))
+    return max(1, min(target // blocks, tiles // 2))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which the split plan fills."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_tile_shape(name, q):
+    """The tile body's limits on q [..., KV, G, hd], checked before
+    anything needs a card: hd one of ``TILE_HEAD_DIMS`` and at most
+    ``TILE_ROWS`` query heads per KV head."""
+    G, hd = q.shape[-2:]
+    if hd not in TILE_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} is not supported; the "
+                         f"kernel is built for head_dim in {TILE_HEAD_DIMS}")
+    if G > TILE_ROWS:
+        raise ValueError(f"{name}: {G} query heads per KV head; at most "
+                         f"{TILE_ROWS} are supported")
+
+
+def check_aligned(name, *tensors):
+    """The tile body copies 16-byte vectors of q and the pools."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: q and the pools must start on a 16-byte "
+                         "boundary")
+
+
+def split_workspace(splits: int, slots: int, KV: int, G: int, hd: int,
+                    device):
+    """The split kernels' (acc, (m, l)) workspace, or (None, None) for one
+    split."""
+    if splits == 1:
+        return None, None
+    rows = splits * slots * KV * G
+    return (torch.empty(rows * hd, dtype=torch.float32, device=device),
+            torch.empty(rows * 2, dtype=torch.float32, device=device))
 
 
 def gather_pages(k_pages, v_pages, page_table, k_scale, v_scale):
@@ -118,11 +190,13 @@ def check_paged_args(name, q, k_pages, v_pages, page_table, k_scale,
 
 
 def paged_attention(q, k_pages, v_pages, page_table, pos, *, k_scale=None,
-                    v_scale=None, window=None):
+                    v_scale=None, window=None, splits=None):
     """The CUDA kernel (same arguments as :func:`paged_attention_ref`;
     every tensor contiguous and on one card).  Each row's own key at
-    ``pos`` must already be scattered into the pool."""
+    ``pos`` must already be scattered into the pool.  ``splits`` overrides
+    :func:`plan_page_splits` (the tests force 1 and many)."""
     name = "paged_attention"
+    check_tile_shape(name, q)
     KV, G, hd, P, bs = check_paged_args(
         name, q, k_pages, v_pages, page_table, k_scale, v_scale, window,
         q_dims=4)
@@ -130,14 +204,20 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, *, k_scale=None,
     B = q.shape[0]
     if pos.dtype != torch.int32 or tuple(pos.shape) != (B,):
         raise ValueError(f"{name}: pos must be int32 [B={B}]")
+    check_aligned(name, q, k_pages, v_pages)
+    if splits is None:
+        splits = plan_page_splits(B, KV, P, bs, hd,
+                                  sm_count(q.device.index))
     out = torch.empty_like(q)
+    ws_acc, ws_ml = split_workspace(splits, B, KV, G, hd, q.device)
     fn = kernels.load(name).paged_attention
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
     err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
-             p(page_table), p(pos), p(out), B, KV, G, hd, P, bs,
-             0 if window is None else int(window), Q_DTYPES[q.dtype],
-             KV_DTYPES[k_pages.dtype], kernels.stream_handle(q.device))
+             p(page_table), p(pos), p(out), p(ws_acc), p(ws_ml), B, KV, G,
+             hd, P, bs, 0 if window is None else int(window), splits,
+             Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
+             kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

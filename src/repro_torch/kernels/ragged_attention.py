@@ -16,10 +16,14 @@ scales.
 ``repro/kernels/ragged_attention.py::ragged_attention``.  The TPU design
 flattened the (tile, row) incidence into a host-side work list so a
 sequential grid could keep each output tile resident; CUDA blocks run in
-parallel, so the kernel instead gives each (flat token, KV head) its own
-block, which finds its row from the prefix sum of ``q_len`` itself and
-then attends as one query of the paged kernels does (the warp-split page
-walk of ``csrc/paged_attend.cuh``).
+parallel, so each block finds its own work item — ``64 // G`` consecutive
+tokens of one row and one KV head — by scanning ``ceil(q_len / BT)`` over
+the rows, and attends it with the tensor-core tile body of
+``csrc/paged_tile.cuh`` (shared with the paged decode kernel): the
+item's (token, query head) pairs are the rows of 3xTF32 ``mma.sync``
+tiles, so one page read serves the whole token tile.  Where the grid
+would leave the card idle (a decode tick), an item's visible pages split
+across ``plan_page_splits`` blocks and a second kernel merges them.
 
 :func:`ragged_attention` launches the kernel on CUDA tensors only;
 :func:`ragged_attention_ref` is the plain PyTorch version (the CPU path
@@ -35,9 +39,18 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention import (
-    KV_DTYPES, Q_DTYPES, check_paged_args, gather_pages)
+    KV_DTYPES, Q_DTYPES, TILE_ROWS, check_aligned, check_paged_args,
+    check_tile_shape, gather_pages, plan_page_splits, sm_count,
+    split_workspace)
 
-_SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_SIG = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+
+def work_items(W: int, R: int, G: int) -> int:
+    """The ragged kernel's grid x: ``ceil(W / BT) + R`` with ``BT = 64 //
+    G`` tokens an item, a bound on the work items of any ``q_len`` that
+    packs into ``W`` slots over ``R`` rows."""
+    return -(-W // (TILE_ROWS // G)) + R
 
 
 def ragged_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len,
@@ -75,11 +88,13 @@ def ragged_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len,
 
 
 def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
-                     k_scale=None, v_scale=None, window=None):
+                     k_scale=None, v_scale=None, window=None, splits=None):
     """The CUDA kernel (same arguments as :func:`ragged_attention_ref`;
     every tensor contiguous and on one card).  Every live query's own
-    key must already be scattered into the pool."""
+    key must already be scattered into the pool.  ``splits`` overrides
+    :func:`plan_page_splits` (the tests force 1 and many)."""
     name = "ragged_attention"
+    check_tile_shape(name, q)
     KV, G, hd, P, bs = check_paged_args(
         name, q, k_pages, v_pages, page_table, k_scale, v_scale, window,
         q_dims=4, row_per_query=False)
@@ -88,14 +103,20 @@ def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     for t, nm in ((q_start, "q_start"), (q_len, "q_len")):
         if t.dtype != torch.int32 or tuple(t.shape) != (R,):
             raise ValueError(f"{name}: {nm} must be int32 [R={R}]")
+    check_aligned(name, q, k_pages, v_pages)
+    if splits is None:
+        splits = plan_page_splits(work_items(W, R, G), KV, P, bs, hd,
+                                  sm_count(q.device.index))
     out = torch.empty_like(q)
+    ws_acc, ws_ml = split_workspace(splits, W, KV, G, hd, q.device)
     fn = kernels.load(name).ragged_attention
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
     err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
-             p(page_table), p(q_start), p(q_len), p(out),
-             W, KV, G, hd, R, P, bs, 0 if window is None else int(window),
+             p(page_table), p(q_start), p(q_len), p(out), p(ws_acc),
+             p(ws_ml), W, KV, G, hd, R, P, bs,
+             0 if window is None else int(window), splits,
              Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
              kernels.stream_handle(q.device))
     kernels.check_launch(err, name)

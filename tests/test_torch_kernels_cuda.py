@@ -79,8 +79,9 @@ ROUTER_CASES = {
 
 
 def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
-                   window=None):
-    """A flat-packed batch over a random page pool, as numpy arrays."""
+                   window=None, q_start=None):
+    """A flat-packed batch over a random page pool, as numpy arrays (each
+    row's first position drawn, or ``q_start``)."""
     rng = np.random.default_rng(seed)
     B = len(qlens)
     N = B * P + 1
@@ -97,8 +98,9 @@ def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
         np.int32)
     q_len = np.asarray(qlens, np.int32)
     C = max(max(qlens), 1)
-    q_start = np.asarray([int(rng.integers(0, P * bs - C + 1))
-                          for _ in range(B)], np.int32)
+    draws = np.asarray([int(rng.integers(0, P * bs - C + 1))
+                        for _ in range(B)], np.int32)
+    q_start = draws if q_start is None else np.asarray(q_start, np.int32)
     total = int(q_len.sum())
     W = max(8, 1 << (max(total, 1) - 1).bit_length())
     q = np.zeros((W, KV, G, hd), np.float32)
@@ -142,17 +144,18 @@ def _pool(rng, N, bs, KV, hd, quant):
 
 
 def _paged_inputs(seed, *, B, KV, G, hd, bs=4, P=6, quant=False,
-                  window=None, masked=()):
-    """One decode query per row at a random depth over a shuffled pool;
-    rows in ``masked`` get an all-zero page-table row (the split decode
-    step's mask), as numpy arrays."""
+                  window=None, masked=(), pos=None):
+    """One decode query per row at a random depth (or at ``pos``) over a
+    shuffled pool; rows in ``masked`` get an all-zero page-table row (the
+    split decode step's mask), as numpy arrays."""
     rng = np.random.default_rng(seed)
     N = B * P + 1
     kp, vp, ks, vs = _pool(rng, N, bs, KV, hd, quant)
     pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
         np.int32)
     pt[list(masked)] = 0
-    pos = rng.integers(0, P * bs, B).astype(np.int32)
+    draws = rng.integers(0, P * bs, B).astype(np.int32)
+    pos = draws if pos is None else np.asarray(pos, np.int32)
     q = rng.standard_normal((B, KV, G, hd)).astype(np.float32)
     return (q, kp, vp, pt, pos), dict(k_scale=ks, v_scale=vs, window=window)
 
@@ -186,6 +189,96 @@ PAGED_CASES = {
     "int8-scales": (4, 2, 3, 32, True, None, ()),
     "int8-scales-window-masked": (3, 1, 4, 64, True, 5, (2,)),
 }
+
+
+# The tensor-core tile body of csrc/paged_tile.cuh, on the card only
+# (RAGGED_CASES and PAGED_CASES also feed the CPU parity tests).  Pools at
+# the served page shape, bs 16 and P 41 (640 + 8 tokens); the served head
+# widths (granite 64, phi4 128, gemma3 256) with their G; q_len 64, 37,
+# 21, 63, 1 and 0 side by side, so token tiles of 64 // G straddle rows;
+# gemma3's window of 512 at positions past 512; q and k scaled x4 (scores
+# of std ~16, which one TF32 product per f32 product misses at 1e-4 and
+# 3xTF32 holds); int8 pools with scales and bf16; a W = 8 bucket of idle
+# rows.  Ragged: (q_len per row, q_start or None, KV, G, hd, kind,
+# window, qk_scale).
+TILE_QLENS = [64, 37, 21, 63, 1, 0]
+TILE_LATE = [580, 600, 530, 560, 640, 0]
+RAGGED_TILE_CASES = {
+    "hd64-straddle": (TILE_QLENS, None, 2, 3, 64, "f32", None, 1.0),
+    "hd128-straddle": (TILE_QLENS, None, 2, 3, 128, "f32", None, 1.0),
+    "hd256-straddle": (TILE_QLENS, None, 1, 4, 256, "f32", None, 1.0),
+    "hd256-window512-late": (TILE_QLENS, TILE_LATE, 1, 4, 256, "f32", 512,
+                             1.0),
+    "hd128-x4": (TILE_QLENS, None, 2, 3, 128, "f32", None, 4.0),
+    "hd256-x4-window512-late": (TILE_QLENS, TILE_LATE, 1, 4, 256, "f32",
+                                512, 4.0),
+    "hd128-int8-scales": (TILE_QLENS, TILE_LATE, 2, 3, 128, "int8+scales",
+                          None, 1.0),
+    "hd64-bf16": (TILE_QLENS, None, 2, 3, 64, "bf16", None, 1.0),
+    "hd256-bf16-window512-late": (TILE_QLENS, TILE_LATE, 1, 4, 256, "bf16",
+                                  512, 1.0),
+    "all-idle-W8": ([0] * 8, None, 2, 3, 128, "f32", None, 1.0),
+}
+# Paged: (rows, KV, G, hd, kind, window, masked rows, qk_scale); rows at
+# positions 590-625 (the decode tick chip_smoke.py times), a ninth row
+# masked to the null block at 300
+TILE_POS = [590, 595, 600, 605, 610, 615, 620, 625, 300]
+PAGED_TILE_CASES = {
+    "hd64": (8, 2, 3, 64, "f32", None, (), 1.0),
+    "hd128-masked": (9, 2, 3, 128, "f32", None, (8,), 1.0),
+    "hd256-global": (8, 1, 4, 256, "f32", None, (), 1.0),
+    "hd256-window512-masked": (9, 1, 4, 256, "f32", 512, (8,), 1.0),
+    "hd128-x4": (8, 2, 3, 128, "f32", None, (), 4.0),
+    "hd256-x4-window512": (8, 1, 4, 256, "f32", 512, (), 4.0),
+    "hd128-int8-scales-masked": (9, 2, 3, 128, "int8+scales", None, (8,),
+                                 1.0),
+    "hd256-bf16-window512": (8, 1, 4, 256, "bf16", 512, (), 1.0),
+}
+TILE_TOLS = {"f32": (1e-4, 1e-4), "int8+scales": (1e-4, 1e-4),
+             "bf16": (1e-3, 1e-2)}
+# splits: the launcher's plan, forced to 1, and forced to many (more than
+# some items have K/V tiles, so some splits are empty)
+TILE_SPLITS = (None, 1, 16)
+
+
+def _ragged_tile_inputs(case):
+    """numpy (q, kp, vp, pt, q_start, q_len) and kwargs of a
+    RAGGED_TILE_CASES case, q and k scaled."""
+    qlens, q_start, KV, G, hd, kind, window, qk = RAGGED_TILE_CASES[case]
+    args, kw = _ragged_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
+                              bs=16, P=41, quant=kind == "int8+scales",
+                              window=window, q_start=q_start)
+    if qk != 1.0:
+        args = (args[0] * np.float32(qk), args[1] * np.float32(qk)) + args[2:]
+    return args, kw
+
+
+def _paged_tile_inputs(case):
+    """numpy (q, kp, vp, pt, pos) and kwargs of a PAGED_TILE_CASES case,
+    q and k scaled."""
+    B, KV, G, hd, kind, window, masked, qk = PAGED_TILE_CASES[case]
+    args, kw = _paged_inputs(len(case), B=B, KV=KV, G=G, hd=hd, bs=16, P=41,
+                             quant=kind == "int8+scales", window=window,
+                             masked=masked, pos=TILE_POS[:B])
+    if qk != 1.0:
+        args = (args[0] * np.float32(qk), args[1] * np.float32(qk)) + args[2:]
+    return args, kw
+
+
+def _tile_on(dev, args, kw, kind):
+    """The case's tensors on ``dev``: q (and float pools) in bf16 for the
+    bf16 kind; the plain version's copies, on the CPU, in f32 on the same
+    values."""
+    targs, tkw = _torch(args, kw)
+    if kind == "bf16":
+        targs = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
+                      for a in targs)
+    dargs = tuple(a.to(dev) for a in targs)
+    dkw = {k: (v.to(dev) if torch.is_tensor(v) else v)
+           for k, v in tkw.items()}
+    fargs = tuple(a.float() if a.dtype == torch.bfloat16 else a
+                  for a in targs)
+    return dargs, dkw, fargs, tkw
 
 
 # (q_len per row, KV, G, hd, quant, window, masked rows): chunk, tail,
@@ -358,6 +451,48 @@ def test_cuda_paged_attention_matches_plain(case, cuda_device):
     got = paged_mod.paged_attention(*dargs, **dkw).cpu()
     want = ref.paged_attention_ref(*targs, **tkw)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", TILE_SPLITS)
+@pytest.mark.parametrize("case", sorted(RAGGED_TILE_CASES))
+def test_cuda_ragged_attention_tile_cases(case, splits, cuda_device):
+    """The tile body at the served widths and page shape, under the
+    launcher's split plan, one split and many: f32 and int8 + scales
+    within atol = rtol = 1e-4 (the x4 cases hold only with 3xTF32), bf16
+    against the plain version in f32 on the same values within atol 1e-3,
+    rtol 1e-2; slots past sum(q_len) exactly zero."""
+    kind = RAGGED_TILE_CASES[case][5]
+    dargs, dkw, fargs, tkw = _tile_on(cuda_device, *_ragged_tile_inputs(case),
+                                      kind)
+    got = ragged_mod.ragged_attention(*dargs, **dkw, splits=splits).cpu()
+    want = ref.ragged_attention_ref(*fargs, **tkw)
+    assert got.dtype == dargs[0].dtype
+    atol, rtol = TILE_TOLS[kind]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    total = int(fargs[5].sum())
+    assert torch.equal(got[total:], torch.zeros_like(got[total:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", TILE_SPLITS)
+@pytest.mark.parametrize("case", sorted(PAGED_TILE_CASES))
+def test_cuda_paged_attention_tile_cases(case, splits, cuda_device):
+    """The tile body at a decode tick, under the launcher's split plan,
+    one split and many: live rows within the kind's tolerance of the
+    plain version (as the ragged tile cases), a row masked to the null
+    block finite."""
+    kind, masked = PAGED_TILE_CASES[case][4], PAGED_TILE_CASES[case][6]
+    dargs, dkw, fargs, tkw = _tile_on(cuda_device, *_paged_tile_inputs(case),
+                                      kind)
+    got = paged_mod.paged_attention(*dargs, **dkw, splits=splits).cpu()
+    want = ref.paged_attention_ref(*fargs, **tkw)
+    assert got.dtype == dargs[0].dtype
+    assert bool(torch.isfinite(got.float()).all())
+    live = [b for b in range(got.shape[0]) if b not in masked]
+    atol, rtol = TILE_TOLS[kind]
+    torch.testing.assert_close(got[live].float(), want[live], atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
