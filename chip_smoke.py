@@ -16,11 +16,12 @@ without printing a result):
      layers run ``mamba_scan``), with CUDA-event times for the
      kernel and the plain version (for the gate and the router also back
      to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
-     ``scaled_dot_product_attention`` as a yardstick; for the three
+     ``scaled_dot_product_attention`` as a yardstick; for the four
      tensor-core attention kernels, ``flash_attention``,
-     ``ragged_attention`` and ``paged_attention``, their bound on the
-     tensor cores beside the one on the CUDA cores; for the ragged and
-     paged kernels also their device time from the profiler,
+     ``ragged_attention``, ``paged_attention`` and
+     ``mixed_attention``, their bound on the tensor cores beside the one
+     on the CUDA cores; for the ragged, paged and mixed kernels and the
+     RWKV-6 scan also their device time from the profiler,
      :func:`kernel_ms`, since the host's launch takes longer than a
      decode kernel);
   3. the port's ragged, padded (``mixed_step``) and split
@@ -552,7 +553,17 @@ def check_mixed(dev, flush):
                     lambda: mixed_mod.mixed_attention(*args, **kw),
                     lambda: mixed_mod.mixed_attention_ref(*args, **kw),
                     attention_work(q, kp, pt, queries, kw), flush)
-                emit(timing="mixed_attention", case=name, **t)
+                t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
+                t["splits"], t["merge_launches"] = launched_splits(
+                    lambda: mixed_mod.mixed_attention(*args, **kw),
+                    "mixed_attention")
+                t["kernel_ms"] = kernel_ms(
+                    lambda: mixed_mod.mixed_attention(*args, **kw),
+                    "mixed_attention", flush)
+                emit(timing="mixed_attention", case=name,
+                     ptxas=ptxas_lines(
+                         "mixed_attention",
+                         f"mixed_kernelIffLi{shape['hd']}E"), **t)
             del kp, vp, ks, vs, pt, q, got, want, args
     torch.cuda.empty_cache()
     return worst, timed
@@ -801,7 +812,10 @@ def check_rwkv(dev, flush):
     t = time_case(name, timed, lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
                   lambda: rwkv_mod.rwkv6_scan_ref(r, k, v, w, u),
                   (nbytes, nops), flush)
-    emit(timing="rwkv6_scan", case=name, **t)
+    t["kernel_ms"] = kernel_ms(lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
+                               "rwkv6_scan", flush)
+    emit(timing="rwkv6_scan", case=name,
+         ptxas=ptxas_lines("rwkv6_scan", f"wkv_kernelILi{hd}E"), **t)
     return max(errs.values()), timed
 
 
@@ -1351,9 +1365,9 @@ def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
 
 
 # profiler kernel names of each kernel kind (any of them, by substring):
-# the ragged and paged kinds count their split-merge kernels too
+# the ragged, paged and mixed kinds count their split-merge kernels too
 KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
-                "mixed_attention": ("mixed_kernel",),
+                "mixed_attention": ("mixed_kernel", "mixed_merge_kernel"),
                 "paged_attention": ("paged_decode_kernel",
                                     "paged_merge_kernel"),
                 "flash_attention": ("flash_kernel",),

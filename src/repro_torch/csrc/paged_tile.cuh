@@ -1,10 +1,12 @@
 // The paged attention tile body for Hopper (sm_90a), shared by
-// ragged_attention.cu and paged_attention.cu: one block of 4 warps
-// attends one work item — a tile of query tokens of one row, one KV head,
-// one range of the row's visible K/V tiles — on the tensor cores.
+// ragged_attention.cu, paged_attention.cu and mixed_attention.cu: one
+// block of 4 warps attends one work item — a tile of query tokens of one
+// row, one KV head, one range of the row's visible K/V tiles — on the
+// tensor cores.
 //
-// Contract of both kernels (the TPU kernels' scale order, repro/kernels/
-// ragged_attention.py and paged_attention.py): s = (q.k) / sqrt(hd) *
+// Contract of the three kernels (the TPU kernels' scale order,
+// repro/kernels/ragged_attention.py, paged_attention.py and
+// mixed_attention.py): s = (q.k) / sqrt(hd) *
 // k_scale; masked keys at -1e30 with e = 0; l += sum(e) before
 // e *= v_scale; acc += e . v; out = acc / max(l, 1e-30).  Pools are
 // [N, bs, KV, hd] f32 | bf16 | int8 (+ k/v scales [N, bs, KV]), reached
@@ -52,8 +54,7 @@
 //   are the same run to run.  The launcher sizes the split count
 //   (paged_attention.py::plan_page_splits); with one split the body
 //   writes the output itself.
-// TMA, wgmma and moving mixed_attention.cu onto this body are the next
-// steps.
+// TMA and wgmma are the next steps.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -536,18 +537,14 @@ __device__ __forceinline__ void attend_item(const Args<QT, KT>& a,
     attend<QT, KT, D, 1>(a, it, smem);
 }
 
-// out row r < live_rows (of `rows` per split) from the splits' (m, l,
-// acc) in split order; one thread per output element
+// out element i (of row i / D, of `rows` per split) from the splits'
+// (m, l, acc) in split order
 template <typename QT>
-__device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
-                                             const float* __restrict__ ml,
-                                             QT* __restrict__ out,
-                                             long long rows,
-                                             long long live_rows, int D,
-                                             int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= live_rows * D) return;
+__device__ __forceinline__ void merge_element(const float* __restrict__ acc,
+                                              const float* __restrict__ ml,
+                                              QT* __restrict__ out,
+                                              long long rows, long long i,
+                                              int D, int splits) {
   const long long r = i / D;
   float M = kNeg;
   for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[2 * (s * rows + r)]);
@@ -558,6 +555,20 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
     a += acc[s * rows * D + i] * f;
   }
   store1(out + i, a / fmaxf(L, 1e-30f));
+}
+
+// out rows r < live_rows (of `rows` per split); one thread per output
+// element
+template <typename QT>
+__device__ __forceinline__ void merge_splits(const float* __restrict__ acc,
+                                             const float* __restrict__ ml,
+                                             QT* __restrict__ out,
+                                             long long rows,
+                                             long long live_rows, int D,
+                                             int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i < live_rows * D) merge_element(acc, ml, out, rows, i, D, splits);
 }
 
 constexpr int kMergeThreads = 256;

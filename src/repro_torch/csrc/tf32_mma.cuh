@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by flash_attention.cu and paged_tile.cuh:
 // the 3xTF32 split of an f32 value, the mma.sync.m16n8k8 TF32 product,
-// 16-byte cp.async copies, and the A-fragment load of a 16 x 8 tile.
+// 16-byte cp.async copies (rwkv6_scan.cu uses these too), and the
+// A-fragment load of a 16 x 8 tile.
 //
 // 3xTF32: each f32 operand x splits into two TF32 values, hi and lo =
 // x - hi rounded (split() below), and a product is hi.hi + hi.lo + lo.hi

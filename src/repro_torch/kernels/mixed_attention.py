@@ -14,10 +14,16 @@ per-token scales.
 ``repro/kernels/mixed_attention.py::mixed_attention`` (which
 ``prefill_attention.py::paged_prefill_attention`` delegates to).  The
 TPU grid kept one ``[C * G, hd]`` accumulator per (row, head) in VMEM
-across an ordered page sweep; here each (row, slot, KV head) is a block
-whose warps walk that slot's visible pages side by side
-(``csrc/paged_attend.cuh``; the paged decode and ragged kernels moved
-to the tensor-core tile body of ``csrc/paged_tile.cuh``).
+across an ordered page sweep; here the padded rows are the ragged
+kernel's work items at a fixed stride — ``64 // G`` consecutive slots of
+one row and one KV head a block — attended by the tensor-core tile body
+of ``csrc/paged_tile.cuh`` (shared with the ragged and paged decode
+kernels), and where the grid would leave the card idle an item's pages
+split across ``plan_page_splits`` blocks that a second kernel merges for
+the live slots.  The tile body takes head widths
+``TILE_HEAD_DIMS = (32, 64, 128, 256)`` (not every multiple of 32 up to
+256) and at most 64 query heads per KV head; every served config is
+inside that: gemma3 256, phi4 and jamba 128, granite 64.
 
 :func:`mixed_attention` launches the kernel on CUDA tensors only;
 :func:`mixed_attention_ref` is the plain PyTorch version (the CPU path
@@ -33,11 +39,18 @@ import math
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.paged_attention import (KV_DTYPES, Q_DTYPES,
-                                                 check_paged_args,
-                                                 gather_pages)
+from repro_torch.kernels.paged_attention import (
+    KV_DTYPES, Q_DTYPES, TILE_ROWS, check_aligned, check_paged_args,
+    check_tile_shape, gather_pages, plan_page_splits, sm_count,
+    split_workspace)
 
-_SIG = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_SIG = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+
+def work_items(B: int, C: int, G: int) -> int:
+    """The mixed kernel's grid x: ``B * ceil(C / BT)`` tiles of ``BT = 64
+    // G`` slots, each row's ``C`` slots cut into whole tiles."""
+    return B * -(-C // (TILE_ROWS // G))
 
 
 def mixed_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len, *,
@@ -71,11 +84,14 @@ def mixed_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len, *,
 
 
 def mixed_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
-                    k_scale=None, v_scale=None, window=None):
+                    k_scale=None, v_scale=None, window=None, splits=None):
     """The CUDA kernel (same arguments as :func:`mixed_attention_ref`;
-    every tensor contiguous and on one card).  Every live slot's own key
-    must already be scattered into the pool."""
+    every tensor contiguous and on one card; hd in ``TILE_HEAD_DIMS``, at
+    most 64 query heads per KV head).  Every live slot's own key must
+    already be scattered into the pool.  ``splits`` overrides
+    :func:`plan_page_splits` (the tests force 1 and many)."""
     name = "mixed_attention"
+    check_tile_shape(name, q)
     KV, G, hd, P, bs = check_paged_args(
         name, q, k_pages, v_pages, page_table, k_scale, v_scale, window,
         q_dims=5)
@@ -84,14 +100,21 @@ def mixed_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     for t, nm in ((q_start, "q_start"), (q_len, "q_len")):
         if t.dtype != torch.int32 or tuple(t.shape) != (B,):
             raise ValueError(f"{name}: {nm} must be int32 [B={B}]")
+    check_aligned(name, q, k_pages, v_pages)
+    if splits is None:
+        splits = plan_page_splits(work_items(B, C, G), KV, P, bs, hd,
+                                  sm_count(q.device.index))
     out = torch.empty_like(q)
+    ws_acc, ws_ml = split_workspace(splits, B * C, KV, G, hd, q.device)
     fn = kernels.load(name).mixed_attention
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
     err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
-             p(page_table), p(q_start), p(q_len), p(out), B, C, KV, G, hd,
-             P, bs, 0 if window is None else int(window), Q_DTYPES[q.dtype],
-             KV_DTYPES[k_pages.dtype], kernels.stream_handle(q.device))
+             p(page_table), p(q_start), p(q_len), p(out), p(ws_acc),
+             p(ws_ml), B, C, KV, G, hd, P, bs,
+             0 if window is None else int(window), splits,
+             Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
+             kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

@@ -11,9 +11,11 @@ cache, so both functions return ``(y, S_T)``; the TPU kernel returned
 ``y`` only.
 
 ``csrc/rwkv6_scan.cu`` replaces the TPU kernel
-``repro/kernels/rwkv6_scan.py::rwkv6_scan``: one block per (b, h), each
-thread holding one value column of the state in registers while the
-block steps through time.
+``repro/kernels/rwkv6_scan.py::rwkv6_scan``: a block per (b, h), each
+thread holding an 8 x 4 tile of the state (8 rows by 4 value columns)
+in registers, a column's partial sums of ``y`` combined by warp
+shuffles, stepping through time on chunks of 16 steps that
+``cp.async`` double-buffers in shared memory.
 
 :func:`rwkv6_scan` launches the kernel on CUDA tensors only;
 :func:`rwkv6_scan_ref` is the plain PyTorch version (the CPU path and
@@ -68,6 +70,9 @@ def rwkv6_scan(r, k, v, w, u):
                          f"got {hd}")
     if any(a.dtype != torch.float32 for a in (r, k, v, w, u)):
         raise TypeError(f"{name}: every input must be float32")
+    if any(a.data_ptr() % 16 for a in (r, k, v, w)):
+        raise ValueError(f"{name}: r, k, v and w must start on a 16-byte "
+                         "boundary")
     y = torch.empty_like(r)
     s_out = torch.empty(B, H, hd, hd, dtype=torch.float32, device=r.device)
     fn = kernels.load(name).rwkv6_scan

@@ -411,7 +411,7 @@ def test_kernel_library_hash_covers_shared_headers(tmp_path, monkeypatch):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     before = {n: kernels.library_path(n) for n in kernels.KERNELS}
-    header = tmp_path / "paged_attend.cuh"
+    header = tmp_path / "paged_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: kernels.library_path(n) for n in kernels.KERNELS}
     assert all(before[n] != after[n] for n in kernels.KERNELS)

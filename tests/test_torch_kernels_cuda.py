@@ -161,9 +161,10 @@ def _paged_inputs(seed, *, B, KV, G, hd, bs=4, P=6, quant=False,
 
 
 def _mixed_inputs(seed, *, qlens, KV, G, hd, C=None, bs=4, P=6,
-                  quant=False, window=None, masked=()):
+                  quant=False, window=None, masked=(), q_start=None):
     """A padded [B, C] batch: row b's q_len[b] live slots start at a
-    random position that keeps them inside the row's pages."""
+    random position that keeps them inside the row's pages (or at
+    ``q_start``)."""
     rng = np.random.default_rng(seed)
     B = len(qlens)
     C = C or max(max(qlens), 1)
@@ -172,7 +173,8 @@ def _mixed_inputs(seed, *, qlens, KV, G, hd, C=None, bs=4, P=6,
     pt = rng.permutation(np.arange(1, N))[:B * P].reshape(B, P).astype(
         np.int32)
     pt[list(masked)] = 0
-    q_start = rng.integers(0, P * bs - C + 1, B).astype(np.int32)
+    draws = rng.integers(0, P * bs - C + 1, B).astype(np.int32)
+    q_start = draws if q_start is None else np.asarray(q_start, np.int32)
     q = rng.standard_normal((B, C, KV, G, hd)).astype(np.float32)
     return (q, kp, vp, pt, q_start, np.asarray(qlens, np.int32)), dict(
         k_scale=ks, v_scale=vs, window=window)
@@ -295,6 +297,54 @@ MIXED_CASES = {
 }
 
 
+# The mixed kernel on the tile body, on the card only (MIXED_CASES also
+# feeds the CPU parity tests): the served widths with their G (granite
+# 64 and phi4 128 at G 3, jamba 128 and gemma3 256 at G 4) at the served
+# page shape, bs 16 and P 41, under TILE_SPLITS and TILE_TOLS.  C = 64
+# with q_len 64, 43, 0, 21, 63, 1, 37 and 64 side by side: dead slots
+# inside rows, and at G 3 (21-slot tiles) a 64- or 43-token row's last
+# tile holds 1 token and takes the body's decode layout; C = 1, a decode
+# batch with idle rows; an all-idle bucket; q and k scaled x4; int8 pools
+# with scales; bf16; gemma3's window of 512 at positions past 512.
+# (q_len per row, C, q_start or None, KV, G, hd, kind, window, qk_scale).
+MIXED_QLENS = [64, 43, 0, 21, 63, 1, 37, 64]
+MIXED_LATE = [580, 590, 0, 530, 590, 640, 560, 585]
+MIXED_DECODE = [1, 1, 0, 1, 1, 1, 0, 1]
+MIXED_TILE_CASES = {
+    "hd64-G3-C64": (MIXED_QLENS, 64, None, 2, 3, 64, "f32", None, 1.0),
+    "hd128-G3-C64": (MIXED_QLENS, 64, None, 2, 3, 128, "f32", None, 1.0),
+    "hd128-G4-C64": (MIXED_QLENS, 64, None, 2, 4, 128, "f32", None, 1.0),
+    "hd256-G4-C64": (MIXED_QLENS, 64, None, 1, 4, 256, "f32", None, 1.0),
+    "hd256-G4-window512-late": (MIXED_QLENS, 64, MIXED_LATE, 1, 4, 256,
+                                "f32", 512, 1.0),
+    "hd128-G3-C1": (MIXED_DECODE, 1, TILE_POS[:8], 2, 3, 128, "f32", None,
+                    1.0),
+    "hd256-G4-C1-window512": (MIXED_DECODE, 1, TILE_POS[:8], 1, 4, 256,
+                              "f32", 512, 1.0),
+    "all-idle-C64": ([0] * 8, 64, None, 2, 3, 128, "f32", None, 1.0),
+    "hd128-G3-x4": (MIXED_QLENS, 64, None, 2, 3, 128, "f32", None, 4.0),
+    "hd256-G4-x4-window512-late": (MIXED_QLENS, 64, MIXED_LATE, 1, 4, 256,
+                                   "f32", 512, 4.0),
+    "hd128-G3-int8-scales-late": (MIXED_QLENS, 64, MIXED_LATE, 2, 3, 128,
+                                  "int8+scales", None, 1.0),
+    "hd64-G3-bf16": (MIXED_QLENS, 64, None, 2, 3, 64, "bf16", None, 1.0),
+    "hd256-G4-bf16-window512-late": (MIXED_QLENS, 64, MIXED_LATE, 1, 4,
+                                     256, "bf16", 512, 1.0),
+}
+
+
+def _mixed_tile_inputs(case):
+    """numpy (q, kp, vp, pt, q_start, q_len) and kwargs of a
+    MIXED_TILE_CASES case, q and k scaled."""
+    qlens, C, q_start, KV, G, hd, kind, window, qk = MIXED_TILE_CASES[case]
+    args, kw = _mixed_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd, C=C,
+                             bs=16, P=41, quant=kind == "int8+scales",
+                             window=window, q_start=q_start)
+    if qk != 1.0:
+        args = (args[0] * np.float32(qk), args[1] * np.float32(qk)) + args[2:]
+    return args, kw
+
+
 # (B, H, KV, S, T, d, causal, window): the smoke widths (d 32; gemma3's
 # window 16 and its global layers), S and T off every tile size, granite
 # (d 64), phi4 (d 128) and gemma3 (d 256) head widths, GQA, a sliding
@@ -350,15 +400,19 @@ def _flash_inputs(seed, B, H, KV, S, T, d):
                  for shape in ((B, H, S, d), (B, KV, T, d), (B, KV, T, d)))
 
 
-# (B, H, T, hd): rwkv6-3b-smoke's heads (hd 32) over T off the 32-step
-# chunk and the TPU kernel's 128-step one, two batch rows, hd 64 (rwkv6-3b)
-# and 128, and a single step
+# (B, H, T, hd): rwkv6-3b-smoke's heads (hd 32) over T off the kernel's
+# 16-step chunk and the TPU kernel's 128-step one, two batch rows, hd 64
+# (rwkv6-3b) and 128, a single step, T = 0 (a zero state and an empty y),
+# T = 77 at hd 128 (4 blocks a head) and one head of hd 64 (B·H = 1)
 RWKV_CASES = {
     "smoke-T130": (1, 2, 130, 32),
     "two-rows": (2, 3, 33, 32),
     "hd64": (1, 2, 70, 64),
     "hd128": (1, 1, 40, 128),
     "one-step": (1, 2, 1, 32),
+    "empty-T0": (2, 3, 0, 64),
+    "hd128-T77": (2, 2, 77, 128),
+    "one-head-hd64": (1, 1, 100, 64),
 }
 
 
@@ -511,6 +565,27 @@ def test_cuda_mixed_attention_matches_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", TILE_SPLITS)
+@pytest.mark.parametrize("case", sorted(MIXED_TILE_CASES))
+def test_cuda_mixed_attention_tile_cases(case, splits, cuda_device):
+    """The mixed kernel on the tile body at the served widths and page
+    shape, under the launcher's split plan, one split and many: live
+    slots within the kind's tolerance of the plain version (as the ragged
+    tile cases), every dead slot (i >= q_len[b]) exactly zero."""
+    kind = MIXED_TILE_CASES[case][6]
+    dargs, dkw, fargs, tkw = _tile_on(cuda_device, *_mixed_tile_inputs(case),
+                                      kind)
+    got = mixed_mod.mixed_attention(*dargs, **dkw, splits=splits).cpu()
+    want = ref.mixed_attention_ref(*fargs, **tkw)
+    assert got.dtype == dargs[0].dtype and got.shape == dargs[0].shape
+    live = torch.arange(got.shape[1])[None, :] < fargs[5].long()[:, None]
+    atol, rtol = TILE_TOLS[kind]
+    torch.testing.assert_close(got[live].float(), want[live], atol=atol,
+                               rtol=rtol)
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case,ties", [(c, False) for c in sorted(
     ROUTER_CASES)] + [("granite-decode", True), ("E1024", True)])
 def test_cuda_router_gate_matches_plain(case, ties, cuda_device):
@@ -609,6 +684,20 @@ def test_cuda_rwkv6_scan_matches_plain(case, cuda_device):
     want_y, want_s = ref.rwkv6_scan_ref(*args)
     torch.testing.assert_close(y.cpu(), want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s_T.cpu(), want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_scan_refuses_unaligned_views(cuda_device):
+    """An input whose storage starts one element off the 16-byte
+    alignment the kernel's cp.async copies need is refused, not
+    copied."""
+    r, k, v, w, u = (torch.from_numpy(a).to(cuda_device)
+                     for a in _rwkv_inputs(5, 1, 2, 9, 32))
+    buf = torch.empty(r.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(r.shape)
+    shifted.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv_mod.rwkv6_scan(shifted, k, v, w, u)
 
 
 @pytest.mark.cuda

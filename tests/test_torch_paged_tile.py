@@ -1,8 +1,9 @@
 """The host side of the paged tile kernels (``csrc/paged_tile.cuh`` under
-``ragged_attention`` and ``paged_attention``), on the CPU: the split
-plan, the ragged grid's bound on work items, the launchers' shape checks,
-and the x4 card cases' proof of the 3xTF32 split.  The kernels themselves
-run in the ``cuda``-marked tests of ``test_torch_kernels_cuda.py``.
+``ragged_attention``, ``paged_attention`` and ``mixed_attention``), on
+the CPU: the split plan, the ragged and mixed grids' work items, the
+launchers' shape checks, and the x4 card cases' proof of the 3xTF32
+split.  The kernels themselves run in the ``cuda``-marked tests of
+``test_torch_kernels_cuda.py``.
 """
 import functools
 import itertools
@@ -12,11 +13,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import mixed_attention as mixed_mod  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from tests.test_torch_kernels_cuda import (PAGED_TILE_CASES,  # noqa: E402
-                                           RAGGED_TILE_CASES, _paged_inputs,
+from tests.test_torch_kernels_cuda import (MIXED_TILE_CASES,  # noqa: E402
+                                           PAGED_TILE_CASES,
+                                           RAGGED_TILE_CASES, _mixed_inputs,
+                                           _mixed_tile_inputs, _paged_inputs,
                                            _paged_tile_inputs,
                                            _ragged_inputs,
                                            _ragged_tile_inputs, _tf32,
@@ -117,6 +121,65 @@ def test_tile_launchers_refuse_unsupported_head_dim_before_cuda():
         paged_mod.paged_attention(*targs, **tkw)
 
 
+@pytest.mark.parametrize("model", ["phi4", "granite", "jamba"])
+def test_mixed_plan_one_split_at_the_full_bucket(model):
+    """The padded [8, 64] bucket cut into tiles of 64 // G slots (4 a row
+    at G 3 and 4) is 32 items; at 8 KV heads that is 256 blocks, a wave of
+    2 per SM: no split, no merge kernel."""
+    G, KV, hd = SERVED[model]
+    items = mixed_mod.work_items(8, 64, G)
+    assert items == 32
+    assert plan(items, KV, P, BS, hd) == 1
+
+
+@pytest.mark.parametrize("model", sorted(SERVED))
+def test_mixed_plan_splits_decode(model):
+    """The width-1 decode batch [8, 1] is one item a row: 8 items, so the
+    pages split, within the plan's limits.  gemma3's single KV head
+    leaves even the full bucket at 32 blocks, a quarter of the card, so
+    it splits there too, into fewer than at decode."""
+    G, KV, hd = SERVED[model]
+    decode = plan(mixed_mod.work_items(8, 1, G), KV, P, BS, hd)
+    assert mixed_mod.work_items(8, 1, G) == 8
+    assert 1 < decode <= _tiles(P, BS, hd) // 2
+    assert 8 * KV * decode <= 2 * H100_SMS
+    full = plan(mixed_mod.work_items(8, 64, G), KV, P, BS, hd)
+    if model == "gemma3":
+        assert 1 < full < decode
+    else:
+        assert full == 1
+
+
+@pytest.mark.parametrize("G", [1, 3, 4, 9, 64])
+def test_mixed_work_items_cover_every_slot_once(G):
+    """Block (b, i) of the mixed grid takes slots [i * BT, min((i + 1) * BT,
+    C)) of row b: the B * ceil(C / BT) blocks cover each row's C slots
+    once, and no tile reaches into the next row."""
+    bt = paged_mod.TILE_ROWS // G
+    for B, C in ((1, 1), (8, 1), (8, 64), (3, 17), (2, bt), (2, bt + 1)):
+        tiles = mixed_mod.work_items(B, C, G) // B
+        assert mixed_mod.work_items(B, C, G) == B * tiles
+        covered = [s for i in range(tiles)
+                   for s in range(i * bt, min((i + 1) * bt, C))]
+        assert covered == list(range(C))
+
+
+def test_mixed_launcher_refuses_unsupported_shapes_before_cuda():
+    """hd = 96 (a multiple of 32 the tile body is not built for) and more
+    than 64 query heads per KV head are refused by name on CPU tensors,
+    before the CUDA check and before any build."""
+    targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=1, hd=96))
+    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 128, "
+                                         r"256\)"):
+        mixed_mod.mixed_attention(*targs, **tkw)
+    targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=65, hd=32))
+    with pytest.raises(ValueError, match="at most 64"):
+        mixed_mod.mixed_attention(*targs, **tkw)
+    targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=4, hd=32))
+    with pytest.raises(ValueError, match="CUDA"):
+        mixed_mod.mixed_attention(*targs, **tkw)
+
+
 def test_split_workspace_only_for_several_splits():
     assert paged_mod.split_workspace(1, 8, 2, 3, 64, "cpu") == (None, None)
     acc, ml = paged_mod.split_workspace(3, 8, 2, 3, 64, "cpu")
@@ -151,3 +214,15 @@ def test_paged_x4_tile_cases_defeat_one_tf32_product(case):
     rounded, _ = _torch((_tf32(q), _tf32(kp), vp, pt, pos), kw)
     one = ref.paged_attention_ref(*rounded, **tkw)
     assert not torch.allclose(one, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", _x4(MIXED_TILE_CASES))
+def test_mixed_x4_tile_cases_defeat_one_tf32_product(case):
+    """As the ragged x4 cases, for the mixed cases: on the live slots."""
+    (q, kp, vp, pt, qs, ql), kw = _mixed_tile_inputs(case)
+    targs, tkw = _torch((q, kp, vp, pt, qs, ql), kw)
+    want = ref.mixed_attention_ref(*targs, **tkw)
+    rounded, _ = _torch((_tf32(q), _tf32(kp), vp, pt, qs, ql), kw)
+    one = ref.mixed_attention_ref(*rounded, **tkw)
+    live = torch.arange(q.shape[1])[None, :] < torch.from_numpy(ql)[:, None]
+    assert not torch.allclose(one[live], want[live], atol=1e-4, rtol=1e-4)
