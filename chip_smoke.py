@@ -20,10 +20,10 @@ without printing a result):
      tensor-core attention kernels, ``flash_attention``,
      ``ragged_attention``, ``paged_attention`` and
      ``mixed_attention``, their bound on the tensor cores beside the one
-     on the CUDA cores; for the ragged, paged and mixed kernels and the
-     RWKV-6 scan also their device time from the profiler,
+     on the CUDA cores; for the ragged, paged and mixed kernels, the
+     gate and the two scans also their device time from the profiler,
      :func:`kernel_ms`, since the host's launch takes longer than a
-     decode kernel);
+     decode kernel, and for the split kernels the splits launched);
   3. the port's ragged, padded (``mixed_step``) and split
      (``prefill_chunk`` then ``decode_step``) steps end to end on the
      card against the same steps on the CPU (plain versions), at the
@@ -289,11 +289,13 @@ def ptxas_lines(name: str, instance: str = "") -> list:
     return out
 
 
-def launched_splits(fn, kind: str):
-    """The page-split count one call of ``fn`` launched: grid z of the
-    kind's tile kernel (its first ``KERNEL_NAMES`` entry), read from the
-    profiler's trace of that call, with the merge launches beside it
-    (none for one split).  None where the trace gives no grid."""
+def launched_splits(fn, kind: str, axis: int = 2):
+    """The split count one call of ``fn`` launched: grid z (``axis``; y
+    for the gate's vocab splits) of the kind's tile kernel (its first
+    ``KERNEL_NAMES`` entry), read from the profiler's trace of that call,
+    with the launches of its merge kernels beside it (none for one split,
+    and none for the gate, whose last block merges).  None where the
+    trace gives no grid."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -305,14 +307,14 @@ def launched_splits(fn, kind: str):
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text()).get("traceEvents", [])
     path.unlink()
-    tile, merge = KERNEL_NAMES[kind]
+    tile, *merge = KERNEL_NAMES[kind]
     kern = [e for e in events if e.get("cat") == "kernel"]
     grids = [e.get("args", {}).get("grid") for e in kern
              if tile in e.get("name", "")]
-    merges = sum(merge in e.get("name", "") for e in kern)
+    merges = sum(any(m in e.get("name", "") for m in merge) for e in kern)
     if len(grids) != 1 or not grids[0]:
         return None, merges
-    return int(grids[0][2]), merges
+    return int(grids[0][axis]), merges
 
 
 def time_case(name, timed, kernel, plain, work, flush):
@@ -574,7 +576,8 @@ def check_gate(dev, flush):
     gen.manual_seed(1)
     worst, timed = {"conf": 0.0, "entropy": 0.0, "logz": 0.0}, {}
     for name, V in (("gemma3-1b", 262144), ("phi4-mini-3.8b", 200064),
-                    ("granite-moe-3b-a800m", 49155)):
+                    ("granite-moe-3b-a800m", 49155),
+                    ("rwkv6-3b / jamba-v0.1-52b", 65536)):
         # random logits at a spread where the max is well separated
         x = torch.randn(8, V, generator=gen, device=dev) * 3.0
         got = gate_mod.confidence_gate(x)
@@ -607,7 +610,12 @@ def check_gate(dev, flush):
         timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, bytes=nbytes, ops=x.numel() * 5,
                            device_ms=device_ms(
-                               lambda: gate_mod.confidence_gate(x)))
+                               lambda: gate_mod.confidence_gate(x)),
+                           kernel_ms=kernel_ms(
+                               lambda: gate_mod.confidence_gate(x),
+                               "confidence_gate", flush))
+        timed[name]["splits"], _ = launched_splits(
+            lambda: gate_mod.confidence_gate(x), "confidence_gate", axis=1)
         emit(timing="confidence_gate", case=f"{name} [8, {V}] f32",
              **timed[name])
     # an exact tie: the first index must win
@@ -878,7 +886,10 @@ def check_mamba(dev, flush):
                       (nbytes, nops), flush)
         t["exponentials"] = B * T * d * n
         t["sfu_bound_ms"] = B * T * d * n / SFU_EXP_PER_S * 1e3
-        emit(timing="mamba_scan", case=name, **t)
+        t["kernel_ms"] = kernel_ms(lambda: mamba_mod.mamba_scan(*args),
+                                   "mamba_scan", flush)
+        emit(timing="mamba_scan", case=name,
+             ptxas=ptxas_lines("mamba_scan", f"mamba_kernelILi{n}E"), **t)
         del args, y, h_T, want_y, want_h
     torch.cuda.empty_cache()
     return worst, timed

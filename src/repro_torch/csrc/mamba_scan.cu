@@ -14,93 +14,156 @@
 //   h_out [B, d, n] f32: the state after the last step, which the TPU
 //         kernel drops and the model's prefill keeps as its decode cache
 //
-// What bounds it on this card: bytes.  Per (b, t, channel) the scan reads
-// x and dt and writes y (12 bytes) and does about 7 n f32 operations (n
-// exponentials among them): at n = 16, some 9 operations per byte, below
-// the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20.  The n exponentials per
-// (b, t, channel) go to the SFU (16 a clock per SM), a second limit about
-// as tight as the bytes at n = 16.
+// What bounds it on this card: bytes and the special function units,
+// about equally at n = 16.  Per (b, t, channel) the scan reads x and dt
+// and writes y (12 bytes) and does about 7 n f32 operations, below the
+// f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20 operations a byte; its n
+// exponentials go to the SFU, 16 a clock per SM.
 //
-// Design: one block of 128 threads per (batch row, group of 128
-// channels); thread c owns channel c and keeps its n state values and
-// its row of A in registers (n is a template parameter: 8 or 16), so
-// a step needs no barrier.  B_t and C_t of a chunk of 64 steps are
-// staged in shared memory (one coalesced load of the row's contiguous
-// [64, n] slices, then broadcast reads) with one barrier per chunk.  x and
-// dt are read, and y written, across the block's channels (coalesced),
-// 8 steps at a time into registers so that their loads are in flight
-// together ahead of the serial chain of state updates.  A ragged last
-// channel group is masked; T = 0 writes a zero state.  The chunked
-// (parallel-in-time) form of the scan is later work.
+// Design: one block of kThreads threads per (batch row, group of kThreads
+// channels); thread c owns channel c and keeps its n state values and its
+// row of A, pre-scaled by log2 e, in registers (n is a template parameter:
+// 8 or 16), so a step needs no barrier and its n exponentials are one
+// ex2.approx each.  The inputs of kTC steps (the block's [kTC, kThreads]
+// tiles of x and dt, row-strided, and the row's contiguous [kTC, n] B_t
+// and C_t) are staged in shared memory by cp.async, two chunks deep: the
+// copy of chunk k + 1 is issued before chunk k is stepped, so the loads
+// are in flight while the serial chain runs, and each chunk costs one
+// cp.async.wait_group and one barrier.  y goes straight to global memory
+// (coalesced across the block's channels).  A ragged last channel group
+// is zero-filled and masked; d not a multiple of 4 copies x and dt 4 bytes
+// at a time; T = 0 writes a zero state.  The chunked (parallel-in-time)
+// form of the scan is later work.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;      // channels per block
-constexpr int kTC = 64;            // steps whose B_t, C_t are staged
-constexpr int kSub = 8;            // steps whose x, dt sit in registers
+constexpr int kThreads = 64;       // channels per block
+constexpr int kTC = 32;            // steps per staged chunk
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory; zeros where !in
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 template <int N>
+struct Stage {
+  float x[kTC * kThreads];
+  float dt[kTC * kThreads];
+  float b[kTC * N];
+  float c[kTC * N];
+};
+
+// Issue the copies of one chunk: `steps` steps from (b, t0) into `st`.
+template <int N, bool kVec>
+__device__ __forceinline__ void stage_chunk(
+    Stage<N>& st, const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ Bt, const float* __restrict__ Ct,
+    long long t_row, int steps, int c0, int d) {
+  const float* gb = Bt + t_row * N;
+  const float* gc = Ct + t_row * N;
+  for (int e = threadIdx.x * 4; e < steps * N; e += kThreads * 4) {
+    cp16(st.b + e, gb + e, true);
+    cp16(st.c + e, gc + e, true);
+  }
+  constexpr int kPer = kVec ? 4 : 1;           // floats per copy
+  constexpr int kRow = kThreads / kPer;        // copies per step
+  for (int e = threadIdx.x; e < steps * kRow; e += kThreads) {
+    const int s = e / kRow, j = (e % kRow) * kPer;
+    const bool in = c0 + j < d;
+    const long long off = (t_row + s) * d + (in ? c0 + j : 0);
+    if constexpr (kVec) {
+      cp16(st.x + s * kThreads + j, x + off, in);
+      cp16(st.dt + s * kThreads + j, dt + off, in);
+    } else {
+      cp4(st.x + s * kThreads + j, x + off, in);
+      cp4(st.dt + s * kThreads + j, dt + off, in);
+    }
+  }
+  cp_commit();
+}
+
+template <int N, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 mamba_kernel(const float* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ Bt, const float* __restrict__ Ct,
              const float* __restrict__ A, float* __restrict__ y,
              float* __restrict__ h_out, int T, int d) {
-  __shared__ float bs[kTC * N];
-  __shared__ float cs[kTC * N];
+  __shared__ __align__(16) Stage<N> stage[2];
 
   const int b = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int c0 = blockIdx.x * kThreads;
+  const int c = c0 + threadIdx.x;
   const bool live = c < d;
 
-  float a[N], h[N];
+  float a2[N], h[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    a[i] = live ? A[static_cast<long long>(c) * N + i] : 0.0f;
+    a2[i] = live ? A[static_cast<long long>(c) * N + i] * kLog2e : 0.0f;
     h[i] = 0.0f;
   }
 
   const long long row = static_cast<long long>(b) * T;   // (b, t=0)
-  for (int t0 = 0; t0 < T; t0 += kTC) {
+  const int chunks = (T + kTC - 1) / kTC;
+  if (chunks > 0)
+    stage_chunk<N, kVec>(stage[0], x, dt, Bt, Ct, row, min(kTC, T), c0, d);
+  for (int k = 0; k < chunks; ++k) {
+    const int t0 = k * kTC;
     const int steps = min(kTC, T - t0);
-    __syncthreads();                  // the last chunk's readers are done
-    const long long g = (row + t0) * N;
-    for (int e = threadIdx.x; e < steps * N; e += kThreads) {
-      bs[e] = Bt[g + e];
-      cs[e] = Ct[g + e];
-    }
-    __syncthreads();
+    cp_wait_all();        // chunk k, the only copy in flight, has landed
+    __syncthreads();      // ... for every thread; chunk k-1 is read
+    if (k + 1 < chunks)   // into the buffer chunk k-1 used
+      stage_chunk<N, kVec>(stage[(k + 1) & 1], x, dt, Bt, Ct,
+                           row + t0 + kTC, min(kTC, T - t0 - kTC), c0, d);
     if (!live) continue;
-    for (int s0 = 0; s0 < steps; s0 += kSub) {
-      float xv[kSub], dv[kSub], yv[kSub];
+    const Stage<N>& st = stage[k & 1];
+    float* yo = y + (row + t0) * d + c;
+#pragma unroll 4
+    for (int s = 0; s < steps; ++s) {
+      const float dv = st.dt[s * kThreads + threadIdx.x];
+      const float dx = dv * st.x[s * kThreads + threadIdx.x];
+      const float4* b4 = reinterpret_cast<const float4*>(st.b + s * N);
+      const float4* c4 = reinterpret_cast<const float4*>(st.c + s * N);
+      float acc = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kSub; ++k) {
-        const long long off = (row + t0 + s0 + k) * d + c;
-        const bool in = s0 + k < steps;
-        xv[k] = in ? x[off] : 0.0f;
-        dv[k] = in ? dt[off] : 0.0f;
-      }
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 bq = b4[q], cq = c4[q];
+        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+        const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
 #pragma unroll
-      for (int k = 0; k < kSub; ++k) {
-        yv[k] = 0.0f;
-        if (s0 + k < steps) {         // past the chunk: state unchanged
-          const float* bk = bs + (s0 + k) * N;
-          const float* ck = cs + (s0 + k) * N;
-          const float dx = dv[k] * xv[k];
-          float acc = 0.0f;
-#pragma unroll
-          for (int i = 0; i < N; ++i) {
-            h[i] = __expf(dv[k] * a[i]) * h[i] + dx * bk[i];
-            acc += h[i] * ck[i];
-          }
-          yv[k] = acc;
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * q + j;
+          h[i] = ex2(dv * a2[i]) * h[i] + dx * bv[j];
+          acc += h[i] * cv[j];
         }
       }
-#pragma unroll
-      for (int k = 0; k < kSub; ++k)
-        if (s0 + k < steps) y[(row + t0 + s0 + k) * d + c] = yv[k];
+      yo[static_cast<long long>(s) * d] = acc;
     }
   }
   if (!live) return;
@@ -115,16 +178,21 @@ int launch(const float* x, const float* dt, const float* Bt, const float* Ct,
            cudaStream_t s) {
   dim3 grid(static_cast<unsigned>((d + kThreads - 1) / kThreads),
             static_cast<unsigned>(B));
-  mamba_kernel<N><<<grid, kThreads, 0, s>>>(x, dt, Bt, Ct, A, y, h_out, T,
-                                            d);
+  if (d % 4 == 0)
+    mamba_kernel<N, true><<<grid, kThreads, 0, s>>>(x, dt, Bt, Ct, A, y,
+                                                    h_out, T, d);
+  else
+    mamba_kernel<N, false><<<grid, kThreads, 0, s>>>(x, dt, Bt, Ct, A, y,
+                                                     h_out, T, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // All pointers f32 and contiguous: x, dt [B, T, d], B_t, C_t [B, T, n],
-// A [d, n], y [B, T, d], h_out [B, d, n].  n must be 8 or 16.  T = 0
-// writes a zero state.  Returns cudaGetLastError().
+// A [d, n], y [B, T, d], h_out [B, d, n]; x, dt, B_t and C_t start on a
+// 16-byte boundary (cp.async).  n must be 8 or 16.  T = 0 writes a zero
+// state.  Returns cudaGetLastError().
 extern "C" int mamba_scan(const float* x, const float* dt, const float* Bt,
                           const float* Ct, const float* A, float* y,
                           float* h_out, int B, int T, int d, int n,

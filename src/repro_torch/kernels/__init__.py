@@ -18,6 +18,7 @@ counters.  Device code shared between kernels lives in ``csrc/*.cuh``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -137,6 +138,12 @@ def require_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which the split plans fill."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

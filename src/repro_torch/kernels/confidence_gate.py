@@ -14,6 +14,16 @@ from online-softmax accumulators (running max m, Σexp S, Σ(x-m)exp T):
 ``logZ = m + log S``, ``conf = exp(x_max - logZ)``, ``H = log S - T/S``.
 It replaces the TPU kernel ``repro/kernels/confidence_gate.py``.
 
+Bytes bound the kernel, and the engine's 8 rows are too few blocks to
+stream them at the card's rate, so each row is split across
+:func:`plan_gate_splits` blocks (about four blocks per SM in all).  Split
+boundaries sit on the 16-byte grid past the row's first 16-byte address
+(:func:`gate_slices`), so every slice but the first streams 16-byte
+loads from its start.  Each block merges its threads' states; the row's
+last block to finish (a per-row counter, kept zeroed per device and
+stream) merges the splits' partials in one fixed order, whichever block
+finishes last, so two calls on the same logits give the same bits.
+
 :func:`confidence_gate` launches the kernel on CUDA tensors only;
 :func:`confidence_gate_ref` is the plain PyTorch version (the CPU path
 and the kernel's oracle).  Model code calls the dispatching wrapper
@@ -22,15 +32,71 @@ and the kernel's oracle).  Model code calls the dispatching wrapper
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]
+_SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 8)
+
+# csrc/confidence_gate.cu: threads of a block, which is also the most
+# splits its last block merges; the fewest elements worth a split; and
+# the blocks an SM holds at once (4 x 256 threads at its 64 registers
+# fill the register file: one wave)
+GATE_THREADS = 256
+MIN_SPLIT = 4096
+BLOCKS_PER_SM = 4
+
+# (device index, stream) -> per-row split counters; each launch leaves
+# them zero
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def plan_gate_splits(rows: int, vocab: int, dtype_bytes: int,
+                     sms: int) -> Tuple[int, int]:
+    """(splits, chunk): how many blocks share one row of ``vocab``
+    logits of ``dtype_bytes`` bytes each, and the elements of a split's
+    slice, from the shapes and the card's ``sms`` alone.  About
+    ``BLOCKS_PER_SM * sms`` blocks in all (one wave; times by variant:
+    ``scripts/torch_kernel_ab.py``), at most ``GATE_THREADS`` a row and
+    never a split of fewer than ``MIN_SPLIT`` elements; one split when
+    ``rows`` alone fill that wave or the row is short.  ``chunk`` is a
+    whole number of 16-byte vectors, and the count is cut so that every
+    split is non-empty whatever the row's head (:func:`gate_slices`)."""
+    vec = 16 // dtype_bytes
+    target = min(BLOCKS_PER_SM * sms // max(rows, 1), GATE_THREADS,
+                 vocab // MIN_SPLIT)
+    if target < 2:
+        return 1, vocab
+    chunk = -(-vocab // target)
+    chunk = -(-chunk // vec) * vec
+    return -(-(vocab - vec + 1) // chunk), chunk
+
+
+def gate_slices(vocab: int, head: int, splits: int,
+                chunk: int) -> List[Tuple[int, int]]:
+    """[lo, hi) of each split of a row whose first ``head`` elements lie
+    before its first 16-byte address, as the kernel cuts it: split k > 0
+    starts ``head + k * chunk`` elements in, and the last runs to the
+    end."""
+    bounds = [0] + [min(vocab, head + k * chunk)
+                    for k in range(1, splits)] + [vocab]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _row_counters(device: torch.device, stream: int,
+                  rows: int) -> torch.Tensor:
+    """At least ``rows`` zeroed int32 counters for launches on ``stream``
+    of ``device``."""
+    key = (device.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < rows:
+        cnt = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = cnt
+    return cnt
 
 
 def confidence_gate_ref(logits):
@@ -61,18 +127,29 @@ def confidence_gate(logits):
         raise ValueError(f"confidence_gate: vocab {V} exceeds int32 ids")
     x = logits.reshape(-1, V)
     R = x.shape[0]
+    splits, chunk = plan_gate_splits(R, V, x.element_size(),
+                                     kernels.sm_count(x.device.index))
+    # the host's work per call is part of the tick (the engine waits on
+    # the host), so the f32 outputs share one allocation, and so do the
+    # splits' partials: R * splits float4 (m, S, T, amax), then as many
+    # int32 argmax ids
     f32 = dict(dtype=torch.float32, device=x.device)
-    conf = torch.empty(R, **f32)
-    ent = torch.empty(R, **f32)
-    logz = torch.empty(R, **f32)
+    conf, ent, logz = torch.empty(3, R, **f32)
     arg = torch.empty(R, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = part_idx = count = None
+    if splits > 1 and R > 0:
+        ws = torch.empty(R * splits * 5, **f32)
+        part = ws.data_ptr()
+        part_idx = part + 16 * R * splits
+        count = _row_counters(x.device, stream, R).data_ptr()
     lib = kernels.load("confidence_gate")
     fn = lib.confidence_gate
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
-    err = fn(kernels.ptr(x), R, V, _DTYPES[x.dtype], kernels.ptr(conf),
-             kernels.ptr(ent), kernels.ptr(arg), kernels.ptr(logz),
-             kernels.stream_handle(x.device))
+    p = kernels.ptr
+    err = fn(p(x), R, V, _DTYPES[x.dtype], splits, chunk, p(conf), p(ent),
+             p(arg), p(logz), part, part_idx, count, stream)
     kernels.check_launch(err, "confidence_gate")
     return {"conf": conf.reshape(lead), "entropy": ent.reshape(lead),
             "argmax": arg.reshape(lead), "logz": logz.reshape(lead)}

@@ -12,8 +12,13 @@ cache, so both functions return ``(y, h_T)``; the TPU kernel returned
 
 ``csrc/mamba_scan.cu`` replaces the TPU kernel
 ``repro/kernels/mamba_scan.py::mamba_scan``: one block per (batch row,
-128 channels), each thread holding one channel's ``n`` state values in
-registers while the block steps through time.
+64 channels), each thread holding one channel's ``n`` state values and
+its row of ``A`` (times log2 e, so each exponential is one ``ex2``) in
+registers while the block steps through time.  The next 32 steps' x, dt,
+B_t and C_t are copied into shared memory by ``cp.async`` while the
+current 32 are stepped, so the scan waits on neither memory nor a
+barrier per step; what bounds it is HBM bytes and the special function
+units' exponentials, about equally at n = 16.
 
 :func:`mamba_scan` launches the kernel on CUDA tensors only;
 :func:`mamba_scan_ref` is the plain PyTorch version (the CPU path and the
@@ -52,7 +57,8 @@ def mamba_scan_ref(x, dt, B_t, C_t, A):
 
 def mamba_scan(x, dt, B_t, C_t, A):
     """The CUDA kernel (same arguments as :func:`mamba_scan_ref`; every
-    tensor f32, contiguous and on one card; n in {8, 16})."""
+    tensor f32, contiguous and on one card, x, dt, B_t and C_t starting
+    on a 16-byte boundary; n in {8, 16})."""
     name = "mamba_scan"
     kernels.require_cuda(name, x, dt, B_t, C_t, A)
     if x.dim() != 3 or x.shape != dt.shape:
@@ -72,6 +78,9 @@ def mamba_scan(x, dt, B_t, C_t, A):
                          f"got {n}")
     if any(a.dtype != torch.float32 for a in (x, dt, B_t, C_t, A)):
         raise TypeError(f"{name}: every input must be float32")
+    if any(a.data_ptr() % 16 for a in (x, dt, B_t, C_t)):
+        raise ValueError(f"{name}: x, dt, B_t and C_t must start on a "
+                         "16-byte boundary")
     y = torch.empty_like(x)
     h_out = torch.empty(Bsz, d, n, dtype=torch.float32, device=x.device)
     fn = kernels.load(name).mamba_scan

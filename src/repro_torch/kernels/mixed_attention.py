@@ -41,7 +41,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention import (
     KV_DTYPES, Q_DTYPES, TILE_ROWS, check_aligned, check_paged_args,
-    check_tile_shape, gather_pages, plan_page_splits, sm_count,
+    check_tile_shape, gather_pages, plan_page_splits,
     split_workspace)
 
 _SIG = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -103,7 +103,7 @@ def mixed_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     check_aligned(name, q, k_pages, v_pages)
     if splits is None:
         splits = plan_page_splits(work_items(B, C, G), KV, P, bs, hd,
-                                  sm_count(q.device.index))
+                                  kernels.sm_count(q.device.index))
     out = torch.empty_like(q)
     ws_acc, ws_ml = split_workspace(splits, B * C, KV, G, hd, q.device)
     fn = kernels.load(name).mixed_attention

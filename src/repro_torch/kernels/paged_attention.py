@@ -26,7 +26,6 @@ and the kernel's oracle).  Model code calls the dispatching wrapper
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -66,12 +65,6 @@ def plan_page_splits(items: int, KV: int, P: int, bs: int, hd: int,
         return 1
     tiles = -(-P * bs // kv_tile_keys(hd))
     return max(1, min(target // blocks, tiles // 2))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The SMs of CUDA device ``index``, which the split plan fills."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_tile_shape(name, q):
@@ -207,7 +200,7 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, *, k_scale=None,
     check_aligned(name, q, k_pages, v_pages)
     if splits is None:
         splits = plan_page_splits(B, KV, P, bs, hd,
-                                  sm_count(q.device.index))
+                                  kernels.sm_count(q.device.index))
     out = torch.empty_like(q)
     ws_acc, ws_ml = split_workspace(splits, B, KV, G, hd, q.device)
     fn = kernels.load(name).paged_attention

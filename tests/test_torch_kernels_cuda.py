@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
@@ -428,9 +429,12 @@ def _rwkv_inputs(seed, B, H, T, hd):
 
 
 # (B, T, d, n): the JAX suite's sweep (T off the TPU kernel's 128-step
-# chunk, d past its 512-channel tile and off it), T off the kernel's
-# 64-step chunk and 8-step register group, a ragged last group of 128
-# channels, n 8 (smoke) and 16 (published), a single step and T = 0
+# chunk, d past its 512-channel tile and off it), T off the earlier
+# kernel's 64-step chunk and 8-step register group, a ragged last channel
+# group, n 8 (smoke) and 16 (published), a single step and T = 0; then
+# T around the kernel's 32-step staged chunk (kTC - 1, kTC + 1 and
+# 3 kTC + 5) and d off its 64-channel block, 4-aligned (100) and not
+# (70: x and dt copied 4 bytes at a time)
 MAMBA_CASES = {
     "smoke-n8": (1, 64, 32, 8),
     "two-rows-T150": (2, 150, 96, 16),
@@ -438,6 +442,10 @@ MAMBA_CASES = {
     "ragged-T70": (2, 70, 200, 8),
     "one-step": (1, 1, 40, 8),
     "empty": (2, 0, 24, 16),
+    "chunk-less-one-T31": (2, 31, 64, 16),
+    "chunk-plus-one-T33": (1, 33, 128, 8),
+    "three-chunks-T101-d100": (2, 101, 100, 16),
+    "d70-unaligned-rows": (1, 40, 70, 8),
 }
 
 
@@ -490,6 +498,113 @@ def test_cuda_confidence_gate_matches_plain(shape, tie, cuda_device):
     torch.testing.assert_close(got["entropy"].cpu(), want["entropy"].float(),
                                atol=1e-4, rtol=0)
     assert torch.equal(got["argmax"].cpu(), want["argmax"])
+
+
+def _assert_gate_close(got, x64):
+    """The gate's outputs against the plain version of the same values
+    in f64 on the CPU, rounded to f32: conf and logz within rtol 1e-5,
+    entropy within atol 1e-4, argmax exact."""
+    want = ref.confidence_gate_ref(x64)
+    for k in ("conf", "logz"):
+        torch.testing.assert_close(got[k].cpu(), want[k].float(), rtol=1e-5,
+                                   atol=0)
+    torch.testing.assert_close(got["entropy"].cpu(), want["entropy"].float(),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(got["argmax"].cpu(), want["argmax"])
+
+
+def _gate_slices(x):
+    """The kernel's [lo, hi) slices of each row of x [R, V] on the card."""
+    R, V = x.shape
+    splits, chunk = gate_mod.plan_gate_splits(
+        R, V, x.element_size(), kernels.sm_count(x.device.index))
+    return [gate_mod.gate_slices(
+        V, (-(x[r].data_ptr() % 16) % 16) // x.element_size(), splits,
+        chunk) for r in range(R)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_confidence_gate_unaligned_rows(offset, cuda_device):
+    """granite's [8, 49155] rows each start at another offset from the
+    16-byte grid (49155 * 4 bytes = 12 mod 16); ``offset`` 1 moves row 0
+    off the grid too.  Every row is split, with a scalar head."""
+    x = torch.from_numpy(_logits((8, 49155), seed=11))
+    buf = torch.empty(x.numel() + offset, device=cuda_device)
+    xd = buf[offset:].view(8, 49155)
+    xd.copy_(x.to(cuda_device))
+    heads = {(-(xd[r].data_ptr() % 16) % 16) // 4 for r in range(8)}
+    assert len(heads) == 4 and len(_gate_slices(xd)[0]) > 1
+    _assert_gate_close(gate_mod.confidence_gate(xd), x.double())
+
+
+@pytest.mark.cuda
+def test_cuda_confidence_gate_bf16(cuda_device):
+    """bf16 logits [8, 65536] (rwkv6-3b's and jamba's vocab), 8 values a
+    16-byte load.  The kernel reads the exact bf16 values and sums in
+    f32, so it is held to the f32 tolerances against the f64 plain
+    version of the same bf16 values."""
+    x = torch.from_numpy(_logits((8, 65536), seed=12)).to(torch.bfloat16)
+    got = gate_mod.confidence_gate(x.to(cuda_device))
+    _assert_gate_close(got, x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_confidence_gate_ties_across_split_boundaries(dtype,
+                                                           cuda_device):
+    """An exact tie for the maximum on the two sides of a split boundary
+    (row r: the last element of split r and the first of split r + 1),
+    and one tie between the first and the last split: the lower index
+    wins, whichever block finishes last."""
+    x = torch.from_numpy(_logits((8, 65536), seed=13)).to(dtype)
+    xd = x.to(cuda_device)
+    slices = _gate_slices(xd)
+    assert len(slices[0]) >= 9
+    want = []
+    for r in range(7):
+        hi = slices[r][r][1]
+        xd[r, hi - 1] = xd[r, hi] = 60.0
+        want.append(hi - 1)
+    first, last = slices[7][0][0], slices[7][-1][1] - 1
+    xd[7, last] = xd[7, first] = 60.0
+    want.append(first)
+    got = gate_mod.confidence_gate(xd)
+    assert got["argmax"].cpu().tolist() == want
+    _assert_gate_close(got, xd.cpu().double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 4095), (2, 7), (4, 1), (1, 8191)])
+def test_cuda_confidence_gate_below_one_split(shape, cuda_device):
+    """V below two splits' worth runs one block a row, which writes the
+    outputs itself (V = 7 and 1: no 16-byte body at all)."""
+    x = torch.from_numpy(_logits(shape, seed=shape[-1]))
+    xd = x.to(cuda_device)
+    assert all(len(s) == 1 for s in _gate_slices(xd))
+    _assert_gate_close(gate_mod.confidence_gate(xd), x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 262144), (1, 1 << 20)])
+def test_cuda_confidence_gate_is_bit_identical_call_to_call(shape,
+                                                            cuda_device):
+    """Two calls on the same logits give the same bits: the splits'
+    partials merge in a fixed order, not in the order blocks finish.  On
+    the H100's 132 SMs, [8, 262144] takes 64 splits a row (two a lane of
+    the merging warp), and one row of 2^20 the most a row can have
+    (256)."""
+    x = torch.from_numpy(_logits(shape, seed=14)).to(cuda_device)
+    sms = kernels.sm_count(x.device.index)
+    assert len(_gate_slices(x)[0]) == min(
+        gate_mod.BLOCKS_PER_SM * sms // shape[0], gate_mod.GATE_THREADS,
+        shape[1] // gate_mod.MIN_SPLIT)
+    first = gate_mod.confidence_gate(x)
+    for _ in range(3):
+        again = gate_mod.confidence_gate(x)
+        for k in first:
+            assert torch.equal(first[k], again[k]), k
+    _assert_gate_close(first, x.cpu().double())
 
 
 @pytest.mark.cuda
@@ -715,6 +830,23 @@ def test_cuda_mamba_scan_matches_plain(case, cuda_device):
     assert y.shape == args[0].shape and h_T.shape == want_h.shape
     torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(h_T, want_h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_refuses_unaligned_views(cuda_device):
+    """An input whose storage starts one element off the 16-byte
+    alignment the kernel's cp.async copies need is refused, not
+    copied."""
+    x, dt, Bt, Ct, A = (torch.from_numpy(a).to(cuda_device)
+                        for a in _mamba_inputs(3, 2, 9, 24, 8))
+    for i in range(4):
+        args = [x, dt, Bt, Ct, A]
+        buf = torch.empty(args[i].numel() + 1, device=cuda_device)
+        shifted = buf[1:].view(args[i].shape)
+        shifted.copy_(args[i])
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte"):
+            mamba_mod.mamba_scan(*args)
 
 
 @pytest.mark.cuda
