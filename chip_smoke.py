@@ -653,6 +653,77 @@ def router_logits(rng, R, E, k, ties=False):
 
 
 ROUTER_TOL = "gates rtol 1e-5 (atol 0), indices exact"
+ROUTE_TOL = ("gates and weights rtol 1e-5 (atol 0); idx, dest and keep "
+             "exact")
+# moe_route at the main paths' shapes: (name, G, gs, k, E, capacity
+# factor, ties, dtype) — granite's full ragged/padded bucket and its
+# decode width, jamba's uniform prefill (5120 tokens: 5 groups of 1024),
+# E at the kernel's 1024 limit, rows of exact ties, bf16 logits
+ROUTE_CASES = (
+    ("granite bucket [1, 512, 40]", 1, 512, 8, 40, 1.25, False, "f32"),
+    ("granite decode [1, 8, 40]", 1, 8, 8, 40, 1.25, False, "f32"),
+    ("jamba prefill [5, 1024, 16]", 5, 1024, 2, 16, 1.25, False, "f32"),
+    ("[1, 64, 1024]", 1, 64, 8, 1024, 1.25, False, "f32"),
+    ("granite ties [1, 512, 40]", 1, 512, 8, 40, 1.25, True, "f32"),
+    ("granite bucket [1, 512, 40] bf16", 1, 512, 8, 40, 1.25, False,
+     "bf16"),
+    ("jamba ties [5, 1024, 16] bf16", 5, 1024, 2, 16, 1.25, True, "bf16"))
+
+
+def route_cap(gs, k, E, cf):
+    """``moe_ffn``'s capacity: min(gs, max(1, ceil(gs·k·cf / E)))."""
+    return min(gs, max(1, int(np.ceil(gs * k * cf / E))))
+
+
+def check_route(rng, dev, flush, timed):
+    """moe_route (routing, queue ranks, dest and combine weight in one
+    launch) against its plain version on the card at ``ROUTE_CASES``;
+    the f32 cases without ties timed.  Work for the bound: the logits
+    read, gates, idx, dest and weight written (4 + 4 + 8 + 4 bytes a
+    pair), the routing's operations per row as ``router_gate``'s plus 4
+    a pair for its rank and row (mask, count, compare, multiply-add)."""
+    worst = 0.0
+    for name, G, gs, k, E, cf, ties, kind in ROUTE_CASES:
+        cap = route_cap(gs, k, E, cf)
+        x = router_logits(rng, G * gs, E, k, ties).reshape(G, gs, E)
+        if ties:    # equal rows around slot gs / 2: queues across blocks
+            x[0, gs // 2 - 4:gs // 2 + 4] = 0.25
+        x = x.to(torch.bfloat16 if kind == "bf16" else torch.float32).to(
+            dev)
+        got = router_mod.moe_route(x, k, cap)
+        torch.cuda.synchronize()
+        want = router_mod.moe_route_ref(x, k, cap)
+        g, i, d, w = got
+        wg, wi, wd, ww = want
+        err = max((g - wg).abs().max().item(), (w - ww).abs().max().item())
+        ok = (torch.equal(i, wi) and torch.equal(d, wd)
+              and torch.equal(w == 0, ww == 0)
+              and torch.allclose(g, wg, rtol=1e-5, atol=0.0)
+              and torch.allclose(w, ww, rtol=1e-5, atol=0.0))
+        dropped = int((wd == E * G * cap).sum())
+        emit(check="moe_route", case=f"{name} k={k} cap={cap}",
+             max_abs_err=err, tol=ROUTE_TOL, dropped_pairs=dropped,
+             pairs=G * gs * k, ok=bool(ok))
+        if not ok:
+            raise AssertionError(f"moe_route {name}: max abs err {err} or "
+                                 "idx/dest/keep differ")
+        worst = max(worst, err)
+        if not ties and kind == "f32":
+            pairs = G * gs * k
+            nbytes = x.numel() * 4 + pairs * 20
+            nops = G * gs * (3 * E + k * E + 2 * k) + pairs * 4
+            t = time_case(f"moe_route {name}", timed,
+                          lambda: router_mod.moe_route(x, k, cap),
+                          lambda: router_mod.moe_route_ref(x, k, cap),
+                          (nbytes, nops), flush)
+            t["device_ms"] = device_ms(
+                lambda: router_mod.moe_route(x, k, cap))
+            t["kernel_ms"] = kernel_ms(
+                lambda: router_mod.moe_route(x, k, cap), "router_gate",
+                flush)
+            t["blocks_a_group"] = router_mod.route_blocks(gs)[1]
+            emit(timing="moe_route", case=f"{name} k={k} cap={cap}", **t)
+    return worst
 
 
 def check_router(dev, flush):
@@ -663,7 +734,8 @@ def check_router(dev, flush):
     (one group of 1024 of the 5120 tokens, E = 16, k = 2).  Work per row
     for the bound: E logits read and k (gate, index) pairs written; E
     subtractions, exponentials and additions, k rounds of E comparisons,
-    2k divisions."""
+    2k divisions.  Then the fused ``moe_route``, which ``moe_ffn``
+    launches, at its main-path shapes (:func:`check_route`)."""
     rng = np.random.default_rng(4)
     worst, timed = 0.0, {}
     cases = [("granite [512, 40]", 512, 40, False, 8),
@@ -700,7 +772,10 @@ def check_router(dev, flush):
                           lambda: router_mod.router_gate_ref(x, k),
                           (nbytes, nops), flush)
             t["device_ms"] = device_ms(lambda: router_mod.router_gate(x, k))
+            t["kernel_ms"] = kernel_ms(
+                lambda: router_mod.router_gate(x, k), "router_gate", flush)
             emit(timing="router_gate", case=f"{name} k={k}", **t)
+    worst = max(worst, check_route(rng, dev, flush, timed))
     return worst, timed
 
 
@@ -912,22 +987,22 @@ def step_models():
 
 
 class RouterTap:
-    """Records (router logits, picks) of every ``router_gate`` call the
+    """Records (router logits, picks) of every ``moe_route`` call the
     model makes while the tap is open: the model's blocks see the kernel
-    wrappers through a stand-in whose ``router_gate`` records, and every
+    wrappers through a stand-in whose ``moe_route`` records, and every
     other name is ``ops``'s own."""
 
     def __init__(self):
         self.calls = []
 
     def __enter__(self):
-        def tapped(logits, k):
-            gates, idx = ops.router_gate(logits, k)
-            self.calls.append((logits.detach().cpu(), idx.cpu()))
-            return gates, idx
+        def tapped(logits, k, cap):
+            out = ops.moe_route(logits, k, cap)
+            self.calls.append((logits.detach().cpu(), out[1].cpu()))
+            return out
 
         class Ops:
-            router_gate = staticmethod(tapped)
+            moe_route = staticmethod(tapped)
 
             def __getattr__(self, name):
                 return getattr(ops, name)
@@ -1383,7 +1458,7 @@ KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
                                     "paged_merge_kernel"),
                 "flash_attention": ("flash_kernel",),
                 "confidence_gate": ("gate_kernel",),
-                "router_gate": ("router_kernel",),
+                "router_gate": ("router_kernel", "moe_route_kernel"),
                 "rwkv6_scan": ("wkv_kernel",),
                 "mamba_scan": ("mamba_kernel",)}
 
@@ -1635,8 +1710,10 @@ def main() -> int:
                      "phi4-mini-3.8b: q [8, 64, 8, 3, 128] f32, pools "
                      "[329, 16, 8, 128]"),
         kernel_entry("router_gate", total["router_gate"], q_err,
-                     ROUTER_TOL, q_time, "granite [512, 40]",
-                     "granite-moe-3b-a800m: logits [512, 40] f32, k 8"),
+                     f"{ROUTER_TOL}; moe_route: {ROUTE_TOL}", q_time,
+                     "moe_route granite bucket [1, 512, 40]",
+                     "granite-moe-3b-a800m: moe_route logits [1, 512, 40] "
+                     "f32, k 8, cap 128 (the full ragged bucket)"),
         kernel_entry("flash_attention", total["flash_attention"], f_err,
                      TOL_TEXT, f_time, "phi4 q [8, 24, 640, 128] f32",
                      "phi4-mini-3.8b: q [8, 24, 640, 128], k/v "

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -40,6 +40,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> loaded library (one per process; the .so on disk is the cache)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# (device index, stream) -> the int32 counters of the last-block merges
+# (confidence_gate's rows, moe_route's groups).  Every launch leaves the
+# counters it uses at zero and launches on one stream run in order, so
+# one buffer serves every kernel on a stream.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -138,6 +143,18 @@ def require_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def zeroed_counters(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters, all zero, for launches on
+    ``stream`` of ``device``."""
+    key = (device.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = cnt
+    return cnt
 
 
 @functools.lru_cache(maxsize=None)

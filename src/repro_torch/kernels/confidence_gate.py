@@ -32,7 +32,7 @@ and the kernel's oracle).  Model code calls the dispatching wrapper
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -49,10 +49,6 @@ _SIG = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
 GATE_THREADS = 256
 MIN_SPLIT = 4096
 BLOCKS_PER_SM = 4
-
-# (device index, stream) -> per-row split counters; each launch leaves
-# them zero
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def plan_gate_splits(rows: int, vocab: int, dtype_bytes: int,
@@ -85,18 +81,6 @@ def gate_slices(vocab: int, head: int, splits: int,
     bounds = [0] + [min(vocab, head + k * chunk)
                     for k in range(1, splits)] + [vocab]
     return list(zip(bounds[:-1], bounds[1:]))
-
-
-def _row_counters(device: torch.device, stream: int,
-                  rows: int) -> torch.Tensor:
-    """At least ``rows`` zeroed int32 counters for launches on ``stream``
-    of ``device``."""
-    key = (device.index, stream)
-    cnt = _COUNTERS.get(key)
-    if cnt is None or cnt.numel() < rows:
-        cnt = torch.zeros(max(rows, 64), dtype=torch.int32, device=device)
-        _COUNTERS[key] = cnt
-    return cnt
 
 
 def confidence_gate_ref(logits):
@@ -142,7 +126,7 @@ def confidence_gate(logits):
         ws = torch.empty(R * splits * 5, **f32)
         part = ws.data_ptr()
         part_idx = part + 16 * R * splits
-        count = _row_counters(x.device, stream, R).data_ptr()
+        count = kernels.zeroed_counters(x.device, stream, R).data_ptr()
     lib = kernels.load("confidence_gate")
     fn = lib.confidence_gate
     fn.argtypes = _SIG

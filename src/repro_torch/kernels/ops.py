@@ -8,8 +8,9 @@ in an integer attribute ``launches`` — the count a run reads to show
 that its path went through the kernels.  Reset it by assignment
 (``ops.ragged_attention.launches = 0``).  ``paged_prefill_attention``
 launches the mixed kernel, so it counts into
-``mixed_attention.launches``; ``rwkv6_scan`` and ``mamba_scan`` return
-the final state beside ``y``.
+``mixed_attention.launches``, and ``moe_route`` the router's, so it
+counts into ``router_gate.launches``; ``rwkv6_scan`` and ``mamba_scan``
+return the final state beside ``y``.
 """
 from __future__ import annotations
 
@@ -55,6 +56,18 @@ def router_gate(logits, k: int):
 
 
 router_gate.launches = 0
+
+
+def moe_route(logits, k: int, cap: int):
+    """MoE routing and expert-queue ranks in one launch: logits [G, gs,
+    E] -> (gates, idx, dest, weight), each [G, gs, k]; see
+    :mod:`repro_torch.kernels.router_gate`.  Counted in
+    ``router_gate.launches``."""
+    if _on_cpu(logits, "moe_route"):
+        return _router.moe_route_ref(logits, k, cap)
+    out = _router.moe_route(logits, k, cap)
+    router_gate.launches += 1
+    return out
 
 
 def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,

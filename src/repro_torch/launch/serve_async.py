@@ -29,7 +29,8 @@ confidences); ``--delta`` fixes it instead.
 
 runs the smoke variants on the card; ``--variant ''`` serves the
 published widths, ``--expensive granite-moe-3b-a800m`` the MoE cascade
-(its MoE layers route through the ``router_gate`` kernel),
+(its MoE layers route and rank their expert queues through the
+router kernel's ``moe_route``, counted as ``router_gate``),
 ``--expensive rwkv6-3b`` the RWKV-6 cascade, ``--expensive
 jamba-v0.1-52b`` the Mamba + attention + MoE hybrid, and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.

@@ -443,20 +443,22 @@ def dense_ffn(p, cfg: ModelConfig, spec, x):
 
 def moe_ffn(p, cfg: ModelConfig, spec, x):
     """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
-    moe_ffn``), routed by the ``router_gate`` kernel.
+    moe_ffn``), routed and ranked by the ``moe_route`` kernel.
 
     The ``N = B·S`` token slots, padding included, split into ``G``
     groups of ``gs = min(1024, N)``.  Each token picks its top ``k``
     experts (renormalised gates); a (token, pick) pair's place in its
     expert's queue is its rank in (slot, pick) order over the group, and
     pairs at rank ``>= cap = min(gs, max(1, ceil(gs·k·capacity_factor /
-    E)))`` are dropped — their gate is not renormalised again.  The JAX
-    package's one-hot dispatch and combine einsums become an index
-    scatter into the dense ``[E, G·cap, d]`` capacity buffer and a
-    weighted sum over each token's kept picks: dispatch is 0/1 and every
-    (expert, slot) holds at most one token, so the function is the same
-    and only the order of the combine's sum differs.  The expert
-    products stay batched matrix products over the capacity buffer.
+    E)))`` are dropped — their gate is not renormalised again.  One
+    launch gives each pair's row of the dense ``[E, G·cap, d]`` capacity
+    buffer (a spare last row when dropped) and its combine weight (0 when
+    dropped).  The JAX package's one-hot dispatch and combine einsums
+    become an index scatter into that buffer and a weighted sum over each
+    token's picks: dispatch is 0/1 and every (expert, slot) holds at most
+    one token, so the function is the same and only the order of the
+    combine's sum differs.  The expert products stay batched matrix
+    products over the capacity buffer.
 
     Serving reads only the output: the load-balance and z aux losses the
     JAX function also returns (for training) are not computed.
@@ -468,20 +470,13 @@ def moe_ffn(p, cfg: ModelConfig, spec, x):
     G = N // gs
     xg = x.reshape(G, gs, D)
     logits = (xg @ p["router"]).float()                      # [G, gs, E]
-    gates, idx = kernel_ops.router_gate(logits, K)           # [G, gs, K]
     cap = max(1, int(math.ceil(gs * K * spec.capacity_factor / E)))
     cap = min(cap, gs)
-
-    # rank of each (slot, pick) pair in its expert's queue, (slot, pick)
-    # order over the group
-    pick = idx.long().reshape(G, gs * K)
-    onehot = F.one_hot(pick, E)                              # [G, gs·K, E]
-    rank = (onehot.cumsum(1) - onehot).gather(2, pick[..., None])[..., 0]
-    keep = rank < cap
-    # kept pair -> row (e·G + g)·cap + rank of the capacity buffer; a
-    # dropped pair writes the spare last row, which nothing reads
-    grp = torch.arange(G, device=x.device)[:, None]
-    dest = torch.where(keep, (pick * G + grp) * cap + rank, E * G * cap)
+    # kept pair -> row (e·G + g)·cap + rank of the capacity buffer, its
+    # rank in (slot, pick) order over the group; a dropped pair -> the
+    # spare last row (written by every dropped pair, read by no expert)
+    # and combined at weight 0
+    _, _, dest, w = kernel_ops.moe_route(logits, K, cap)     # [G, gs, K]
     dest = dest.reshape(-1)
     buf = x.new_zeros(E * G * cap + 1, D)
     buf[dest] = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
@@ -492,12 +487,13 @@ def moe_ffn(p, cfg: ModelConfig, spec, x):
         h = F.gelu(torch.bmm(xin, p["wi"]), approximate="tanh")
     else:
         raise NotImplementedError(f"moe act {spec.act!r} is not ported")
-    eout = torch.bmm(h, p["wo"]).reshape(E * G * cap, D)
-    # combine: each token's kept picks, weighted by their gates
-    w = torch.where(keep, gates.reshape(G, gs * K), 0.0).to(x.dtype)
-    picked = eout[torch.where(keep, dest.reshape(G, gs * K), 0)]
-    out = (w[..., None] * picked).reshape(G, gs, K, D).sum(2)
-    return out.reshape(B, S, D)
+    # the experts' rows, then a zero spare row that dropped pairs read
+    eout = x.new_empty(E * G * cap + 1, D)
+    torch.bmm(h, p["wo"], out=eout[:-1].view(E, G * cap, D))
+    eout[-1].zero_()
+    # combine: each token's picks, weighted by their gates (0 if dropped)
+    out = (w.reshape(-1, 1).to(x.dtype) * eout[dest]).view(G, gs, K, D)
+    return out.sum(2).reshape(B, S, D)
 
 
 def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode):

@@ -7,6 +7,8 @@ machine with a card and no JAX:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -77,6 +79,39 @@ ROUTER_CASES = {
     "E384": ((64, 384), 8),
     "E1024": ((16, 1024), 8),
 }
+
+# (G, gs, k, E, capacity factor) of moe_route: granite's full ragged
+# bucket and its decode width, jamba's uniform prefill (5120 tokens in 5
+# groups of 1024), E at the kernel's 1024 limit, a capacity of the whole
+# group (nothing dropped) and capacity factor 0.5 (about half the pairs
+# dropped)
+ROUTE_CASES = {
+    "granite-bucket": (1, 512, 8, 40, 1.25),
+    "granite-decode": (1, 8, 8, 40, 1.25),
+    "jamba-prefill": (5, 1024, 2, 16, 1.25),
+    "E1024": (1, 64, 8, 1024, 1.25),
+    "cap-gs": (2, 64, 2, 8, 4.0),
+    "cf0.5": (2, 256, 8, 40, 0.5),
+}
+
+
+def _route_cap(gs, k, E, cf):
+    """``moe_ffn``'s capacity: min(gs, max(1, ceil(gs * k * cf / E)))."""
+    return min(gs, max(1, math.ceil(gs * k * cf / E)))
+
+
+def _route_logits(case, seed, ties=False):
+    """Router logits [G, gs, E] of a ``ROUTE_CASES`` case (near-ties kept
+    1e-4 apart, as ``_router_logits``).  ``ties`` adds, beside that
+    function's rows of exact ties, a run of 8 equal rows of group 0
+    around slot gs / 2 — a block boundary for every block size that
+    divides it: each row picks experts 0..k-1, so those experts' queues
+    run on across the boundary."""
+    G, gs, k, E, _ = ROUTE_CASES[case]
+    x = _router_logits((G, gs, E), k, seed, ties=ties)
+    if ties:
+        x[0, max(0, gs // 2 - 4):gs // 2 + 4] = 0.25
+    return x
 
 
 def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
@@ -715,6 +750,122 @@ def test_cuda_router_gate_matches_plain(case, ties, cuda_device):
     assert idx.dtype == torch.int32 and gates.dtype == torch.float32
     assert torch.equal(idx.cpu(), want_i)
     torch.testing.assert_close(gates.cpu(), want_g, rtol=1e-5, atol=0)
+
+
+def _check_route(got, want):
+    """moe_route against its plain version: idx, dest and keep exact,
+    gates and weights within rtol 1e-5 (atol 0)."""
+    gates, idx, dest, weight = (t.cpu() for t in got)
+    want_g, want_i, want_d, want_w = want
+    assert gates.dtype == weight.dtype == torch.float32
+    assert idx.dtype == torch.int32 and dest.dtype == torch.int64
+    assert gates.shape == idx.shape == dest.shape == weight.shape \
+        == want_g.shape
+    assert torch.equal(idx, want_i)
+    assert torch.equal(dest, want_d)
+    assert torch.equal(weight == 0, want_w == 0)
+    torch.testing.assert_close(gates, want_g, rtol=1e-5, atol=0)
+    torch.testing.assert_close(weight, want_w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,ties,dtype", [
+    (c, False, torch.float32) for c in sorted(ROUTE_CASES)] + [
+    ("granite-bucket", True, torch.float32),
+    ("granite-decode", True, torch.float32),
+    ("jamba-prefill", True, torch.float32),
+    ("E1024", True, torch.float32),
+    ("granite-bucket", False, torch.bfloat16),
+    ("jamba-prefill", False, torch.bfloat16),
+    ("cf0.5", True, torch.float16)])
+def test_cuda_moe_route_matches_plain(case, ties, dtype, cuda_device):
+    """The fused routing and queue ranks at the main path's shapes,
+    E = 1024, G > 1, rows of exact ties and bf16/f16 logits (the plain
+    version on the same rounded values)."""
+    G, gs, k, E, cf = ROUTE_CASES[case]
+    cap = _route_cap(gs, k, E, cf)
+    x = torch.from_numpy(_route_logits(case, seed=len(case),
+                                       ties=ties)).to(dtype)
+    got = router_mod.moe_route(x.to(cuda_device), k, cap)
+    _check_route(got, router_mod.moe_route_ref(x, k, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", [1, 5, 32])
+@pytest.mark.parametrize("case", ["granite-bucket", "jamba-prefill",
+                                  "E1024"])
+def test_cuda_moe_route_block_sizes(case, rows_per_block, cuda_device):
+    """Other cuts of a group: 1 row a block (granite's 512 blocks a
+    group keep their offsets in the workspace, past the last block's
+    shared table), 5 (a ragged last block) and 32 (the most)."""
+    G, gs, k, E, cf = ROUTE_CASES[case]
+    cap = _route_cap(gs, k, E, cf)
+    x = torch.from_numpy(_route_logits(case, seed=3, ties=True))
+    got = router_mod.moe_route(x.to(cuda_device), k, cap,
+                               rows_per_block=rows_per_block)
+    _check_route(got, router_mod.moe_route_ref(x, k, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["granite-bucket", "jamba-prefill"])
+def test_cuda_moe_route_is_bit_identical_across_calls(case, cuda_device):
+    """Four calls on the same logits give the same bits: every output
+    (the per-group counters are left zero by each call)."""
+    G, gs, k, E, cf = ROUTE_CASES[case]
+    cap = _route_cap(gs, k, E, cf)
+    x = torch.from_numpy(_route_logits(case, seed=11, ties=True)).to(
+        cuda_device)
+    first = router_mod.moe_route(x, k, cap)
+    for _ in range(3):
+        again = router_mod.moe_route(x, k, cap)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_route_refuses_bad_arguments(cuda_device):
+    """E > 1024, k > E, cap < 1 and a block of more than 32 rows are
+    refused by the launcher and, below it, by the C entry point."""
+    x = torch.zeros(1, 8, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="experts"):
+        router_mod.moe_route(torch.zeros(1, 4, 1025, device=cuda_device),
+                             8, 4)
+    with pytest.raises(ValueError, match="k=41"):
+        router_mod.moe_route(x, 41, 4)
+    with pytest.raises(ValueError, match="cap=0"):
+        router_mod.moe_route(x, 8, 0)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        router_mod.moe_route(x, 8, 4, rows_per_block=33)
+    with pytest.raises(ValueError, match="G, gs, E"):
+        router_mod.moe_route(torch.zeros(8, 40, device=cuda_device), 8, 4)
+    out = [torch.empty(8 * 41, device=cuda_device) for _ in range(4)]
+    fn = router_mod._entry("moe_route")
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    p = kernels.ptr
+    for G, gs, E, k, cap, rows in ((1, 8, 1025, 8, 4, 8),
+                                   (1, 8, 40, 41, 4, 8),
+                                   (1, 8, 40, 8, 0, 8),
+                                   (1, 8, 40, 8, 4, 33)):
+        err = fn(p(x), G, gs, E, k, cap, rows, 0, *(p(t) for t in out),
+                 None, None, stream)
+        assert err != 0, (G, gs, E, k, cap, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", [8, 32])
+def test_cuda_moe_route_leaves_the_group_counters_zero(rows_per_block,
+                                                       cuda_device):
+    """A launch of several blocks a group leaves its counters at zero
+    (each wraps back at the group's block count)."""
+    G, gs, k, E, cf = ROUTE_CASES["jamba-prefill"]
+    x = torch.from_numpy(_route_logits("jamba-prefill", seed=5)).to(
+        cuda_device)
+    router_mod.moe_route(x, k, _route_cap(gs, k, E, cf),
+                         rows_per_block=rows_per_block)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    cnt = kernels.zeroed_counters(x.device, stream, G)
+    assert not cnt.any()
 
 
 @pytest.mark.cuda
