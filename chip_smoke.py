@@ -39,6 +39,20 @@ without printing a result):
      phi4-mini-3.8b cascade (random f32 weights from a seed) on the
      default ragged executor, with the kernels' launch counters set to 0
      just before and read just after;
+  4b. speculation, on phase 4's weights: the workload at ``gen_len`` 32
+     on the ragged executor, gemma3-1b -> phi4-mini-3.8b and gemma3-1b
+     -> gemma3-1b (self-speculation), each at k = 0 and k = 4: exact
+     launch counts (``ragged_attention`` per attention layer and
+     speculative launch, ``paged_attention`` per draft-tier attention
+     layer and draft-loop step, ``confidence_gate`` per launch and step),
+     the speculation counters, streams against k = 0 and every
+     self-speculation rejection under the margin rule (a token
+     difference is a near-tie only where the two tokens' logit gap is
+     within the measured error of the verify window against the one-
+     token paths: the verifier's own gap at a rejection, a
+     teacher-forced prefill's, within twice that, for a stream
+     difference), accept rates,
+     per-gate ECE and agreement, tokens/s at k = 0 and k = 4;
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
      then the uniform one-shot prefill path on 16 prompts of exactly 640
@@ -52,7 +66,8 @@ without printing a result):
      on the dense arena (``--dense-kv``), each run with the counters set
      to 0 just before and read just after, its launches checked exactly;
   6. the workload once more inside ``torch.profiler``, with a virtual
-     clock, under each executor (the uniform one included), for the MoE
+     clock, under each executor (the uniform one included), for phase
+     4b's four runs (at ``gen_len`` 8), for the MoE
      cascade under the ragged one and for the RWKV-6 and jamba cascades:
      device time by kernel kind (a kind's split-merge kernels counted
      with it) and the device's idle share; and the split MoE cascade
@@ -95,7 +110,8 @@ from repro_torch.launch import serve_async  # noqa: E402
 from repro_torch.models import blocks, init_params, transformer  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
-from repro_torch.serving.engine import VirtualClock  # noqa: E402
+from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
+                                        VirtualClock, _TierRuntime)
 from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
@@ -334,6 +350,9 @@ GEMMA = dict(KV=1, G=4, hd=256)
 PHI4 = dict(KV=8, G=3, hd=128)
 GRANITE = dict(KV=8, G=3, hd=64)
 NEAR600 = [590, 595, 600, 605, 610, 615, 620, 625]     # decode ticks
+# a speculative verify launch's rows at the decode tick: a token and up
+# to 4 drafts each (q_len 1-5)
+VERIFY_QLENS = [5, 1, 3, 5, 2, 4, 5, 1]
 # (atol, rtol) against the plain version by case kind; bf16 cases hold
 # the kernel on bf16 inputs against the plain version in f32 on the same
 # values, so only the output's rounding to bf16 (2^-9 relative) separates
@@ -370,6 +389,12 @@ def check_ragged(dev, flush):
         ("phi4 full bucket f32", phi4, full,
          [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
         ("phi4 decode f32", phi4, [1] * 8, near600, None, "f32"),
+        # speculative verify windows: phi4's 5-token items take the tile
+        # body's decode layout (15 query rows), gemma3's its prefill
+        # layout (20), beside 1-4-token items in the same launch
+        ("phi4 verify f32", phi4, VERIFY_QLENS, near600, None, "f32"),
+        ("gemma window=512 verify f32", gemma, VERIFY_QLENS, near600, 512,
+         "f32"),
         ("gemma window=512 bf16", gemma, mixed, late, 512, "bf16"),
         ("phi4 bf16", phi4, mixed, late, None, "bf16"),
         ("phi4 int8+scales", phi4, mixed, late, None, "int8+scales"),
@@ -400,8 +425,9 @@ def check_ragged(dev, flush):
         if kind != "bf16":
             worst = max(worst, err)
         # timed: the full prefill bucket (8 rows x 64 tokens) and the
-        # decode tick (one token per row), the two ends of a tick's load
-        if name.endswith(("full bucket f32", "decode f32")):
+        # decode tick (one token per row), the two ends of a tick's load,
+        # and the speculative verify windows
+        if name.endswith(("full bucket f32", "decode f32", "verify f32")):
             t = time_case(
                 name, timed,
                 lambda: ragged_mod.ragged_attention(*args, **kw),
@@ -443,7 +469,9 @@ def check_paged(dev, flush):
     """paged_attention at the decode tick the ragged kernel is timed at
     (8 rows, one token each at positions 590-625) plus, in the checked
     cases, a ninth row masked to the null block as the split decode step
-    masks a mid-prefill row (its output is not compared)."""
+    masks a mid-prefill row (its output is not compared); and, per f32
+    layer, the speculative draft loop's step with rows 1, 4 and 6 past
+    their draft budget (an all-null page-table row at position 0)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     worst, timed = 0.0, {}
@@ -475,10 +503,11 @@ def check_paged(dev, flush):
                                      f"{err} past (atol, rtol) {TOLS[kind]}")
             if kind != "bf16":
                 worst = max(worst, err)
+            a8 = (q[:8].contiguous(), kp, vp, pt[:8].contiguous(),
+                  pos[:8].contiguous())
             if kind == "f32":
+                worst = max(worst, check_masked_rows(a8, kw, name))
                 # timed on the 8 live rows: the ragged kernel's decode case
-                a8 = (q[:8].contiguous(), kp, vp, pt[:8].contiguous(),
-                      pos[:8].contiguous())
                 t = time_case(
                     name, timed,
                     lambda: paged_mod.paged_attention(*a8, **kw),
@@ -496,9 +525,41 @@ def check_paged(dev, flush):
                      ptxas=ptxas_lines(
                          "paged_attention",
                          f"paged_decode_kernelIffLi{shape['hd']}E"), **t)
-            del kp, vp, ks, vs, pt, q, got, want
+            del kp, vp, ks, vs, pt, q, got, want, a8
     torch.cuda.empty_cache()
     return worst, timed
+
+
+DRAFT_MASKED = [1, 4, 6]
+
+
+def check_masked_rows(args, kw, name) -> float:
+    """The draft loop's decode step on ``args``' 8 rows with rows
+    ``DRAFT_MASKED`` on the null block at position 0: the live rows
+    bit-identical to the launch with no row masked and within the
+    tolerance of the plain version on the same (masked) inputs, every
+    row finite.  Returns the live rows' max abs error."""
+    q, kp, vp, pt, pos = args
+    mpt, mpos = pt.clone(), pos.clone()
+    mpt[DRAFT_MASKED] = 0
+    mpos[DRAFT_MASKED] = 0
+    live = [b for b in range(pt.shape[0]) if b not in DRAFT_MASKED]
+    full = paged_mod.paged_attention(*args, **kw)
+    got = paged_mod.paged_attention(q, kp, vp, mpt, mpos, **kw)
+    want = paged_mod.paged_attention_ref(q, kp, vp, mpt, mpos, **kw)
+    torch.cuda.synchronize()
+    err, ok = close(got[live], want[live], "f32")
+    same = bool(torch.equal(got[live], full[live]))
+    ok = ok and same and bool(torch.isfinite(got).all())
+    emit(check="paged_attention", case=f"{name} draft step, rows "
+         f"{DRAFT_MASKED} masked", rows=8, masked_rows=DRAFT_MASKED,
+         max_abs_err=err, live_rows_equal_unmasked=same,
+         atol_rtol=TOLS["f32"], ok=ok)
+    if not ok:
+        raise AssertionError(f"paged_attention {name} with rows "
+                             f"{DRAFT_MASKED} masked: max abs err {err}, "
+                             f"live rows equal unmasked {same}")
+    return err
 
 
 def check_mixed(dev, flush):
@@ -575,11 +636,17 @@ def check_gate(dev, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     worst, timed = {"conf": 0.0, "entropy": 0.0, "logz": 0.0}, {}
-    for name, V in (("gemma3-1b", 262144), ("phi4-mini-3.8b", 200064),
-                    ("granite-moe-3b-a800m", 49155),
-                    ("rwkv6-3b / jamba-v0.1-52b", 65536)):
+    # 8 rows: a tier launch's last slots; under speculation the gate
+    # takes every flat slot of a spec launch, up to gemma3's [512,
+    # 262144] (un-split: one split a row) and phi4's [W, 200064]
+    for name, R, V in (("gemma3-1b", 8, 262144),
+                       ("phi4-mini-3.8b", 8, 200064),
+                       ("granite-moe-3b-a800m", 8, 49155),
+                       ("rwkv6-3b / jamba-v0.1-52b", 8, 65536),
+                       ("gemma3-1b spec", 512, 262144),
+                       ("phi4-mini-3.8b spec", 64, 200064)):
         # random logits at a spread where the max is well separated
-        x = torch.randn(8, V, generator=gen, device=dev) * 3.0
+        x = torch.randn(R, V, generator=gen, device=dev) * 3.0
         got = gate_mod.confidence_gate(x)
         # the plain version in f64, rounded to f32: agreement does not
         # hang on the order of the f32 sums
@@ -594,7 +661,7 @@ def check_gate(dev, flush):
               and torch.allclose(got["entropy"], want["entropy"], atol=1e-4,
                                  rtol=0)
               and torch.equal(got["argmax"], want["argmax"]))
-        emit(check="confidence_gate", case=f"{name} [8, {V}] f32",
+        emit(check="confidence_gate", case=f"{name} [{R}, {V}] f32",
              ok=bool(ok), **{f"max_abs_err_{k}": v for k, v in errs.items()},
              tol={"conf": "rtol 1e-5", "logz": "rtol 1e-5",
                   "entropy": "atol 1e-4", "argmax": "exact"})
@@ -605,7 +672,7 @@ def check_gate(dev, flush):
         ms = time_ms(lambda: gate_mod.confidence_gate(x), 50, flush)
         plain_ms = time_ms(lambda: gate_mod.confidence_gate_ref(x), 20,
                            flush)
-        nbytes = x.numel() * 4 + 8 * 4 * 4
+        nbytes = x.numel() * 4 + R * 4 * 4
         b_ms, b_by = bound(nbytes, x.numel() * 5)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, bytes=nbytes, ops=x.numel() * 5,
@@ -616,8 +683,9 @@ def check_gate(dev, flush):
                                "confidence_gate", flush))
         timed[name]["splits"], _ = launched_splits(
             lambda: gate_mod.confidence_gate(x), "confidence_gate", axis=1)
-        emit(timing="confidence_gate", case=f"{name} [8, {V}] f32",
+        emit(timing="confidence_gate", case=f"{name} [{R}, {V}] f32",
              **timed[name])
+        del x, got, want
     # an exact tie: the first index must win
     x = torch.randn(4, 200064, generator=gen, device=dev)
     x[:, 1000] = 50.0
@@ -1255,23 +1323,26 @@ PHI4_NAME, MOE_NAME = "phi4-mini-3.8b", "granite-moe-3b-a800m"
 RWKV_NAME, JAMBA_NAME = "rwkv6-3b", "jamba-v0.1-52b"
 
 
-def main_path_args(expensive=PHI4_NAME, **executor) -> Namespace:
+def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
     """The phase-4 workload with ``expensive`` as the second tier;
-    ``executor`` adds the CLI's executor flags (``ragged_step=False``,
-    ``split_step=True``, ``no_chunked_prefill=True`` or
-    ``dense_kv=True``).  The chunked executors serve lognormal prompt
-    lengths up to 640; the uniform prefill path (those two flags, or the
-    recurrent rwkv6-3b and jamba-v0.1-52b) serves every prompt at exactly
-    640."""
-    uniform = (executor.get("no_chunked_prefill") or executor.get("dense_kv")
+    ``flags`` adds or overrides the CLI's flags: the executor's
+    (``ragged_step=False``, ``split_step=True``,
+    ``no_chunked_prefill=True`` or ``dense_kv=True``) or speculation's
+    (``speculate``, ``spec_delta``, with ``gen_len``).  The chunked
+    executors serve lognormal prompt lengths up to 640; the uniform
+    prefill path (those two flags, or the recurrent rwkv6-3b and
+    jamba-v0.1-52b) serves every prompt at exactly 640."""
+    uniform = (flags.get("no_chunked_prefill") or flags.get("dense_kv")
                or expensive in (RWKV_NAME, JAMBA_NAME))
-    return Namespace(
+    args = dict(
         fast="gemma3-1b", expensive=expensive, variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
         min_prompt_len=1, length_dist="uniform" if uniform else "lognormal",
         gen_len=8, prefill_chunk=64, prefill_token_budget=None, delta=None,
         escalation_budget=0.25, kv_block_size=16, kv_blocks=None,
-        seed=0, expensive_seed=None, **executor)
+        seed=0, expensive_seed=None, speculate=0, spec_delta=None)
+    args.update(flags)
+    return Namespace(**args)
 
 
 EXECUTORS = {"ragged": {}, "padded": {"ragged_step": False},
@@ -1297,16 +1368,18 @@ def layer_counts(cfg) -> dict:
             "mamba": sum(l.mixer.kind == "mamba" for l in layers)}
 
 
-def expected_launches(cfgs, kinds, warm=None, paged=True):
+def expected_launches(cfgs, kinds, warm=None, paged=True, draft_steps=None):
     """Launches each layer kernel must count over a run whose tier
     launches by kind are ``kinds``: every attention layer of a tier
-    launch goes through the executor's attention kernel — ragged, mixed
-    (padded steps and chunks), paged decode (split decode steps over the
-    block-paged arena; the dense arena's decode is plain torch) or flash
-    (uniform prefills) — every MoE layer through ``router_gate``, every
-    RWKV-6 layer of a prefill through ``rwkv6_scan`` and every Mamba
-    layer of a prefill through ``mamba_scan`` (their decode is plain
-    torch).  ``warm`` adds the warmup's launches per tier."""
+    launch goes through the executor's attention kernel — ragged (ragged
+    steps and, under speculation, ``spec`` launches), mixed (padded steps
+    and chunks), paged decode (split decode steps over the block-paged
+    arena — the dense arena's decode is plain torch — and each of a
+    draft tier's ``draft_steps``) or flash (uniform prefills) — every
+    MoE layer through ``router_gate``, every RWKV-6 layer of a prefill
+    through ``rwkv6_scan`` and every Mamba layer of a prefill through
+    ``mamba_scan`` (their decode is plain torch).  ``warm`` adds the
+    warmup's launches per tier."""
     out = {c: 0 for c in COUNTED if c != "confidence_gate"}
     for t, cfg in enumerate(cfgs):
         n = layer_counts(cfg)
@@ -1314,10 +1387,13 @@ def expected_launches(cfgs, kinds, warm=None, paged=True):
         if warm is not None:
             for kind, w in warm[t].items():
                 k[kind] = k.get(kind, 0) + w
-        out["ragged_attention"] += n["attn"] * k.get("ragged", 0)
+        out["ragged_attention"] += n["attn"] * (k.get("ragged", 0)
+                                                + k.get("spec", 0))
         out["mixed_attention"] += n["attn"] * (k.get("mixed", 0)
                                                + k.get("chunk", 0))
-        out["paged_attention"] += n["attn"] * k.get("step", 0) * paged
+        out["paged_attention"] += n["attn"] * (
+            k.get("step", 0) * paged + (draft_steps[t] if draft_steps
+                                        else 0))
         out["flash_attention"] += n["attn"] * k.get("prefill", 0)
         out["router_gate"] += n["moe"] * sum(k.values())
         out["rwkv6_scan"] += n["rwkv6"] * k.get("prefill", 0)
@@ -1325,14 +1401,18 @@ def expected_launches(cfgs, kinds, warm=None, paged=True):
     return out
 
 
-def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
+def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
+          phase=None, **flags):
     """Serve the phase-4 workload on ``params`` (the cascade to
     ``expensive``, whose configs are ``cfgs`` where given) under one
-    executor, with every kernel counter set to 0 just before and read
-    just after; check that every request completed, that the gate split
-    them, and that the counters prove each tier launch went through the
-    executor's kernels (and through nothing else)."""
-    args = main_path_args(expensive, **ALL_EXECUTORS[executor])
+    executor (``flags`` adds CLI flags: speculation's), with every
+    kernel counter set to 0 just before and read just after; check that
+    every request completed, that the gate split them, and that the
+    counters prove each tier launch — and under speculation each decode
+    step of the draft loop — went through the executor's kernels (and
+    through nothing else).  Returns (counts, per-request records,
+    summary)."""
+    args = main_path_args(expensive, **ALL_EXECUTORS[executor], **flags)
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
                                       args.seed)
@@ -1355,7 +1435,8 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
     # the warmup's launches per tier: every bucket width (ragged), the
     # chunk width and width 1 (padded), one chunk and one decode (split),
     # one prefill and one decode (uniform)
-    warm = [{"ragged": len(b)} if b is not None else
+    warm = [{"spec" if s["speculation_k"] else "ragged": len(b)}
+            if b is not None else
             {"mixed": 2} if s["unified_step"] else
             {"chunk": 1, "step": 1} if s["chunked_prefill"] else
             {"prefill": 1, "step": 1}
@@ -1379,20 +1460,32 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
         problems.append(f"need escalated and non-escalated requests: "
                         f"{tiers}")
     paged = s["paged_kv"]
-    want = expected_launches(cfgs, kinds, paged=paged)
+    # under speculation: the draft loop's decode steps per tier (each a
+    # paged_attention launch per attention layer and a gate launch)
+    sp = s["speculation"]
+    steps = sp["draft_steps_by_tier"]
+    want = expected_launches(cfgs, kinds, paged=paged, draft_steps=steps)
     got = {k: s["kernel_launches"][k] for k in want}
     if got != want:
         problems.append(f"layer kernel launches after warmup {got} != "
                         f"{want}")
-    if s["kernel_launches"]["confidence_gate"] != sum(tier_launches):
-        problems.append("gate launches != tier launches")
-    want_window = expected_launches(cfgs, kinds, warm, paged=paged)
+    if s["kernel_launches"]["confidence_gate"] != sum(tier_launches) + sum(
+            steps):
+        problems.append("gate launches != tier launches + draft steps")
+    want_window = expected_launches(cfgs, kinds, warm, paged=paged,
+                                    draft_steps=steps)
     if {k: counts[k] for k in want_window} != want_window:
         problems.append(f"launch counts {counts} != {want_window} "
                         "(warmup included)")
-    if counts["confidence_gate"] != sum(tier_launches) + sum(
+    if counts["confidence_gate"] != sum(tier_launches) + sum(steps) + sum(
             sum(w.values()) for w in warm):
         problems.append(f"gate launch count {counts} off")
+    if args.speculate:
+        if set().union(*kinds) != {"spec"}:
+            problems.append(f"speculation ran launches {kinds}, not spec")
+        if not (sp["drafted"] > 0 and sp["drafted"] == sp["accepted"]
+                + sp["rolled_back"] and steps[0] > 0):
+            problems.append(f"speculation counters {sp}")
     # one fetch per active tier per tick, plus the uniform path's own
     # fetch after each prefill launch
     prefills = [k.get("prefill", 0) for k in kinds]
@@ -1403,7 +1496,8 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
                         f"per prefill {prefills}")
     gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
     record = dict(
-        phase="main path" if executor == "ragged" else "executor",
+        phase=phase or ("main path" if executor == "ragged"
+                        else "executor"),
         executor=executor, card=card, configs=[args.fast, args.expensive],
         length_dist=args.length_dist,
         requests=args.requests, completed=s["completed"],
@@ -1423,11 +1517,19 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None):
         latency_p50_s=s["latency_p50"], ttft_p50_s=s["ttft_p50"],
         max_memory_allocated_bytes=peak, wall_s_incl_init=wall,
         stream_checksum=s["stream_checksum"], problems=problems)
+    if args.speculate or phase:
+        record.update(
+            gen_len=args.gen_len, speculate=args.speculate,
+            spec_delta=args.spec_delta, speculation=sp,
+            gate_calibration=[{k: g[k] for k in (
+                "gate", "seen", "outcomes", "agreement_rate", "ece",
+                "verify_outcomes", "verify_accept_rate")}
+                for g in s["gate_calibration"]])
     emit(**record)
     if problems:
         raise AssertionError(f"{executor} -> {expensive}: "
                              + "; ".join(problems))
-    return counts, per_req
+    return counts, per_req, s
 
 
 def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
@@ -1450,6 +1552,267 @@ def compare_streams(runs: dict, expensive=PHI4_NAME) -> None:
              same_tier_requests=len(same_tier), differing_rids=differ)
 
 
+# --------------------------------------------------------------------------
+# the speculation phase
+# --------------------------------------------------------------------------
+
+SPEC_K, SPEC_GEN_LEN = 4, 32
+
+
+def verify_logit_error(dev, params, cfg) -> dict:
+    """The logit error between the speculative verify window and the
+    paths it stands in for, on the card at full width.  8 random
+    contexts of 595-630 tokens: their first 590-625 are written to the
+    paged pools by 64-token ``ragged_step`` chunks, and their last 5 (a
+    token and 4 drafts) go through one ``ragged_verify`` launch (flat
+    width 64), through 5 one-token ``ragged_step`` launches (the verifier
+    at k = 0), through 5 paged ``decode_step`` launches (the draft loop)
+    and, one prefix at a time, through the teacher-forced uniform
+    ``prefill`` (:func:`next_token_logits`, which the stream check reads
+    its gaps from).  Returns the largest |logit| difference of the window
+    against each path; the margin rule below counts a token difference
+    as a near-tie only within the largest of them."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    R, bs, P, n, C = 8, 16, 41, SPEC_K + 1, 64
+    N = R * P + 1
+    pool = init_paged_cache(cfg, R, N, bs, torch.float32, dev)
+    pt = (torch.randperm(N - 1, generator=gen, device=dev)[:R * P] + 1
+          ).reshape(R, P).to(torch.int32)
+    ctx = torch.randint(0, cfg.vocab_size, (R, max(NEAR600) + n),
+                        generator=gen, device=dev, dtype=torch.int32)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
+                                 device=dev)
+    for c in range(0, max(NEAR600), C):
+        ql = [min(max(s - c, 0), C) for s in NEAR600]
+        ft = torch.zeros(1, R * C, dtype=torch.int32, device=dev)
+        fp = torch.zeros(1, R * C, dtype=torch.int32, device=dev)
+        o = 0
+        for b, q in enumerate(ql):
+            ft[0, o:o + q] = ctx[b, c:c + q]
+            fp[0, o:o + q] = torch.arange(c, c + q, dtype=torch.int32)
+            o += q
+        _, pool = transformer.ragged_step(
+            params, cfg, ft, pool, fp,
+            {"page_table": pt, "q_len": i32(ql),
+             "q_start": i32([min(c, s) for s in NEAR600])})
+    start = i32(NEAR600)
+    pos = start[:, None] + torch.arange(n, dtype=torch.int32, device=dev)
+    toks = torch.gather(ctx, 1, pos.long())
+    W = 64
+    flat_t = torch.zeros(1, W, dtype=torch.int32, device=dev)
+    flat_p = torch.zeros(1, W, dtype=torch.int32, device=dev)
+    flat_t[0, :R * n], flat_p[0, :R * n] = toks.reshape(-1), pos.reshape(-1)
+    window, _ = transformer.ragged_verify(
+        params, cfg, flat_t, tree_map(lambda t: t.clone(), pool), flat_p,
+        {"page_table": pt, "q_len": i32([n] * R), "q_start": start})
+    window = window[0, :R * n].reshape(R, n, -1)
+    errs = {}
+    for path in ("ragged_step", "decode_step"):
+        cache = tree_map(lambda t: t.clone(), pool)
+        for j in range(n):
+            if path == "ragged_step":
+                ft = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+                fp = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+                ft[0], fp[0] = toks[:, j], pos[:, j]
+                got, cache = transformer.ragged_step(
+                    params, cfg, ft, cache, fp,
+                    {"page_table": pt, "q_len": i32([1] * R),
+                     "q_start": pos[:, j].contiguous()})
+            else:
+                got, cache = transformer.decode_step(
+                    params, cfg, toks[:, j:j + 1].contiguous(), cache,
+                    pos[:, j:j + 1].contiguous(), pages={"page_table": pt})
+                got = got[:, 0]
+            errs[path] = max(errs.get(path, 0.0),
+                             (got - window[:, j]).abs().max().item())
+        del cache
+    ctx_h = ctx.cpu().numpy()
+    errs["prefill"] = max(
+        (next_token_logits(params, cfg, dev, ctx_h[b, :s + j + 1])
+         - window[b, j]).abs().max().item()
+        for b, s in enumerate(NEAR600) for j in range(n))
+    emit(check="verify window logits against one-token ragged and paged "
+         "decode and the teacher-forced prefill", model=cfg.name, rows=R,
+         tokens_a_row=n, context_lens=[s + n for s in NEAR600],
+         max_abs_err=errs)
+    del pool, window
+    torch.cuda.empty_cache()
+    return errs
+
+
+def next_token_logits(params, cfg, dev, context) -> torch.Tensor:
+    """The model's logits after ``context`` (teacher-forced: one uniform
+    ``prefill`` of the whole context)."""
+    t = torch.tensor(np.asarray(context, np.int32), device=dev)[None]
+    logits, _ = transformer.prefill(params, cfg, {"tokens": t})
+    return logits[0, -1]
+
+
+class RejectionTap:
+    """Records, at every rejected draft of a verify while the tap is
+    open, the verifier's own logit gap between its token and the draft's,
+    from the verify window's ``[W, V]`` logits: (verify tier, gap).  It
+    wraps ``CascadeEngine._exec_unified`` (reading the requests before
+    and after) and ``_TierRuntime.pick`` (keeping a reference to a
+    launch's first logits, the window's, through the draft loop), so a
+    run under the tap computes what the engine computes but is neither
+    timed nor measured for memory."""
+
+    def __init__(self):
+        self.gaps = []
+
+    def __enter__(self):
+        self.orig = orig_exec, orig_pick = (CascadeEngine._exec_unified,
+                                            _TierRuntime.pick)
+        window = {}
+
+        def pick(rt, logits2d):
+            window.setdefault("logits", logits2d)
+            return orig_pick(rt, logits2d)
+
+        def exec_unified(engine, tier, rt, plan):
+            before = {s: (rt.slot_req[s], len(rt.slot_req[s].tokens),
+                          list(rt.slot_req[s].draft_tokens[:nd]))
+                      for s, nd in plan.verify_rows}
+            window.clear()
+            out = orig_exec(engine, tier, rt, plan)
+            logits = window.pop("logits", None)
+            start = np.cumsum(plan.q_len) - plan.q_len
+            for s, nd in plan.verify_rows:
+                req, e, drafts = before[s]
+                acc = len(req.tokens) - e - 1
+                if acc == nd:
+                    continue
+                slot = int(start[s]) + acc
+                v, d = req.tokens[e + acc], drafts[acc]
+                self.gaps.append(
+                    (tier, (logits[slot, v] - logits[slot, d]).item()))
+            return out
+        CascadeEngine._exec_unified = exec_unified
+        _TierRuntime.pick = pick
+        return self
+
+    def __exit__(self, *exc):
+        CascadeEngine._exec_unified, _TierRuntime.pick = self.orig
+
+
+def margin_check(what, gaps, bounds) -> None:
+    """The margin rule: each (tier, gap) where two paths chose two
+    tokens — the gap between the two tokens' logits — must be within
+    that tier's measured logit error ``bounds[tier]``; a wider gap is a
+    fault."""
+    ok = all(g <= bounds[t] for t, g in gaps)
+    emit(check=f"margin rule: {what}", cases=len(gaps), gaps=gaps,
+         bound=bounds, ok=ok)
+    if not ok:
+        raise AssertionError(f"{what}: a gap past the bound {bounds}: "
+                             f"{gaps}")
+
+
+def rejections(s) -> int:
+    """Rejected drafts of a speculative run, from its summary: every
+    verified draft up to the first rejection is one verify outcome, so
+    the outcomes that accepted nothing are the rejections."""
+    return sum(g["verify_outcomes"] for g in s["gate_calibration"]) - \
+        s["speculation"]["accepted"]
+
+
+def check_speculation(card: str, params) -> dict:
+    """The speculation phase: the phase-4 workload at ``gen_len`` 32 on
+    the ragged executor, each cascade served at k = 0 and k = 4 (every
+    draft staged, ``spec_delta`` 0) with exact launch counts
+    (:func:`serve`) — gemma3-1b drafting for phi4-mini-3.8b, and for
+    itself (self-speculation, ``expensive_seed = seed``: both tiers on
+    gemma3's weights).  Streams against k = 0 under the margin rule,
+    each tier's bound its largest measured verify-window logit error;
+    under self-speculation every rejection too (its draft and verify
+    compute the same model), read in a third, untimed run under
+    :class:`RejectionTap`.  Returns the timed runs' launch counts by
+    path."""
+    cascades = (("phi4", PHI4_NAME, params, {}),
+                ("self", "gemma3-1b", (params[0], params[0]),
+                 {"expensive_seed": 0}))
+    counts = {}
+    for label, expensive, pair, seed in cascades:
+        args = main_path_args(expensive, **seed)
+        cfgs = serve_async.tier_configs(args)
+        dev = pair[0]["embed"].device
+        errs = [verify_logit_error(dev, pair[0], cfgs[0])]
+        errs.append(errs[0] if label == "self" else
+                    verify_logit_error(dev, pair[1], cfgs[1]))
+        bounds = [max(e.values()) for e in errs]
+        runs = {}
+        for k in (0, SPEC_K):
+            flags = dict(speculate=k, spec_delta=0.0 if k else None,
+                         gen_len=SPEC_GEN_LEN, **seed)
+            c, per_req, s = serve(card, pair, "ragged", expensive,
+                                  phase="speculation", **flags)
+            counts[f"spec {label} k={k}"] = c
+            runs[k] = (per_req, s)
+        (base, _), (spec, s4) = runs[0], runs[SPEC_K]
+        prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
+                            vocab=min(cfgs[0].vocab_size,
+                                      cfgs[1].vocab_size,
+                                      serve_async.PROMPT_VOCAB),
+                            seed=args.seed)
+        lens = serve_async.sample_lengths(args.length_dist, args.requests,
+                                          args.prompt_len,
+                                          args.min_prompt_len, args.seed)
+        differ = []
+        for a, b in zip(base, spec):
+            if a["tier"] != b["tier"] or a["tokens"] == b["tokens"]:
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(a["tokens"],
+                                                      b["tokens"])) if x != y)
+            ctx = list(prompts[a["rid"]][:int(lens[a["rid"]])]) + \
+                a["tokens"][:i]
+            logits = next_token_logits(pair[a["tier"]], cfgs[a["tier"]],
+                                       dev, ctx)
+            differ.append((a["tier"], abs(logits[a["tokens"][i]]
+                                          - logits[b["tokens"][i]]).item()))
+        margin_check(f"{label} k={SPEC_K} streams against k=0, "
+                     "teacher-forced", differ, bounds)
+        tapped = None
+        if label == "self":
+            with RejectionTap() as tap:
+                _, _, st = serve(card, pair, "ragged", expensive,
+                                 phase="speculation, rejection tap "
+                                 "(untimed)", speculate=SPEC_K,
+                                 spec_delta=0.0, gen_len=SPEC_GEN_LEN,
+                                 **seed)
+            if len(tap.gaps) != rejections(st):
+                raise AssertionError(f"tap saw {len(tap.gaps)} rejections, "
+                                     f"the summary {rejections(st)}")
+            margin_check("self-speculation rejections, verify window's "
+                         "own logits", tap.gaps, bounds)
+            tapped = len(tap.gaps)
+        tps = {k: SPEC_GEN_LEN * sum(r["tier"] + 1 for r in runs[k][0])
+               / runs[k][1]["elapsed"] for k in runs}
+        emit(phase="speculation summary", cascade=[args.fast, expensive],
+             card=card, k=SPEC_K, gen_len=SPEC_GEN_LEN,
+             generated_tokens_per_s={f"k={k}": v for k, v in tps.items()},
+             same_tier_requests=sum(a["tier"] == b["tier"]
+                                    for a, b in zip(base, spec)),
+             differing_rids=[a["rid"] for a, b in zip(base, spec)
+                             if a["tier"] == b["tier"]
+                             and a["tokens"] != b["tokens"]],
+             accept_rate=s4["speculation"]["accept_rate"],
+             drafted=s4["speculation"]["drafted"],
+             rejections=rejections(s4), rejections_tapped_run=tapped,
+             logit_error=errs, margin_bound=bounds,
+             draft_steps=s4["speculation"]["draft_steps_by_tier"],
+             gate_ece={f"k={k}": [g["ece"] for g in runs[k][1][
+                 "gate_calibration"]] for k in runs},
+             gate_agreement={f"k={k}": [g["agreement_rate"] for g in runs[k][
+                 1]["gate_calibration"]] for k in runs},
+             verify_accept_rate=[g["verify_accept_rate"]
+                                 for g in s4["gate_calibration"]])
+        if label == "self" and s4["speculation"]["accepted"] == 0:
+            raise AssertionError("self-speculation accepted no draft")
+    return counts
+
+
 # profiler kernel names of each kernel kind (any of them, by substring):
 # the ragged, paged and mixed kinds count their split-merge kernels too
 KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
@@ -1464,16 +1827,17 @@ KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
 
 
 def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
-                  cfgs=None):
+                  cfgs=None, **flags):
     """Where a tick's device time goes under one executor: the phase-4
-    workload (the cascade to ``expensive``) served again under a
-    VirtualClock (no waiting for arrivals) inside ``torch.profiler``;
-    kernel time summed by kind, and the device's idle share of the
-    serving loop's wall time.  The top kernels list shows the MoE
-    cascade's expert products among the matrix products."""
+    workload (the cascade to ``expensive``; ``flags`` adds CLI flags:
+    speculation's) served again under a VirtualClock (no waiting for
+    arrivals) inside ``torch.profiler``; kernel time summed by kind, and
+    the device's idle share of the serving loop's wall time.  The top
+    kernels list shows the MoE cascade's expert products among the
+    matrix products."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = main_path_args(expensive, **ALL_EXECUTORS[executor])
+    args = main_path_args(expensive, **ALL_EXECUTORS[executor], **flags)
     engine, vocab = serve_async.build_engine(args, VirtualClock(), params,
                                              cfgs)
     prompts = bigram_lm(
@@ -1513,7 +1877,8 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
     rows.sort(reverse=True)
     busy = sum(kinds.values())
     emit(phase="profile", executor=executor, expensive=expensive,
-         card=card, clock="virtual",
+         card=card, clock="virtual", speculate=args.speculate,
+         gen_len=args.gen_len,
          ticks=s["steps"], tier_launches=s["launches"],
          stream_checksum=serve_async.stream_checksum(engine),
          serving_wall_ms=wall_ms, device_kernel_ms=busy,
@@ -1620,13 +1985,25 @@ def main() -> int:
     # executor and the profiles
     params = serve_async.build_params(main_path_args())
     runs = {ex: serve(card, params, ex) for ex in EXECUTORS}
-    compare_streams({ex: r for ex, (_, r) in runs.items()})
+    compare_streams({ex: r for ex, (_, r, _) in runs.items()})
+    # the speculation phase, on the same weights: gemma3 drafting for
+    # phi4, and for itself
+    spec_runs = check_speculation(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
-    compare_streams({ex: r for ex, (_, r) in uniform_runs.items()})
+    compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
     torch.cuda.empty_cache()
     for ex in list(EXECUTORS) + ["uniform"]:
         profile_ticks(card, params, ex)
+    # the speculation phase's runs, k = 0 against k = 4, both cascades,
+    # at phase 4's gen_len 8 (a trace of phase 4b's gen_len 32 holds ~1M
+    # launches, and reading it costs minutes)
+    for expensive, pair, seed in ((PHI4_NAME, params, {}),
+                                  ("gemma3-1b", (params[0], params[0]),
+                                   {"expensive_seed": 0})):
+        for k in (0, SPEC_K):
+            profile_ticks(card, pair, "ragged", expensive, speculate=k,
+                          spec_delta=0.0 if k else None, **seed)
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)
@@ -1636,7 +2013,8 @@ def main() -> int:
         get_config(MOE_NAME, moe_args.variant), moe_args.seed + 1,
         torch.float32, dev))
     moe_runs = {ex: serve(card, params, ex, MOE_NAME) for ex in EXECUTORS}
-    compare_streams({ex: r for ex, (_, r) in moe_runs.items()}, MOE_NAME)
+    compare_streams({ex: r for ex, (_, r, _) in moe_runs.items()},
+                    MOE_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "ragged", MOE_NAME)
     check_split_moe_determinism(card, params)
@@ -1647,7 +2025,7 @@ def main() -> int:
     params = (params[0], init_params(
         get_config(RWKV_NAME, moe_args.variant), moe_args.seed + 1,
         torch.float32, dev))
-    rwkv_counts, _ = serve(card, params, "auto", RWKV_NAME)
+    rwkv_counts, _, _ = serve(card, params, "auto", RWKV_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", RWKV_NAME)
     # the hybrid cascade: jamba-v0.1-52b cut to 1 of its 4 periods (its 4
@@ -1663,22 +2041,27 @@ def main() -> int:
                                      torch.float32, dev))
     jamba_runs = {ex: serve(card, params, ex, JAMBA_NAME, jamba_cfgs)
                   for ex in ("auto", "dense")}
-    compare_streams({ex: r for ex, (_, r) in jamba_runs.items()},
+    compare_streams({ex: r for ex, (_, r, _) in jamba_runs.items()},
                     JAMBA_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", JAMBA_NAME, jamba_cfgs)
-    counts = {ex: c for ex, (c, _) in runs.items()}
-    counts.update({ex: c for ex, (c, _) in uniform_runs.items()})
-    counts.update({f"moe {ex}": c for ex, (c, _) in moe_runs.items()})
+    counts = {ex: c for ex, (c, _, _) in runs.items()}
+    counts.update({ex: c for ex, (c, _, _) in uniform_runs.items()})
+    counts.update(spec_runs)
+    counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
-    counts.update({f"jamba {ex}": c for ex, (c, _) in jamba_runs.items()})
+    counts.update({f"jamba {ex}": c for ex, (c, _, _) in
+                   jamba_runs.items()})
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
     jamba_paths = ("jamba auto", "jamba dense")
-    for name, ex in (("ragged_attention", ("ragged", "moe ragged")),
+    spec_paths = tuple(spec_runs)
+    for name, ex in (("ragged_attention", ("ragged", "moe ragged")
+                      + spec_paths),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split")),
                      ("paged_attention", ("split", "moe split", "uniform",
-                                          "rwkv", "jamba auto")),
+                                          "rwkv", "jamba auto")
+                      + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
                       + jamba_paths),
                      ("confidence_gate", tuple(counts)),

@@ -10,9 +10,13 @@ that its path went through the kernels.  Reset it by assignment
 launches the mixed kernel, so it counts into
 ``mixed_attention.launches``, and ``moe_route`` the router's, so it
 counts into ``router_gate.launches``; ``rwkv6_scan`` and ``mamba_scan``
-return the final state beside ``y``.
+return the final state beside ``y``.  ``spec_accept`` is the speculative
+verify's epilogue in plain torch on the tensors' device (no Pallas kernel
+in the JAX package either), so it has no kernel and no count.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import confidence_gate as _gate
 from repro_torch.kernels import flash_attention as _flash
@@ -43,6 +47,39 @@ def confidence_gate(logits):
 
 
 confidence_gate.launches = 0
+
+
+def spec_accept(argmax_w, conf_w, q_len, flat_tokens, k: int):
+    """Accept/reject epilogue of a speculative ragged verify, on the
+    device (the twin of the JAX package's ``ops.spec_accept``).
+
+    ``argmax_w`` / ``conf_w`` [W]: every flat slot's pick from the
+    confidence gate over the verify's ``[W, V]`` logits; ``q_len`` [R]
+    the ragged layout, ``flat_tokens`` [1, W] the launch's tokens, ``k``
+    the draft bound.  Returns ``tok`` / ``conf`` [R] (each row's
+    last-live-slot pick, the non-speculative step's result),
+    ``spec_tok`` / ``spec_conf`` [R, k+1] (the row's picks from its first
+    flat slot on: position j scores drafted token j, j = 0 the row's
+    last emitted token) and ``acc_len`` [R], the accepted draft count:
+    the longest prefix where slot j's argmax equals the next drafted
+    token ``flat_tokens[start + j + 1]``.  Rows with ``q_len <= 1`` get
+    0."""
+    w = argmax_w.shape[0]
+    q_len = q_len.long()
+    csum = torch.cumsum(q_len, 0)
+    last = (csum - 1).clamp(0, w - 1)
+    start = csum - q_len
+    j = torch.arange(k + 1, device=q_len.device)
+    idx = start[:, None] + j[None, :]
+    spec_tok = argmax_w[idx.clamp(0, w - 1)].to(torch.int32)
+    spec_conf = conf_w[idx.clamp(0, w - 1)]
+    drafted = flat_tokens[0][(idx + 1).clamp(0, w - 1)]
+    valid = j[None, :] < (q_len - 1)[:, None]
+    match = (spec_tok == drafted) & valid
+    acc_len = torch.cumprod(match.to(torch.int32), 1).sum(1).to(torch.int32)
+    return {"tok": argmax_w[last].to(torch.int32), "conf": conf_w[last],
+            "spec_tok": spec_tok, "spec_conf": spec_conf,
+            "acc_len": acc_len}
 
 
 def router_gate(logits, k: int):

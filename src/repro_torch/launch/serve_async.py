@@ -22,7 +22,12 @@ hybrid ``--expensive jamba-v0.1-52b``, the Mamba scan kernel in its
 Mamba layers) takes the uniform path by itself.  The uniform path needs
 ``--length-dist uniform``.  The gate threshold comes from an escalation
 budget by default (δ = the budget-quantile of recent sequence
-confidences); ``--delta`` fixes it instead.
+confidences); ``--delta`` fixes it instead.  ``--speculate K`` turns on
+speculative cascade decoding on the ragged executor: the cheap tier keeps
+an escalated request's row, drafts up to K tokens ahead of the expensive
+tier, and the expensive tier verifies them in its own ragged launch
+(``--expensive-seed`` equal to ``--seed``, with ``--expensive`` the fast
+model, gives self-speculation, where every draft is accepted).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
@@ -35,8 +40,9 @@ router kernel's ``moe_route``, counted as ``router_gate``),
 jamba-v0.1-52b`` the Mamba + attention + MoE hybrid, and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.
 Reports latency/TTFT percentiles, throughput, per-tier utilization,
-launches and host syncs per tick, the escalation rate and Eq 7
-FLOPs/request.
+launches and host syncs per tick, the escalation rate, the speculation
+counters, the per-gate calibration (ECE and agreement against the
+escalation and verify outcomes) and Eq 7 FLOPs/request.
 """
 from __future__ import annotations
 
@@ -112,6 +118,8 @@ def build_engine(args, clock=None, params=None, cfgs=None):
         use_unified_step=False if getattr(args, "split_step", False)
         else None,
         use_ragged_step=getattr(args, "ragged_step", None),
+        speculation_k=getattr(args, "speculate", 0),
+        spec_delta=getattr(args, "spec_delta", None),
         clock=clock if clock is not None else WallClock(),
         device=device, **gate_kw)
     return engine, min(fast_cfg.vocab_size, exp_cfg.vocab_size)
@@ -156,6 +164,17 @@ def stream_checksum(engine) -> str:
         h.update(np.asarray(req.tokens, np.int64).tobytes())
         h.update(b"|")
     return h.hexdigest()
+
+
+def snapshot_line(snap: dict) -> str:
+    """One-line progress record of :meth:`ServingMetrics.snapshot`."""
+    esc = "/".join(f"{r:.2f}" for r in snap["escalation_rates"])
+    ece = "/".join("-" if np.isnan(e) else f"{e:.3f}"
+                   for e in snap["gate_ece"])
+    return (f"[t={snap['t']:.1f}] completed {snap['completed']}"
+            f"/{snap['requests']}  steps {snap['steps']}  "
+            f"esc [{esc}]  gate ece [{ece}]  "
+            f"tick p50 {snap['tick_duration_p50']:.4f}")
 
 
 def _launch_counts() -> dict:
@@ -213,6 +232,9 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     summary["ragged_step"] = engine.ragged_step
     summary["flat_buckets"] = [rt.flat_buckets if rt.ragged else None
                                for rt in engine.runtimes]
+    summary["speculation_k"] = engine.speculation_k
+    summary["spec_delta"] = engine.spec_delta
+    summary["snapshot"] = engine.metrics.snapshot(engine.clock.now())
     summary["escalation_budget"] = (None if args.delta is not None
                                     else args.escalation_budget)
     summary["delta"] = [engine.scheduler.delta(g)
@@ -248,6 +270,8 @@ def report(s: dict) -> None:
             else "split" if s.get("chunked_prefill", True)
             else "uniform+split" if s.get("paged_kv", True)
             else "uniform+split dense")
+    if s.get("speculation_k"):
+        mode += f", speculate {s['speculation_k']}"
     print(f"  launches/tick [{mode}] "
           + "  ".join(f"{n}={l:.2f}" for n, l in
                       zip(s["tier_names"], s["launches_per_tick"]))
@@ -263,7 +287,28 @@ def report(s: dict) -> None:
     deltas = ", ".join(f"{d:.4f}" for d in s["delta"])
     target = ("" if s.get("escalation_budget") is None
               else f" (budget target {s['escalation_budget']:.3f})")
+    sp = s.get("speculation") or {}
+    if s.get("speculation_k") and sp.get("drafted"):
+        print(f"  speculation k={s['speculation_k']}  "
+              f"accept rate {sp['accept_rate']:.2f} "
+              f"({sp['accepted']}/{sp['drafted']} drafts, "
+              f"{sp['rolled_back']} rolled back)  draft steps "
+              + "  ".join(f"{n}={d}" for n, d in
+                          zip(s["tier_names"], sp["draft_steps_by_tier"])))
     print(f"  escalation rate [{rates}] at δ=[{deltas}]{target}")
+
+    def _f(x, spec=".3f"):
+        return "-" if x is None or np.isnan(x) else format(x, spec)
+    # streaming calibration against the escalation outcomes (cheap vs
+    # expensive agreement on escalated traffic) and the verify outcomes
+    print("  gate calibration "
+          + "  ".join(f"g{g['gate']}: ece {_f(g['ece'])} "
+                      f"agree {_f(g['agreement_rate'], '.2f')} "
+                      f"({g['outcomes']} outcomes, "
+                      f"{g['verify_outcomes']} verified, accept "
+                      f"{_f(g['verify_accept_rate'], '.2f')})"
+                      for g in s["gate_calibration"]))
+    print("  snapshot " + snapshot_line(s["snapshot"]))
     print(f"  Eq7 FLOPs/request: cascade {s['flops_per_request_cascade']:.3e} "
           f"(always-fast {s['flops_per_request_always_fast']:.3e}, "
           f"always-expensive {s['flops_per_request_always_expensive']:.3e})")
@@ -311,6 +356,17 @@ def make_parser() -> argparse.ArgumentParser:
                          "execution; --no-ragged-step keeps the padded "
                          "[slots, width] mixed step.  Default: ragged "
                          "whenever unified execution is on")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative cascade decoding: the cheap tier "
+                         "drafts up to K tokens per escalated request per "
+                         "tick and the expensive tier scores them in its "
+                         "one ragged launch (streams equal K=0's).  Needs "
+                         "the ragged step; 0 (the default) disables")
+    ap.add_argument("--spec-delta", type=float, default=None,
+                    metavar="CONF",
+                    help="confidence a drafted token needs to be staged "
+                         "(the draft truncates at its first token below "
+                         "it); default: the draft tier's gate δ")
     ap.add_argument("--delta", type=float, default=None,
                     help="fixed gate threshold (overrides the budget)")
     ap.add_argument("--escalation-budget", type=float, default=0.25,

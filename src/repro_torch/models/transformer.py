@@ -5,9 +5,11 @@ The repeated ``period`` runs as a Python loop over weights (and cache)
 stacked on a leading ``num_periods`` dim; indexing the stack gives
 views, so the in-place cache writes of each period land in the stacked
 leaves.  The serving executors call :func:`ragged_step` (ragged),
-:func:`mixed_step` (padded), :func:`prefill_chunk` then
-:func:`decode_step` (split), or :func:`prefill` then :func:`decode_step`
-(the uniform one-shot prefill path, over a block-paged or dense cache).
+:func:`mixed_step` (padded), :func:`ragged_verify` (ragged under
+speculation, with :func:`decode_step` for the draft loop),
+:func:`prefill_chunk` then :func:`decode_step` (split), or
+:func:`prefill` then :func:`decode_step` (the uniform one-shot prefill
+path, over a block-paged or dense cache).
 """
 from __future__ import annotations
 
@@ -185,6 +187,17 @@ def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
                             mode="ragged_step", cache=cache, pos=pos,
                             pages=pages)
     return last_slot_gather(logits, pages["q_len"], flat=True), cache
+
+
+def ragged_verify(params, cfg: ModelConfig, tokens, cache, pos, pages):
+    """The speculative verify's step: :func:`ragged_step`'s flat ``[1,
+    W]`` layout, KV writes and pages contract, but returning every
+    position's logits ``[1, W, V]`` (with the cache) instead of the
+    last-slot gather, so a verify row (``q_len = 1 + k`` flat slots) is
+    scored at every drafted position in the one launch.  Padding slots
+    and ``q_len == 0`` rows yield unspecified logits."""
+    return forward(params, cfg, {"tokens": tokens}, mode="ragged_step",
+                   cache=cache, pos=pos, pages=pages)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None):

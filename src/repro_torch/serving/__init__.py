@@ -7,6 +7,8 @@
     queues
   * :mod:`repro_torch.serving.metrics`   — latency/throughput/Eq 7
     accounting
+  * :mod:`repro_torch.serving.observability` — streaming gate-calibration
+    telemetry (per-gate ECE against escalation and verify outcomes)
   * :mod:`repro_torch.serving.engine`    — CascadeEngine tying tiers
     together
 """

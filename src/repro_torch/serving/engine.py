@@ -60,16 +60,32 @@ The arena is block-paged (``use_paged_kv=True``, the default) or dense
 (``use_paged_kv=False``: one ``[max_seq]`` row per request, uniform
 prefill only).
 
+**Speculative cascade decoding** (``speculation_k = k > 0``, ragged
+executor only): a request escalated from a tier keeps its row there as
+a *draft row*.  Each tick the draft row catches up on the tokens the next
+tier emitted and drafts up to k tokens ahead (the ragged forward, then a
+(k−1)-step paged decode loop through ``decode_step``); the next tier
+scores the staged drafts in its own ragged launch (``q_len = 1 +``
+drafts, :func:`repro_torch.models.transformer.ragged_verify`, the gate
+kernel over every flat slot, :func:`repro_torch.kernels.ops.spec_accept`)
+and emits every accepted token plus its own next one.  Emitted tokens are
+always the verifier's argmaxes, so streams equal k = 0's.  Still one
+fetch per tier per tick.
+
+The gate's calibration streams into ``metrics.calibration``: every gate
+decision, every escalated request's outcome (did the next tier agree?)
+and every verified draft.
+
 Not ported from the JAX engine (later work): flat-bucket overrides and
 compile statistics, modality frontends, meshes, prefix caching,
-speculation, preemption, load shedding, launch retry, fault injection
-and the tracer.  A launch error propagates.
+preemption, load shedding, launch retry, fault injection and the tracer.
+A launch error propagates.
 """
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -146,8 +162,9 @@ class VirtualClock:
         self.t += self.dt
 
 
-# per-row kinds in a StepPlan
-KIND_IDLE, KIND_PREFILL, KIND_DECODE, KIND_STALL = 0, 1, 2, 3
+# per-row kinds in a StepPlan (KIND_DRAFT: a retained draft row catching
+# up on its target request's emitted tokens and drafting ahead)
+KIND_IDLE, KIND_PREFILL, KIND_DECODE, KIND_STALL, KIND_DRAFT = 0, 1, 2, 3, 4
 
 
 @dataclass
@@ -170,6 +187,14 @@ class StepPlan:
     flat_tokens: Optional[np.ndarray]   # [1, W] int32
     flat_pos: Optional[np.ndarray]      # [1, W] int32 abs positions
     q_start: Optional[np.ndarray]       # [capacity] int32 first pos
+    # speculative cascade decoding (speculation_k > 0; empty otherwise):
+    # verify rows are decode rows scoring drafted tokens (q_len = 1 + n),
+    # draft rows are retained rows catching up on their target request's
+    # emitted tokens; draft_len[s] > 0 marks rows that draft ahead after
+    # catching up
+    verify_rows: List[tuple] = field(default_factory=list)  # (slot, n)
+    draft_rows: List[int] = field(default_factory=list)
+    draft_len: Optional[np.ndarray] = None      # [capacity] int32
 
     @property
     def live_prefill_tokens(self) -> int:
@@ -190,7 +215,8 @@ class _TierRuntime:
                  kv_blocks: Optional[int] = None, prefill_chunk: int = 128,
                  use_paged_kv: bool = True, use_chunked_prefill: bool = True,
                  use_unified_step: bool = True,
-                 use_ragged_step: bool = True):
+                 use_ragged_step: bool = True,
+                 speculation_k: int = 0, spec_draft: bool = False):
         self.spec = spec
         self.capacity = capacity
         self.device = device
@@ -212,6 +238,13 @@ class _TierRuntime:
         self.tok = np.zeros(capacity, np.int32)
         self.pos = np.zeros(capacity, np.int32)
         self.prefill_pos = np.zeros(capacity, np.int32)   # tokens written
+        # speculative cascade decoding: spec_k > 0 swaps the tier's
+        # ragged launch for spec_fn; draft_req maps retained draft rows to
+        # their escalated target request (slot_req stays None there, so
+        # planning and finishing skip them)
+        self.spec_k = int(speculation_k)
+        self.spec_draft = bool(spec_draft) and self.spec_k > 0
+        self.draft_req: List[Optional[Request]] = [None] * capacity
 
     def pick(self, logits2d):
         """Each row's (argmax token, max-softmax confidence), from the
@@ -228,6 +261,49 @@ class _TierRuntime:
         logits, self.pool.cache = transformer.ragged_step(
             self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
         return self.pick(logits)
+
+    def spec_fn(self, tokens, pos, page_table, q_len, q_start, draft_len,
+                draft_steps: int) -> dict:
+        """The speculative ragged step: the ragged forward keeping every
+        position's logits, the gate kernel over all ``W`` flat slots and
+        the :func:`~repro_torch.kernels.ops.spec_accept` epilogue (each
+        row's pick, its window of picks and its accepted draft count);
+        then, on a draft tier, ``draft_steps`` paged decode steps extend
+        each drafting row's catch-up pick into ``draft_len[s]`` draft
+        tokens.  At step j a row with ``draft_len <= j`` decodes through
+        an all-null page-table row at position 0: its write lands in the
+        null block and its pick is discarded.  Every pick stays on the
+        device."""
+        pages = {"page_table": page_table, "q_len": q_len,
+                 "q_start": q_start}
+        # a draft tier with a larger vocabulary can draft ids past this
+        # tier's: embed them as its last id, as the JAX package's
+        # clamping gather does; the accept epilogue compares the drafted
+        # ids themselves, so such a draft is rejected
+        logits, self.pool.cache = transformer.ragged_verify(
+            self.params, self.spec.cfg,
+            tokens.clamp(max=self.spec.cfg.vocab_size - 1), self.pool.cache,
+            pos, pages)
+        out = kernel_ops.spec_accept(*self.pick(logits[0]), q_len, tokens,
+                                     self.spec_k)
+        if not self.spec_draft:
+            return out
+        dtok, dconf = [out["tok"]], [out["conf"]]
+        cur = q_start + q_len       # where the first draft step writes
+        for j in range(1, draft_steps + 1):
+            live = draft_len > j
+            logits, self.pool.cache = transformer.decode_step(
+                self.params, self.spec.cfg, dtok[-1][:, None],
+                self.pool.cache, torch.where(live, cur, 0)[:, None],
+                pages={"page_table": torch.where(live[:, None], page_table,
+                                                 0)})
+            t, c = self.pick(logits[:, 0])
+            dtok.append(t)
+            dconf.append(c)
+            cur = cur + 1
+        out["draft_tok"] = torch.stack(dtok, 1)
+        out["draft_conf"] = torch.stack(dconf, 1)
+        return out
 
     def mixed_fn(self, tokens, pos, page_table, q_len):
         """The padded unified step: every live row's work — prefill chunk
@@ -315,6 +391,14 @@ class _TierRuntime:
                                            qstart)
         return self.ragged_fn(tokens, pos, pt, ql, qs)
 
+    def run_spec(self, flat_tokens, flat_pos, qlen, qstart, draft_len,
+                 draft_steps: int) -> dict:
+        """The speculative launch: :meth:`run_ragged`'s flat batch plus
+        each row's draft budget ``draft_len`` [capacity], in one copy."""
+        return self.spec_fn(*self.put(flat_tokens, flat_pos,
+                                      self.pool.page_table, qlen, qstart,
+                                      draft_len), draft_steps)
+
     def run_mixed(self, tokens, pos, qlen):
         """The padded unified launch: each row scatters into and attends
         its own pages, so no page-table masking is needed."""
@@ -375,6 +459,10 @@ class _TierRuntime:
         return [s for s, r in enumerate(self.slot_req)
                 if r is not None and r.state is RequestState.PREFILL]
 
+    def draft_slots(self) -> List[int]:
+        """Rows retained as draft rows for escalated requests."""
+        return [s for s, r in enumerate(self.draft_req) if r is not None]
+
 
 class CascadeEngine:
     """M-tier cascade with continuous batching and per-request gating."""
@@ -393,6 +481,8 @@ class CascadeEngine:
                  use_chunked_prefill: Optional[bool] = None,
                  use_unified_step: Optional[bool] = None,
                  use_ragged_step: Optional[bool] = None,
+                 speculation_k: int = 0,
+                 spec_delta: Optional[float] = None,
                  clock=None,
                  device="cuda"):
         """``prompt_len`` is the maximum prompt length: ``submit`` takes
@@ -419,7 +509,14 @@ class CascadeEngine:
         launch per tier per tick, ``False`` the split chunk + decode
         launches; ``use_ragged_step`` (default: on exactly when unified)
         packs that launch's live tokens flat, ``False`` keeps the padded
-        ``[capacity, width]`` mixed launch."""
+        ``[capacity, width]`` mixed launch.
+
+        ``speculation_k`` > 0 turns on speculative cascade decoding (the
+        module docstring): it needs two tiers or more, the ragged
+        executor, and draft tiers without MoE layers (a draft loop's
+        masked rows would take expert capacity).  ``spec_delta`` is the
+        confidence a drafted token must reach to be staged (default: the
+        draft tier's gate δ)."""
         if not tiers:
             raise ValueError("need at least one tier")
         self.device = resolve_device(device)
@@ -464,6 +561,33 @@ class CascadeEngine:
                 "and dense paths have no flat batch to pack")
         self.unified_step = bool(use_unified_step)
         self.ragged_step = bool(use_ragged_step) and self.unified_step
+        if speculation_k:
+            if speculation_k < 0:
+                raise ValueError("speculation_k must be >= 0")
+            if m < 2:
+                raise ValueError(
+                    "speculative cascade decoding needs at least two "
+                    "tiers: a cheap tier to draft and an expensive tier "
+                    "to verify")
+            if not self.ragged_step:
+                raise ValueError(
+                    "speculative cascade decoding requires the ragged "
+                    "flat token-batch layout (use_ragged_step=True): the "
+                    "verify pass scores k+1 positions per row through "
+                    "the arbitrary-q_len work list")
+            moe = [t.name for t in self.tiers[:-1]
+                   if any(l.ffn.kind == "moe" for l in t.cfg.layers)]
+            if moe:
+                raise ValueError(
+                    f"draft tier(s) {moe} have MoE layers: the draft "
+                    "loop's masked rows would route and take expert "
+                    "capacity")
+        if spec_delta is not None and not speculation_k:
+            raise ValueError(
+                "spec_delta truncates staged drafts; it requires "
+                "speculation_k > 0")
+        self.speculation_k = int(speculation_k)
+        self.spec_delta = None if spec_delta is None else float(spec_delta)
         slots_per_tier = ([int(slots)] * m if np.isscalar(slots)
                           else [int(s) for s in slots])
         kv_blocks_per_tier = (
@@ -494,7 +618,10 @@ class CascadeEngine:
         self.metrics = ServingMetrics(
             [TierCost(t.name, t.flops_per_request(gen_len))
              for t in self.tiers], slots_per_tier)
-        self.scheduler = CascadeScheduler(slots_per_tier, gates)
+        # the scheduler streams every gate decision into the metrics'
+        # calibration telemetry; the engine streams the outcomes
+        self.scheduler = CascadeScheduler(
+            slots_per_tier, gates, calibration=self.metrics.calibration)
         self.clock = clock if clock is not None else WallClock()
         self.tick_id = 0
         max_seq = prompt_len + gen_len
@@ -517,9 +644,11 @@ class CascadeEngine:
                          use_paged_kv=use_paged_kv,
                          use_chunked_prefill=self.chunked_prefill,
                          use_unified_step=self.unified_step,
-                         use_ragged_step=self.ragged_step)
-            for spec, cap, nb in zip(self.tiers, slots_per_tier,
-                                     kv_blocks_per_tier)]
+                         use_ragged_step=self.ragged_step,
+                         speculation_k=self.speculation_k,
+                         spec_draft=(i < m - 1))
+            for i, (spec, cap, nb) in enumerate(
+                zip(self.tiers, slots_per_tier, kv_blocks_per_tier))]
         self.requests: List[Request] = []
         self._rid = 0
         # per-tier token-budget window state, reset each tick: tokens
@@ -556,23 +685,26 @@ class CascadeEngine:
 
     # -- one engine tick ---------------------------------------------------
 
-    def _fetch(self, tier: int, *pairs):
+    def _fetch(self, tier: int, *tensors):
         """The tick's one blocking device->host transfer of every given
-        (token, confidence) pair — the split executor brings its chunk
-        and decode picks together: the int32 tokens ride bit-cast beside
-        the f32 confidences in a single copy (counted overall and per
-        tier).  Returns the pairs as numpy arrays, in order."""
+        tensor — tokens and confidences, and under speculation the verify
+        windows, accepted counts and drafts; the split executor brings its
+        chunk and decode picks together: integer tensors ride bit-cast as
+        int32 beside the f32 ones in a single copy (counted overall and
+        per tier).  Returns numpy arrays of the given shapes, in order."""
         self.host_syncs += 1
         self.metrics.record_host_sync(tier)
-        flat = torch.cat([t for tok, conf in pairs for t in (
-            tok.to(torch.int32).view(torch.float32),
-            conf.to(torch.float32))]).cpu()
+        flat = torch.cat([
+            t.reshape(-1).to(torch.float32) if t.is_floating_point()
+            else t.reshape(-1).to(torch.int32).view(torch.float32)
+            for t in tensors]).cpu()
         out, o = [], 0
-        for tok, _ in pairs:
-            n = tok.shape[0]
-            out.append((flat[o:o + n].view(torch.int32).numpy(),
-                        flat[o + n:o + 2 * n].numpy()))
-            o += 2 * n
+        for t in tensors:
+            part = flat[o:o + t.numel()]
+            if not t.is_floating_point():
+                part = part.view(torch.int32)
+            out.append(part.numpy().reshape(tuple(t.shape)))
+            o += t.numel()
         return out
 
     def _admit_requests(self, tier: int, now: float) -> None:
@@ -656,7 +788,7 @@ class CascadeEngine:
             rt.pool.write_prefill(slot_ids, part_cache)
         del part_cache
         # timestamp with the post-compute clock, so TTFT includes prefill
-        (ftok, fconf), = self._fetch(tier, (ftok, fconf))
+        ftok, fconf = self._fetch(tier, ftok, fconf)
         t_emit = self.clock.now()
         for i, (req, slot) in enumerate(zip(reqs, slot_ids)):
             req.start_decode(t_emit)
@@ -688,7 +820,8 @@ class CascadeEngine:
         in the same order."""
         pre = rt.prefilling() if rt.chunked else []
         dec = rt.decoding()
-        if not pre and not dec:
+        dr = rt.draft_slots() if rt.spec_draft else []
+        if not pre and not dec and not dr:
             return None
         cap = rt.capacity
         kind = np.zeros(cap, np.int8)
@@ -710,32 +843,89 @@ class CascadeEngine:
             if st + n == req.prompt_tokens:
                 finishing.append(s)
         decode_rows: List[int] = []
+        verify_rows: List[tuple] = []
+        draft_rows: List[int] = []
+        draft_len = np.zeros(cap, np.int32)
+        dentries: List[tuple] = []            # (slot, input tokens, pos0)
         if rt.unified:
             dec_set = set(dec)
             for s in rt.pool.bound_rows():
                 if s not in dec_set:
                     continue
-                if not rt.pool.ensure_blocks(s, int(rt.pos[s])):
+                req = rt.slot_req[s]
+                p = int(rt.pos[s])
+                # speculative verify: a decode row with staged drafts
+                # scores its next token and every drafted position in one
+                # ragged window (q_len = 1 + nd); its KV writes for
+                # rejected positions are overwritten before they are read
+                nd = 0
+                if rt.spec_k and req.draft_tokens:
+                    nd = max(0, min(len(req.draft_tokens), rt.spec_k,
+                                    self.gen_len - len(req.tokens) - 1))
+                if nd > 0 and not rt.pool.ensure_blocks(s, p + nd):
+                    # window denied blocks: drop the drafts (the draft
+                    # row re-drafts later) and fall back to plain decode
+                    req.draft_tokens = []
+                    req.draft_confs = []
+                    nd = 0
+                if nd == 0 and not rt.pool.ensure_blocks(s, p):
                     kind[s] = KIND_STALL      # stall: retry next tick
                     continue
+                toks = [int(rt.tok[s])]
+                if nd > 0:
+                    toks += [int(t) for t in req.draft_tokens[:nd]]
+                    verify_rows.append((s, nd))
                 kind[s] = KIND_DECODE
-                qlen[s] = 1
+                qlen[s] = len(toks)
                 decode_rows.append(s)
+                dentries.append((s, toks, p))
         else:
             decode_rows = list(dec)
             kind[dec] = KIND_DECODE
+        for s in dr:
+            # draft rows: catch up on the target request's emitted tokens
+            # (this tier's own draft writes past them are rewritten by
+            # the next catch-up before they are read), then draft up to
+            # spec_k tokens ahead once caught up.  A row denied blocks
+            # skips the tick; it never stalls the tier.
+            req = rt.draft_req[s]
+            if req.state is not RequestState.DECODE or req.draft_tokens:
+                continue             # target mid-prefill / drafts pending
+            base = req.prompt_tokens
+            e = len(req.tokens)
+            p0 = int(rt.pos[s])
+            c = base + e - p0
+            if c <= 0:
+                continue             # caught up; wait for emissions
+            n = min(c, rt.chunk)
+            kd = 0
+            if n == c:               # fully caught up after this chunk
+                kd = max(0, min(rt.spec_k, self.gen_len - e - 1))
+            if not rt.pool.ensure_blocks(s, max(p0 + n - 1,
+                                                base + e + kd - 2)):
+                continue
+            kind[s] = KIND_DRAFT
+            qlen[s] = n
+            draft_len[s] = kd
+            draft_rows.append(s)
+            dentries.append(
+                (s, [int(t) for t in req.tokens[p0 - base:p0 - base + n]],
+                 p0))
         # batch width: the chunk when any prefill row survived its block
-        # check, else 1 (a decode-only tick)
+        # check, else the widest decode/verify/draft row (1 when every
+        # row is a plain decode)
         width = rt.chunk if prefill_rows else 1
+        if dentries:
+            width = max(width, max(len(t) for _, t, _ in dentries))
         tokens = np.zeros((cap, width), np.int32)
         pos = np.zeros((cap, width), np.int32)
         for s, st, n in chunks:
             tokens[s, :n] = rt.slot_req[s].prompt[st:st + n]
             pos[s] = st + np.arange(width)    # row's q_start is pos[s, 0]
-        if rt.unified:      # the split chunk launch carries no decode row
-            for s in decode_rows:
-                tokens[s, 0] = rt.tok[s]
-                pos[s] = int(rt.pos[s]) + np.arange(width)
+        # the split chunk launch carries no decode row (dentries empty)
+        for s, toks, p0 in dentries:
+            tokens[s, :len(toks)] = toks
+            pos[s] = p0 + np.arange(width)
         flat_width = flat_tokens = flat_pos = q_start = None
         if rt.ragged:
             # flat packing: live tokens of all rows concatenated in slot
@@ -756,7 +946,9 @@ class CascadeEngine:
                         q_len=qlen, prefill_rows=prefill_rows,
                         decode_rows=decode_rows, finishing=finishing,
                         flat_width=flat_width, flat_tokens=flat_tokens,
-                        flat_pos=flat_pos, q_start=q_start)
+                        flat_pos=flat_pos, q_start=q_start,
+                        verify_rows=verify_rows, draft_rows=draft_rows,
+                        draft_len=draft_len)
 
     def _tier_step(self, tier: int, now: float) -> int:
         """One tier's compute for a tick: plan on the host, then the
@@ -778,18 +970,33 @@ class CascadeEngine:
         brings back every emitted (token, confidence) pair.  A row
         finishing prefill emits its first token from its last-slot
         logits.  Mid-prompt-only ticks skip the fetch; ticks where every
-        live row stalled skip the launch too."""
-        if not plan.prefill_rows and not plan.decode_rows:
+        live row stalled skip the launch too.
+
+        Under speculation the launch is :meth:`_TierRuntime.run_spec`,
+        whose draft loop runs ``max(draft_len) - 1`` decode steps (none
+        when no row drafts): a verify row emits its accepted drafts and
+        the verifier's next token, a drafting row stages its drafts on
+        its target request, truncated at the first one below
+        ``spec_delta`` (default: this tier's gate δ)."""
+        if not plan.prefill_rows and not plan.decode_rows \
+                and not plan.draft_rows:
             return 0                    # every live row stalled
-        if rt.ragged:
+        spec = None
+        if rt.spec_k:
+            steps = max(int(plan.draft_len.max()) - 1, 0)
+            spec = rt.run_spec(plan.flat_tokens, plan.flat_pos, plan.q_len,
+                               plan.q_start, plan.draft_len, steps)
+            tok, conf = spec["tok"], spec["conf"]
+            processed, kind = plan.flat_width, "spec"
+            self.metrics.record_draft_steps(tier, steps)
+        elif rt.ragged:
             tok, conf = rt.run_ragged(plan.flat_tokens, plan.flat_pos,
                                       plan.q_len, plan.q_start)
-            processed = plan.flat_width
+            processed, kind = plan.flat_width, "ragged"
         else:
             tok, conf = rt.run_mixed(plan.tokens, plan.pos, plan.q_len)
-            processed = rt.capacity * plan.width
-        self.metrics.record_launches(tier,
-                                     "ragged" if rt.ragged else "mixed")
+            processed, kind = rt.capacity * plan.width, "mixed"
+        self.metrics.record_launches(tier, kind)
         # live vs processed token slots: the ragged launch computes its
         # bucket width, the padded one capacity * width
         self.metrics.record_step_tokens(tier, plan.live_tokens, processed)
@@ -805,15 +1012,65 @@ class CascadeEngine:
             req = rt.slot_req[s]
             req.start_decode(t_dec)
             rt.pos[s] = req.prompt_tokens   # next decode writes here
-        if not plan.finishing and not plan.decode_rows:
-            return 0                        # mid-prompt chunks only
-        (tok, conf), = self._fetch(tier, (tok, conf))
+        for s in plan.draft_rows:
+            # catch-up advances on host-known lengths, like prefill
+            rt.pos[s] += int(plan.q_len[s])
+        drafting = [s for s in plan.draft_rows if plan.draft_len[s] > 0]
+        if not plan.finishing and not plan.decode_rows and not drafting:
+            return 0            # mid-prompt chunks / pure catch-up only
+        names = ["tok", "conf"]
+        if plan.verify_rows:
+            names += ["spec_tok", "spec_conf", "acc_len"]
+        if drafting:
+            names += ["draft_tok", "draft_conf"]
+        dev = {"tok": tok, "conf": conf, **(spec or {})}
+        got = dict(zip(names, self._fetch(tier, *(dev[n] for n in names))))
+        tok, conf = got["tok"], got["conf"]
         t_emit = self.clock.now()           # post-compute
+        ver = dict(plan.verify_rows)
         for s in plan.finishing + plan.decode_rows:
-            rt.slot_req[s].emit(int(tok[s]), float(conf[s]), t_emit)
-            rt.tok[s] = tok[s]
+            req = rt.slot_req[s]
+            nd = ver.get(s, 0)
+            if not nd:
+                req.emit(int(tok[s]), float(conf[s]), t_emit)
+                rt.tok[s] = tok[s]
+                continue
+            # greedy speculative acceptance: emit the verifier's argmax
+            # at every accepted position plus the next one — argmaxes
+            # only, so the stream equals non-speculative decode's
+            acc = min(int(got["acc_len"][s]), nd)
+            for j in range(acc + 1):
+                req.emit(int(got["spec_tok"][s, j]),
+                         float(got["spec_conf"][s, j]), t_emit)
+            rt.tok[s] = got["spec_tok"][s, acc]
+            rt.pos[s] += acc + 1
+            self.metrics.record_speculation(tier, nd, acc)
+            # per-token agreement for the draft tier's gate: every
+            # verified draft up to and including the first rejection
+            # (past it the drafts' context is already wrong)
+            for j in range(min(acc + 1, nd)):
+                self.metrics.calibration.record_verify_outcome(
+                    tier - 1, float(req.draft_confs[j]), j < acc)
+            req.draft_tokens = []
+            req.draft_confs = []
         for s in plan.decode_rows:
-            rt.pos[s] += 1
+            if s not in ver:
+                rt.pos[s] += 1
+        if drafting:
+            # stage the drafts on their target requests (the next tier
+            # verifies them later this tick), truncated at the first
+            # token the gate distrusts
+            thr = (self.spec_delta if self.spec_delta is not None
+                   else self.scheduler.delta(tier))
+            dtok, dconf = got["draft_tok"], got["draft_conf"]
+            for s in drafting:
+                keep = 0
+                while (keep < plan.draft_len[s]
+                       and float(dconf[s, keep]) >= thr):
+                    keep += 1
+                req = rt.draft_req[s]
+                req.draft_tokens = [int(x) for x in dtok[s, :keep]]
+                req.draft_confs = [float(x) for x in dconf[s, :keep]]
         return len(plan.decode_rows)
 
     def _exec_split(self, tier: int, rt: _TierRuntime,
@@ -844,18 +1101,18 @@ class CascadeEngine:
         emit_first = pf is not None and bool(pf["finished"])
         if not emit_first and dc is None:
             return 0
-        pairs = ([(pf["tok"], pf["conf"])] if emit_first else []) + \
-            ([(dc["tok"], dc["conf"])] if dc is not None else [])
+        pairs = ([pf["tok"], pf["conf"]] if emit_first else []) + \
+            ([dc["tok"], dc["conf"]] if dc is not None else [])
         fetched = self._fetch(tier, *pairs)
         t_emit = self.clock.now()           # post-compute
         if emit_first:
-            ptok, pconf = fetched.pop(0)
+            ptok, pconf = fetched[:2]
             for s in pf["finished"]:
                 rt.slot_req[s].emit(int(ptok[s]), float(pconf[s]), t_emit)
                 rt.tok[s] = ptok[s]
         if dc is None:
             return 0
-        ntok, nconf = fetched[0]
+        ntok, nconf = fetched[-2:]
         for s in dc["active"]:
             rt.slot_req[s].emit(int(ntok[s]), float(nconf[s]), t_emit)
             rt.tok[s] = ntok[s]
@@ -901,7 +1158,10 @@ class CascadeEngine:
 
     def _finish_requests(self, tier: int, now: float):
         """Gate every row whose decode finished: escalate it to the next
-        tier's queue or complete it; free its row and blocks either way."""
+        tier's queue or complete it, and free its row and blocks — except
+        that under speculation an escalated request's row stays bound as
+        its draft row.  A completed escalated request streams its
+        escalation outcomes into the calibration telemetry."""
         rt = self.runtimes[tier]
         last = tier == len(self.tiers) - 1
         done = esc = 0
@@ -914,11 +1174,30 @@ class CascadeEngine:
                 req.escalate(now)
                 self.scheduler.push_escalated(req)
                 esc += 1
+                if rt.spec_draft:
+                    # keep the row as the request's draft row: its prompt
+                    # KV is resident, so this tier can catch up on the
+                    # next tier's emissions and draft ahead.  The row
+                    # changes role, not owner (no pool or scheduler
+                    # release).
+                    self._release_draft(req)    # M>2: drop the older row
+                    rt.draft_req[slot] = req
+                    rt.slot_req[slot] = None
+                    rt.tok[slot] = 0
+                    rt.pos[slot] = req.prompt_tokens  # rewind: replay the
+                    rt.prefill_pos[slot] = 0          # target's emissions
+                    req.draft_tier = tier
+                    req.draft_slot = slot
+                    continue
             else:
                 # post-compute time: the final decode step belongs to this
                 # request's latency (`now` was sampled at step start)
                 req.complete(self.clock.now())
+                self._release_draft(req)
                 self.metrics.record_completion(req)
+                if req.tier > 0:
+                    # the escalation outcome: did the tiers agree?
+                    self.metrics.record_gate_outcomes(req)
                 done += 1
             rt.slot_req[slot] = None
             rt.tok[slot] = 0
@@ -928,6 +1207,25 @@ class CascadeEngine:
                 rt.pool.release(slot)
             self.scheduler.release(tier, slot)
         return done, esc
+
+    def _release_draft(self, req: Request) -> None:
+        """Free `req`'s retained draft row, if any, and clear its staged
+        drafts.  Idempotent; called on every terminal path (completion)
+        and when a request escalates again (more than two tiers)."""
+        req.draft_tokens = []
+        req.draft_confs = []
+        if req.draft_slot is None:
+            return
+        drt = self.runtimes[req.draft_tier]
+        s = req.draft_slot
+        drt.draft_req[s] = None
+        drt.tok[s] = 0
+        drt.pos[s] = 0
+        drt.prefill_pos[s] = 0
+        drt.pool.release(s)
+        self.scheduler.release(req.draft_tier, s)
+        req.draft_tier = None
+        req.draft_slot = None
 
     def step(self, now: Optional[float] = None) -> None:
         now = self.clock.now() if now is None else now
@@ -971,17 +1269,21 @@ class CascadeEngine:
     def warmup(self) -> None:
         """Run each tier's launches once with all rows idle (the dummy
         writes land in the null block, or in rows that admission
-        overwrites) — the ragged step at every bucket width, the padded
-        step at the chunk width and at width 1, the split chunk and decode
-        launches, or the uniform prefill and decode launches — so the
-        allocator and the matrix-product heuristics are warm before the
-        clock starts; ends by resetting the clock."""
+        overwrites) — the ragged step at every bucket width (the
+        speculative one, with no draft step, under speculation), the
+        padded step at the chunk width and at width 1, the split chunk
+        and decode launches, or the uniform prefill and decode launches —
+        so the allocator and the matrix-product heuristics are warm
+        before the clock starts; ends by resetting the clock."""
         for rt in self.runtimes:
             zr = np.zeros(rt.capacity, np.int32)
             if rt.ragged:
                 for w in rt.flat_buckets:
                     z = np.zeros((1, w), np.int32)
-                    rt.run_ragged(z, z, zr, zr)
+                    if rt.spec_k:
+                        rt.run_spec(z, z, zr, zr, zr, 0)
+                    else:
+                        rt.run_ragged(z, z, zr, zr)
             elif rt.unified:
                 for w in dict.fromkeys((rt.chunk, 1)):
                     z = np.zeros((rt.capacity, w), np.int32)

@@ -1,7 +1,7 @@
 """Serving metrics: latency percentiles, throughput, utilization, and the
 paper's Eq 7 cost accounting (the torch port's copy of the JAX package's
-``repro/serving/metrics.py``, without its gate-calibration, speculation,
-prefix-cache and overload blocks).
+``repro/serving/metrics.py``, without its prefix-cache and overload
+blocks).
 
 Cost convention (Eq 7)::
 
@@ -17,6 +17,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.server import GateStats, ServerStats
+# canonical definition lives in observability (shared with the
+# calibration telemetry); re-exported here for its historical home
+from repro_torch.serving.observability import (GateCalibration,  # noqa: F401
+                                               length_bucket)
 from repro_torch.serving.request import Request
 
 
@@ -24,16 +28,6 @@ def percentile(values: Sequence[float], q: float) -> float:
     if not values:
         return float("nan")
     return float(np.percentile(np.asarray(values, np.float64), q))
-
-
-def length_bucket(n: int) -> str:
-    """Power-of-two prompt-length bucket label ("1", "2", "3-4", "5-8",
-    "9-16", ...)."""
-    hi = 1
-    while hi < n:
-        hi *= 2
-    lo = hi // 2 + 1
-    return str(hi) if lo >= hi else f"{lo}-{hi}"
 
 
 @dataclass
@@ -74,6 +68,19 @@ class ServingMetrics:
         self.active_ticks = [0] * len(tiers)
         self._launched = [False] * len(tiers)
         self.host_syncs_by_tier = [0] * len(tiers)
+        # streaming gate-calibration telemetry: per-gate confidence
+        # histograms + reliability bins fed by escalation and verify
+        # outcomes (scheduler records decisions, engine records outcomes)
+        self.calibration = GateCalibration(n_gates)
+        # speculative cascade decoding, indexed by the *verify* tier:
+        # drafted counts verified draft positions, accepted those the
+        # scoring model's argmax confirmed (rolled_back = the rest, whose
+        # provisional KV writes are overwritten before they are read)
+        self.spec_drafted_by_tier = [0] * len(tiers)
+        self.spec_accepted_by_tier = [0] * len(tiers)
+        self.spec_rolled_back_by_tier = [0] * len(tiers)
+        # decode steps of the draft loop, indexed by the *draft* tier
+        self.spec_draft_steps_by_tier = [0] * len(tiers)
         self.submitted = 0
         # per-tick intervals in the engine's clock domain (seconds, or
         # ticks under a VirtualClock)
@@ -105,6 +112,27 @@ class ServingMetrics:
             self.tick_durations.append(now - self._last_step_time)
         self._last_step_time = now
 
+    def record_gate_outcomes(self, req: Request) -> None:
+        """Stream a completed *escalated* request's outcomes into the
+        calibration telemetry: for each gate it crossed, did the next
+        tier's token stream agree with the one the gate rejected?"""
+        for g in range(req.tier):
+            agree = req.tokens_by_tier[g] == req.tokens_by_tier[g + 1]
+            self.calibration.record_outcome(
+                g, req.seq_conf_by_tier[g], agree, req.prompt_tokens)
+
+    def record_speculation(self, tier: int, drafted: int,
+                           accepted: int) -> None:
+        """One verify window resolved on `tier`: `drafted` draft
+        positions scored, `accepted` confirmed (the rest rolled back)."""
+        self.spec_drafted_by_tier[tier] += int(drafted)
+        self.spec_accepted_by_tier[tier] += int(accepted)
+        self.spec_rolled_back_by_tier[tier] += int(drafted - accepted)
+
+    def record_draft_steps(self, tier: int, n: int) -> None:
+        """`n` decode steps of `tier`'s draft loop in one launch."""
+        self.spec_draft_steps_by_tier[tier] += int(n)
+
     def record_prefill_tokens(self, live: int, processed: int) -> None:
         """One prefill execution: `live` real prompt tokens inside a
         batch of `processed` token slots."""
@@ -120,7 +148,8 @@ class ServingMetrics:
 
     def record_launches(self, tier: int, kind: str) -> None:
         """One launch of `tier`, of kind ``ragged`` or ``mixed`` (the
-        unified executors), ``chunk`` or ``step`` (the split one), or
+        unified executors), ``spec`` (the ragged executor under
+        speculation), ``chunk`` or ``step`` (the split one), or
         ``prefill`` (a uniform one-shot prefill at admission)."""
         self.launches_by_tier[tier] += 1
         self._launched[tier] = True
@@ -151,6 +180,24 @@ class ServingMetrics:
             mine.escalated = theirs.escalated
 
     # -- summary -----------------------------------------------------------
+
+    def snapshot(self, now: float) -> dict:
+        """A cheap point-in-time readout: progress, escalation, and the
+        streaming calibration state (per-gate ECE + agreement)."""
+        return {
+            "t": now,
+            "requests": self.stats.requests,
+            "completed": len(self.latencies),
+            "steps": self.steps,
+            "escalation_rates": [g.escalation_rate
+                                 for g in self.stats.gates],
+            "gate_ece": [self.calibration.ece(g)
+                         for g in range(self.calibration.n_gates)],
+            "gate_agreement": [self.calibration.agreement_rate(g)
+                               for g in range(self.calibration.n_gates)],
+            "gate_outcomes": list(self.calibration.outcomes),
+            "tick_duration_p50": percentile(self.tick_durations, 50),
+        }
 
     @property
     def elapsed(self) -> float:
@@ -221,6 +268,28 @@ class ServingMetrics:
             "tier_utilization": util,
             "escalation_rates": [g.escalation_rate
                                  for g in self.stats.gates],
+            # speculative cascade decoding: accept rate over verified
+            # drafts and the draft/accept/rollback counters per verify
+            # tier, the draft loop's decode steps per draft tier
+            "speculation": {
+                "drafted": sum(self.spec_drafted_by_tier),
+                "accepted": sum(self.spec_accepted_by_tier),
+                "rolled_back": sum(self.spec_rolled_back_by_tier),
+                "accept_rate": (sum(self.spec_accepted_by_tier)
+                                / sum(self.spec_drafted_by_tier)
+                                if sum(self.spec_drafted_by_tier)
+                                else float("nan")),
+                "drafted_by_tier": list(self.spec_drafted_by_tier),
+                "accepted_by_tier": list(self.spec_accepted_by_tier),
+                "rolled_back_by_tier":
+                    list(self.spec_rolled_back_by_tier),
+                "draft_steps_by_tier":
+                    list(self.spec_draft_steps_by_tier),
+            },
+            # streaming gate calibration: per-gate confidence histogram,
+            # reliability diagram + ECE from escalation and verify
+            # outcomes (overall and per prompt-length bucket)
+            "gate_calibration": self.calibration.summary(),
             "flops_per_request_cascade": self.stats.cost / n,   # Eq 7
             "flops_per_request_always_fast":
                 self.tiers[0].flops_per_request,

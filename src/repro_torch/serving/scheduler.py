@@ -1,6 +1,6 @@
 """Continuous-batching scheduler with confidence-gated escalation queues
-(a copy of the JAX package's ``repro/serving/scheduler.py`` without the
-calibration telemetry sink, requeue-on-preemption and load shedding).
+(a copy of the JAX package's ``repro/serving/scheduler.py`` without
+requeue-on-preemption and load shedding).
 
 One arrival queue feeds tier 0; each gate m owns an escalation queue
 feeding tier m+1.  Every engine step the scheduler admits waiting requests
@@ -48,7 +48,7 @@ class CascadeScheduler:
     """Queues + slot accounting for an M-tier cascade."""
 
     def __init__(self, slots_per_tier: Sequence[int],
-                 gates: Sequence[GateSpec]):
+                 gates: Sequence[GateSpec], calibration=None):
         num_tiers = len(slots_per_tier)
         if len(gates) != num_tiers - 1:
             raise ValueError("one gate per non-final tier")
@@ -56,6 +56,11 @@ class CascadeScheduler:
         self.allocators = [SlotAllocator(c) for c in slots_per_tier]
         self.gates = list(gates)
         self.gate_stats = [GateStats() for _ in gates]
+        # streaming calibration telemetry sink (observability.
+        # GateCalibration, usually ServingMetrics.calibration): every
+        # gate decision streams (confidence, escalated) into it; the
+        # engine streams the outcomes separately.  None: off.
+        self.calibration = calibration
         self._conf_windows: List[Deque[float]] = [
             deque(maxlen=g.window) for g in gates]
         # queue[0] = arrivals; queue[m>0] = escalations from gate m-1
@@ -156,6 +161,8 @@ class CascadeScheduler:
         escalate = seq_conf <= delta
         if escalate:
             st.escalated += 1
+        if self.calibration is not None:
+            self.calibration.record_gate(gate, seq_conf, escalate)
         return escalate
 
     # -- introspection -----------------------------------------------------

@@ -241,6 +241,8 @@ PAGED_CASES = {
 # window, qk_scale).
 TILE_QLENS = [64, 37, 21, 63, 1, 0]
 TILE_LATE = [580, 600, 530, 560, 640, 0]
+VERIFY_QLENS = [5, 1, 3, 5, 2, 4, 5, 1]
+VERIFY_POS = [590, 595, 600, 605, 610, 615, 620, 625]
 RAGGED_TILE_CASES = {
     "hd64-straddle": (TILE_QLENS, None, 2, 3, 64, "f32", None, 1.0),
     "hd128-straddle": (TILE_QLENS, None, 2, 3, 128, "f32", None, 1.0),
@@ -256,6 +258,13 @@ RAGGED_TILE_CASES = {
     "hd256-bf16-window512-late": (TILE_QLENS, TILE_LATE, 1, 4, 256, "bf16",
                                   512, 1.0),
     "all-idle-W8": ([0] * 8, None, 2, 3, 128, "f32", None, 1.0),
+    # speculative verify windows: 8 rows of q_len 1-5 (a decode token and
+    # up to 4 drafts) at positions 590-625, phi4's KV 8 x G 3 (15 rows of
+    # 5 tokens: the decode layout) and gemma3's KV 1 x G 4 with its
+    # window (20 rows: the prefill layout) in one launch each
+    "verify-phi4": (VERIFY_QLENS, VERIFY_POS, 8, 3, 128, "f32", None, 1.0),
+    "verify-gemma3-window512": (VERIFY_QLENS, VERIFY_POS, 1, 4, 256, "f32",
+                                512, 1.0),
 }
 # Paged: (rows, KV, G, hd, kind, window, masked rows, qk_scale); rows at
 # positions 590-625 (the decode tick chip_smoke.py times), a ninth row
@@ -519,6 +528,8 @@ def test_cuda_ragged_attention_matches_plain(case, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,tie", [((8, 262144), False),
                                        ((8, 200064), False),
+                                       ((512, 262144), False),
+                                       ((64, 200064), False),
                                        ((3, 1000), True)])
 def test_cuda_confidence_gate_matches_plain(shape, tie, cuda_device):
     """Against the plain version in f64 on the CPU, rounded to f32: an
@@ -697,6 +708,34 @@ def test_cuda_paged_attention_tile_cases(case, splits, cuda_device):
     atol, rtol = TILE_TOLS[kind]
     torch.testing.assert_close(got[live].float(), want[live], atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KV,G,hd,window", [(8, 3, 128, None),
+                                            (1, 4, 256, 512)])
+def test_cuda_paged_attention_masked_rows_leave_live_rows(KV, G, hd, window,
+                                                          cuda_device):
+    """The speculative draft loop's decode step: rows past their draft
+    budget decode through an all-null page-table row at position 0 (the
+    null block 0 holds data).  The live rows' outputs are bit-identical
+    to a launch with no row masked, and within 1e-4 of the plain
+    version; the masked rows' outputs are finite."""
+    args, kw = _paged_inputs(hd + KV, B=8, KV=KV, G=G, hd=hd, bs=16, P=41,
+                             window=window, pos=VERIFY_POS)
+    targs, tkw = _torch(args, kw)
+    q, kp, vp, pt, pos = (a.to(cuda_device) for a in targs)
+    masked = [1, 4, 6]
+    mpt, mpos = pt.clone(), pos.clone()
+    mpt[masked] = 0
+    mpos[masked] = 0
+    live = [b for b in range(8) if b not in masked]
+    full = paged_mod.paged_attention(q, kp, vp, pt, pos, window=window)
+    got = paged_mod.paged_attention(q, kp, vp, mpt, mpos, window=window)
+    assert torch.equal(got[live], full[live])
+    assert bool(torch.isfinite(got).all())
+    want = ref.paged_attention_ref(*targs, **tkw)
+    torch.testing.assert_close(got[live].cpu(), want[live], atol=1e-4,
+                               rtol=1e-4)
 
 
 @pytest.mark.cuda
