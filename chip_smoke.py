@@ -53,6 +53,20 @@ without printing a result):
      teacher-forced prefill's, within twice that, for a stream
      difference), accept rates,
      per-gate ECE and agreement, tokens/s at k = 0 and k = 4;
+  4c. prefix caching, on phase 4's weights: a row admitted over a
+     published prefix against the same prompt uncached and
+     teacher-forced (last-token logits within 1e-4; both tiers at full
+     width), ``_copy_blocks`` bit-exact on a phi4-mini-3.8b f32 pool and
+     an int8 one; then the workload with 0.75 of every prompt shared at
+     a fixed δ of 1 (every request escalates) under a virtual clock: the
+     ragged executor with ``--prefix-cache`` off and on, the padded and
+     split executors with it on, and the ragged one on an 80-block arena
+     that evicts index entries — exact launch counts, block
+     conservation after each drain, hits on both tiers, live prefill
+     tokens cut by exactly the cached ones, and streams against the
+     cache-off run under the margin rule; then the ragged executor on
+     the wall clock at the escalation budget, cache off and on
+     (tokens/s, TTFT p50, peak memory);
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
      then the uniform one-shot prefill path on 16 prompts of exactly 640
@@ -112,7 +126,8 @@ from repro_torch.models.cache import init_paged_cache  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
                                         VirtualClock, _TierRuntime)
-from repro_torch.serving.slots import DenseTierSlotPool  # noqa: E402
+from repro_torch.serving.slots import (DenseTierSlotPool,  # noqa: E402
+                                       TierSlotPool)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
 # (non-tensor-core) operations/s, at the full 700 W power limit
@@ -1327,8 +1342,10 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
     """The phase-4 workload with ``expensive`` as the second tier;
     ``flags`` adds or overrides the CLI's flags: the executor's
     (``ragged_step=False``, ``split_step=True``,
-    ``no_chunked_prefill=True`` or ``dense_kv=True``) or speculation's
-    (``speculate``, ``spec_delta``, with ``gen_len``).  The chunked
+    ``no_chunked_prefill=True`` or ``dense_kv=True``), speculation's
+    (``speculate``, ``spec_delta``, with ``gen_len``) or prefix
+    caching's (``prefix_cache``, ``shared_prefix_frac``, ``delta``,
+    ``kv_blocks``).  The chunked
     executors serve lognormal prompt lengths up to 640; the uniform
     prefill path (those two flags, or the recurrent rwkv6-3b and
     jamba-v0.1-52b) serves every prompt at exactly 640."""
@@ -1340,7 +1357,8 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
         min_prompt_len=1, length_dist="uniform" if uniform else "lognormal",
         gen_len=8, prefill_chunk=64, prefill_token_budget=None, delta=None,
         escalation_budget=0.25, kv_block_size=16, kv_blocks=None,
-        seed=0, expensive_seed=None, speculate=0, spec_delta=None)
+        seed=0, expensive_seed=None, speculate=0, spec_delta=None,
+        prefix_cache=False, shared_prefix_frac=0.0)
     args.update(flags)
     return Namespace(**args)
 
@@ -1401,17 +1419,73 @@ def expected_launches(cfgs, kinds, warm=None, paged=True, draft_steps=None):
     return out
 
 
+class EngineTap:
+    """Keeps the engine ``serve_async.run`` builds while the tap is open
+    (its pools are audited after the run), and caps every engine's run
+    at ``max_steps`` ticks: an arena too small for the workload raises
+    instead of spinning.  Both patches sit on the module and the class,
+    never on the engine, so no reference cycle keeps a served engine's
+    arena alive once the tap is dropped."""
+
+    def __init__(self, max_steps: int = 5000):
+        self.max_steps = max_steps
+        self.engine = None
+
+    def __enter__(self):
+        self.orig = build, run = serve_async.build_engine, CascadeEngine.run
+        cap = self.max_steps
+
+        def build_engine(*a, **kw):
+            engine, vocab = build(*a, **kw)
+            self.engine = engine
+            return engine, vocab
+
+        def capped(engine, max_steps=cap):
+            return run(engine, min(max_steps, cap))
+        serve_async.build_engine = build_engine
+        CascadeEngine.run = capped
+        return self
+
+    def __exit__(self, *exc):
+        serve_async.build_engine, CascadeEngine.run = self.orig
+
+
+def pool_leaks(engine) -> list:
+    """Block conservation after a drain, per paged tier pool: no row is
+    bound, and every live block is held by the prefix index alone
+    (refcount = index references; none without the cache), so free and
+    index-held blocks make up the arena.  Returns the tiers that break
+    it."""
+    bad = []
+    for rt in engine.runtimes:
+        pool = rt.pool
+        if not rt.paged:
+            continue
+        alloc = pool.blocks
+        if pool.bound_rows() or alloc.num_used != len(pool._index_refs) \
+                or any(alloc.refcount(b) != n
+                       for b, n in pool._index_refs.items()) \
+                or alloc.num_free + alloc.num_used != pool.num_blocks - 1:
+            bad.append({"tier": rt.spec.name, "bound": pool.bound_rows(),
+                        "used": alloc.num_used, "free": alloc.num_free,
+                        "index_held": len(pool._index_refs)})
+    return bad
+
+
 def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
-          phase=None, **flags):
+          phase=None, clock=None, **flags):
     """Serve the phase-4 workload on ``params`` (the cascade to
     ``expensive``, whose configs are ``cfgs`` where given) under one
-    executor (``flags`` adds CLI flags: speculation's), with every
-    kernel counter set to 0 just before and read just after; check that
-    every request completed, that the gate split them, and that the
-    counters prove each tier launch — and under speculation each decode
-    step of the draft loop — went through the executor's kernels (and
-    through nothing else).  Returns (counts, per-request records,
-    summary)."""
+    executor (``flags`` adds CLI flags: speculation's or prefix
+    caching's) on ``clock`` (default: the wall clock), with every kernel
+    counter set to 0 just before and read just after; check that every
+    request completed, that the gate split them (at a fixed δ of 1, that
+    every request escalated), and that the counters prove each tier
+    launch — and under speculation each decode step of the draft loop —
+    went through the executor's kernels (and through nothing else).
+    After the drain every paged pool must hold no bound row and no block
+    but those its prefix index holds (block conservation).  Returns
+    (counts, per-request records, summary)."""
     args = main_path_args(expensive, **ALL_EXECUTORS[executor], **flags)
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
@@ -1423,11 +1497,13 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
     for name in COUNTED:
         getattr(ops, name).launches = 0
     t0 = time.perf_counter()
-    s = serve_async.run(args, params=params, cfgs=cfgs)
+    with EngineTap() as tap:
+        s = serve_async.run(args, clock, params=params, cfgs=cfgs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = torch.cuda.max_memory_allocated()
+    s["max_memory_allocated_bytes"] = peak
 
     cfgs = serve_async.tier_configs(args, cfgs)
     tier_launches = s["launches"]
@@ -1456,9 +1532,17 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
                for r in per_req):
         problems.append("a request is not DONE with gen_len tokens")
     tiers = [r["tier"] for r in per_req]
-    if 1 not in tiers or 0 not in tiers:
+    if args.delta is not None and args.delta >= 1.0:
+        if set(tiers) != {1}:
+            problems.append(f"δ = {args.delta} must escalate every "
+                            f"request: {tiers}")
+    elif 1 not in tiers or 0 not in tiers:
         problems.append(f"need escalated and non-escalated requests: "
                         f"{tiers}")
+    leaks = pool_leaks(tap.engine)
+    if leaks:
+        problems.append(f"blocks not conserved after the drain: {leaks}")
+    del tap
     paged = s["paged_kv"]
     # under speculation: the draft loop's decode steps per tier (each a
     # paged_attention launch per attention layer and a gate launch)
@@ -1517,6 +1601,19 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
         latency_p50_s=s["latency_p50"], ttft_p50_s=s["ttft_p50"],
         max_memory_allocated_bytes=peak, wall_s_incl_init=wall,
         stream_checksum=s["stream_checksum"], problems=problems)
+    if args.prefix_cache or args.shared_prefix_frac:
+        record.update(
+            clock="virtual" if clock is not None else "wall",
+            prefix_cache=args.prefix_cache,
+            shared_prefix_frac=args.shared_prefix_frac,
+            kv_blocks=args.kv_blocks, prefill_live_tokens=s[
+                "prefill_live_tokens"],
+            prefix_cache_summary=s["prefix_cache"],
+            prefix_pools=[{k: m[k] for k in (
+                "num_blocks", "kv_high_water_blocks",
+                "kv_shared_high_water_blocks", "prefix_index_entries",
+                "prefix_evictions", "prefix_cow_copies")}
+                for m in s["kv_arena"]])
     if args.speculate or phase:
         record.update(
             gen_len=args.gen_len, speculate=args.speculate,
@@ -1697,6 +1794,42 @@ class RejectionTap:
         CascadeEngine._exec_unified, _TierRuntime.pick = self.orig
 
 
+def workload_prompts(args, cfgs) -> list:
+    """The prompts ``serve_async.run`` submits for ``args``: the bigram
+    prompts, the shared prefix applied, cut to their sampled lengths."""
+    vocab = min(cfgs[0].vocab_size, cfgs[1].vocab_size,
+                serve_async.PROMPT_VOCAB)
+    prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
+                        vocab=vocab, seed=args.seed)
+    lens = serve_async.sample_lengths(args.length_dist, args.requests,
+                                      args.prompt_len, args.min_prompt_len,
+                                      args.seed)
+    prompts = serve_async.apply_shared_prefix(
+        prompts, lens, args.shared_prefix_frac, vocab, args.seed)
+    return [p[:int(n)] for p, n in zip(prompts, lens)]
+
+
+def stream_gaps(base, other, prompts, params, cfgs, dev) -> list:
+    """Where two runs' per-request records disagree, for requests ending
+    at the same tier: at each tier's first differing token, (tier, the
+    gap between the two tokens' logits) from the teacher-forced logits
+    of that tier's model (:func:`next_token_logits`) — what
+    :func:`margin_check` reads."""
+    gaps = []
+    for a, b in zip(base, other):
+        if a["tier"] != b["tier"]:
+            continue
+        for t, (x, y) in enumerate(zip(a["tokens_by_tier"],
+                                       b["tokens_by_tier"])):
+            if x == y:
+                continue
+            i = next(j for j, (u, v) in enumerate(zip(x, y)) if u != v)
+            logits = next_token_logits(params[t], cfgs[t], dev,
+                                       list(prompts[a["rid"]]) + x[:i])
+            gaps.append((t, abs(logits[x[i]] - logits[y[i]]).item()))
+    return gaps
+
+
 def margin_check(what, gaps, bounds) -> None:
     """The margin rule: each (tier, gap) where two paths chose two
     tokens — the gap between the two tokens' logits — must be within
@@ -1751,26 +1884,8 @@ def check_speculation(card: str, params) -> dict:
             counts[f"spec {label} k={k}"] = c
             runs[k] = (per_req, s)
         (base, _), (spec, s4) = runs[0], runs[SPEC_K]
-        prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
-                            vocab=min(cfgs[0].vocab_size,
-                                      cfgs[1].vocab_size,
-                                      serve_async.PROMPT_VOCAB),
-                            seed=args.seed)
-        lens = serve_async.sample_lengths(args.length_dist, args.requests,
-                                          args.prompt_len,
-                                          args.min_prompt_len, args.seed)
-        differ = []
-        for a, b in zip(base, spec):
-            if a["tier"] != b["tier"] or a["tokens"] == b["tokens"]:
-                continue
-            i = next(j for j, (x, y) in enumerate(zip(a["tokens"],
-                                                      b["tokens"])) if x != y)
-            ctx = list(prompts[a["rid"]][:int(lens[a["rid"]])]) + \
-                a["tokens"][:i]
-            logits = next_token_logits(pair[a["tier"]], cfgs[a["tier"]],
-                                       dev, ctx)
-            differ.append((a["tier"], abs(logits[a["tokens"][i]]
-                                          - logits[b["tokens"][i]]).item()))
+        differ = stream_gaps(base, spec, workload_prompts(args, cfgs), pair,
+                             cfgs, dev)
         margin_check(f"{label} k={SPEC_K} streams against k=0, "
                      "teacher-forced", differ, bounds)
         tapped = None
@@ -1810,6 +1925,217 @@ def check_speculation(card: str, params) -> dict:
                                  for g in s4["gate_calibration"]])
         if label == "self" and s4["speculation"]["accepted"] == 0:
             raise AssertionError("self-speculation accepted no draft")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the prefix-caching phase
+# --------------------------------------------------------------------------
+
+# the shared share of every prompt, and an arena small enough that the
+# index is evicted under the virtual-clock workload (the oldest-first
+# discipline stalls this workload at 64 blocks, cache on or off, in both
+# packages; 80 drains)
+PREFIX_FRAC, PREFIX_KV_BLOCKS = 0.75, 80
+
+
+def ragged_chunks(pool, params, cfg, slot, prompt, start, chunk=64):
+    """Prefill ``prompt`` from ``start`` on row ``slot`` of ``pool`` in
+    ``chunk``-token ``ragged_step`` launches (growing the row's pages and
+    publishing its boundaries after each, as the engine does); returns
+    the last launch's logits of the row's last token."""
+    dev = params["embed"].device
+    i32 = lambda v: torch.tensor(np.asarray(v, np.int32),  # noqa: E731
+                                 device=dev)
+    R = pool.capacity
+    for c in range(start, len(prompt), chunk):
+        n = min(chunk, len(prompt) - c)
+        if not pool.ensure_blocks(slot, c + n - 1):
+            raise AssertionError(f"row {slot} denied a block at {c + n}")
+        toks = np.zeros((1, chunk), np.int32)
+        pos = np.zeros((1, chunk), np.int32)
+        toks[0, :n] = prompt[c:c + n]
+        pos[0, :n] = c + np.arange(n)
+        q_len, q_start = np.zeros(R, np.int32), np.zeros(R, np.int32)
+        q_len[slot], q_start[slot] = n, c
+        logits, pool.cache = transformer.ragged_step(
+            params, cfg, i32(toks), pool.cache, i32(pos),
+            {"page_table": i32(pool.page_table), "q_len": i32(q_len),
+             "q_start": i32(q_start)})
+        pool.publish_prefix(slot, prompt, c + n)
+    return logits[slot]
+
+
+def prefix_logit_error(dev, params, cfg) -> dict:
+    """A row admitted over a published prefix against the same prompt
+    served uncached, on the card at full width: prompt A (600 tokens) is
+    prefilled and published on row 0 in 64-token ``ragged_step`` chunks;
+    prompt B shares A's first 460 tokens, matches the 448-token entry and
+    resumes on row 1 over A's shared blocks; B again on row 2 from
+    scratch; and B through the teacher-forced uniform ``prefill``.
+    Returns the largest |logit| differences of the last token's logits;
+    the cached row must be within 1e-4 of the uncached one."""
+    rng = np.random.default_rng(11)
+    V = min(cfg.vocab_size, serve_async.PROMPT_VOCAB)
+    a = rng.integers(0, V, 600).astype(np.int32)
+    b = a.copy()
+    b[460:] = rng.integers(0, V, 140)
+    pool = TierSlotPool(cfg, 3, 648, block_size=16, prefix_chunk=64,
+                        device=dev)
+    pool.bind(0, 64, row_tokens=608)
+    ragged_chunks(pool, params, cfg, 0, a, 0)
+    cached, blocks = pool.match_prefix(b)
+    if cached != 448:
+        raise AssertionError(f"B matched {cached} tokens, not 448")
+    pool.bind(1, cached + 64, row_tokens=608, prefix=(cached, blocks))
+    hit = ragged_chunks(pool, params, cfg, 1, b, cached)
+    pool.bind(2, 64, row_tokens=608)
+    miss = ragged_chunks(pool, params, cfg, 2, b, 0)
+    tf = next_token_logits(params, cfg, dev, b)
+    errs = {"cached_vs_uncached": (hit - miss).abs().max().item(),
+            "cached_vs_prefill": (hit - tf).abs().max().item(),
+            "uncached_vs_prefill": (miss - tf).abs().max().item()}
+    emit(check="prefix-cache hit against the same prompt uncached and "
+         "teacher-forced (last token's logits)", model=cfg.name,
+         prompt_tokens=len(b), cached_tokens=cached,
+         shared_pages=pool.shared_pages(1), max_abs_err=errs,
+         argmax=[int(x.argmax()) for x in (hit, miss, tf)])
+    if not errs["cached_vs_uncached"] <= 1e-4:
+        raise AssertionError(f"cached row off the uncached one: {errs}")
+    del pool
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_copy_blocks(dev, cfg) -> None:
+    """The copy-on-write primitive ``TierSlotPool._copy_blocks`` on the
+    card: blocks copied bit for bit (``torch.equal``) in every paged leaf
+    of a phi4-mini-3.8b f32 pool and of an int8 pool (its f32 scales
+    included), and no other block touched."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    out = {}
+    for kind, c in (("f32", cfg),
+                    ("int8", dataclasses.replace(cfg, kv_quant="int8"))):
+        pool = TierSlotPool(c, 2, 648, block_size=16, device=dev)
+        paged = [(leaf, ax) for leaf, (k, ax) in
+                 zip(tree_leaves(pool.cache), tree_leaves(pool._meta))
+                 if k == "paged"]
+        for leaf, _ in paged:
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape,
+                                         generator=gen, device=dev,
+                                         dtype=torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                       device=dev))
+        src, dst = [5, 17, 40, 63], [70, 3, 81, 22]
+        before = [leaf.clone() for leaf, _ in paged]
+        pool._copy_blocks(src, dst)
+        torch.cuda.synchronize()
+        s, d = (torch.tensor(x, device=dev) for x in (src, dst))
+        keep = torch.tensor([i for i in range(pool.num_blocks)
+                             if i not in dst], device=dev)
+        ok = all(torch.equal(leaf.index_select(ax, d),
+                             old.index_select(ax, s))
+                 and torch.equal(leaf.index_select(ax, keep),
+                                 old.index_select(ax, keep))
+                 for (leaf, ax), old in zip(paged, before))
+        out[kind] = {"leaves": len(paged), "bit_exact": ok,
+                     "dtypes": sorted({str(l.dtype) for l, _ in paged})}
+        del pool, paged, before
+        if not ok:
+            raise AssertionError(f"_copy_blocks not bit-exact ({kind})")
+    torch.cuda.empty_cache()
+    emit(check="prefix-cache copy-on-write _copy_blocks on the card",
+         model=cfg.name, blocks=4, pools=out)
+
+
+def check_prefix_cache(card: str, params) -> dict:
+    """The prefix-caching phase, on phase 4's weights: the phase-4
+    workload with 0.75 of every prompt shared, at a fixed δ of 1 (every
+    request escalates, so both tiers' indices serve, and the escalation
+    re-prefill hits the expensive tier's) under a virtual clock — the
+    ragged executor with the cache off and on, the padded and split
+    executors with it on, and the ragged one on an arena of 80 blocks,
+    which evicts index entries — each with exact launch counts and block
+    conservation (:func:`serve`).  Each cache-on run must hit on both
+    tiers, prefill fewer live tokens (exactly the cached ones fewer) and
+    keep the cache-off run's streams up to near-ties: the margin rule,
+    each tier's bound twice its largest logit error of
+    :func:`prefix_logit_error`.  Then the ragged executor on the wall
+    clock at the escalation budget, cache off and on (a record: tokens/s,
+    TTFT, peak memory).  Returns the runs' launch counts by path."""
+    fixed = dict(shared_prefix_frac=PREFIX_FRAC, delta=1.0)
+    args = main_path_args(**fixed)
+    cfgs = serve_async.tier_configs(args)
+    dev = params[0]["embed"].device
+    errs = [prefix_logit_error(dev, params[t], cfgs[t]) for t in (0, 1)]
+    check_copy_blocks(dev, cfgs[1])
+    bounds = [2 * max(e.values()) for e in errs]
+    prompts = workload_prompts(args, cfgs)
+    counts, runs = {}, {}
+    on = {"prefix_cache": True}
+    for label, executor, flags in (
+            ("ragged off", "ragged", {}), ("ragged on", "ragged", on),
+            ("padded on", "padded", on), ("split on", "split", on),
+            ("ragged on, 80 blocks", "ragged",
+             dict(on, kv_blocks=PREFIX_KV_BLOCKS))):
+        c, per_req, s = serve(card, params, executor,
+                              phase=f"prefix caching, {label}",
+                              clock=VirtualClock(), **fixed, **flags)
+        counts[f"prefix {label}"] = c
+        runs[label] = (per_req, s)
+    base, s_off = runs["ragged off"]
+    problems, table = [], {}
+    for label, (per_req, s) in runs.items():
+        pc, pools = s["prefix_cache"], s["kv_arena"]
+        table[label] = dict(
+            hit_rate_by_tier=[h / n for h, n in zip(pc["hits_by_tier"],
+                                                    s["tier_requests"])],
+            cached_tokens_by_tier=pc["cached_tokens_by_tier"],
+            prefill_live_tokens=s["prefill_live_tokens"],
+            index_entries=[m["prefix_index_entries"] for m in pools],
+            evictions=[m["prefix_evictions"] for m in pools],
+            cow_copies=[m["prefix_cow_copies"] for m in pools],
+            shared_high_water_blocks=[m["kv_shared_high_water_blocks"]
+                                      for m in pools], steps=s["steps"])
+        if label == "ragged off":
+            continue
+        if min(pc["hits_by_tier"]) == 0:
+            problems.append(f"{label}: no hit on a tier {pc}")
+        if s["prefill_live_tokens"] != s_off["prefill_live_tokens"] \
+                - pc["cached_tokens"] or not pc["cached_tokens"]:
+            problems.append(f"{label}: live prefill tokens "
+                            f"{s['prefill_live_tokens']}, cache off "
+                            f"{s_off['prefill_live_tokens']}, cached "
+                            f"{pc['cached_tokens']}")
+        margin_check(f"prefix cache {label} streams against ragged off, "
+                     "teacher-forced", stream_gaps(base, per_req, prompts,
+                                                   params, cfgs, dev),
+                     bounds)
+    if not sum(table["ragged on, 80 blocks"]["evictions"]):
+        problems.append("the 80-block arena evicted no index entry")
+    wall = {}
+    for cache in (False, True):
+        c, _, s = serve(card, params, "ragged",
+                        phase="prefix caching, wall clock",
+                        shared_prefix_frac=PREFIX_FRAC, prefix_cache=cache)
+        counts[f"prefix wall {'on' if cache else 'off'}"] = c
+        gen = sum(args.gen_len * (r["tier"] + 1) for r in s["per_request"])
+        wall["on" if cache else "off"] = dict(
+            generated_tokens_per_s=gen / s["elapsed"],
+            ttft_p50_s=s["ttft_p50"], tick_p50_s=s["tick_duration_p50"],
+            max_memory_allocated_bytes=s["max_memory_allocated_bytes"],
+            tier_requests=s["tier_requests"],
+            prefill_live_tokens=s["prefill_live_tokens"],
+            prefix_cache=s["prefix_cache"])
+    emit(phase="prefix caching summary", card=card,
+         cascade=[args.fast, args.expensive], shared_prefix_frac=PREFIX_FRAC,
+         virtual_clock_delta_1=table, logit_error=errs, margin_bound=bounds,
+         wall_clock_budget=wall, problems=problems)
+    if problems:
+        raise AssertionError("prefix caching: " + "; ".join(problems))
     return counts
 
 
@@ -1989,6 +2315,8 @@ def main() -> int:
     # the speculation phase, on the same weights: gemma3 drafting for
     # phi4, and for itself
     spec_runs = check_speculation(card, params)
+    # the prefix-caching phase, on the same weights
+    prefix_runs = check_prefix_cache(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -2048,6 +2376,7 @@ def main() -> int:
     counts = {ex: c for ex, (c, _, _) in runs.items()}
     counts.update({ex: c for ex, (c, _, _) in uniform_runs.items()})
     counts.update(spec_runs)
+    counts.update(prefix_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
@@ -2055,11 +2384,15 @@ def main() -> int:
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
     jamba_paths = ("jamba auto", "jamba dense")
     spec_paths = tuple(spec_runs)
+    prefix_ragged = tuple(p for p in prefix_runs if "ragged" in p
+                          or "wall" in p)
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
-                      + spec_paths),
+                      + spec_paths + prefix_ragged),
                      ("mixed_attention", ("padded", "split", "moe padded",
-                                          "moe split")),
-                     ("paged_attention", ("split", "moe split", "uniform",
+                                          "moe split", "prefix padded on",
+                                          "prefix split on")),
+                     ("paged_attention", ("split", "moe split",
+                                          "prefix split on", "uniform",
                                           "rwkv", "jamba auto")
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")

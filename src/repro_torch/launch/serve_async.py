@@ -29,6 +29,17 @@ tier, and the expensive tier verifies them in its own ragged launch
 (``--expensive-seed`` equal to ``--seed``, with ``--expensive`` the fast
 model, gives self-speculation, where every draft is accepted).
 
+``--prefix-cache`` turns on refcounted KV prefix sharing (chunked paged
+prefill only): each tier's pool indexes finished prompt chunks at block
+boundaries, later requests with the same leading tokens map those blocks
+read-only and start prefill at the first uncached chunk (cached tokens
+cost 0 admission budget).  ``--shared-prefix-frac F`` makes the
+synthetic workload exercise it: every request's first ``F``·length
+tokens come from one shared base prompt (system-prompt traffic), the
+rest stay unique.  Token streams are the same with the cache on or off
+under a fixed ``--delta``; the summary records the hit rate, the
+cached-token fraction and the stream checksum.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
 
@@ -41,8 +52,8 @@ jamba-v0.1-52b`` the Mamba + attention + MoE hybrid, and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.
 Reports latency/TTFT percentiles, throughput, per-tier utilization,
 launches and host syncs per tick, the escalation rate, the speculation
-counters, the per-gate calibration (ECE and agreement against the
-escalation and verify outcomes) and Eq 7 FLOPs/request.
+and prefix-cache counters, the per-gate calibration (ECE and agreement
+against the escalation and verify outcomes) and Eq 7 FLOPs/request.
 """
 from __future__ import annotations
 
@@ -118,6 +129,7 @@ def build_engine(args, clock=None, params=None, cfgs=None):
         use_unified_step=False if getattr(args, "split_step", False)
         else None,
         use_ragged_step=getattr(args, "ragged_step", None),
+        prefix_cache=bool(getattr(args, "prefix_cache", False)),
         speculation_k=getattr(args, "speculate", 0),
         spec_delta=getattr(args, "spec_delta", None),
         clock=clock if clock is not None else WallClock(),
@@ -152,6 +164,26 @@ def sample_lengths(dist: str, n: int, max_len: int, min_len: int,
     else:
         raise ValueError(f"unknown length distribution {dist!r}")
     return np.clip(np.rint(lens), min_len, max_len).astype(np.int64)
+
+
+def apply_shared_prefix(prompts: np.ndarray, lengths: np.ndarray,
+                        frac: float, vocab: int, seed: int) -> np.ndarray:
+    """Overwrite the first ``frac``·length tokens of every prompt with one
+    shared base sequence (system-prompt traffic); the tail stays unique.
+    ``frac=0`` is the identity, ``frac=1`` makes prompts pure prefixes of
+    each other (maximal sharing)."""
+    if not frac:
+        return prompts
+    if not 0.0 <= frac <= 1.0:
+        raise ValueError(f"--shared-prefix-frac must be in [0, 1], "
+                         f"got {frac}")
+    base = bigram_lm(num_seqs=1, seq_len=prompts.shape[1], vocab=vocab,
+                     seed=seed + 7_777_777)[0]
+    out = prompts.copy()
+    for i, n in enumerate(lengths):
+        k = int(frac * int(n))
+        out[i, :k] = base[:k]
+    return out
 
 
 def stream_checksum(engine) -> str:
@@ -190,7 +222,8 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     ``cfgs`` where given), warm up, serve the synthetic workload, and
     summarise.
     ``kernel_launches`` counts the kernel launches after warmup;
-    ``per_request`` lists each request's final tier, state and tokens."""
+    ``per_request`` lists each request's final tier, state and tokens,
+    and the tokens each tier it reached decoded."""
     engine, vocab = build_engine(args, clock, params, cfgs)
     # catches the flags and the engine's own choice of uniform prefill
     # (a tier with recurrent state)
@@ -205,6 +238,9 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     lengths = sample_lengths(args.length_dist, args.requests,
                              args.prompt_len, args.min_prompt_len,
                              args.seed)
+    prompts = apply_shared_prefix(
+        prompts, lengths, getattr(args, "shared_prefix_frac", 0.0),
+        min(vocab, PROMPT_VOCAB), args.seed)
     arrivals = poisson_arrivals(args.requests, args.rate, args.seed)
     # warmup runs every bucket width and then resets the clock, so
     # arrival timestamps are relative to the start of serving
@@ -240,13 +276,18 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     summary["delta"] = [engine.scheduler.delta(g)
                         for g in range(len(engine.scheduler.gates))]
     summary["kv_arena"] = engine.memory_stats()
+    summary["prefix_cache_enabled"] = engine.prefix_cache
+    summary["shared_prefix_frac"] = float(
+        getattr(args, "shared_prefix_frac", 0.0) or 0.0)
     summary["stream_checksum"] = stream_checksum(engine)
     summary["device"] = str(engine.device)
     summary["device_name"] = (torch.cuda.get_device_name(engine.device)
                               if engine.device.type == "cuda" else "cpu")
     summary["per_request"] = [
         {"rid": r.rid, "tier": r.tier, "state": r.state.name,
-         "tokens": list(r.tokens)} for r in engine.requests]
+         "tokens": list(r.tokens),
+         "tokens_by_tier": [list(t) for t in r.tokens_by_tier]}
+        for r in engine.requests]
     return summary
 
 
@@ -296,6 +337,15 @@ def report(s: dict) -> None:
               + "  ".join(f"{n}={d}" for n, d in
                           zip(s["tier_names"], sp["draft_steps_by_tier"])))
     print(f"  escalation rate [{rates}] at δ=[{deltas}]{target}")
+    pc = s.get("prefix_cache") or {}
+    if s.get("prefix_cache_enabled") and pc.get("lookups"):
+        shared_hw = sum(t.get("kv_shared_high_water_blocks", 0)
+                        for t in s.get("kv_arena", []))
+        print(f"  prefix cache  hit rate {pc['hit_rate']:.2f} "
+              f"({pc['hits']}/{pc['lookups']} admissions)  "
+              f"cached tokens {pc['cached_tokens']} "
+              f"({pc['cached_token_frac']:.2f} of prompt tokens)  "
+              f"shared-block hw {shared_hw}")
 
     def _f(x, spec=".3f"):
         return "-" if x is None or np.isnan(x) else format(x, spec)
@@ -376,6 +426,17 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="KV arena size in blocks per tier (default: fully "
                          "provisioned; smaller over-subscribes)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted KV prefix sharing: index finished "
+                         "prompt chunks, admit later requests with "
+                         "matching leading tokens straight past them "
+                         "(needs chunked paged prefill)")
+    ap.add_argument("--shared-prefix-frac", type=float, default=0.0,
+                    metavar="F",
+                    help="overwrite the first F·length tokens of every "
+                         "prompt with one shared base sequence (synthetic "
+                         "system-prompt traffic for exercising "
+                         "--prefix-cache); 0 leaves prompts unique")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--expensive-seed", type=int, default=None,
                     help="weight seed of the expensive tier "

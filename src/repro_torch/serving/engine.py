@@ -76,10 +76,20 @@ The gate's calibration streams into ``metrics.calibration``: every gate
 decision, every escalated request's outcome (did the next tier agree?)
 and every verified draft.
 
+**Prefix caching** (``prefix_cache=True``, the chunked executors only):
+each tier's pool indexes the block-aligned chunk boundaries of the
+prompts it has prefilled; admission maps a prompt's longest indexed
+prefix read-only into the new row's page table and starts chunked
+prefill at the first uncached token (the cached tokens cost no prefill
+work and no admission budget), and every completed chunk publishes its
+boundaries.  Shared blocks hold exactly the KV a fresh prefill of the
+same tokens writes, so the cache changes where prompt KV comes from and
+how many prefill tokens are computed, never a token.
+
 Not ported from the JAX engine (later work): flat-bucket overrides and
-compile statistics, modality frontends, meshes, prefix caching,
-preemption, load shedding, launch retry, fault injection and the tracer.
-A launch error propagates.
+compile statistics, modality frontends, meshes, preemption, load
+shedding, launch retry, fault injection and the tracer.  A launch error
+propagates.
 """
 from __future__ import annotations
 
@@ -216,6 +226,7 @@ class _TierRuntime:
                  use_paged_kv: bool = True, use_chunked_prefill: bool = True,
                  use_unified_step: bool = True,
                  use_ragged_step: bool = True,
+                 prefix_cache: bool = False,
                  speculation_k: int = 0, spec_draft: bool = False):
         self.spec = spec
         self.capacity = capacity
@@ -226,10 +237,13 @@ class _TierRuntime:
         self.ragged = bool(use_ragged_step) and self.unified
         self.chunk = min(prefill_chunk, prompt_len)
         self.flat_buckets = self._default_buckets()
+        self.prefix = bool(prefix_cache) and self.paged and self.chunked
         if self.paged:
             self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
                                      block_size=block_size,
-                                     num_blocks=kv_blocks, device=device)
+                                     num_blocks=kv_blocks, device=device,
+                                     prefix_chunk=(self.chunk if self.prefix
+                                                   else None))
         else:
             self.pool = DenseTierSlotPool(spec.cfg, capacity, max_seq,
                                           device=device)
@@ -481,6 +495,7 @@ class CascadeEngine:
                  use_chunked_prefill: Optional[bool] = None,
                  use_unified_step: Optional[bool] = None,
                  use_ragged_step: Optional[bool] = None,
+                 prefix_cache: bool = False,
                  speculation_k: int = 0,
                  spec_delta: Optional[float] = None,
                  clock=None,
@@ -510,6 +525,9 @@ class CascadeEngine:
         launches; ``use_ragged_step`` (default: on exactly when unified)
         packs that launch's live tokens flat, ``False`` keeps the padded
         ``[capacity, width]`` mixed launch.
+
+        ``prefix_cache`` turns on refcounted prefix caching (the module
+        docstring); it requires chunked prefill, as in the JAX engine.
 
         ``speculation_k`` > 0 turns on speculative cascade decoding (the
         module docstring): it needs two tiers or more, the ragged
@@ -561,6 +579,13 @@ class CascadeEngine:
                 "and dense paths have no flat batch to pack")
         self.unified_step = bool(use_unified_step)
         self.ragged_step = bool(use_ragged_step) and self.unified_step
+        if prefix_cache and not use_chunked_prefill:
+            raise ValueError(
+                "prefix caching requires chunked paged prefill "
+                "(use_paged_kv=True, attention-only tiers): shared prefix "
+                "blocks are matched and published at chunk boundaries, and "
+                "the resumed prefill starts mid-prompt")
+        self.prefix_cache = bool(prefix_cache)
         if speculation_k:
             if speculation_k < 0:
                 raise ValueError("speculation_k must be >= 0")
@@ -645,6 +670,7 @@ class CascadeEngine:
                          use_chunked_prefill=self.chunked_prefill,
                          use_unified_step=self.unified_step,
                          use_ragged_step=self.ragged_step,
+                         prefix_cache=self.prefix_cache,
                          speculation_k=self.speculation_k,
                          spec_draft=(i < m - 1))
             for i, (spec, cap, nb) in enumerate(
@@ -716,7 +742,10 @@ class CascadeEngine:
         is always admitted, so a long prompt cannot starve.  Split tiers
         keep the JAX engine's legacy accounting instead: a window of
         prefill tokens only, starting at zero, each request billed its
-        whole prompt.  No compute here — the token batch runs in
+        whole prompt.  With the prefix cache on, a request binds its
+        longest cached prefix (:meth:`_pick_shard_prefix`), its prefill
+        resumes at the first uncached token, and its bill skips the
+        cached tokens.  No compute here — the token batch runs in
         :meth:`_tier_step`.  Uniform-prefill tiers admit and prefill in
         :meth:`_admit_uniform` instead."""
         rt = self.runtimes[tier]
@@ -728,28 +757,62 @@ class CascadeEngine:
             if head is None:
                 break
             plen = head.prompt_tokens
-            if not rt.pool.can_admit(min(rt.chunk, plen)):
-                break               # no blocks for the first chunk
+            shard, cached, pblocks = self._pick_shard_prefix(tier, rt, head)
+            if shard is None:
+                break               # no row, or no blocks for the chunk
+            # admission billing skips the cached prefix entirely: unified
+            # tiers charge the first *uncached* chunk, split tiers the
+            # uncached suffix
+            cost = ((lambda r, c=cached: min(rt.chunk, r.prompt_tokens - c))
+                    if rt.unified else
+                    (lambda r, c=cached: r.prompt_tokens - c)
+                    if cached else None)
             reqs, slot_ids = self.scheduler.admit(
                 tier, now, limit=1,
                 token_budget=self.prefill_token_budget,
                 budget_used=self._budget_used[tier],
                 admitted_before=self._admitted[tier] if rt.unified else None,
-                token_cost=((lambda r: min(rt.chunk, r.prompt_tokens))
-                            if rt.unified else None))
+                token_cost=cost)
             if not reqs:
                 break               # over budget this tick
             req, slot = reqs[0], slot_ids[0]
-            rt.pool.bind(slot, min(rt.chunk, plen),
-                         row_tokens=plen + self.gen_len)
+            rt.pool.bind(slot, cached + min(rt.chunk, plen - cached),
+                         row_tokens=plen + self.gen_len,
+                         prefix=(cached, pblocks) if cached else None)
             rt.slot_req[slot] = req
-            rt.prefill_pos[slot] = 0
-            self._budget_used[tier] += (min(rt.chunk, plen) if rt.unified
-                                        else plen)
+            # chunked prefill resumes at the first uncached token
+            rt.prefill_pos[slot] = cached
+            if rt.prefix:
+                self.metrics.record_prefix_lookup(tier, cached, plen)
+            self._budget_used[tier] += (min(rt.chunk, plen - cached)
+                                        if rt.unified else plen - cached)
             self._admitted[tier] += 1
             fresh += 1
         if fresh:
             self.metrics.record_admission(tier, fresh)
+
+    def _pick_shard_prefix(self, tier: int, rt: _TierRuntime,
+                           req: Request):
+        """Chunked admission's check, and the longest cached prefix, as
+        ``(shard, cached_tokens, blocks)`` — the JAX engine's choice at
+        one shard: ``(None, 0, [])`` when the tier has no free row or its
+        pool cannot take the request's first chunk.  A pool that cannot
+        take the request *with* its match (the pinned blocks stop being
+        LRU-evictable) is retried without it, so caching never blocks an
+        admission the uncached path would have made.  The match is
+        looked up only when a row is free: a lookup touches the entry's
+        LRU stamp."""
+        if self.scheduler.allocators[tier].num_free == 0:
+            return None, 0, []
+        plen = req.prompt_tokens
+        cached, blocks = (rt.pool.match_prefix(req.prompt) if rt.prefix
+                          else (0, []))
+        span = cached + min(rt.chunk, plen - cached)
+        if not rt.pool.can_admit(span, cached=cached, prefix_blocks=blocks):
+            if not cached or not rt.pool.can_admit(min(rt.chunk, plen)):
+                return None, 0, []
+            cached, blocks = 0, []
+        return 0, cached, blocks
 
     def _admit_uniform(self, tier: int, rt: _TierRuntime,
                        now: float) -> None:
@@ -1007,6 +1070,11 @@ class CascadeEngine:
         # host state advances on host-known lengths only
         for s in plan.prefill_rows:
             rt.prefill_pos[s] += int(plan.q_len[s])
+            if rt.prefix:
+                # the launch above scattered this chunk's KV: completed
+                # chunk boundaries are now publishable prefix entries
+                rt.pool.publish_prefix(s, rt.slot_req[s].prompt,
+                                       int(rt.prefill_pos[s]))
         t_dec = self.clock.now()
         for s in plan.finishing:
             req = rt.slot_req[s]
@@ -1091,6 +1159,9 @@ class CascadeEngine:
                                             processed)
             for s in plan.prefill_rows:
                 rt.prefill_pos[s] += int(plan.q_len[s])
+                if rt.prefix:
+                    rt.pool.publish_prefix(s, rt.slot_req[s].prompt,
+                                           int(rt.prefill_pos[s]))
             t_dec = self.clock.now()
             for s in plan.finishing:
                 req = rt.slot_req[s]
@@ -1222,6 +1293,7 @@ class CascadeEngine:
         drt.tok[s] = 0
         drt.pos[s] = 0
         drt.prefill_pos[s] = 0
+        # refcounted: pages shared with the prefix index stay live
         drt.pool.release(s)
         self.scheduler.release(req.draft_tier, s)
         req.draft_tier = None

@@ -1,7 +1,7 @@
 """Serving metrics: latency percentiles, throughput, utilization, and the
 paper's Eq 7 cost accounting (the torch port's copy of the JAX package's
-``repro/serving/metrics.py``, without its prefix-cache and overload
-blocks).
+``repro/serving/metrics.py``, with its prefix-cache block and without
+its overload block).
 
 Cost convention (Eq 7)::
 
@@ -81,6 +81,15 @@ class ServingMetrics:
         self.spec_rolled_back_by_tier = [0] * len(tiers)
         # decode steps of the draft loop, indexed by the *draft* tier
         self.spec_draft_steps_by_tier = [0] * len(tiers)
+        # prefix-cache telemetry (the engine records one lookup per
+        # chunked admission when the cache is on): hits are admissions
+        # that mapped a cached prefix; cached tokens are prompt tokens
+        # served from shared KV blocks — prefill work (and admission
+        # budget) the cascade never paid
+        self.prefix_lookups_by_tier = [0] * len(tiers)
+        self.prefix_hits_by_tier = [0] * len(tiers)
+        self.prefix_cached_tokens_by_tier = [0] * len(tiers)
+        self.prefix_prompt_tokens_by_tier = [0] * len(tiers)
         self.submitted = 0
         # per-tick intervals in the engine's clock domain (seconds, or
         # ticks under a VirtualClock)
@@ -132,6 +141,17 @@ class ServingMetrics:
     def record_draft_steps(self, tier: int, n: int) -> None:
         """`n` decode steps of `tier`'s draft loop in one launch."""
         self.spec_draft_steps_by_tier[tier] += int(n)
+
+    def record_prefix_lookup(self, tier: int, cached_tokens: int,
+                             prompt_tokens: int) -> None:
+        """One prefix-cache lookup at admission: `cached_tokens` of the
+        request's `prompt_tokens` were served from shared KV blocks
+        (0 on a miss)."""
+        self.prefix_lookups_by_tier[tier] += 1
+        if cached_tokens:
+            self.prefix_hits_by_tier[tier] += 1
+            self.prefix_cached_tokens_by_tier[tier] += int(cached_tokens)
+        self.prefix_prompt_tokens_by_tier[tier] += int(prompt_tokens)
 
     def record_prefill_tokens(self, live: int, processed: int) -> None:
         """One prefill execution: `live` real prompt tokens inside a
@@ -268,6 +288,26 @@ class ServingMetrics:
             "tier_utilization": util,
             "escalation_rates": [g.escalation_rate
                                  for g in self.stats.gates],
+            # prefix cache: hit rate over lookups, tokens served from
+            # shared blocks (the prefill work saved), and the fraction
+            # of all admitted prompt tokens the cache absorbed
+            "prefix_cache": {
+                "lookups": sum(self.prefix_lookups_by_tier),
+                "hits": sum(self.prefix_hits_by_tier),
+                "hit_rate": (sum(self.prefix_hits_by_tier)
+                             / sum(self.prefix_lookups_by_tier)
+                             if sum(self.prefix_lookups_by_tier)
+                             else float("nan")),
+                "cached_tokens": sum(self.prefix_cached_tokens_by_tier),
+                "cached_token_frac": (
+                    sum(self.prefix_cached_tokens_by_tier)
+                    / sum(self.prefix_prompt_tokens_by_tier)
+                    if sum(self.prefix_prompt_tokens_by_tier)
+                    else float("nan")),
+                "hits_by_tier": list(self.prefix_hits_by_tier),
+                "cached_tokens_by_tier":
+                    list(self.prefix_cached_tokens_by_tier),
+            },
             # speculative cascade decoding: accept rate over verified
             # drafts and the draft/accept/rollback counters per verify
             # tier, the draft loop's decode steps per draft tier

@@ -110,7 +110,9 @@ class CascadeScheduler:
         tick's carried load: one token per decoding row plus each
         mid-prefill row's next chunk — one currency).  ``token_cost``
         maps a request to its budget charge (default: its prompt length;
-        the engine charges its first chunk).  The window's first admitted
+        the engine charges its first chunk, and with the prefix cache on
+        subtracts the matched cached prefix first: cached tokens cost 0
+        budget).  The window's first admitted
         request is always admitted even when over budget, so a prompt
         longer than the whole budget cannot starve: with
         ``admitted_before`` the guard keys on admissions, without it on

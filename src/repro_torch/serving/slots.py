@@ -32,11 +32,25 @@ and new admissions must leave ``worst_remaining(oldest)`` blocks free.
 Since every row releases all its blocks when it finishes, the oldest row
 always completes, then the next-oldest inherits the guarantee.
 
-Blocks are refcounted as in the JAX package (a row's page-table entry
-holds one reference).  The prefix index, copy-on-write, arena shrinkage
-and meshes are not ported; their private fields (``_index``,
-``_index_refs``, ``_row_shared``) stay, empty, so the JAX package's
-invariant checker audits this pool unchanged.
+**Refcounted prefix sharing** (``TierSlotPool(prefix_chunk=...)``), as in
+the JAX package: every mapping of a block — a row's page-table entry or
+a prefix-index entry — holds one reference; :meth:`BlockAllocator.free`
+decrements and a block returns to the free list only at refcount 0.
+The prefix index is a hash map keyed by the exact token bytes of
+chunk-aligned prompt prefixes (boundaries are chunk multiples rounded
+**down** to a block boundary, so a published block is full and never
+written again).  Admission matches the longest indexed prefix, maps
+those blocks read-only into the new row's page table (pinning them with
+a refcount), and chunked prefill resumes at the first uncached token.
+If an entry's boundary splits a block (never produced by the aligned
+publisher), :meth:`TierSlotPool.bind` copies that block on write into a
+private page before any scatter.  Eviction is refcount-aware LRU over
+index entries: only blocks whose every reference is an index reference
+return to the free list.
+
+Arena shrinkage and meshes are not ported: the pool has one data shard
+(the ``shard`` arguments stay, and only shard 0 exists), so the JAX
+package's invariant checker audits this pool unchanged.
 """
 from __future__ import annotations
 
@@ -98,9 +112,9 @@ class BlockAllocator:
 
     Blocks are **refcounted** as in the JAX package: ``alloc`` hands out
     a block at refcount 1, :meth:`ref` adds a reference (an extra row
-    page-table mapping), and :meth:`free` decrements — the block rejoins
-    the free list only when the count reaches 0.  A block is therefore
-    either free or live (refcount >= 1).
+    page-table mapping or a prefix-index entry), and :meth:`free`
+    decrements — the block rejoins the free list only when the count
+    reaches 0.  A block is therefore either free or live (refcount >= 1).
 
     The JAX allocator's per-shard free lists and withheld (fault
     injection) blocks are not ported; their fields stay, fixed at one
@@ -125,20 +139,20 @@ class BlockAllocator:
         self.high_water = 0
         self.shared_high_water = 0
 
-    def alloc(self) -> Optional[int]:
-        if not self._free[0]:
+    def alloc(self, shard: int = 0) -> Optional[int]:
+        if not self._free[shard]:
             return None
-        b = self._free[0].pop()
+        b = self._free[shard].pop()
         self._used.add(b)
         self._refcount[b] = 1
         self.high_water = max(self.high_water, len(self._used))
         return b
 
     def ref(self, block: int) -> None:
-        """Add a reference to a live block (an extra page-table mapping).
-        Sharing a block that is not currently allocated raises — a free
-        block's contents are about to be overwritten by the next
-        occupant."""
+        """Add a reference to a live block (an extra page-table mapping
+        or a prefix-index entry).  Sharing a block that is not currently
+        allocated raises — a free block's contents are about to be
+        overwritten by the next occupant."""
         if block not in self._used:
             raise ValueError(
                 f"block {block} is not allocated (cannot share it)")
@@ -222,6 +236,19 @@ def _write_paged(full, part, bax: int, blk, off):
     full[tuple(idx)] = part[tuple(pidx)].to(full.dtype)
 
 
+class PrefixEntry:
+    """One cached prompt prefix: ``ntokens`` block-aligned tokens whose
+    KV lives in ``blocks``.  The entry holds one allocator reference per
+    listed block; ``last_use`` orders LRU eviction."""
+
+    __slots__ = ("ntokens", "blocks", "last_use")
+
+    def __init__(self, ntokens: int, blocks: List[int], last_use: int):
+        self.ntokens = ntokens
+        self.blocks = blocks
+        self.last_use = last_use
+
+
 class TierSlotPool:
     """Request rows + block-paged KV arena for one cascade tier, on one
     device.
@@ -230,14 +257,21 @@ class TierSlotPool:
     (``capacity * ceil(max_seq / block_size) + 1`` blocks): no stall can
     ever occur.  Smaller ``num_blocks`` over-subscribes the arena —
     admission and block growth then enforce the oldest-first reserve
-    discipline (see module docstring).
+    discipline (see module docstring).  ``prefix_chunk`` turns on the
+    prefix index, its boundaries at multiples of that many tokens
+    (the engine's prefill chunk).
     """
+
+    data_shards = 1
 
     def __init__(self, cfg, capacity: int, max_seq: int,
                  dtype=torch.float32, *, block_size: int = 16,
-                 num_blocks: Optional[int] = None, device="cuda"):
+                 num_blocks: Optional[int] = None, device="cuda",
+                 prefix_chunk: Optional[int] = None):
         if block_size <= 0:
             raise ValueError("block_size must be positive")
+        if prefix_chunk is not None and prefix_chunk <= 0:
+            raise ValueError("prefix_chunk must be positive")
         self.cfg = cfg
         self.capacity = capacity
         self.max_seq = max_seq
@@ -269,19 +303,29 @@ class TierSlotPool:
         self._row_blocks: List[List[int]] = [[] for _ in range(capacity)]
         self._row_demand: List[int] = [self.pages_per_row] * capacity
         self._order: List[int] = []     # bound rows, oldest first
-        # prefix-cache fields of the JAX pool, inert here (see module doc)
-        self._index: List[dict] = [dict()]
-        self._index_refs: dict = {}
-        self._row_shared: List[int] = [0] * capacity
+        # -- prefix cache state (inert when prefix_chunk is None) -------
+        self.prefix_chunk = prefix_chunk
+        self._index: List[dict] = [dict()]   # shard 0: key -> PrefixEntry
+        self._index_refs: dict = {}     # block -> index references held
+        self._lru = 0                   # monotonic LRU clock
+        self._row_shared: List[int] = [0] * capacity   # read-only pages
+        self._row_published: List[int] = [0] * capacity  # chunks published
+        self._released_shared: dict = {}  # slot -> live blocks at release
+        self.prefix_evictions = 0
+        self.prefix_cow_copies = 0
 
     # -- admission-side block accounting -----------------------------------
+
+    def shard_of(self, slot: int) -> int:
+        """The data shard owning request row `slot`: always 0."""
+        return 0
 
     def _worst_remaining(self, slot: int) -> int:
         """Blocks `slot` may still need: its bound lifetime demand minus
         what it already holds."""
         return self._row_demand[slot] - len(self._row_blocks[slot])
 
-    def _oldest_worst(self) -> int:
+    def _oldest_worst(self, shard: int = 0) -> int:
         """Worst-case remaining demand of the oldest bound row (the
         block-growth priority holder)."""
         return self._worst_remaining(self._order[0]) if self._order else 0
@@ -289,51 +333,226 @@ class TierSlotPool:
     def blocks_for(self, ntokens: int) -> int:
         return math.ceil(ntokens / self.block_size)
 
-    def can_admit(self, prompt_len: int) -> bool:
+    # -- prefix index (refcounted block sharing) ----------------------------
+
+    @property
+    def prefix_enabled(self) -> bool:
+        return self.prefix_chunk is not None
+
+    def _prefix_key(self, prompt, ntokens: int) -> bytes:
+        """Index key for the first `ntokens` of `prompt`: the exact token
+        bytes (a map keyed by content needs no collision handling)."""
+        return np.ascontiguousarray(
+            np.asarray(prompt[:ntokens]), dtype=np.int32).tobytes()
+
+    def _prefix_boundaries(self, limit: int) -> List[int]:
+        """Publishable prefix boundaries <= `limit`, ascending: chunk
+        multiples rounded down to a block boundary, so every block under
+        a boundary is full and append-frozen by the time it is shared."""
+        out = []
+        k, chunk, bs = 1, self.prefix_chunk, self.block_size
+        while k * chunk <= limit:
+            b = (k * chunk // bs) * bs
+            if b > 0 and (not out or b > out[-1]):
+                out.append(b)
+            k += 1
+        return out
+
+    def match_prefix(self, prompt, shard: int = 0):
+        """Longest indexed prefix of `prompt`, as ``(ntokens, blocks)`` —
+        ``(0, [])`` on a miss.  The match is capped at ``len(prompt) - 1``
+        tokens so at least one prompt token is always prefilled (the
+        final chunk computes the first-token logits).  Touches the
+        entry's LRU stamp; the caller must :meth:`bind` with the match
+        before anything else allocates (eviction could otherwise reclaim
+        the blocks)."""
+        if self.prefix_chunk is None or len(prompt) < 2:
+            return 0, []
+        idx = self._index[shard]
+        for b in reversed(self._prefix_boundaries(len(prompt) - 1)):
+            ent = idx.get(self._prefix_key(prompt, b))
+            if ent is not None:
+                self._lru += 1
+                ent.last_use = self._lru
+                return ent.ntokens, list(ent.blocks)
+        return 0, []
+
+    def publish_prefix(self, slot: int, prompt, upto: int) -> int:
+        """Insert `slot`'s completed chunk boundaries (prompt KV written
+        for ``[0, upto)``) into the prefix index, taking one block
+        reference per listed block.  Re-publishing an existing key only
+        refreshes its LRU stamp.  Returns entries added."""
+        if self.prefix_chunk is None:
+            return 0
+        upto = min(int(upto), len(prompt))
+        idx = self._index[self.shard_of(slot)]
+        chunk, bs = self.prefix_chunk, self.block_size
+        added, k = 0, self._row_published[slot] + 1
+        while k * chunk <= upto:
+            b = (k * chunk // bs) * bs
+            if b > 0:
+                key = self._prefix_key(prompt, b)
+                self._lru += 1
+                ent = idx.get(key)
+                if ent is None:
+                    blocks = [int(self.page_table[slot, j])
+                              for j in range(b // bs)]
+                    for blk in blocks:
+                        self.blocks.ref(blk)
+                        self._index_refs[blk] = \
+                            self._index_refs.get(blk, 0) + 1
+                    idx[key] = PrefixEntry(b, blocks, self._lru)
+                    added += 1
+                else:
+                    ent.last_use = self._lru
+            k += 1
+        self._row_published[slot] = k - 1
+        return added
+
+    def _evict_entry(self, shard: int, key: bytes) -> None:
+        ent = self._index[shard].pop(key)
+        for b in ent.blocks:
+            n = self._index_refs[b] - 1
+            if n:
+                self._index_refs[b] = n
+            else:
+                del self._index_refs[b]
+            self.blocks.free(b)
+        self.prefix_evictions += 1
+
+    def _reclaim(self, shard: int, need_free: int) -> bool:
+        """Evict LRU prefix entries until the free list holds `need_free`
+        blocks.  Only blocks whose every reference is an index reference
+        actually return to the free list — blocks shared with live rows
+        (or longer entries) just drop one reference."""
+        idx = self._index[shard]
+        while idx and self.blocks.free_in(shard) < need_free:
+            key = min(idx, key=lambda kk: idx[kk].last_use)
+            self._evict_entry(shard, key)
+        return self.blocks.free_in(shard) >= need_free
+
+    def evictable_in(self, shard: int = 0) -> int:
+        """Blocks that dropping the whole prefix index would return to
+        the free list (every reference is an index reference)."""
+        if self.prefix_chunk is None:
+            return 0
+        seen, n = set(), 0
+        for ent in self._index[shard].values():
+            for b in ent.blocks:
+                if b not in seen:
+                    seen.add(b)
+                    if self.blocks.refcount(b) == self._index_refs.get(b, 0):
+                        n += 1
+        return n
+
+    def prefix_index_entries(self, shard: Optional[int] = None) -> int:
+        return len(self._index[0 if shard is None else shard])
+
+    def _alloc_reclaiming(self, shard: int) -> Optional[int]:
+        b = self.blocks.alloc(shard)
+        if b is None and self._reclaim(shard, 1):
+            b = self.blocks.alloc(shard)
+        return b
+
+    def can_admit(self, prompt_len: int, shard: int = 0, *,
+                  cached: int = 0, prefix_blocks: Sequence[int] = ()) -> bool:
         """True if a new request's pages for its first ``prompt_len``
         tokens fit while leaving the oldest bound row its worst-case
-        remaining demand."""
-        need = self.blocks_for(prompt_len)
-        return self.blocks.num_free - need >= self._oldest_worst()
+        remaining demand.  With a prefix match, `cached` tokens are
+        served by `prefix_blocks` (only the suffix pages need fresh
+        blocks); LRU-evictable index blocks count toward availability,
+        minus the matched blocks that admission would pin (they stop
+        being evictable once a row maps them)."""
+        need = self.blocks_for(prompt_len) - cached // self.block_size
+        avail = self.blocks.free_in(shard) + self.evictable_in(shard)
+        if cached:
+            avail -= sum(
+                1 for b in set(prefix_blocks[:cached // self.block_size])
+                if self.blocks.refcount(b) == self._index_refs.get(b, 0) > 0)
+        return avail - need >= self._oldest_worst(shard)
 
     def bind(self, slot: int, ntokens: int,
-             row_tokens: Optional[int] = None) -> None:
+             row_tokens: Optional[int] = None,
+             prefix: Optional[tuple] = None) -> None:
         """Claim `slot` (newest) and map pages for its first ``ntokens``
-        (the first chunk under chunked prefill — later chunks grow via
-        :meth:`ensure_blocks`).  ``row_tokens`` bounds the row's lifetime
-        demand (``prompt_len + gen_len``; default ``max_seq``) for the
-        oldest-first reserve accounting.  Callers must check
-        :meth:`can_admit` first."""
+        (the cached prefix plus the first uncached chunk under chunked
+        prefill — later chunks grow via :meth:`ensure_blocks`).
+        ``row_tokens`` bounds the row's lifetime demand (``prompt_len +
+        gen_len``; default ``max_seq``) for the oldest-first reserve
+        accounting.  Callers must check :meth:`can_admit` first.
+
+        ``prefix=(cached, blocks)`` (from :meth:`match_prefix`) maps the
+        first ``cached // block_size`` blocks read-only into the page
+        table, pinning each with a refcount before anything else can
+        evict them.  If ``cached`` splits a block (an unaligned entry —
+        the engine's publisher only emits block-aligned boundaries), the
+        split block is **copied on write** into a fresh private page, so
+        the row's own scatters never touch shared memory."""
         if self._row_blocks[slot]:
             raise ValueError(f"slot {slot} already bound")
-        need = self.blocks_for(ntokens)
+        shard = self.shard_of(slot)
+        cached, pblocks = (0, []) if prefix is None else prefix
+        full_shared = cached // self.block_size
+        need = self.blocks_for(ntokens) - full_shared
         demand = self.blocks_for(self.max_seq if row_tokens is None
                                  else min(row_tokens, self.max_seq))
-        if demand < need:
+        if demand < self.blocks_for(ntokens):
             raise ValueError(f"row_tokens={row_tokens} smaller than the "
                              f"{ntokens} tokens being bound")
-        if self.blocks.num_free < need:
-            raise RuntimeError("bind without can_admit: no free blocks")
+        # pin the shared prefix first: once the row holds a reference,
+        # reclaim below cannot evict the matched blocks from under us
+        for j in range(full_shared):
+            self.blocks.ref(pblocks[j])
+            self._row_blocks[slot].append(pblocks[j])
+            self.page_table[slot, j] = pblocks[j]
+        self._row_shared[slot] = full_shared
         self._row_demand[slot] = demand
+        self._row_published[slot] = 0
         self._order.append(slot)
-        for j in range(need):
-            b = self.blocks.alloc()
+        if self.blocks.free_in(shard) < need and \
+                not self._reclaim(shard, need):
+            # roll back the shared pins so the failed bind leaks nothing
+            for b in self._row_blocks[slot]:
+                self.blocks.free(b)
+            self._row_blocks[slot] = []
+            self._row_shared[slot] = 0
+            self._row_demand[slot] = self.pages_per_row
+            self.page_table[slot] = NULL_BLOCK
+            self._order.remove(slot)
+            raise RuntimeError("bind without can_admit: no free blocks")
+        for j in range(full_shared, self.blocks_for(ntokens)):
+            b = self.blocks.alloc(shard)
             self._row_blocks[slot].append(b)
             self.page_table[slot, j] = b
+        if cached % self.block_size:
+            # copy-on-write for the split block: the row resumes writing
+            # mid-page, so it needs a private copy of the shared tokens
+            self._copy_blocks([pblocks[full_shared]],
+                              [int(self.page_table[slot, full_shared])])
+            self.prefix_cow_copies += 1
+
+    def shared_pages(self, slot: int) -> int:
+        """Leading read-only (prefix-shared) pages mapped into `slot`."""
+        return self._row_shared[slot]
 
     def ensure_blocks(self, slot: int, pos: int) -> bool:
         """Grow `slot`'s page table to cover token index `pos`.  Returns
         False (row must stall this tick) if the reserve discipline denies
-        the allocation; the oldest bound row is never denied."""
+        the allocation; the oldest bound row is never denied.  When the
+        free list runs short, LRU prefix entries are evicted first —
+        blocks whose only references are index references return to the
+        free list."""
         page = pos // self.block_size
         if page >= self.pages_per_row:
             raise ValueError(f"pos {pos} beyond max_seq {self.max_seq}")
+        shard = self.shard_of(slot)
         is_oldest = self._order[0] == slot
         while len(self._row_blocks[slot]) <= page:
             if not is_oldest and \
-                    self.blocks.num_free - 1 < self._oldest_worst():
-                return False
-            b = self.blocks.alloc()
+                    self.blocks.free_in(shard) - 1 < self._oldest_worst(shard):
+                if not self._reclaim(shard, self._oldest_worst(shard) + 1):
+                    return False
+            b = self._alloc_reclaiming(shard)
             if b is None:
                 return False
             j = len(self._row_blocks[slot])
@@ -346,16 +565,57 @@ class TierSlotPool:
         return list(self._order)
 
     def release(self, slot: int) -> None:
-        """Drop `slot`'s block references and unmap its pages.  Releasing
-        an unbound slot raises (double-release guard)."""
+        """Drop `slot`'s block references and unmap its pages.  A block
+        rejoins the free list only when its refcount hits zero — blocks
+        still referenced by the prefix index (or another row sharing the
+        prefix) stay live.  Stale device memory is never attended: the
+        pages are unreachable once the table row is zeroed, and the next
+        occupant overwrites a reused block before its positions pass the
+        per-row mask.
+
+        Releasing an unbound slot raises (double-release guard).  The
+        error tells a plain double release from one whose earlier
+        release left blocks live via shared references (still shared,
+        not leaked)."""
         if slot not in self._order:
+            still = self._released_shared.get(slot, 0)
+            if still:
+                raise ValueError(
+                    f"slot {slot} is already released; {still} of its "
+                    "blocks remain live via shared references (prefix "
+                    "index or other rows) — still shared, not leaked, "
+                    "so there is nothing left to release")
             raise ValueError(f"slot {slot} is not bound (double release?)")
+        still_live = 0
         for b in self._row_blocks[slot]:
             self.blocks.free(b)
+            if self.blocks.refcount(b) > 0:
+                still_live += 1
+        self._released_shared[slot] = still_live
         self._row_blocks[slot] = []
         self._row_demand[slot] = self.pages_per_row
+        self._row_shared[slot] = 0
+        self._row_published[slot] = 0
         self.page_table[slot] = NULL_BLOCK
         self._order.remove(slot)
+
+    # -- device-side writes ------------------------------------------------
+
+    def _copy_blocks(self, src: Sequence[int], dst: Sequence[int]) -> None:
+        """Copy whole KV blocks ``src[i] -> dst[i]`` in every paged leaf,
+        int8 KV's scale leaves included (the copy-on-write primitive: a
+        row taking over a partially shared block duplicates it before its
+        first scatter).  In place, on the pool's device and the current
+        stream: the launches that scatter into ``dst`` later run on that
+        same stream, so the copy is ordered before the row's first
+        write."""
+        dev = next(iter(tree_leaves(self.cache))).device
+        src_ids = torch.as_tensor(np.asarray(src, np.int64), device=dev)
+        dst_ids = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
+        for full, (kind, ax) in zip(tree_leaves(self.cache),
+                                    tree_leaves(self._meta)):
+            if kind == "paged":
+                full.index_copy_(ax, dst_ids, full.index_select(ax, src_ids))
 
     # -- uniform prefill ---------------------------------------------------
 
@@ -399,6 +659,12 @@ class TierSlotPool:
             "kv_arena_bytes": per_block * self.num_blocks,
             "kv_high_water_bytes": per_block * self.blocks.high_water,
             "kv_high_water_blocks": self.blocks.high_water,
+            # prefix cache: peak blocks mapped by >1 reference, live
+            # index entries, LRU evictions, copy-on-write block copies
+            "kv_shared_high_water_blocks": self.blocks.shared_high_water,
+            "prefix_index_entries": self.prefix_index_entries(),
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_cow_copies": self.prefix_cow_copies,
             "dense_equiv_bytes": per_token * self.capacity * self.max_seq,
         }
 

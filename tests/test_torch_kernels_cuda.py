@@ -1055,3 +1055,48 @@ def test_cuda_mamba_scan_refuses_what_it_cannot_take(cuda_device):
         mamba_mod.mamba_scan(x, dt, torch.cat([Bt, Bt[..., :4]], -1),
                              torch.cat([Ct, Ct[..., :4]], -1),
                              torch.cat([A, A[:, :4]], -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_cuda_copy_blocks_is_bit_exact(kv, cuda_device):
+    """The prefix cache's copy-on-write ``TierSlotPool._copy_blocks`` on a
+    pool on the card: every paged leaf's destination blocks (int8 KV and
+    its f32 scales too) equal the sources bit for bit, and no other
+    block changes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.slots import TierSlotPool
+
+    cfg = get_config("phi4-mini-3.8b", "smoke")
+    if kv == "int8":
+        cfg = dataclasses.replace(cfg, kv_quant="int8")
+    pool = TierSlotPool(cfg, 3, 24, block_size=4, prefix_chunk=8,
+                        device=cuda_device)
+    src, dst = [3, 7, 1], [9, 2, 12]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    paged = [(leaf, ax) for leaf, (kind, ax) in
+             zip(tree_leaves(pool.cache), tree_leaves(pool._meta))
+             if kind == "paged"]
+    for leaf, _ in paged:
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device=cuda_device, dtype=torch.int8))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                   device=cuda_device))
+    before = [leaf.clone() for leaf, _ in paged]
+    pool._copy_blocks(src, dst)
+    keep = torch.tensor([b for b in range(pool.num_blocks) if b not in dst],
+                        device=cuda_device)
+    s = torch.tensor(src, device=cuda_device)
+    d = torch.tensor(dst, device=cuda_device)
+    for (leaf, ax), old in zip(paged, before):
+        assert leaf.is_cuda
+        assert torch.equal(leaf.index_select(ax, d), old.index_select(ax, s))
+        assert torch.equal(leaf.index_select(ax, keep),
+                           old.index_select(ax, keep))
+    assert {leaf.dtype for leaf, _ in paged} == (
+        {torch.int8, torch.float32} if kv == "int8" else {torch.float32})
