@@ -67,6 +67,18 @@ without printing a result):
      cache-off run under the margin rule; then the ragged executor on
      the wall clock at the escalation budget, cache off and on
      (tokens/s, TTFT p50, peak memory);
+  4d. overload, on phase 4c's workload and phase 4's weights, on 64 KV
+     blocks a tier (where admission alone stalls for good): the ragged
+     executor under ``--preemption youngest`` and ``fewest-tokens``, with
+     ``youngest`` and ``--prefix-cache``, and the split executor under
+     ``youngest`` — each drains, with exact launch counts, request and
+     block conservation, the CPU rehearsal's preemptions, replayed tokens
+     and ticks, and the fully provisioned run's streams under the margin
+     rule; one seeded ``--inject-faults`` plan (shrink, storm, transient
+     launch and fetch faults, one launch past its two retries: exactly
+     one request FAILED), and a ``--deadline`` that sheds the
+     rehearsal's 4 requests; then ``youngest`` on the wall clock at the
+     escalation budget, a record beside 4c's fully provisioned run;
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
      then the uniform one-shot prefill path on 16 prompts of exactly 640
@@ -1343,9 +1355,11 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
     ``flags`` adds or overrides the CLI's flags: the executor's
     (``ragged_step=False``, ``split_step=True``,
     ``no_chunked_prefill=True`` or ``dense_kv=True``), speculation's
-    (``speculate``, ``spec_delta``, with ``gen_len``) or prefix
+    (``speculate``, ``spec_delta``, with ``gen_len``), prefix
     caching's (``prefix_cache``, ``shared_prefix_frac``, ``delta``,
-    ``kv_blocks``).  The chunked
+    ``kv_blocks``) or the overload layer's (``preemption``,
+    ``deadline``, ``launch_retries``, ``retry_backoff``,
+    ``inject_faults``).  The chunked
     executors serve lognormal prompt lengths up to 640; the uniform
     prefill path (those two flags, or the recurrent rwkv6-3b and
     jamba-v0.1-52b) serves every prompt at exactly 640."""
@@ -1358,7 +1372,9 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
         gen_len=8, prefill_chunk=64, prefill_token_budget=None, delta=None,
         escalation_budget=0.25, kv_block_size=16, kv_blocks=None,
         seed=0, expensive_seed=None, speculate=0, spec_delta=None,
-        prefix_cache=False, shared_prefix_frac=0.0)
+        prefix_cache=False, shared_prefix_frac=0.0, preemption="none",
+        deadline=None, launch_retries=2, retry_backoff=0.02,
+        inject_faults=None)
     args.update(flags)
     return Namespace(**args)
 
@@ -1473,19 +1489,21 @@ def pool_leaks(engine) -> list:
 
 
 def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
-          phase=None, clock=None, **flags):
+          phase=None, clock=None, allow_lost=False, **flags):
     """Serve the phase-4 workload on ``params`` (the cascade to
     ``expensive``, whose configs are ``cfgs`` where given) under one
-    executor (``flags`` adds CLI flags: speculation's or prefix
-    caching's) on ``clock`` (default: the wall clock), with every kernel
-    counter set to 0 just before and read just after; check that every
-    request completed, that the gate split them (at a fixed δ of 1, that
-    every request escalated), and that the counters prove each tier
-    launch — and under speculation each decode step of the draft loop —
-    went through the executor's kernels (and through nothing else).
-    After the drain every paged pool must hold no bound row and no block
-    but those its prefix index holds (block conservation).  Returns
-    (counts, per-request records, summary)."""
+    executor (``flags`` adds CLI flags: speculation's, prefix caching's
+    or the overload layer's) on ``clock`` (default: the wall clock),
+    with every kernel counter set to 0 just before and read just after;
+    check that every request completed (with ``allow_lost``, that every
+    request not DONE was shed or failed), that every submitted request
+    is accounted for (conservation), that the gate split them (at a
+    fixed δ of 1, that every completed request escalated), and that the
+    counters prove each tier launch — and under speculation each decode
+    step of the draft loop — went through the executor's kernels (and
+    through nothing else).  After the drain every paged pool must hold
+    no bound row and no block but those its prefix index holds (block
+    conservation).  Returns (counts, per-request records, summary)."""
     args = main_path_args(expensive, **ALL_EXECUTORS[executor], **flags)
     lens = serve_async.sample_lengths(args.length_dist, args.requests,
                                       args.prompt_len, args.min_prompt_len,
@@ -1528,10 +1546,13 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
             "dense": (False, False, False, False),
             "auto": (False, False, False, True)}[executor]:
         problems.append(f"engine ran the wrong executor: {s}")
-    if not all(r["state"] == "DONE" and len(r["tokens"]) == args.gen_len
-               for r in per_req):
+    done = [r for r in per_req if r["state"] == "DONE"]
+    if (len(done) < len(per_req) and not allow_lost) or not all(
+            len(r["tokens"]) == args.gen_len for r in done):
         problems.append("a request is not DONE with gen_len tokens")
-    tiers = [r["tier"] for r in per_req]
+    if not s["conservation"]["ok"]:
+        problems.append(f"requests not conserved: {s['conservation']}")
+    tiers = [r["tier"] for r in done]
     if args.delta is not None and args.delta >= 1.0:
         if set(tiers) != {1}:
             problems.append(f"δ = {args.delta} must escalate every "
@@ -1614,6 +1635,19 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
                 "kv_shared_high_water_blocks", "prefix_index_entries",
                 "prefix_evictions", "prefix_cow_copies")}
                 for m in s["kv_arena"]])
+    if args.preemption != "none" or args.inject_faults \
+            or args.deadline is not None:
+        record.update(
+            preemption=args.preemption, deadline=args.deadline,
+            inject_faults=args.inject_faults,
+            preemptions_by_tier=s["preemptions_by_tier"],
+            replayed_tokens_by_tier=s["replayed_tokens_by_tier"],
+            launch_retries_by_tier=s["launch_retries_by_tier"],
+            shed_rids=[r["rid"] for r in per_req if r["state"] == "SHED"],
+            failed_rids=[r["rid"] for r in per_req
+                         if r["state"] == "FAILED"],
+            fault_events=s.get("fault_events"),
+            conservation=s["conservation"])
     if args.speculate or phase:
         record.update(
             gen_len=args.gen_len, speculate=args.speculate,
@@ -1768,12 +1802,12 @@ class RejectionTap:
             window.setdefault("logits", logits2d)
             return orig_pick(rt, logits2d)
 
-        def exec_unified(engine, tier, rt, plan):
+        def exec_unified(engine, tier, rt, plan, *rest):
             before = {s: (rt.slot_req[s], len(rt.slot_req[s].tokens),
                           list(rt.slot_req[s].draft_tokens[:nd]))
                       for s, nd in plan.verify_rows}
             window.clear()
-            out = orig_exec(engine, tier, rt, plan)
+            out = orig_exec(engine, tier, rt, plan, *rest)
             logits = window.pop("logits", None)
             start = np.cumsum(plan.q_len) - plan.q_len
             for s, nd in plan.verify_rows:
@@ -1933,9 +1967,9 @@ def check_speculation(card: str, params) -> dict:
 # --------------------------------------------------------------------------
 
 # the shared share of every prompt, and an arena small enough that the
-# index is evicted under the virtual-clock workload (the oldest-first
-# discipline stalls this workload at 64 blocks, cache on or off, in both
-# packages; 80 drains)
+# index is evicted under the virtual-clock workload (without preemption
+# the oldest-first discipline stalls this workload at 64 blocks, cache on
+# or off, in both packages; 80 drains; phase 4d preempts at 64)
 PREFIX_FRAC, PREFIX_KV_BLOCKS = 0.75, 80
 
 
@@ -2051,7 +2085,23 @@ def check_copy_blocks(dev, cfg) -> None:
          model=cfg.name, blocks=4, pools=out)
 
 
-def check_prefix_cache(card: str, params) -> dict:
+def wall_record(args, s) -> dict:
+    """What a wall-clock run records: tokens/s, TTFT and tick p50, peak
+    memory, the requests per tier, live prefill tokens, the prefix-cache
+    and preemption counters."""
+    gen = sum(args.gen_len * (r["tier"] + 1) for r in s["per_request"])
+    return dict(
+        generated_tokens_per_s=gen / s["elapsed"],
+        ttft_p50_s=s["ttft_p50"], tick_p50_s=s["tick_duration_p50"],
+        max_memory_allocated_bytes=s["max_memory_allocated_bytes"],
+        tier_requests=s["tier_requests"],
+        prefill_live_tokens=s["prefill_live_tokens"],
+        prefix_cache=s["prefix_cache"],
+        preemptions_by_tier=s["preemptions_by_tier"],
+        replayed_tokens_by_tier=s["replayed_tokens_by_tier"])
+
+
+def check_prefix_cache(card: str, params, keep=None) -> dict:
     """The prefix-caching phase, on phase 4's weights: the phase-4
     workload with 0.75 of every prompt shared, at a fixed δ of 1 (every
     request escalates, so both tiers' indices serve, and the escalation
@@ -2065,7 +2115,10 @@ def check_prefix_cache(card: str, params) -> dict:
     each tier's bound twice its largest logit error of
     :func:`prefix_logit_error`.  Then the ragged executor on the wall
     clock at the escalation budget, cache off and on (a record: tokens/s,
-    TTFT, peak memory).  Returns the runs' launch counts by path."""
+    TTFT, peak memory).  Returns the runs' launch counts by path; a dict
+    ``keep`` receives what phase 4d compares with: the cache-off
+    virtual-clock run's records (``base``), the margin bounds
+    (``bounds``) and the cache-off wall-clock record (``wall_off``)."""
     fixed = dict(shared_prefix_frac=PREFIX_FRAC, delta=1.0)
     args = main_path_args(**fixed)
     cfgs = serve_async.tier_configs(args)
@@ -2122,20 +2175,156 @@ def check_prefix_cache(card: str, params) -> dict:
                         phase="prefix caching, wall clock",
                         shared_prefix_frac=PREFIX_FRAC, prefix_cache=cache)
         counts[f"prefix wall {'on' if cache else 'off'}"] = c
-        gen = sum(args.gen_len * (r["tier"] + 1) for r in s["per_request"])
-        wall["on" if cache else "off"] = dict(
-            generated_tokens_per_s=gen / s["elapsed"],
-            ttft_p50_s=s["ttft_p50"], tick_p50_s=s["tick_duration_p50"],
-            max_memory_allocated_bytes=s["max_memory_allocated_bytes"],
-            tier_requests=s["tier_requests"],
-            prefill_live_tokens=s["prefill_live_tokens"],
-            prefix_cache=s["prefix_cache"])
+        wall["on" if cache else "off"] = wall_record(args, s)
     emit(phase="prefix caching summary", card=card,
          cascade=[args.fast, args.expensive], shared_prefix_frac=PREFIX_FRAC,
          virtual_clock_delta_1=table, logit_error=errs, margin_bound=bounds,
          wall_clock_budget=wall, problems=problems)
     if problems:
         raise AssertionError("prefix caching: " + "; ".join(problems))
+    if keep is not None:
+        keep.update(base=base, bounds=bounds, wall_off=wall["off"])
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the overload phase
+# --------------------------------------------------------------------------
+
+# phase 4c's workload on 64 KV blocks a tier, where the oldest-first
+# discipline alone stalls for good; each policy's counts are the CPU
+# rehearsal's, which equal the JAX engine's on the same settings:
+# label -> (executor, flags, preemptions by tier, replayed tokens by
+# tier, ticks)
+OVERLOAD_KV_BLOCKS = 64
+OVERLOAD_RUNS = {
+    "ragged youngest": ("ragged", {"preemption": "youngest"},
+                        [29, 3], [1891, 128], 58),
+    "ragged fewest-tokens": ("ragged", {"preemption": "fewest-tokens"},
+                             [28, 8], [1904, 425], 62),
+    "ragged youngest prefix": ("ragged", {"preemption": "youngest",
+                                          "prefix_cache": True},
+                               [20, 2], [1407, 192], 47),
+    "split youngest": ("split", {"preemption": "youngest"},
+                       [27, 3], [1786, 128], 55),
+}
+# one seeded fault plan: tier 0 shrunk by 12 blocks at tick 8 and given
+# them back at 30, a storm on gate 0 over ticks 5-25, every launch and
+# fetch failing once with probability 0.05, and tier 1's launches at
+# tick 33 (one live row there) failing past the two retries; and the
+# rehearsal's outcome
+OVERLOAD_FAULTS = ("seed=7,shrink=8:0:12:30,storm=5-25:0,launch=0.05,"
+                   "launchat=33:1:3")
+OVERLOAD_FAULT_COUNTS = dict(
+    failed_rids=[6], launch_retries_by_tier=[6, 8],
+    preemptions_by_tier=[32, 2], replayed_tokens_by_tier=[2180, 128],
+    steps=55, fault_events=17)
+# a deadline (virtual-clock ticks after arrival) that sheds 4 of the 16
+OVERLOAD_DEADLINE = 50.0
+OVERLOAD_SHED_COUNTS = dict(shed_rids=[10, 11, 13, 14],
+                            preemptions_by_tier=[29, 3], steps=50)
+
+
+def overload_counts(s, keys) -> dict:
+    """The overload counters of a run's summary named by ``keys``."""
+    per_req = s["per_request"]
+    got = dict(
+        failed_rids=[r["rid"] for r in per_req if r["state"] == "FAILED"],
+        shed_rids=[r["rid"] for r in per_req if r["state"] == "SHED"],
+        fault_events=s.get("fault_events"))
+    return {k: got[k] if k in got else s[k] for k in keys}
+
+
+def check_overload(card: str, params, ctx=None) -> dict:
+    """The overload phase, on phase 4's weights: phase 4c's workload (0.75
+    of every prompt shared, δ = 1, virtual clock) on 64 KV blocks a
+    tier, where admission alone stalls for good.  (a) The ragged
+    executor under ``youngest`` and ``fewest-tokens`` preemption, with
+    ``youngest`` and the prefix cache, and the split executor under
+    ``youngest``: each drains with its requests conserved, exact launch
+    counts and block conservation (:func:`serve`), the rehearsal's
+    preemptions, replayed tokens and ticks, and the streams of 4c's
+    fully provisioned cache-off run under the margin rule with 4c's
+    bounds.  (b) One seeded fault plan on the ragged executor (shrink,
+    storm, transient launch and fetch faults, one launch past its
+    retries): exactly the rehearsal's failed request, retries,
+    preemptions and ticks, survivors' streams under the margin rule.
+    (c) A deadline that sheds the rehearsal's requests.  (d) A record:
+    ``youngest`` on 64 blocks on the wall clock at the escalation
+    budget, beside 4c's fully provisioned cache-off run.  ``ctx`` is
+    what :func:`check_prefix_cache` keeps; without it (the phase alone)
+    the base run, the bounds and the wall-clock run are made here.
+    Returns the runs' launch counts by path."""
+    fixed = dict(shared_prefix_frac=PREFIX_FRAC, delta=1.0)
+    args = main_path_args(**fixed)
+    cfgs = serve_async.tier_configs(args)
+    dev = params[0]["embed"].device
+    counts = {}
+    if ctx is None:
+        errs = [prefix_logit_error(dev, params[t], cfgs[t]) for t in (0, 1)]
+        _, base, _ = serve(card, params, "ragged",
+                           phase="overload, fully provisioned",
+                           clock=VirtualClock(), **fixed)
+        _, _, s = serve(card, params, "ragged",
+                        phase="overload, fully provisioned wall clock",
+                        shared_prefix_frac=PREFIX_FRAC)
+        ctx = dict(base=base, bounds=[2 * max(e.values()) for e in errs],
+                   wall_off=wall_record(args, s))
+    prompts = workload_prompts(args, cfgs)
+    small = dict(fixed, kv_blocks=OVERLOAD_KV_BLOCKS)
+    problems, table = [], {}
+
+    def gaps(what, per_req):
+        margin_check(f"overload {what} streams against the fully "
+                     "provisioned cache-off run, teacher-forced",
+                     stream_gaps(ctx["base"], per_req, prompts, params,
+                                 cfgs, dev), ctx["bounds"])
+
+    keys = ("preemptions_by_tier", "replayed_tokens_by_tier", "steps")
+    for label, (executor, flags, pre, rep, ticks) in OVERLOAD_RUNS.items():
+        c, per_req, s = serve(card, params, executor,
+                              phase=f"overload, {label}",
+                              clock=VirtualClock(), **small, **flags)
+        counts[f"overload {label}"] = c
+        table[label] = got = overload_counts(s, keys)
+        want = dict(zip(keys, (pre, rep, ticks)))
+        if got != want:
+            problems.append(f"{label}: {got} != the rehearsal's {want}")
+        gaps(label, per_req)
+    c, per_req, s = serve(card, params, "ragged", phase="overload, faults",
+                          clock=VirtualClock(), allow_lost=True,
+                          preemption="youngest",
+                          inject_faults=OVERLOAD_FAULTS, **small)
+    counts["overload faults"] = c
+    table["faults"] = got = overload_counts(s, OVERLOAD_FAULT_COUNTS)
+    if got != OVERLOAD_FAULT_COUNTS:
+        problems.append(f"faults: {got} != the rehearsal's "
+                        f"{OVERLOAD_FAULT_COUNTS}")
+    gaps("faults (survivors)", per_req)
+    c, per_req, s = serve(card, params, "ragged", phase="overload, shedding",
+                          clock=VirtualClock(), allow_lost=True,
+                          preemption="youngest", deadline=OVERLOAD_DEADLINE,
+                          **small)
+    counts["overload shedding"] = c
+    table["shedding"] = got = overload_counts(s, OVERLOAD_SHED_COUNTS)
+    if got != OVERLOAD_SHED_COUNTS:
+        problems.append(f"shedding: {got} != the rehearsal's "
+                        f"{OVERLOAD_SHED_COUNTS}")
+    gaps("shedding (survivors)", per_req)
+    c, _, s = serve(card, params, "ragged", phase="overload, wall clock",
+                    shared_prefix_frac=PREFIX_FRAC, preemption="youngest",
+                    kv_blocks=OVERLOAD_KV_BLOCKS)
+    counts["overload wall"] = c
+    wall = {"64 blocks youngest": wall_record(args, s),
+            "fully provisioned (4c)": ctx["wall_off"]}
+    emit(phase="overload summary", card=card,
+         cascade=[args.fast, args.expensive], shared_prefix_frac=PREFIX_FRAC,
+         kv_blocks=OVERLOAD_KV_BLOCKS, virtual_clock_delta_1=table,
+         fault_plan=OVERLOAD_FAULTS, deadline=OVERLOAD_DEADLINE,
+         margin_bound=ctx["bounds"], wall_clock_budget=wall,
+         problems=problems)
+    if problems:
+        raise AssertionError("overload: " + "; ".join(problems))
     return counts
 
 
@@ -2315,8 +2504,12 @@ def main() -> int:
     # the speculation phase, on the same weights: gemma3 drafting for
     # phi4, and for itself
     spec_runs = check_speculation(card, params)
-    # the prefix-caching phase, on the same weights
-    prefix_runs = check_prefix_cache(card, params)
+    # the prefix-caching phase, on the same weights, then the overload
+    # phase on its workload
+    ctx = {}
+    prefix_runs = check_prefix_cache(card, params, keep=ctx)
+    overload_runs = check_overload(card, params, ctx)
+    del ctx
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -2377,6 +2570,7 @@ def main() -> int:
     counts.update({ex: c for ex, (c, _, _) in uniform_runs.items()})
     counts.update(spec_runs)
     counts.update(prefix_runs)
+    counts.update(overload_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
@@ -2386,14 +2580,17 @@ def main() -> int:
     spec_paths = tuple(spec_runs)
     prefix_ragged = tuple(p for p in prefix_runs if "ragged" in p
                           or "wall" in p)
+    overload_ragged = tuple(p for p in overload_runs if "split" not in p)
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
-                      + spec_paths + prefix_ragged),
+                      + spec_paths + prefix_ragged + overload_ragged),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split", "prefix padded on",
-                                          "prefix split on")),
+                                          "prefix split on",
+                                          "overload split youngest")),
                      ("paged_attention", ("split", "moe split",
-                                          "prefix split on", "uniform",
-                                          "rwkv", "jamba auto")
+                                          "prefix split on",
+                                          "overload split youngest",
+                                          "uniform", "rwkv", "jamba auto")
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
                       + jamba_paths),

@@ -40,6 +40,18 @@ rest stay unique.  Token streams are the same with the cache on or off
 under a fixed ``--delta``; the summary records the hit rate, the
 cached-token fraction and the stream checksum.
 
+Overload and failure: ``--preemption {none,youngest,fewest-tokens}``
+evicts and replays a victim row instead of stalling when an
+over-subscribed KV arena (``--kv-blocks``) runs dry; ``--deadline T``
+gives every request a completion deadline ``T`` after its arrival
+(engine-clock units: seconds, or ticks under ``--virtual-clock``) and
+turns on load shedding; ``--launch-retries`` and ``--retry-backoff``
+bound the retry of a launch that fails transiently; ``--inject-faults
+SPEC`` attaches a deterministic
+:class:`repro_torch.serving.faults.FaultPlan` (pool shrinkage,
+escalation storms, launch failures, slow ticks; see that module for the
+grammar).  Ctrl-C prints the partial summary.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
 
@@ -68,7 +80,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import bigram_lm
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import init_params
-from repro_torch.serving import CascadeEngine, TierSpec
+from repro_torch.serving import CascadeEngine, FaultPlan, TierSpec
 from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
 
 # Prompt tokens are drawn from the first PROMPT_VOCAB ids: bigram_lm's
@@ -133,6 +145,11 @@ def build_engine(args, clock=None, params=None, cfgs=None):
         speculation_k=getattr(args, "speculate", 0),
         spec_delta=getattr(args, "spec_delta", None),
         clock=clock if clock is not None else WallClock(),
+        preemption_policy=getattr(args, "preemption", "none"),
+        launch_retries=getattr(args, "launch_retries", 2),
+        retry_backoff=getattr(args, "retry_backoff", 0.02),
+        faults=(FaultPlan.parse(args.inject_faults)
+                if getattr(args, "inject_faults", None) else None),
         device=device, **gate_kw)
     return engine, min(fast_cfg.vocab_size, exp_cfg.vocab_size)
 
@@ -223,7 +240,8 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     summarise.
     ``kernel_launches`` counts the kernel launches after warmup;
     ``per_request`` lists each request's final tier, state and tokens,
-    and the tokens each tier it reached decoded."""
+    and the tokens each tier it reached decoded.  A KeyboardInterrupt
+    stops the run and returns the partial summary (``interrupted``)."""
     engine, vocab = build_engine(args, clock, params, cfgs)
     # catches the flags and the engine's own choice of uniform prefill
     # (a tier with recurrent state)
@@ -246,9 +264,21 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     # arrival timestamps are relative to the start of serving
     engine.warmup()
     warm = _launch_counts()
+    ddl = getattr(args, "deadline", None)
     for p, n, t in zip(prompts, lengths, arrivals):
-        engine.submit(p[:int(n)], arrival_time=float(t))
-    summary = engine.run()
+        engine.submit(p[:int(n)], arrival_time=float(t),
+                      deadline=None if ddl is None else float(t) + ddl)
+    interrupted = False
+    try:
+        summary = engine.run()
+    except KeyboardInterrupt:
+        # a graceful stop: report what completed instead of a traceback
+        interrupted = True
+        summary = engine.metrics.summary()
+        print(f"\ninterrupted at t={engine.clock.now():.2f} — partial "
+              f"summary ({summary['completed']}/{summary['requests']} "
+              "completed)")
+    summary["interrupted"] = interrupted
     summary["kernel_launches"] = {k: v - warm[k]
                                   for k, v in _launch_counts().items()}
     summary["host_syncs_total"] = engine.host_syncs
@@ -270,6 +300,12 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
                                for rt in engine.runtimes]
     summary["speculation_k"] = engine.speculation_k
     summary["spec_delta"] = engine.spec_delta
+    # the overload layer's knobs, and what the fault plan injected
+    summary["preemption_policy"] = engine.preemption_policy
+    summary["deadline"] = ddl
+    if engine.faults is not None:
+        summary["faults"] = engine.faults.describe()
+        summary["fault_events"] = len(engine.faults.log)
     summary["snapshot"] = engine.metrics.snapshot(engine.clock.now())
     summary["escalation_budget"] = (None if args.delta is not None
                                     else args.escalation_budget)
@@ -324,6 +360,23 @@ def report(s: dict) -> None:
     print(f"  token slots  live {s['step_live_tokens']}"
           f"/{s['step_processed_tokens']} processed "
           f"(wasted-slot ratio {s['wasted_slot_ratio']:.3f})")
+    overloaded = (s.get("shed") or s.get("failed") or s.get("preemptions")
+                  or s.get("launch_retries")
+                  or s.get("preemption_policy", "none") != "none"
+                  or s.get("interrupted"))
+    if overloaded:
+        cons = s.get("conservation", {})
+        print(f"  overload [{s.get('preemption_policy', 'none')}]  "
+              f"shed {s.get('shed', 0)} "
+              f"(rate {s.get('shed_rate', 0.0):.3f})  "
+              f"preempted {s.get('preemptions', 0)} "
+              f"(replayed {s.get('replayed_tokens', 0)} tok)  "
+              f"failed {s.get('failed', 0)}  "
+              f"launch retries {s.get('launch_retries', 0)}  "
+              "conservation "
+              + ("ok" if cons.get("ok")
+                 else ("interrupted" if s.get("interrupted")
+                       else f"VIOLATED ({cons})")))
     rates = ", ".join(f"{r:.3f}" for r in s["escalation_rates"])
     deltas = ", ".join(f"{d:.4f}" for d in s["delta"])
     target = ("" if s.get("escalation_budget") is None
@@ -437,6 +490,30 @@ def make_parser() -> argparse.ArgumentParser:
                          "prompt with one shared base sequence (synthetic "
                          "system-prompt traffic for exercising "
                          "--prefix-cache); 0 leaves prompts unique")
+    ap.add_argument("--preemption", default="none",
+                    choices=("none", "youngest", "fewest-tokens"),
+                    help="evict-and-replay policy when an over-subscribed "
+                         "KV arena (--kv-blocks) runs dry: youngest evicts "
+                         "the newest row, fewest-tokens the "
+                         "least-progressed; none keeps the stall "
+                         "behaviour.  Replayed streams are the same "
+                         "(greedy decode)")
+    ap.add_argument("--deadline", type=float, default=None, metavar="T",
+                    help="per-request completion deadline, relative to "
+                         "arrival (engine-clock units: seconds, or ticks "
+                         "under --virtual-clock); queued requests past — "
+                         "or provably unable to meet — it are shed")
+    ap.add_argument("--launch-retries", type=int, default=2,
+                    help="bounded retries per launch or fetch on a "
+                         "transient error before one request is failed")
+    ap.add_argument("--retry-backoff", type=float, default=0.02,
+                    metavar="SEC", help="initial retry backoff (doubles "
+                         "per attempt)")
+    ap.add_argument("--inject-faults", default=None, metavar="SPEC",
+                    help="deterministic fault plan, e.g. "
+                         "'seed=7,shrink=5:0:8:40,storm=10-14:0,"
+                         "launch=0.05' (see repro_torch/serving/faults.py "
+                         "for the grammar)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--expensive-seed", type=int, default=None,
                     help="weight seed of the expensive tier "

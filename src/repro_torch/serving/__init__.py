@@ -9,10 +9,14 @@
     accounting
   * :mod:`repro_torch.serving.observability` — streaming gate-calibration
     telemetry (per-gate ECE against escalation and verify outcomes)
+  * :mod:`repro_torch.serving.faults`    — deterministic fault injection
+    (pool shrinkage, escalation storms, transient launch failures, slow
+    ticks) behind zero-cost-when-None engine hooks
   * :mod:`repro_torch.serving.engine`    — CascadeEngine tying tiers
     together
 """
 from repro_torch.serving.engine import CascadeEngine, TierSpec  # noqa: F401
+from repro_torch.serving.faults import FaultPlan, TransientError  # noqa: F401
 from repro_torch.serving.metrics import ServingMetrics  # noqa: F401
 from repro_torch.serving.request import Request, RequestState  # noqa: F401
 from repro_torch.serving.scheduler import CascadeScheduler, GateSpec  # noqa: F401
@@ -22,5 +26,5 @@ from repro_torch.serving.slots import (BlockAllocator, SlotAllocator,  # noqa: F
 __all__ = [
     "CascadeEngine", "TierSpec", "ServingMetrics", "Request", "RequestState",
     "CascadeScheduler", "GateSpec", "SlotAllocator", "BlockAllocator",
-    "TierSlotPool",
+    "TierSlotPool", "FaultPlan", "TransientError",
 ]

@@ -86,10 +86,26 @@ boundaries.  Shared blocks hold exactly the KV a fresh prefill of the
 same tokens writes, so the cache changes where prompt KV comes from and
 how many prefill tokens are computed, never a token.
 
+**Overload and failure**, as in the JAX engine: when an over-subscribed
+KV arena runs dry, a ``preemption_policy`` (``youngest`` /
+``fewest-tokens``, chunked executors only) evicts a victim row instead of
+stalling it — the victim re-queues at the head of its tier's queue and
+replays prefill and decode from scratch through the chunk machinery
+(greedy decode is deterministic, so the replayed stream is the same).
+``submit(deadline=)`` plus a shedding pass before each tier's admission
+reject queued requests that cannot meet their deadline (``SHED``).
+Every launch and every fetch runs under a bounded retry with backoff
+that catches :class:`repro_torch.serving.faults.TransientError` only;
+when a launch's retries run out the engine fails one request
+(``FAILED``) and relaunches for the rest, and when a fetch's run out the
+engine stops.  Any other error — a refused launch from
+``kernels.check_launch``, a CUDA error — propagates at once.  A
+:class:`repro_torch.serving.faults.FaultPlan` injects pool shrinkage,
+escalation storms, transient launch failures and slow ticks
+deterministically; with ``faults=None`` no hook does anything.
+
 Not ported from the JAX engine (later work): flat-bucket overrides and
-compile statistics, modality frontends, meshes, preemption, load
-shedding, launch retry, fault injection and the tracer.  A launch error
-propagates.
+compile statistics, modality frontends, meshes and the tracer.
 """
 from __future__ import annotations
 
@@ -105,6 +121,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
+from repro_torch.serving import faults as faults_lib
 from repro_torch.serving.metrics import ServingMetrics, TierCost
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import CascadeScheduler, GateSpec
@@ -478,6 +495,28 @@ class _TierRuntime:
         return [s for s, r in enumerate(self.draft_req) if r is not None]
 
 
+class _RetryExhausted(RuntimeError):
+    """Internal: a launch's bounded retry budget ran out on persistent
+    transient errors.  The engine catches this at each launch site and
+    sacrifices a single victim request — never the run."""
+
+    def __init__(self, kind: str, cause: BaseException):
+        super().__init__(f"launch retries exhausted in {kind}: {cause}")
+        self.kind = kind
+        self.cause = cause
+
+
+def _transient_error_types() -> tuple:
+    """Exception classes the retry wrapper treats as transient: the
+    injected :class:`repro_torch.serving.faults.TransientError` only.
+    The JAX engine adds jax's runtime-error class (transfer hiccups,
+    collective timeouts), which one card has no counterpart for; a
+    ``RuntimeError`` from a refused launch (``kernels.check_launch``: a
+    wrong shape) or a CUDA error (a sticky one poisons the context) is
+    not transient, and a retry would only hide it."""
+    return (faults_lib.TransientError,)
+
+
 class CascadeEngine:
     """M-tier cascade with continuous batching and per-request gating."""
 
@@ -499,6 +538,10 @@ class CascadeEngine:
                  speculation_k: int = 0,
                  spec_delta: Optional[float] = None,
                  clock=None,
+                 preemption_policy: str = "none",
+                 launch_retries: int = 2,
+                 retry_backoff: float = 0.02,
+                 faults: Optional[faults_lib.FaultPlan] = None,
                  device="cuda"):
         """``prompt_len`` is the maximum prompt length: ``submit`` takes
         any length in ``[1, prompt_len]`` under chunked prefill, exactly
@@ -534,7 +577,17 @@ class CascadeEngine:
         executor, and draft tiers without MoE layers (a draft loop's
         masked rows would take expert capacity).  ``spec_delta`` is the
         confidence a drafted token must reach to be staged (default: the
-        draft tier's gate δ)."""
+        draft tier's gate δ).
+
+        ``preemption_policy`` trades stalls for evictions when the KV
+        block pool runs dry (the module docstring): ``youngest`` evicts
+        the most recently bound row, ``fewest-tokens`` the
+        least-progressed one; it requires chunked prefill, and the
+        oldest bound row is never evicted, so the oldest-first
+        termination argument survives.  ``launch_retries`` bounds the
+        retry with backoff around every launch and fetch
+        (``retry_backoff`` seconds, doubling).  ``faults`` attaches a
+        :class:`repro_torch.serving.faults.FaultPlan`."""
         if not tiers:
             raise ValueError("need at least one tier")
         self.device = resolve_device(device)
@@ -613,6 +666,22 @@ class CascadeEngine:
                 "speculation_k > 0")
         self.speculation_k = int(speculation_k)
         self.spec_delta = None if spec_delta is None else float(spec_delta)
+        if preemption_policy not in ("none", "youngest", "fewest-tokens"):
+            raise ValueError(
+                f"unknown preemption_policy {preemption_policy!r} "
+                "(choose none / youngest / fewest-tokens)")
+        if preemption_policy != "none" and not use_chunked_prefill:
+            raise ValueError(
+                "preemption requires the block-paged arena with chunked "
+                "prefill: the replay path re-runs the victim's prefill "
+                "through the idempotent chunk machinery")
+        self.preemption_policy = preemption_policy
+        if launch_retries < 0:
+            raise ValueError("launch_retries must be >= 0")
+        self.launch_retries = int(launch_retries)
+        self.retry_backoff = float(retry_backoff)
+        self.faults = faults
+        self._transient = _transient_error_types()
         slots_per_tier = ([int(slots)] * m if np.isscalar(slots)
                           else [int(s) for s in slots])
         kv_blocks_per_tier = (
@@ -683,13 +752,25 @@ class CascadeEngine:
         self._budget_used = [0] * m
         self._admitted = [0] * m
         self.host_syncs = 0                 # blocking device->host fetches
+        # the overload layer's state: whether any submit carried a
+        # deadline (the shedding pass is off until one does), the
+        # minimum observed tick duration (the shedding floor's unit), and
+        # each tier's stalled rows in its last plan (drain diagnostics)
+        self._has_deadlines = False
+        self._min_tick_dt: Optional[float] = None
+        self._last_tick_t: Optional[float] = None
+        self._last_stalls = [0] * m
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, prompt, arrival_time: float = 0.0) -> Request:
+    def submit(self, prompt, arrival_time: float = 0.0,
+               deadline: Optional[float] = None) -> Request:
         """Queue one request: a 1D prompt of 1..prompt_len tokens under
         chunked prefill, of exactly prompt_len tokens under uniform
-        prefill."""
+        prefill.  ``deadline`` (absolute, in the engine's clock domain)
+        opts it into load shedding: the shedding pass rejects it
+        (terminal ``SHED``) once the deadline has passed or provably
+        cannot be met (see :meth:`_service_floor`)."""
         prompt = np.asarray(prompt, np.int32)
         if self.chunked_prefill:
             if prompt.ndim != 1 or not 1 <= prompt.shape[0] <= self.prompt_len:
@@ -702,11 +783,14 @@ class CascadeEngine:
                 "(the uniform packed prefill batches one prompt length; "
                 "use chunked prefill for mixed lengths)")
         req = Request(rid=self._rid, prompt=prompt, gen_len=self.gen_len,
-                      arrival_time=float(arrival_time))
+                      arrival_time=float(arrival_time),
+                      deadline=None if deadline is None else float(deadline))
         self._rid += 1
         self.requests.append(req)
         self.scheduler.submit(req)
         self.metrics.record_submitted()
+        if deadline is not None:
+            self._has_deadlines = True
         return req
 
     # -- one engine tick ---------------------------------------------------
@@ -717,13 +801,20 @@ class CascadeEngine:
         windows, accepted counts and drafts; the split executor brings its
         chunk and decode picks together: integer tensors ride bit-cast as
         int32 beside the f32 ones in a single copy (counted overall and
-        per tier).  Returns numpy arrays of the given shapes, in order."""
+        per tier).  Returns numpy arrays of the given shapes, in order.
+
+        The copy runs under the retry wrapper as kind ``device_get``: a
+        retry re-reads the same device tensors, so it is safe, and a CUDA
+        fault of a kernel surfaces here (the first synchronisation) and
+        propagates, since only an injected transient error is retried.
+        When the retries run out the engine stops (:class:`_RetryExhausted`
+        propagates): the tick's results are lost without the copy."""
         self.host_syncs += 1
         self.metrics.record_host_sync(tier)
-        flat = torch.cat([
+        flat = self._launch(tier, "device_get", lambda: torch.cat([
             t.reshape(-1).to(torch.float32) if t.is_floating_point()
             else t.reshape(-1).to(torch.int32).view(torch.float32)
-            for t in tensors]).cpu()
+            for t in tensors]).cpu())
         out, o = [], 0
         for t in tensors:
             part = flat[o:o + t.numel()]
@@ -732,6 +823,41 @@ class CascadeEngine:
             out.append(part.numpy().reshape(tuple(t.shape)))
             o += t.numel()
         return out
+
+    def _launch(self, tier: int, kind: str, thunk):
+        """Run one launch (or fetch) under bounded retry with backoff.  A
+        transient failure (:func:`_transient_error_types`: an injected
+        :class:`repro_torch.serving.faults.TransientError`) retries up to
+        ``launch_retries`` times, sleeping ``retry_backoff`` seconds,
+        doubling; any other exception propagates at once.  Exhaustion
+        raises :class:`_RetryExhausted` for the call site to sacrifice a
+        single victim request (:meth:`_fail_one`).
+
+        Relaunching is safe although the port writes KV in place (a JAX
+        launch is functional: its engine keeps the new cache only after
+        the launch succeeds).  The injected error is raised in
+        ``FaultPlan.pre_launch``, before the thunk runs, so a retried
+        launch has written nothing; a relaunch after :meth:`_fail_one`
+        rewrites the survivors' pages with the same values, and the
+        victim's released pages map to the null block.  Every host-state
+        change of a tick (``prefill_pos``, ``publish_prefix``, ``pos``,
+        the emitted tokens) therefore stays after the wrapped launch: the
+        plan is pure host data built before it."""
+        delay = self.retry_backoff
+        attempt = 0
+        while True:
+            try:
+                if self.faults is not None:
+                    self.faults.pre_launch(self.tick_id, tier, kind, attempt)
+                return thunk()
+            except self._transient as e:
+                if attempt >= self.launch_retries:
+                    raise _RetryExhausted(kind, e) from e
+                self.metrics.record_retry(tier)
+                attempt += 1
+                if delay > 0:
+                    time.sleep(delay)
+                    delay *= 2
 
     def _admit_requests(self, tier: int, now: float) -> None:
         """Bind rows one at a time, bounded by free rows, free KV blocks
@@ -757,6 +883,11 @@ class CascadeEngine:
             if head is None:
                 break
             plen = head.prompt_tokens
+            # a preempted request being re-admitted replays work the
+            # metrics already counted: its admission is not recorded
+            # again (Eq 7 cost and the request count stay per request);
+            # the replayed compute shows as replayed_tokens instead
+            replay = head.state is RequestState.PREEMPTED
             shard, cached, pblocks = self._pick_shard_prefix(tier, rt, head)
             if shard is None:
                 break               # no row, or no blocks for the chunk
@@ -787,7 +918,7 @@ class CascadeEngine:
             self._budget_used[tier] += (min(rt.chunk, plen - cached)
                                         if rt.unified else plen - cached)
             self._admitted[tier] += 1
-            fresh += 1
+            fresh += 0 if replay else 1
         if fresh:
             self.metrics.record_admission(tier, fresh)
 
@@ -821,7 +952,9 @@ class CascadeEngine:
         prompt — then prefill them all in ONE launch over the
         ``[capacity, prompt_len]`` batch, scatter the part cache into the
         arena, and fetch their first tokens in a blocking fetch of its own
-        (separate from the tick's decode fetch)."""
+        (separate from the tick's decode fetch).  When the prefill
+        launch's retries run out, the youngest admission fails (its row
+        is not populated yet) and the rest relaunch."""
         if rt.paged:
             reqs, slot_ids = [], []
             while self.scheduler.peek(tier, now) is not None:
@@ -840,10 +973,23 @@ class CascadeEngine:
         self.metrics.record_admission(tier, len(reqs))
         self.metrics.record_prefill_tokens(
             len(reqs) * self.prompt_len, rt.capacity * self.prompt_len)
-        prompts = np.zeros((rt.capacity, self.prompt_len), np.int32)
-        for i, req in enumerate(reqs):
-            prompts[i] = req.prompt
-        part_cache, ftok, fconf = rt.run_prefill(prompts)
+        while True:
+            prompts = np.zeros((rt.capacity, self.prompt_len), np.int32)
+            for i, req in enumerate(reqs):
+                prompts[i] = req.prompt
+            try:
+                part_cache, ftok, fconf = self._launch(
+                    tier, "run_prefill", lambda p=prompts: rt.run_prefill(p))
+                break
+            except _RetryExhausted:
+                req, slot = reqs.pop(), slot_ids.pop()
+                req.fail(now)
+                if rt.paged:
+                    rt.pool.release(slot)
+                self.scheduler.release(tier, slot)
+                self.metrics.record_failed(tier)
+                if not reqs:
+                    return
         self.metrics.record_launches(tier, "prefill")
         if rt.paged:
             rt.pool.write_prefill(slot_ids, part_cache, self.prompt_len)
@@ -1013,20 +1159,186 @@ class CascadeEngine:
                         verify_rows=verify_rows, draft_rows=draft_rows,
                         draft_len=draft_len)
 
+    # -- overload: preemption, load shedding, single-request failure --------
+
+    def _pick_victim(self, rt: _TierRuntime, shard: int) -> Optional[int]:
+        """The row ``preemption_policy`` evicts on `shard` when the plan
+        stalled there.  Never the shard's *oldest* bound row (the
+        oldest-first reserve discipline guarantees its progress — that
+        guarantee is the termination argument, and it is also why the
+        preempt-and-replan loop cannot livelock) and never a row whose
+        decode already finished (this tick's gate frees it anyway).
+        None when no candidate remains."""
+        rows = [s for s in rt.pool.bound_rows()
+                if rt.pool.shard_of(s) == shard]
+        cands = [s for s in rows[1:]
+                 if rt.slot_req[s] is not None
+                 and not rt.slot_req[s].decode_finished]
+        if not cands:
+            return None
+        if self.preemption_policy == "youngest":
+            return cands[-1]
+        # fewest-tokens: least total progress (prefilled + decoded);
+        # the reverse scan breaks ties toward the youngest binding
+        return min(reversed(cands),
+                   key=lambda s: int(rt.prefill_pos[s])
+                   + len(rt.slot_req[s].tokens))
+
+    def _preempt(self, tier: int, rt: _TierRuntime, slot: int,
+                 now: float) -> None:
+        """Evict `slot`'s request: discard its partial tier work, free
+        its blocks (refcounted: pages its prefix entries hold stay
+        indexed, and the replay re-matches them) and its row, and
+        re-queue it at the *head* of the tier's queue.  Re-admission
+        replays prefill and decode from scratch; greedy decode is
+        deterministic, so the replayed stream is the same (the emit-side
+        ``first_token_time`` guard keeps TTFT at the original
+        emission)."""
+        req = rt.slot_req[slot]
+        replayed = int(rt.prefill_pos[slot]) + len(req.tokens)
+        self._release_draft(req)        # replay restarts decode: any
+        req.preempt(now)                # retained draft row is stale
+        rt.slot_req[slot] = None
+        rt.tok[slot] = 0
+        rt.pos[slot] = 0
+        rt.prefill_pos[slot] = 0
+        rt.pool.release(slot)
+        self.scheduler.release(tier, slot)
+        self.scheduler.requeue(req, tier)
+        self.metrics.record_preemption(tier, replayed)
+
+    def _preempt_stalled(self, tier: int, rt: _TierRuntime,
+                         plan: Optional[StepPlan],
+                         now: float) -> Optional[StepPlan]:
+        """Trade stalls for evictions: while the plan has stalled rows
+        and a stalled shard holds a victim, preempt one row and re-plan
+        (the pool has one shard, so the shard loop visits shard 0).
+        Draft rows go first: dropping one costs only speculative work.
+        Terminates — every pass unbinds a row, and re-planning only ever
+        *frees* blocks — and cannot starve the tier, since the shard's
+        oldest row is exempt and therefore always progresses."""
+        while plan is not None:
+            stalled = [s for s in range(rt.capacity)
+                       if plan.kind[s] == KIND_STALL]
+            if not stalled:
+                return plan
+            shards = sorted({rt.pool.shard_of(s) for s in stalled})
+            drafts = [s for s in rt.draft_slots()
+                      if rt.pool.shard_of(s) in shards]
+            if drafts:
+                self._release_draft(rt.draft_req[drafts[-1]])
+                plan = self._build_plan(rt)
+                continue
+            victim = None
+            for shard in shards:
+                victim = self._pick_victim(rt, shard)
+                if victim is not None:
+                    break
+            if victim is None:
+                return plan             # nothing evictable: stalls stand
+            self._preempt(tier, rt, victim, now)
+            plan = self._build_plan(rt)
+        return plan
+
+    def _fail_one(self, tier: int, rt: _TierRuntime, rows: Sequence[int],
+                  now: float, err: Exception) -> int:
+        """Retry exhaustion sacrifices ONE request so the run survives:
+        the youngest-bound row among `rows` (the highest row on a dense
+        arena, whose binding order is not tracked) fails terminally and
+        frees its row and blocks; the caller re-plans and relaunches for
+        the survivors.  Returns the victim row."""
+        if rt.paged:
+            order = {s: i for i, s in enumerate(rt.pool.bound_rows())}
+            victim = max(rows, key=lambda s: order.get(s, -1))
+        else:
+            victim = max(rows)
+        req = rt.slot_req[victim]
+        self._release_draft(req)
+        req.fail(now)
+        rt.slot_req[victim] = None
+        rt.tok[victim] = 0
+        rt.pos[victim] = 0
+        rt.prefill_pos[victim] = 0
+        if rt.paged:
+            rt.pool.release(victim)
+        self.scheduler.release(tier, victim)
+        self.metrics.record_failed(tier)
+        return victim
+
+    def _shed(self, tier: int, now: float) -> None:
+        """The load-shedding pass (nothing to do until a submitted
+        request carries a deadline): reject queued requests of `tier`
+        whose deadline has passed or provably cannot be met."""
+        if not self._has_deadlines:
+            return
+        for req in self.scheduler.shed(tier, now, self._service_floor(tier)):
+            self._release_draft(req)    # escalated-then-shed requests
+            req.shed(now)               # may hold a cheap-tier row
+            self.metrics.record_shed(tier)
+
+    def _service_floor(self, tier: int):
+        """A per-request lower bound on remaining service time at `tier`
+        (None until a tick duration has been observed, so only
+        already-expired deadlines shed): the fewest ticks to finish —
+        ``ceil(prompt / chunk)`` prefill ticks plus ``gen_len - 1``
+        decode ticks, minus one because the final chunk emits the first
+        token in its own tick — times the *minimum* observed tick
+        duration.  A true lower bound: queue wait, stalls, preemption
+        replays and escalation only add to it."""
+        dt = self._min_tick_dt
+        if dt is None or dt <= 0:
+            return None
+        rt = self.runtimes[tier]
+        if rt.chunked:
+            return lambda r: max(
+                math.ceil(r.prompt_tokens / rt.chunk)
+                + self.gen_len - 2, 0) * dt
+        return lambda r: (self.gen_len - 1) * dt
+
+    def _drain_diagnostics(self) -> str:
+        """Per-tier state for the did-not-drain RuntimeError: queue
+        depth, live rows, the last plan's stalled rows and the free
+        blocks — enough to tell block starvation from a scheduling bug."""
+        lines = []
+        for t, rt in enumerate(self.runtimes):
+            line = (f"tier {t} ({rt.spec.name}): "
+                    f"queued={len(self.scheduler.queues[t])} "
+                    f"live_rows={len(rt.occupied())} "
+                    f"stalled_rows={self._last_stalls[t]}")
+            if rt.paged:
+                shards = range(rt.pool.data_shards)
+                line += (" free_blocks_by_shard="
+                         f"{[rt.pool.blocks.free_in(s) for s in shards]}")
+                held = [rt.pool.blocks.reserved_in(s) for s in shards]
+                if any(held):
+                    line += f" withheld_by_shard={held}"
+                if rt.prefix:
+                    ents = [rt.pool.prefix_index_entries(s) for s in shards]
+                    line += (f" prefix_entries_by_shard={ents}"
+                             " evictable_by_shard="
+                             f"{[rt.pool.evictable_in(s) for s in shards]}")
+            lines.append(line)
+        return "; ".join(lines)
+
     def _tier_step(self, tier: int, now: float) -> int:
-        """One tier's compute for a tick: plan on the host, then the
-        unified (ragged or padded) or the split executor.  Returns the
-        number of decode tokens emitted."""
+        """One tier's compute for a tick: plan on the host (trading stalls
+        for preemptions under a policy), then the unified (ragged or
+        padded) or the split executor.  Returns the number of decode
+        tokens emitted."""
         rt = self.runtimes[tier]
         plan = self._build_plan(rt)
+        if self.preemption_policy != "none" and rt.chunked:
+            plan = self._preempt_stalled(tier, rt, plan, now)
+        self._last_stalls[tier] = (
+            0 if plan is None else int((plan.kind == KIND_STALL).sum()))
         if plan is None:
             return 0
         if rt.unified:
-            return self._exec_unified(tier, rt, plan)
-        return self._exec_split(tier, rt, plan)
+            return self._exec_unified(tier, rt, plan, now)
+        return self._exec_split(tier, rt, plan, now)
 
     def _exec_unified(self, tier: int, rt: _TierRuntime,
-                      plan: StepPlan) -> int:
+                      plan: StepPlan, now: float) -> int:
         """ONE launch serves every live row — each contributes its next
         prefill chunk or its single decode token, packed flat (ragged) or
         in a padded ``[capacity, width]`` batch — and one blocking fetch
@@ -1040,25 +1352,51 @@ class CascadeEngine:
         when no row drafts): a verify row emits its accepted drafts and
         the verifier's next token, a drafting row stages its drafts on
         its target request, truncated at the first one below
-        ``spec_delta`` (default: this tier's gate δ)."""
-        if not plan.prefill_rows and not plan.decode_rows \
-                and not plan.draft_rows:
-            return 0                    # every live row stalled
+        ``spec_delta`` (default: this tier's gate δ).
+
+        The launch runs under the retry wrapper before any host state
+        advances; when its retries run out one victim fails (a draft-only
+        launch drops its drafts instead), the tier re-plans and the
+        launch runs again for the survivors."""
         spec = None
+        while True:
+            if not plan.prefill_rows and not plan.decode_rows \
+                    and not plan.draft_rows:
+                return 0                # every live row stalled
+            try:
+                if rt.spec_k:
+                    steps = max(int(plan.draft_len.max()) - 1, 0)
+                    spec = self._launch(
+                        tier, "run_spec", lambda p=plan, n=steps: rt.run_spec(
+                            p.flat_tokens, p.flat_pos, p.q_len, p.q_start,
+                            p.draft_len, n))
+                    tok, conf = spec["tok"], spec["conf"]
+                    processed, kind = plan.flat_width, "spec"
+                elif rt.ragged:
+                    tok, conf = self._launch(
+                        tier, "run_ragged", lambda p=plan: rt.run_ragged(
+                            p.flat_tokens, p.flat_pos, p.q_len, p.q_start))
+                    processed, kind = plan.flat_width, "ragged"
+                else:
+                    tok, conf = self._launch(
+                        tier, "run_mixed", lambda p=plan: rt.run_mixed(
+                            p.tokens, p.pos, p.q_len))
+                    processed, kind = rt.capacity * plan.width, "mixed"
+                break
+            except _RetryExhausted as e:
+                rows = plan.prefill_rows + plan.decode_rows
+                if rows:
+                    self._fail_one(tier, rt, rows, now, e)
+                else:
+                    # a draft-only launch exhausted its retries: drop the
+                    # speculation (the targets just decode normally)
+                    for s in plan.draft_rows:
+                        self._release_draft(rt.draft_req[s])
+                plan = self._build_plan(rt)
+                if plan is None:
+                    return 0
         if rt.spec_k:
-            steps = max(int(plan.draft_len.max()) - 1, 0)
-            spec = rt.run_spec(plan.flat_tokens, plan.flat_pos, plan.q_len,
-                               plan.q_start, plan.draft_len, steps)
-            tok, conf = spec["tok"], spec["conf"]
-            processed, kind = plan.flat_width, "spec"
             self.metrics.record_draft_steps(tier, steps)
-        elif rt.ragged:
-            tok, conf = rt.run_ragged(plan.flat_tokens, plan.flat_pos,
-                                      plan.q_len, plan.q_start)
-            processed, kind = plan.flat_width, "ragged"
-        else:
-            tok, conf = rt.run_mixed(plan.tokens, plan.pos, plan.q_len)
-            processed, kind = rt.capacity * plan.width, "mixed"
         self.metrics.record_launches(tier, kind)
         # live vs processed token slots: the ragged launch computes its
         # bucket width, the padded one capacity * width
@@ -1142,15 +1480,28 @@ class CascadeEngine:
         return len(plan.decode_rows)
 
     def _exec_split(self, tier: int, rt: _TierRuntime,
-                    plan: StepPlan) -> int:
+                    plan: StepPlan, now: float) -> int:
         """Split execution: the chunk launch over the prefill rows, then
         the decode launch — rows whose final chunk completed decode in the
         same tick, their first token flowing into the decode input on the
         device — then ONE blocking fetch for both result pairs.  Two
-        launches on mixed ticks, which the unified executors fuse."""
+        launches on mixed ticks, which the unified executors fuse.  When
+        the chunk launch's retries run out one victim fails and the tick
+        restarts for the survivors (the failed launch advanced no host
+        state)."""
         pf = None
         if plan.prefill_rows:
-            tok, conf = rt.run_chunk(plan.tokens, plan.pos, plan.q_len)
+            try:
+                tok, conf = self._launch(
+                    tier, "run_chunk", lambda: rt.run_chunk(
+                        plan.tokens, plan.pos, plan.q_len))
+            except _RetryExhausted as e:
+                self._fail_one(tier, rt,
+                               plan.prefill_rows + plan.decode_rows, now, e)
+                plan = self._build_plan(rt)
+                if plan is None:
+                    return 0
+                return self._exec_split(tier, rt, plan, now)
             processed = rt.capacity * plan.width
             self.metrics.record_launches(tier, "chunk")
             self.metrics.record_prefill_tokens(plan.live_prefill_tokens,
@@ -1168,7 +1519,7 @@ class CascadeEngine:
                 req.start_decode(t_dec)
                 rt.pos[s] = req.prompt_tokens   # next decode writes here
             pf = {"tok": tok, "conf": conf, "finished": plan.finishing}
-        dc = self._decode_launch(tier, rt, pf)
+        dc = self._decode_launch(tier, rt, pf, now)
         emit_first = pf is not None and bool(pf["finished"])
         if not emit_first and dc is None:
             return 0
@@ -1179,7 +1530,10 @@ class CascadeEngine:
         if emit_first:
             ptok, pconf = fetched[:2]
             for s in pf["finished"]:
-                rt.slot_req[s].emit(int(ptok[s]), float(pconf[s]), t_emit)
+                req = rt.slot_req[s]
+                if req is None:
+                    continue    # failed mid-tick (decode retry exhaustion)
+                req.emit(int(ptok[s]), float(pconf[s]), t_emit)
                 rt.tok[s] = ptok[s]
         if dc is None:
             return 0
@@ -1191,13 +1545,16 @@ class CascadeEngine:
         return len(dc["active"])
 
     def _decode_launch(self, tier: int, rt: _TierRuntime,
-                       pf: Optional[dict]) -> Optional[dict]:
+                       pf: Optional[dict], now: float) -> Optional[dict]:
         """The split executor's decode launch over every row.  Rows whose
         final chunk completed this tick take their first token from the
         chunk launch's device output.  Page tables grow here, oldest row
         first; a row denied a block stalls (its write lands in the null
         block, its output is discarded) and retries next tick.  The dense
-        arena has every row's positions already."""
+        arena has every row's positions already.  When the launch's
+        retries run out one active row fails and the launch runs again
+        for the rest: the victim's page-table row is unmapped by then, so
+        its write lands in the null block."""
         decoding = rt.decoding()
         finished = pf["finished"] if pf is not None else []
         if finished:
@@ -1220,9 +1577,19 @@ class CascadeEngine:
             active = decoding
         # rows mid-prefill share the decode batch but must not touch their
         # partly filled pages: the launch's page-table copy unmaps them
-        tok, conf = rt.run_step(rt.tok, mask_rows=rt.prefilling(),
-                                first=pf["tok"] if finished else None,
-                                fresh=finished)
+        while True:
+            try:
+                tok, conf = self._launch(
+                    tier, "run_step", lambda: rt.run_step(
+                        rt.tok, mask_rows=rt.prefilling(),
+                        first=pf["tok"] if finished else None,
+                        fresh=finished))
+                break
+            except _RetryExhausted as e:
+                victim = self._fail_one(tier, rt, active, now, e)
+                active = [s for s in active if s != victim]
+                if not active:
+                    return None
         self.metrics.record_launches(tier, "step")
         self.metrics.record_step_tokens(tier, len(active), rt.capacity)
         return {"active": active, "tok": tok, "conf": conf}
@@ -1232,16 +1599,22 @@ class CascadeEngine:
         tier's queue or complete it, and free its row and blocks — except
         that under speculation an escalated request's row stays bound as
         its draft row.  A completed escalated request streams its
-        escalation outcomes into the calibration telemetry."""
+        escalation outcomes into the calibration telemetry.  An
+        escalation storm of the fault plan forces this gate's decisions
+        for the tick (forced decisions still stream into the gate stats
+        and the calibration telemetry like real ones)."""
         rt = self.runtimes[tier]
         last = tier == len(self.tiers) - 1
+        forced = (None if last or self.faults is None
+                  else self.faults.force_escalation(self.tick_id, tier))
         done = esc = 0
         for slot in rt.occupied():
             req = rt.slot_req[slot]
             if not (req.state is RequestState.DECODE and req.decode_finished):
                 continue
             seq_conf = req.gate(self.conf_reduce)
-            if not last and self.scheduler.gate_decision(tier, seq_conf):
+            if not last and self.scheduler.gate_decision(tier, seq_conf,
+                                                         force=forced):
                 req.escalate(now)
                 self.scheduler.push_escalated(req)
                 esc += 1
@@ -1302,6 +1675,17 @@ class CascadeEngine:
     def step(self, now: Optional[float] = None) -> None:
         now = self.clock.now() if now is None else now
         self.tick_id += 1
+        if self.faults is not None:
+            self.faults.begin_tick(self.tick_id, self)
+        # minimum observed tick duration: the unit of the shedding pass's
+        # service-time floor (constant under a VirtualClock, so the floor
+        # is exact there)
+        if self._last_tick_t is not None:
+            d = now - self._last_tick_t
+            if d > 0 and (self._min_tick_dt is None
+                          or d < self._min_tick_dt):
+                self._min_tick_dt = d
+        self._last_tick_t = now
         # open each tier's token-budget window: unified tiers pre-charge
         # the tick's carried decode+chunk load (one currency), split tiers
         # start the legacy prefill-only window at zero
@@ -1310,6 +1694,7 @@ class CascadeEngine:
         self._admitted = [0] * len(self.tiers)
         active = []
         for tier in range(len(self.tiers)):
+            self._shed(tier, now)
             self._admit_requests(tier, now)
             active.append(self._tier_step(tier, now))
             self._finish_requests(tier, now)
@@ -1388,5 +1773,6 @@ class CascadeEngine:
             steps += 1
             if steps > max_steps:
                 raise RuntimeError(
-                    f"engine did not drain after {steps} steps")
+                    f"engine did not drain after {steps} steps (scheduler "
+                    "stuck?): " + self._drain_diagnostics())
         return self.metrics.summary()

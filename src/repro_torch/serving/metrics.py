@@ -1,7 +1,7 @@
 """Serving metrics: latency percentiles, throughput, utilization, and the
 paper's Eq 7 cost accounting (the torch port's copy of the JAX package's
-``repro/serving/metrics.py``, with its prefix-cache block and without
-its overload block).
+``repro/serving/metrics.py``, with its prefix-cache and overload
+blocks).
 
 Cost convention (Eq 7)::
 
@@ -90,7 +90,17 @@ class ServingMetrics:
         self.prefix_hits_by_tier = [0] * len(tiers)
         self.prefix_cached_tokens_by_tier = [0] * len(tiers)
         self.prefix_prompt_tokens_by_tier = [0] * len(tiers)
+        # overload-and-failure accounting: submissions (conservation
+        # denominator), deadline-shed and retry-failed requests per tier
+        # they were queued for / running on, preemptions with the tokens
+        # they discarded (prefilled prompt + generated tokens, all
+        # recomputed at replay), and transient launch-attempt retries
         self.submitted = 0
+        self.shed_by_tier = [0] * len(tiers)
+        self.failed_by_tier = [0] * len(tiers)
+        self.preemptions_by_tier = [0] * len(tiers)
+        self.replayed_tokens_by_tier = [0] * len(tiers)
+        self.retries_by_tier = [0] * len(tiers)
         # per-tick intervals in the engine's clock domain (seconds, or
         # ticks under a VirtualClock)
         self.tick_durations: List[float] = []
@@ -109,7 +119,29 @@ class ServingMetrics:
             self.stats.requests += n
 
     def record_submitted(self, n: int = 1) -> None:
+        """A request entered the system (the conservation denominator:
+        at drain, submitted == completed + shed + failed)."""
         self.submitted += n
+
+    def record_shed(self, tier: int, n: int = 1) -> None:
+        """`n` queued requests rejected by the load-shedding pass."""
+        self.shed_by_tier[tier] += n
+
+    def record_failed(self, tier: int, n: int = 1) -> None:
+        """`n` live requests sacrificed to exhausted launch retries."""
+        self.failed_by_tier[tier] += n
+
+    def record_preemption(self, tier: int, replayed_tokens: int) -> None:
+        """One row evicted by the preemption policy; `replayed_tokens`
+        counts the discarded work (prefilled prompt tokens + generated
+        tokens) the replay will recompute."""
+        self.preemptions_by_tier[tier] += 1
+        self.replayed_tokens_by_tier[tier] += int(replayed_tokens)
+
+    def record_retry(self, tier: int, n: int = 1) -> None:
+        """`n` transient launch-attempt failures absorbed by the
+        engine's bounded retry-with-backoff path."""
+        self.retries_by_tier[tier] += n
 
     def record_step(self, active_per_tier: Sequence[int], now: float) -> None:
         self.steps += 1
@@ -201,6 +233,18 @@ class ServingMetrics:
 
     # -- summary -----------------------------------------------------------
 
+    def conservation(self) -> dict:
+        """Request conservation: every submitted request must end DONE,
+        SHED, or FAILED (``in_flight`` is the residue — nonzero only
+        mid-run; at drain ``ok`` must hold)."""
+        done = len(self.latencies)
+        shed = sum(self.shed_by_tier)
+        failed = sum(self.failed_by_tier)
+        in_flight = self.submitted - done - shed - failed
+        return {"submitted": self.submitted, "completed": done,
+                "shed": shed, "failed": failed, "in_flight": in_flight,
+                "ok": in_flight == 0}
+
     def snapshot(self, now: float) -> dict:
         """A cheap point-in-time readout: progress, escalation, and the
         streaming calibration state (per-gate ECE + agreement)."""
@@ -216,6 +260,9 @@ class ServingMetrics:
             "gate_agreement": [self.calibration.agreement_rate(g)
                                for g in range(self.calibration.n_gates)],
             "gate_outcomes": list(self.calibration.outcomes),
+            "shed": sum(self.shed_by_tier),
+            "preemptions": sum(self.preemptions_by_tier),
+            "failed": sum(self.failed_by_tier),
             "tick_duration_p50": percentile(self.tick_durations, 50),
         }
 
@@ -288,6 +335,21 @@ class ServingMetrics:
             "tier_utilization": util,
             "escalation_rates": [g.escalation_rate
                                  for g in self.stats.gates],
+            # overload-and-failure surface: shed rate is over submissions
+            # (a request shed before admission never counts as a request)
+            "shed": sum(self.shed_by_tier),
+            "shed_by_tier": list(self.shed_by_tier),
+            "shed_rate": (sum(self.shed_by_tier) / self.submitted
+                          if self.submitted else 0.0),
+            "failed": sum(self.failed_by_tier),
+            "failed_by_tier": list(self.failed_by_tier),
+            "preemptions": sum(self.preemptions_by_tier),
+            "preemptions_by_tier": list(self.preemptions_by_tier),
+            "replayed_tokens": sum(self.replayed_tokens_by_tier),
+            "replayed_tokens_by_tier": list(self.replayed_tokens_by_tier),
+            "launch_retries": sum(self.retries_by_tier),
+            "launch_retries_by_tier": list(self.retries_by_tier),
+            "conservation": self.conservation(),
             # prefix cache: hit rate over lookups, tokens served from
             # shared blocks (the prefill work saved), and the fraction
             # of all admitted prompt tokens the cache absorbed

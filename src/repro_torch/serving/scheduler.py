@@ -1,6 +1,7 @@
 """Continuous-batching scheduler with confidence-gated escalation queues
-(a copy of the JAX package's ``repro/serving/scheduler.py`` without
-requeue-on-preemption and load shedding).
+(a copy of the JAX package's ``repro/serving/scheduler.py`` at one data
+shard: requeue-on-preemption, load shedding and forced gate decisions
+included).
 
 One arrival queue feeds tier 0; each gate m owns an escalation queue
 feeding tier m+1.  Every engine step the scheduler admits waiting requests
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Callable, Deque, List, Optional, Sequence, Tuple
 
 from repro_torch.core.server import GateStats, delta_for_escalation_rate
 from repro_torch.serving.request import Request
@@ -79,6 +80,42 @@ class CascadeScheduler:
 
     def push_escalated(self, req: Request) -> None:
         self.queues[req.tier + 1].append(req)
+
+    def requeue(self, req: Request, tier: int) -> None:
+        """Put a preempted request back at the *head* of `tier`'s queue:
+        it was already admitted once, so it outranks later arrivals for
+        re-admission (starvation guard for the replay path)."""
+        self.queues[tier].appendleft(req)
+
+    # -- load shedding -------------------------------------------------------
+
+    def shed(self, tier: int, now: float,
+             floor: Optional[Callable[[Request], float]] = None,
+             ) -> List[Request]:
+        """Remove and return queued requests of `tier` that are past —
+        or provably unable to meet — their deadline.  A request sheds
+        when ``max(now, arrival) + floor(request) > deadline``:
+        ``floor`` is a lower bound on its remaining service time
+        (0 when not provided, so only already-expired deadlines shed).
+        Deadline-less requests never shed.  The caller owns the state
+        transition (``Request.shed``) and the metrics."""
+        q = self.queues[tier]
+        if not q:
+            return []
+        shed: List[Request] = []
+        kept: List[Request] = []
+        for req in q:
+            if req.deadline is not None and \
+                    max(now, req.arrival_time) + \
+                    (floor(req) if floor is not None else 0.0) \
+                    > req.deadline:
+                shed.append(req)
+            else:
+                kept.append(req)
+        if shed:
+            q.clear()
+            q.extend(kept)
+        return shed
 
     # -- admission (continuous batching) -----------------------------------
 
@@ -154,13 +191,18 @@ class CascadeScheduler:
             return g.delta_init
         return delta_for_escalation_rate(list(win), g.budget)
 
-    def gate_decision(self, gate: int, seq_conf: float) -> bool:
-        """Record `seq_conf` at `gate`; True -> escalate to tier gate+1."""
+    def gate_decision(self, gate: int, seq_conf: float,
+                      force: Optional[bool] = None) -> bool:
+        """Record `seq_conf` at `gate`; True -> escalate to tier gate+1.
+        ``force`` overrides the threshold comparison (fault injection:
+        escalation storms simulate a miscalibrated gate) — the forced
+        decision still streams into the stats, the confidence window and
+        the calibration telemetry, exactly as a genuine one would."""
         delta = self.delta(gate)
         self._conf_windows[gate].append(seq_conf)
         st = self.gate_stats[gate]
         st.seen += 1
-        escalate = seq_conf <= delta
+        escalate = seq_conf <= delta if force is None else bool(force)
         if escalate:
             st.escalated += 1
         if self.calibration is not None:

@@ -48,9 +48,13 @@ private page before any scatter.  Eviction is refcount-aware LRU over
 index entries: only blocks whose every reference is an index reference
 return to the free list.
 
-Arena shrinkage and meshes are not ported: the pool has one data shard
-(the ``shard`` arguments stay, and only shard 0 exists), so the JAX
-package's invariant checker audits this pool unchanged.
+**Arena shrinkage** (fault injection, :meth:`TierSlotPool.shrink`)
+withholds free blocks from the allocator and :meth:`TierSlotPool.unshrink`
+returns them; two caps keep the oldest-first argument intact (one full
+request's blocks stay usable, and the oldest row's worst-case demand
+stays free).  Meshes are not ported: the pool has one data shard (the
+``shard`` arguments stay, and only shard 0 exists), so the JAX package's
+invariant checker audits this pool unchanged.
 """
 from __future__ import annotations
 
@@ -114,12 +118,13 @@ class BlockAllocator:
     a block at refcount 1, :meth:`ref` adds a reference (an extra row
     page-table mapping or a prefix-index entry), and :meth:`free`
     decrements — the block rejoins the free list only when the count
-    reaches 0.  A block is therefore either free or live (refcount >= 1).
+    reaches 0.  A block is therefore in exactly one of three states:
+    free (on the free list), withheld (:meth:`reserve`), or live
+    (refcount >= 1).
 
-    The JAX allocator's per-shard free lists and withheld (fault
-    injection) blocks are not ported; their fields stay, fixed at one
-    shard (``shards``, ``_span``, ``_free[0]``) and no withheld block
-    (``_reserved``), so the JAX suite's invariant checker audits this
+    The JAX allocator's per-shard free lists are not ported; their
+    fields stay, fixed at one shard (``shards``, ``_span``, ``_free[0]``,
+    ``_reserved[0]``), so the JAX suite's invariant checker audits this
     allocator unchanged.
     """
 
@@ -132,6 +137,8 @@ class BlockAllocator:
         # a descending list pops the lowest id first; the null block
         # (id 0) is never free
         self._free: List[List[int]] = [list(range(num_blocks - 1, 0, -1))]
+        # blocks withheld from the free list by fault injection
+        # (reserve()/restore()) — never allocated, never in _used
         self._reserved: List[List[int]] = [[]]
         self._used = set()
         self._refcount = {}             # live block -> refs (>= 1)
@@ -152,7 +159,7 @@ class BlockAllocator:
         """Add a reference to a live block (an extra page-table mapping
         or a prefix-index entry).  Sharing a block that is not currently
         allocated raises — a free block's contents are about to be
-        overwritten by the next occupant."""
+        overwritten by the next occupant (a withheld block's too)."""
         if block not in self._used:
             raise ValueError(
                 f"block {block} is not allocated (cannot share it)")
@@ -164,12 +171,13 @@ class BlockAllocator:
                                          self._shared)
 
     def refcount(self, block: int) -> int:
-        """Current reference count (0 for free and null blocks)."""
+        """Current reference count (0 for free, withheld and null
+        blocks)."""
         return self._refcount.get(block, 0)
 
     def free(self, block: int) -> None:
         # double-free guard: a block id outside the used set (already
-        # freed, the null block, or never allocated) must raise —
+        # freed, withheld, the null block, or never allocated) must raise —
         # silently re-appending it would map one KV block into two rows'
         # page tables
         if block not in self._used:
@@ -190,6 +198,27 @@ class BlockAllocator:
     def num_shared(self) -> int:
         """Live blocks currently referenced more than once."""
         return self._shared
+
+    def reserve(self, n: int, shard: int = 0) -> int:
+        """Withhold up to `n` free blocks (fault injection: mid-run pool
+        shrinkage).  Withheld blocks leave the free list but are not
+        marked used; :meth:`restore` returns them.  Returns the number
+        actually withheld."""
+        take = min(int(n), len(self._free[shard]))
+        for _ in range(take):
+            self._reserved[shard].append(self._free[shard].pop())
+        return take
+
+    def restore(self, shard: Optional[int] = None) -> int:
+        """Return withheld blocks to the free list (every shard by
+        default).  Returns the number restored."""
+        shards = range(self.shards) if shard is None else (shard,)
+        restored = 0
+        for s in shards:
+            restored += len(self._reserved[s])
+            self._free[s].extend(self._reserved[s])
+            self._reserved[s] = []
+        return restored
 
     # per-shard views over the one shard, read by the invariant checker
     def free_in(self, shard: int) -> int:
@@ -599,6 +628,36 @@ class TierSlotPool:
         self.page_table[slot] = NULL_BLOCK
         self._order.remove(slot)
 
+    # -- fault injection: mid-run arena shrinkage ---------------------------
+
+    def shrink(self, nblocks: int) -> int:
+        """Withhold up to `nblocks` free blocks from the arena (fault
+        injection: a mid-run capacity loss).  Two caps keep the run
+        deadlock-free: the shard keeps at least ``pages_per_row`` usable
+        blocks (the construction-time floor — one full request can always
+        be served), and its free list keeps the oldest bound row's
+        worst-case remaining demand (the reserve invariant the
+        oldest-first discipline maintains).  Returns the number actually
+        withheld; :meth:`unshrink` restores them."""
+        remaining = int(nblocks)
+        took = 0
+        for s in range(self.data_shards):
+            if remaining <= 0:
+                break
+            usable = self.blocks._span - (1 if s == 0 else 0)
+            floor_cap = (usable - self.pages_per_row
+                         - self.blocks.reserved_in(s))
+            reserve_cap = self.blocks.free_in(s) - self._oldest_worst(s)
+            take = min(remaining, max(min(floor_cap, reserve_cap), 0))
+            got = self.blocks.reserve(take, s)
+            took += got
+            remaining -= got
+        return took
+
+    def unshrink(self) -> int:
+        """Restore every block withheld by :meth:`shrink`."""
+        return self.blocks.restore()
+
     # -- device-side writes ------------------------------------------------
 
     def _copy_blocks(self, src: Sequence[int], dst: Sequence[int]) -> None:
@@ -672,8 +731,9 @@ class TierSlotPool:
 class DenseTierSlotPool:
     """The one-row-per-request arena (``[capacity, max_seq, ...]`` KV rows
     and recurrent state, from :func:`repro_torch.models.cache.init_cache`)
-    of ``CascadeEngine(use_paged_kv=False)``: no blocks, no page tables;
-    a row's KV sits at its own positions."""
+    of ``CascadeEngine(use_paged_kv=False)``: no blocks, no page tables
+    (and no ``shrink``: a fault plan's shrink skips this arena); a row's
+    KV sits at its own positions."""
 
     def __init__(self, cfg, capacity: int, max_seq: int,
                  dtype=torch.float32, *, device="cuda"):

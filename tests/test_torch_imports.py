@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "kernels.ops", "kernels.ref",
               "models.params", "models.cache", "models.blocks",
               "models.transformer", "serving.request", "serving.slots",
-              "serving.scheduler", "serving.metrics", "serving.engine",
+              "serving.scheduler", "serving.metrics", "serving.faults",
+              "serving.engine",
               "launch.serve_async"):
         assert "repro_torch." + m in res["modules"]
 

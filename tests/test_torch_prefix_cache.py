@@ -2,7 +2,7 @@
 on the CPU.
 
 The engines first, case for case with ``tests/test_prefix_cache.py``
-(preemption and sharding, which the port does not have, left out):
+(preemption, in ``tests/test_torch_faults.py``, and sharding left out):
 shared-prefix prompts of one length, lognormal lengths, an
 over-subscribed arena that LRU-evicts index entries, and a two-tier
 cascade whose escalated requests re-prefill on the expensive tier, each
@@ -17,8 +17,8 @@ streams of the run without either and leaks no block.
 
 Then the pool: the port's ``TierSlotPool(prefix_chunk=8)`` under the
 JAX suite's random-operation driver and invariant checker
-(``tests/test_slots_properties.py``, imported; arena shrinkage is not
-ported), the JAX suite's unit cases on the port's pool, and the same
+(``tests/test_slots_properties.py``, imported; arena shrinkage is
+driven in ``tests/test_torch_faults.py``), the JAX suite's unit cases on the port's pool, and the same
 operation sequence through the JAX pool and the port's, answer for
 answer and refcount for refcount.  Each engine run is made once and
 shared by the module.
@@ -417,8 +417,9 @@ def make_pool(cfg, num_blocks=None, oversubscribe=False, package="torch"):
 
 class PortDriver(Driver):
     """The JAX suite's random-operation driver without arena shrinkage
-    (not ported): admit, admit-unaligned, grow, publish, release, the
-    release and double-free guards, and reclaim."""
+    (driven in ``tests/test_torch_faults.py``): admit, admit-unaligned,
+    grow, publish, release, the release and double-free guards, and
+    reclaim."""
     OPS = tuple(op for op in Driver.OPS
                 if op not in (Driver.op_shrink, Driver.op_unshrink))
 

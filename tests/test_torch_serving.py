@@ -407,18 +407,18 @@ def _tap_torch_rows(eng):
     exec_unified, exec_split = eng._exec_unified, eng._exec_split
     decode_launch = eng._decode_launch
 
-    def unified(tier, rt, plan):
+    def unified(tier, rt, plan, *rest):
         if plan.prefill_rows or plan.decode_rows:
             emitted[tier].append(plan.finishing + plan.decode_rows)
-        return exec_unified(tier, rt, plan)
+        return exec_unified(tier, rt, plan, *rest)
 
-    def split(tier, rt, plan):
+    def split(tier, rt, plan, *rest):
         if plan.prefill_rows:           # the chunk launch emits these
             emitted[tier].append(list(plan.finishing))
-        return exec_split(tier, rt, plan)
+        return exec_split(tier, rt, plan, *rest)
 
-    def decode(tier, rt, pf):
-        dc = decode_launch(tier, rt, pf)
+    def decode(tier, rt, pf, *rest):
+        dc = decode_launch(tier, rt, pf, *rest)
         if dc is not None:
             emitted[tier].append(list(dc["active"]))
         return dc
