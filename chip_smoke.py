@@ -98,7 +98,24 @@ without printing a result):
      device time by kernel kind (a kind's split-merge kernels counted
      with it) and the device's idle share; and the split MoE cascade
      served twice under a virtual clock, to record whether its streams
-     are equal run to run.
+     are equal run to run;
+  7. training, after phase 6's phi4 profiles, on phase 4's weights:
+     (7a) one step of ``make_train_step`` on gemma3-1b, of
+     ``make_ltc_train_step`` gemma3-1b -> phi4-mini-3.8b (smoke widths)
+     and of ``make_train_step`` on granite at its published widths cut
+     to 2 layers and on gemma3-1b at its published widths cut to one
+     period, each on the card against the CPU (losses, lb and z losses,
+     every gradient leaf; ``moe_route`` launches exact, remat's
+     recomputation included), and 4 steps of the cut gemma3-1b at lr
+     1e-2 on 7b's batches, card against CPU step by step; (7b) ``launch.train.run``: 8 LtC steps of
+     the published gemma3-1b against phase 4's frozen phi4-mini-3.8b
+     (losses per step, step ms, training tokens/s, peak memory; finite
+     losses, ``l_org`` falling); (7c) the paper's classifier flow
+     (``examples/quickstart.py``: CE and LtC arms, δ on val, test
+     Acc^casc, MACs^casc, N^exp, ECE, temperature scaling and ConfNet);
+     (7d) ``launch.serve.serve_cascade`` with phase 4's untrained and
+     7b's trained gemma3-1b before phi4-mini-3.8b (exact gate and ragged
+     launches, escalations at δ 0.5).
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -122,7 +139,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import Layer, get_config  # noqa: E402
-from repro_torch.data import bigram_lm  # noqa: E402
+from repro_torch.core import (calibration, cascade,  # noqa: E402
+                              confidence, losses, thresholds)
+from repro_torch.data import Batches, bigram_lm, teacher_task  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
@@ -132,10 +151,13 @@ from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
-from repro_torch.launch import serve_async  # noqa: E402
-from repro_torch.models import blocks, init_params, transformer  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import serve_async, steps, train  # noqa: E402
+from repro_torch.models import (blocks, classifier,  # noqa: E402
+                                init_params, transformer)
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import Optimizer  # noqa: E402
 from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
                                         VirtualClock, _TierRuntime)
 from repro_torch.serving.slots import (DenseTierSlotPool,  # noqa: E402
@@ -2328,6 +2350,450 @@ def check_overload(card: str, params, ctx=None) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 7: training on the card
+# --------------------------------------------------------------------------
+
+TRAIN_TOL = ("losses, lb_loss and z_loss rtol 1e-4; every gradient leaf "
+             "atol 1e-4, rtol 1e-3")
+TRAIN_LR = 1e-2
+
+
+class GradTap:
+    """Records the gradients each train step hands its optimizer (the
+    step's own forward and backward), through the optimizer that
+    ``steps.make_optimizer`` builds while the tap is open."""
+
+    def __enter__(self):
+        self.orig = steps.make_optimizer
+        self.grads = []
+
+        def make(cfg):
+            opt = self.orig(cfg)
+
+            def update(p, g, s, lr):
+                self.grads.append(g)
+                return opt.update(p, g, s, lr)
+            return Optimizer(opt.init, update, opt.name)
+        steps.make_optimizer = make
+        return self
+
+    def __exit__(self, *exc):
+        steps.make_optimizer = self.orig
+
+
+def one_train_step(cfg, params, batch, exp=None):
+    """One step of ``make_train_step`` on ``params`` — or of
+    ``make_ltc_train_step`` against ``exp = (config, params)`` — and, on
+    the same batch, the train forward's aux losses: (the step's metrics
+    and the aux losses as floats, the step's gradients, the step's router
+    calls, and the ``moe_route`` launches of the step and of the aux
+    forward)."""
+    with GradTap() as grads, RouterTap() as tap:
+        if exp is None:
+            step, opt = steps.make_train_step(cfg, lr=TRAIN_LR)
+            extra = ()
+        else:
+            step, opt = steps.make_ltc_train_step(cfg, exp[0], lr=TRAIN_LR)
+            extra = (exp[1],)
+        ops.router_gate.launches = 0
+        _, _, m = step(params, opt.init(params), *extra, batch)
+        metrics = {k: float(v) for k, v in m.items()}
+        step_launches = ops.router_gate.launches
+        step_calls = list(tap.calls)
+        ops.router_gate.launches = 0
+        with torch.no_grad():
+            _, aux = transformer.train_logits(params, cfg, batch)
+        metrics.update({k: float(v) for k, v in aux.items()})
+        aux_launches = ops.router_gate.launches
+    return (metrics, grads.grads[0], step_calls,
+            (step_launches, aux_launches))
+
+
+def gemma3_one_period():
+    """gemma3-1b at its published widths (d 1152, the tied 262144-id
+    head) cut to one period: 5 windowed layers and 1 global, no tail."""
+    return dataclasses.replace(get_config("gemma3-1b", ""), num_periods=1,
+                               tail=())
+
+
+def train_step_models():
+    """(label, config, the expensive (label, config) or None) of phase
+    7a: ``make_train_step`` on gemma3-1b and ``make_ltc_train_step``
+    gemma3-1b -> phi4-mini-3.8b at the smoke widths, ``make_train_step``
+    on granite at its published widths cut to 2 layers (phase 3's cut)
+    and on gemma3-1b at its published widths cut to one period (phase
+    7b's widths)."""
+    models = dict(step_models())
+    gemma = models["gemma3-1b-smoke"]
+    return [("gemma3-1b-smoke", gemma, None),
+            ("gemma3-1b-smoke", gemma,
+             ("phi4-mini-3.8b-smoke", models["phi4-mini-3.8b-smoke"])),
+            ("granite-moe-3b-a800m 2 layers",
+             models["granite-moe-3b-a800m 2 layers"], None),
+            ("gemma3-1b 1 period", gemma3_one_period(), None)]
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def check_train_steps(dev) -> int:
+    """Phase 7a: one train step of each of :func:`train_step_models` on
+    the card against the same step on the CPU (plain versions), from the
+    same weights and batch: the loss (``l_org`` and ``l_casc`` under
+    LtC), the train forward's ``lb_loss`` and ``z_loss``, and every
+    gradient leaf — unless the router first picked differently on a
+    near-tie, which is reported, as phase 3 does.  Each MoE layer
+    launches ``moe_route`` once in the forward and, its period
+    checkpointed (remat, forced on), once more in backward; the aux
+    forward once.  Returns the card's ``router_gate`` launches."""
+    rng = np.random.default_rng(7)
+    launched = 0
+    for label, cfg, exp in train_step_models():
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        cpu_p = init_params(cfg, 0, torch.float32, "cpu")
+        card_p = tree_map(lambda t: t.to(dev), cpu_p)
+        exp_cpu = exp_card = None
+        if exp is not None:
+            ep = init_params(exp[1], 1, torch.float32, "cpu")
+            exp_cpu = (exp[1], ep)
+            exp_card = (exp[1], tree_map(lambda t: t.to(dev), ep))
+        want, want_g, cpu_calls, _ = one_train_step(
+            cfg, cpu_p, {"tokens": toks}, exp_cpu)
+        t0 = time.perf_counter()
+        got, got_g, card_calls, (n_step, n_aux) = one_train_step(
+            cfg, card_p, {"tokens": toks.to(dev)}, exp_card)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n_moe = layer_counts(cfg)["moe"]
+        remat = bool(cfg.num_periods)
+        routing = first_routing_difference(cpu_calls, card_calls)
+        problems = []
+        if (n_step, n_aux) != (n_moe * (1 + remat), n_moe):
+            problems.append(f"moe_route launches step {n_step}, aux "
+                            f"{n_aux} != {n_moe * (1 + remat)}, {n_moe}")
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want}
+        grad_err, grad_bad = 0.0, []
+        if routing is None:
+            for (k, g), w in zip(_named_leaves(got_g), tree_leaves(want_g)):
+                g = g.float().cpu()
+                grad_err = max(grad_err, (g - w).abs().max().item())
+                if not torch.allclose(g, w, atol=1e-4, rtol=1e-3):
+                    grad_bad.append(k)
+            bad = [k for k, e in rel.items() if e > 1e-4]
+            if bad or grad_bad:
+                problems.append(f"card vs cpu: {bad} {grad_bad[:5]}")
+        elif not routing[2]:
+            problems.append(f"routing differs off a near-tie: {routing}")
+        emit(check="train step card vs cpu", model=label,
+             step="make_ltc_train_step" if exp else "make_train_step",
+             expensive=exp[0] if exp else None, card_metrics=got,
+             cpu_metrics=want, rel_err=rel, grad_max_abs_err=grad_err,
+             grads_compared=routing is None, routing=routing,
+             tol=TRAIN_TOL, remat=remat,
+             moe_route_launches={"step": n_step, "aux": n_aux},
+             card_ms_incl_aux=ms, problems=problems)
+        if problems:
+            raise AssertionError(f"train step {label}: {problems}")
+        launched += n_step + n_aux
+        del cpu_p, card_p, exp_cpu, exp_card
+    torch.cuda.empty_cache()
+    return launched
+
+
+# lr 1e-3 (make_train_step's default): at the run's smoke-scale default
+# of 1e-2, adafactor drives the published gemma3-1b's l_org up, on the
+# card and on the CPU alike (check_lr_witness)
+LTC_TRAIN = dict(steps=8, batch=4, seq=256, vocab=4096, lr=1e-3)
+LR_WITNESS = dict(steps=4, lr=1e-2, rtol=1e-3)
+
+
+def check_lr_witness(card: str, dev) -> None:
+    """Phase 7a, the witness for phase 7b's learning rate: ``steps``
+    steps of ``make_train_step`` at ``run``'s default lr 1e-2 on
+    :func:`gemma3_one_period` (adafactor, remat), from the same weights
+    and on phase 7b's batches (``run``'s ``bigram_lm`` data over 4096
+    ids and its ``Batches`` order), once on the card and once on the CPU
+    (plain versions).  Asserts the losses agree step by step within
+    ``rtol`` (later steps amplify the devices' different summation
+    orders); records whether the loss rose on both.  A rise on the CPU
+    too says a divergence at this lr is the optimizer's, not a card
+    fault."""
+    cfg = gemma3_one_period()
+    n, B, S = LR_WITNESS["steps"], LTC_TRAIN["batch"], LTC_TRAIN["seq"]
+    data = bigram_lm(num_seqs=max(B * 16, 256), seq_len=S,
+                     vocab=LTC_TRAIN["vocab"], seed=0, trigram_frac=0.3)
+    it = iter(Batches({"tokens": data}, B, seed=0))
+    batches = [torch.as_tensor(next(it)["tokens"]) for _ in range(n)]
+    cpu_p = init_params(cfg, 0, torch.float32, "cpu")
+    losses, ms = {}, {}
+    for where in ("cpu", "card"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        p = tree_map(lambda t: t.to(d), cpu_p)
+        step, opt = steps.make_train_step(cfg, lr=LR_WITNESS["lr"])
+        state = opt.init(p)
+        losses[where], ms[where] = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            p, state, m = step(p, state, {"tokens": b.to(d)})
+            losses[where].append(float(m["loss"]))
+            ms[where].append((time.perf_counter() - t0) * 1e3)
+        del p, state
+    rel = [abs(g - w) / abs(w) for g, w in zip(losses["card"], losses["cpu"])]
+    problems = []
+    if not np.isfinite(losses["card"] + losses["cpu"]).all():
+        problems.append("a loss is not finite")
+    if max(rel) > LR_WITNESS["rtol"]:
+        problems.append(f"card vs cpu losses rel err {max(rel)}")
+    emit(check="lr witness, card vs cpu", card=card,
+         model="gemma3-1b 1 period", step="make_train_step",
+         optimizer="adafactor", remat=True, batch=B, seq=S,
+         vocab=LTC_TRAIN["vocab"], **LR_WITNESS, card_loss=losses["card"],
+         cpu_loss=losses["cpu"], rel_err=rel,
+         rose={k: v[-1] > v[0] for k, v in losses.items()},
+         card_step_ms=ms["card"], cpu_step_ms=ms["cpu"], problems=problems)
+    if problems:
+        raise AssertionError("lr witness: " + "; ".join(problems))
+    del cpu_p
+    torch.cuda.empty_cache()
+
+
+def check_ltc_training(card: str, exp_params, variant: str = ""):
+    """Phase 7b: ``launch.train.run`` — LtC training of gemma3-1b at its
+    published widths (random f32 weights from seed 0, adafactor, its
+    periods checkpointed) against phase 4's frozen phi4-mini-3.8b: 8
+    steps of 4 x 256 tokens of ``bigram_lm`` over 4096 ids (its trigram
+    table is ``vocab x vocab``, so the published 262144 cannot seed it)
+    at lr 1e-3.
+    Records ``l_org`` and ``l_casc`` per step, the step's ms (p50 after
+    the first), training tokens/s over steps 2..8 and peak device
+    memory; asserts finite losses and ``l_org`` at step 8 below step 1.
+    Returns the trained weights."""
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    t0 = time.perf_counter()
+    params = train.run("gemma3-1b", variant=variant, expensive=PHI4_NAME,
+                       exp_params=exp_params, log_every=0, device="cuda",
+                       history=history, **LTC_TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    l_org = [h["l_org"] for h in history]
+    l_casc = [h["l_casc"] for h in history]
+    ms = [h["ms"] for h in history]
+    tokens = LTC_TRAIN["batch"] * LTC_TRAIN["seq"]
+    problems = []
+    if not np.isfinite(l_org + l_casc).all():
+        problems.append("a loss is not finite")
+    if not l_org[-1] < l_org[0]:
+        problems.append(f"l_org did not fall: {l_org[0]} -> {l_org[-1]}")
+    emit(phase="LtC training", card=card,
+         configs=["gemma3-1b", PHI4_NAME], variant=variant or "published",
+         optimizer="adafactor", remat=True, **LTC_TRAIN,
+         l_org=l_org, l_casc=l_casc, step_ms=ms,
+         step_ms_p50_after_first=float(np.median(ms[1:])),
+         train_tokens_per_s=tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3),
+         max_memory_allocated_bytes=peak, wall_s_incl_init=wall,
+         problems=problems)
+    if problems:
+        raise AssertionError("LtC training: " + "; ".join(problems))
+    return params
+
+
+CLF = dict(epochs=6, lr=0.03, batch_size=512)
+
+
+def check_classifier_flow(card: str, dev) -> None:
+    """Phase 7c: the paper's classifier flow (``examples/quickstart.py``)
+    through the port on the card: ``teacher_task(60000)`` split 8:1:1;
+    the zoo's resnet18 (expensive, CE) and mobilenetv2 (fast) trained
+    for 6 epochs, the fast one twice, CE baseline and LtC (w = 1, C =
+    0.5, against the expensive model's training logits); δ from
+    ``best_accuracy_delta`` on val; on test each arm's Acc^casc,
+    MACs^casc, N^exp and the fast model's ECE; and the baselines'
+    calibration of the CE fast model: ``fit_temperature``'s T with its
+    test ECE, and the ConfNet head's test ECE.  Asserts only what must
+    hold: the cost in ``[macs_fast, macs_fast + macs_exp]``, δ in [0, 1],
+    Acc^casc at δ = 0 the fast member's accuracy and at δ = 1 the
+    expensive member's, and N^exp / N = frac_used[1]."""
+    t0 = time.perf_counter()
+    ds = teacher_task(num_samples=60000, seed=0)
+    tr, va, te = ds.split((0.8, 0.1, 0.1))
+    nc = int(tr.y.max()) + 1
+    zoo = classifier.zoo(tr.x.shape[1], nc)
+    fast_cfg, exp_cfg = zoo["mobilenetv2"], zoo["resnet18"]
+    kw = dict(CLF, device=dev)
+    exp_p = classifier.train_classifier(exp_cfg, tr.x, tr.y, **kw)
+    exp_logits, _ = classifier.predict(exp_p, torch.from_numpy(tr.x).to(dev))
+    arms = {"baseline": classifier.train_classifier(fast_cfg, tr.x, tr.y,
+                                                    **kw),
+            "ltc": classifier.train_classifier(
+                fast_cfg, tr.x, tr.y, exp_logits=exp_logits, ltc_w=1.0,
+                cost_c=0.5, **kw)}
+    costs = [fast_cfg.macs, exp_cfg.macs]
+
+    def stats(fp, split):
+        x = torch.from_numpy(split.x).to(dev)
+        y = torch.from_numpy(split.y).long().to(dev)
+        fl, _ = classifier.predict(fp, x)
+        el, _ = classifier.predict(exp_p, x)
+        return (confidence.max_prob(fl), losses.correct(fl, y),
+                losses.correct(el, y), fl, y, x)
+
+    problems, out = [], {}
+    for name, fp in arms.items():
+        cv, fv, ev, *_ = stats(fp, va)
+        delta, _, _ = thresholds.best_accuracy_delta(cv, fv, ev, costs)
+        ct, ft, et, *_ = stats(fp, te)
+        n = ct.shape[0]
+        res = cascade.evaluate_cascade(ct[None], torch.stack([ft, et]),
+                                       costs, [[0.0], [delta], [1.0]])
+        acc, cost = res["acc"].tolist(), res["cost"].tolist()
+        n_exp = res["n_exp"][:, 0]
+        fast_acc, exp_acc = float(ft.mean()), float(et.mean())
+        if not costs[0] <= cost[1] <= costs[0] + costs[1]:
+            problems.append(f"{name}: MACs^casc {cost[1]} outside "
+                            f"[{costs[0]}, {sum(costs)}]")
+        if not 0.0 <= delta <= 1.0:
+            problems.append(f"{name}: δ {delta}")
+        if abs(acc[0] - fast_acc) > 1e-6 or abs(acc[2] - exp_acc) > 1e-6:
+            problems.append(f"{name}: Acc^casc at δ 0 / 1 {acc[0]} / "
+                            f"{acc[2]} != members' {fast_acc} / {exp_acc}")
+        # a mean is the sum times f32(1/N), as evaluate_cascade takes it
+        inv_n = torch.tensor(1.0 / n, device=n_exp.device)
+        if not torch.equal(n_exp * inv_n, res["frac_used"][:, 1]):
+            problems.append(f"{name}: N^exp / N != frac_used[1]")
+        out[name] = dict(delta=delta, acc_casc=acc[1], macs_casc=cost[1],
+                         n_exp=int(n_exp[1]), n_test=n, fast_acc=fast_acc,
+                         exp_acc=exp_acc, fast_ece=calibration.ece(ct, ft))
+    # the baselines' calibration of the CE fast model, fit on val
+    _, _, _, fl_va, y_va, x_va = stats(arms["baseline"], va)
+    ct, ft, _, fl_te, _, x_te = stats(arms["baseline"], te)
+    temp = calibration.fit_temperature(fl_va, y_va)
+    with torch.no_grad():
+        feats_va = classifier.mlp_apply(arms["baseline"], x_va,
+                                        with_features=True)[1]
+        feats_te = classifier.mlp_apply(arms["baseline"], x_te,
+                                        with_features=True)[1]
+    head = calibration.fit_conf_head(torch.Generator().manual_seed(0),
+                                     feats_va, fl_va, y_va, kind="confnet")
+    with torch.no_grad():
+        head_conf = calibration.conf_head_apply(head, feats_te)
+    emit(phase="classifier flow", card=card,
+         members=[fast_cfg.name, exp_cfg.name], macs=costs,
+         train_val_test=[len(tr.y), len(va.y), len(te.y)], **CLF,
+         arms=out, temperature=temp,
+         temperature_ece=calibration.ece(
+             confidence.max_prob(fl_te / temp), ft),
+         confnet_ece=calibration.ece(head_conf, ft),
+         wall_s=time.perf_counter() - t0, problems=problems)
+    if problems:
+        raise AssertionError("classifier flow: " + "; ".join(problems))
+
+
+class CascadeTap:
+    """Keeps the engine ``launch.serve.serve_cascade`` builds while the
+    tap is open (a module attribute, restored on exit)."""
+
+    def __enter__(self):
+        self.orig = serve_mod.CascadeEngine
+        self.engine = None
+
+        def build(*a, **kw):
+            self.engine = self.orig(*a, **kw)
+            return self.engine
+        serve_mod.CascadeEngine = build
+        return self
+
+    def __exit__(self, *exc):
+        serve_mod.CascadeEngine = self.orig
+
+
+SERVE_TRAINED = dict(batch=8, prompt_len=32, gen_len=16, delta=0.5)
+
+
+def check_serve_trained(card: str, fast: dict, exp_params,
+                        variant: str = "") -> dict:
+    """Phase 7d: ``launch.serve.serve_cascade`` at the published widths
+    (``SERVE_TRAINED``: every request at 0, virtual clock, the default
+    ragged executor) with phase 4's phi4-mini-3.8b behind each of the
+    gemma3-1b weights in ``fast`` (label -> params: phase 4's untrained
+    ones, 7b's trained ones), the counters set to 0 just before and read
+    just after: gate and ragged launches exactly those of the engine's
+    tier launches, every token in the vocabulary, every sequence
+    confidence in (0, 1].  Records the escalation counts at the same δ.
+    Returns the counts by run."""
+    cfgs = [get_config("gemma3-1b", variant), get_config(PHI4_NAME, variant)]
+    counts, escalated = {}, {}
+    for label, fast_params in fast.items():
+        for name in COUNTED:
+            getattr(ops, name).launches = 0
+        t0 = time.perf_counter()
+        with CascadeTap() as tap:
+            toks, conf, st = serve_mod.serve_cascade(
+                "gemma3-1b", PHI4_NAME, variant=variant,
+                fast_params=fast_params, exp_params=exp_params,
+                verbose=False, device="cuda", **SERVE_TRAINED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = {name: getattr(ops, name).launches for name in COUNTED}
+        s = tap.engine.metrics.summary()
+        del tap
+        want = expected_launches(cfgs, s["launches_by_kind"])
+        problems = []
+        if c["confidence_gate"] != sum(s["launches"]):
+            problems.append(f"gate launches {c['confidence_gate']} != tier "
+                            f"launches {s['launches']}")
+        if {k: c[k] for k in want} != want:
+            problems.append(f"launches {c} != {want}")
+        if toks.shape != (SERVE_TRAINED["batch"], SERVE_TRAINED["gen_len"]) \
+                or int(toks.min()) < 0 \
+                or int(toks.max()) >= max(cfg.vocab_size for cfg in cfgs):
+            problems.append(f"tokens {tuple(toks.shape)} out of range")
+        if not bool(((conf > 0) & (conf <= 1)).all()):
+            problems.append(f"sequence confidences {conf.tolist()}")
+        escalated[label] = st.n_exp
+        counts[f"serve_cascade {label}"] = c
+        emit(phase="serve trained pair", card=card, fast_weights=label,
+             configs=["gemma3-1b", PHI4_NAME], **SERVE_TRAINED,
+             escalated=st.n_exp, seq_conf=conf.tolist(),
+             tier_launches=s["launches"],
+             launches_by_kind=s["launches_by_kind"], kernel_launches=c,
+             flops_cascade_per_token=st.flops_cascade
+             / SERVE_TRAINED["gen_len"], wall_s=wall, problems=problems)
+        if problems:
+            raise AssertionError(f"serve_cascade {label}: {problems}")
+    emit(check="escalations at the same δ", delta=SERVE_TRAINED["delta"],
+         escalated=escalated, requests=SERVE_TRAINED["batch"])
+    return counts
+
+
+def check_training(card: str, dev, params) -> dict:
+    """Phase 7, on phase 4's weights (``params``: gemma3-1b's, untrained,
+    and phi4-mini-3.8b's, the frozen expensive model): 7a to 7d.
+    Returns the counts of the runs whose launches are read: the train
+    steps' ``router_gate`` launches and 7d's serving runs."""
+    t0 = time.perf_counter()
+    counts = {"train steps": dict.fromkeys(COUNTED, 0)}
+    counts["train steps"]["router_gate"] = check_train_steps(dev)
+    check_lr_witness(card, dev)
+    trained = check_ltc_training(card, params[1])
+    check_classifier_flow(card, dev)
+    counts.update(check_serve_trained(
+        card, {"untrained": params[0], "trained": trained}, params[1]))
+    del trained
+    torch.cuda.empty_cache()
+    emit(phase="training summary", card=card,
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 # profiler kernel names of each kernel kind (any of them, by substring):
 # the ragged, paged and mixed kinds count their split-merge kernels too
 KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
@@ -2525,6 +2991,10 @@ def main() -> int:
         for k in (0, SPEC_K):
             profile_ticks(card, pair, "ragged", expensive, speculate=k,
                           spec_delta=0.0 if k else None, **seed)
+    # phase 7, training, on the same weights (phi4-mini-3.8b the frozen
+    # expensive model), the serving runs' KV pools freed
+    torch.cuda.empty_cache()
+    train_counts = check_training(card, dev, params)
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)
@@ -2573,6 +3043,7 @@ def main() -> int:
     counts.update(overload_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
+    counts.update(train_counts)
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
                    jamba_runs.items()})
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
@@ -2581,8 +3052,10 @@ def main() -> int:
     prefix_ragged = tuple(p for p in prefix_runs if "ragged" in p
                           or "wall" in p)
     overload_ragged = tuple(p for p in overload_runs if "split" not in p)
+    served = ("serve_cascade untrained", "serve_cascade trained")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
-                      + spec_paths + prefix_ragged + overload_ragged),
+                      + spec_paths + prefix_ragged + overload_ragged
+                      + served),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split", "prefix padded on",
                                           "prefix split on",
@@ -2594,8 +3067,10 @@ def main() -> int:
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
                       + jamba_paths),
-                     ("confidence_gate", tuple(counts)),
-                     ("router_gate", moe_paths + jamba_paths),
+                     ("confidence_gate", tuple(p for p in counts
+                                               if p != "train steps")),
+                     ("router_gate", moe_paths + jamba_paths
+                      + ("train steps",)),
                      ("rwkv6_scan", ("rwkv",)),
                      ("mamba_scan", jamba_paths)):
         if not all(counts[e][name] > 0 for e in ex):

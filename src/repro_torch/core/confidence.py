@@ -56,3 +56,16 @@ def sequence_confidence(token_conf, mask=None, reduce: str = "mean"):
                            torch.zeros_like(token_conf))
         return logc.sum(dim=-1).exp()
     raise ValueError(reduce)
+
+
+SCORES = {
+    "max_prob": max_prob,
+    "entropy": entropy_confidence,
+    "margin": margin,
+}
+
+
+def score(logits, kind: str = "max_prob", temperature: float = 1.0):
+    """The confidence named ``kind`` (``max_prob``, ``entropy`` or
+    ``margin``), differentiable in the logits."""
+    return SCORES[kind](logits, temperature)

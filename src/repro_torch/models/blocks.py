@@ -5,7 +5,10 @@ The mixer signature is the JAX package's::
 
     y, cache = mixer(p, cfg, spec, x, cache, pos, mode, pages=None)
 
-Attention runs in the modes the serving executors use:
+Attention runs in ``"train"`` (every position of a full sequence, the
+causal or windowed mask over the materialised scores, no cache: the
+training forward, differentiable) and in the modes the serving
+executors use:
 
 * ``"prefill"`` (uniform one-shot prefill): every row's whole prompt at
   positions ``0..S-1``; no cache in, and the new part cache ``{"k",
@@ -36,6 +39,10 @@ the chunked modes raise as in the JAX package.
 FFNs, ``moe_ffn(p, cfg, spec, x) -> y`` the token-choice top-k mixture of
 experts; ``apply_ffn(p, cfg, spec, x, cache, mode) -> (y, cache)`` picks
 one by the layer's FFN kind, with the channel mix's token-shift cache.
+In ``"train"`` mode :func:`train_ffn` returns ``(y, aux)`` instead, the
+MoE layer's load-balance and router z losses (:func:`moe_ffn_train`)
+or zeros; the recurrent mixers and the channel mix have no train mode
+yet and raise.
 """
 from __future__ import annotations
 
@@ -126,7 +133,8 @@ def _scales(cache) -> dict:
 
 def _gqa_scores_to_out(q, k, v, mask, k_scale=None, v_scale=None):
     """Materialised-scores attention (the JAX package's jnp path): q
-    [B,S,KV,G,d]; k, v [B,T,KV,d]; mask [B,T] per row.  An int8 cache
+    [B,S,KV,G,d]; k, v [B,T,KV,d]; mask broadcastable to
+    [B,KV,G,S,T] (True where a query sees a key).  An int8 cache
     folds its per-token scales into the scores and the probabilities,
     and the probabilities meet the values in bf16, as the JAX package
     computes it."""
@@ -134,8 +142,7 @@ def _gqa_scores_to_out(q, k, v, mask, k_scale=None, v_scale=None):
     scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
     if k_scale is not None:
         scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
-    m = mask[:, None, None, None, :]
-    scores = torch.where(m, scores, torch.full_like(scores, -1e30))
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
         probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
@@ -145,9 +152,38 @@ def _gqa_scores_to_out(q, k, v, mask, k_scale=None, v_scale=None):
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
 
 
+# Train-mode attention: above this sequence length the queries go in
+# chunks of _Q_CHUNK, bounding the [.., chunk, S] score matrix (the JAX
+# package's thresholds)
+_Q_CHUNK = 1024
+_CHUNK_THRESHOLD = 4096
+
+
+def _train_attention(spec, q, k, v, pos):
+    """Full-sequence causal (or windowed) GQA for training, through the
+    materialised scores as the JAX package's train path computes it (it
+    runs no Pallas kernel there, and the port's ``flash_attention``
+    kernel has no backward): q [B,S,KV,G,d], k, v [B,S,KV,d], pos
+    [B,S]."""
+    S = q.shape[1]
+    k_pos = pos[:, None, None, None, :]                  # [B,1,1,1,S]
+
+    def masked(qc, qp):
+        q_pos = qp[:, None, None, :, None]               # [B,1,1,c,1]
+        mask = k_pos <= q_pos
+        if spec.window is not None:
+            mask = mask & (k_pos > q_pos - spec.window)
+        return _gqa_scores_to_out(qc, k, v, mask)
+
+    if S < _CHUNK_THRESHOLD:
+        return masked(q, pos)
+    return torch.cat([masked(q[:, s:s + _Q_CHUNK], pos[:, s:s + _Q_CHUNK])
+                      for s in range(0, S, _Q_CHUNK)], dim=1)
+
+
 def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
-    if mode not in ("prefill", "ragged_step", "mixed_step", "prefill_chunk",
-                    "decode"):
+    if mode not in ("train", "prefill", "ragged_step", "mixed_step",
+                    "prefill_chunk", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -157,6 +193,10 @@ def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
     qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope)
     q = qr.reshape(B, S, KV, G, hd)
+
+    if mode == "train":
+        out = _train_attention(spec, q, k, v, pos)
+        return out.reshape(B, S, H * hd).to(x.dtype) @ p["wo"], None
 
     if mode == "prefill":
         # Uniform one-shot prefill: every row holds a whole prompt at
@@ -256,8 +296,8 @@ def _dense_decode(p, cfg: ModelConfig, spec, x, q, k, v, cache, pos):
     mask = idx <= p_row[:, None]
     if spec.window is not None:
         mask &= idx > p_row[:, None] - spec.window
-    out = _gqa_scores_to_out(q, cache["k"], cache["v"], mask,
-                             **_scales(cache))
+    out = _gqa_scores_to_out(q, cache["k"], cache["v"],
+                             mask[:, None, None, None, :], **_scales(cache))
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(x.dtype) \
         @ p["wo"]
     return y, cache
@@ -441,45 +481,37 @@ def dense_ffn(p, cfg: ModelConfig, spec, x):
     return h @ p["wo"]
 
 
-def moe_ffn(p, cfg: ModelConfig, spec, x):
-    """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
-    moe_ffn``), routed and ranked by the ``moe_route`` kernel.
-
-    The ``N = B·S`` token slots, padding included, split into ``G``
-    groups of ``gs = min(1024, N)``.  Each token picks its top ``k``
-    experts (renormalised gates); a (token, pick) pair's place in its
-    expert's queue is its rank in (slot, pick) order over the group, and
-    pairs at rank ``>= cap = min(gs, max(1, ceil(gs·k·capacity_factor /
-    E)))`` are dropped — their gate is not renormalised again.  One
-    launch gives each pair's row of the dense ``[E, G·cap, d]`` capacity
-    buffer (a spare last row when dropped) and its combine weight (0 when
-    dropped).  The JAX package's one-hot dispatch and combine einsums
-    become an index scatter into that buffer and a weighted sum over each
-    token's picks: dispatch is 0/1 and every (expert, slot) holds at most
-    one token, so the function is the same and only the order of the
-    combine's sum differs.  The expert products stay batched matrix
-    products over the capacity buffer.
-
-    Serving reads only the output: the load-balance and z aux losses the
-    JAX function also returns (for training) are not computed.
-    """
+def _moe_group(p, spec, x):
+    """The ``N = B·S`` token slots, padding included, in ``G`` groups of
+    ``gs = min(1024, N)``: (xg [G, gs, d], router logits [G, gs, E] f32,
+    cap = min(gs, max(1, ceil(gs·k·capacity_factor / E))))."""
     B, S, D = x.shape
     E, K = spec.num_experts, spec.top_k
-    N = B * S
-    gs = min(MOE_GROUP_SIZE, N)
-    G = N // gs
-    xg = x.reshape(G, gs, D)
-    logits = (xg @ p["router"]).float()                      # [G, gs, E]
-    cap = max(1, int(math.ceil(gs * K * spec.capacity_factor / E)))
-    cap = min(cap, gs)
-    # kept pair -> row (e·G + g)·cap + rank of the capacity buffer, its
-    # rank in (slot, pick) order over the group; a dropped pair -> the
-    # spare last row (written by every dropped pair, read by no expert)
-    # and combined at weight 0
-    _, _, dest, w = kernel_ops.moe_route(logits, K, cap)     # [G, gs, K]
+    gs = min(MOE_GROUP_SIZE, B * S)
+    xg = x.reshape(B * S // gs, gs, D)
+    logits = (xg @ p["router"]).float()
+    cap = min(max(1, int(math.ceil(gs * K * spec.capacity_factor / E))), gs)
+    return xg, logits, cap
+
+
+def _moe_experts(p, spec, xg, dest, w, cap, *, inplace):
+    """Dispatch, expert products and combine.  A kept pair's ``dest`` is
+    row ``(e·G + g)·cap + rank`` of the dense ``[E, G·cap, d]`` capacity
+    buffer; a dropped pair's is the spare last row (written by every
+    dropped pair, read by no expert) and its ``w`` is 0.  ``inplace``
+    scatters into the buffer and writes the experts' products through
+    ``out=``; autograd follows neither, so training passes False.
+    Returns [G, gs, d]."""
+    G, gs, D = xg.shape
+    E, K = spec.num_experts, spec.top_k
+    rows = E * G * cap
     dest = dest.reshape(-1)
-    buf = x.new_zeros(E * G * cap + 1, D)
-    buf[dest] = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
+    src = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
+    if inplace:
+        buf = xg.new_zeros(rows + 1, D)
+        buf[dest] = src
+    else:
+        buf = xg.new_zeros(rows + 1, D).index_put((dest,), src)
     xin = buf[:-1].view(E, G * cap, D)
     if spec.act == "swiglu":
         h = F.silu(torch.bmm(xin, p["wi0"])) * torch.bmm(xin, p["wi1"])
@@ -488,12 +520,85 @@ def moe_ffn(p, cfg: ModelConfig, spec, x):
     else:
         raise NotImplementedError(f"moe act {spec.act!r} is not ported")
     # the experts' rows, then a zero spare row that dropped pairs read
-    eout = x.new_empty(E * G * cap + 1, D)
-    torch.bmm(h, p["wo"], out=eout[:-1].view(E, G * cap, D))
-    eout[-1].zero_()
+    if inplace:
+        eout = xg.new_empty(rows + 1, D)
+        torch.bmm(h, p["wo"], out=eout[:-1].view(E, G * cap, D))
+        eout[-1].zero_()
+    else:
+        eout = torch.cat([torch.bmm(h, p["wo"]).reshape(rows, D),
+                          xg.new_zeros(1, D)])
     # combine: each token's picks, weighted by their gates (0 if dropped)
-    out = (w.reshape(-1, 1).to(x.dtype) * eout[dest]).view(G, gs, K, D)
-    return out.sum(2).reshape(B, S, D)
+    out = (w.reshape(-1, 1).to(xg.dtype) * eout[dest]).view(G, gs, K, D)
+    return out.sum(2)
+
+
+def moe_ffn(p, cfg: ModelConfig, spec, x):
+    """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
+    moe_ffn``), routed and ranked by the ``moe_route`` kernel.
+
+    The token slots split into groups (:func:`_moe_group`).  Each token
+    picks its top ``k`` experts (renormalised gates); a (token, pick)
+    pair's place in its expert's queue is its rank in (slot, pick) order
+    over the group, and pairs at rank ``>= cap`` are dropped — their
+    gate is not renormalised again.  One launch gives each pair's row of
+    the dense ``[E, G·cap, d]`` capacity buffer (a spare last row when
+    dropped) and its combine weight (0 when dropped).  The JAX package's
+    one-hot dispatch and combine einsums become an index scatter into
+    that buffer and a weighted sum over each token's picks
+    (:func:`_moe_experts`): dispatch is 0/1 and every (expert, slot)
+    holds at most one token, so the function is the same and only the
+    order of the combine's sum differs.  The expert products stay
+    batched matrix products over the capacity buffer.
+
+    Serving reads only the output; training calls
+    :func:`moe_ffn_train`, which also returns the load-balance and z
+    aux losses.
+    """
+    xg, logits, cap = _moe_group(p, spec, x)
+    _, _, dest, w = kernel_ops.moe_route(logits, spec.top_k, cap)
+    return _moe_experts(p, spec, xg, dest, w, cap,
+                        inplace=True).reshape(x.shape)
+
+
+def moe_ffn_train(p, cfg: ModelConfig, spec, x):
+    """:func:`moe_ffn` for training: (y, aux), differentiable in x and
+    every weight, the router included.
+
+    The ``moe_route`` kernel routes ``logits.detach()``: its ``idx`` and
+    ``dest`` are integer decisions.  The gates are recomputed from
+    ``softmax(logits)`` gathered at ``idx`` and renormalised (as the JAX
+    package takes them from ``lax.top_k`` of the probabilities), so the
+    gradient reaches the router, and zeroed where the pair was dropped.
+    ``aux`` is the JAX package's Switch-Transformer pair:
+    ``lb_loss = E·Σ_e mean(probs_e)·mean(kept picks of e)`` and
+    ``z_loss = mean(logsumexp(logits)²)``."""
+    E = spec.num_experts
+    xg, logits, cap = _moe_group(p, spec, x)
+    _, idx, dest, _ = kernel_ops.moe_route(logits.detach(), spec.top_k, cap)
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs.gather(-1, idx.long())                     # [G, gs, K]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    kept = dest != E * xg.shape[0] * cap
+    w = torch.where(kept, gates, torch.zeros_like(gates))
+    y = _moe_experts(p, spec, xg, dest, w, cap, inplace=False)
+    picks = F.one_hot(idx.long(), E).float() * kept[..., None].float()
+    lb = E * (probs.mean(dim=(0, 1)) * picks.sum(2).mean(dim=(0, 1))).sum()
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    return y.reshape(x.shape), {"lb_loss": lb, "z_loss": z}
+
+
+def zero_aux(device) -> dict:
+    return {"lb_loss": torch.zeros((), device=device),
+            "z_loss": torch.zeros((), device=device)}
+
+
+def train_ffn(p, cfg: ModelConfig, spec, x):
+    """The layer's FFN in train mode: (y, aux)."""
+    if spec.kind == "moe":
+        return moe_ffn_train(p, cfg, spec, x)
+    if spec.act == "rwkv_cmix":
+        _recurrent_mode("rwkv_cmix", "train")
+    return dense_ffn(p, cfg, spec, x), zero_aux(x.device)
 
 
 def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode):
@@ -509,8 +614,9 @@ def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode):
 def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
                 pages=None):
     """Pre-norm residual layer: x + mixer(norm(x)); x + ffn(norm(x)).
-    ``cache`` is the layer's ``{"mixer", "ffn"}`` slot (None in prefill);
-    returns (x, the layer's new or in-place-updated slot)."""
+    ``cache`` is the layer's ``{"mixer", "ffn"}`` slot (None in prefill
+    and train); returns (x, the layer's new or in-place-updated slot) —
+    in train mode (x, aux), the FFN's ``{"lb_loss", "z_loss"}``."""
     if layer.mixer.kind not in MIXERS or layer.ffn.kind not in ("dense",
                                                                "moe"):
         raise NotImplementedError(
@@ -522,5 +628,8 @@ def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
                                           mix_cache, pos, mode, pages=pages)
     x = x + y
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if mode == "train":
+        y, aux = train_ffn(p["ffn"], cfg, layer.ffn, h)
+        return x + y, aux
     y, new_ffn = apply_ffn(p["ffn"], cfg, layer.ffn, h, ffn_cache, mode)
     return x + y, {"mixer": new_mix, "ffn": new_ffn}

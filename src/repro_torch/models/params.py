@@ -147,19 +147,41 @@ def _layer_decl(cfg: ModelConfig, layer) -> dict:
 
 
 def tree_map(fn, tree, *rest):
-    """Map `fn` over the leaves of a nested dict — or, given more trees
-    of the same structure, over their leaves side by side."""
+    """Map `fn` over the leaves of a tree of dicts, lists and tuples — or,
+    given more trees of the same structure, over their leaves side by
+    side.  The result keeps the first tree's containers; a leaf of the
+    first tree takes the whole subtree at the same place of the others
+    (an optimizer's per-leaf state)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict in key-insertion order."""
+    """Leaves of a tree of dicts (in key-insertion order), lists and
+    tuples (in order)."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def value_and_grad(loss_fn, params, *args):
+    """((loss, aux), grads): ``loss_fn(params, *args) -> (loss, aux)``
+    evaluated on a detached, grad-requiring copy of every leaf of
+    ``params``, and the gradient of ``loss`` as a tree of the same
+    structure — the functional form of ``jax.value_and_grad(...,
+    has_aux=True)`` over a parameter tree.  ``loss`` comes back
+    detached."""
+    req = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(req, *args)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(req)))
+    return (loss.detach(), aux), tree_map(lambda _: next(grads), req)
 
 
 def _stack(decl: dict, n: int):

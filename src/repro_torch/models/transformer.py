@@ -1,5 +1,5 @@
 """Model stack: embeddings -> head layers -> periods -> tail -> LM head
-(the torch twin of the serving half of ``repro/models/transformer.py``).
+(the torch twin of ``repro/models/transformer.py``).
 
 The repeated ``period`` runs as a Python loop over weights (and cache)
 stacked on a leading ``num_periods`` dim; indexing the stack gives
@@ -9,49 +9,71 @@ leaves.  The serving executors call :func:`ragged_step` (ragged),
 speculation, with :func:`decode_step` for the draft loop),
 :func:`prefill_chunk` then :func:`decode_step` (split), or
 :func:`prefill` then :func:`decode_step` (the uniform one-shot prefill
-path, over a block-paged or dense cache).
+path, over a block-paged or dense cache).  Training calls
+:func:`forward` in ``"train"`` mode (or :func:`train_logits`): every
+position's logits, or the final-norm hidden states, with the MoE layers'
+aux losses; ``cfg.remat`` recomputes each period's layers in backward
+(``torch.utils.checkpoint``), as the JAX package checkpoints its period
+scan body.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.params import tree_map
 
 
-def _apply_unrolled(params, cfg, layers, x, cache, pos, mode, pages=None):
-    new_cache = {}
+def _add_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def _apply_layers(params, cfg, layers, key, x, cache, pos, mode,
+                  pages=None, aux=None):
+    """Apply ``layers`` in order, layer ``i``'s weights (and cache) at
+    ``f"{key}{i}"``.  Returns (x, each layer's new or in-place-updated
+    cache slot, aux): in train mode (``aux`` given) the slots are left
+    out and each layer's MoE losses are added to ``aux`` in order, as
+    the JAX package's ``_add_aux`` carries them."""
+    new = {}
     for i, layer in enumerate(layers):
-        key = f"layer{i}"
-        x, new_cache[key] = blocks.apply_layer(
-            params[key], cfg, layer, x, None if cache is None else cache[key],
+        k = f"{key}{i}"
+        x, slot = blocks.apply_layer(
+            params[k], cfg, layer, x, None if cache is None else cache[k],
             pos, mode, pages=pages)
-    return x, new_cache
+        if aux is None:
+            new[k] = slot
+        else:
+            aux = _add_aux(aux, slot)
+    return x, new, aux
 
 
 def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
-                   pages=None):
+                   pages=None, aux=None):
     """Loop over the stacked period weights (+cache).  ``pages`` is the
     same for every layer.  Prefill starts from no cache and returns each
     period's new part cache stacked on the leading ``num_periods`` dim
-    (the JAX package's tree); the other modes update ``cache`` in place
-    and return it."""
+    (the JAX package's tree); train mode returns no cache and, with
+    ``cfg.remat``, recomputes each period in backward; the other modes
+    update ``cache`` in place and return it."""
     new = []
     for i in range(cfg.num_periods):
-        p_i = tree_map(lambda a: a[i], params["period"])
-        c_i = None if cache is None else tree_map(lambda a: a[i], cache)
-        out_i = {}
-        for j, layer in enumerate(cfg.period):
-            key = f"block{j}"
-            x, out_i[key] = blocks.apply_layer(
-                p_i[key], cfg, layer, x, None if c_i is None else c_i[key],
-                pos, mode, pages=pages)
+        args = (tree_map(lambda a: a[i], params["period"]), cfg, cfg.period,
+                "block", x,
+                None if cache is None else tree_map(lambda a: a[i], cache),
+                pos, mode, pages, aux)
+        if mode == "train" and cfg.remat:
+            x, out_i, aux = checkpoint(_apply_layers, *args,
+                                       use_reentrant=False)
+        else:
+            x, out_i, aux = _apply_layers(*args)
         if mode == "prefill":
             new.append(out_i)
     if mode == "prefill":
-        return x, tree_map(lambda *leaves: torch.stack(leaves), *new)
-    return x, cache
+        return x, tree_map(lambda *leaves: torch.stack(leaves), *new), aux
+    return x, cache, aux
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -69,10 +91,21 @@ def lm_proj(params, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
-            cache=None, pos=None, pages=None):
-    """Returns (logits, cache).  ``batch = {"tokens": [B, S] int32}``,
-    ``pos [B, S]`` absolute positions, and ``mode`` one of the serving
-    modes of :func:`repro_torch.models.blocks.attention`:
+            cache=None, pos=None, pages=None, return_hidden: bool = False):
+    """Returns (logits, cache) — in ``"train"`` mode (logits, aux).
+    ``batch = {"tokens": [B, S] int32}``, ``pos [B, S]`` absolute
+    positions, and ``mode`` one of:
+
+    * ``"train"``: no cache, ``pos`` defaulting to ``arange(S)`` per row;
+      every position's logits ``[B, S, V]`` — or, with
+      ``return_hidden``, the final-norm hidden states ``[B, S, D]`` for a
+      caller that applies the LM head itself
+      (:func:`repro_torch.core.losses.chunked_lm_loss`) — and ``aux =
+      {"lb_loss", "z_loss"}``, the MoE layers' losses summed over the
+      layers (zeros without MoE);
+
+    or one of the serving modes of
+    :func:`repro_torch.models.blocks.attention`:
 
     * ``"prefill"``: ``cache=None``, ``pos`` defaulting to ``arange(S)``
       per row; returns the logits of the **last position only**,
@@ -88,34 +121,44 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       ``pages = {"page_table"}`` over a block-paged cache, or ``None``
       over the dense arena): all positions' logits, and the cache updated
       in place."""
-    if mode not in ("prefill", "ragged_step", "mixed_step", "prefill_chunk",
-                    "decode"):
+    if mode not in ("train", "prefill", "ragged_step", "mixed_step",
+                    "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
     x = _embed(params, cfg, batch["tokens"])
     if pos is None:
-        if mode != "prefill":
+        if mode not in ("train", "prefill"):
             raise ValueError(f"{mode} requires pos")
         B, S = batch["tokens"].shape
         pos = torch.arange(S, dtype=torch.int32,
                            device=x.device)[None].expand(B, S)
-    if mode != "prefill" and cache is None:
+    if mode not in ("train", "prefill") and cache is None:
         raise ValueError(f"{mode} requires a cache")
     new_cache = {}
     c = cache or {}
+    aux = blocks.zero_aux(x.device) if mode == "train" else None
     if cfg.head:
-        x, new_cache["head"] = _apply_unrolled(
-            params["head"], cfg, cfg.head, x, c.get("head"), pos, mode,
-            pages)
+        x, new_cache["head"], aux = _apply_layers(
+            params["head"], cfg, cfg.head, "layer", x, c.get("head"), pos,
+            mode, pages, aux)
     if cfg.num_periods:
-        x, new_cache["period"] = _apply_periods(
-            params, cfg, x, c.get("period"), pos, mode, pages)
+        x, new_cache["period"], aux = _apply_periods(
+            params, cfg, x, c.get("period"), pos, mode, pages, aux)
     if cfg.tail:
-        x, new_cache["tail"] = _apply_unrolled(
-            params["tail"], cfg, cfg.tail, x, c.get("tail"), pos, mode,
-            pages)
+        x, new_cache["tail"], aux = _apply_layers(
+            params["tail"], cfg, cfg.tail, "layer", x, c.get("tail"), pos,
+            mode, pages, aux)
+    if mode == "train":
+        if return_hidden:
+            return blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+        return _logits(params, cfg, x), aux
     if mode == "prefill":
         x = x[:, -1:]
     return _logits(params, cfg, x), new_cache
+
+
+def train_logits(params, cfg: ModelConfig, batch: dict):
+    """Every position's logits [B, S, V] and the aux losses."""
+    return forward(params, cfg, batch, mode="train")
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, pos=None):

@@ -59,7 +59,7 @@ invariant checker audits this pool unchanged.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -278,6 +278,14 @@ class PrefixEntry:
         self.last_use = last_use
 
 
+class _LeafMeta(NamedTuple):
+    """A cache leaf's layout: ``kind`` "paged" (``ax``, its kv_blocks
+    axis) or "row" (``ax``, its request-row axis).  A named tuple, so the
+    tree functions take it as a leaf."""
+    kind: str
+    ax: int
+
+
 class TierSlotPool:
     """Request rows + block-paged KV arena for one cascade tier, on one
     device.
@@ -321,9 +329,9 @@ class TierSlotPool:
             cfg, capacity, self.num_blocks, block_size, dtype, device)
         # per leaf: ("paged", kv_blocks axis) or ("row", request-row axis)
         self._meta = tree_map(
-            lambda c: (("paged", c.axes.index("kv_blocks"))
+            lambda c: (_LeafMeta("paged", c.axes.index("kv_blocks"))
                        if "kv_blocks" in c.axes
-                       else ("row", c.axes.index("batch"))), decl)
+                       else _LeafMeta("row", c.axes.index("batch"))), decl)
         self._per_block = sum(
             math.prod(c.shape) // self.num_blocks
             * torch.empty((), dtype=c.dtype).element_size()
