@@ -13,7 +13,9 @@ without printing a result):
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (gemma3-1b, phi4-mini-3.8b,
      granite-moe-3b-a800m, rwkv6-3b and jamba-v0.1-52b, whose Mamba
-     layers run ``mamba_scan``), with CUDA-event times for the
+     layers run ``mamba_scan``; the ragged kernel also at the flat
+     widths 48 and 160 of phase 4e's bucket override), with CUDA-event
+     times for the
      kernel and the plain version (for the gate and the router also back
      to back, :func:`device_ms`; for ``flash_attention`` also PyTorch's
      ``scaled_dot_product_attention`` as a yardstick; for the four
@@ -79,6 +81,17 @@ without printing a result):
      one request FAILED), and a ``--deadline`` that sheds the
      rehearsal's 4 requests; then ``youngest`` on the wall clock at the
      escalation budget, a record beside 4c's fully provisioned run;
+  4e. observability, on phase 4's weights (``check_observability``; alone:
+     ``scripts/torch_observability_phase.py``): the workload on the
+     ragged executor under a virtual clock untraced, then with
+     ``--trace-out``, ``--profile`` and ``--metrics-interval`` (streams,
+     launches and host syncs as untraced; the trace valid under
+     ``scripts/check_trace.py``; one ``run_ragged/<tier>`` profiler range
+     a ragged launch, the tier's ragged kernels inside), then with
+     ``--trace-out`` alone: the host milliseconds per engine phase (admit,
+     plan, launch, device_get, finish, tick) a tier, beside the
+     profiler's device idle share; then ``--flat-buckets 16 48 160 512``
+     (exact launch counts, streams under 4b's margin rule);
   5. the same workload, on the same weights, under the padded
      (``--no-ragged-step``) and the split (``--split-step``) executors,
      then the uniform one-shot prefill path on 16 prompts of exactly 640
@@ -124,7 +137,9 @@ imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -271,14 +286,17 @@ def paged_pool(gen, dev, *, KV, hd, kv_dtype, R, P, bs):
 
 
 def ragged_case(gen, dev, *, KV, G, hd, qlens, q_start, window, dtype,
-                kv_dtype, R=8, P=41, bs=16):
+                kv_dtype, R=8, P=41, bs=16, W=None):
     """Inputs at main-path layout: R engine rows, P pages of bs tokens
-    per row (prompt 640 + gen 8 -> 41 pages), N = R*P + 1 blocks."""
+    per row (prompt 640 + gen 8 -> 41 pages), N = R*P + 1 blocks; ``W``
+    flat slots (by default the power-of-two bucket of the live
+    tokens)."""
     qlen = torch.tensor(qlens, dtype=torch.int32)
     total = int(qlen.sum())
-    W = 8
-    while W < max(total, 1):
-        W *= 2
+    if W is None:
+        W = 8
+        while W < max(total, 1):
+            W *= 2
     q = torch.randn(W, KV, G, hd, generator=gen, device=dev).to(dtype)
     kp, vp, ks, vs, pt = paged_pool(gen, dev, KV=KV, hd=hd,
                                     kv_dtype=kv_dtype, R=R, P=P, bs=bs)
@@ -402,6 +420,12 @@ NEAR600 = [590, 595, 600, 605, 610, 615, 620, 625]     # decode ticks
 # a speculative verify launch's rows at the decode tick: a token and up
 # to 4 drafts each (q_len 1-5)
 VERIFY_QLENS = [5, 1, 3, 5, 2, 4, 5, 1]
+# (W, q_len per row, q_start): flat widths that only a --flat-buckets
+# override gives
+FLAT_WIDTHS = ((48, [5, 1, 0, 12, 3, 1, 7, 2],
+                [580, 600, 0, 560, 620, 625, 540, 610]),
+               (160, [64, 20, 1, 0, 33, 1, 9, 2],
+                [560, 600, 625, 0, 520, 610, 580, 590]))
 # (atol, rtol) against the plain version by case kind; bf16 cases hold
 # the kernel on bf16 inputs against the plain version in f32 on the same
 # values, so only the output's rounding to bf16 (2^-9 relative) separates
@@ -451,6 +475,13 @@ def check_ragged(dev, flush):
          [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
         ("granite decode f32", GRANITE, [1] * 8, near600, None, "f32"),
     ]
+    # flat widths off the powers of two (phase 4e's --flat-buckets 16 48
+    # 160 512): partly filled rows late in their pages
+    for W, qlens, qstart in FLAT_WIDTHS:
+        cases += [(f"phi4 W={W} f32", dict(phi4, W=W), qlens, qstart, None,
+                   "f32"),
+                  (f"gemma window=512 W={W} f32", dict(gemma, W=W), qlens,
+                   qstart, 512, "f32")]
     worst, timed = 0.0, {}
     for name, shape, qlens, qstart, window, kind in cases:
         dt, kvdt = dtypes_of(kind)
@@ -1478,8 +1509,8 @@ class EngineTap:
             self.engine = engine
             return engine, vocab
 
-        def capped(engine, max_steps=cap):
-            return run(engine, min(max_steps, cap))
+        def capped(engine, max_steps=cap, **kw):
+            return run(engine, min(max_steps, cap), **kw)
         serve_async.build_engine = build_engine
         CascadeEngine.run = capped
         return self
@@ -1907,7 +1938,7 @@ def rejections(s) -> int:
         s["speculation"]["accepted"]
 
 
-def check_speculation(card: str, params) -> dict:
+def check_speculation(card: str, params, keep=None) -> dict:
     """The speculation phase: the phase-4 workload at ``gen_len`` 32 on
     the ragged executor, each cascade served at k = 0 and k = 4 (every
     draft staged, ``spec_delta`` 0) with exact launch counts
@@ -1918,7 +1949,8 @@ def check_speculation(card: str, params) -> dict:
     under self-speculation every rejection too (its draft and verify
     compute the same model), read in a third, untimed run under
     :class:`RejectionTap`.  Returns the timed runs' launch counts by
-    path."""
+    path; a dict ``keep`` receives the gemma3-1b -> phi4-mini-3.8b
+    margin bounds (``bounds``, phase 4e's)."""
     cascades = (("phi4", PHI4_NAME, params, {}),
                 ("self", "gemma3-1b", (params[0], params[0]),
                  {"expensive_seed": 0}))
@@ -1931,6 +1963,8 @@ def check_speculation(card: str, params) -> dict:
         errs.append(errs[0] if label == "self" else
                     verify_logit_error(dev, pair[1], cfgs[1]))
         bounds = [max(e.values()) for e in errs]
+        if keep is not None and label == "phi4":
+            keep["bounds"] = bounds
         runs = {}
         for k in (0, SPEC_K):
             flags = dict(speculate=k, spec_delta=0.0 if k else None,
@@ -2347,6 +2381,206 @@ def check_overload(card: str, params, ctx=None) -> dict:
          problems=problems)
     if problems:
         raise AssertionError("overload: " + "; ".join(problems))
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the observability phase
+# --------------------------------------------------------------------------
+
+# --metrics-interval of the traced run (virtual-clock ticks), and the
+# --flat-buckets override: 512 = 8 slots x 64-token chunks, the worst tick
+OBS_INTERVAL = 3.0
+OBS_BUCKETS = [16, 48, 160, 512]
+HOST_PHASES = ("admit", "plan", "launch", "device_get", "finish")
+
+
+def host_phase_split(trace: dict, names) -> dict:
+    """Host milliseconds per engine phase from a tracer's trace: for each
+    tier (``names``), each phase's sum over the run and its per-tick p50
+    (a tick's events of one phase summed first, over the ticks that have
+    one); the whole tick's the same way, with the tick time no phase
+    covers (shedding, counters, the loop between phases)."""
+    per = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] != "X" or e["pid"] != 0:
+            continue
+        key = (e["tid"], e["name"])
+        tick = e["args"]["tick"]
+        per.setdefault(key, {})
+        per[key][tick] = per[key].get(tick, 0.0) + e["dur"] / 1e3
+
+    def stats(d):
+        v = list(d.values())
+        return {"sum_ms": float(np.sum(v)) if v else 0.0,
+                "p50_ms": float(np.median(v)) if v else None,
+                "ticks": len(v)}
+    out = {name: {ph: stats(per.get((t, ph), {})) for ph in HOST_PHASES}
+           for t, name in enumerate(names)}
+    tick = stats(per.get((len(names), "tick"), {}))
+    phases = sum(out[n][ph]["sum_ms"] for n in names for ph in HOST_PHASES)
+    out["tick"] = dict(tick, outside_phases_ms=tick["sum_ms"] - phases)
+    return out
+
+
+def profile_ranges(trace: dict, counts: dict) -> dict:
+    """From the profiler's Chrome trace of a run with
+    ``profile_annotations``: the ``run_ragged/<tier>`` ranges per tier,
+    the ragged kernels each range launched (a kernel is in a range when
+    the host call that launched it, matched by correlation id, lies
+    inside the range) against ``counts[tier]`` (its attention layers),
+    and the device's idle share of the ticks: 1 − (kernel time, overlaps
+    merged) / (first ``tick/<id>`` start to last end)."""
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ranges = {}
+    for e in evs:
+        if e.get("cat") == "user_annotation" and \
+                e["name"].startswith("run_ragged/"):
+            ranges.setdefault(e["name"].split("/", 1)[1], []).append(e)
+    ticks = [e for e in evs if e.get("cat") == "user_annotation"
+             and e["name"].startswith("tick/")]
+    kern = [e for e in evs if e.get("cat") == "kernel"]
+    ragged = KERNEL_NAMES["ragged_attention"][0]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    per_range = {}
+    for tier, rs in ranges.items():
+        starts = sorted(launch_ts[k["args"]["correlation"]] for k in kern
+                        if ragged in k["name"] and k.get("args", {}).get(
+                            "correlation") in launch_ts)
+        per_range[tier] = sorted(
+            sum(r["ts"] <= t <= r["ts"] + r["dur"] for t in starts)
+            for r in rs)
+    t0 = min(e["ts"] for e in ticks)
+    t1 = max(e["ts"] + e["dur"] for e in ticks)
+    busy, end = 0.0, t0
+    for a, b in sorted((max(k["ts"], t0), min(k["ts"] + k["dur"], t1))
+                       for k in kern):
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    return {"ranges": {t: len(r) for t, r in ranges.items()},
+            "ragged_kernels_per_range": {
+                t: sorted(set(v)) for t, v in per_range.items()},
+            "ranges_with_expected_kernels": {
+                t: sum(n == counts[t] for n in v)
+                for t, v in per_range.items()},
+            "tick_ranges": len(ticks), "ticks_ms": (t1 - t0) / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0)}
+
+
+def check_observability(card: str, params, bounds=None) -> dict:
+    """The observability phase, on phase 4's weights: the phase-4
+    workload on the ragged executor under a virtual clock, (a) untraced;
+    (b) with ``--trace-out``, ``--profile`` and ``--metrics-interval``:
+    streams, launches and host syncs equal to (a)'s, the trace valid
+    under ``scripts/check_trace.py``, one snapshot line a window, and in
+    the profiler's trace one ``run_ragged/<tier>`` range a ragged launch
+    with that tier's attention layers' ragged kernels inside; (c) with
+    ``--trace-out`` alone, equal to (a) again — the host milliseconds
+    per phase (admit, plan, launch, device_get, finish, tick) a tier, (c)
+    without the profiler's overhead and (b) with it, beside (b)'s device
+    idle share; (d) with ``--flat-buckets 16 48 160 512``: exact launch
+    counts (:func:`serve`) and (a)'s streams under phase 4b's margin
+    rule, each tier's bound its largest verify-window logit error
+    (``bounds``, measured here when None).  Returns the runs' launch
+    counts by path."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import check_trace
+
+    args = main_path_args()
+    cfgs = serve_async.tier_configs(args)
+    names = [args.fast, args.expensive]
+    dev = params[0]["embed"].device
+    work = kernels.BUILD_DIR / "observability"
+    work.mkdir(parents=True, exist_ok=True)
+    trace_path, prof_dir = work / "trace.json", work / "profile"
+    counts, problems = {}, []
+
+    def served(label, **flags):
+        """One run (:func:`serve`) with its printed output held back: its
+        JSON records are printed again, its snapshot lines returned."""
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                c, per, s = serve(card, params, "ragged",
+                                  clock=VirtualClock(),
+                                  phase=f"observability, {label}", **flags)
+        finally:
+            lines = out.getvalue().splitlines()
+            for line in lines:
+                if line.startswith("{"):
+                    print(line, flush=True)
+        counts[f"obs {label}"] = c
+        return per, s, [line for line in lines if line.startswith("[t=")]
+
+    base, s_a, _ = served("untraced")
+    per_b, s_b, snaps = served(
+        "traced and profiled", trace_out=str(trace_path),
+        trace_ring=1 << 20, profile=str(prof_dir),
+        metrics_interval=OBS_INTERVAL)
+    trace_b = json.loads(trace_path.read_text())
+    prof = json.loads((prof_dir / "torch_trace.json").read_text())
+    per_c, s_c, _ = served("traced", trace_out=str(trace_path),
+                           trace_ring=1 << 20)
+    trace_c = json.loads(trace_path.read_text())
+    keys = ("launches", "launches_by_kind", "host_syncs",
+            "host_syncs_per_tick", "steps", "stream_checksum")
+    for label, per, s in (("traced and profiled", per_b, s_b),
+                          ("traced", per_c, s_c)):
+        if per != base or any(s[k] != s_a[k] for k in keys):
+            problems.append(f"{label} run differs from the untraced one")
+    for label, tr, s in (("traced and profiled", trace_b, s_b),
+                         ("traced", trace_c, s_c)):
+        errs = check_trace.validate_trace(tr)
+        if errs or s["trace_dropped"] or s["trace_events"] != len(
+                tr["traceEvents"]):
+            problems.append(f"{label} trace: {errs[:3]}, dropped "
+                            f"{s['trace_dropped']}")
+    if not snaps:
+        problems.append("--metrics-interval printed no snapshot")
+    attn = {n: layer_counts(cfg)["attn"] for n, cfg in zip(names, cfgs)}
+    ranges = profile_ranges(prof, attn)
+    ragged = {n: k.get("ragged", 0)
+              for n, k in zip(names, s_b["launches_by_kind"])}
+    if ranges["ranges"] != ragged or \
+            ranges["ranges_with_expected_kernels"] != ragged or \
+            ranges["tick_ranges"] != s_b["steps"]:
+        problems.append(f"profiler ranges {ranges} against ragged launches "
+                        f"{ragged} and {s_b['steps']} ticks")
+    split = {"tracer alone": host_phase_split(trace_c, names),
+             "tracer and profiler": host_phase_split(trace_b, names)}
+    emit(phase="observability host phases", card=card, cascade=names,
+         executor="ragged", clock="virtual", ticks=s_c["steps"],
+         tier_launches=s_c["launches"], host_ms=split,
+         profiler=ranges, trace_events=s_b["trace_events"],
+         snapshot_lines=len(snaps), snapshot_first=snaps[:1],
+         snapshot_last=snaps[-1:])
+    for p in (trace_path, prof_dir / "torch_trace.json"):
+        p.unlink()
+    if bounds is None:
+        bounds = [max(verify_logit_error(dev, params[t], cfgs[t]).values())
+                  for t in (0, 1)]
+    per_d, s_d, _ = served("flat buckets", flat_buckets=OBS_BUCKETS)
+    if s_d["flat_buckets"] != [OBS_BUCKETS] * 2:
+        problems.append(f"flat buckets {s_d['flat_buckets']}")
+    widths = sorted({e["args"]["width"] for e in trace_c["traceEvents"]
+                     if e["name"] == "launch"})
+    margin_check("flat buckets 16 48 160 512 streams against the default "
+                 "buckets, teacher-forced",
+                 stream_gaps(base, per_d, workload_prompts(args, cfgs),
+                             params, cfgs, dev), bounds)
+    emit(phase="observability summary", card=card, cascade=names,
+         default_bucket_widths_launched=widths,
+         flat_bucket_steps=s_d["steps"], default_steps=s_a["steps"],
+         flat_bucket_live_tokens=s_d["step_live_tokens"],
+         flat_bucket_processed_tokens=s_d["step_processed_tokens"],
+         default_processed_tokens=s_a["step_processed_tokens"],
+         margin_bound=bounds, problems=problems)
+    if problems:
+        raise AssertionError("observability: " + "; ".join(problems))
     return counts
 
 
@@ -2969,13 +3203,17 @@ def main() -> int:
     compare_streams({ex: r for ex, (_, r, _) in runs.items()})
     # the speculation phase, on the same weights: gemma3 drafting for
     # phi4, and for itself
-    spec_runs = check_speculation(card, params)
+    spec_ctx = {}
+    spec_runs = check_speculation(card, params, keep=spec_ctx)
     # the prefix-caching phase, on the same weights, then the overload
     # phase on its workload
     ctx = {}
     prefix_runs = check_prefix_cache(card, params, keep=ctx)
     overload_runs = check_overload(card, params, ctx)
     del ctx
+    # the observability phase: tracer, profiler ranges and metrics
+    # snapshots, then the flat-bucket override, under 4b's margin rule
+    obs_runs = check_observability(card, params, spec_ctx["bounds"])
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -3041,6 +3279,7 @@ def main() -> int:
     counts.update(spec_runs)
     counts.update(prefix_runs)
     counts.update(overload_runs)
+    counts.update(obs_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
@@ -3052,10 +3291,11 @@ def main() -> int:
     prefix_ragged = tuple(p for p in prefix_runs if "ragged" in p
                           or "wall" in p)
     overload_ragged = tuple(p for p in overload_runs if "split" not in p)
+    obs_paths = tuple(obs_runs)
     served = ("serve_cascade untrained", "serve_cascade trained")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
-                      + served),
+                      + obs_paths + served),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split", "prefix padded on",
                                           "prefix split on",

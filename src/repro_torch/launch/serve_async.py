@@ -11,7 +11,8 @@ escalated to the expensive tier.  ``--length-dist
 ``[--min-prompt-len, --prompt-len]``; chunked paged prefill advances
 ``--prefill-chunk`` tokens per row per tick, and each tick runs as ONE
 ragged flat token-batch step per tier through the hand-written CUDA
-kernels — or, with ``--no-ragged-step``, one padded mixed step per tier,
+kernels (``--flat-buckets`` overrides the ragged step's bucket widths) —
+or, with ``--no-ragged-step``, one padded mixed step per tier,
 or, with ``--split-step``, a chunk launch plus a paged decode launch per
 tier (one fetch either way).  ``--no-chunked-prefill`` prefills each
 admission in one uniform launch (the flash attention kernel in every
@@ -50,7 +51,18 @@ bound the retry of a launch that fails transiently; ``--inject-faults
 SPEC`` attaches a deterministic
 :class:`repro_torch.serving.faults.FaultPlan` (pool shrinkage,
 escalation storms, launch failures, slow ticks; see that module for the
-grammar).  Ctrl-C prints the partial summary.
+grammar).  Ctrl-C prints the partial summary and still writes
+``--trace-out``.
+
+Observability: ``--trace-out trace.json`` records every request's
+lifecycle (QUEUED -> PREFILL -> DECODE -> ESCALATED -> DONE) and every
+tick's engine phases (admit / plan / launch / device_get / finish) as a
+Chrome-trace timeline that Perfetto loads (``--trace-ring`` events at
+most; ``scripts/check_trace.py`` validates it); ``--metrics-interval 5``
+prints a snapshot line every 5 engine-clock units; ``--profile DIR``
+writes a ``torch.profiler`` trace of the serving loop (the card's kernels
+too on a CUDA device) to ``DIR/torch_trace.json``, each launch in a
+``run_ragged/<tier>`` (etc.) range and each tick in ``tick/<id>``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_async \\
         --requests 64 --rate 8 --slots 8 --length-dist lognormal
@@ -80,8 +92,9 @@ from repro_torch.configs import get_config
 from repro_torch.data import bigram_lm
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import init_params
-from repro_torch.serving import CascadeEngine, FaultPlan, TierSpec
+from repro_torch.serving import CascadeEngine, FaultPlan, TierSpec, Tracer
 from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
+from repro_torch.serving.observability import profile_window
 
 # Prompt tokens are drawn from the first PROMPT_VOCAB ids: bigram_lm's
 # trigram table is vocab x vocab int64 (320 GB at phi4-mini's 200064), so
@@ -113,10 +126,11 @@ def build_params(args, cfgs=None):
             init_params(exp_cfg, exp_seed, torch.float32, device))
 
 
-def build_engine(args, clock=None, params=None, cfgs=None):
+def build_engine(args, clock=None, params=None, cfgs=None, tracer=None):
     """Both tiers' configs (:func:`tier_configs`) and weights (``params``
-    from :func:`build_params`, drawn here when None), and the engine;
-    returns (engine, vocab shared by both tiers)."""
+    from :func:`build_params`, drawn here when None), and the engine
+    (recording into ``tracer`` where given); returns (engine, vocab
+    shared by both tiers)."""
     device = resolve_device(args.device)
     if device.type == "cuda":
         # f32 end to end: no TF32 in the matrix products
@@ -141,9 +155,12 @@ def build_engine(args, clock=None, params=None, cfgs=None):
         use_unified_step=False if getattr(args, "split_step", False)
         else None,
         use_ragged_step=getattr(args, "ragged_step", None),
+        flat_buckets=getattr(args, "flat_buckets", None),
         prefix_cache=bool(getattr(args, "prefix_cache", False)),
         speculation_k=getattr(args, "speculate", 0),
         spec_delta=getattr(args, "spec_delta", None),
+        tracer=tracer,
+        profile_annotations=bool(getattr(args, "profile", None)),
         clock=clock if clock is not None else WallClock(),
         preemption_policy=getattr(args, "preemption", "none"),
         launch_retries=getattr(args, "launch_retries", 2),
@@ -241,8 +258,11 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     ``kernel_launches`` counts the kernel launches after warmup;
     ``per_request`` lists each request's final tier, state and tokens,
     and the tokens each tier it reached decoded.  A KeyboardInterrupt
-    stops the run and returns the partial summary (``interrupted``)."""
-    engine, vocab = build_engine(args, clock, params, cfgs)
+    stops the run and returns the partial summary (``interrupted``); the
+    trace is written either way (``trace_events``, ``trace_dropped``)."""
+    tracer = (Tracer(capacity=getattr(args, "trace_ring", 1 << 18))
+              if getattr(args, "trace_out", None) else None)
+    engine, vocab = build_engine(args, clock, params, cfgs, tracer)
     # catches the flags and the engine's own choice of uniform prefill
     # (a tier with recurrent state)
     if args.length_dist != "uniform" and not engine.chunked_prefill:
@@ -268,17 +288,30 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     for p, n, t in zip(prompts, lengths, arrivals):
         engine.submit(p[:int(n)], arrival_time=float(t),
                       deadline=None if ddl is None else float(t) + ddl)
+    interval = getattr(args, "metrics_interval", None)
+    on_snap = ((lambda s: print(snapshot_line(s)))
+               if interval is not None else None)
     interrupted = False
-    try:
-        summary = engine.run()
-    except KeyboardInterrupt:
-        # a graceful stop: report what completed instead of a traceback
-        interrupted = True
-        summary = engine.metrics.summary()
-        print(f"\ninterrupted at t={engine.clock.now():.2f} — partial "
-              f"summary ({summary['completed']}/{summary['requests']} "
-              "completed)")
+    with profile_window(getattr(args, "profile", None), engine.device):
+        try:
+            summary = engine.run(metrics_interval=interval,
+                                 on_snapshot=on_snap)
+        except KeyboardInterrupt:
+            # a graceful stop: report what completed and still write the
+            # trace below, instead of a traceback
+            interrupted = True
+            summary = engine.metrics.summary()
+            print(f"\ninterrupted at t={engine.clock.now():.2f} — partial "
+                  f"summary ({summary['completed']}/{summary['requests']} "
+                  "completed)")
     summary["interrupted"] = interrupted
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out:
+        n_events = tracer.export(trace_out)
+        summary["trace_events"] = n_events
+        summary["trace_dropped"] = tracer.dropped
+        print(f"wrote {n_events} trace events to {trace_out}"
+              + (f" ({tracer.dropped} dropped)" if tracer.dropped else ""))
     summary["kernel_launches"] = {k: v - warm[k]
                                   for k, v in _launch_counts().items()}
     summary["host_syncs_total"] = engine.host_syncs
@@ -459,6 +492,12 @@ def make_parser() -> argparse.ArgumentParser:
                          "execution; --no-ragged-step keeps the padded "
                          "[slots, width] mixed step.  Default: ragged "
                          "whenever unified execution is on")
+    ap.add_argument("--flat-buckets", type=int, nargs="*", default=None,
+                    metavar="W",
+                    help="flat widths of the ragged step (default powers "
+                         "of two from 8 up to slots*prefill-chunk; widths "
+                         "> 16 must be multiples of 16, and the largest "
+                         "must cover slots*prefill-chunk)")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="speculative cascade decoding: the cheap tier "
                          "drafts up to K tokens per escalated request per "
@@ -520,6 +559,24 @@ def make_parser() -> argparse.ArgumentParser:
                          "(default --seed + 1)")
     ap.add_argument("--json", default=None,
                     help="also write the summary dict to this path")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON timeline of "
+                         "the run: per-request lifecycle spans and "
+                         "per-tick engine phases (load at ui.perfetto.dev)")
+    ap.add_argument("--trace-ring", type=int, default=1 << 18,
+                    help="trace ring-buffer capacity in events; oldest "
+                         "events drop first (dropped count is reported)")
+    ap.add_argument("--metrics-interval", type=float, default=None,
+                    metavar="SEC",
+                    help="print a streaming metrics snapshot (completions, "
+                         "escalation, gate ECE, tick p50) every SEC "
+                         "engine-clock seconds")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the serving loop "
+                         "to DIR/torch_trace.json (CPU activity, and the "
+                         "card's kernels on a CUDA device), each launch in "
+                         "a run_ragged/run_mixed/... range and each tick "
+                         "in tick/<id>")
     ap.add_argument("--virtual-clock", action="store_true",
                     help="deterministic 1-tick-per-step clock (arrival "
                          "times are then in ticks, not seconds)")

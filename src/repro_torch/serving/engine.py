@@ -104,8 +104,26 @@ engine stops.  Any other error — a refused launch from
 escalation storms, transient launch failures and slow ticks
 deterministically; with ``faults=None`` no hook does anything.
 
-Not ported from the JAX engine (later work): flat-bucket overrides and
-compile statistics, modality frontends, meshes and the tracer.
+**Observability**, as in the JAX engine: with a ``tracer``
+(:class:`repro_torch.serving.observability.Tracer`) the engine records
+each request's lifecycle (QUEUED, PREFILL, DECODE, PREEMPTED, ESCALATED;
+DONE, FAILED, SHED) and each tick's phases (admit, plan, launch,
+device_get, finish, and the whole tick) with the same events, names and
+arguments, so ``scripts/check_trace.py`` reads either engine's trace.  A
+``launch`` phase times the host's asynchronous dispatch only; device time
+the host waits for shows under ``device_get``.  With
+``profile_annotations`` each launch runs inside a named profiler range
+(``run_ragged/<tier>`` and so on) and each tick inside ``tick/<id>``.
+Neither adds a synchronisation or a transfer: ``host_syncs`` and the
+launch counts are the same with both on and off.  ``run(metrics_interval=)``
+hands a metrics snapshot to ``on_snapshot`` once per window.
+
+Not ported from the JAX engine (later work): compile statistics (an
+eager engine compiles nothing; they wait for CUDA graphs), modality
+frontends, and meshes — per-tier device placement (``TierSpec.mesh``,
+``shard_params``, ``mesh_topology``, ``_place_params``, ``put_flat``,
+``put_rows``) and the choice of a data shard over more than one
+(``_pick_shard``).
 """
 from __future__ import annotations
 
@@ -122,6 +140,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
 from repro_torch.serving import faults as faults_lib
+from repro_torch.serving import observability as obs
 from repro_torch.serving.metrics import ServingMetrics, TierCost
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import CascadeScheduler, GateSpec
@@ -200,8 +219,8 @@ class StepPlan:
     per-row kind (idle / prefill chunk / decode token / stalled), the
     per-row token slots, live counts, and — ragged executor only, else
     None — the flat packing the ragged launch consumes: every live row's
-    tokens concatenated into ``flat_tokens [1, W]`` (``W`` a bucketed
-    power-of-two width)."""
+    tokens concatenated into ``flat_tokens [1, W]`` (``W`` the smallest
+    of the tier's bucket widths that holds them)."""
     width: int                  # token slots per row (chunk; 1 decode-only)
     kind: np.ndarray            # [capacity] int8 KIND_*
     tokens: np.ndarray          # [capacity, width] int32
@@ -243,6 +262,7 @@ class _TierRuntime:
                  use_paged_kv: bool = True, use_chunked_prefill: bool = True,
                  use_unified_step: bool = True,
                  use_ragged_step: bool = True,
+                 flat_buckets: Optional[Sequence[int]] = None,
                  prefix_cache: bool = False,
                  speculation_k: int = 0, spec_draft: bool = False):
         self.spec = spec
@@ -253,7 +273,9 @@ class _TierRuntime:
         self.unified = bool(use_unified_step)
         self.ragged = bool(use_ragged_step) and self.unified
         self.chunk = min(prefill_chunk, prompt_len)
-        self.flat_buckets = self._default_buckets()
+        self.flat_buckets = (self._default_buckets()
+                             if flat_buckets is None
+                             else self._validate_buckets(flat_buckets))
         self.prefix = bool(prefix_cache) and self.paged and self.chunked
         if self.paged:
             self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
@@ -387,6 +409,30 @@ class _TierRuntime:
             w *= 2
         buckets.append(w)
         return buckets
+
+    def _validate_buckets(self, buckets: Sequence[int]) -> List[int]:
+        """An override of the bucket set, sorted and deduplicated; the
+        JAX engine's checks and messages.  The rule for widths over 16
+        is the TPU kernel's 16-token query tile: the port's tile body
+        takes any width (:func:`repro_torch.kernels.ragged_attention.
+        work_items`), but the port accepts exactly the JAX engine's
+        bucket sets."""
+        out = sorted({int(b) for b in buckets})
+        if not out or out[0] <= 0:
+            raise ValueError(f"flat_buckets must be positive: {buckets}")
+        for b in out:
+            if b > 16 and b % 16:
+                raise ValueError(
+                    f"flat bucket {b} must be a multiple of the ragged "
+                    "kernel's 16-token query tile (widths <= 16 are "
+                    "single-tile and exempt)")
+        worst = self.capacity * self.chunk
+        if out[-1] < worst:
+            raise ValueError(
+                f"largest flat bucket {out[-1]} cannot cover the "
+                f"worst-case tick of {worst} live tokens "
+                f"({self.capacity} slots x {self.chunk}-token chunks)")
+        return out
 
     def bucket_width(self, live_tokens: int) -> int:
         """Smallest bucket holding `live_tokens` (>= 1 slot)."""
@@ -534,9 +580,12 @@ class CascadeEngine:
                  use_chunked_prefill: Optional[bool] = None,
                  use_unified_step: Optional[bool] = None,
                  use_ragged_step: Optional[bool] = None,
+                 flat_buckets: Optional[Sequence[int]] = None,
                  prefix_cache: bool = False,
                  speculation_k: int = 0,
                  spec_delta: Optional[float] = None,
+                 tracer: Optional[obs.Tracer] = None,
+                 profile_annotations: bool = False,
                  clock=None,
                  preemption_policy: str = "none",
                  launch_retries: int = 2,
@@ -567,7 +616,19 @@ class CascadeEngine:
         launch per tier per tick, ``False`` the split chunk + decode
         launches; ``use_ragged_step`` (default: on exactly when unified)
         packs that launch's live tokens flat, ``False`` keeps the padded
-        ``[capacity, width]`` mixed launch.
+        ``[capacity, width]`` mixed launch.  ``flat_buckets`` overrides the
+        ragged launch's bucket widths (default: powers of two from 8 up
+        to the first that covers ``capacity * prefill_chunk``); as in the
+        JAX engine it requires the ragged executor, each width over 16
+        must be a multiple of 16 and the largest must cover ``capacity *
+        prefill_chunk``.
+
+        ``tracer`` attaches a
+        :class:`repro_torch.serving.observability.Tracer` that records
+        the requests' lifecycles and the ticks' phases (the module
+        docstring); ``profile_annotations`` wraps each launch and each
+        tick in a named profiler range (NVTX too on a CUDA device).  Both
+        default off, and then no trace call does anything.
 
         ``prefix_cache`` turns on refcounted prefix caching (the module
         docstring); it requires chunked prefill, as in the JAX engine.
@@ -632,6 +693,10 @@ class CascadeEngine:
                 "and dense paths have no flat batch to pack")
         self.unified_step = bool(use_unified_step)
         self.ragged_step = bool(use_ragged_step) and self.unified_step
+        if flat_buckets is not None and not self.ragged_step:
+            raise ValueError(
+                "flat_buckets sizes the ragged flat layout's compiled "
+                "widths; it requires use_ragged_step")
         if prefix_cache and not use_chunked_prefill:
             raise ValueError(
                 "prefix caching requires chunked paged prefill "
@@ -717,7 +782,18 @@ class CascadeEngine:
         self.scheduler = CascadeScheduler(
             slots_per_tier, gates, calibration=self.metrics.calibration)
         self.clock = clock if clock is not None else WallClock()
+        self.tracer = tracer
+        self.profile_annotations = bool(profile_annotations)
         self.tick_id = 0
+        if tracer is not None:
+            tracer.name_process(obs.ENGINE_PID, "engine ticks")
+            # tid layout on the engine pid: one lane per tier, plus a
+            # whole-tick umbrella lane at tid = num_tiers
+            tracer.name_track(obs.ENGINE_PID, len(self.tiers), "tick")
+            for i, t in enumerate(self.tiers):
+                tracer.name_track(obs.ENGINE_PID, i, f"tier{i} {t.name}")
+                tracer.name_process(obs.REQUEST_PID_BASE + i,
+                                    f"requests tier{i} {t.name}")
         max_seq = prompt_len + gen_len
         if use_paged_kv:
             ppr = math.ceil(max_seq / kv_block_size)
@@ -739,6 +815,7 @@ class CascadeEngine:
                          use_chunked_prefill=self.chunked_prefill,
                          use_unified_step=self.unified_step,
                          use_ragged_step=self.ragged_step,
+                         flat_buckets=flat_buckets,
                          prefix_cache=self.prefix_cache,
                          speculation_k=self.speculation_k,
                          spec_draft=(i < m - 1))
@@ -791,6 +868,9 @@ class CascadeEngine:
         self.metrics.record_submitted()
         if deadline is not None:
             self._has_deadlines = True
+        if self.tracer is not None:
+            self.tracer.request_transition(
+                req.rid, "QUEUED", 0, prompt_tokens=req.prompt_tokens)
         return req
 
     # -- one engine tick ---------------------------------------------------
@@ -808,13 +888,19 @@ class CascadeEngine:
         fault of a kernel surfaces here (the first synchronisation) and
         propagates, since only an injected transient error is retried.
         When the retries run out the engine stops (:class:`_RetryExhausted`
-        propagates): the tick's results are lost without the copy."""
+        propagates): the tick's results are lost without the copy.
+        Traced as the ``device_get`` phase: the device time the host waits
+        for shows here."""
         self.host_syncs += 1
         self.metrics.record_host_sync(tier)
+        tr = self.tracer
+        t0 = tr.now_us() if tr is not None else 0.0
         flat = self._launch(tier, "device_get", lambda: torch.cat([
             t.reshape(-1).to(torch.float32) if t.is_floating_point()
             else t.reshape(-1).to(torch.int32).view(torch.float32)
             for t in tensors]).cpu())
+        if tr is not None:
+            tr.phase("device_get", tier, t0, tick=self.tick_id)
         out, o = [], 0
         for t in tensors:
             part = flat[o:o + t.numel()]
@@ -851,6 +937,10 @@ class CascadeEngine:
                     self.faults.pre_launch(self.tick_id, tier, kind, attempt)
                 return thunk()
             except self._transient as e:
+                if self.tracer is not None:
+                    self.tracer.instant("launch_retry", tier,
+                                        tick=self.tick_id, kind=kind,
+                                        attempt=attempt, error=str(e))
                 if attempt >= self.launch_retries:
                     raise _RetryExhausted(kind, e) from e
                 self.metrics.record_retry(tier)
@@ -858,6 +948,29 @@ class CascadeEngine:
                 if delay > 0:
                     time.sleep(delay)
                     delay *= 2
+
+    def _trace_req(self, req: Request, state: str, tier: int,
+                   shard: Optional[int]) -> None:
+        if self.tracer is not None:
+            self.tracer.request_transition(req.rid, state, tier, shard,
+                                           tick=self.tick_id)
+
+    def _annotate(self, kind: str, rt: _TierRuntime):
+        """The profiler range of one launch, ``<kind>/<tier name>``."""
+        return obs.annotation(f"{kind}/{rt.spec.name}",
+                              self.profile_annotations, self.device)
+
+    def _admit(self, tier: int, now: float) -> None:
+        """Admission, traced as the tick's ``admit`` phase (the leading
+        and the trailing pass emit one event each)."""
+        tr = self.tracer
+        if tr is None:
+            return self._admit_requests(tier, now)
+        t0 = tr.now_us()
+        before = self.metrics.tier_requests[tier]
+        self._admit_requests(tier, now)
+        tr.phase("admit", tier, t0, tick=self.tick_id,
+                 admitted=self.metrics.tier_requests[tier] - before)
 
     def _admit_requests(self, tier: int, now: float) -> None:
         """Bind rows one at a time, bounded by free rows, free KV blocks
@@ -913,8 +1026,13 @@ class CascadeEngine:
             rt.slot_req[slot] = req
             # chunked prefill resumes at the first uncached token
             rt.prefill_pos[slot] = cached
+            self._trace_req(req, "PREFILL", tier, shard)
             if rt.prefix:
                 self.metrics.record_prefix_lookup(tier, cached, plen)
+                if self.tracer is not None:
+                    self.tracer.prefix_cache_event(
+                        tier, req.rid, cached, plen, tick=self.tick_id,
+                        shard=shard)
             self._budget_used[tier] += (min(rt.chunk, plen - cached)
                                         if rt.unified else plen - cached)
             self._admitted[tier] += 1
@@ -973,23 +1091,33 @@ class CascadeEngine:
         self.metrics.record_admission(tier, len(reqs))
         self.metrics.record_prefill_tokens(
             len(reqs) * self.prompt_len, rt.capacity * self.prompt_len)
+        tr = self.tracer
+        t0 = tr.now_us() if tr is not None else 0.0
         while True:
             prompts = np.zeros((rt.capacity, self.prompt_len), np.int32)
             for i, req in enumerate(reqs):
                 prompts[i] = req.prompt
             try:
-                part_cache, ftok, fconf = self._launch(
-                    tier, "run_prefill", lambda p=prompts: rt.run_prefill(p))
+                with self._annotate("run_prefill", rt):
+                    part_cache, ftok, fconf = self._launch(
+                        tier, "run_prefill",
+                        lambda p=prompts: rt.run_prefill(p))
                 break
-            except _RetryExhausted:
+            except _RetryExhausted as e:
                 req, slot = reqs.pop(), slot_ids.pop()
                 req.fail(now)
                 if rt.paged:
                     rt.pool.release(slot)
                 self.scheduler.release(tier, slot)
                 self.metrics.record_failed(tier)
+                if tr is not None:
+                    tr.request_done(req.rid, tier, None, state="FAILED",
+                                    tick=self.tick_id, error=str(e))
                 if not reqs:
                     return
+        if tr is not None:
+            tr.phase("launch", tier, t0, tick=self.tick_id, kind="prefill",
+                     width=self.prompt_len)
         self.metrics.record_launches(tier, "prefill")
         if rt.paged:
             rt.pool.write_prefill(slot_ids, part_cache, self.prompt_len)
@@ -1000,7 +1128,10 @@ class CascadeEngine:
         ftok, fconf = self._fetch(tier, ftok, fconf)
         t_emit = self.clock.now()
         for i, (req, slot) in enumerate(zip(reqs, slot_ids)):
+            shard = rt.pool.shard_of(slot) if rt.paged else None
+            self._trace_req(req, "PREFILL", tier, shard)
             req.start_decode(t_emit)
+            self._trace_req(req, "DECODE", tier, shard)
             req.emit(int(ftok[i]), float(fconf[i]), t_emit)
             rt.slot_req[slot] = req
             rt.tok[slot] = ftok[i]
@@ -1195,6 +1326,7 @@ class CascadeEngine:
         ``first_token_time`` guard keeps TTFT at the original
         emission)."""
         req = rt.slot_req[slot]
+        shard = rt.pool.shard_of(slot)
         replayed = int(rt.prefill_pos[slot]) + len(req.tokens)
         self._release_draft(req)        # replay restarts decode: any
         req.preempt(now)                # retained draft row is stale
@@ -1206,6 +1338,7 @@ class CascadeEngine:
         self.scheduler.release(tier, slot)
         self.scheduler.requeue(req, tier)
         self.metrics.record_preemption(tier, replayed)
+        self._trace_req(req, "PREEMPTED", tier, shard)
 
     def _preempt_stalled(self, tier: int, rt: _TierRuntime,
                          plan: Optional[StepPlan],
@@ -1253,6 +1386,7 @@ class CascadeEngine:
         else:
             victim = max(rows)
         req = rt.slot_req[victim]
+        shard = rt.pool.shard_of(victim) if rt.paged else None
         self._release_draft(req)
         req.fail(now)
         rt.slot_req[victim] = None
@@ -1263,6 +1397,9 @@ class CascadeEngine:
             rt.pool.release(victim)
         self.scheduler.release(tier, victim)
         self.metrics.record_failed(tier)
+        if self.tracer is not None:
+            self.tracer.request_done(req.rid, tier, shard, state="FAILED",
+                                     tick=self.tick_id, error=str(err))
         return victim
 
     def _shed(self, tier: int, now: float) -> None:
@@ -1275,6 +1412,9 @@ class CascadeEngine:
             self._release_draft(req)    # escalated-then-shed requests
             req.shed(now)               # may hold a cheap-tier row
             self.metrics.record_shed(tier)
+            if self.tracer is not None:
+                self.tracer.request_done(req.rid, tier, None, state="SHED",
+                                         tick=self.tick_id)
 
     def _service_floor(self, tier: int):
         """A per-request lower bound on remaining service time at `tier`
@@ -1326,11 +1466,18 @@ class CascadeEngine:
         padded) or the split executor.  Returns the number of decode
         tokens emitted."""
         rt = self.runtimes[tier]
+        tr = self.tracer
+        t0 = tr.now_us() if tr is not None else 0.0
         plan = self._build_plan(rt)
         if self.preemption_policy != "none" and rt.chunked:
             plan = self._preempt_stalled(tier, rt, plan, now)
         self._last_stalls[tier] = (
             0 if plan is None else int((plan.kind == KIND_STALL).sum()))
+        if plan is not None and tr is not None:
+            tr.phase("plan", tier, t0, tick=self.tick_id, width=plan.width,
+                     prefill_rows=len(plan.prefill_rows),
+                     decode_rows=len(plan.decode_rows),
+                     stalled=self._last_stalls[tier])
         if plan is None:
             return 0
         if rt.unified:
@@ -1359,29 +1506,36 @@ class CascadeEngine:
         launch drops its drafts instead), the tier re-plans and the
         launch runs again for the survivors."""
         spec = None
+        tr = self.tracer
+        name = ("run_spec" if rt.spec_k else "run_ragged" if rt.ragged
+                else "run_mixed")
         while True:
             if not plan.prefill_rows and not plan.decode_rows \
                     and not plan.draft_rows:
                 return 0                # every live row stalled
+            t0 = tr.now_us() if tr is not None else 0.0
             try:
-                if rt.spec_k:
-                    steps = max(int(plan.draft_len.max()) - 1, 0)
-                    spec = self._launch(
-                        tier, "run_spec", lambda p=plan, n=steps: rt.run_spec(
-                            p.flat_tokens, p.flat_pos, p.q_len, p.q_start,
-                            p.draft_len, n))
-                    tok, conf = spec["tok"], spec["conf"]
-                    processed, kind = plan.flat_width, "spec"
-                elif rt.ragged:
-                    tok, conf = self._launch(
-                        tier, "run_ragged", lambda p=plan: rt.run_ragged(
-                            p.flat_tokens, p.flat_pos, p.q_len, p.q_start))
-                    processed, kind = plan.flat_width, "ragged"
-                else:
-                    tok, conf = self._launch(
-                        tier, "run_mixed", lambda p=plan: rt.run_mixed(
-                            p.tokens, p.pos, p.q_len))
-                    processed, kind = rt.capacity * plan.width, "mixed"
+                with self._annotate(name, rt):
+                    if rt.spec_k:
+                        steps = max(int(plan.draft_len.max()) - 1, 0)
+                        spec = self._launch(
+                            tier, name,
+                            lambda p=plan, n=steps: rt.run_spec(
+                                p.flat_tokens, p.flat_pos, p.q_len,
+                                p.q_start, p.draft_len, n))
+                        tok, conf = spec["tok"], spec["conf"]
+                        processed, kind = plan.flat_width, "spec"
+                    elif rt.ragged:
+                        tok, conf = self._launch(
+                            tier, name, lambda p=plan: rt.run_ragged(
+                                p.flat_tokens, p.flat_pos, p.q_len,
+                                p.q_start))
+                        processed, kind = plan.flat_width, "ragged"
+                    else:
+                        tok, conf = self._launch(
+                            tier, name, lambda p=plan: rt.run_mixed(
+                                p.tokens, p.pos, p.q_len))
+                        processed, kind = rt.capacity * plan.width, "mixed"
                 break
             except _RetryExhausted as e:
                 rows = plan.prefill_rows + plan.decode_rows
@@ -1395,6 +1549,13 @@ class CascadeEngine:
                 plan = self._build_plan(rt)
                 if plan is None:
                     return 0
+        if tr is not None:
+            # asynchronous dispatch: this phase is the host's launch cost
+            # (the copy of the plan included); device time shows under
+            # device_get
+            tr.phase("launch", tier, t0, tick=self.tick_id,
+                     kind="ragged" if rt.ragged else "mixed",
+                     width=plan.flat_width if rt.ragged else plan.width)
         if rt.spec_k:
             self.metrics.record_draft_steps(tier, steps)
         self.metrics.record_launches(tier, kind)
@@ -1417,6 +1578,7 @@ class CascadeEngine:
         for s in plan.finishing:
             req = rt.slot_req[s]
             req.start_decode(t_dec)
+            self._trace_req(req, "DECODE", tier, rt.pool.shard_of(s))
             rt.pos[s] = req.prompt_tokens   # next decode writes here
         for s in plan.draft_rows:
             # catch-up advances on host-known lengths, like prefill
@@ -1490,11 +1652,14 @@ class CascadeEngine:
         restarts for the survivors (the failed launch advanced no host
         state)."""
         pf = None
+        tr = self.tracer
         if plan.prefill_rows:
+            t0 = tr.now_us() if tr is not None else 0.0
             try:
-                tok, conf = self._launch(
-                    tier, "run_chunk", lambda: rt.run_chunk(
-                        plan.tokens, plan.pos, plan.q_len))
+                with self._annotate("run_chunk", rt):
+                    tok, conf = self._launch(
+                        tier, "run_chunk", lambda: rt.run_chunk(
+                            plan.tokens, plan.pos, plan.q_len))
             except _RetryExhausted as e:
                 self._fail_one(tier, rt,
                                plan.prefill_rows + plan.decode_rows, now, e)
@@ -1502,6 +1667,9 @@ class CascadeEngine:
                 if plan is None:
                     return 0
                 return self._exec_split(tier, rt, plan, now)
+            if tr is not None:
+                tr.phase("launch", tier, t0, tick=self.tick_id,
+                         kind="chunk", width=plan.width)
             processed = rt.capacity * plan.width
             self.metrics.record_launches(tier, "chunk")
             self.metrics.record_prefill_tokens(plan.live_prefill_tokens,
@@ -1517,6 +1685,7 @@ class CascadeEngine:
             for s in plan.finishing:
                 req = rt.slot_req[s]
                 req.start_decode(t_dec)
+                self._trace_req(req, "DECODE", tier, rt.pool.shard_of(s))
                 rt.pos[s] = req.prompt_tokens   # next decode writes here
             pf = {"tok": tok, "conf": conf, "finished": plan.finishing}
         dc = self._decode_launch(tier, rt, pf, now)
@@ -1577,22 +1746,40 @@ class CascadeEngine:
             active = decoding
         # rows mid-prefill share the decode batch but must not touch their
         # partly filled pages: the launch's page-table copy unmaps them
+        tr = self.tracer
         while True:
+            t0 = tr.now_us() if tr is not None else 0.0
             try:
-                tok, conf = self._launch(
-                    tier, "run_step", lambda: rt.run_step(
-                        rt.tok, mask_rows=rt.prefilling(),
-                        first=pf["tok"] if finished else None,
-                        fresh=finished))
+                with self._annotate("run_step", rt):
+                    tok, conf = self._launch(
+                        tier, "run_step", lambda: rt.run_step(
+                            rt.tok, mask_rows=rt.prefilling(),
+                            first=pf["tok"] if finished else None,
+                            fresh=finished))
                 break
             except _RetryExhausted as e:
                 victim = self._fail_one(tier, rt, active, now, e)
                 active = [s for s in active if s != victim]
                 if not active:
                     return None
+        if tr is not None:
+            tr.phase("launch", tier, t0, tick=self.tick_id, kind="decode",
+                     width=1)
         self.metrics.record_launches(tier, "step")
         self.metrics.record_step_tokens(tier, len(active), rt.capacity)
         return {"active": active, "tok": tok, "conf": conf}
+
+    def _finish(self, tier: int, now: float) -> None:
+        """Gate the finished rows, traced as the tick's ``finish``
+        phase."""
+        tr = self.tracer
+        if tr is None:
+            self._finish_requests(tier, now)
+            return
+        t0 = tr.now_us()
+        done, esc = self._finish_requests(tier, now)
+        tr.phase("finish", tier, t0, tick=self.tick_id, completed=done,
+                 escalated=esc)
 
     def _finish_requests(self, tier: int, now: float):
         """Gate every row whose decode finished: escalate it to the next
@@ -1617,6 +1804,8 @@ class CascadeEngine:
                                                          force=forced):
                 req.escalate(now)
                 self.scheduler.push_escalated(req)
+                # span on the *next* tier's track: queued for escalation
+                self._trace_req(req, "ESCALATED", tier + 1, None)
                 esc += 1
                 if rt.spec_draft:
                     # keep the row as the request's draft row: its prompt
@@ -1642,6 +1831,11 @@ class CascadeEngine:
                 if req.tier > 0:
                     # the escalation outcome: did the tiers agree?
                     self.metrics.record_gate_outcomes(req)
+                if self.tracer is not None:
+                    self.tracer.request_done(
+                        req.rid, tier,
+                        rt.pool.shard_of(slot) if rt.paged else None,
+                        tick=self.tick_id)
                 done += 1
             rt.slot_req[slot] = None
             rt.tok[slot] = 0
@@ -1686,6 +1880,8 @@ class CascadeEngine:
                           or d < self._min_tick_dt):
                 self._min_tick_dt = d
         self._last_tick_t = now
+        tr = self.tracer
+        tick_t0 = tr.now_us() if tr is not None else 0.0
         # open each tier's token-budget window: unified tiers pre-charge
         # the tick's carried decode+chunk load (one currency), split tiers
         # start the legacy prefill-only window at zero
@@ -1693,15 +1889,28 @@ class CascadeEngine:
                              for rt in self.runtimes]
         self._admitted = [0] * len(self.tiers)
         active = []
-        for tier in range(len(self.tiers)):
-            self._shed(tier, now)
-            self._admit_requests(tier, now)
-            active.append(self._tier_step(tier, now))
-            self._finish_requests(tier, now)
-        # trailing admission pass: requests escalated this tick enter the
-        # next tier's rows immediately (their prefill starts next tick)
-        for tier in range(len(self.tiers)):
-            self._admit_requests(tier, now)
+        # the tick's profiler range, tick/<tick_id>: the join key between
+        # a profiler trace and the host tracer's events
+        with obs.step_annotation(self.tick_id, self.profile_annotations,
+                                 self.device):
+            for tier in range(len(self.tiers)):
+                self._shed(tier, now)
+                self._admit(tier, now)
+                active.append(self._tier_step(tier, now))
+                self._finish(tier, now)
+            # trailing admission pass: requests escalated this tick enter
+            # the next tier's rows immediately (their prefill starts next
+            # tick)
+            for tier in range(len(self.tiers)):
+                self._admit(tier, now)
+        if tr is not None:
+            for t, rt in enumerate(self.runtimes):
+                tr.counter(f"queue depth/{rt.spec.name}",
+                           len(self.scheduler.queues[t]), tid=t)
+                tr.counter(f"live rows/{rt.spec.name}",
+                           len(rt.occupied()), tid=t)
+            tr.phase("tick", len(self.tiers), tick_t0, tick=self.tick_id,
+                     t_engine=now)
         self.metrics.record_step(active, now)
         self.metrics.sync_gate_stats(self.scheduler.gate_stats)
 
@@ -1757,9 +1966,17 @@ class CascadeEngine:
             torch.cuda.synchronize(self.device)
         self.reset_clock()
 
-    def run(self, max_steps: int = 1_000_000) -> dict:
-        """Drive to completion; returns ``metrics.summary()``."""
+    def run(self, max_steps: int = 1_000_000, *,
+            metrics_interval: Optional[float] = None,
+            on_snapshot=None) -> dict:
+        """Drive to completion; returns ``metrics.summary()``.
+        ``metrics_interval`` hands a :meth:`ServingMetrics.snapshot` to
+        ``on_snapshot`` every that many clock units (seconds, or ticks
+        under a VirtualClock): the ``--metrics-interval`` CLI flag prints
+        it as one line per window."""
         steps = 0
+        next_snap = (self.clock.now() + metrics_interval
+                     if metrics_interval else None)
         while not self._done():
             now = self.clock.now()
             if not self._any_occupied() and not any(
@@ -1771,6 +1988,10 @@ class CascadeEngine:
             self.step(self.clock.now())
             self.clock.step_done()
             steps += 1
+            if next_snap is not None and self.clock.now() >= next_snap:
+                if on_snapshot is not None:
+                    on_snapshot(self.metrics.snapshot(self.clock.now()))
+                next_snap = self.clock.now() + metrics_interval
             if steps > max_steps:
                 raise RuntimeError(
                     f"engine did not drain after {steps} steps (scheduler "

@@ -115,9 +115,10 @@ def _route_logits(case, seed, ties=False):
 
 
 def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
-                   window=None, q_start=None):
+                   window=None, q_start=None, W=None):
     """A flat-packed batch over a random page pool, as numpy arrays (each
-    row's first position drawn, or ``q_start``)."""
+    row's first position drawn, or ``q_start``), ``W`` flat slots (by
+    default the power of two from 8 that holds the live tokens)."""
     rng = np.random.default_rng(seed)
     B = len(qlens)
     N = B * P + 1
@@ -138,7 +139,8 @@ def _ragged_inputs(seed, *, qlens, KV, G, hd, bs=4, P=6, quant=False,
                         for _ in range(B)], np.int32)
     q_start = draws if q_start is None else np.asarray(q_start, np.int32)
     total = int(q_len.sum())
-    W = max(8, 1 << (max(total, 1) - 1).bit_length())
+    if W is None:
+        W = max(8, 1 << (max(total, 1) - 1).bit_length())
     q = np.zeros((W, KV, G, hd), np.float32)
     q[:total] = rng.standard_normal((total, KV, G, hd))
     return (q, kp, vp, pt, q_start, q_len), dict(k_scale=ks, v_scale=vs,
@@ -266,6 +268,18 @@ RAGGED_TILE_CASES = {
     "verify-gemma3-window512": (VERIFY_QLENS, VERIFY_POS, 1, 4, 256, "f32",
                                 512, 1.0),
 }
+# flat widths off the powers of two, as ``--flat-buckets 16 48 160 512``
+# gives them: (W, q_len per row, q_start, KV, G, hd, window) — rows partly
+# filled, late in their pages, for phi4-mini-3.8b (KV 8, G 3) and gemma3-1b
+# (KV 1, G 4, its 512 window)
+FLAT_QLENS = {48: [5, 1, 0, 12, 3, 1, 7, 2], 160: [64, 20, 1, 0, 33, 1, 9, 2]}
+FLAT_POS = {48: [580, 600, 0, 560, 620, 625, 540, 610],
+            160: [560, 600, 625, 0, 520, 610, 580, 590]}
+FLAT_WIDTH_CASES = {
+    f"{name}-W{W}": (W, FLAT_QLENS[W], FLAT_POS[W], KV, G, hd, window)
+    for W in (48, 160)
+    for name, KV, G, hd, window in (("phi4", 8, 3, 128, None),
+                                    ("gemma3-window512", 1, 4, 256, 512))}
 # Paged: (rows, KV, G, hd, kind, window, masked rows, qk_scale); rows at
 # positions 590-625 (the decode tick chip_smoke.py times), a ninth row
 # masked to the null block at 300
@@ -686,6 +700,26 @@ def test_cuda_ragged_attention_tile_cases(case, splits, cuda_device):
     atol, rtol = TILE_TOLS[kind]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
     total = int(fargs[5].sum())
+    assert torch.equal(got[total:], torch.zeros_like(got[total:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", TILE_SPLITS)
+@pytest.mark.parametrize("case", sorted(FLAT_WIDTH_CASES))
+def test_cuda_ragged_attention_flat_widths(case, splits, cuda_device):
+    """The ragged kernel at flat widths 48 and 160 (``--flat-buckets``),
+    whose grids no power-of-two bucket gives: f32 within atol = rtol =
+    1e-4 of the plain version, slots past sum(q_len) exactly zero."""
+    W, qlens, q_start, KV, G, hd, window = FLAT_WIDTH_CASES[case]
+    args, kw = _ragged_inputs(len(case), qlens=qlens, KV=KV, G=G, hd=hd,
+                              bs=16, P=41, window=window, q_start=q_start,
+                              W=W)
+    dargs, dkw, fargs, tkw = _tile_on(cuda_device, args, kw, "f32")
+    got = ragged_mod.ragged_attention(*dargs, **dkw, splits=splits).cpu()
+    want = ref.ragged_attention_ref(*fargs, **tkw)
+    assert got.shape[0] == W
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    total = sum(qlens)
     assert torch.equal(got[total:], torch.zeros_like(got[total:]))
 
 
