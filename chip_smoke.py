@@ -128,7 +128,18 @@ without printing a result):
      Acc^casc, MACs^casc, N^exp, ECE, temperature scaling and ConfNet);
      (7d) ``launch.serve.serve_cascade`` with phase 4's untrained and
      7b's trained gemma3-1b before phi4-mini-3.8b (exact gate and ragged
-     launches, escalations at δ 0.5).
+     launches, escalations at δ 0.5); (7e) the recurrent train mode and
+     the exit heads: one step of ``make_train_step`` on rwkv6-3b at its
+     published widths cut to 2 layers and on the narrow jamba period, of
+     ``make_ltc_train_step`` gemma3-1b -> rwkv6-3b and -> jamba (smoke
+     widths), and of ``make_train_step`` on the one-period gemma3-1b
+     with an exit head (Eq 6), card against CPU (``rwkv6_scan``,
+     ``mamba_scan`` and ``moe_route`` launches exact: two a layer a step
+     under remat, one a frozen layer; the exit head's gradient zero); 8
+     LtC steps of the published gemma3-1b against the frozen published
+     rwkv6-3b; and that pair served untrained and trained on the uniform
+     executor (exact flash, paged, scan and gate launches).  Alone:
+     ``scripts/torch_recurrent_train_phase.py``.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -2591,6 +2602,9 @@ def check_observability(card: str, params, bounds=None) -> dict:
 TRAIN_TOL = ("losses, lb_loss and z_loss rtol 1e-4; every gradient leaf "
              "atol 1e-4, rtol 1e-3")
 TRAIN_LR = 1e-2
+# the kernels a train step launches: moe_route (counted in router_gate)
+# in each MoE layer, the scans in each recurrent layer
+TRAIN_COUNTED = ("router_gate", "rwkv6_scan", "mamba_scan")
 
 
 class GradTap:
@@ -2616,12 +2630,23 @@ class GradTap:
         steps.make_optimizer = self.orig
 
 
+def train_launches() -> dict:
+    """Reads the train kernels' counters and sets them to 0."""
+    out = {}
+    for name in TRAIN_COUNTED:
+        out[name] = getattr(ops, name).launches
+        getattr(ops, name).launches = 0
+    return out
+
+
 def one_train_step(cfg, params, batch, exp=None):
     """One step of ``make_train_step`` on ``params`` — or of
     ``make_ltc_train_step`` against ``exp = (config, params)`` — and, on
-    the same batch, the train forward's aux losses: (the step's metrics
-    and the aux losses as floats, the step's gradients, the step's router
-    calls, and the ``moe_route`` launches of the step and of the aux
+    the same batch, the train forward's aux losses (for a config with
+    early exits also Eq 6, ``ltc_chain_loss`` over the exits' and the
+    final logits, as ``chain_loss``): (the step's metrics and the aux
+    losses as floats, the step's gradients, the step's router calls, and
+    the ``TRAIN_COUNTED`` launches of the step and of the aux
     forward)."""
     with GradTap() as grads, RouterTap() as tap:
         if exp is None:
@@ -2630,16 +2655,21 @@ def one_train_step(cfg, params, batch, exp=None):
         else:
             step, opt = steps.make_ltc_train_step(cfg, exp[0], lr=TRAIN_LR)
             extra = (exp[1],)
-        ops.router_gate.launches = 0
+        train_launches()
         _, _, m = step(params, opt.init(params), *extra, batch)
         metrics = {k: float(v) for k, v in m.items()}
-        step_launches = ops.router_gate.launches
+        step_launches = train_launches()
         step_calls = list(tap.calls)
-        ops.router_gate.launches = 0
         with torch.no_grad():
-            _, aux = transformer.train_logits(params, cfg, batch)
+            logits, aux = transformer.train_logits(params, cfg, batch)
+            exits = aux.pop("exit_logits", ())
+            if exits:
+                chain = [e[:, :-1] for e in exits] + [logits[:, :-1]]
+                metrics["chain_loss"] = float(losses.ltc_chain_loss(
+                    chain, batch["tokens"][:, 1:])[0])
+            del logits, exits
         metrics.update({k: float(v) for k, v in aux.items()})
-        aux_launches = ops.router_gate.launches
+        aux_launches = train_launches()
     return (metrics, grads.grads[0], step_calls,
             (step_launches, aux_launches))
 
@@ -2675,19 +2705,36 @@ def _named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def check_train_steps(dev) -> int:
-    """Phase 7a: one train step of each of :func:`train_step_models` on
-    the card against the same step on the CPU (plain versions), from the
-    same weights and batch: the loss (``l_org`` and ``l_casc`` under
-    LtC), the train forward's ``lb_loss`` and ``z_loss``, and every
-    gradient leaf — unless the router first picked differently on a
-    near-tie, which is reported, as phase 3 does.  Each MoE layer
-    launches ``moe_route`` once in the forward and, its period
-    checkpointed (remat, forced on), once more in backward; the aux
-    forward once.  Returns the card's ``router_gate`` launches."""
+def expected_train_launches(cfg, exp_cfg, remat: bool) -> tuple:
+    """The ``TRAIN_COUNTED`` launches of one train step and of its aux
+    forward: each MoE, RWKV-6 or Mamba layer of the trained model
+    launches its kernel once in the forward and, its period checkpointed,
+    once more in backward (the scans' backward is plain torch); the
+    frozen expensive model's forward, under ``no_grad``, once a layer;
+    the aux forward once a layer of the trained model."""
+    kinds = dict(router_gate="moe", rwkv6_scan="rwkv6", mamba_scan="mamba")
+    n = layer_counts(cfg)
+    n_exp = layer_counts(exp_cfg) if exp_cfg is not None else {}
+    return ({k: n[v] * (1 + remat) + n_exp.get(v, 0)
+             for k, v in kinds.items()},
+            {k: n[v] for k, v in kinds.items()})
+
+
+def check_train_steps(dev, models=None) -> dict:
+    """Phase 7a (7e: ``models``, the recurrent ones): one train step of
+    each of :func:`train_step_models` on the card against the same step
+    on the CPU (plain versions), from the same weights and batch: the
+    loss (``l_org`` and ``l_casc`` under LtC), the train forward's
+    ``lb_loss`` and ``z_loss`` (and Eq 6 for a config with early exits),
+    and every gradient leaf — unless the router first picked differently
+    on a near-tie, which is reported, as phase 3 does.  The exit heads'
+    gradient must be exactly zero: the LM loss reads only the final
+    logits.  The ``TRAIN_COUNTED`` launches of the step and of the aux
+    forward must be :func:`expected_train_launches`' exactly (remat
+    forced on).  Returns the card's launches by kernel."""
     rng = np.random.default_rng(7)
-    launched = 0
-    for label, cfg, exp in train_step_models():
+    launched = dict.fromkeys(TRAIN_COUNTED, 0)
+    for label, cfg, exp in models or train_step_models():
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (2, 64)).astype(np.int32))
         cpu_p = init_params(cfg, 0, torch.float32, "cpu")
@@ -2704,13 +2751,17 @@ def check_train_steps(dev) -> int:
             cfg, card_p, {"tokens": toks.to(dev)}, exp_card)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        n_moe = layer_counts(cfg)["moe"]
         remat = bool(cfg.num_periods)
+        want_n = expected_train_launches(cfg, exp and exp[1], remat)
         routing = first_routing_difference(cpu_calls, card_calls)
         problems = []
-        if (n_step, n_aux) != (n_moe * (1 + remat), n_moe):
-            problems.append(f"moe_route launches step {n_step}, aux "
-                            f"{n_aux} != {n_moe * (1 + remat)}, {n_moe}")
+        if (n_step, n_aux) != want_n:
+            problems.append(f"launches step {n_step}, aux {n_aux} != "
+                            f"{want_n[0]}, {want_n[1]}")
+        exit_grads = [g for k, g in _named_leaves(got_g)
+                      if k.startswith("exit_heads/")]
+        if any(bool(g.any()) for g in exit_grads):
+            problems.append("an exit head's gradient is not zero")
         rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
                for k in want}
         grad_err, grad_bad = 0.0, []
@@ -2731,11 +2782,13 @@ def check_train_steps(dev) -> int:
              cpu_metrics=want, rel_err=rel, grad_max_abs_err=grad_err,
              grads_compared=routing is None, routing=routing,
              tol=TRAIN_TOL, remat=remat,
-             moe_route_launches={"step": n_step, "aux": n_aux},
-             card_ms_incl_aux=ms, problems=problems)
+             launches={"step": n_step, "aux": n_aux},
+             exit_head_leaves_zero=len(exit_grads), card_ms_incl_aux=ms,
+             problems=problems)
         if problems:
             raise AssertionError(f"train step {label}: {problems}")
-        launched += n_step + n_aux
+        for k in launched:
+            launched[k] += n_step[k] + n_aux[k]
         del cpu_p, card_p, exp_cpu, exp_card
     torch.cuda.empty_cache()
     return launched
@@ -2798,25 +2851,34 @@ def check_lr_witness(card: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def check_ltc_training(card: str, exp_params, variant: str = ""):
-    """Phase 7b: ``launch.train.run`` — LtC training of gemma3-1b at its
-    published widths (random f32 weights from seed 0, adafactor, its
-    periods checkpointed) against phase 4's frozen phi4-mini-3.8b: 8
-    steps of 4 x 256 tokens of ``bigram_lm`` over 4096 ids (its trigram
-    table is ``vocab x vocab``, so the published 262144 cannot seed it)
-    at lr 1e-3.
+def check_ltc_training(card: str, exp_params, variant: str = "",
+                       expensive: str = PHI4_NAME):
+    """Phase 7b (7e: ``expensive`` rwkv6-3b): ``launch.train.run`` — LtC
+    training of gemma3-1b at its published widths (random f32 weights
+    from seed 0, adafactor, its periods checkpointed) against phase 4's
+    frozen phi4-mini-3.8b: 8 steps of 4 x 256 tokens of ``bigram_lm``
+    over 4096 ids (its trigram table is ``vocab x vocab``, so the
+    published 262144 cannot seed it) at lr 1e-3.
     Records ``l_org`` and ``l_casc`` per step, the step's ms (p50 after
     the first), training tokens/s over steps 2..8 and peak device
-    memory; asserts finite losses and ``l_org`` at step 8 below step 1.
-    Returns the trained weights."""
+    memory; asserts finite losses, ``l_org`` at step 8 below step 1, and
+    the ``TRAIN_COUNTED`` launches (the counters set to 0 just before
+    and read just after): the frozen model's forward, once a layer a
+    step.  Returns (the trained weights, the launches)."""
+    fast_cfg = get_config("gemma3-1b", variant)
+    exp_cfg = get_config(expensive, variant)
+    want_n = {k: v * LTC_TRAIN["steps"] for k, v in expected_train_launches(
+        fast_cfg, exp_cfg, True)[0].items()}
     torch.cuda.reset_peak_memory_stats()
     history = []
+    train_launches()
     t0 = time.perf_counter()
-    params = train.run("gemma3-1b", variant=variant, expensive=PHI4_NAME,
+    params = train.run("gemma3-1b", variant=variant, expensive=expensive,
                        exp_params=exp_params, log_every=0, device="cuda",
                        history=history, **LTC_TRAIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launched = train_launches()
     peak = torch.cuda.max_memory_allocated()
     l_org = [h["l_org"] for h in history]
     l_casc = [h["l_casc"] for h in history]
@@ -2827,17 +2889,19 @@ def check_ltc_training(card: str, exp_params, variant: str = ""):
         problems.append("a loss is not finite")
     if not l_org[-1] < l_org[0]:
         problems.append(f"l_org did not fall: {l_org[0]} -> {l_org[-1]}")
+    if launched != want_n:
+        problems.append(f"launches {launched} != {want_n}")
     emit(phase="LtC training", card=card,
-         configs=["gemma3-1b", PHI4_NAME], variant=variant or "published",
+         configs=["gemma3-1b", expensive], variant=variant or "published",
          optimizer="adafactor", remat=True, **LTC_TRAIN,
          l_org=l_org, l_casc=l_casc, step_ms=ms,
          step_ms_p50_after_first=float(np.median(ms[1:])),
          train_tokens_per_s=tokens * (len(ms) - 1) / (sum(ms[1:]) / 1e3),
          max_memory_allocated_bytes=peak, wall_s_incl_init=wall,
-         problems=problems)
+         launches=launched, problems=problems)
     if problems:
         raise AssertionError("LtC training: " + "; ".join(problems))
-    return params
+    return params, launched
 
 
 CLF = dict(epochs=6, lr=0.03, batch_size=512)
@@ -2953,17 +3017,20 @@ SERVE_TRAINED = dict(batch=8, prompt_len=32, gen_len=16, delta=0.5)
 
 
 def check_serve_trained(card: str, fast: dict, exp_params,
-                        variant: str = "") -> dict:
-    """Phase 7d: ``launch.serve.serve_cascade`` at the published widths
-    (``SERVE_TRAINED``: every request at 0, virtual clock, the default
-    ragged executor) with phase 4's phi4-mini-3.8b behind each of the
-    gemma3-1b weights in ``fast`` (label -> params: phase 4's untrained
-    ones, 7b's trained ones), the counters set to 0 just before and read
-    just after: gate and ragged launches exactly those of the engine's
-    tier launches, every token in the vocabulary, every sequence
-    confidence in (0, 1].  Records the escalation counts at the same δ.
-    Returns the counts by run."""
-    cfgs = [get_config("gemma3-1b", variant), get_config(PHI4_NAME, variant)]
+                        variant: str = "", expensive: str = PHI4_NAME,
+                        prefix: str = "") -> dict:
+    """Phase 7d (7e: ``expensive`` rwkv6-3b, on the uniform executor the
+    engine picks for a recurrent tier): ``launch.serve.serve_cascade`` at
+    the published widths (``SERVE_TRAINED``: every request at 0, virtual
+    clock, the default ragged executor) with phase 4's phi4-mini-3.8b
+    behind each of the gemma3-1b weights in ``fast`` (label -> params:
+    phase 4's untrained ones, 7b's trained ones), the counters set to 0
+    just before and read just after: gate and layer-kernel launches
+    exactly those of the engine's tier launches, every token in the
+    vocabulary, every sequence confidence in (0, 1].  Records the
+    escalation counts at the same δ.  Returns the counts by run, each
+    key ``prefix`` + ``serve_cascade <label>``."""
+    cfgs = [get_config("gemma3-1b", variant), get_config(expensive, variant)]
     counts, escalated = {}, {}
     for label, fast_params in fast.items():
         for name in COUNTED:
@@ -2971,7 +3038,7 @@ def check_serve_trained(card: str, fast: dict, exp_params,
         t0 = time.perf_counter()
         with CascadeTap() as tap:
             toks, conf, st = serve_mod.serve_cascade(
-                "gemma3-1b", PHI4_NAME, variant=variant,
+                "gemma3-1b", expensive, variant=variant,
                 fast_params=fast_params, exp_params=exp_params,
                 verbose=False, device="cuda", **SERVE_TRAINED)
         torch.cuda.synchronize()
@@ -2993,9 +3060,9 @@ def check_serve_trained(card: str, fast: dict, exp_params,
         if not bool(((conf > 0) & (conf <= 1)).all()):
             problems.append(f"sequence confidences {conf.tolist()}")
         escalated[label] = st.n_exp
-        counts[f"serve_cascade {label}"] = c
+        counts[f"{prefix}serve_cascade {label}"] = c
         emit(phase="serve trained pair", card=card, fast_weights=label,
-             configs=["gemma3-1b", PHI4_NAME], **SERVE_TRAINED,
+             configs=["gemma3-1b", expensive], **SERVE_TRAINED,
              escalated=st.n_exp, seq_conf=conf.tolist(),
              tier_launches=s["launches"],
              launches_by_kind=s["launches_by_kind"], kernel_launches=c,
@@ -3004,25 +3071,89 @@ def check_serve_trained(card: str, fast: dict, exp_params,
         if problems:
             raise AssertionError(f"serve_cascade {label}: {problems}")
     emit(check="escalations at the same δ", delta=SERVE_TRAINED["delta"],
-         escalated=escalated, requests=SERVE_TRAINED["batch"])
+         configs=["gemma3-1b", expensive], escalated=escalated,
+         requests=SERVE_TRAINED["batch"])
+    return counts
+
+
+def recurrent_train_models():
+    """(label, config, the expensive (label, config) or None) of phase
+    7e: ``make_train_step`` on rwkv6-3b at its published widths cut to 2
+    layers and on the narrow jamba period (7 Mamba layers, 1 attention,
+    4 MoE FFNs), ``make_ltc_train_step`` gemma3-1b -> rwkv6-3b and ->
+    jamba-v0.1-52b at the smoke widths, and ``make_train_step`` on
+    gemma3-1b at its published widths cut to one period with an exit
+    head after it (Eq 6 over the exit's and the final logits)."""
+    models = dict(uniform_models())
+    gemma = models["gemma3-1b-smoke"]
+    return [("rwkv6-3b 2 layers", models["rwkv6-3b 2 layers"], None),
+            ("jamba narrow period", models["jamba narrow period"], None),
+            ("gemma3-1b-smoke", gemma,
+             ("rwkv6-3b-smoke", models["rwkv6-3b-smoke"])),
+            ("gemma3-1b-smoke", gemma,
+             ("jamba-v0.1-52b-smoke", models["jamba-v0.1-52b-smoke"])),
+            ("gemma3-1b 1 period, exit 0", dataclasses.replace(
+                gemma3_one_period(), early_exit_periods=(0,)), None)]
+
+
+# Why 7e(b) trains against rwkv6-3b and not the published jamba: 7e(b)
+# peaks at 46.04 GB with phase 4's gemma3-1b and phi4-mini-3.8b (19.4 GB)
+# and rwkv6-3b (12.3 GB) resident, so gemma3-1b's LtC training takes
+# ~14.3 GB.  jamba's 1-period cut (53.2 GB) in rwkv6-3b's place comes to
+# ~87 GB, past the card's 80 GB; with phi4 freed (phase 7 runs on it,
+# and the phases after need the card for granite) ~72 GB, a margin of
+# ~8 GB for jamba's forward transients and the allocator.  jamba is the
+# frozen member in 7e(a), at the smoke widths.
+
+
+def check_recurrent_training(card: str, dev, params) -> dict:
+    """Phase 7e, the recurrent layers' train mode and the exit heads:
+    (a) :func:`check_train_steps` over :func:`recurrent_train_models`,
+    card against CPU, with exact ``rwkv6_scan``, ``mamba_scan`` and
+    ``moe_route`` launches (two a recurrent layer a step under remat,
+    one a layer of a frozen member); (b) :func:`check_ltc_training` of
+    the published gemma3-1b against the frozen published rwkv6-3b (its
+    weights drawn from the rwkv6 cascade's seed; ``rwkv6_scan`` 32 a
+    step); (c) :func:`check_serve_trained` of gemma3-1b -> rwkv6-3b,
+    untrained (phase 4's gemma3-1b) and trained, on the uniform
+    executor.  Returns the counts of the runs whose launches are
+    read."""
+    t0 = time.perf_counter()
+    counts = {"recurrent train steps": dict.fromkeys(COUNTED, 0)}
+    counts["recurrent train steps"].update(
+        check_train_steps(dev, recurrent_train_models()))
+    args = main_path_args(RWKV_NAME)
+    rwkv = init_params(get_config(RWKV_NAME, args.variant), args.seed + 1,
+                       torch.float32, dev)
+    trained, launched = check_ltc_training(card, rwkv, args.variant,
+                                           RWKV_NAME)
+    counts["LtC rwkv6"] = {**dict.fromkeys(COUNTED, 0), **launched}
+    counts.update(check_serve_trained(
+        card, {"untrained": params[0], "trained": trained}, rwkv,
+        args.variant, RWKV_NAME, prefix="rwkv6 "))
+    del trained, rwkv
+    torch.cuda.empty_cache()
+    emit(phase="recurrent training summary", card=card,
+         wall_s=time.perf_counter() - t0)
     return counts
 
 
 def check_training(card: str, dev, params) -> dict:
     """Phase 7, on phase 4's weights (``params``: gemma3-1b's, untrained,
-    and phi4-mini-3.8b's, the frozen expensive model): 7a to 7d.
+    and phi4-mini-3.8b's, the frozen expensive model): 7a to 7e.
     Returns the counts of the runs whose launches are read: the train
-    steps' ``router_gate`` launches and 7d's serving runs."""
+    steps' launches, 7d's and 7e's serving runs and 7e's LtC run."""
     t0 = time.perf_counter()
     counts = {"train steps": dict.fromkeys(COUNTED, 0)}
-    counts["train steps"]["router_gate"] = check_train_steps(dev)
+    counts["train steps"].update(check_train_steps(dev))
     check_lr_witness(card, dev)
-    trained = check_ltc_training(card, params[1])
+    trained, _ = check_ltc_training(card, params[1])
     check_classifier_flow(card, dev)
     counts.update(check_serve_trained(
         card, {"untrained": params[0], "trained": trained}, params[1]))
     del trained
     torch.cuda.empty_cache()
+    counts.update(check_recurrent_training(card, dev, params))
     emit(phase="training summary", card=card,
          wall_s=time.perf_counter() - t0)
     return counts
@@ -3293,6 +3424,8 @@ def main() -> int:
     overload_ragged = tuple(p for p in overload_runs if "split" not in p)
     obs_paths = tuple(obs_runs)
     served = ("serve_cascade untrained", "serve_cascade trained")
+    rwkv_served = tuple(f"rwkv6 {p}" for p in served)
+    trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
                       + obs_paths + served),
@@ -3304,15 +3437,18 @@ def main() -> int:
                                           "prefix split on",
                                           "overload split youngest",
                                           "uniform", "rwkv", "jamba auto")
+                      + rwkv_served
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
-                      + jamba_paths),
+                      + jamba_paths + rwkv_served),
                      ("confidence_gate", tuple(p for p in counts
-                                               if p != "train steps")),
+                                               if p not in trained_only)),
                      ("router_gate", moe_paths + jamba_paths
-                      + ("train steps",)),
-                     ("rwkv6_scan", ("rwkv",)),
-                     ("mamba_scan", jamba_paths)):
+                      + ("train steps", "recurrent train steps")),
+                     ("rwkv6_scan", ("rwkv", "recurrent train steps",
+                                     "LtC rwkv6") + rwkv_served),
+                     ("mamba_scan", jamba_paths
+                      + ("recurrent train steps",))):
         if not all(counts[e][name] > 0 for e in ex):
             raise AssertionError(f"{name} was not launched on {ex}: "
                                  f"{counts}")

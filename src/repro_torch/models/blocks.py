@@ -29,11 +29,13 @@ executors use:
 
 Decode and the paged steps update the cache in place and return the same
 dict.  The Mamba mixer (:func:`mamba`), the RWKV-6 time mix
-(:func:`rwkv6`) and channel mix (:func:`rwkv_cmix`) run in
-``"prefill"`` (the ``mamba_scan`` and ``rwkv6_scan`` kernels, from the
-zero state) and ``"decode"`` (one plain-torch step from the cached
-state) only: their recurrent state cannot be carried across chunks, and
-the chunked modes raise as in the JAX package.
+(:func:`rwkv6`) and channel mix (:func:`rwkv_cmix`) run in ``"train"``
+(no cache) and ``"prefill"`` (the ``mamba_scan`` and ``rwkv6_scan``
+kernels from the zero state, through :class:`_MambaScan` and
+:class:`_RWKV6Scan`: the kernel forward, a plain-torch backward) and
+``"decode"`` (one plain-torch step from the cached state) only: their
+recurrent state cannot be carried across chunks, and the chunked modes
+raise as in the JAX package.
 
 ``dense_ffn(p, cfg, spec, x) -> y`` covers the ``swiglu`` and ``gelu``
 FFNs, ``moe_ffn(p, cfg, spec, x) -> y`` the token-choice top-k mixture of
@@ -41,8 +43,7 @@ experts; ``apply_ffn(p, cfg, spec, x, cache, mode) -> (y, cache)`` picks
 one by the layer's FFN kind, with the channel mix's token-shift cache.
 In ``"train"`` mode :func:`train_ffn` returns ``(y, aux)`` instead, the
 MoE layer's load-balance and router z losses (:func:`moe_ffn_train`)
-or zeros; the recurrent mixers and the channel mix have no train mode
-yet and raise.
+or zeros.
 """
 from __future__ import annotations
 
@@ -52,7 +53,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import mamba_scan as _mamba_kernel
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import rwkv6_scan as _rwkv_kernel
 
 MOE_GROUP_SIZE = 1024
 
@@ -316,16 +319,68 @@ def _recurrent_mode(name: str, mode: str) -> None:
             "chunked/unified token-batch steps carry no recurrent state "
             f"across chunks; {name} layers require the dense uniform "
             "prefill path")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"{name} mode {mode!r} is not ported")
+
+
+def _scan_grads(steps, saved, grads):
+    """The backward of a scan kernel: re-run the recurrence step by step
+    in plain torch (``steps``, the kernel's plain version: the JAX
+    package's ``lax.scan`` step body, which ``jax.grad`` differentiates
+    there) on detached copies of the saved inputs, and return
+    ``torch.autograd.grad`` of its outputs ``(y, final state)`` against
+    the incoming ``grads``.  The final state, which training leaves
+    unused, comes with no gradient and is left out."""
+    inputs = [t.detach().requires_grad_(True) for t in saved]
+    with torch.enable_grad():
+        outs = steps(*inputs)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    return torch.autograd.grad([o for o, _ in pairs], inputs,
+                               [g for _, g in pairs])
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """``(y, S_T) = _RWKV6Scan.apply(r, k, v, w, u)``: the
+    ``rwkv6_scan`` kernel made differentiable in r, k, v, w [B, H, T,
+    hd] and u [H, hd] (f32; u's gradient summed over the batch).  The
+    forward launches the kernel (the plain version on a CPU tensor); the
+    backward is :func:`_scan_grads` — no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return kernel_ops.rwkv6_scan(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        return _scan_grads(_rwkv_kernel.rwkv6_scan_ref, ctx.saved_tensors,
+                           (g_y, g_state))
+
+
+class _MambaScan(torch.autograd.Function):
+    """``(y, h_T) = _MambaScan.apply(x, dt, B_t, C_t, A)``: the
+    ``mamba_scan`` kernel made differentiable in x, dt [B, T, d], B_t,
+    C_t [B, T, n] and A [d, n] (f32), as :class:`_RWKV6Scan`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B_t, C_t, A):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, B_t, C_t, A)
+        return kernel_ops.mamba_scan(x, dt, B_t, C_t, A)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        return _scan_grads(_mamba_kernel.mamba_scan_ref, ctx.saved_tensors,
+                           (g_y, g_state))
 
 
 def _causal_conv(x, w, b, cache, mode):
     """Depthwise causal conv: x [B,S,d_in], w [d_conv,d_in].  Prefill
-    sums the ``d_conv`` shifted copies of x (zeros before the start) and
-    returns a copy of the last ``d_conv-1`` inputs as the decode cache;
-    decode convolves the cached inputs and the new token and returns the
-    shifted window."""
+    (and train) sums the ``d_conv`` shifted copies of x (zeros before the
+    start) and returns a copy of the last ``d_conv-1`` inputs as the
+    decode cache; decode convolves the cached inputs and the new token
+    and returns the shifted window."""
     d_conv = w.shape[0]
     if mode == "decode":
         window = torch.cat([cache, x], dim=1)               # [B,d_conv,d]
@@ -342,10 +397,11 @@ def _causal_conv(x, w, b, cache, mode):
 
 def mamba(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     """Mamba-1 selective SSM mixer (``repro/models/blocks.py::mamba``).
-    Prefill runs the scan in the ``mamba_scan`` kernel from h = 0 and
-    returns ``{"conv", "ssm"}`` (the last ``d_conv-1`` conv inputs and
-    the final state); decode takes one plain-torch step from the cached
-    state and writes both leaves in place."""
+    Prefill and train run the scan in the ``mamba_scan`` kernel from
+    h = 0 (through :class:`_MambaScan`, differentiable); prefill returns
+    ``{"conv", "ssm"}`` (the last ``d_conv-1`` conv inputs and the final
+    state), train no cache; decode takes one plain-torch step from the
+    cached state and writes both leaves in place."""
     _recurrent_mode("mamba", mode)
     n = spec.d_state
     dt_rank = math.ceil(cfg.d_model / 16)
@@ -373,10 +429,11 @@ def mamba(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
         new_cache = cache
     else:
         # the kernel takes contiguous f32: B_t and C_t are slices of proj
-        y, h1 = kernel_ops.mamba_scan(xf.contiguous(), dt.contiguous(),
-                                      Bt.contiguous(), Ct.contiguous(),
-                                      A.contiguous())
-        new_cache = {"conv": new_conv, "ssm": h1}
+        y, h1 = _MambaScan.apply(xf.contiguous(), dt.contiguous(),
+                                 Bt.contiguous(), Ct.contiguous(),
+                                 A.contiguous())
+        new_cache = None if mode == "train" else {"conv": new_conv,
+                                                  "ssm": h1}
 
     y = y + xf * p["D"].float()
     y = (y * F.silu(z.float())).to(x.dtype)
@@ -395,9 +452,10 @@ def _token_shift(x, x_prev, mode):
 def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     """RWKV-6 time mix (``repro/models/blocks.py::rwkv6``).  ``x`` is the
     normed layer input; its last token is cached as ``x_prev``.  Prefill
-    runs the WKV recurrence in the ``rwkv6_scan`` kernel from the zero
-    state and returns ``{"x_prev", "state"}``; decode takes one step from
-    the cached state and writes both leaves in place."""
+    and train run the WKV recurrence in the ``rwkv6_scan`` kernel from
+    the zero state (through :class:`_RWKV6Scan`, differentiable); prefill
+    returns ``{"x_prev", "state"}``, train no cache; decode takes one
+    step from the cached state and writes both leaves in place."""
     _recurrent_mode("rwkv6", mode)
     B, S, D = x.shape
     hd = spec.head_dim
@@ -427,11 +485,12 @@ def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
         cache["x_prev"].copy_(x[:, -1:])
         new_cache = cache
     else:
-        y, s1 = kernel_ops.rwkv6_scan(
+        y, s1 = _RWKV6Scan.apply(
             *(t.transpose(1, 2).contiguous() for t in (r, k, v, w)), u)
         y = y.transpose(1, 2)                                # [B,S,H,hd]
         # a copy, so the cache does not keep the whole [B, S, D] input
-        new_cache = {"x_prev": x[:, -1:].clone(), "state": s1}
+        new_cache = None if mode == "train" else {
+            "x_prev": x[:, -1:].clone(), "state": s1}
 
     # per-head group norm (population variance), then gate + projection
     mean = y.mean(dim=-1, keepdim=True)
@@ -453,8 +512,8 @@ MIXERS = {"attn": attention, "mamba": mamba, "rwkv6": rwkv6}
 def rwkv_cmix(p, cfg: ModelConfig, spec, x, cache, mode):
     """RWKV-6 channel mix (the ``rwkv_cmix`` branch of the JAX
     ``dense_ffn``): token-shift lerp, squared-relu key, receptance gate.
-    Returns (y, cache): prefill a new ``{"x_prev"}``, decode the same
-    cache with ``x_prev`` written in place."""
+    Returns (y, cache): prefill (and train) a new ``{"x_prev"}``, decode
+    the same cache with ``x_prev`` written in place."""
     _recurrent_mode("rwkv_cmix", mode)
     xs = _token_shift(x, cache["x_prev"] if mode == "decode" else None,
                       mode)
@@ -597,7 +656,8 @@ def train_ffn(p, cfg: ModelConfig, spec, x):
     if spec.kind == "moe":
         return moe_ffn_train(p, cfg, spec, x)
     if spec.act == "rwkv_cmix":
-        _recurrent_mode("rwkv_cmix", "train")
+        return rwkv_cmix(p, cfg, spec, x, None, "train")[0], \
+            zero_aux(x.device)
     return dense_ffn(p, cfg, spec, x), zero_aux(x.device)
 
 

@@ -11,7 +11,9 @@ Only the mixers and FFNs of the served models are declared here:
 attention, the Mamba-1 selective SSM and the RWKV-6 time mix, dense
 ``swiglu``/``gelu`` FFNs and the RWKV-6 channel mix (``rwkv_cmix``), and
 mixture-of-experts FFNs (a ``[d, E]`` router and expert weights stacked
-on a leading ``E`` dim).  Besides the generic rules, Mamba's ``A_log``
+on a leading ``E`` dim); and the early-exit heads (``exit_heads``: a
+norm and a ``[d, V]`` projection for each period in
+``early_exit_periods``).  Modality frontends raise.  Besides the generic rules, Mamba's ``A_log``
 is ``log(1..d_state)`` (``mamba_A``) and its ``dt_bias`` the inverse
 softplus of a ``U[1e-3, 1e-1)`` draw (``mamba_dt``).
 """
@@ -177,10 +179,13 @@ def value_and_grad(loss_fn, params, *args):
     ``params``, and the gradient of ``loss`` as a tree of the same
     structure — the functional form of ``jax.value_and_grad(...,
     has_aux=True)`` over a parameter tree.  ``loss`` comes back
-    detached."""
+    detached; a leaf the loss does not reach (an exit head under the LM
+    loss) gets zeros, as under ``jax.grad``."""
     req = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, aux = loss_fn(req, *args)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(req)))
+    leaves = tree_leaves(req)
+    grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
     return (loss.detach(), aux), tree_map(lambda _: next(grads), req)
 
 
@@ -192,10 +197,9 @@ def _stack(decl: dict, n: int):
 
 def declare_model(cfg: ModelConfig) -> dict:
     d, V = cfg.d_model, cfg.vocab_size
-    if cfg.frontend or cfg.early_exit_periods:
+    if cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: modality frontends and early-exit heads are not "
-            "ported")
+            f"{cfg.name}: modality frontends are not ported")
     decl = {
         "embed": P((V, d), ("vocab", "d_model"), "normal:0.02"),
         "final_norm": P((d,), (None,), "ones"),
@@ -212,6 +216,11 @@ def declare_model(cfg: ModelConfig) -> dict:
     if cfg.tail:
         decl["tail"] = {f"layer{i}": _layer_decl(cfg, l)
                         for i, l in enumerate(cfg.tail)}
+    if cfg.early_exit_periods:
+        decl["exit_heads"] = {
+            f"exit{i}": {"norm": P((d,), (None,), "ones"),
+                         "proj": P((d, V), ("d_model", "vocab"))}
+            for i in cfg.early_exit_periods}
     return decl
 
 

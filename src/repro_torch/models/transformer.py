@@ -12,7 +12,8 @@ speculation, with :func:`decode_step` for the draft loop),
 path, over a block-paged or dense cache).  Training calls
 :func:`forward` in ``"train"`` mode (or :func:`train_logits`): every
 position's logits, or the final-norm hidden states, with the MoE layers'
-aux losses; ``cfg.remat`` recomputes each period's layers in backward
+aux losses and, for a config with ``early_exit_periods``, each exit
+head's logits; ``cfg.remat`` recomputes each period's layers in backward
 (``torch.utils.checkpoint``), as the JAX package checkpoints its period
 scan body.
 """
@@ -51,13 +52,15 @@ def _apply_layers(params, cfg, layers, key, x, cache, pos, mode,
 
 
 def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
-                   pages=None, aux=None):
+                   pages=None, aux=None, exits=None):
     """Loop over the stacked period weights (+cache).  ``pages`` is the
     same for every layer.  Prefill starts from no cache and returns each
     period's new part cache stacked on the leading ``num_periods`` dim
     (the JAX package's tree); train mode returns no cache and, with
     ``cfg.remat``, recomputes each period in backward; the other modes
-    update ``cache`` in place and return it."""
+    update ``cache`` in place and return it.  An ``exits`` dict receives
+    the hidden state after each period ``i`` in ``cfg.early_exit_periods``
+    at ``i`` (the JAX package's ``ys["hidden"][i]``)."""
     new = []
     for i in range(cfg.num_periods):
         args = (tree_map(lambda a: a[i], params["period"]), cfg, cfg.period,
@@ -71,6 +74,8 @@ def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
             x, out_i, aux = _apply_layers(*args)
         if mode == "prefill":
             new.append(out_i)
+        if exits is not None and i in cfg.early_exit_periods:
+            exits[i] = x
     if mode == "prefill":
         return x, tree_map(lambda *leaves: torch.stack(leaves), *new), aux
     return x, cache, aux
@@ -79,6 +84,12 @@ def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
 def _logits(params, cfg: ModelConfig, x):
     x = blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ lm_proj(params, cfg)
+
+
+def _exit_logits(p, cfg: ModelConfig, h):
+    """An early-exit head: its own norm, then its ``[D, V]`` projection."""
+    h = blocks.rmsnorm(h, p["norm"], cfg.norm_eps)
+    return h @ p["proj"]
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -102,7 +113,10 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       caller that applies the LM head itself
       (:func:`repro_torch.core.losses.chunked_lm_loss`) — and ``aux =
       {"lb_loss", "z_loss"}``, the MoE layers' losses summed over the
-      layers (zeros without MoE);
+      layers (zeros without MoE), with ``"exit_logits"`` for a config
+      with ``early_exit_periods``: a tuple of ``[B, S, V]``, one per
+      exit in that order, each head over the hidden state after its
+      period (before the tail);
 
     or one of the serving modes of
     :func:`repro_torch.models.blocks.attention`:
@@ -113,7 +127,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       and LM head act per position, so these equal the JAX package's
       ``logits[:, -1:]``; a gemma3 prefill of 8 x 640 tokens would
       otherwise hold a 5.4 GB ``[8, 640, 262144]`` f32 transient), and
-      the new part cache, the JAX package's tree;
+      the new part cache, the JAX package's tree.  Serving computes no
+      exit logits (the JAX package computes them in prefill too, and its
+      engine reads none);
     * ``"ragged_step"`` (a flat ``[1, W]`` batch, ``pages =
       {"page_table": [R, P], "q_len": [R], "q_start": [R]}``),
       ``"mixed_step"`` / ``"prefill_chunk"`` (a padded ``[B, C]`` batch,
@@ -140,14 +156,19 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
         x, new_cache["head"], aux = _apply_layers(
             params["head"], cfg, cfg.head, "layer", x, c.get("head"), pos,
             mode, pages, aux)
+    exits = {} if mode == "train" and cfg.early_exit_periods else None
     if cfg.num_periods:
         x, new_cache["period"], aux = _apply_periods(
-            params, cfg, x, c.get("period"), pos, mode, pages, aux)
+            params, cfg, x, c.get("period"), pos, mode, pages, aux, exits)
     if cfg.tail:
         x, new_cache["tail"], aux = _apply_layers(
             params["tail"], cfg, cfg.tail, "layer", x, c.get("tail"), pos,
             mode, pages, aux)
     if mode == "train":
+        if exits:
+            aux = {**aux, "exit_logits": tuple(
+                _exit_logits(params["exit_heads"][f"exit{i}"], cfg, exits[i])
+                for i in cfg.early_exit_periods)}
         if return_hidden:
             return blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
         return _logits(params, cfg, x), aux
@@ -157,7 +178,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
 
 
 def train_logits(params, cfg: ModelConfig, batch: dict):
-    """Every position's logits [B, S, V] and the aux losses."""
+    """Every position's logits [B, S, V] and the aux losses (with the
+    exit heads' logits, if any)."""
     return forward(params, cfg, batch, mode="train")
 
 

@@ -1091,6 +1091,51 @@ def test_cuda_mamba_scan_refuses_what_it_cannot_take(cuda_device):
                              torch.cat([A, A[:, :4]], -1))
 
 
+# the differentiable scans of the train mode at layer shapes: rwkv6-3b's
+# 40 heads of 64 and jamba's Mamba (d_inner 8192, n 16), 2 rows x 64
+# tokens (``chip_smoke.py`` phase 7e's train-step batch)
+SCAN_GRAD_CASES = {"rwkv6-3b": ("rwkv6", (2, 40, 64, 64)),
+                   "jamba": ("mamba", (2, 64, 8192, 16))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCAN_GRAD_CASES))
+def test_cuda_scan_function_matches_plain_autograd(case, cuda_device):
+    """``blocks._RWKV6Scan`` / ``blocks._MambaScan`` on the card: y and the
+    final state (the kernel, launched once) and every input's gradient
+    under cotangents on both, against plain-torch autograd through the
+    same recurrence (``rwkv6_scan_ref`` / ``mamba_scan_ref``) on the
+    same inputs, within atol = rtol = 1e-4."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+
+    kind, shape = SCAN_GRAD_CASES[case]
+    fn, plain, draw, counter = (
+        (blocks._RWKV6Scan, ref.rwkv6_scan_ref, _rwkv_inputs, ops.rwkv6_scan)
+        if kind == "rwkv6" else
+        (blocks._MambaScan, ref.mamba_scan_ref, _mamba_inputs,
+         ops.mamba_scan))
+    arrays = draw(len(case), *shape)
+    ins = [[torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+            for a in arrays] for _ in range(2)]
+    before = counter.launches
+    got = fn.apply(*ins[0])
+    assert counter.launches == before + 1
+    want = plain(*ins[1])
+    rng = np.random.default_rng(1)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(
+        np.float32)).to(cuda_device) for o in want]
+    for outs in (got, want):
+        sum((o * c).sum() for o, c in zip(outs, cot)).backward()
+    assert counter.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.detach(), w.detach(), atol=1e-4,
+                                   rtol=1e-4)
+    for i, (a, b) in enumerate(zip(*ins)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, i=i: f"input {i}: {m}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv", ["f32", "int8"])
 def test_cuda_copy_blocks_is_bit_exact(kv, cuda_device):

@@ -513,11 +513,23 @@ def test_cascade_server_matches_jax(deltas):
 
 @pytest.mark.parametrize("name", ["rwkv6-3b", "jamba-v0.1-52b"])
 def test_recurrent_train_mode_is_not_ported(name):
+    """The recurrent layers' train mode is ported now (its parity with
+    the JAX package is ``tests/test_torch_recurrent_train.py``): the
+    train forward gives finite logits.  What stays unported for them is
+    a chunked token-batch step, which carries no recurrent state across
+    chunks and raises."""
     cfg = get_config(name, "smoke")
     p = init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        transformer.train_logits(p, cfg, {"tokens": torch.zeros(
-            1, 4, dtype=torch.int32)})
+    tokens = torch.zeros(1, 4, dtype=torch.int32)
+    logits, _ = transformer.train_logits(p, cfg, {"tokens": tokens})
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="uniform"):
+        transformer.forward(p, cfg, {"tokens": tokens}, mode="mixed_step",
+                            cache={}, pos=torch.zeros_like(tokens),
+                            pages={"page_table": torch.zeros(
+                                1, 1, dtype=torch.int32),
+                                "q_len": torch.ones(1, dtype=torch.int32)})
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
