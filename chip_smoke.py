@@ -9,11 +9,17 @@ without printing a result):
 
   1. environment: card name and power limit (``nvidia-smi``), torch and
      CUDA versions, and the build of the eight CUDA kernels from
-     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+     ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel),
+     with the ptxas register and spill lines of every kernel and, apart,
+     of the attention kernels' head-width-112 instances;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (gemma3-1b, phi4-mini-3.8b,
      granite-moe-3b-a800m, rwkv6-3b and jamba-v0.1-52b, whose Mamba
-     layers run ``mamba_scan``; the ragged kernel also at the flat
+     layers run ``mamba_scan``, and phase 8's starcoder2-7b (G 9),
+     musicgen-large, qwen2-vl-72b (flash at 8 x 1152), moonshot-v1-16b-a3b
+     (``moe_route`` at 64 experts, top-6) and kimi-k2-1t-a32b (head width
+     112 in f32, bf16 and over int8 pools; 384 experts, top-8); the
+     ragged kernel also at the flat
      widths 48 and 160 of phase 4e's bucket override), with CUDA-event
      times for the
      kernel and the plain version (for the gate and the router also back
@@ -139,7 +145,25 @@ without printing a result):
      LtC steps of the published gemma3-1b against the frozen published
      rwkv6-3b; and that pair served untrained and trained on the uniform
      executor (exact flash, paged, scan and gate launches).  Alone:
-     ``scripts/torch_recurrent_train_phase.py``.
+     ``scripts/torch_recurrent_train_phase.py``;
+  8. the rest of the registry, after phase 5's jamba (its weights freed:
+     gemma3-1b beside one expensive tier at a time; alone:
+     ``scripts/torch_configs_phase.py``): (8b) the steps on the card
+     against the CPU — ``ragged_step``, ``mixed_step``,
+     ``prefill_chunk`` + paged ``decode_step`` and ``prefill`` + dense
+     ``decode_step`` — of kimi-k2-1t-a32b at its published widths cut to
+     its dense first layer (all four attention kernels at head width
+     112), of qwen2-vl-72b cut to 1 layer (``prefill`` and ``decode_step``
+     only, with random frontend embeddings: M-RoPE and the frontend's
+     projection) and of the five configs' smoke widths (the frontend
+     ones uniform only); (8a) 16 requests at ``gen_len`` 8 through
+     gemma3-1b -> starcoder2-7b under the ragged, padded and split
+     executors, -> musicgen-large (uniform by itself: the audio
+     frontend, 640-token prompts), -> qwen2-vl-72b cut to 8 of its 80
+     layers (uniform by itself, 1152-token prompts: 1024 patch positions,
+     then text) and -> moonshot-v1-16b-a3b cut to its dense first layer
+     and 8 MoE layers (ragged), each with exact launch counts, finite
+     confidences and block conservation, tokens/s, TTFT and peak memory.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -427,6 +451,16 @@ def time_case(name, timed, kernel, plain, work, flush):
 GEMMA = dict(KV=1, G=4, hd=256)
 PHI4 = dict(KV=8, G=3, hd=128)
 GRANITE = dict(KV=8, G=3, hd=64)
+# the attention layers of phase 8's configs: starcoder2-7b's G 9 (7
+# tokens a work item of the tile body), qwen2-vl-72b's, musicgen-large's
+# (hd 64, no grouping), moonshot-v1-16b-a3b's and kimi-k2-1t-a32b's
+# (head width 112)
+REGISTRY_LAYERS = (("starcoder2", dict(KV=4, G=9, hd=128)),
+                   ("qwen2-vl", dict(KV=8, G=8, hd=128)),
+                   ("musicgen", dict(KV=32, G=1, hd=64)),
+                   ("moonshot", dict(KV=16, G=1, hd=128)),
+                   ("kimi", dict(KV=8, G=8, hd=112)))
+KIMI = dict(REGISTRY_LAYERS)["kimi"]
 NEAR600 = [590, 595, 600, 605, 610, 615, 620, 625]     # decode ticks
 # a speculative verify launch's rows at the decode tick: a token and up
 # to 4 drafts each (q_len 1-5)
@@ -486,6 +520,15 @@ def check_ragged(dev, flush):
          [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
         ("granite decode f32", GRANITE, [1] * 8, near600, None, "f32"),
     ]
+    # phase 8's layers at the full bucket and the decode tick, and kimi's
+    # head width 112 in bf16 and over int8 pools
+    for label, shape in REGISTRY_LAYERS:
+        cases += [(f"{label} full bucket f32", shape, full,
+                   [0, 100, 200, 300, 400, 500, 560, 580], None, "f32"),
+                  (f"{label} decode f32", shape, [1] * 8, near600, None,
+                   "f32")]
+    cases += [("kimi bf16", KIMI, mixed, late, None, "bf16"),
+              ("kimi int8+scales", KIMI, mixed, late, None, "int8+scales")]
     # flat widths off the powers of two (phase 4e's --flat-buckets 16 48
     # 160 512): partly filled rows late in their pages
     for W, qlens, qstart in FLAT_WIDTHS:
@@ -549,11 +592,14 @@ def dtypes_of(kind):
 
 # (label, shape, window, kinds) of the attention layers on the main
 # paths: gemma3's sliding-window layers, its global layers (1 in 6),
-# phi4's layers and granite's (hd 64)
+# phi4's layers and granite's (hd 64), and phase 8's (kimi's head width
+# 112 in every kind)
 LAYERS = (("gemma", GEMMA, 512, ("f32", "bf16", "int8+scales")),
           ("gemma", GEMMA, None, ("f32",)),
           ("phi4", PHI4, None, ("f32", "bf16", "int8+scales")),
-          ("granite", GRANITE, None, ("f32",)))
+          ("granite", GRANITE, None, ("f32",))) + tuple(
+    (label, shape, None, ("f32", "bf16", "int8+scales") if shape is KIMI
+     else ("f32",)) for label, shape in REGISTRY_LAYERS)
 
 
 def check_paged(dev, flush):
@@ -734,6 +780,10 @@ def check_gate(dev, flush):
                        ("phi4-mini-3.8b", 8, 200064),
                        ("granite-moe-3b-a800m", 8, 49155),
                        ("rwkv6-3b / jamba-v0.1-52b", 8, 65536),
+                       ("starcoder2-7b", 8, 49152),
+                       ("musicgen-large", 8, 2048),
+                       ("qwen2-vl-72b", 8, 152064),
+                       ("moonshot-v1-16b-a3b / kimi-k2-1t-a32b", 8, 163840),
                        ("gemma3-1b spec", 512, 262144),
                        ("phi4-mini-3.8b spec", 64, 200064)):
         # random logits at a spread where the max is well separated
@@ -816,11 +866,14 @@ ROUTE_TOL = ("gates and weights rtol 1e-5 (atol 0); idx, dest and keep "
              "exact")
 # moe_route at the main paths' shapes: (name, G, gs, k, E, capacity
 # factor, ties, dtype) — granite's full ragged/padded bucket and its
-# decode width, jamba's uniform prefill (5120 tokens: 5 groups of 1024),
+# decode width, moonshot's (64 experts, top-6) and kimi's (384, top-8)
+# full bucket, jamba's uniform prefill (5120 tokens: 5 groups of 1024),
 # E at the kernel's 1024 limit, rows of exact ties, bf16 logits
 ROUTE_CASES = (
     ("granite bucket [1, 512, 40]", 1, 512, 8, 40, 1.25, False, "f32"),
     ("granite decode [1, 8, 40]", 1, 8, 8, 40, 1.25, False, "f32"),
+    ("moonshot bucket [1, 512, 64]", 1, 512, 6, 64, 1.25, False, "f32"),
+    ("kimi bucket [1, 512, 384]", 1, 512, 8, 384, 1.25, False, "f32"),
     ("jamba prefill [5, 1024, 16]", 5, 1024, 2, 16, 1.25, False, "f32"),
     ("[1, 64, 1024]", 1, 64, 8, 1024, 1.25, False, "f32"),
     ("granite ties [1, 512, 40]", 1, 512, 8, 40, 1.25, True, "f32"),
@@ -950,7 +1003,10 @@ def check_flash(dev, flush):
     shapes — 8 prompts of 640 tokens: gemma3-1b's sliding (window 512)
     and global layers, q [8, 4, 640, 256] over k/v [8, 1, 640, 256], and
     phi4-mini-3.8b's, q [8, 24, 640, 128] over k/v [8, 8, 640, 128] —
-    in f32 (the main path) and, untimed, bf16.  The yardstick is one
+    in f32 (the main path) and, untimed, bf16; and phase 8's:
+    starcoder2-7b's, musicgen-large's, moonshot-v1-16b-a3b's and
+    kimi-k2-1t-a32b's (head width 112; untimed also bf16) at 640 tokens,
+    qwen2-vl-72b's at 1152.  The yardstick is one
     ``scaled_dot_product_attention(..., enable_gqa=True)`` call (causal,
     or a boolean window mask), which the port never calls.  Work for the
     bound: q, k, v read and out written once; 4·d f32 operations per
@@ -967,9 +1023,18 @@ def check_flash(dev, flush):
              ("phi4", 8, 24, 8, 128, None, "f32"),
              ("phi4", 8, 24, 8, 128, None, "bf16"),
              ("gemma window=512", 8, 4, 1, 256, 512, "bf16")]
-    S = 640
+    cases = [c[:-1] + (640, c[-1]) for c in cases] + [
+        # phase 8's uniform prefills: qwen2-vl-72b's 1152-token prompts
+        # (1024 patch positions, then 128 text), the others' 640; kimi's
+        # head width 112
+        ("starcoder2", 8, 36, 4, 128, None, 640, "f32"),
+        ("musicgen", 8, 32, 32, 64, None, 640, "f32"),
+        ("qwen2-vl", 8, 64, 8, 128, None, 1152, "f32"),
+        ("moonshot", 8, 16, 16, 128, None, 640, "f32"),
+        ("kimi", 8, 64, 8, 112, None, 640, "f32"),
+        ("kimi", 8, 64, 8, 112, None, 640, "bf16")]
     worst, timed = 0.0, {}
-    for label, B, H, KV, d, window, kind in cases:
+    for label, B, H, KV, d, window, S, kind in cases:
         dt = dtypes_of(kind)[0]
         q, k, v = (torch.randn(B, n, S, d, generator=gen, device=dev).to(dt)
                    for n in (H, KV, KV))
@@ -1207,11 +1272,21 @@ def compare_step(step, label, got, want, routing):
                              f"{routing}")
 
 
-def check_ragged_step(dev):
+def step_params(cfg, dev):
+    """A step check's weights from seed 0, drawn on the card (kimi's
+    dense first layer at full width is 11.3 GB) and copied to the CPU:
+    (on the CPU, on the card)."""
+    params_dev = init_params(cfg, 0, torch.float32, dev)
+    return tree_map(lambda t: t.cpu(), params_dev), params_dev
+
+
+def check_ragged_step(dev, models=None):
+    """The ragged executor's ``ragged_step`` on the card against the CPU
+    over ``models`` (default :func:`step_models`): live rows' logits
+    within 1e-4."""
     rng = np.random.default_rng(0)
-    for label, cfg in step_models():
-        params_cpu = init_params(cfg, 0, torch.float32, "cpu")
-        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    for label, cfg in models or step_models():
+        params_cpu, params_dev = step_params(cfg, dev)
         R, bs, P = 4, 4, 8
         N = R * P + 1
         cache_cpu = init_paged_cache(cfg, R, N, bs, torch.float32, "cpu")
@@ -1249,15 +1324,14 @@ def check_ragged_step(dev):
     torch.cuda.empty_cache()
 
 
-def check_padded_steps(dev):
+def check_padded_steps(dev, models=None):
     """The padded executor's ``mixed_step`` and the split executor's
     ``prefill_chunk`` then ``decode_step(pages=)`` (one row masked to the
-    null block) on the card against the CPU: live rows' logits within
-    1e-4."""
+    null block) on the card against the CPU over ``models`` (default
+    :func:`step_models`): live rows' logits within 1e-4."""
     rng = np.random.default_rng(1)
-    for label, cfg in step_models():
-        params_cpu = init_params(cfg, 0, torch.float32, "cpu")
-        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    for label, cfg in models or step_models():
+        params_cpu, params_dev = step_params(cfg, dev)
         R, bs, P, C = 4, 4, 8, 7
         N = R * P + 1
         cache_cpu = tree_map(lambda t: torch.from_numpy(
@@ -1346,33 +1420,40 @@ def uniform_models():
             num_periods=1))]
 
 
-def check_uniform_steps(dev):
-    """The uniform path's steps on the card against the CPU: ``prefill``
-    of 4 prompts of 40 tokens (past the smoke window of 16 and the scan
-    kernel's 32-step chunk) — last-position logits and every part-cache
-    leaf — then the part cache written into a dense arena of 48
-    positions (``DenseTierSlotPool``) and one ``decode_step`` over it,
-    rows at different positions: logits and the updated arena.  All
+def check_uniform_steps(dev, models=None):
+    """The uniform path's steps on the card against the CPU over
+    ``models`` (default :func:`uniform_models`): ``prefill`` of 4
+    prompts of 40 tokens (past the smoke window of 16 and the scan
+    kernel's 32-step chunk; for a modality frontend, random frontend
+    embeddings and 16 text tokens after its ``frontend_len`` positions,
+    2 prompts past 64 of them) — last-position logits and every
+    part-cache leaf — then the part cache written into a dense arena of
+    8 more positions (``DenseTierSlotPool``) and one ``decode_step`` over
+    it, rows at different positions: logits and the updated arena.  All
     within atol = rtol = 1e-4, unless an MoE router first picked
     differently on a near-tie (:func:`compare_step`)."""
     rng = np.random.default_rng(2)
-    B, S, T = 4, 40, 48
-    for label, cfg in uniform_models():
-        params_cpu = init_params(cfg, 0, torch.float32, "cpu")
-        params_dev = tree_map(lambda t: t.to(dev), params_cpu)
-        toks = torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    for label, cfg in models or uniform_models():
+        B = 2 if cfg.frontend_len > 64 else 4
+        S = max(40, cfg.frontend_len + 16)
+        T = S + 8
+        params_cpu, params_dev = step_params(cfg, dev)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+        if cfg.frontend:
+            batch["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
         dec_tok = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32))
-        dec_pos = torch.tensor([[S], [S - 5], [S + 3], [S]],
+        dec_pos = torch.tensor([[S], [S - 5], [S + 3], [S]][:B],
                                dtype=torch.int32)
         out, taps = {}, {}
         for where, params in (("cpu", params_cpu), ("card", params_dev)):
             d = torch.device("cpu") if where == "cpu" else dev
             tap = [RouterTap() for _ in range(2)]
             with tap[0]:
-                logits, part = transformer.prefill(params, cfg,
-                                                   {"tokens": toks.to(d)})
+                logits, part = transformer.prefill(
+                    params, cfg, {k: v.to(d) for k, v in batch.items()})
             pool = DenseTierSlotPool(cfg, B, T, device=d)
             pool.write_prefill(list(range(B)), part)
             with tap[1]:
@@ -1412,6 +1493,12 @@ def check_uniform_steps(dev):
 
 PHI4_NAME, MOE_NAME = "phi4-mini-3.8b", "granite-moe-3b-a800m"
 RWKV_NAME, JAMBA_NAME = "rwkv6-3b", "jamba-v0.1-52b"
+STARCODER_NAME, MUSICGEN_NAME = "starcoder2-7b", "musicgen-large"
+QWEN_NAME, MOONSHOT_NAME = "qwen2-vl-72b", "moonshot-v1-16b-a3b"
+KIMI_NAME = "kimi-k2-1t-a32b"
+# the expensive tiers the engine serves on the uniform prefill path by
+# themselves: recurrent state, or a modality frontend
+UNIFORM_ONLY = (RWKV_NAME, JAMBA_NAME, MUSICGEN_NAME, QWEN_NAME)
 
 
 def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
@@ -1425,10 +1512,11 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
     ``deadline``, ``launch_retries``, ``retry_backoff``,
     ``inject_faults``).  The chunked
     executors serve lognormal prompt lengths up to 640; the uniform
-    prefill path (those two flags, or the recurrent rwkv6-3b and
-    jamba-v0.1-52b) serves every prompt at exactly 640."""
+    prefill path (those two flags, the recurrent rwkv6-3b and
+    jamba-v0.1-52b, or musicgen-large and qwen2-vl-72b with their
+    frontends) serves every prompt at exactly ``prompt_len``."""
     uniform = (flags.get("no_chunked_prefill") or flags.get("dense_kv")
-               or expensive in (RWKV_NAME, JAMBA_NAME))
+               or expensive in UNIFORM_ONLY)
     args = dict(
         fast="gemma3-1b", expensive=expensive, variant="",
         device="cuda", requests=16, rate=8.0, slots=8, prompt_len=640,
@@ -1627,6 +1715,8 @@ def serve(card: str, params, executor: str, expensive=PHI4_NAME, cfgs=None,
     leaks = pool_leaks(tap.engine)
     if leaks:
         problems.append(f"blocks not conserved after the drain: {leaks}")
+    if not all(np.isfinite(r.token_conf).all() for r in tap.engine.requests):
+        problems.append("a token's confidence is not finite")
     del tap
     paged = s["paged_kv"]
     # under speculation: the draft loop's decode steps per tier (each a
@@ -3159,6 +3249,94 @@ def check_training(card: str, dev, params) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 8: the rest of the registry
+# --------------------------------------------------------------------------
+
+REGISTRY_NAMES = (STARCODER_NAME, MUSICGEN_NAME, QWEN_NAME, MOONSHOT_NAME,
+                  KIMI_NAME)
+# qwen2-vl-72b's prompts: its 1024 patch positions (frontend_len), then
+# 128 text tokens
+QWEN_PROMPT_LEN = 1152
+
+
+def registry_step_models():
+    """(label, config) of phase 8b's step checks: kimi-k2-1t-a32b at its
+    published widths cut to its dense first layer (d 7168, 64 heads of
+    112, 8 KV heads, d_ff 16384, vocab 163840; 11.3 GB), qwen2-vl-72b at
+    its published widths cut to 1 of its 80 layers (M-RoPE at head width
+    128, the vision frontend's 1024 positions), and the five configs'
+    smoke widths."""
+    return [("kimi-k2-1t-a32b dense first layer", dataclasses.replace(
+                get_config(KIMI_NAME, ""), num_periods=0)),
+            ("qwen2-vl-72b 1 layer", dataclasses.replace(
+                get_config(QWEN_NAME, ""), num_periods=1))] + [
+        (f"{n}-smoke", get_config(n, "smoke")) for n in REGISTRY_NAMES]
+
+
+def registry_cascades(variant=""):
+    """(label, expensive, its config, executors, flags) of phase 8a's
+    cascades behind gemma3-1b, at the published widths: starcoder2-7b
+    (32 layers, 29.6 GB) under the three chunked executors;
+    musicgen-large (48 layers, 9.7 GB; the audio frontend) and
+    qwen2-vl-72b cut to 8 of its 80 layers (38.1 GB; M-RoPE and the
+    vision frontend, 1152-token prompts) on the uniform prefill they
+    take by themselves; moonshot-v1-16b-a3b cut to its dense first layer
+    and 8 of its 47 MoE layers (21.3 GB; 64 experts, top-6) on the
+    ragged executor."""
+    qwen = get_config(QWEN_NAME, variant)
+    moonshot = get_config(MOONSHOT_NAME, variant)
+    return (("starcoder2", STARCODER_NAME, get_config(STARCODER_NAME,
+                                                      variant),
+             tuple(EXECUTORS), {}),
+            ("musicgen", MUSICGEN_NAME, get_config(MUSICGEN_NAME, variant),
+             ("auto",), {}),
+            ("qwen2-vl 8 layers", QWEN_NAME,
+             dataclasses.replace(qwen, num_periods=8), ("auto",),
+             {"prompt_len": QWEN_PROMPT_LEN}),
+            ("moonshot 1 + 8 layers", MOONSHOT_NAME,
+             dataclasses.replace(moonshot, num_periods=8), ("ragged",), {}))
+
+
+def check_configs(card: str, dev, fast_params) -> dict:
+    """Phase 8, the rest of the registry, beside phase 4's gemma3-1b
+    (``fast_params``), the only other weights on the card.  (b) the
+    steps of :func:`registry_step_models` on the card against the CPU:
+    ``ragged_step``, ``mixed_step`` and ``prefill_chunk`` + paged
+    ``decode_step`` where the config has no frontend (the chunked modes
+    raise there), ``prefill`` + dense ``decode_step`` for all — kimi's
+    layer runs all four attention kernels at head width 112.  (a) each
+    cascade of :func:`registry_cascades` served by
+    ``serve_async.run`` (its weights drawn from the expensive tier's
+    seed, freed after), with exact launch counts, finite confidences and
+    block conservation.  Returns the counts of the serving runs."""
+    t0 = time.perf_counter()
+    models = registry_step_models()
+    chunked = [(label, cfg) for label, cfg in models if not cfg.frontend]
+    check_ragged_step(dev, chunked)
+    check_padded_steps(dev, chunked)
+    check_uniform_steps(dev, models)
+    steps_s = time.perf_counter() - t0
+    counts = {}
+    for label, name, cfg, executors, flags in registry_cascades():
+        args = main_path_args(name)
+        torch.cuda.empty_cache()
+        params = (fast_params, init_params(cfg, args.seed + 1,
+                                           torch.float32, dev))
+        cfgs = (get_config(args.fast, args.variant), cfg)
+        runs = {ex: serve(card, params, ex, name, cfgs,
+                          phase=f"registry {label}", **flags)
+                for ex in executors}
+        if len(runs) > 1:
+            compare_streams({ex: r for ex, (_, r, _) in runs.items()}, name)
+        counts.update({f"{label} {ex}": c for ex, (c, _, _) in runs.items()})
+        del params, runs
+    torch.cuda.empty_cache()
+    emit(phase="registry summary", card=card, steps_s=steps_s,
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 # profiler kernel names of each kernel kind (any of them, by substring):
 # the ragged, paged and mixed kinds count their split-merge kernels too
 KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
@@ -3312,6 +3490,10 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          build_s=build_s, built=built,
          ptxas={n: ptxas_lines(n) for n in kernels.KERNELS})
+    emit(phase="environment", card=card, ptxas_head_width_112={
+        n: ptxas_lines(n, "Li112E") for n in (
+            "ragged_attention", "paged_attention", "mixed_attention",
+            "flash_attention")})
 
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)   # > 50 MB L2
     r_err, r_time = check_ragged(dev, flush)
@@ -3405,6 +3587,11 @@ def main() -> int:
                     JAMBA_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", JAMBA_NAME, jamba_cfgs)
+    # phase 8, the rest of the registry: jamba's weights freed, gemma3-1b
+    # beside one expensive tier at a time
+    params = (params[0], None)
+    torch.cuda.empty_cache()
+    registry_runs = check_configs(card, dev, params[0])
     counts = {ex: c for ex, (c, _, _) in runs.items()}
     counts.update({ex: c for ex, (c, _, _) in uniform_runs.items()})
     counts.update(spec_runs)
@@ -3416,6 +3603,7 @@ def main() -> int:
     counts.update(train_counts)
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
                    jamba_runs.items()})
+    counts.update(registry_runs)
     moe_paths = tuple(f"moe {ex}" for ex in EXECUTORS)
     jamba_paths = ("jamba auto", "jamba dense")
     spec_paths = tuple(spec_runs)
@@ -3428,23 +3616,32 @@ def main() -> int:
     trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
-                      + obs_paths + served),
+                      + obs_paths + served
+                      + ("starcoder2 ragged", "moonshot 1 + 8 layers "
+                                              "ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
                                           "moe split", "prefix padded on",
                                           "prefix split on",
-                                          "overload split youngest")),
+                                          "overload split youngest",
+                                          "starcoder2 padded",
+                                          "starcoder2 split")),
                      ("paged_attention", ("split", "moe split",
                                           "prefix split on",
                                           "overload split youngest",
-                                          "uniform", "rwkv", "jamba auto")
+                                          "uniform", "rwkv", "jamba auto",
+                                          "starcoder2 split",
+                                          "musicgen auto",
+                                          "qwen2-vl 8 layers auto")
                       + rwkv_served
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
-                      + jamba_paths + rwkv_served),
+                      + jamba_paths + rwkv_served
+                      + ("musicgen auto", "qwen2-vl 8 layers auto")),
                      ("confidence_gate", tuple(p for p in counts
                                                if p not in trained_only)),
                      ("router_gate", moe_paths + jamba_paths
-                      + ("train steps", "recurrent train steps")),
+                      + ("train steps", "recurrent train steps",
+                         "moonshot 1 + 8 layers ragged")),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
                                      "LtC rwkv6") + rwkv_served),
                      ("mamba_scan", jamba_paths

@@ -125,7 +125,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int BK = G::kBK;
   constexpr int NS = BK / 8;      // key n-tiles of S
   constexpr int NO = D / 8;       // column n-tiles of O
-  constexpr int NG = 4;           // O n-tiles multiplied together
+  constexpr int NG = NO % 4 == 0 ? 4 : 2;   // O n-tiles multiplied together
+  static_assert(NO % NG == 0, "D / 8 must be even");
   extern __shared__ float4 smem4[];
   T* qs = reinterpret_cast<T*>(smem4);             // [kBQ][kQK]
   T* ks = qs + kBQ * G::kQK;                       // [2][BK][kQK]
@@ -359,6 +360,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
       return launch<T, 32>(q, k, v, out, B, H, KV, S, Tk, causal, window, s);
     case 64:
       return launch<T, 64>(q, k, v, out, B, H, KV, S, Tk, causal, window, s);
+    case 112:
+      return launch<T, 112>(q, k, v, out, B, H, KV, S, Tk, causal, window,
+                            s);
     case 128:
       return launch<T, 128>(q, k, v, out, B, H, KV, S, Tk, causal, window,
                             s);
@@ -373,7 +377,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike), every
-// pointer 16-byte aligned.  d must be 32, 64, 128 or 256; H % KV == 0;
+// pointer 16-byte aligned.  d must be 32, 64, 112, 128 or 256; H % KV == 0;
 // T >= 1.  window <= 0 means no sliding
 // window; causal != 0 masks keys after the query.  Returns
 // cudaGetLastError().

@@ -28,7 +28,7 @@
 //   flash_attention.cu: f32 operands take the 3xTF32 split; bf16 and int8
 //   values are exact in TF32 and take none (kSplitQ, kSplitKV below), so
 //   bf16 x bf16 is 1 product for S, int8 pools with f32 q 2.
-// - K/V tiles are BK consecutive key positions (32 at hd >= 128, 64
+// - K/V tiles are BK consecutive key positions (32 at hd > 64, 64
 //   below; 2 or 4 pages of 16), each key row found through the page-table
 //   row, which the block reads once into shared memory, and copied with
 //   16-byte cp.async.cg into a double buffer: tile j + 1 loads while tile
@@ -200,9 +200,13 @@ __device__ __forceinline__ void attend(const Args<QT, KT>& a, const Item& it,
   constexpr int BK = Gm::kBK;
   constexpr int BKW = BK / kKW;   // keys of a tile one warp multiplies
   constexpr int NS = BKW / 8;     // key n-tiles of S
-  constexpr int NA = NS >= 4 ? 1 : 4 / NS;   // S's partial sums
-  constexpr int NO = D / 8;       // column n-tiles of O
-  constexpr int NG = 4;           // O n-tiles multiplied together
+  constexpr int NO = D / 8;       // column n-tiles of O (and depth steps)
+  // S's partial sums, 4 / NS, or 2 where 4 does not divide the depth
+  // steps (D = 112: 14 steps of 8)
+  constexpr int NA0 = NS >= 4 ? 1 : 4 / NS;
+  constexpr int NA = NO % NA0 == 0 ? NA0 : 2;
+  constexpr int NG = NO % 4 == 0 ? 4 : 2;   // O n-tiles multiplied together
+  static_assert(NO % NA == 0 && NO % NG == 0, "D / 8 must be even");
   constexpr int PS = BKW + 4;     // P row stride
   QT* qs = reinterpret_cast<QT*>(smem);                       // [64][kQS]
   KT* ks = reinterpret_cast<KT*>(smem + Gm::kQ);              // [2][BK][kKS]
@@ -585,6 +589,7 @@ int by_hd(int hd, F& f) {
   switch (hd) {
     case 32: return f(QT{}, KT{}, std::integral_constant<int, 32>{});
     case 64: return f(QT{}, KT{}, std::integral_constant<int, 64>{});
+    case 112: return f(QT{}, KT{}, std::integral_constant<int, 112>{});
     case 128: return f(QT{}, KT{}, std::integral_constant<int, 128>{});
     case 256: return f(QT{}, KT{}, std::integral_constant<int, 256>{});
     default: return static_cast<int>(cudaErrorInvalidValue);

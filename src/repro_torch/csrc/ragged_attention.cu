@@ -102,7 +102,7 @@ ragged_merge_kernel(const float* __restrict__ acc,
 
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32,
 // 1 = bfloat16, 2 = int8 (k_scale / v_scale required).  window <= 0 means
-// full causal attention.  hd must be 32, 64, 128 or 256, G at most 64.
+// full causal attention.  hd must be 32, 64, 112, 128 or 256, G at most 64.
 // splits >= 1 blocks share each item's visible pages; with splits > 1
 // ws_acc [splits, W, KV, G, hd] and ws_ml [splits, W, KV, G, 2] f32 hold
 // their states until the merge.  Returns cudaGetLastError().

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch import kernels
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -63,7 +63,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """The CUDA kernel (same arguments as :func:`flash_attention_ref`;
     q, k and v contiguous, on one card, all f32 or all bf16, d in
-    {32, 64, 128, 256})."""
+    ``HEAD_DIMS``)."""
     name = "flash_attention"
     kernels.require_cuda(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:

@@ -21,9 +21,10 @@ of ``csrc/paged_tile.cuh`` (shared with the ragged and paged decode
 kernels), and where the grid would leave the card idle an item's pages
 split across ``plan_page_splits`` blocks that a second kernel merges for
 the live slots.  The tile body takes head widths
-``TILE_HEAD_DIMS = (32, 64, 128, 256)`` (not every multiple of 32 up to
-256) and at most 64 query heads per KV head; every served config is
-inside that: gemma3 256, phi4 and jamba 128, granite 64.
+``TILE_HEAD_DIMS = (32, 64, 112, 128, 256)`` (not every multiple of 32
+up to 256) and at most 64 query heads per KV head; every registered
+config is inside that: gemma3 256, phi4, jamba, starcoder2, qwen2-vl and
+moonshot 128, kimi 112, granite and musicgen 64.
 
 :func:`mixed_attention` launches the kernel on CUDA tensors only;
 :func:`mixed_attention_ref` is the plain PyTorch version (the CPU path

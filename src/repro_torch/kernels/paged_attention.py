@@ -38,7 +38,7 @@ _SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 # the tile body of csrc/paged_tile.cuh: the head widths it is built for
 # and the MMA rows of a block ((token, query head) pairs)
-TILE_HEAD_DIMS = (32, 64, 128, 256)
+TILE_HEAD_DIMS = (32, 64, 112, 128, 256)
 TILE_ROWS = 64
 
 
@@ -155,9 +155,9 @@ def check_paged_args(name, q, k_pages, v_pages, page_table, k_scale,
     if (KVp, hdp) != (KV, hd):
         raise ValueError(f"{name}: pool heads/dim {(KVp, hdp)} != q's "
                          f"{(KV, hd)}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"{name}: head_dim must be a multiple of 32 up to "
-                         f"256, got {hd}")
+    if hd not in TILE_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim must be one of "
+                         f"{TILE_HEAD_DIMS}, got {hd}")
     if q.dtype not in Q_DTYPES or k_pages.dtype not in KV_DTYPES \
             or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"{name}: unsupported dtypes q={q.dtype} "

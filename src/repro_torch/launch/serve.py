@@ -64,11 +64,13 @@ def greedy_decode(cfg, params, prompts, gen_len):
     """prompts [B, P] int32 on the params' device.  Returns (tokens [B,
     gen_len] int32, conf [B, gen_len]): the uniform prefill, then
     ``gen_len - 1`` dense-arena decode steps, every token and its
-    confidence from the confidence gate."""
+    confidence from the confidence gate.  A model with a modality
+    frontend gets zero frontend embeddings, as in the JAX package."""
     B, P = prompts.shape
     dev = params["embed"].device
     cache = init_cache(cfg, B, P + gen_len, torch.float32, dev)
-    logits, part = transformer.prefill(params, cfg, {"tokens": prompts})
+    logits, part = transformer.prefill(params, cfg, {
+        "tokens": prompts, **transformer.zero_frontend(cfg, B, dev)})
     tree_map(lambda full, new: full[tuple(slice(0, s) for s in new.shape)]
              .copy_(new), cache, part)
     toks, confs = [], []

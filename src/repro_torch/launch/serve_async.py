@@ -20,7 +20,9 @@ attention layer) and decodes on the split path; ``--dense-kv`` does the
 same over the dense one-row-per-request arena; a tier with recurrent
 state (``--expensive rwkv6-3b``, the RWKV-6 scan kernel, or the
 hybrid ``--expensive jamba-v0.1-52b``, the Mamba scan kernel in its
-Mamba layers) takes the uniform path by itself.  The uniform path needs
+Mamba layers) or a modality frontend (``--expensive musicgen-large``,
+``--expensive qwen2-vl-72b``: zero frontend embeddings over the first
+``frontend_len`` positions) takes the uniform path by itself.  The uniform path needs
 ``--length-dist uniform``.  The gate threshold comes from an escalation
 budget by default (δ = the budget-quantile of recent sequence
 confidences); ``--delta`` fixes it instead.  ``--speculate K`` turns on
@@ -72,7 +74,10 @@ published widths, ``--expensive granite-moe-3b-a800m`` the MoE cascade
 (its MoE layers route and rank their expert queues through the
 router kernel's ``moe_route``, counted as ``router_gate``),
 ``--expensive rwkv6-3b`` the RWKV-6 cascade, ``--expensive
-jamba-v0.1-52b`` the Mamba + attention + MoE hybrid, and
+jamba-v0.1-52b`` the Mamba + attention + MoE hybrid (and
+``starcoder2-7b``, ``musicgen-large``, ``qwen2-vl-72b``,
+``moonshot-v1-16b-a3b`` and ``kimi-k2-1t-a32b`` the rest of the
+registry), and
 ``--device cpu`` runs on the CPU with the kernels' plain versions.
 Reports latency/TTFT percentiles, throughput, per-tier utilization,
 launches and host syncs per tick, the escalation rate, the speculation
@@ -264,13 +269,13 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
               if getattr(args, "trace_out", None) else None)
     engine, vocab = build_engine(args, clock, params, cfgs, tracer)
     # catches the flags and the engine's own choice of uniform prefill
-    # (a tier with recurrent state)
+    # (a tier with recurrent state or a modality frontend)
     if args.length_dist != "uniform" and not engine.chunked_prefill:
         raise ValueError(
             "mixed prompt lengths require chunked paged prefill, but the "
             "engine runs the uniform path (--no-chunked-prefill/--dense-kv "
-            "given, or a tier carries recurrent state) — use --length-dist "
-            "uniform")
+            "given, or a tier carries recurrent state or a modality "
+            "frontend) — use --length-dist uniform")
     prompts = bigram_lm(num_seqs=args.requests, seq_len=args.prompt_len,
                         vocab=min(vocab, PROMPT_VOCAB), seed=args.seed)
     lengths = sample_lengths(args.length_dist, args.requests,

@@ -106,8 +106,9 @@ def make_ltc_train_step(fast_cfg: ModelConfig, exp_cfg: ModelConfig,
     """Eq 4 for LM cascades: ``train_step(fast_params, opt_state,
     exp_params, batch) -> (fast_params, opt_state, {"l_org",
     "l_casc"})``.  The frozen expensive model's forward runs on the same
-    batch under ``torch.no_grad()`` to supply the 1[exp wrong]
-    indicator; its tokens are clamped to its vocabulary (the JAX
+    batch (its ``frontend_embeds`` too, as the JAX step passes it) under
+    ``torch.no_grad()`` to supply the 1[exp wrong] indicator; its tokens
+    are clamped to its vocabulary (the JAX
     package's gather clamps an index, so a token past it embeds as the
     last id), the labels are not.  The fast model's periods are
     checkpointed as :func:`make_train_step` does by default (the JAX LtC

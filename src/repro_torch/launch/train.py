@@ -26,7 +26,7 @@ from repro_torch.checkpoint import save as save_ckpt
 from repro_torch.configs import get_config
 from repro_torch.data import Batches, bigram_lm
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import init_params
+from repro_torch.models import init_params, transformer
 from repro_torch.serving.engine import resolve_device
 
 
@@ -53,6 +53,8 @@ def run(arch: str, *, variant="smoke", steps=50, batch=8, seq=128,
                        vocab=vocab or cfg.vocab_size, seed=data_seed,
                        trigram_frac=trigram_frac)
     it = iter(Batches({"tokens": tokens}, batch, seed=seed))
+    # the trained model's frontend only, as in the JAX package
+    extra = transformer.zero_frontend(cfg, batch, device)
 
     if expensive is None:
         train_step, opt = steps_lib.make_train_step(cfg, lr=lr)
@@ -72,6 +74,7 @@ def run(arch: str, *, variant="smoke", steps=50, batch=8, seq=128,
     for i in range(steps):
         b = {k: torch.as_tensor(v, device=device)
              for k, v in next(it).items()}
+        b.update(extra)
         ts = time.perf_counter()
         params, opt_state, m = train_step(params, opt_state, *args_extra, b)
         m = {k: float(v) for k, v in m.items()}     # waits for the device

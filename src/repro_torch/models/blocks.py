@@ -90,14 +90,49 @@ def _apply_rot(x, cos, sin):
                      dim=-1).to(x.dtype)
 
 
-def apply_rope(q, k, pos, cfg: ModelConfig, kind: str):
-    """kind: 'rope' | 'none'.  q [B,S,H,d], k [B,S,KV,d], pos [B,S]."""
+# M-RoPE's patch grid width: positions below frontend_len are the
+# patches of one image, row-major on a grid of this width
+MROPE_GRID = 32
+
+
+def apply_rope(q, k, pos, cfg: ModelConfig, kind: str,
+               frontend_len: int = 0):
+    """kind: 'rope' | 'mrope' | 'none'.  q [B,S,H,d], k [B,S,KV,d], pos
+    [B,S]."""
     if kind == "none":
         return q, k
-    if kind != "rope":
+    d = q.shape[-1]
+    if kind == "rope":
+        cos, sin = _rope_angles(pos, d, cfg.rope_theta)
+        return _apply_rot(q, cos, sin), _apply_rot(k, cos, sin)
+    if kind != "mrope":
         raise NotImplementedError(f"rope kind {kind!r} is not ported")
-    cos, sin = _rope_angles(pos, q.shape[-1], cfg.rope_theta)
-    return _apply_rot(q, cos, sin), _apply_rot(k, cos, sin)
+    # M-RoPE [arXiv:2409.12191]: head_dim split into (temporal, height,
+    # width) sections.  An image position (pos < frontend_len) takes
+    # temporal 0 and its (row, column) on the patch grid; a text position
+    # uses pos in all three sections.
+    is_img = pos < frontend_len
+    zero = torch.zeros_like(pos)
+    sections = (torch.where(is_img, zero, pos),
+                torch.where(is_img, torch.div(pos, MROPE_GRID,
+                                              rounding_mode="floor"), pos),
+                torch.where(is_img, pos % MROPE_GRID, pos))
+    qs, ks = [], []
+    off = 0
+    for p_sec, n in zip(sections, _mrope_sections(d)):
+        cos, sin = _rope_angles(p_sec, n, cfg.rope_theta)
+        qs.append(_apply_rot(q[..., off:off + n], cos, sin))
+        ks.append(_apply_rot(k[..., off:off + n], cos, sin))
+        off += n
+    return torch.cat(qs, dim=-1), torch.cat(ks, dim=-1)
+
+
+def _mrope_sections(d):
+    """M-RoPE's (temporal, height, width) section widths of head width
+    ``d``: (16, 56, 56) at 128."""
+    t = d // 8
+    hw = (d - t) // 2
+    return (t, hw, d - t - hw)
 
 
 # --------------------------------------------------------------------------
@@ -194,7 +229,8 @@ def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
     k = (x @ p["wk"]).reshape(B, S, KV, hd)
     v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope)
+    qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope,
+                       cfg.frontend_len)
     q = qr.reshape(B, S, KV, G, hd)
 
     if mode == "train":

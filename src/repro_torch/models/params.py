@@ -11,9 +11,11 @@ Only the mixers and FFNs of the served models are declared here:
 attention, the Mamba-1 selective SSM and the RWKV-6 time mix, dense
 ``swiglu``/``gelu`` FFNs and the RWKV-6 channel mix (``rwkv_cmix``), and
 mixture-of-experts FFNs (a ``[d, E]`` router and expert weights stacked
-on a leading ``E`` dim); and the early-exit heads (``exit_heads``: a
-norm and a ``[d, V]`` projection for each period in
-``early_exit_periods``).  Modality frontends raise.  Besides the generic rules, Mamba's ``A_log``
+on a leading ``E`` dim); the early-exit heads (``exit_heads``: a norm
+and a ``[d, V]`` projection for each period in ``early_exit_periods``);
+and a modality frontend's ``frontend_proj`` ``[frontend_dim, d_model]``,
+which maps the precomputed patch or frame embeddings into the model
+(``transformer._embed``).  Besides the generic rules, Mamba's ``A_log``
 is ``log(1..d_state)`` (``mamba_A``) and its ``dt_bias`` the inverse
 softplus of a ``U[1e-3, 1e-1)`` draw (``mamba_dt``).
 """
@@ -197,15 +199,15 @@ def _stack(decl: dict, n: int):
 
 def declare_model(cfg: ModelConfig) -> dict:
     d, V = cfg.d_model, cfg.vocab_size
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported")
     decl = {
         "embed": P((V, d), ("vocab", "d_model"), "normal:0.02"),
         "final_norm": P((d,), (None,), "ones"),
     }
     if not cfg.tie_embeddings:
         decl["lm_head"] = P((d, V), ("d_model", "vocab"))
+    if cfg.frontend:
+        decl["frontend_proj"] = P((cfg.frontend_dim, d),
+                                  ("frontend", "d_model"))
     if cfg.head:
         decl["head"] = {f"layer{i}": _layer_decl(cfg, l)
                         for i, l in enumerate(cfg.head)}

@@ -92,8 +92,43 @@ def _exit_logits(p, cfg: ModelConfig, h):
     return h @ p["proj"]
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()]
+_CHUNKED = ("prefill_chunk", "mixed_step", "ragged_step")
+
+
+def _embed(params, cfg: ModelConfig, batch, mode):
+    """The token embeddings of ``batch["tokens"]`` [B, S]; for a model
+    with a modality frontend, outside decode, the first ``frontend_len``
+    positions take ``batch["frontend_embeds"] [B, frontend_len,
+    frontend_dim]`` projected through ``frontend_proj`` instead (the
+    sanctioned stub: precomputed patch or frame embeddings).  The chunked
+    modes do not inject them and raise, as in the JAX package."""
+    x = params["embed"][batch["tokens"].long()]
+    if not cfg.frontend or mode == "decode":
+        return x
+    if mode in _CHUNKED:
+        raise NotImplementedError(
+            "chunked/unified token-batch steps do not inject modality "
+            "frontend embeddings; frontend models require the dense "
+            "uniform prefill path")
+    fl = cfg.frontend_len
+    if x.shape[1] < fl:
+        raise ValueError(
+            f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
+            f"the frontend's {fl} positions")
+    emb = batch["frontend_embeds"] @ params["frontend_proj"]
+    return torch.cat([emb.to(x.dtype), x[:, fl:]], dim=1)
+
+
+def zero_frontend(cfg: ModelConfig, rows: int, device) -> dict:
+    """``{"frontend_embeds": zeros [rows, frontend_len, frontend_dim]}``
+    for a model with a modality frontend, else ``{}``: what the engine's
+    uniform prefill and the launchers feed in place of precomputed
+    embeddings, as the JAX package does."""
+    if not cfg.frontend:
+        return {}
+    return {"frontend_embeds": torch.zeros(
+        (rows, cfg.frontend_len, cfg.frontend_dim), dtype=torch.float32,
+        device=device)}
 
 
 def lm_proj(params, cfg: ModelConfig):
@@ -104,8 +139,11 @@ def lm_proj(params, cfg: ModelConfig):
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
             cache=None, pos=None, pages=None, return_hidden: bool = False):
     """Returns (logits, cache) — in ``"train"`` mode (logits, aux).
-    ``batch = {"tokens": [B, S] int32}``, ``pos [B, S]`` absolute
-    positions, and ``mode`` one of:
+    ``batch = {"tokens": [B, S] int32}`` (for a model with a modality
+    frontend, in ``"train"`` and ``"prefill"``, also ``"frontend_embeds":
+    [B, frontend_len, frontend_dim]``, which replace the first
+    ``frontend_len`` positions' embeddings; :func:`_embed`), ``pos [B,
+    S]`` absolute positions, and ``mode`` one of:
 
     * ``"train"``: no cache, ``pos`` defaulting to ``arange(S)`` per row;
       every position's logits ``[B, S, V]`` — or, with
@@ -140,7 +178,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch, mode)
     if pos is None:
         if mode not in ("train", "prefill"):
             raise ValueError(f"{mode} requires pos")

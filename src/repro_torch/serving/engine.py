@@ -119,8 +119,7 @@ launch counts are the same with both on and off.  ``run(metrics_interval=)``
 hands a metrics snapshot to ``on_snapshot`` once per window.
 
 Not ported from the JAX engine (later work): compile statistics (an
-eager engine compiles nothing; they wait for CUDA graphs), modality
-frontends, and meshes — per-tier device placement (``TierSpec.mesh``,
+eager engine compiles nothing; they wait for CUDA graphs) and meshes — per-tier device placement (``TierSpec.mesh``,
 ``shard_params``, ``mesh_topology``, ``_place_params``, ``put_flat``,
 ``put_rows``) and the choice of a data shard over more than one
 (``_pick_shard``).
@@ -390,9 +389,12 @@ class _TierRuntime:
         """The uniform one-shot prefill of ``prompts`` [capacity,
         prompt_len] (rows past the admitted ones are zeros): returns the
         part cache for ``write_prefill`` and each row's first pick from
-        its last-position logits."""
-        logits, part = transformer.prefill(self.params, self.spec.cfg,
-                                           {"tokens": prompts})
+        its last-position logits.  A tier with a modality frontend gets
+        zero frontend embeddings, as in the JAX engine."""
+        cfg = self.spec.cfg
+        batch = {"tokens": prompts, **transformer.zero_frontend(
+            cfg, prompts.shape[0], prompts.device)}
+        logits, part = transformer.prefill(self.params, cfg, batch)
         tok, conf = self.pick(logits[:, -1])
         return part, tok, conf
 

@@ -84,9 +84,12 @@ ROUTER_CASES = {
 # bucket and its decode width, jamba's uniform prefill (5120 tokens in 5
 # groups of 1024), E at the kernel's 1024 limit, a capacity of the whole
 # group (nothing dropped) and capacity factor 0.5 (about half the pairs
-# dropped)
+# dropped); moonshot's 64 experts top-6 and kimi's 384 top-8 over the
+# full ragged bucket
 ROUTE_CASES = {
     "granite-bucket": (1, 512, 8, 40, 1.25),
+    "moonshot-bucket": (1, 512, 6, 64, 1.25),
+    "kimi-bucket": (1, 512, 8, 384, 1.25),
     "granite-decode": (1, 8, 8, 40, 1.25),
     "jamba-prefill": (5, 1024, 2, 16, 1.25),
     "E1024": (1, 64, 8, 1024, 1.25),
@@ -267,6 +270,23 @@ RAGGED_TILE_CASES = {
     "verify-phi4": (VERIFY_QLENS, VERIFY_POS, 8, 3, 128, "f32", None, 1.0),
     "verify-gemma3-window512": (VERIFY_QLENS, VERIFY_POS, 1, 4, 256, "f32",
                                 512, 1.0),
+    # the attention layers of the rest of the registry: starcoder2 (KV 4,
+    # G 9: 7 tokens an item, 63 live rows of 64), qwen2-vl (KV 8, G 8),
+    # musicgen (KV 32, G 1, hd 64), moonshot (KV 16, G 1) and kimi (KV 8,
+    # G 8, hd 112: 14 column n-tiles, 7 chunks of 16 bytes an int8 row)
+    "starcoder2-G9": (TILE_QLENS, TILE_LATE, 4, 9, 128, "f32", None, 1.0),
+    "qwen2vl-G8": (TILE_QLENS, None, 8, 8, 128, "f32", None, 1.0),
+    "musicgen-hd64-G1": (TILE_QLENS, None, 32, 1, 64, "f32", None, 1.0),
+    "moonshot-G1": (TILE_QLENS, TILE_LATE, 16, 1, 128, "f32", None, 1.0),
+    "kimi-hd112": (TILE_QLENS, None, 8, 8, 112, "f32", None, 1.0),
+    "kimi-hd112-x4-late": (TILE_QLENS, TILE_LATE, 8, 8, 112, "f32", None,
+                           4.0),
+    "kimi-hd112-bf16": (TILE_QLENS, TILE_LATE, 8, 8, 112, "bf16", None,
+                        1.0),
+    "kimi-hd112-int8-scales": (TILE_QLENS, TILE_LATE, 8, 8, 112,
+                               "int8+scales", None, 1.0),
+    "kimi-hd112-verify": (VERIFY_QLENS, VERIFY_POS, 8, 8, 112, "f32", None,
+                          1.0),
 }
 # flat widths off the powers of two, as ``--flat-buckets 16 48 160 512``
 # gives them: (W, q_len per row, q_start, KV, G, hd, window) — rows partly
@@ -294,6 +314,16 @@ PAGED_TILE_CASES = {
     "hd128-int8-scales-masked": (9, 2, 3, 128, "int8+scales", None, (8,),
                                  1.0),
     "hd256-bf16-window512": (8, 1, 4, 256, "bf16", 512, (), 1.0),
+    # the rest of the registry's layers, as RAGGED_TILE_CASES
+    "starcoder2-G9-masked": (9, 4, 9, 128, "f32", None, (8,), 1.0),
+    "qwen2vl-G8": (8, 8, 8, 128, "f32", None, (), 1.0),
+    "musicgen-hd64-G1": (8, 32, 1, 64, "f32", None, (), 1.0),
+    "moonshot-G1-masked": (9, 16, 1, 128, "f32", None, (8,), 1.0),
+    "kimi-hd112-masked": (9, 8, 8, 112, "f32", None, (8,), 1.0),
+    "kimi-hd112-x4": (8, 8, 8, 112, "f32", None, (), 4.0),
+    "kimi-hd112-bf16": (8, 8, 8, 112, "bf16", None, (), 1.0),
+    "kimi-hd112-int8-scales-masked": (9, 8, 8, 112, "int8+scales", None,
+                                      (8,), 1.0),
 }
 TILE_TOLS = {"f32": (1e-4, 1e-4), "int8+scales": (1e-4, 1e-4),
              "bf16": (1e-3, 1e-2)}
@@ -389,6 +419,23 @@ MIXED_TILE_CASES = {
     "hd64-G3-bf16": (MIXED_QLENS, 64, None, 2, 3, 64, "bf16", None, 1.0),
     "hd256-G4-bf16-window512-late": (MIXED_QLENS, 64, MIXED_LATE, 1, 4,
                                      256, "bf16", 512, 1.0),
+    # the rest of the registry's layers, as RAGGED_TILE_CASES
+    "starcoder2-G9-C64": (MIXED_QLENS, 64, MIXED_LATE, 4, 9, 128, "f32",
+                          None, 1.0),
+    "qwen2vl-G8-C64": (MIXED_QLENS, 64, None, 8, 8, 128, "f32", None, 1.0),
+    "musicgen-hd64-G1-C64": (MIXED_QLENS, 64, None, 32, 1, 64, "f32", None,
+                             1.0),
+    "moonshot-G1-C64": (MIXED_QLENS, 64, MIXED_LATE, 16, 1, 128, "f32",
+                        None, 1.0),
+    "kimi-hd112-C64": (MIXED_QLENS, 64, None, 8, 8, 112, "f32", None, 1.0),
+    "kimi-hd112-C1": (MIXED_DECODE, 1, TILE_POS[:8], 8, 8, 112, "f32", None,
+                      1.0),
+    "kimi-hd112-x4-late": (MIXED_QLENS, 64, MIXED_LATE, 8, 8, 112, "f32",
+                           None, 4.0),
+    "kimi-hd112-bf16": (MIXED_QLENS, 64, MIXED_LATE, 8, 8, 112, "bf16",
+                        None, 1.0),
+    "kimi-hd112-int8-scales": (MIXED_QLENS, 64, MIXED_LATE, 8, 8, 112,
+                               "int8+scales", None, 1.0),
 }
 
 
@@ -435,6 +482,13 @@ FLASH_TC_CASES = {
     "noncausal-more-keys-d256": (1, 4, 1, 50, 97, 256, False, None, 1.0,
                                  "f32"),
     "bf16-d64": (2, 4, 2, 97, 97, 64, True, None, 1.0, "bf16"),
+    # kimi's head width 112 (G 8; 14 column n-tiles of O, grouped by 2),
+    # and qwen2-vl's 1152-token prompt (1024 patches + 128 text), one row
+    "f32-d112-x4": (1, 16, 2, 130, 130, 112, True, None, 4.0, "f32"),
+    "edge-97-window-d112": (2, 8, 1, 97, 97, 112, True, 40, 1.0, "f32"),
+    "bf16-d112": (1, 16, 2, 97, 97, 112, True, None, 1.0, "bf16"),
+    "qwen2vl-1152-d128": (1, 16, 2, 1152, 1152, 128, True, None, 1.0,
+                          "f32"),
 }
 
 
@@ -544,6 +598,10 @@ def test_cuda_ragged_attention_matches_plain(case, cuda_device):
                                        ((8, 200064), False),
                                        ((512, 262144), False),
                                        ((64, 200064), False),
+                                       ((8, 49152), False),
+                                       ((8, 2048), False),
+                                       ((8, 152064), False),
+                                       ((8, 163840), False),
                                        ((3, 1000), True)])
 def test_cuda_confidence_gate_matches_plain(shape, tie, cuda_device):
     """Against the plain version in f64 on the CPU, rounded to f32: an

@@ -109,12 +109,12 @@ def test_tile_launchers_refuse_unsupported_head_dim_before_cuda():
     name on CPU tensors, before the CUDA check and before any build."""
     args, kw = _ragged_inputs(1, qlens=[1, 2], KV=1, G=1, hd=96)
     targs, tkw = _torch(args, kw)
-    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 128, "
-                                         r"256\)"):
+    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 112, "
+                                         r"128, 256\)"):
         ragged_mod.ragged_attention(*targs, **tkw)
     targs, tkw = _torch(*_paged_inputs(1, B=2, KV=1, G=1, hd=96))
-    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 128, "
-                                         r"256\)"):
+    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 112, "
+                                         r"128, 256\)"):
         paged_mod.paged_attention(*targs, **tkw)
     targs, tkw = _torch(*_paged_inputs(1, B=2, KV=1, G=65, hd=32))
     with pytest.raises(ValueError, match="at most 64"):
@@ -169,8 +169,8 @@ def test_mixed_launcher_refuses_unsupported_shapes_before_cuda():
     than 64 query heads per KV head are refused by name on CPU tensors,
     before the CUDA check and before any build."""
     targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=1, hd=96))
-    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 128, "
-                                         r"256\)"):
+    with pytest.raises(ValueError, match=r"head_dim 96 .*\(32, 64, 112, "
+                                         r"128, 256\)"):
         mixed_mod.mixed_attention(*targs, **tkw)
     targs, tkw = _torch(*_mixed_inputs(1, qlens=[1, 2], KV=1, G=65, hd=32))
     with pytest.raises(ValueError, match="at most 64"):

@@ -324,7 +324,8 @@ def test_exit_heads_declare_init_count_and_bridge_like_jax():
     """``declare_model`` declares ``exit_heads/exit{i}/{norm, proj}`` as
     the JAX package does (shapes, axes and init rules), ``init_params``
     draws that tree, ``param_count_from_decl`` counts it as JAX does, and
-    ``from_jax`` carries it; a modality frontend still raises."""
+    ``from_jax`` carries it; with a modality frontend beside them the
+    tree adds ``frontend_proj`` as the JAX package's does."""
     jcfg, jp, cfg = model("gemma3 exits")
     decl = params_mod.declare_model(cfg)
     jdecl = jax_params.declare_model(jcfg)
@@ -344,10 +345,13 @@ def test_exit_heads_declare_init_count_and_bridge_like_jax():
     bridged = from_jax(jp)
     assert_trees_close(bridged["exit_heads"], jp["exit_heads"], atol=0,
                        rtol=0)
-    frontend = dataclasses.replace(cfg, frontend="audio", frontend_dim=64,
-                                   frontend_len=8)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        params_mod.declare_model(frontend)
+    frontend = dict(frontend="audio", frontend_dim=64, frontend_len=8)
+    fdecl = params_mod.declare_model(dataclasses.replace(cfg, **frontend))
+    assert dict(_flat_decl(fdecl)) == dict(_flat_decl(
+        jax_params.declare_model(dataclasses.replace(jcfg, **frontend))))
+    assert fdecl["frontend_proj"] == params_mod.P((64, 256),
+                                                  ("frontend", "d_model"))
+    assert set(fdecl["exit_heads"]) == {"exit0", "exit1"}
 
 
 def _flat_decl(tree, prefix=""):
