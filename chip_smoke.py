@@ -163,7 +163,22 @@ without printing a result):
      layers (uniform by itself, 1152-token prompts: 1024 patch positions,
      then text) and -> moonshot-v1-16b-a3b cut to its dense first layer
      and 8 MoE layers (ragged), each with exact launch counts, finite
-     confidences and block conservation, tokens/s, TTFT and peak memory.
+     confidences and block conservation, tokens/s, TTFT and peak memory;
+  9. multi-device serving, after phase 4e on phase 4's weights
+     (``check_multidevice``; alone: ``scripts/torch_multidevice_phase.py``):
+     (9a) the workload unsharded and with both tiers on ``2x1`` meshes
+     over the first card twice (two data shards a tier: rows, KV blocks
+     and prefix index per shard, each launch once per shard), in turns
+     (unsharded, sharded, sharded, unsharded; traced: each tier's host
+     ms in ``launch``) — same-tier streams equal, launches exactly D
+     times the unsharded formula, blocks conserved in every shard, no
+     second copy of the params —
+     then two shards over 64 KV blocks of 32 tokens under ``youngest``
+     (preemptions, every request drained); (9b, only with two cards or
+     more) the tiers on ``cuda:0`` and ``cuda:1``, tier 1 on a ``2x1``
+     mesh over both, and each kernel launched on ``cuda:1`` while
+     ``cuda:0`` is current against its plain version (with one card, a
+     line saying 9b did not run).
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -176,6 +191,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1510,7 +1526,8 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
     caching's (``prefix_cache``, ``shared_prefix_frac``, ``delta``,
     ``kv_blocks``) or the overload layer's (``preemption``,
     ``deadline``, ``launch_retries``, ``retry_backoff``,
-    ``inject_faults``).  The chunked
+    ``inject_faults``) or multi-device serving's (``tier_mesh``, and
+    ``mesh_devices``, the devices the meshes cover).  The chunked
     executors serve lognormal prompt lengths up to 640; the uniform
     prefill path (those two flags, the recurrent rwkv6-3b and
     jamba-v0.1-52b, or musicgen-large and qwen2-vl-72b with their
@@ -1526,7 +1543,7 @@ def main_path_args(expensive=PHI4_NAME, **flags) -> Namespace:
         seed=0, expensive_seed=None, speculate=0, spec_delta=None,
         prefix_cache=False, shared_prefix_frac=0.0, preemption="none",
         deadline=None, launch_retries=2, retry_backoff=0.02,
-        inject_faults=None)
+        inject_faults=None, tier_mesh=None, mesh_devices=None)
     args.update(flags)
     return Namespace(**args)
 
@@ -3438,6 +3455,258 @@ def check_split_moe_determinism(card: str, params) -> None:
          tier_requests=[s["tier_requests"] for s in runs])
 
 
+# --------------------------------------------------------------------------
+# phase 9: multi-device serving
+# --------------------------------------------------------------------------
+
+# 9a's over-subscribed run: phase 4d's workload on 64 KV blocks a tier,
+# two data shards.  Blocks of 32 tokens: a row of 648 tokens takes 21, so
+# 32 a shard hold one full request and the null block (64 blocks of 16
+# would leave 32 a shard, under one request's 41 pages + 1)
+MULTI_OVER = dict(kv_blocks=64, kv_block_size=32, preemption="youngest",
+                  delta=1.0, shared_prefix_frac=0.75)
+
+
+def card_devices() -> list:
+    """``cuda:0 … cuda:{n-1}``: the cards phase 9 may place tiers on."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def shard_conservation(engine) -> list:
+    """Per data shard of every paged pool: free + live + withheld blocks
+    make up the shard's usable range (shard 0 less its null block).
+    Returns the shards that break it."""
+    bad = []
+    for rt in engine.runtimes:
+        alloc = rt.pool.blocks
+        for s in range(alloc.shards):
+            usable = alloc._span - (s == 0)
+            got = alloc.free_in(s) + alloc.used_in(s) + alloc.reserved_in(s)
+            if got != usable:
+                bad.append({"tier": rt.spec.name, "shard": s, "blocks": got,
+                            "usable": usable})
+    return bad
+
+
+def serve_meshed(card: str, params, label: str, tier_mesh=None,
+                 devices=None, clock=None, traced=False, **flags) -> dict:
+    """Serve phase 4's workload on ``params`` (ragged, gemma3-1b ->
+    phi4-mini-3.8b) under ``--tier-mesh`` over ``devices`` (None: the
+    visible cards), every kernel counter set to 0 just before and read
+    just after.  Checks: every request DONE (conservation), blocks
+    conserved after the drain in every pool and every data shard,
+    confidences finite, one fetch at most per active tier per tick, each
+    meshed tier holding one replica of its params per distinct device
+    (phase 4's tensors themselves on the device they were drawn on), and
+    the launches: a tier of D data shards launches each kernel D times
+    per tier launch and per warmup width, so the layer kernels count
+    ``sum_t D_t * expected_launches(tier t)`` and the gate
+    ``sum_t D_t * (tier launches + warmup widths)``.  ``traced`` records
+    the run with ``--trace-out`` and adds each tier's host ms in its
+    ``launch`` and ``device_get`` phases (:func:`host_phase_split`).
+    Returns the run's counts, per-request records, summary, peak memory
+    by card and KV high water by shard."""
+    trace_path = kernels.BUILD_DIR / "multidevice" / "trace.json"
+    if traced:
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        flags["trace_out"] = str(trace_path)
+    args = main_path_args(tier_mesh=tier_mesh, mesh_devices=devices,
+                          **flags)
+    cards = card_devices()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
+    with EngineTap() as tap:
+        s = serve_async.run(args, clock, params=params)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    counts = {name: getattr(ops, name).launches for name in COUNTED}
+    peak = [torch.cuda.max_memory_allocated(d) for d in cards]
+    eng = tap.engine
+    cfgs = serve_async.tier_configs(args)
+    shards = [rt.data_shards for rt in eng.runtimes]
+    kinds = s["launches_by_kind"]
+    warm = [{"ragged": len(b)} for b in s["flat_buckets"]]
+    want = {k: 0 for k in COUNTED if k != "confidence_gate"}
+    for t, d in enumerate(shards):
+        for k, v in expected_launches([cfgs[t]], [kinds[t]],
+                                      [warm[t]]).items():
+            want[k] += d * v
+    want["confidence_gate"] = sum(
+        d * (n + w["ragged"]) for d, n, w in zip(shards, s["launches"],
+                                                 warm))
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts} != {want} (D x per tier)")
+    per_req = s["per_request"]
+    if s["completed"] != args.requests or not s["conservation"]["ok"] \
+            or not all(len(r["tokens"]) == args.gen_len for r in per_req):
+        problems.append(f"not every request DONE: {s['conservation']}")
+    leaks = pool_leaks(eng) + shard_conservation(eng)
+    if leaks:
+        problems.append(f"blocks not conserved: {leaks}")
+    if not all(np.isfinite(r.token_conf).all() for r in eng.requests):
+        problems.append("a token's confidence is not finite")
+    if any(h > a for h, a in zip(s["host_syncs"], s["active_ticks"])):
+        problems.append(f"host syncs {s['host_syncs']} over active ticks "
+                        f"{s['active_ticks']}")
+    for t, rt in enumerate(eng.runtimes):
+        given = params[t]["embed"]
+        if rt.mesh is not None and (
+                len(rt.replicas) != len(set(rt.devices))
+                or (given.device in rt.replicas and rt.replicas[
+                    given.device]["embed"].data_ptr() != given.data_ptr())):
+            problems.append(f"tier {t}: replicas {list(rt.replicas)} of "
+                            f"params on {given.device}")
+    by_shard = [m["kv_high_water_blocks_by_shard"] for m in s["kv_arena"]]
+    host_ms = None
+    if traced:
+        split = host_phase_split(json.loads(trace_path.read_text()),
+                                 [args.fast, args.expensive])
+        host_ms = {n: {f"{ph} {k}": split[n][ph][k]
+                       for ph in ("launch", "device_get")
+                       for k in ("p50_ms", "sum_ms")}
+                   for n in (args.fast, args.expensive)}
+        host_ms["tick p50_ms"] = split["tick"]["p50_ms"]
+    gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
+    record = dict(
+        phase="multidevice", run=label, card=card,
+        tier_meshes=s["tier_meshes"], clock="virtual" if clock else "wall",
+        data_shards=shards, requests=args.requests, steps=s["steps"],
+        tier_launches=s["launches"], launches_by_kind=kinds,
+        warmup_widths=warm, kernel_launches_window=counts,
+        active_ticks=s["active_ticks"], host_syncs=s["host_syncs"],
+        escalation_rate=s["escalation_rates"],
+        generated_tokens_per_s=gen_tokens / s["elapsed"],
+        makespan_s=s["elapsed"], tick_p50_s=s["tick_duration_p50"],
+        tick_p95_s=s["tick_duration_p95"], ttft_p50_s=s["ttft_p50"],
+        max_memory_allocated_bytes_by_card=peak,
+        kv_high_water_blocks=[m["kv_high_water_blocks"]
+                              for m in s["kv_arena"]],
+        kv_high_water_blocks_by_shard=by_shard,
+        preemptions_by_tier=s["preemptions_by_tier"], host_ms=host_ms,
+        stream_checksum=s["stream_checksum"], problems=problems)
+    emit(**record)
+    del tap, eng
+    if problems:
+        raise AssertionError(f"multidevice {label}: " + "; ".join(problems))
+    return dict(counts=counts, per_req=per_req, summary=s, peak=peak,
+                by_shard=by_shard, shards=shards, host_ms=host_ms)
+
+
+def same_tier_differences(base: list, other: list) -> list:
+    """Rids that end at the same tier in both runs with different
+    tokens."""
+    want = {r["rid"]: r for r in base}
+    return [r["rid"] for r in other if r["tier"] == want[r["rid"]]["tier"]
+            and r["tokens"] != want[r["rid"]]["tokens"]]
+
+
+def check_multidevice(card: str, params) -> dict:
+    """Phase 9, on phase 4's weights (alone:
+    ``scripts/torch_multidevice_phase.py``).  (9a, any card count) the
+    workload unsharded and with both tiers on a ``2x1`` mesh over the
+    first card twice (two data shards a tier, each shard's launches on
+    the same card), in turns (unsharded, sharded, sharded, unsharded),
+    traced for each tier's host ms in ``launch``: same-tier streams
+    equal, launches D times the unsharded formula, blocks conserved in
+    every shard, both shards of each tier used, and peak memory within
+    half of gemma3-1b's weights of the unsharded run's (a second copy of
+    either tier's params would add 4–15 GB); then the over-subscribed run (``MULTI_OVER``, two shards,
+    virtual clock): preemptions and every request drained.  (9b, two
+    cards or more) tier 0 on ``cuda:0`` and tier 1 on ``cuda:1``
+    (``--tier-mesh 1 1``), tier 1 on a ``2x1`` mesh over ``cuda:0..1``,
+    and the card tests that launch each kernel on ``cuda:1`` while
+    ``cuda:0`` is current; with one card, one line saying 9b did not
+    run.  Returns the runs' launch counts by path."""
+    t0 = time.perf_counter()
+    one = card_devices()[:1] * 2
+    turns = [serve_meshed(card, params, f"{label}, turn {i}", mesh, one,
+                          traced=True)
+             for i, (label, mesh) in enumerate((
+                 ("unsharded", None), ("2x1 on one card", ["2x1"]),
+                 ("2x1 on one card", ["2x1"]), ("unsharded", None)))]
+    base = turns[0]
+    over = serve_meshed(card, params, "2x1 over-subscribed youngest",
+                        ["2x1"], one, clock=VirtualClock(), **MULTI_OVER)
+    problems = []
+    differ = [same_tier_differences(base["per_req"], x["per_req"])
+              for x in turns[1:]]
+    if any(differ):
+        problems.append(f"same-tier streams differ: {differ}")
+    for x in turns[1:3]:
+        if not all(all(h > 0 for h in t) for t in x["by_shard"]):
+            problems.append(f"a shard stayed empty: {x['by_shard']}")
+    fast_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params[0]))
+    grew = max(x["peak"][0] for x in turns[1:3]) - min(
+        x["peak"][0] for x in (turns[0], turns[3]))
+    if grew > fast_bytes / 2:
+        problems.append(f"peak memory grew {grew} bytes (gemma3-1b's "
+                        f"weights are {fast_bytes})")
+    if sum(over["summary"]["preemptions_by_tier"]) == 0:
+        problems.append("the over-subscribed run preempted nothing")
+    tokens_per_s = [sum(x["summary"]["gen_len"] * (r["tier"] + 1)
+                        for r in x["per_req"]) / x["summary"]["elapsed"]
+                    for x in turns]
+    emit(check="multidevice 9a: 2 data shards a tier on one card against "
+               "unsharded, in turns (unsharded, sharded, sharded, "
+               "unsharded)", card=card, tokens_per_s=tokens_per_s,
+         sharded_over_unsharded=[tokens_per_s[1] / tokens_per_s[0],
+                                 tokens_per_s[2] / tokens_per_s[3]],
+         tick_p50_s=[x["summary"]["tick_duration_p50"] for x in turns],
+         host_ms=[x["host_ms"] for x in turns],
+         peak_bytes=[x["peak"][0] for x in turns],
+         peak_growth_bytes=grew, fast_params_bytes=fast_bytes,
+         launches=[x["counts"] for x in turns],
+         same_tier_differing_rids=differ,
+         over_preemptions_by_tier=over["summary"]["preemptions_by_tier"],
+         over_by_shard=over["by_shard"], problems=problems)
+    if problems:
+        raise AssertionError("multidevice 9a: " + "; ".join(problems))
+    out = {f"multidevice {label}": x["counts"] for label, x in (
+        ("unsharded", turns[0]), ("2x1", turns[1]), ("2x1 again", turns[2]),
+        ("unsharded again", turns[3]), ("2x1 youngest", over))}
+    cards = card_devices()
+    if len(cards) < 2:
+        emit(check="multidevice 9b", ran=False, card=card,
+             reason=f"torch.cuda.device_count() is {len(cards)}: placing "
+                    "tiers on distinct cards and launching on cuda:1 "
+                    "while cuda:0 is current need two cards")
+    else:
+        two = cards[:2]
+        split = serve_meshed(card, params, "tiers on cuda:0 and cuda:1",
+                             ["1", "1"], two)
+        wide = serve_meshed(card, params, "tier 1 on 2x1 over cuda:0..1",
+                            ["1", "2x1"], two)
+        differ = {label: same_tier_differences(base["per_req"],
+                                               x["per_req"])
+                  for label, x in (("1 1", split), ("1 2x1", wide))}
+        env = dict(os.environ,
+                   PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        tests = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
+             "no:cacheprovider", "-k", "second_card",
+             str(Path(__file__).resolve().parent / "tests"
+                 / "test_torch_kernels_cuda.py")],
+            capture_output=True, text=True, env=env, timeout=600)
+        last = (tests.stdout.strip().splitlines() or [""])[-1]
+        emit(check="multidevice 9b", ran=True, card=card,
+             devices=len(cards), same_tier_differing_rids=differ,
+             peak_bytes_by_card=[split["peak"], wide["peak"]],
+             kernel_tests_rc=tests.returncode, kernel_tests=last)
+        # every second-card test must run and pass: none may skip
+        if any(differ.values()) or tests.returncode != 0 \
+                or "passed" not in last or "skipped" in last:
+            raise AssertionError(f"multidevice 9b: {differ}\n"
+                                 f"{tests.stdout[-4000:]}")
+        out.update({"multidevice 1 1": split["counts"],
+                    "multidevice 1 2x1": wide["counts"]})
+    emit(phase="multidevice", phase_s=time.perf_counter() - t0)
+    return out
+
+
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3527,6 +3796,9 @@ def main() -> int:
     # the observability phase: tracer, profiler ranges and metrics
     # snapshots, then the flat-bucket override, under 4b's margin rule
     obs_runs = check_observability(card, params, spec_ctx["bounds"])
+    # phase 9, multi-device serving, on the same weights: data shards on
+    # one card (9a), tiers on distinct cards where there are two (9b)
+    multi_runs = check_multidevice(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -3598,6 +3870,7 @@ def main() -> int:
     counts.update(prefix_runs)
     counts.update(overload_runs)
     counts.update(obs_runs)
+    counts.update(multi_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
@@ -3616,7 +3889,7 @@ def main() -> int:
     trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
-                      + obs_paths + served
+                      + obs_paths + tuple(multi_runs) + served
                       + ("starcoder2 ragged", "moonshot 1 + 8 layers "
                                               "ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",

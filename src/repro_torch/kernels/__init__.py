@@ -14,6 +14,8 @@ the launcher of one of the eight kernels and its plain PyTorch version;
 ``prefill_attention.py`` delegates to ``mixed_attention.py``; ``ops.py``
 holds the dispatching wrappers the model calls, with their launch
 counters.  Device code shared between kernels lives in ``csrc/*.cuh``.
+Every launcher calls its entry point under :func:`device_guard` for its
+tensors' device, on that device's current stream (:func:`stream_handle`).
 """
 from __future__ import annotations
 
@@ -120,6 +122,15 @@ def load(name: str) -> ctypes.CDLL:
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on `device`, for a kernel launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def device_guard(device: torch.device):
+    """The current CUDA device set to `device` (its tensors' device) for
+    the length of a C entry point's call: the entry points configure
+    their kernels (``cudaFuncSetAttribute``) and launch on the current
+    device, so a tensor on ``cuda:1`` while ``cuda:0`` is current
+    launches where it lives."""
+    return torch.cuda.device(device)
 
 
 def check_launch(err: int, name: str) -> None:

@@ -120,20 +120,22 @@ def confidence_gate(logits):
     f32 = dict(dtype=torch.float32, device=x.device)
     conf, ent, logz = torch.empty(3, R, **f32)
     arg = torch.empty(R, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = kernels.stream_handle(x.device)
     part = part_idx = count = None
     if splits > 1 and R > 0:
         ws = torch.empty(R * splits * 5, **f32)
         part = ws.data_ptr()
         part_idx = part + 16 * R * splits
-        count = kernels.zeroed_counters(x.device, stream, R).data_ptr()
+        count = kernels.zeroed_counters(x.device, stream.value or 0,
+                                        R).data_ptr()
     lib = kernels.load("confidence_gate")
     fn = lib.confidence_gate
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(x), R, V, _DTYPES[x.dtype], splits, chunk, p(conf), p(ent),
-             p(arg), p(logz), part, part_idx, count, stream)
+    with kernels.device_guard(x.device):
+        err = fn(p(x), R, V, _DTYPES[x.dtype], splits, chunk, p(conf), p(ent),
+                 p(arg), p(logz), part, part_idx, count, stream)
     kernels.check_launch(err, "confidence_gate")
     return {"conf": conf.reshape(lead), "entropy": ent.reshape(lead),
             "argmax": arg.reshape(lead), "logz": logz.reshape(lead)}

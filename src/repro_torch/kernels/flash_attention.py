@@ -94,8 +94,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(q), p(k), p(v), p(out), B, H, KV, S, T, d, int(bool(causal)),
-             0 if window is None else int(window), _DTYPES[q.dtype],
-             kernels.stream_handle(q.device))
+    with kernels.device_guard(q.device):
+        err = fn(p(q), p(k), p(v), p(out), B, H, KV, S, T, d,
+                 int(bool(causal)), 0 if window is None else int(window), _DTYPES[q.dtype],
+                 kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

@@ -87,7 +87,8 @@ def mamba_scan(x, dt, B_t, C_t, A):
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(x), p(dt), p(B_t), p(C_t), p(A), p(y), p(h_out), Bsz, T, d,
-             n, kernels.stream_handle(x.device))
+    with kernels.device_guard(x.device):
+        err = fn(p(x), p(dt), p(B_t), p(C_t), p(A), p(y), p(h_out), Bsz, T, d,
+                 n, kernels.stream_handle(x.device))
     kernels.check_launch(err, name)
     return y, h_out

@@ -207,10 +207,11 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, *, k_scale=None,
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
-             p(page_table), p(pos), p(out), p(ws_acc), p(ws_ml), B, KV, G,
-             hd, P, bs, 0 if window is None else int(window), splits,
-             Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
-             kernels.stream_handle(q.device))
+    with kernels.device_guard(q.device):
+        err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
+                 p(page_table), p(pos), p(out), p(ws_acc), p(ws_ml), B, KV, G,
+                 hd, P, bs, 0 if window is None else int(window), splits,
+                 Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
+                 kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

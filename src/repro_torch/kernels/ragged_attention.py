@@ -113,11 +113,12 @@ def ragged_attention(q, k_pages, v_pages, page_table, q_start, q_len, *,
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
-             p(page_table), p(q_start), p(q_len), p(out), p(ws_acc),
-             p(ws_ml), W, KV, G, hd, R, P, bs,
-             0 if window is None else int(window), splits,
-             Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
-             kernels.stream_handle(q.device))
+    with kernels.device_guard(q.device):
+        err = fn(p(q), p(k_pages), p(v_pages), p(k_scale), p(v_scale),
+                 p(page_table), p(q_start), p(q_len), p(out), p(ws_acc),
+                 p(ws_ml), W, KV, G, hd, R, P, bs,
+                 0 if window is None else int(window), splits,
+                 Q_DTYPES[q.dtype], KV_DTYPES[k_pages.dtype],
+                 kernels.stream_handle(q.device))
     kernels.check_launch(err, name)
     return out

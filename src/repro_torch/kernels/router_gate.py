@@ -112,9 +112,10 @@ def router_gate(logits, k: int):
     R = x.shape[0]
     gates = torch.empty(R, k, dtype=torch.float32, device=x.device)
     idx = torch.empty(R, k, dtype=torch.int32, device=x.device)
-    err = _entry("router_gate")(
-        kernels.ptr(x), R, E, k, _DTYPES[x.dtype], kernels.ptr(gates),
-        kernels.ptr(idx), kernels.stream_handle(x.device))
+    with kernels.device_guard(x.device):
+        err = _entry("router_gate")(
+            kernels.ptr(x), R, E, k, _DTYPES[x.dtype], kernels.ptr(gates),
+            kernels.ptr(idx), kernels.stream_handle(x.device))
     kernels.check_launch(err, "router_gate")
     return gates.reshape(*lead, k), idx.reshape(*lead, k)
 
@@ -161,16 +162,18 @@ def moe_route(logits, k: int, cap: int, *,
     gw = torch.empty(2, G, gs, k, dtype=torch.float32, device=dev)
     idx = torch.empty(G, gs, k, dtype=torch.int32, device=dev)
     dest = torch.empty(G, gs, k, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = kernels.stream_handle(dev)
     hist = count = None
     _, nb = route_blocks(max(gs, 1), rpb)
     if nb > 1 and G > 0:
         hist = torch.empty(G * nb * E, dtype=torch.int32, device=dev)
-        count = kernels.zeroed_counters(dev, stream, G)
+        count = kernels.zeroed_counters(dev, stream.value or 0, G)
     gates, weight = gw
     p = kernels.ptr
-    err = _entry("moe_route")(
-        p(logits), G, gs, E, k, cap, rpb, _DTYPES[logits.dtype], p(gates),
-        p(idx), p(dest), p(weight), p(hist), p(count), stream)
+    with kernels.device_guard(dev):
+        err = _entry("moe_route")(
+            p(logits), G, gs, E, k, cap, rpb, _DTYPES[logits.dtype],
+            p(gates), p(idx), p(dest), p(weight), p(hist), p(count),
+            stream)
     kernels.check_launch(err, "moe_route")
     return gates, idx, dest, weight

@@ -79,7 +79,8 @@ def rwkv6_scan(r, k, v, w, u):
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     p = kernels.ptr
-    err = fn(p(r), p(k), p(v), p(w), p(u), p(y), p(s_out), B, H, T, hd,
-             kernels.stream_handle(r.device))
+    with kernels.device_guard(r.device):
+        err = fn(p(r), p(k), p(v), p(w), p(u), p(y), p(s_out), B, H, T, hd,
+                 kernels.stream_handle(r.device))
     kernels.check_launch(err, name)
     return y, s_out

@@ -56,6 +56,16 @@ escalation storms, launch failures, slow ticks; see that module for the
 grammar).  Ctrl-C prints the partial summary and still writes
 ``--trace-out``.
 
+Multi-device serving: ``--tier-mesh DATAxMODEL ...`` gives each tier
+its own mesh (one shape for both tiers, or one per tier) over a
+contiguous slice of the visible cards, wrapping to the first card when
+the tiers overrun them (``--device cpu``: over the CPU device repeated).
+``--tier-mesh 1 1`` on two cards serves the fast tier on ``cuda:0`` and
+the expensive one on ``cuda:1``; ``--tier-mesh 2x1 2x1`` splits each
+tier's rows and KV block pool into two data shards, each launch running
+once per shard on its card.  A ``model`` axis over 1 raises (tensor
+sharding is later work).
+
 Observability: ``--trace-out trace.json`` records every request's
 lifecycle (QUEUED -> PREFILL -> DECODE -> ESCALATED -> DONE) and every
 tick's engine phases (admit / plan / launch / device_get / finish) as a
@@ -96,6 +106,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import bigram_lm
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch.mesh import make_tier_meshes, visible_devices
 from repro_torch.models import init_params
 from repro_torch.serving import CascadeEngine, FaultPlan, TierSpec, Tracer
 from repro_torch.serving.engine import VirtualClock, WallClock, resolve_device
@@ -131,6 +142,36 @@ def build_params(args, cfgs=None):
             init_params(exp_cfg, exp_seed, torch.float32, device))
 
 
+def parse_mesh_shape(s: str):
+    """'4x2' -> (data=4, model=2); bare '4' means data-only."""
+    data, _, model = s.lower().partition("x")
+    return int(data), int(model or 1)
+
+
+def tier_meshes(args, num_tiers: int):
+    """Per-tier meshes from ``--tier-mesh`` (None: unmeshed tiers).  One
+    shape is broadcast to every tier; otherwise one per tier.  The meshes
+    cover ``args.mesh_devices`` where a caller sets it (a list of
+    devices, which may repeat one: several shards on one card), else the
+    visible cards, or with ``--device cpu`` the CPU device repeated as
+    often as the largest mesh needs."""
+    if not getattr(args, "tier_mesh", None):
+        return [None] * num_tiers
+    shapes = [parse_mesh_shape(s) for s in args.tier_mesh]
+    if len(shapes) == 1:
+        shapes = shapes * num_tiers
+    if len(shapes) != num_tiers:
+        raise ValueError(f"--tier-mesh takes 1 or {num_tiers} shapes, "
+                         f"got {len(shapes)}")
+    devices = getattr(args, "mesh_devices", None)
+    if devices is None:
+        devices = (
+            [torch.device("cpu")] * max(d * m for d, m in shapes)
+            if resolve_device(args.device).type == "cpu"
+            else visible_devices())
+    return make_tier_meshes(shapes, devices)
+
+
 def build_engine(args, clock=None, params=None, cfgs=None, tracer=None):
     """Both tiers' configs (:func:`tier_configs`) and weights (``params``
     from :func:`build_params`, drawn here when None), and the engine
@@ -147,9 +188,10 @@ def build_engine(args, clock=None, params=None, cfgs=None, tracer=None):
     gate_kw = ({"deltas": [args.delta]} if args.delta is not None
                else {"escalation_budget": args.escalation_budget})
     dense = getattr(args, "dense_kv", False)
+    meshes = tier_meshes(args, 2)
     engine = CascadeEngine(
-        [TierSpec(args.fast, fast_cfg, fast_params),
-         TierSpec(args.expensive, exp_cfg, exp_params)],
+        [TierSpec(args.fast, fast_cfg, fast_params, mesh=meshes[0]),
+         TierSpec(args.expensive, exp_cfg, exp_params, mesh=meshes[1])],
         slots=args.slots, prompt_len=args.prompt_len, gen_len=args.gen_len,
         kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
         use_paged_kv=not dense,
@@ -354,6 +396,10 @@ def run(args, clock=None, params=None, cfgs=None) -> dict:
     summary["shared_prefix_frac"] = float(
         getattr(args, "shared_prefix_frac", 0.0) or 0.0)
     summary["stream_checksum"] = stream_checksum(engine)
+    # multi-device serving: per-tier mesh layout (None: unmeshed tiers)
+    summary["tier_meshes"] = engine.mesh_topology()
+    summary["device_count"] = (torch.cuda.device_count()
+                               if engine.device.type == "cuda" else 1)
     summary["device"] = str(engine.device)
     summary["device_name"] = (torch.cuda.get_device_name(engine.device)
                               if engine.device.type == "cuda" else "cpu")
@@ -370,6 +416,9 @@ def report(s: dict) -> None:
           f"in {s['elapsed']:.2f}s over {s['steps']} engine steps "
           f"(rate {s['rate']}/s, {s['slots']} slots/tier, "
           f"{s['device_name']})")
+    if any(t["mesh"] for t in s.get("tier_meshes", [])):
+        print("  meshes " + "  ".join(
+            f"{t['tier']}={t['mesh']}" for t in s["tier_meshes"]))
     print(f"  latency  p50 {s['latency_p50']:.3f}s  "
           f"p95 {s['latency_p95']:.3f}s   "
           f"ttft p50 {s['ttft_p50']:.3f}s  p95 {s['ttft_p95']:.3f}s")
@@ -488,6 +537,15 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dense-kv", action="store_true",
                     help="dense one-row-per-request KV arena instead of the "
                          "block-paged one (implies --no-chunked-prefill)")
+    ap.add_argument("--tier-mesh", nargs="*", default=None,
+                    metavar="DATAxMODEL",
+                    help="per-tier mesh shapes, e.g. --tier-mesh 2x1 2x1: "
+                         "each tier gets its own mesh over a contiguous "
+                         "slice of the visible cards (wrapping when tiers "
+                         "overrun them; the CPU device repeated under "
+                         "--device cpu); rows + KV block pool shard over "
+                         "the data axis.  One shape is broadcast to both "
+                         "tiers; default: no mesh (the --device)")
     ap.add_argument("--split-step", action="store_true",
                     help="split chunk + decode launches instead of the "
                          "unified one launch per tier per tick")

@@ -1,5 +1,5 @@
-"""CascadeEngine: request-level cascade inference on one device (the torch
-port of the main path of ``repro/serving/engine.py``).
+"""CascadeEngine: request-level cascade inference on one device or several
+(the torch port of the main path of ``repro/serving/engine.py``).
 
 One engine step (tick) per tier:
 
@@ -118,11 +118,29 @@ Neither adds a synchronisation or a transfer: ``host_syncs`` and the
 launch counts are the same with both on and off.  ``run(metrics_interval=)``
 hands a metrics snapshot to ``on_snapshot`` once per window.
 
+**Multi-device serving**, as in the JAX engine for meshes whose
+``model`` axis is 1: ``TierSpec.mesh`` (a
+:class:`repro_torch.launch.mesh.TierMesh`) places a tier on its own
+devices.  A ``1x1`` mesh moves the tier to one device of its own, under
+every executor: the fast tier on one card and the expensive one on
+another.  A ``Dx1`` mesh splits the tier's rows and KV block pool into
+``D`` data shards (:class:`repro_torch.serving.slots.TierSlotPool`):
+admission picks a shard per request
+(:meth:`CascadeEngine._pick_shard_prefix`), each shard's rows keep
+their blocks, prefix index and oldest-first
+reserve on their own shard, and under the ragged, padded and split
+executors every launch runs once per shard on that shard's device, over
+its rows (the ragged one at the bucket of the shard's own live tokens).
+So a sharded tier launches each kernel exactly ``D`` times as often as
+the same tier unsharded, and still pays one blocking fetch a tick: the
+shards' results come back by one asynchronous copy each, then one wait.
+Shards on one device share one replica of the params.  Data shards under
+uniform prefill, the dense arena or speculation, and a ``model`` axis
+over 1, raise (ROADMAP Queue 1, item 5).
+
 Not ported from the JAX engine (later work): compile statistics (an
-eager engine compiles nothing; they wait for CUDA graphs) and meshes — per-tier device placement (``TierSpec.mesh``,
-``shard_params``, ``mesh_topology``, ``_place_params``, ``put_flat``,
-``put_rows``) and the choice of a data shard over more than one
-(``_pick_shard``).
+eager engine compiles nothing; they wait for CUDA graphs) and tensor
+sharding over the ``model`` axis (``TierSpec.shard_params``).
 """
 from __future__ import annotations
 
@@ -138,6 +156,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
+from repro_torch.models.params import tree_map
+from repro_torch.models.sharding import data_axis_size
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import observability as obs
 from repro_torch.serving.metrics import ServingMetrics, TierCost
@@ -159,15 +179,27 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class TierSpec:
-    """One cascade member: model config + its parameter tree (on the
-    engine's device)."""
+    """One cascade member: model config + its parameter tree, and
+    optionally its own mesh.
+
+    Without a mesh the params sit on the engine's device and the tier
+    runs there.  ``mesh`` (``(data, model)`` axes, from
+    :func:`repro_torch.launch.mesh.make_tier_mesh`) places the tier on the
+    mesh's devices: the params are copied to each distinct one (from any
+    device), and the KV arena splits its request rows and block pool into
+    the data axis's shards.  Tiers may sit on disjoint devices or share
+    them."""
     name: str
     cfg: ModelConfig
     params: object
+    mesh: Optional[object] = None
 
     def flops_per_request(self, gen_len: int) -> float:
         """Eq 7 cost: FLOPs/token = 2 * active params."""
         return 2.0 * self.cfg.active_param_count() * gen_len
+
+    def data_shards(self) -> int:
+        return data_axis_size(self.mesh)
 
 
 class WallClock:
@@ -219,7 +251,9 @@ class StepPlan:
     per-row token slots, live counts, and — ragged executor only, else
     None — the flat packing the ragged launch consumes: every live row's
     tokens concatenated into ``flat_tokens [1, W]`` (``W`` the smallest
-    of the tier's bucket widths that holds them)."""
+    of the tier's bucket widths that holds them).  On a data-sharded tier
+    each shard packs its own rows at its own bucket, and ``flat_tokens``
+    holds the shards' packings side by side (``flat_widths``)."""
     width: int                  # token slots per row (chunk; 1 decode-only)
     kind: np.ndarray            # [capacity] int8 KIND_*
     tokens: np.ndarray          # [capacity, width] int32
@@ -228,7 +262,7 @@ class StepPlan:
     prefill_rows: List[int]     # live prefill rows (q_len > 0)
     decode_rows: List[int]      # decode rows (stalls excluded)
     finishing: List[int]        # prefill rows whose last chunk completes
-    flat_width: Optional[int]   # bucketed W >= sum(q_len)
+    flat_width: Optional[int]   # bucketed W >= sum(q_len), over shards
     flat_tokens: Optional[np.ndarray]   # [1, W] int32
     flat_pos: Optional[np.ndarray]      # [1, W] int32 abs positions
     q_start: Optional[np.ndarray]       # [capacity] int32 first pos
@@ -240,6 +274,9 @@ class StepPlan:
     verify_rows: List[tuple] = field(default_factory=list)  # (slot, n)
     draft_rows: List[int] = field(default_factory=list)
     draft_len: Optional[np.ndarray] = None      # [capacity] int32
+    # ragged: each data shard's bucket, its packing's columns of the flat
+    # batch in shard order (one entry, flat_width, for one shard)
+    flat_widths: Optional[List[int]] = None
 
     @property
     def live_prefill_tokens(self) -> int:
@@ -252,8 +289,30 @@ class StepPlan:
         return int(self.q_len.sum())
 
 
+class Sharded(tuple):
+    """A per-row device value of a data-sharded tier: one tensor per data
+    shard, on that shard's device, holding the shard's rows in order (the
+    JAX package's row-sharded array).  :meth:`CascadeEngine._fetch` joins
+    the shards on the host; nothing joins them across devices."""
+
+
+def _joined(outs: list):
+    """One launch's outputs per data shard, as the engine passes them on:
+    the outputs themselves for one shard, a :class:`Sharded` per output
+    for more."""
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(Sharded(x) for x in zip(*outs))
+
+
 class _TierRuntime:
-    """Per-tier model, KV arena, and host-side row state."""
+    """Per-tier model, KV arena, and host-side row state.
+
+    A tier on a mesh (``spec.mesh``) runs on the mesh's devices: its
+    params are placed there (:meth:`_place_params`) and, with ``D`` data
+    shards, its rows and KV blocks split into ``D`` contiguous shards, and
+    every launch runs once per shard on that shard's device over that
+    shard's rows and arena."""
 
     def __init__(self, spec: TierSpec, capacity: int, prompt_len: int,
                  max_seq: int, device, *, block_size: int = 16,
@@ -266,7 +325,37 @@ class _TierRuntime:
                  speculation_k: int = 0, spec_draft: bool = False):
         self.spec = spec
         self.capacity = capacity
-        self.device = device
+        self.mesh = spec.mesh
+        self.data_shards = spec.data_shards()
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"tier {spec.name}: mesh {self.mesh.shape} has a model axis "
+                "over 1; tensor sharding over the model axis is not ported "
+                "yet (ROADMAP Queue 1, item 5: the model axis)")
+        if capacity % self.data_shards:
+            raise ValueError(
+                f"tier {spec.name}: {capacity} slots must divide into the "
+                f"mesh's {self.data_shards} data shards")
+        if self.data_shards > 1:
+            refused = ("the dense KV arena" if not use_paged_kv
+                       else "uniform one-shot prefill"
+                       if not use_chunked_prefill
+                       else "speculative cascade decoding"
+                       if speculation_k else None)
+            if refused is not None:
+                raise NotImplementedError(
+                    f"tier {spec.name}: {self.data_shards} data shards "
+                    f"under {refused} are not ported yet (ROADMAP Queue 1, "
+                    "item 5: data shards under uniform, dense and "
+                    "speculation); data shards run the ragged, padded and "
+                    "split executors")
+        # each data shard's device and request rows
+        self.devices = ([torch.device(d) for d in self.mesh.data_devices()]
+                        if self.mesh is not None else [device])
+        self.device = self.devices[0]
+        span = capacity // self.data_shards
+        self.rows = [slice(s * span, (s + 1) * span)
+                     for s in range(self.data_shards)]
         self.paged = bool(use_paged_kv)
         self.chunked = bool(use_chunked_prefill)
         self.unified = bool(use_unified_step)
@@ -280,12 +369,14 @@ class _TierRuntime:
             self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
                                      block_size=block_size,
                                      num_blocks=kv_blocks, device=device,
+                                     mesh=self.mesh,
                                      prefix_chunk=(self.chunk if self.prefix
                                                    else None))
         else:
             self.pool = DenseTierSlotPool(spec.cfg, capacity, max_seq,
-                                          device=device)
-        self.params = spec.params
+                                          device=self.device)
+        self.replicas = self._place_params(spec)
+        self.params = self.replicas[self.device]
         self.slot_req: List[Optional[Request]] = [None] * capacity
         self.tok = np.zeros(capacity, np.int32)
         self.pos = np.zeros(capacity, np.int32)
@@ -298,20 +389,38 @@ class _TierRuntime:
         self.spec_draft = bool(spec_draft) and self.spec_k > 0
         self.draft_req: List[Optional[Request]] = [None] * capacity
 
+    def _place_params(self, spec: TierSpec) -> dict:
+        """The tier's params by device: one replica per distinct device of
+        its shards (shards sharing a device share the replica, so a card
+        holds the weights once however many shards it runs).  A tensor
+        already on its device is not copied; an unmeshed tier's params
+        stay as given."""
+        if self.mesh is None:
+            return {self.device: spec.params}
+        out = {}
+        for dev in self.devices:
+            if dev not in out:
+                out[dev] = tree_map(
+                    lambda t, d=dev: t.to(d) if torch.is_tensor(t) else t,
+                    spec.params)
+        return out
+
     def pick(self, logits2d):
         """Each row's (argmax token, max-softmax confidence), from the
         confidence gate kernel."""
         gate = kernel_ops.confidence_gate(logits2d)
         return gate["argmax"], gate["conf"]
 
-    def ragged_fn(self, tokens, pos, page_table, q_len, q_start):
-        """The ragged flat token-batch step: the tick's live tokens packed
-        in ``[1, W]``; returns per-row last-position picks in engine-row
-        order."""
+    def ragged_fn(self, tokens, pos, page_table, q_len, q_start, shard=0):
+        """The ragged flat token-batch step of one data shard: its live
+        tokens packed in ``[1, W]``; returns per-row last-position picks
+        in the shard's row order."""
         pages = {"page_table": page_table, "q_len": q_len,
                  "q_start": q_start}
-        logits, self.pool.cache = transformer.ragged_step(
-            self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
+        caches = self.pool.caches
+        logits, caches[shard] = transformer.ragged_step(
+            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
+            caches[shard], pos, pages)
         return self.pick(logits)
 
     def spec_fn(self, tokens, pos, page_table, q_len, q_start, draft_len,
@@ -325,7 +434,7 @@ class _TierRuntime:
         tokens.  At step j a row with ``draft_len <= j`` decodes through
         an all-null page-table row at position 0: its write lands in the
         null block and its pick is discarded.  Every pick stays on the
-        device."""
+        device.  One data shard (speculation takes no more)."""
         pages = {"page_table": page_table, "q_len": q_len,
                  "q_start": q_start}
         # a draft tier with a larger vocabulary can draft ids past this
@@ -357,32 +466,37 @@ class _TierRuntime:
         out["draft_conf"] = torch.stack(dconf, 1)
         return out
 
-    def mixed_fn(self, tokens, pos, page_table, q_len):
-        """The padded unified step: every live row's work — prefill chunk
-        or decode token — in one ``[capacity, width]`` batch; returns each
-        row's pick at its last live slot."""
+    def mixed_fn(self, tokens, pos, page_table, q_len, shard=0):
+        """The padded unified step of one data shard: every live row's
+        work — prefill chunk or decode token — in one ``[rows, width]``
+        batch; returns each row's pick at its last live slot."""
         pages = {"page_table": page_table, "q_len": q_len}
-        logits, self.pool.cache = transformer.mixed_step(
-            self.params, self.spec.cfg, tokens, self.pool.cache, pos, pages)
+        caches = self.pool.caches
+        logits, caches[shard] = transformer.mixed_step(
+            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
+            caches[shard], pos, pages)
         return self.pick(logits)
 
-    def chunk_fn(self, tokens, pos, page_table, q_len):
-        """The split executor's chunk launch; the first generated token is
-        each row's pick at its last live prompt position (the host keeps
-        it for final chunks only)."""
-        logits, self.pool.cache = transformer.prefill_chunk(
-            self.params, self.spec.cfg, tokens, self.pool.cache, pos,
-            {"page_table": page_table, "q_len": q_len})
+    def chunk_fn(self, tokens, pos, page_table, q_len, shard=0):
+        """The split executor's chunk launch on one data shard; the first
+        generated token is each row's pick at its last live prompt
+        position (the host keeps it for final chunks only)."""
+        caches = self.pool.caches
+        logits, caches[shard] = transformer.prefill_chunk(
+            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
+            caches[shard], pos, {"page_table": page_table, "q_len": q_len})
         return self.pick(transformer.last_slot_gather(logits, q_len,
                                                       flat=False))
 
-    def step_fn(self, tok, pos, page_table):
-        """The split executor's decode launch: one token per row, through
-        the page tables (``page_table`` None: the dense arena)."""
+    def step_fn(self, tok, pos, page_table, shard=0):
+        """The split executor's decode launch on one data shard: one token
+        per row, through the page tables (``page_table`` None: the dense
+        arena)."""
         pages = None if page_table is None else {"page_table": page_table}
-        logits, self.pool.cache = transformer.decode_step(
-            self.params, self.spec.cfg, tok, self.pool.cache, pos,
-            pages=pages)
+        caches = self.pool.caches
+        logits, caches[shard] = transformer.decode_step(
+            self.replicas[self.devices[shard]], self.spec.cfg, tok,
+            caches[shard], pos, pages=pages)
         return self.pick(logits[:, 0])
 
     def prefill_fn(self, prompts):
@@ -402,9 +516,9 @@ class _TierRuntime:
 
     def _default_buckets(self) -> List[int]:
         """Powers of two from 8 up to the first covering the worst-case
-        tick (every row prefilling a full chunk = capacity * chunk live
-        tokens)."""
-        worst = max(self.capacity * self.chunk, 1)
+        tick of one data shard (every row of the shard prefilling a full
+        chunk = capacity / D * chunk live tokens)."""
+        worst = max(self.rows[0].stop * self.chunk, 1)
         buckets, w = [], 8
         while w < worst:
             buckets.append(w)
@@ -418,7 +532,9 @@ class _TierRuntime:
         is the TPU kernel's 16-token query tile: the port's tile body
         takes any width (:func:`repro_torch.kernels.ragged_attention.
         work_items`), but the port accepts exactly the JAX engine's
-        bucket sets."""
+        bucket sets.  Each data shard packs its own rows, so the largest
+        bucket covers one shard's worst-case tick (the whole tier's
+        without a mesh)."""
         out = sorted({int(b) for b in buckets})
         if not out or out[0] <= 0:
             raise ValueError(f"flat_buckets must be positive: {buckets}")
@@ -428,12 +544,13 @@ class _TierRuntime:
                     f"flat bucket {b} must be a multiple of the ragged "
                     "kernel's 16-token query tile (widths <= 16 are "
                     "single-tile and exempt)")
-        worst = self.capacity * self.chunk
+        rows = self.rows[0].stop
+        worst = rows * self.chunk
         if out[-1] < worst:
             raise ValueError(
                 f"largest flat bucket {out[-1]} cannot cover the "
                 f"worst-case tick of {worst} live tokens "
-                f"({self.capacity} slots x {self.chunk}-token chunks)")
+                f"({rows} slots x {self.chunk}-token chunks)")
         return out
 
     def bucket_width(self, live_tokens: int) -> int:
@@ -446,29 +563,55 @@ class _TierRuntime:
 
     # -- device placement ---------------------------------------------------
 
-    def put(self, *arrays):
-        """Host int32 arrays onto the tier's device in ONE copy (pinned and
-        asynchronous on CUDA); returns device views in the given shapes."""
+    def put(self, *arrays, shard: int = 0):
+        """Host int32 arrays onto data shard `shard`'s device in ONE copy
+        (pinned and asynchronous on CUDA); returns device views in the
+        given shapes.  Every per-tick input of a launch goes this way, an
+        escalated request's tokens too: they reach this tier's device
+        from the host."""
         flat = np.concatenate([np.asarray(a, np.int32).ravel()
                                for a in arrays])
         host = torch.from_numpy(flat)
-        if self.device.type == "cuda":
-            dev = host.pin_memory().to(self.device, non_blocking=True)
+        dev = self.devices[shard]
+        if dev.type == "cuda":
+            on = host.pin_memory().to(dev, non_blocking=True)
         else:
-            dev = host.to(self.device)
+            on = host.to(dev)
         out, o = [], 0
         for a in arrays:
             n = int(np.prod(np.shape(a)))
-            out.append(dev[o:o + n].view(np.shape(a)))
+            out.append(on[o:o + n].view(np.shape(a)))
             o += n
         return out
 
-    def run_ragged(self, flat_tokens, flat_pos, qlen, qstart):
-        """The tick's one ragged launch at a bucketed flat width."""
-        tokens, pos, pt, ql, qs = self.put(flat_tokens, flat_pos,
-                                           self.pool.page_table, qlen,
-                                           qstart)
-        return self.ragged_fn(tokens, pos, pt, ql, qs)
+    def _per_shard(self, launch, arrays, page_table=None):
+        """``launch(shard, *inputs)`` once per data shard, on its device:
+        the shard's rows of each host array of ``arrays`` and, where
+        given, of ``page_table`` in its arena's local block ids, in one
+        copy.  One shard: the launch's outputs; more: a :class:`Sharded`
+        per output."""
+        outs = []
+        for sh, rows in enumerate(self.rows):
+            host = [np.asarray(a)[rows] for a in arrays]
+            if page_table is not None:
+                host.append(self.pool.local_page_table(sh, page_table))
+            outs.append(launch(sh, *self.put(*host, shard=sh)))
+        return _joined(outs)
+
+    def run_ragged(self, flat_tokens, flat_pos, qlen, qstart, widths=None):
+        """The tick's ragged launch at a bucketed flat width, one per data
+        shard: ``widths`` (one per shard, summing to the flat width;
+        default: the whole width, one shard) cuts the flat batch into
+        each shard's own packing."""
+        outs, o = [], 0
+        for sh, (rows, w) in enumerate(zip(
+                self.rows, widths or [flat_tokens.shape[1]])):
+            outs.append(self.ragged_fn(*self.put(
+                flat_tokens[:, o:o + w], flat_pos[:, o:o + w],
+                self.pool.local_page_table(sh), qlen[rows], qstart[rows],
+                shard=sh), shard=sh))
+            o += w
+        return _joined(outs)
 
     def run_spec(self, flat_tokens, flat_pos, qlen, qstart, draft_len,
                  draft_steps: int) -> dict:
@@ -479,39 +622,45 @@ class _TierRuntime:
                                       draft_len), draft_steps)
 
     def run_mixed(self, tokens, pos, qlen):
-        """The padded unified launch: each row scatters into and attends
-        its own pages, so no page-table masking is needed."""
-        return self.mixed_fn(*self.put(tokens, pos, self.pool.page_table,
-                                       qlen))
+        """The padded unified launch, one per data shard: each row
+        scatters into and attends its own pages, so no page-table masking
+        is needed."""
+        return self._per_shard(
+            lambda sh, t, p, q, pt: self.mixed_fn(t, p, pt, q, shard=sh),
+            (tokens, pos, qlen), self.pool.page_table)
 
     def run_prefill(self, prompts):
         """The uniform prefill launch over all rows."""
         return self.prefill_fn(*self.put(prompts))
 
     def run_chunk(self, tokens, pos, qlen):
-        """The split executor's chunk launch over the prefill rows."""
-        return self.chunk_fn(*self.put(tokens, pos, self.pool.page_table,
-                                       qlen))
+        """The split executor's chunk launch over the prefill rows, one
+        per data shard."""
+        return self._per_shard(
+            lambda sh, t, p, q, pt: self.chunk_fn(t, p, pt, q, shard=sh),
+            (tokens, pos, qlen), self.pool.page_table)
 
     def run_step(self, tok, mask_rows=(), first=None, fresh=()):
-        """The split executor's decode launch: row s decodes ``tok[s]`` at
-        ``self.pos[s]``; rows in ``fresh`` take their token from the
-        device tensor ``first`` [capacity] instead (the chunk launch's
-        pick, never fetched).  ``mask_rows`` (rows mid-prefill) decode
-        through an all-null page-table row (:meth:`masked_page_table`);
-        the dense arena takes no page table."""
+        """The split executor's decode launch, one per data shard: row s
+        decodes ``tok[s]`` at ``self.pos[s]``; rows in ``fresh`` take
+        their token from the device value ``first`` [capacity] instead
+        (the chunk launch's pick, never fetched).  ``mask_rows`` (rows
+        mid-prefill) decode through an all-null page-table row
+        (:meth:`masked_page_table`); the dense arena takes no page
+        table."""
         is_fresh = np.zeros(self.capacity, np.int32)
         is_fresh[list(fresh)] = 1
-        host = [np.asarray(tok, np.int32)[:, None], is_fresh,
-                self.pos[:, None]]
-        if self.paged:
-            host.append(self.masked_page_table(mask_rows))
-        tok_in, is_fresh, pos, *pt = self.put(*host)
-        pt = pt[0] if pt else None
-        if first is not None:
-            tok_in = torch.where(is_fresh[:, None].bool(),
-                                 first[:, None].to(torch.int32), tok_in)
-        return self.step_fn(tok_in, pos, pt)
+        pt = self.masked_page_table(mask_rows) if self.paged else None
+
+        def launch(sh, tok_in, is_fresh, pos, pt=None):
+            if first is not None:
+                f = first[sh] if isinstance(first, Sharded) else first
+                tok_in = torch.where(is_fresh[:, None].bool(),
+                                     f[:, None].to(torch.int32), tok_in)
+            return self.step_fn(tok_in, pos, pt, shard=sh)
+        return self._per_shard(
+            launch, (np.asarray(tok, np.int32)[:, None], is_fresh,
+                     self.pos[:, None]), pt)
 
     def masked_page_table(self, mask_rows: Sequence[int] = ()):
         """The host page tables a launch copies to the device (the JAX
@@ -552,6 +701,30 @@ class _RetryExhausted(RuntimeError):
         super().__init__(f"launch retries exhausted in {kind}: {cause}")
         self.kind = kind
         self.cause = cause
+
+
+def _to_host(flats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each data shard's flat result buffer in host memory.  One buffer
+    (an unsharded tier): one blocking copy.  More: an asynchronous copy
+    per shard into pinned memory, each on its device's current stream,
+    then one wait for all of them, so the copies overlap."""
+    if len(flats) == 1:
+        return [flats[0].cpu()]
+    hosts, done = [], []
+    for f in flats:
+        if f.device.type != "cuda":
+            hosts.append(f.cpu())
+            continue
+        with torch.cuda.device(f.device):
+            h = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+            h.copy_(f, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        hosts.append(h)
+        done.append(ev)
+    for ev in done:
+        ev.synchronize()
+    return hosts
 
 
 def _transient_error_types() -> tuple:
@@ -605,8 +778,9 @@ class CascadeEngine:
         prefill_chunk``).  Tokens and confidences come from the
         confidence gate kernel.  The gate is a fixed ``deltas`` per
         non-final tier, an ``escalation_budget`` (δ = that quantile of
-        recent sequence confidences), or δ = 0.5.  ``device`` must hold every tier's
-        params; a CUDA device without a card raises.
+        recent sequence confidences), or δ = 0.5.  ``device`` must hold
+        the params of every tier without a mesh (``TierSpec.mesh``: the
+        module docstring); a CUDA device without a card raises.
 
         The executor follows the JAX engine's switches, defaults and
         errors: ``use_paged_kv`` (default on) picks the block-paged arena,
@@ -657,6 +831,8 @@ class CascadeEngine:
         self.tiers = list(tiers)
         m = len(self.tiers)
         for t in self.tiers:
+            if t.mesh is not None:
+                continue        # _place_params moves them to the mesh
             dev = t.params["embed"].device
             if dev.type != self.device.type or (
                     dev.index is not None and self.device.index is not None
@@ -782,7 +958,9 @@ class CascadeEngine:
         # the scheduler streams every gate decision into the metrics'
         # calibration telemetry; the engine streams the outcomes
         self.scheduler = CascadeScheduler(
-            slots_per_tier, gates, calibration=self.metrics.calibration)
+            slots_per_tier, gates,
+            shards_per_tier=[t.data_shards() for t in self.tiers],
+            calibration=self.metrics.calibration)
         self.clock = clock if clock is not None else WallClock()
         self.tracer = tracer
         self.profile_annotations = bool(profile_annotations)
@@ -885,6 +1063,11 @@ class CascadeEngine:
         int32 beside the f32 ones in a single copy (counted overall and
         per tier).  Returns numpy arrays of the given shapes, in order.
 
+        A data-sharded tier's values (:class:`Sharded`) come back with one
+        asynchronous copy per shard into pinned host memory and one wait
+        for them all (:func:`_to_host`), still one fetch; the shards join
+        on the host.
+
         The copy runs under the retry wrapper as kind ``device_get``: a
         retry re-reads the same device tensors, so it is safe, and a CUDA
         fault of a kernel surfaces here (the first synchronisation) and
@@ -897,20 +1080,24 @@ class CascadeEngine:
         self.metrics.record_host_sync(tier)
         tr = self.tracer
         t0 = tr.now_us() if tr is not None else 0.0
-        flat = self._launch(tier, "device_get", lambda: torch.cat([
-            t.reshape(-1).to(torch.float32) if t.is_floating_point()
-            else t.reshape(-1).to(torch.int32).view(torch.float32)
-            for t in tensors]).cpu())
+        shards = [t if isinstance(t, Sharded) else (t,) for t in tensors]
+        flats = self._launch(tier, "device_get", lambda: _to_host([
+            torch.cat([
+                t.reshape(-1).to(torch.float32) if t.is_floating_point()
+                else t.reshape(-1).to(torch.int32).view(torch.float32)
+                for t in parts]) for parts in zip(*shards)]))
         if tr is not None:
             tr.phase("device_get", tier, t0, tick=self.tick_id)
-        out, o = [], 0
-        for t in tensors:
-            part = flat[o:o + t.numel()]
-            if not t.is_floating_point():
-                part = part.view(torch.int32)
-            out.append(part.numpy().reshape(tuple(t.shape)))
-            o += t.numel()
-        return out
+        out = [[] for _ in tensors]
+        for flat, parts in zip(flats, zip(*shards)):
+            o = 0
+            for k, t in enumerate(parts):
+                part = flat[o:o + t.numel()]
+                if not t.is_floating_point():
+                    part = part.view(torch.int32)
+                out[k].append(part.numpy().reshape(tuple(t.shape)))
+                o += t.numel()
+        return [x[0] if len(x) == 1 else np.concatenate(x) for x in out]
 
     def _launch(self, tier: int, kind: str, thunk):
         """Run one launch (or fetch) under bounded retry with backoff.  A
@@ -960,7 +1147,7 @@ class CascadeEngine:
     def _annotate(self, kind: str, rt: _TierRuntime):
         """The profiler range of one launch, ``<kind>/<tier name>``."""
         return obs.annotation(f"{kind}/{rt.spec.name}",
-                              self.profile_annotations, self.device)
+                              self.profile_annotations, rt.device)
 
     def _admit(self, tier: int, now: float) -> None:
         """Admission, traced as the tick's ``admit`` phase (the leading
@@ -1018,7 +1205,7 @@ class CascadeEngine:
                 token_budget=self.prefill_token_budget,
                 budget_used=self._budget_used[tier],
                 admitted_before=self._admitted[tier] if rt.unified else None,
-                token_cost=cost)
+                token_cost=cost, shard=shard)
             if not reqs:
                 break               # over budget this tick
             req, slot = reqs[0], slot_ids[0]
@@ -1042,28 +1229,57 @@ class CascadeEngine:
         if fresh:
             self.metrics.record_admission(tier, fresh)
 
+    def _pick_shard(self, tier: int, rt: _TierRuntime,
+                    ntokens: int) -> Optional[int]:
+        """The data shard the next uniform admission should land on: a
+        shard with a free request row whose block pool passes
+        ``can_admit`` for the request's first pages, preferring the most
+        free blocks (lowest shard id on ties).  None when no shard can
+        take it."""
+        alloc = self.scheduler.allocators[tier]
+        best, best_free = None, -1
+        for s in range(rt.data_shards):
+            if alloc.free_in(s) == 0 or not rt.pool.can_admit(ntokens, s):
+                continue
+            free = rt.pool.blocks.free_in(s)
+            if free > best_free:
+                best, best_free = s, free
+        return best
+
     def _pick_shard_prefix(self, tier: int, rt: _TierRuntime,
                            req: Request):
-        """Chunked admission's check, and the longest cached prefix, as
-        ``(shard, cached_tokens, blocks)`` — the JAX engine's choice at
-        one shard: ``(None, 0, [])`` when the tier has no free row or its
-        pool cannot take the request's first chunk.  A pool that cannot
+        """Chunked admission's shard choice plus the longest cached
+        prefix there, as ``(shard, cached_tokens, blocks)``, as in the
+        JAX engine.  Among shards with a free row whose pool passes
+        ``can_admit``, prefer the longest prefix match, then the most free
+        blocks (lowest shard id on ties); ``(None, 0, [])`` when no shard
+        can take the request's first chunk.  A shard whose pool cannot
         take the request *with* its match (the pinned blocks stop being
         LRU-evictable) is retried without it, so caching never blocks an
-        admission the uncached path would have made.  The match is
-        looked up only when a row is free: a lookup touches the entry's
-        LRU stamp."""
-        if self.scheduler.allocators[tier].num_free == 0:
-            return None, 0, []
+        admission the uncached path would have made.  A shard's match is
+        looked up only when it has a free row: a lookup touches the
+        entry's LRU stamp."""
+        alloc = self.scheduler.allocators[tier]
         plen = req.prompt_tokens
-        cached, blocks = (rt.pool.match_prefix(req.prompt) if rt.prefix
-                          else (0, []))
-        span = cached + min(rt.chunk, plen - cached)
-        if not rt.pool.can_admit(span, cached=cached, prefix_blocks=blocks):
-            if not cached or not rt.pool.can_admit(min(rt.chunk, plen)):
-                return None, 0, []
-            cached, blocks = 0, []
-        return 0, cached, blocks
+        best = None
+        for s in range(rt.data_shards):
+            if alloc.free_in(s) == 0:
+                continue
+            cached, blocks = (rt.pool.match_prefix(req.prompt, s)
+                              if rt.prefix else (0, []))
+            span = cached + min(rt.chunk, plen - cached)
+            if not rt.pool.can_admit(span, s, cached=cached,
+                                     prefix_blocks=blocks):
+                if not cached or not rt.pool.can_admit(
+                        min(rt.chunk, plen), s):
+                    continue
+                cached, blocks = 0, []
+            key = (cached, rt.pool.blocks.free_in(s), -s)
+            if best is None or key > best[0]:
+                best = (key, s, cached, blocks)
+        if best is None:
+            return None, 0, []
+        return best[1], best[2], best[3]
 
     def _admit_uniform(self, tier: int, rt: _TierRuntime,
                        now: float) -> None:
@@ -1078,9 +1294,10 @@ class CascadeEngine:
         if rt.paged:
             reqs, slot_ids = [], []
             while self.scheduler.peek(tier, now) is not None:
-                if not rt.pool.can_admit(self.prompt_len):
+                shard = self._pick_shard(tier, rt, self.prompt_len)
+                if shard is None:
                     break
-                r, s = self.scheduler.admit(tier, now, limit=1)
+                r, s = self.scheduler.admit(tier, now, limit=1, shard=shard)
                 if not r:
                     break
                 rt.pool.bind(s[0], self.prompt_len)
@@ -1268,29 +1485,35 @@ class CascadeEngine:
         for s, toks, p0 in dentries:
             tokens[s, :len(toks)] = toks
             pos[s] = p0 + np.arange(width)
-        flat_width = flat_tokens = flat_pos = q_start = None
+        flat_width = flat_tokens = flat_pos = q_start = flat_widths = None
         if rt.ragged:
-            # flat packing: live tokens of all rows concatenated in slot
-            # order, padded up to the smallest bucket width (padding
-            # scatters to the null block and emits nothing)
-            flat_width = rt.bucket_width(int(qlen.sum()))
+            # flat packing: each data shard's live tokens concatenated in
+            # slot order, padded up to the smallest bucket width that
+            # holds them (padding scatters to the null block and emits
+            # nothing); the shards' packings side by side
+            flat_widths = [rt.bucket_width(int(qlen[rows].sum()))
+                           for rows in rt.rows]
+            flat_width = sum(flat_widths)
             flat_tokens = np.zeros((1, flat_width), np.int32)
             flat_pos = np.zeros((1, flat_width), np.int32)
             q_start = pos[:, 0].astype(np.int32).copy()
-            o = 0
-            for s in range(cap):
-                n = int(qlen[s])
-                if n:
-                    flat_tokens[0, o:o + n] = tokens[s, :n]
-                    flat_pos[0, o:o + n] = pos[s, :n]
-                    o += n
+            base = 0
+            for rows, w in zip(rt.rows, flat_widths):
+                o = base
+                for s in range(rows.start, rows.stop):
+                    n = int(qlen[s])
+                    if n:
+                        flat_tokens[0, o:o + n] = tokens[s, :n]
+                        flat_pos[0, o:o + n] = pos[s, :n]
+                        o += n
+                base += w
         return StepPlan(width=width, kind=kind, tokens=tokens, pos=pos,
                         q_len=qlen, prefill_rows=prefill_rows,
                         decode_rows=decode_rows, finishing=finishing,
                         flat_width=flat_width, flat_tokens=flat_tokens,
                         flat_pos=flat_pos, q_start=q_start,
                         verify_rows=verify_rows, draft_rows=draft_rows,
-                        draft_len=draft_len)
+                        draft_len=draft_len, flat_widths=flat_widths)
 
     # -- overload: preemption, load shedding, single-request failure --------
 
@@ -1531,7 +1754,7 @@ class CascadeEngine:
                         tok, conf = self._launch(
                             tier, name, lambda p=plan: rt.run_ragged(
                                 p.flat_tokens, p.flat_pos, p.q_len,
-                                p.q_start))
+                                p.q_start, p.flat_widths))
                         processed, kind = plan.flat_width, "ragged"
                     else:
                         tok, conf = self._launch(
@@ -1925,9 +2148,33 @@ class CascadeEngine:
         return self.scheduler.pending == 0 and not self._any_occupied()
 
     def memory_stats(self) -> List[dict]:
-        """Per-tier KV arena accounting."""
+        """Per-tier KV arena accounting: block geometry, arena bytes,
+        high-water blocks and bytes actually mapped (paged: overall and
+        per data shard), and what the dense one-row-per-request arena
+        would allocate."""
         return [dict(tier=rt.spec.name, **rt.pool.memory_stats())
                 for rt in self.runtimes]
+
+    def mesh_topology(self) -> List[dict]:
+        """Per-tier mesh layout, as the JAX engine records it (``mesh``
+        None for an unmeshed tier): axis sizes, device count and indices
+        (``torch.device.index``: None on the CPU), data shard count, and
+        whether params are tensor-sharded (never, in this port)."""
+        out = []
+        for rt in self.runtimes:
+            if rt.mesh is None:
+                out.append({"tier": rt.spec.name, "mesh": None,
+                            "devices": 1, "data_shards": 1})
+                continue
+            out.append({
+                "tier": rt.spec.name,
+                "mesh": {a: int(n) for a, n in rt.mesh.shape.items()},
+                "devices": int(rt.mesh.devices.size),
+                "device_ids": [d.index for d in rt.mesh.devices.flat],
+                "data_shards": rt.data_shards,
+                "shard_params": False,
+            })
+        return out
 
     def reset_clock(self) -> None:
         """Restart the clock at t=0 (after set-up, before timed
@@ -1940,18 +2187,20 @@ class CascadeEngine:
         overwrites) — the ragged step at every bucket width (the
         speculative one, with no draft step, under speculation), the
         padded step at the chunk width and at width 1, the split chunk
-        and decode launches, or the uniform prefill and decode launches —
-        so the allocator and the matrix-product heuristics are warm
-        before the clock starts; ends by resetting the clock."""
+        and decode launches, or the uniform prefill and decode launches,
+        each on every data shard — so the allocator and the
+        matrix-product heuristics are warm before the clock starts; waits
+        for every device the tiers use, and ends by resetting the
+        clock."""
         for rt in self.runtimes:
             zr = np.zeros(rt.capacity, np.int32)
             if rt.ragged:
                 for w in rt.flat_buckets:
-                    z = np.zeros((1, w), np.int32)
+                    z = np.zeros((1, w * rt.data_shards), np.int32)
                     if rt.spec_k:
                         rt.run_spec(z, z, zr, zr, zr, 0)
                     else:
-                        rt.run_ragged(z, z, zr, zr)
+                        rt.run_ragged(z, z, zr, zr, [w] * rt.data_shards)
             elif rt.unified:
                 for w in dict.fromkeys((rt.chunk, 1)):
                     z = np.zeros((rt.capacity, w), np.int32)
@@ -1964,8 +2213,9 @@ class CascadeEngine:
                     rt.run_prefill(np.zeros((rt.capacity, self.prompt_len),
                                             np.int32))
                 rt.run_step(zr)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in {d for rt in self.runtimes for d in rt.devices}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.reset_clock()
 
     def run(self, max_steps: int = 1_000_000, *,

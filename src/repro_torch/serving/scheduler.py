@@ -1,7 +1,7 @@
 """Continuous-batching scheduler with confidence-gated escalation queues
-(a copy of the JAX package's ``repro/serving/scheduler.py`` at one data
-shard: requeue-on-preemption, load shedding and forced gate decisions
-included).
+(a copy of the JAX package's ``repro/serving/scheduler.py``: data-sharded
+row allocators, requeue-on-preemption, load shedding and forced gate
+decisions included).
 
 One arrival queue feeds tier 0; each gate m owns an escalation queue
 feeding tier m+1.  Every engine step the scheduler admits waiting requests
@@ -49,12 +49,21 @@ class CascadeScheduler:
     """Queues + slot accounting for an M-tier cascade."""
 
     def __init__(self, slots_per_tier: Sequence[int],
-                 gates: Sequence[GateSpec], calibration=None):
+                 gates: Sequence[GateSpec],
+                 shards_per_tier: Optional[Sequence[int]] = None,
+                 calibration=None):
         num_tiers = len(slots_per_tier)
         if len(gates) != num_tiers - 1:
             raise ValueError("one gate per non-final tier")
         self.num_tiers = num_tiers
-        self.allocators = [SlotAllocator(c) for c in slots_per_tier]
+        # sharded serving: a tier on a mesh with D data shards partitions
+        # its rows into D contiguous ranges; admission targets one shard
+        shards = ([1] * num_tiers if shards_per_tier is None
+                  else [int(s) for s in shards_per_tier])
+        if len(shards) != num_tiers:
+            raise ValueError("one shard count per tier")
+        self.allocators = [SlotAllocator(c, d)
+                           for c, d in zip(slots_per_tier, shards)]
         self.gates = list(gates)
         self.gate_stats = [GateStats() for _ in gates]
         # streaming calibration telemetry sink (observability.
@@ -136,6 +145,7 @@ class CascadeScheduler:
     def admit(self, tier: int, now: float, limit: Optional[int] = None,
               token_budget: Optional[int] = None, budget_used: int = 0,
               token_cost=None, admitted_before: Optional[int] = None,
+              shard: Optional[int] = None,
               ) -> Tuple[List[Request], List[int]]:
         """Pop requests into free slots of `tier` until either runs out.
         Returns the packed (requests, slot_ids) admitted this step.
@@ -153,12 +163,14 @@ class CascadeScheduler:
         request is always admitted even when over budget, so a prompt
         longer than the whole budget cannot starve: with
         ``admitted_before`` the guard keys on admissions, without it on
-        ``budget_used == 0``."""
+        ``budget_used == 0``.  ``shard`` pins the admission to one data
+        shard's row range (the engine picks the shard whose KV block pool
+        can hold the request); None lets the allocator balance shards."""
         reqs: List[Request] = []
         slots: List[int] = []
         used = budget_used
         alloc = self.allocators[tier]
-        while self.admissible(tier, now) and alloc.num_free > 0 \
+        while self.admissible(tier, now) and alloc.free_in(shard) > 0 \
                 and (limit is None or len(reqs) < limit):
             head = self.queues[tier][0]
             need = (head.prompt_tokens if token_cost is None
@@ -168,7 +180,7 @@ class CascadeScheduler:
             if token_budget is not None and not first \
                     and used + need > token_budget:
                 break
-            slot = alloc.alloc()
+            slot = alloc.alloc(shard)
             req = self.queues[tier].popleft()
             req.admit(tier, slot, now)
             reqs.append(req)

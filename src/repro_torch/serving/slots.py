@@ -52,9 +52,21 @@ return to the free list.
 withholds free blocks from the allocator and :meth:`TierSlotPool.unshrink`
 returns them; two caps keep the oldest-first argument intact (one full
 request's blocks stay usable, and the oldest row's worst-case demand
-stays free).  Meshes are not ported: the pool has one data shard (the
-``shard`` arguments stay, and only shard 0 exists), so the JAX package's
-invariant checker audits this pool unchanged.
+stays free).
+
+**Data shards** (``TierSlotPool(data_shards=D)`` or a tier mesh with a
+``data`` axis of ``D``), as in the JAX package: request rows and block
+ids partition into ``D`` contiguous ranges, a row's blocks always come
+from its own shard, and the oldest-first reserve, the prefix index and
+shrinkage all run per shard.  Each shard's KV leaves live on that shard's
+device and hold that shard's rows and blocks only (the JAX package places
+one sharded array instead).  Shard 0's arena is indexed by global block
+id, its block 0 being the null block; every other shard hands out *all*
+of its global range, so its arena holds one more block, local 0, as its
+own null block: global id ``g`` of shard ``s > 0`` is local ``g - s *
+span + 1``, and the null entries of a page table stay 0.  Masked and
+unmapped pages of a shard's rows therefore land in that shard's null
+block, never on a live block of any shard.
 """
 from __future__ import annotations
 
@@ -66,25 +78,46 @@ import torch
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.sharding import data_axis_size
 
 NULL_BLOCK = 0
 
 
 class SlotAllocator:
-    """Fixed-capacity free-list allocator over request rows (LIFO free
-    list, ascending on the first pass)."""
+    """Fixed-capacity free-list allocator over request rows.
 
-    def __init__(self, capacity: int):
+    ``shards > 1`` partitions the rows into contiguous per-shard ranges
+    (``capacity`` must divide evenly); ``alloc(shard)`` then pops from
+    that shard's free list only, and ``alloc(None)`` balances by picking
+    the shard with the most free rows (lowest shard id on ties).  With
+    the default ``shards=1``: one LIFO free list, ascending on the first
+    pass.
+    """
+
+    def __init__(self, capacity: int, shards: int = 1):
         if capacity <= 0:
             raise ValueError("capacity must be positive")
+        if shards <= 0 or capacity % shards:
+            raise ValueError(
+                f"capacity {capacity} must divide into {shards} shards")
         self.capacity = capacity
-        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        self.shards = shards
+        self._span = capacity // shards
+        self._free: List[List[int]] = [
+            list(range((s + 1) * self._span - 1, s * self._span - 1, -1))
+            for s in range(shards)]
         self._used = set()
 
-    def alloc(self) -> Optional[int]:
-        if not self._free:
+    def shard_of(self, slot: int) -> int:
+        return slot // self._span
+
+    def alloc(self, shard: Optional[int] = None) -> Optional[int]:
+        if shard is None:
+            shard = max(range(self.shards),
+                        key=lambda s: (len(self._free[s]), -s))
+        if not self._free[shard]:
             return None
-        slot = self._free.pop()
+        slot = self._free[shard].pop()
         self._used.add(slot)
         return slot
 
@@ -96,11 +129,16 @@ class SlotAllocator:
             raise ValueError(
                 f"slot {slot} is not allocated (double free?)")
         self._used.remove(slot)
-        self._free.append(slot)
+        self._free[self.shard_of(slot)].append(slot)
+
+    def free_in(self, shard: Optional[int]) -> int:
+        if shard is None:
+            return self.num_free
+        return len(self._free[shard])
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
     @property
     def num_used(self) -> int:
@@ -114,45 +152,60 @@ class SlotAllocator:
 class BlockAllocator:
     """Free-list over KV blocks ``1..num_blocks-1`` (0 = null block).
 
+    ``shards > 1`` partitions the block ids into contiguous per-shard
+    ranges, one per data shard's arena (``num_blocks`` must divide
+    evenly); shard 0's range contains the reserved null block, so it
+    exposes one fewer usable block.  ``alloc(shard)`` pops from that
+    shard's free list; ``high_water_by_shard`` keeps each shard's peak.
+
     Blocks are **refcounted** as in the JAX package: ``alloc`` hands out
     a block at refcount 1, :meth:`ref` adds a reference (an extra row
     page-table mapping or a prefix-index entry), and :meth:`free`
-    decrements — the block rejoins the free list only when the count
-    reaches 0.  A block is therefore in exactly one of three states:
-    free (on the free list), withheld (:meth:`reserve`), or live
-    (refcount >= 1).
-
-    The JAX allocator's per-shard free lists are not ported; their
-    fields stay, fixed at one shard (``shards``, ``_span``, ``_free[0]``,
-    ``_reserved[0]``), so the JAX suite's invariant checker audits this
-    allocator unchanged.
+    decrements — the block rejoins its shard's free list only when the
+    count reaches 0.  A block is therefore in exactly one of three
+    states: free (on a shard free list), withheld (:meth:`reserve`), or
+    live (refcount >= 1).
     """
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int, shards: int = 1):
         if num_blocks < 2:
             raise ValueError("need at least one block besides the null block")
+        if shards <= 0 or num_blocks % shards:
+            raise ValueError(
+                f"num_blocks {num_blocks} must divide into {shards} shards")
         self.num_blocks = num_blocks
-        self.shards = 1
-        self._span = num_blocks
-        # a descending list pops the lowest id first; the null block
-        # (id 0) is never free
-        self._free: List[List[int]] = [list(range(num_blocks - 1, 0, -1))]
-        # blocks withheld from the free list by fault injection
-        # (reserve()/restore()) — never allocated, never in _used
-        self._reserved: List[List[int]] = [[]]
+        self.shards = shards
+        self._span = num_blocks // shards
+        # shard s owns ids [s*span, (s+1)*span); descending lists pop the
+        # lowest id first; the null block (id 0, shard 0) is never free
+        self._free: List[List[int]] = [
+            list(range((s + 1) * self._span - 1,
+                       max(s * self._span - 1, 0), -1))
+            for s in range(shards)]
         self._used = set()
+        self._used_by_shard = [0] * shards
         self._refcount = {}             # live block -> refs (>= 1)
         self._shared = 0                # live blocks with refcount >= 2
+        # blocks withheld from the free lists by fault injection
+        # (reserve()/restore()) — never allocated, never in _used
+        self._reserved: List[List[int]] = [[] for _ in range(shards)]
         self.high_water = 0
+        self.high_water_by_shard = [0] * shards
         self.shared_high_water = 0
+
+    def shard_of(self, block: int) -> int:
+        return block // self._span
 
     def alloc(self, shard: int = 0) -> Optional[int]:
         if not self._free[shard]:
             return None
         b = self._free[shard].pop()
         self._used.add(b)
+        self._used_by_shard[shard] += 1
         self._refcount[b] = 1
         self.high_water = max(self.high_water, len(self._used))
+        self.high_water_by_shard[shard] = max(
+            self.high_water_by_shard[shard], self._used_by_shard[shard])
         return b
 
     def ref(self, block: int) -> None:
@@ -192,7 +245,12 @@ class BlockAllocator:
             return
         del self._refcount[block]
         self._used.remove(block)
-        self._free[0].append(block)
+        shard = self.shard_of(block)
+        self._used_by_shard[shard] -= 1
+        self._free[shard].append(block)
+
+    def used_in(self, shard: int) -> int:
+        return self._used_by_shard[shard]
 
     @property
     def num_shared(self) -> int:
@@ -200,17 +258,17 @@ class BlockAllocator:
         return self._shared
 
     def reserve(self, n: int, shard: int = 0) -> int:
-        """Withhold up to `n` free blocks (fault injection: mid-run pool
-        shrinkage).  Withheld blocks leave the free list but are not
-        marked used; :meth:`restore` returns them.  Returns the number
-        actually withheld."""
+        """Withhold up to `n` free blocks on `shard` (fault injection:
+        mid-run pool shrinkage).  Withheld blocks leave the free list but
+        are not marked used; :meth:`restore` returns them.  Returns the
+        number actually withheld."""
         take = min(int(n), len(self._free[shard]))
         for _ in range(take):
             self._reserved[shard].append(self._free[shard].pop())
         return take
 
     def restore(self, shard: Optional[int] = None) -> int:
-        """Return withheld blocks to the free list (every shard by
+        """Return withheld blocks to their free lists (every shard by
         default).  Returns the number restored."""
         shards = range(self.shards) if shard is None else (shard,)
         restored = 0
@@ -220,19 +278,15 @@ class BlockAllocator:
             self._reserved[s] = []
         return restored
 
-    # per-shard views over the one shard, read by the invariant checker
-    def free_in(self, shard: int) -> int:
-        return len(self._free[shard])
-
-    def used_in(self, shard: int) -> int:
-        return len(self._used)
-
     def reserved_in(self, shard: int) -> int:
         return len(self._reserved[shard])
 
+    def free_in(self, shard: int) -> int:
+        return len(self._free[shard])
+
     @property
     def num_free(self) -> int:
-        return len(self._free[0])
+        return sum(len(f) for f in self._free)
 
     @property
     def num_used(self) -> int:
@@ -287,8 +341,7 @@ class _LeafMeta(NamedTuple):
 
 
 class TierSlotPool:
-    """Request rows + block-paged KV arena for one cascade tier, on one
-    device.
+    """Request rows + block-paged KV arena for one cascade tier.
 
     ``num_blocks=None`` fully provisions the pool
     (``capacity * ceil(max_seq / block_size) + 1`` blocks): no stall can
@@ -297,13 +350,19 @@ class TierSlotPool:
     discipline (see module docstring).  ``prefix_chunk`` turns on the
     prefix index, its boundaries at multiples of that many tokens
     (the engine's prefill chunk).
-    """
 
-    data_shards = 1
+    ``mesh`` (a :class:`repro_torch.launch.mesh.TierMesh`) shards the
+    pool over its data axis: rows and blocks partition into
+    ``data_axis_size(mesh)`` contiguous shards (``capacity`` must divide;
+    ``num_blocks`` is rounded up to divide), shard ``s``'s leaves
+    (``caches[s]``) on the mesh's ``s``-th data device.  ``data_shards``
+    sets the shard count without a mesh, every shard on ``device``.
+    """
 
     def __init__(self, cfg, capacity: int, max_seq: int,
                  dtype=torch.float32, *, block_size: int = 16,
                  num_blocks: Optional[int] = None, device="cuda",
+                 mesh=None, data_shards: Optional[int] = None,
                  prefix_chunk: Optional[int] = None):
         if block_size <= 0:
             raise ValueError("block_size must be positive")
@@ -314,19 +373,42 @@ class TierSlotPool:
         self.max_seq = max_seq
         self.dtype = dtype
         self.block_size = block_size
+        self.mesh = mesh
+        self.data_shards = (data_axis_size(mesh) if data_shards is None
+                            else int(data_shards))
+        if self.data_shards <= 0 or capacity % self.data_shards:
+            raise ValueError(
+                f"capacity {capacity} must divide into {self.data_shards} "
+                "data shards (rows are partitioned across the mesh)")
+        self._row_span = capacity // self.data_shards
         self.pages_per_row = math.ceil(max_seq / block_size)
         full = capacity * self.pages_per_row + 1
         self.num_blocks = full if num_blocks is None else int(num_blocks)
-        if self.num_blocks < self.pages_per_row + 1:
+        if self.data_shards > 1:
+            # round up so the block pool shards evenly over the data axis
+            self.num_blocks = self.data_shards * math.ceil(
+                self.num_blocks / self.data_shards)
+            if self.num_blocks // self.data_shards < self.pages_per_row + 1:
+                raise ValueError(
+                    f"num_blocks={self.num_blocks} over {self.data_shards} "
+                    f"shards cannot hold one full request per shard "
+                    f"({self.pages_per_row} blocks + the null block)")
+        elif self.num_blocks < self.pages_per_row + 1:
             raise ValueError(
                 f"num_blocks={self.num_blocks} cannot hold one full request "
                 f"({self.pages_per_row} blocks) plus the null block")
         self.oversubscribed = self.num_blocks < full
-        self.blocks = BlockAllocator(self.num_blocks)
+        self.blocks = BlockAllocator(self.num_blocks, self.data_shards)
         decl = cache_lib.declare_paged_cache(cfg, capacity, self.num_blocks,
                                              block_size, dtype)
-        self.cache = cache_lib.init_paged_cache(
-            cfg, capacity, self.num_blocks, block_size, dtype, device)
+        self.devices = (mesh.data_devices() if mesh is not None
+                        else [torch.device(device)] * self.data_shards)
+        # shard s: its rows, and its block range (plus its own null block
+        # past shard 0), on its device
+        span = self.blocks._span
+        self.caches = [cache_lib.init_paged_cache(
+            cfg, self._row_span, span + (s > 0), block_size, dtype, dev)
+            for s, dev in enumerate(self.devices)]
         # per leaf: ("paged", kv_blocks axis) or ("row", request-row axis)
         self._meta = tree_map(
             lambda c: (_LeafMeta("paged", c.axes.index("kv_blocks"))
@@ -342,7 +424,7 @@ class TierSlotPool:
         self._order: List[int] = []     # bound rows, oldest first
         # -- prefix cache state (inert when prefix_chunk is None) -------
         self.prefix_chunk = prefix_chunk
-        self._index: List[dict] = [dict()]   # shard 0: key -> PrefixEntry
+        self._index: List[dict] = [dict() for _ in range(self.data_shards)]
         self._index_refs: dict = {}     # block -> index references held
         self._lru = 0                   # monotonic LRU clock
         self._row_shared: List[int] = [0] * capacity   # read-only pages
@@ -351,21 +433,66 @@ class TierSlotPool:
         self.prefix_evictions = 0
         self.prefix_cow_copies = 0
 
+    @property
+    def cache(self):
+        """The KV leaves of an unsharded pool (``caches[0]``); a sharded
+        pool's are per shard, in :attr:`caches`."""
+        self._one_shard("cache")
+        return self.caches[0]
+
+    @cache.setter
+    def cache(self, tree) -> None:
+        self._one_shard("cache")
+        self.caches[0] = tree
+
+    def _one_shard(self, what: str) -> None:
+        if self.data_shards != 1:
+            raise ValueError(f"{what}: the pool has {self.data_shards} data "
+                             "shards; use the per-shard form")
+
+    def shard_rows(self, shard: int) -> slice:
+        """The request rows of `shard` (a contiguous range)."""
+        return slice(shard * self._row_span, (shard + 1) * self._row_span)
+
+    def local_page_table(self, shard: int, page_table=None) -> np.ndarray:
+        """`shard`'s rows of ``page_table`` (default: the pool's own) in
+        its arena's local block ids: shard 0's ids are global, shard
+        ``s > 0``'s global ``g`` is ``g - s * span + 1``, and null
+        entries stay 0 (each shard's own null block)."""
+        pt = self.page_table if page_table is None else page_table
+        rows = pt[self.shard_rows(shard)]
+        if shard == 0:
+            return rows
+        return np.where(rows == NULL_BLOCK, NULL_BLOCK,
+                        rows - (shard * self.blocks._span - 1)).astype(
+                            np.int32)
+
     # -- admission-side block accounting -----------------------------------
 
     def shard_of(self, slot: int) -> int:
-        """The data shard owning request row `slot`: always 0."""
-        return 0
+        """The data shard owning request row `slot` (contiguous ranges)."""
+        return slot // self._row_span
+
+    def shard_of_block(self, block: int) -> int:
+        """The data shard owning KV block id `block`."""
+        return self.blocks.shard_of(block)
 
     def _worst_remaining(self, slot: int) -> int:
         """Blocks `slot` may still need: its bound lifetime demand minus
         what it already holds."""
         return self._row_demand[slot] - len(self._row_blocks[slot])
 
+    def _oldest_in(self, shard: int) -> Optional[int]:
+        """Oldest bound row on `shard` (block-growth priority holder)."""
+        for s in self._order:
+            if self.shard_of(s) == shard:
+                return s
+        return None
+
     def _oldest_worst(self, shard: int = 0) -> int:
-        """Worst-case remaining demand of the oldest bound row (the
-        block-growth priority holder)."""
-        return self._worst_remaining(self._order[0]) if self._order else 0
+        """Worst-case remaining demand of `shard`'s oldest bound row."""
+        oldest = self._oldest_in(shard)
+        return self._worst_remaining(oldest) if oldest is not None else 0
 
     def blocks_for(self, ntokens: int) -> int:
         return math.ceil(ntokens / self.block_size)
@@ -483,7 +610,9 @@ class TierSlotPool:
         return n
 
     def prefix_index_entries(self, shard: Optional[int] = None) -> int:
-        return len(self._index[0 if shard is None else shard])
+        if shard is not None:
+            return len(self._index[shard])
+        return sum(len(i) for i in self._index)
 
     def _alloc_reclaiming(self, shard: int) -> Optional[int]:
         b = self.blocks.alloc(shard)
@@ -583,7 +712,7 @@ class TierSlotPool:
         if page >= self.pages_per_row:
             raise ValueError(f"pos {pos} beyond max_seq {self.max_seq}")
         shard = self.shard_of(slot)
-        is_oldest = self._order[0] == slot
+        is_oldest = self._oldest_in(shard) == slot
         while len(self._row_blocks[slot]) <= page:
             if not is_oldest and \
                     self.blocks.free_in(shard) - 1 < self._oldest_worst(shard):
@@ -672,14 +801,20 @@ class TierSlotPool:
         """Copy whole KV blocks ``src[i] -> dst[i]`` in every paged leaf,
         int8 KV's scale leaves included (the copy-on-write primitive: a
         row taking over a partially shared block duplicates it before its
-        first scatter).  In place, on the pool's device and the current
+        first scatter).  In place, on the shard's device and its current
         stream: the launches that scatter into ``dst`` later run on that
         same stream, so the copy is ordered before the row's first
-        write."""
-        dev = next(iter(tree_leaves(self.cache))).device
-        src_ids = torch.as_tensor(np.asarray(src, np.int64), device=dev)
-        dst_ids = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
-        for full, (kind, ax) in zip(tree_leaves(self.cache),
+        write.  Both lists lie on one shard (a row's blocks and its prefix
+        index's do)."""
+        shard = self.shard_of_block(int(dst[0]))
+        ids = np.asarray([src, dst], np.int64)
+        if shard:
+            ids = np.where(ids == NULL_BLOCK, NULL_BLOCK,
+                           ids - (shard * self.blocks._span - 1))
+        dev = self.devices[shard]
+        src_ids = torch.as_tensor(ids[0], device=dev)
+        dst_ids = torch.as_tensor(ids[1], device=dev)
+        for full, (kind, ax) in zip(tree_leaves(self.caches[shard]),
                                     tree_leaves(self._meta)):
             if kind == "paged":
                 full.index_copy_(ax, dst_ids, full.index_select(ax, src_ids))
@@ -693,7 +828,9 @@ class TierSlotPool:
         into the arena, in place: attention KV through the page tables
         into the block pool, recurrent leaves into their request rows,
         each sliced to the ``n`` admitted rows.  ``bind`` must have mapped
-        each slot's prompt pages already."""
+        each slot's prompt pages already.  Unsharded pools only (the
+        uniform prefill path takes no data shards)."""
+        self._one_shard("write_prefill")
         n = len(slot_ids)
         ids = np.asarray(slot_ids, np.int64)
         dev = next(iter(tree_leaves(self.cache))).device
@@ -716,16 +853,22 @@ class TierSlotPool:
     # -- memory accounting -------------------------------------------------
 
     def memory_stats(self) -> dict:
-        # the block pools' bytes per block (recurrent rows not counted)
+        # the block pools' bytes per block (recurrent rows not counted);
+        # the arena counts each shard past 0's own null block
         per_block = self._per_block
         per_token = per_block // self.block_size
         return {
             "block_size": self.block_size,
             "num_blocks": self.num_blocks,
             "kv_bytes_per_block": per_block,
-            "kv_arena_bytes": per_block * self.num_blocks,
+            "kv_arena_bytes": per_block * (self.num_blocks
+                                           + self.data_shards - 1),
             "kv_high_water_bytes": per_block * self.blocks.high_water,
             "kv_high_water_blocks": self.blocks.high_water,
+            # per-data-shard peaks (the shard balance admission achieved)
+            "data_shards": self.data_shards,
+            "kv_high_water_blocks_by_shard":
+                list(self.blocks.high_water_by_shard),
             # prefix cache: peak blocks mapped by >1 reference, live
             # index entries, LRU evictions, copy-on-write block copies
             "kv_shared_high_water_blocks": self.blocks.shared_high_water,
@@ -741,7 +884,8 @@ class DenseTierSlotPool:
     and recurrent state, from :func:`repro_torch.models.cache.init_cache`)
     of ``CascadeEngine(use_paged_kv=False)``: no blocks, no page tables
     (and no ``shrink``: a fault plan's shrink skips this arena); a row's
-    KV sits at its own positions."""
+    KV sits at its own positions.  One data shard: ``caches`` holds its
+    one tree."""
 
     def __init__(self, cfg, capacity: int, max_seq: int,
                  dtype=torch.float32, *, device="cuda"):
@@ -750,12 +894,20 @@ class DenseTierSlotPool:
         self.max_seq = max_seq
         self.dtype = dtype
         decl = cache_lib.declare_cache(cfg, capacity, max_seq, dtype)
-        self.cache = cache_lib.init_cache(cfg, capacity, max_seq, dtype,
-                                          device)
+        self.caches = [cache_lib.init_cache(cfg, capacity, max_seq, dtype,
+                                            device)]
         self._bax = tree_map(lambda c: c.axes.index("batch"), decl)
         self._kv_bytes = sum(
             math.prod(c.shape) * torch.empty((), dtype=c.dtype).element_size()
             for c in tree_leaves(decl) if "kv_seq" in c.axes)
+
+    @property
+    def cache(self):
+        return self.caches[0]
+
+    @cache.setter
+    def cache(self, tree) -> None:
+        self.caches[0] = tree
 
     def write_prefill(self, slot_ids: Sequence[int], part_cache) -> None:
         """Write a packed prefill cache's first ``len(slot_ids)`` rows into
@@ -775,5 +927,6 @@ class DenseTierSlotPool:
             "num_blocks": self.capacity,
             "kv_arena_bytes": total,
             "kv_high_water_bytes": total,
+            "data_shards": 1,
             "dense_equiv_bytes": total,
         }

@@ -49,7 +49,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "models.transformer", "serving.request", "serving.slots",
               "serving.scheduler", "serving.metrics", "serving.faults",
               "serving.engine",
-              "launch.serve_async",
+              "launch.serve_async", "launch.mesh", "models.sharding",
               "optim.optimizer", "core.losses", "core.cascade",
               "core.thresholds", "core.calibration", "data.pipeline",
               "models.classifier", "checkpoint.checkpoint",

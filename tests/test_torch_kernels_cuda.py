@@ -1237,3 +1237,115 @@ def test_cuda_copy_blocks_is_bit_exact(kv, cuda_device):
                            old.index_select(ax, keep))
     assert {leaf.dtype for leaf, _ in paged} == (
         {torch.int8, torch.float32} if kv == "int8" else {torch.float32})
+
+
+# --------------------------------------------------------------------------
+# device guards: a kernel launches on its tensors' device, whichever
+# device is current (multi-device serving places tiers on other cards)
+# --------------------------------------------------------------------------
+
+
+def _guard_case(name):
+    """(kernel on device tensors, CPU inputs, check(got, cpu inputs)) of
+    one small case of each kernel entry point: the first case of its
+    table above."""
+    def close(tol=1e-4):
+        return lambda got, want: [
+            torch.testing.assert_close(g.cpu(), w, atol=tol, rtol=tol)
+            for g, w in zip(got, want)]
+
+    def paged_case(inputs, table, kernel, plain):
+        def make(seed):
+            c = table[sorted(table)[0]]
+            args, kw = inputs(seed, c)
+            return _torch(args, kw)
+        targs, tkw = make(len(name))
+        return (lambda *a, **k: (kernel(*a, **k),), targs, tkw,
+                lambda got: close()(got, (plain(*targs, **tkw),)))
+    if name == "ragged_attention":
+        return paged_case(
+            lambda s, c: _ragged_inputs(s, qlens=c[0], KV=c[1], G=c[2],
+                                        hd=c[3], quant=c[4], window=c[5]),
+            RAGGED_CASES, ragged_mod.ragged_attention,
+            ref.ragged_attention_ref)
+    if name == "paged_attention":
+        return paged_case(
+            lambda s, c: _paged_inputs(s, B=c[0], KV=c[1], G=c[2], hd=c[3],
+                                       quant=c[4], window=c[5], masked=c[6]),
+            PAGED_CASES, paged_mod.paged_attention, ref.paged_attention_ref)
+    if name == "mixed_attention":
+        return paged_case(
+            lambda s, c: _mixed_inputs(s, qlens=c[0], KV=c[1], G=c[2],
+                                       hd=c[3], quant=c[4], window=c[5],
+                                       masked=c[6]),
+            MIXED_CASES, mixed_mod.mixed_attention, ref.mixed_attention_ref)
+    if name == "confidence_gate":
+        x = torch.from_numpy(_logits((8, 4096), 3))
+        return (lambda t: (gate_mod.confidence_gate(t),), (x,), {},
+                lambda got: _assert_gate_close(got[0], x.double()))
+    if name in ("router_gate", "moe_route"):
+        G, gs, k, E, cf = ROUTE_CASES["granite-decode"]
+        x = torch.from_numpy(_route_logits("granite-decode", 7))
+        if name == "router_gate":
+            return (lambda t: router_mod.router_gate(t, k), (x,), {},
+                    lambda got: close(1e-5)(got, ref.router_gate_ref(x, k)))
+        cap = _route_cap(gs, k, E, cf)
+        return (lambda t: router_mod.moe_route(t, k, cap), (x,), {},
+                lambda got: _check_route(got, router_mod.moe_route_ref(
+                    x, k, cap)))
+    if name == "flash_attention":
+        B, H, KV, S, T, d, causal, window = FLASH_CASES["phi4-smoke-global"]
+        q, k, v = (torch.from_numpy(a)
+                   for a in _flash_inputs(1, B, H, KV, S, T, d))
+        return (lambda *t: (flash_mod.flash_attention(
+                    *t, causal=causal, window=window),), (q, k, v), {},
+                lambda got: close()(got, (ref.flash_attention_ref(
+                    q, k, v, causal=causal, window=window),)))
+    if name == "rwkv6_scan":
+        args = [torch.from_numpy(a)
+                for a in _rwkv_inputs(2, *RWKV_CASES["two-rows"])]
+        return (rwkv_mod.rwkv6_scan, tuple(args), {},
+                lambda got: close()(got, ref.rwkv6_scan_ref(*args)))
+    args = [torch.from_numpy(a)
+            for a in _mamba_inputs(4, *MAMBA_CASES["smoke-n8"])]
+    return (mamba_mod.mamba_scan, tuple(args), {},
+            lambda got: close()(got, ref.mamba_scan_ref(*args)))
+
+
+GUARDED = kernels.KERNELS + ("moe_route",)
+
+
+def _launch_on(dev, current, name):
+    kernel, args, kw, check = _guard_case(name)
+    dargs = tuple(a.to(dev) for a in args)
+    dkw = {k: (v.to(dev) if torch.is_tensor(v) else v)
+           for k, v in kw.items()}
+    with torch.cuda.device(current):
+        got = kernel(*dargs, **dkw)
+        outs = [t for g in got for t in (g.values() if isinstance(g, dict)
+                                         else [g])]
+        assert all(t.device == dev for t in outs)
+        assert torch.cuda.current_device() == current.index
+    torch.cuda.synchronize(dev)
+    check(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GUARDED)
+def test_cuda_kernels_launch_on_a_second_card(name, cuda_device):
+    """Tensors on ``cuda:1`` while ``cuda:0`` is current: each entry
+    point launches on ``cuda:1`` (its device guard) and equals its plain
+    version; the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the launch on cuda:1 while cuda:0 is "
+                    "current can only run where torch.cuda.device_count() "
+                    ">= 2")
+    _launch_on(torch.device("cuda", 1), torch.device("cuda", 0), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GUARDED)
+def test_cuda_kernels_launch_under_an_explicit_guard(name, cuda_device):
+    """The same launches on ``cuda:0`` inside ``torch.cuda.device(0)``
+    (one card is enough)."""
+    _launch_on(torch.device("cuda", 0), torch.device("cuda", 0), name)
