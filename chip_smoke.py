@@ -178,7 +178,22 @@ without printing a result):
      more) the tiers on ``cuda:0`` and ``cuda:1``, tier 1 on a ``2x1``
      mesh over both, and each kernel launched on ``cuda:1`` while
      ``cuda:0`` is current against its plain version (with one card, a
-     line saying 9b did not run).
+     line saying 9b did not run);
+ 10. the model axis, after phase 9 on phase 4's weights
+     (``check_model_axis``; alone: ``scripts/torch_model_axis_phase.py``):
+     (10a) teacher-forced full-bucket ragged steps of gemma3-1b and
+     phi4-mini-3.8b on two model shards over the first card twice
+     against unsharded (logits within 1e-4, argmax equal past that
+     margin); the workload unsharded and with both tiers on ``1x2``
+     meshes over the first card twice with ``--shard-params``, in turns
+     (traced) — same-tier streams equal, the attention kernels exactly
+     twice the unsharded formula, the gate once; then
+     moonshot-v1-16b-a3b cut to 1 + 8 layers teacher-forced on two model
+     shards (experts split, ``moe_route`` once a shard a MoE layer);
+     (10b, only with two cards or more) moonshot-v1-16b-a3b at its 48
+     layers drawn a model shard a card on a ``1x2`` mesh over two cards,
+     serving the workload (with one card, a line saying 10b did not
+     run).
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -191,6 +206,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -219,8 +235,10 @@ from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import serve_async, steps, train  # noqa: E402
+from repro_torch.launch.mesh import make_tier_mesh  # noqa: E402
 from repro_torch.models import (blocks, classifier,  # noqa: E402
-                                init_params, transformer)
+                                init_params, sharding, transformer)
+from repro_torch.models import params as params_lib  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import Optimizer  # noqa: E402
@@ -505,6 +523,21 @@ def close(got, want, kind):
     return err, bool(torch.allclose(got.float(), want, atol=atol, rtol=rtol))
 
 
+def model_shard_layouts(m: int = 2):
+    """(label, shape, window) of one model shard's attention at the
+    layouts phase 10 serves: each config's heads as
+    :func:`repro_torch.models.sharding.shard_config` gives them to a
+    shard of an ``m``-wide model axis."""
+    out = []
+    for name, window in (("gemma3-1b", 512), ("phi4-mini-3.8b", None),
+                         ("moonshot-v1-16b-a3b", None)):
+        c = sharding.shard_config(get_config(name, ""), m)
+        out.append((f"{name.split('-')[0]} m{m}",
+                    dict(KV=c.num_kv_heads, G=c.num_heads // c.num_kv_heads,
+                         hd=c.head_dim), window))
+    return out
+
+
 def check_ragged(dev, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -545,6 +578,17 @@ def check_ragged(dev, flush):
                    "f32")]
     cases += [("kimi bf16", KIMI, mixed, late, None, "bf16"),
               ("kimi int8+scales", KIMI, mixed, late, None, "int8+scales")]
+    # one model shard's heads at phase 10's 1x2 meshes, derived from the
+    # configs by the KV-head rule (shard_config): gemma3-1b's one KV
+    # head read by G 2 with its window, phi4-mini-3.8b's KV 4 x G 3,
+    # moonshot-v1-16b-a3b's KV 8 x G 1
+    for label, shape, window in model_shard_layouts():
+        w = f" window={window}" if window else ""
+        cases += [(f"{label}{w} f32", shape, mixed, late, window, "f32"),
+                  (f"{label}{w} full bucket f32", shape, full,
+                   [0, 100, 200, 300, 400, 500, 560, 580], window, "f32"),
+                  (f"{label}{w} decode f32", shape, [1] * 8, near600,
+                   window, "f32")]
     # flat widths off the powers of two (phase 4e's --flat-buckets 16 48
     # 160 512): partly filled rows late in their pages
     for W, qlens, qstart in FLAT_WIDTHS:
@@ -3489,19 +3533,24 @@ def shard_conservation(engine) -> list:
 
 
 def serve_meshed(card: str, params, label: str, tier_mesh=None,
-                 devices=None, clock=None, traced=False, **flags) -> dict:
+                 devices=None, clock=None, traced=False, expensive=PHI4_NAME,
+                 cfgs=None, **flags) -> dict:
     """Serve phase 4's workload on ``params`` (ragged, gemma3-1b ->
-    phi4-mini-3.8b) under ``--tier-mesh`` over ``devices`` (None: the
-    visible cards), every kernel counter set to 0 just before and read
-    just after.  Checks: every request DONE (conservation), blocks
-    conserved after the drain in every pool and every data shard,
-    confidences finite, one fetch at most per active tier per tick, each
-    meshed tier holding one replica of its params per distinct device
-    (phase 4's tensors themselves on the device they were drawn on), and
-    the launches: a tier of D data shards launches each kernel D times
-    per tier launch and per warmup width, so the layer kernels count
-    ``sum_t D_t * expected_launches(tier t)`` and the gate
-    ``sum_t D_t * (tier launches + warmup widths)``.  ``traced`` records
+    ``expensive``, phi4-mini-3.8b unless said; ``cfgs`` the tiers'
+    configs where they are not the registry's) under ``--tier-mesh``
+    over ``devices`` (None: the visible cards), every kernel counter set
+    to 0 just before and read just after.  Checks: every request DONE
+    (conservation), blocks conserved after the drain in every pool and
+    every data shard, confidences finite, one fetch at most per active
+    tier per tick, each meshed tier holding one replica of its params per
+    distinct device (phase 4's tensors themselves on the device they
+    were drawn on) or, with ``--shard-params`` over a model axis, one
+    set of slices per (device, model shard), and the launches: a tier of
+    D data shards of M model shards launches each layer kernel D × M
+    times and the gate D times per tier launch and per warmup width, so
+    the layer kernels count ``sum_t D_t * M_t * expected_launches(tier
+    t)`` and the gate ``sum_t D_t * (tier launches + warmup widths)``.
+    ``traced`` records
     the run with ``--trace-out`` and adds each tier's host ms in its
     ``launch`` and ``device_get`` phases (:func:`host_phase_split`).
     Returns the run's counts, per-request records, summary, peak memory
@@ -3510,35 +3559,37 @@ def serve_meshed(card: str, params, label: str, tier_mesh=None,
     if traced:
         trace_path.parent.mkdir(parents=True, exist_ok=True)
         flags["trace_out"] = str(trace_path)
-    args = main_path_args(tier_mesh=tier_mesh, mesh_devices=devices,
-                          **flags)
+    args = main_path_args(expensive, tier_mesh=tier_mesh,
+                          mesh_devices=devices, **flags)
     cards = card_devices()
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     for name in COUNTED:
         getattr(ops, name).launches = 0
     with EngineTap() as tap:
-        s = serve_async.run(args, clock, params=params)
+        s = serve_async.run(args, clock, params=params, cfgs=cfgs)
     for d in cards:
         torch.cuda.synchronize(d)
     counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = [torch.cuda.max_memory_allocated(d) for d in cards]
     eng = tap.engine
-    cfgs = serve_async.tier_configs(args)
+    cfgs = serve_async.tier_configs(args, cfgs)
     shards = [rt.data_shards for rt in eng.runtimes]
+    models = [rt.model_shards for rt in eng.runtimes]
     kinds = s["launches_by_kind"]
     warm = [{"ragged": len(b)} for b in s["flat_buckets"]]
     want = {k: 0 for k in COUNTED if k != "confidence_gate"}
-    for t, d in enumerate(shards):
+    for t, (d, m) in enumerate(zip(shards, models)):
         for k, v in expected_launches([cfgs[t]], [kinds[t]],
                                       [warm[t]]).items():
-            want[k] += d * v
+            want[k] += d * m * v
     want["confidence_gate"] = sum(
         d * (n + w["ragged"]) for d, n, w in zip(shards, s["launches"],
                                                  warm))
     problems = []
     if counts != want:
-        problems.append(f"launches {counts} != {want} (D x per tier)")
+        problems.append(f"launches {counts} != {want} (D x M x per tier, "
+                        "the gate D x)")
     per_req = s["per_request"]
     if s["completed"] != args.requests or not s["conservation"]["ok"] \
             or not all(len(r["tokens"]) == args.gen_len for r in per_req):
@@ -3551,14 +3602,31 @@ def serve_meshed(card: str, params, label: str, tier_mesh=None,
     if any(h > a for h, a in zip(s["host_syncs"], s["active_ticks"])):
         problems.append(f"host syncs {s['host_syncs']} over active ticks "
                         f"{s['active_ticks']}")
+    views = [0] * len(eng.runtimes)
     for t, rt in enumerate(eng.runtimes):
-        given = params[t]["embed"]
-        if rt.mesh is not None and (
-                len(rt.replicas) != len(set(rt.devices))
-                or (given.device in rt.replicas and rt.replicas[
-                    given.device]["embed"].data_ptr() != given.data_ptr())):
-            problems.append(f"tier {t}: replicas {list(rt.replicas)} of "
-                            f"params on {given.device}")
+        if rt.mesh is None:
+            continue
+        if rt.spec.shard_params and rt.model_shards > 1:
+            placed = {(dev, j) for d in range(rt.data_shards)
+                      for j, dev in enumerate(rt.mesh.model_devices(d))}
+        else:
+            placed = set(rt.mesh.devices.flat)
+        if len(rt.replicas) != len(placed):
+            problems.append(f"tier {t}: params placed {list(rt.replicas)}")
+        # no copy of the weights: every tree placed on the card that holds
+        # the given tensors (a full replica, or a model shard's slices)
+        # views their storage leaf for leaf
+        if isinstance(params[t], dict):
+            leaves = tree_leaves(params[t])
+            home = leaves[0].device
+            for key, tree in rt.replicas.items():
+                if (key[0] if isinstance(key, tuple) else key) != home:
+                    continue
+                views[t] += 1
+                if [x.untyped_storage().data_ptr() for x in tree_leaves(tree)] \
+                        != [x.untyped_storage().data_ptr() for x in leaves]:
+                    problems.append(f"tier {t}: the weights placed for "
+                                    f"{key} are a copy")
     by_shard = [m["kv_high_water_blocks_by_shard"] for m in s["kv_arena"]]
     host_ms = None
     if traced:
@@ -3573,7 +3641,8 @@ def serve_meshed(card: str, params, label: str, tier_mesh=None,
     record = dict(
         phase="multidevice", run=label, card=card,
         tier_meshes=s["tier_meshes"], clock="virtual" if clock else "wall",
-        data_shards=shards, requests=args.requests, steps=s["steps"],
+        data_shards=shards, model_shards=models, requests=args.requests,
+        steps=s["steps"],
         tier_launches=s["launches"], launches_by_kind=kinds,
         warmup_widths=warm, kernel_launches_window=counts,
         active_ticks=s["active_ticks"], host_syncs=s["host_syncs"],
@@ -3586,6 +3655,7 @@ def serve_meshed(card: str, params, label: str, tier_mesh=None,
                               for m in s["kv_arena"]],
         kv_high_water_blocks_by_shard=by_shard,
         preemptions_by_tier=s["preemptions_by_tier"], host_ms=host_ms,
+        weight_trees_checked_as_views=views,
         stream_checksum=s["stream_checksum"], problems=problems)
     emit(**record)
     del tap, eng
@@ -3707,6 +3777,239 @@ def check_multidevice(card: str, params) -> dict:
     return out
 
 
+# phase 10: the model axis -- tensor-parallel tiers on 1x2 meshes
+MODEL_MESH = "1x2"
+# a teacher-forced full bucket: 8 rows of 64 tokens at positions 0-63
+TF_ROWS, TF_TOKENS, TF_BLOCK = 8, 64, 16
+TF_TOL = 1e-4
+
+
+def teacher_forced_logits(cfg, weights, devices, seed: int = 0):
+    """One full-bucket ``ragged_step`` (:data:`TF_ROWS` rows of
+    :data:`TF_TOKENS` seeded token ids, fresh pages) of ``cfg`` over a
+    fresh paged pool: unsharded (``weights`` a tree, ``devices`` one
+    device) or over ``len(devices)`` model shards (``weights`` one tree a
+    model shard, each its slices).  Returns the last-slot logits [8, V]
+    on the first device."""
+    m, dev = len(devices), devices[0]
+    pages_per_row = TF_TOKENS // TF_BLOCK
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TF_ROWS * TF_TOKENS),
+                           generator=gen, dtype=torch.int32)
+    pos = torch.arange(TF_TOKENS, dtype=torch.int32).repeat(TF_ROWS)[None]
+    pages = {"page_table": (1 + torch.arange(
+                 TF_ROWS * pages_per_row, dtype=torch.int32)).view(
+                 TF_ROWS, pages_per_row),
+             "q_len": torch.full((TF_ROWS,), TF_TOKENS, dtype=torch.int32),
+             "q_start": torch.zeros(TF_ROWS, dtype=torch.int32)}
+    pages = {k: v.to(dev) for k, v in pages.items()}
+    blocks_n = TF_ROWS * pages_per_row + 1
+    if m == 1:
+        cache = init_paged_cache(cfg, TF_ROWS, blocks_n, TF_BLOCK,
+                                 device=dev)
+        group = None
+    else:
+        shard_cfg = sharding.shard_config(cfg, m)
+        cache = [init_paged_cache(shard_cfg, TF_ROWS, blocks_n, TF_BLOCK,
+                                  device=d) for d in devices]
+        group = sharding.ModelShards(devices)
+    with torch.no_grad():
+        logits, _ = transformer.ragged_step(
+            weights, cfg, tokens.to(dev), cache, pos.to(dev), pages,
+            group=group)
+    return logits
+
+
+def model_shard_weights(params, cfg, devices):
+    """``params``' model shard slices for a ``1 x len(devices)`` mesh over
+    ``devices`` (views where a shard's device holds the tree)."""
+    mesh = make_tier_mesh(1, len(devices), devices)
+    specs = params_lib.param_specs(cfg, mesh)
+    return [tree_map(lambda t, d=d: t.to(d), sharding.model_shard_params(
+        params, cfg, specs, j, len(devices))) for j, d in enumerate(devices)]
+
+
+def compare_teacher_forced(card: str, label: str, cfg, params, devices):
+    """:func:`teacher_forced_logits` sharded over ``devices`` against
+    unsharded on ``devices[0]``, the kernel counters set to 0 just
+    before the sharded step and read after: logits within ``TF_TOL``
+    absolute, argmax equal on every row whose unsharded top-1/top-2
+    margin exceeds it, and the sharded step's launches exactly M times
+    the layers' (ragged attention per attention layer, ``moe_route`` per
+    MoE layer), the gate none (the caller gates).  Returns the sharded
+    step's counts."""
+    want = teacher_forced_logits(cfg, params, devices[:1])
+    shards = model_shard_weights(params, cfg, devices)
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
+    got = teacher_forced_logits(cfg, shards, devices)
+    torch.cuda.synchronize()
+    counts = {name: getattr(ops, name).launches for name in COUNTED}
+    m, n = len(devices), layer_counts(cfg)
+    expect = {name: 0 for name in COUNTED}
+    expect["ragged_attention"] = m * n["attn"]
+    expect["router_gate"] = m * n["moe"]
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > TF_TOL
+    flips = int((got.argmax(-1) != want.argmax(-1))[sure].sum())
+    problems = []
+    if not err <= TF_TOL:
+        problems.append(f"logits {err} off unsharded (tolerance {TF_TOL})")
+    if flips:
+        problems.append(f"{flips} argmax flips past the margin")
+    if counts != expect:
+        problems.append(f"launches {counts} != {expect}")
+    emit(check=f"model axis 10a teacher-forced {label}", card=card,
+         model_shards=m, rows=TF_ROWS, tokens_per_row=TF_TOKENS,
+         max_abs_err=err, tolerance=TF_TOL, rows_past_margin=int(sure.sum()),
+         argmax_flips=flips, launches=counts, problems=problems)
+    del shards
+    if problems:
+        raise AssertionError(f"model axis {label}: " + "; ".join(problems))
+    return counts
+
+
+def draw_model_shard(cfg, seed: int, devices, j: int):
+    """Model shard ``j``'s slices of random weights of ``cfg`` for a
+    ``1 x len(devices)`` mesh, drawn directly on ``devices[j]`` (weights
+    too large to draw whole on one card): each leaf at the shape
+    :func:`repro_torch.models.sharding.model_shard_params` slices for
+    the shard (the specs, and the KV-head rule for ``wk``/``wv``), by the
+    leaf's init rule at its whole shape's scale, from a generator seeded
+    with ``seed`` and ``j``."""
+    m, dev = len(devices), devices[j]
+    specs = params_lib.param_specs(cfg, make_tier_mesh(1, m, devices))
+    shapes = sharding.model_shard_params(
+        params_lib.param_shapes(cfg, torch.float32), cfg, specs, j, m)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 1009 + j)
+
+    def fan_in(shape, axes):
+        n = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+        return n // shape[0] if "stack" in axes else n
+
+    def leaf(p, like):
+        shape = tuple(like.shape)
+        t = params_lib._init_leaf(p._replace(shape=shape), gen,
+                                  torch.float32, dev)
+        if p.init == "fan_in":
+            t.mul_(math.sqrt(fan_in(shape, p.axes) / fan_in(p.shape, p.axes)))
+        return t
+    return tree_map(leaf, params_lib.declare_model(cfg), shapes)
+
+
+def check_model_axis(card: str, params) -> dict:
+    """Phase 10, on phase 4's weights (alone:
+    ``scripts/torch_model_axis_phase.py``).  (10a, any card count)
+    teacher-forced full-bucket ragged steps of gemma3-1b and
+    phi4-mini-3.8b on two model shards over the first card twice
+    against unsharded (:func:`compare_teacher_forced`); the workload
+    unsharded and with both tiers on ``1x2`` meshes over the first card
+    twice with ``--shard-params``, in turns (unsharded, sharded,
+    sharded, unsharded; traced): same-tier streams equal, the attention
+    kernels exactly twice the unsharded formula and the gate once,
+    blocks conserved, no copy of the weights (the slices are views on
+    the card that holds them); then moonshot-v1-16b-a3b cut as phase 8
+    (its dense first layer + 8 MoE layers, 21.3 GB) teacher-forced on
+    two model shards, its experts split (``moe_route`` once a shard a MoE
+    layer).  (10b, two cards or more) moonshot-v1-16b-a3b at its 48
+    layers (110 GB in f32) drawn a model shard a card on a ``1x2`` mesh
+    over two cards, gemma3-1b on a card of its own where there are three,
+    serving the workload (:func:`check_model_axis_cards`); with one card,
+    one line saying 10b did not run.  Returns the runs' launch counts by
+    path."""
+    t0 = time.perf_counter()
+    cards = card_devices()
+    one = cards[:1] * 2
+    fast_cfg = get_config("gemma3-1b", "")
+    phi4_cfg = get_config(PHI4_NAME, "")
+    out = {}
+    for label, cfg, p in (("gemma3-1b", fast_cfg, params[0]),
+                          ("phi4-mini-3.8b", phi4_cfg, params[1])):
+        out[f"model axis {label} step"] = compare_teacher_forced(
+            card, label, cfg, p, one)
+    turns = [serve_meshed(card, params, f"model axis {label}, turn {i}",
+                          mesh, one, traced=True, shard_params=True)
+             for i, (label, mesh) in enumerate((
+                 ("unsharded", None), ("1x2 on one card", [MODEL_MESH]),
+                 ("1x2 on one card", [MODEL_MESH]), ("unsharded", None)))]
+    base = turns[0]
+    problems = []
+    differ = [same_tier_differences(base["per_req"], x["per_req"])
+              for x in turns[1:]]
+    if any(differ):
+        problems.append(f"same-tier streams differ: {differ}")
+    tokens_per_s = [sum(x["summary"]["gen_len"] * (r["tier"] + 1)
+                        for r in x["per_req"]) / x["summary"]["elapsed"]
+                    for x in turns]
+    emit(check="model axis 10a: both tiers on 1x2 over one card "
+               "(--shard-params) against unsharded, in turns (unsharded, "
+               "sharded, sharded, unsharded)", card=card,
+         tokens_per_s=tokens_per_s,
+         sharded_over_unsharded=[tokens_per_s[1] / tokens_per_s[0],
+                                 tokens_per_s[2] / tokens_per_s[3]],
+         tick_p50_s=[x["summary"]["tick_duration_p50"] for x in turns],
+         host_ms=[x["host_ms"] for x in turns],
+         peak_bytes=[x["peak"][0] for x in turns],
+         host_syncs=[x["summary"]["host_syncs"] for x in turns],
+         active_ticks=[x["summary"]["active_ticks"] for x in turns],
+         launches=[x["counts"] for x in turns],
+         same_tier_differing_rids=differ, problems=problems)
+    if problems:
+        raise AssertionError("model axis 10a: " + "; ".join(problems))
+    out.update({f"model axis {label}": x["counts"] for label, x in (
+        ("unsharded", turns[0]), ("1x2", turns[1]), ("1x2 again", turns[2]),
+        ("unsharded again", turns[3]))})
+    del turns, base
+    moon_cfg = dataclasses.replace(get_config(MOONSHOT_NAME, ""),
+                                   num_periods=8)
+    torch.cuda.empty_cache()
+    moon = init_params(moon_cfg, 1, torch.float32, one[0])
+    out["model axis moonshot 1 + 8 step"] = compare_teacher_forced(
+        card, "moonshot-v1-16b-a3b 1 + 8 layers", moon_cfg, moon, one)
+    del moon
+    torch.cuda.empty_cache()
+    out.update(check_model_axis_cards(card, params))
+    emit(phase="model axis", phase_s=time.perf_counter() - t0)
+    return out
+
+
+def check_model_axis_cards(card: str, params) -> dict:
+    """Phase 10b: moonshot-v1-16b-a3b at its 48 layers (110 GB in f32),
+    drawn a model shard a card (:func:`draw_model_shard`) on a ``1x2``
+    mesh over two cards, behind phase 4's gemma3-1b on a card of its own
+    where there are three (else beside shard 0), serving the workload
+    with exact launches; with one card, one line saying it did not run.
+    Returns the run's launch counts."""
+    cards = card_devices()
+    out = {}
+    fast_cfg = get_config("gemma3-1b", "")
+    if len(cards) < 2:
+        emit(check="model axis 10b", ran=False, card=card,
+             reason=f"torch.cuda.device_count() is {len(cards)}: "
+                    "moonshot-v1-16b-a3b at 48 layers (110 GB in f32) needs "
+                    "its two model shards on two cards")
+    else:
+        moon_cfg = get_config(MOONSHOT_NAME, "")
+        devs = cards[1:3] if len(cards) >= 3 else cards[:2]
+        shards = [draw_model_shard(moon_cfg, 1, devs, j)
+                  for j in range(len(devs))]
+        run = serve_meshed(
+            card, (params[0], shards), "model axis 10b: moonshot 48 layers "
+            f"on 1x2 over {[str(d) for d in devs]}", ["1", MODEL_MESH],
+            cards[:1] + devs if len(cards) >= 3 else cards[:2],
+            expensive=MOONSHOT_NAME, cfgs=(fast_cfg, moon_cfg),
+            shard_params=True)
+        emit(check="model axis 10b", ran=True, card=card,
+             devices=len(cards), peak_bytes_by_card=run["peak"],
+             tier_meshes=run["summary"]["tier_meshes"])
+        out["model axis moonshot 48 layers"] = run["counts"]
+        del shards, run
+        torch.cuda.empty_cache()
+    return out
+
+
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3799,6 +4102,10 @@ def main() -> int:
     # phase 9, multi-device serving, on the same weights: data shards on
     # one card (9a), tiers on distinct cards where there are two (9b)
     multi_runs = check_multidevice(card, params)
+    # phase 10, the model axis, on the same weights: tensor-parallel
+    # tiers on 1x2 meshes over one card (10a), moonshot at 48 layers
+    # over two cards where there are two (10b)
+    model_runs = check_model_axis(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -3871,6 +4178,7 @@ def main() -> int:
     counts.update(overload_runs)
     counts.update(obs_runs)
     counts.update(multi_runs)
+    counts.update(model_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
@@ -3889,7 +4197,8 @@ def main() -> int:
     trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
-                      + obs_paths + tuple(multi_runs) + served
+                      + obs_paths + tuple(multi_runs) + tuple(model_runs)
+                      + served
                       + ("starcoder2 ragged", "moonshot 1 + 8 layers "
                                               "ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
@@ -3910,11 +4219,13 @@ def main() -> int:
                      ("flash_attention", ("uniform", "dense", "rwkv")
                       + jamba_paths + rwkv_served
                       + ("musicgen auto", "qwen2-vl 8 layers auto")),
-                     ("confidence_gate", tuple(p for p in counts
-                                               if p not in trained_only)),
+                     ("confidence_gate", tuple(
+                         p for p in counts if p not in trained_only
+                         and not p.endswith(" step"))),
                      ("router_gate", moe_paths + jamba_paths
                       + ("train steps", "recurrent train steps",
-                         "moonshot 1 + 8 layers ragged")),
+                         "moonshot 1 + 8 layers ragged",
+                         "model axis moonshot 1 + 8 step")),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
                                      "LtC rwkv6") + rwkv_served),
                      ("mamba_scan", jamba_paths

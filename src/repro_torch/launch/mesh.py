@@ -5,7 +5,10 @@ A cascade tier may run on its own mesh of devices with the axes
 
   * ``data``  — the tier's request rows and its KV block pool split into
     that many shards, one launch per shard per tick;
-  * ``model`` — tensor parallelism (only 1 is served by this port yet).
+  * ``model`` — tensor parallelism: each data shard's launches split
+    over that many model shards, one on each device of its row of the
+    mesh (attention heads, FFN hidden units, experts and the vocabulary;
+    ``repro_torch.models.sharding``).
 
 A :class:`TierMesh` is a plain description: its shape ``(data, model)``,
 its axis names and a row-major array of ``torch.device``s.  Building one
@@ -50,9 +53,15 @@ class TierMesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     def data_devices(self) -> List[torch.device]:
-        """The device of each data shard, in shard order (column 0 of a
-        mesh whose model axis is 1)."""
+        """The device of each data shard, in shard order: its model shard
+        0's (column 0 of the mesh), which holds the shard's gathered
+        logits."""
         return list(self.devices[:, 0])
+
+    def model_devices(self, d: int) -> List[torch.device]:
+        """The devices of data shard ``d``'s model shards, in model shard
+        order (row ``d`` of the mesh)."""
+        return list(self.devices[d, :])
 
 
 def visible_devices() -> List[torch.device]:

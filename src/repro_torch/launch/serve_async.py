@@ -63,8 +63,14 @@ the tiers overrun them (``--device cpu``: over the CPU device repeated).
 ``--tier-mesh 1 1`` on two cards serves the fast tier on ``cuda:0`` and
 the expensive one on ``cuda:1``; ``--tier-mesh 2x1 2x1`` splits each
 tier's rows and KV block pool into two data shards, each launch running
-once per shard on its card.  A ``model`` axis over 1 raises (tensor
-sharding is later work).
+once per shard on its card.  ``--tier-mesh 1x2`` adds tensor
+parallelism: each launch splits over two model shards (attention and KV
+heads, FFN hidden units or experts, the vocabulary), all-reducing
+between layers, and ``--shard-params`` places each model shard's slices
+of the weights on its card instead of a full replica on each (ragged,
+padded and split executors, attention tiers: a model axis under the
+uniform prefill, the dense arena, speculation, or with an RWKV-6, Mamba
+or frontend tier raises).
 
 Observability: ``--trace-out trace.json`` records every request's
 lifecycle (QUEUED -> PREFILL -> DECODE -> ESCALATED -> DONE) and every
@@ -189,9 +195,12 @@ def build_engine(args, clock=None, params=None, cfgs=None, tracer=None):
                else {"escalation_budget": args.escalation_budget})
     dense = getattr(args, "dense_kv", False)
     meshes = tier_meshes(args, 2)
+    shard_params = bool(getattr(args, "shard_params", False))
     engine = CascadeEngine(
-        [TierSpec(args.fast, fast_cfg, fast_params, mesh=meshes[0]),
-         TierSpec(args.expensive, exp_cfg, exp_params, mesh=meshes[1])],
+        [TierSpec(args.fast, fast_cfg, fast_params, mesh=meshes[0],
+                  shard_params=shard_params),
+         TierSpec(args.expensive, exp_cfg, exp_params, mesh=meshes[1],
+                  shard_params=shard_params)],
         slots=args.slots, prompt_len=args.prompt_len, gen_len=args.gen_len,
         kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
         use_paged_kv=not dense,
@@ -544,8 +553,13 @@ def make_parser() -> argparse.ArgumentParser:
                          "slice of the visible cards (wrapping when tiers "
                          "overrun them; the CPU device repeated under "
                          "--device cpu); rows + KV block pool shard over "
-                         "the data axis.  One shape is broadcast to both "
-                         "tiers; default: no mesh (the --device)")
+                         "the data axis, heads, FFN units, experts and "
+                         "vocabulary over the model axis.  One shape is "
+                         "broadcast to both tiers; default: no mesh (the "
+                         "--device)")
+    ap.add_argument("--shard-params", action="store_true",
+                    help="tensor-shard tier params over the mesh 'model' "
+                         "axis (default: replicate params per tier)")
     ap.add_argument("--split-step", action="store_true",
                     help="split chunk + decode launches instead of the "
                          "unified one launch per tier per tick")

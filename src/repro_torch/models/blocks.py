@@ -598,7 +598,7 @@ def _moe_experts(p, spec, xg, dest, w, cap, *, inplace):
     ``out=``; autograd follows neither, so training passes False.
     Returns [G, gs, d]."""
     G, gs, D = xg.shape
-    E, K = spec.num_experts, spec.top_k
+    E, K = p["wo"].shape[0], spec.top_k     # the experts held here
     rows = E * G * cap
     dest = dest.reshape(-1)
     src = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
@@ -627,7 +627,22 @@ def _moe_experts(p, spec, xg, dest, w, cap, *, inplace):
     return out.sum(2)
 
 
-def moe_ffn(p, cfg: ModelConfig, spec, x):
+def _shard_picks(dest, w, lo: int, experts: int, rows_per_expert: int):
+    """A model shard's picks of an expert-parallel MoE layer: the pairs
+    routed to its ``experts`` experts from expert ``lo`` on keep their
+    row of the shard's own ``[experts, G·cap, d]`` capacity buffer, in
+    local ids; every other pair (another shard's, or dropped) goes to the
+    buffer's spare last row with weight 0.  A pair's queue rank is its
+    rank in its expert's queue, which no other expert's picks change, so
+    the kept rows are the unsharded buffer's rows of these experts."""
+    n = experts * rows_per_expert
+    local = dest - lo * rows_per_expert
+    keep = (local >= 0) & (local < n)
+    return torch.where(keep, local, n), torch.where(keep, w,
+                                                   torch.zeros_like(w))
+
+
+def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0):
     """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
     moe_ffn``), routed and ranked by the ``moe_route`` kernel.
 
@@ -648,9 +663,22 @@ def moe_ffn(p, cfg: ModelConfig, spec, x):
     Serving reads only the output; training calls
     :func:`moe_ffn_train`, which also returns the load-balance and z
     aux losses.
+
+    On model shard ``shard`` of a tensor-parallel tier, ``p`` holds the
+    shard's slice and the result is its partial sum, which the caller
+    all-reduces.  Expert-parallel (``p`` holds fewer experts than the
+    layer's): the shard routes its copy of the input over every expert
+    with the replicated router, in one ``moe_route`` launch, and keeps
+    the picks of its own experts (:func:`_shard_picks`); the other
+    pairs add nothing.  ``ffn`` split inside every expert: every shard
+    routes alike and computes its slice of each expert's hidden units.
     """
     xg, logits, cap = _moe_group(p, spec, x)
     _, _, dest, w = kernel_ops.moe_route(logits, spec.top_k, cap)
+    held = p["wo"].shape[0]
+    if held < spec.num_experts:
+        dest, w = _shard_picks(dest, w, shard * held, held,
+                               xg.shape[0] * cap)
     return _moe_experts(p, spec, xg, dest, w, cap,
                         inplace=True).reshape(x.shape)
 

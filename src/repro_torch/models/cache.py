@@ -25,9 +25,20 @@ are padded with: it is never allocated, and padding writes land there.
 
 The JAX package returns a new cache from every step (and donates the old
 buffers on accelerators); here decode steps update the cache in place.
+
+:func:`paged_cache_specs` gives a block-paged cache's partition specs on
+a tier mesh (tuples of ``"data"``, ``"model"`` or None per dim, by the
+JAX package's :func:`cache_spec_leaf` rules): the ``kv_blocks`` pool
+and per-row recurrent ``batch`` dims over ``data``, KV heads over
+``model`` when divisible, as a description of the JAX placement (the
+serving engine declares each model shard's cache by
+:func:`repro_torch.models.sharding.shard_config`).  The dense arena's
+``cache_specs`` and ``cache_shapes`` serve the JAX package's dry-run
+tooling, a later slice of the port.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -144,6 +155,43 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
                      block_size: int, dtype=torch.float32, device="cuda"):
     return _zeros(declare_paged_cache(cfg, batch, num_blocks, block_size,
                                       dtype), device)
+
+
+def cache_spec_leaf(c: CP, mesh) -> tuple:
+    """One paged cache leaf's partition spec on ``mesh`` (the JAX
+    package's rule, without its sequence-sharding options, which serve
+    the dense ``cache_specs`` of the tooling): ``batch`` / ``kv_blocks``
+    over the data axes when divisible, ``kv_heads`` / ``d_inner`` /
+    ``heads`` over ``model`` when divisible."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    data_total = math.prod(sizes[a] for a in data_axes) if data_axes else 1
+    model = sizes.get("model", 1)
+    spec = [None] * len(c.shape)
+    for i, (a, s) in enumerate(zip(c.axes, c.shape)):
+        if a in ("batch", "kv_blocks") and data_total > 1 \
+                and s % data_total == 0:
+            spec[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+        elif a in ("kv_heads", "d_inner", "heads") and model > 1 \
+                and s % model == 0:
+            spec[i] = "model"
+    return tuple(spec)
+
+
+def paged_cache_specs(cfg: ModelConfig, batch: int, num_blocks: int,
+                      block_size: int, mesh, dtype=torch.float32):
+    """Partition specs of a block-paged serving cache on ``mesh``: the
+    ``kv_blocks`` pool dim and per-row recurrent ``batch`` dims over the
+    data axes, KV heads over ``model`` when divisible.  This describes
+    the JAX package's placement, which the parity tests hold the port
+    to; the serving engine does not read it.  Its pool declares each
+    model shard's cache by
+    :func:`repro_torch.models.sharding.shard_config`: where the model
+    axis outnumbers the KV heads the spec leaves them whole on every
+    device, while a shard holds only the one head its query heads read
+    (:func:`repro_torch.models.sharding.kv_head_range`)."""
+    decl = declare_paged_cache(cfg, batch, num_blocks, block_size, dtype)
+    return tree_map(lambda c: cache_spec_leaf(c, mesh), decl)
 
 
 def has_recurrent_state(cfg: ModelConfig) -> bool:

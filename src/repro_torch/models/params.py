@@ -18,6 +18,18 @@ which maps the precomputed patch or frame embeddings into the model
 (``transformer._embed``).  Besides the generic rules, Mamba's ``A_log``
 is ``log(1..d_state)`` (``mamba_A``) and its ``dt_bias`` the inverse
 softplus of a ``U[1e-3, 1e-1)`` draw (``mamba_dt``).
+
+From the one declaration come, as in the JAX package, the weights
+(:func:`init_params`), each leaf's per-device shape on the ``meta``
+device (:func:`param_shapes`) and its partition spec on a tier mesh
+(:func:`param_specs`).  A spec is a tuple of ``"model"``, ``"data"`` or
+None per dim, by the MaxText-style logical-axis rules of
+:func:`logical_to_spec`: the ``model`` axis goes to the first divisible
+dim in the order experts > vocab > ffn > fused_heads > d_inner >
+frontend, and under ``cfg.fsdp`` the ``data`` axis to a remaining
+divisible ``d_model``/``ffn2`` dim.  The serving engine places each
+model shard's slices by these specs
+(:func:`repro_torch.models.sharding.model_shard_params`).
 """
 from __future__ import annotations
 
@@ -34,6 +46,44 @@ class P(NamedTuple):
     shape: tuple
     axes: tuple            # logical axis name per dim (or None)
     init: str = "fan_in"   # fan_in | zeros | ones | normal:<s> | mamba_*
+
+
+# priority of logical axes for the `model` mesh axis
+_MODEL_PRIORITY = ("experts", "vocab", "ffn", "fused_heads", "d_inner",
+                   "frontend")
+# axes eligible for the `data` mesh axis under fsdp
+_FSDP_AXES = ("d_model", "ffn2")
+
+
+def _axis_sizes(mesh) -> dict:
+    """Axis sizes by name of anything with ``axis_names`` and
+    ``devices.shape`` (a :class:`repro_torch.launch.mesh.TierMesh`, or a
+    JAX mesh)."""
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def logical_to_spec(p: P, mesh, fsdp: bool) -> tuple:
+    """One leaf's partition spec on ``mesh``: ``"model"`` on the first
+    dim (by :data:`_MODEL_PRIORITY`) whose size the model axis divides,
+    and under ``fsdp`` ``"data"`` on the first free ``d_model``/``ffn2``
+    dim the data axis divides; None elsewhere."""
+    sizes = _axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    data = sizes.get("data", 1)
+    spec = [None] * len(p.shape)
+    if model > 1:
+        for target in _MODEL_PRIORITY:
+            hit = next((i for i, (a, s) in enumerate(zip(p.axes, p.shape))
+                        if a == target and s % model == 0), None)
+            if hit is not None:
+                spec[hit] = "model"
+                break
+    if fsdp and data > 1:
+        for i, (a, s) in enumerate(zip(p.axes, p.shape)):
+            if a in _FSDP_AXES and spec[i] is None and s % data == 0:
+                spec[i] = "data"
+                break
+    return tuple(spec)
 
 
 def _attn_decl(cfg: ModelConfig, m) -> dict:
@@ -278,6 +328,33 @@ def from_jax(tree, device="cpu", dtype=None):
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
     return tree_map(leaf, tree)
+
+
+def param_specs(cfg: ModelConfig, mesh):
+    """Every leaf's partition spec on ``mesh`` (:func:`logical_to_spec`),
+    in the parameter tree's structure."""
+    return tree_map(lambda p: logical_to_spec(p, mesh, cfg.fsdp),
+                    declare_model(cfg))
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16, mesh=None):
+    """Every leaf as an empty ``meta``-device tensor (no memory): its
+    global shape, or with ``mesh`` the shape one device holds under
+    :func:`param_specs` (each split dim divided by its axis's size).  The
+per-device shapes describe the JAX placement for the parity tests; the
+serving engine slices its shards by
+:func:`repro_torch.models.sharding.model_shard_params`, whose ``wk`` /
+``wv`` follow the KV-head rule where the model axis outnumbers the KV
+heads."""
+    sizes = _axis_sizes(mesh) if mesh is not None else {}
+
+    def leaf(p: P):
+        spec = (logical_to_spec(p, mesh, cfg.fsdp) if mesh is not None
+                else (None,) * len(p.shape))
+        shape = tuple(s // sizes[a] if a else s
+                      for s, a in zip(p.shape, spec))
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return tree_map(leaf, declare_model(cfg))
 
 
 def param_count_from_decl(cfg: ModelConfig) -> int:

@@ -16,6 +16,21 @@ aux losses and, for a config with ``early_exit_periods``, each exit
 head's logits; ``cfg.remat`` recomputes each period's layers in backward
 (``torch.utils.checkpoint``), as the JAX package checkpoints its period
 scan body.
+
+**Tensor parallelism** (a tier mesh's ``model`` axis): the serving steps
+take ``group=`` (a :class:`repro_torch.models.sharding.ModelShards`),
+``params`` as one tree of slices per model shard
+(:func:`repro_torch.models.sharding.model_shard_params`) and ``cache`` as
+one tree per model shard (the shard's KV heads).  The function is the
+unsharded one, as the JAX package's GSPMD placement computes it, with
+the collectives written out (:func:`_forward_shards`): the embedding
+looks up each shard's vocabulary range and all-reduces; every layer runs
+its attention and FFN once per model shard, on the shard's device, over
+its heads, hidden units or experts, and all-reduces the partial outputs,
+so the residual stream (and every norm) is replicated on each model
+device; the LM head computes each shard's vocabulary columns and gathers
+them in vocabulary order on shard 0's device, where the caller's
+confidence gate runs once.  The chunked modes and paged decode only.
 """
 from __future__ import annotations
 
@@ -24,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
+from repro_torch.models import sharding
 from repro_torch.models.params import tree_map
 
 
@@ -136,8 +152,118 @@ def lm_proj(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _layer_groups(cfg: ModelConfig, tree):
+    """(layers, key prefix, their subtree) in order: the head layers,
+    each period (its stacked leaves indexed), the tail layers."""
+    if cfg.head:
+        yield cfg.head, "layer", tree["head"]
+    for i in range(cfg.num_periods):
+        yield cfg.period, "block", tree_map(lambda a: a[i], tree["period"])
+    if cfg.tail:
+        yield cfg.tail, "layer", tree["tail"]
+
+
+def _ffn_split(p, spec) -> bool:
+    """Whether a model shard's FFN slice ``p`` holds part of the layer
+    (hidden units or experts) rather than all of it (a layer the model
+    axis divides nowhere stays whole, and runs once)."""
+    if spec.kind == "moe":
+        return p["wo"].shape[0] < spec.num_experts \
+            or p["wo"].shape[1] < spec.d_ff
+    return p["wo"].shape[0] < spec.d_ff
+
+
+def _apply_layer_shards(group, ps, cfg, shard_cfg, layer, xs, caches, pos,
+                        mode, pages):
+    """:func:`repro_torch.models.blocks.apply_layer` over the model
+    shards: each shard's attention over its heads (its KV written into
+    its own cache), all-reduced into the residual; then each shard's FFN
+    partial, all-reduced.  ``xs``, ``pos``, ``pages`` and ``caches`` hold
+    one entry a model shard, on its device."""
+    m = group.size
+    eps = cfg.norm_eps
+    ys = []
+    for j in range(m):
+        h = blocks.rmsnorm(xs[j], ps[j]["norm1"], eps)
+        y, _ = blocks.attention(ps[j]["mixer"], shard_cfg, layer.mixer, h,
+                                caches[j]["mixer"], pos[j], mode,
+                                pages=pages[j])
+        ys.append(y)
+    xs = [x + y for x, y in zip(xs, sharding.all_reduce(ys))]
+    hs = [blocks.rmsnorm(x, p["norm2"], eps) for x, p in zip(xs, ps)]
+    spec = layer.ffn
+    ffn = (lambda p, h, j: blocks.moe_ffn(p, cfg, spec, h, shard=j)) \
+        if spec.kind == "moe" else \
+        (lambda p, h, j: blocks.dense_ffn(p, cfg, spec, h))
+    if _ffn_split(ps[0]["ffn"], spec):
+        ys = sharding.all_reduce([ffn(p["ffn"], h, j)
+                                  for j, (p, h) in enumerate(zip(ps, hs))])
+    else:
+        ys = group.replicate(ffn(ps[0]["ffn"], hs[0], 0))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _embed_shards(group, params, cfg: ModelConfig, tokens):
+    """The token embeddings on every model device: each shard looks up
+    the ids of its vocabulary range (zeros for the rest) and the parts
+    are all-reduced; a vocabulary the model axis does not divide is
+    looked up once, on shard 0's device, and copied."""
+    held = params[0]["embed"].shape[0]
+    if held == cfg.vocab_size:
+        return group.replicate(params[0]["embed"][
+            tokens.to(group.devices[0]).long()])
+    parts = []
+    for j, (p, dev) in enumerate(zip(params, group.devices)):
+        ids = tokens.to(dev, non_blocking=True).long() - j * held
+        hit = ((ids >= 0) & (ids < held))[..., None]
+        e = p["embed"][ids.clamp(0, held - 1)]
+        parts.append(torch.where(hit, e, torch.zeros_like(e)))
+    return sharding.all_reduce(parts)
+
+
+def _logits_shards(group, params, cfg: ModelConfig, xs):
+    """Every position's logits on shard 0's device: each shard's
+    vocabulary columns from its replica of the residual stream, gathered
+    in vocabulary order; an LM head the model axis does not split runs
+    once, on shard 0."""
+    if lm_proj(params[0], cfg).shape[1] == cfg.vocab_size:
+        return _logits(params[0], cfg, xs[0])
+    return sharding.all_gather(
+        [_logits(p, cfg, x) for p, x in zip(params, xs)], -1)
+
+
+def _forward_shards(group, params, cfg: ModelConfig, batch, mode, cache,
+                    pos, pages):
+    """:func:`forward` over a tier's model shards (the module docstring):
+    ``params`` and ``cache`` one tree a model shard; the step's inputs on
+    any device, copied to each shard's.  Returns (logits on shard 0's
+    device, ``cache``, updated in place)."""
+    if mode not in _CHUNKED + ("decode",) or pages is None or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis over 1 serves the chunked steps and "
+            f"paged decode of a frontend-free model, not {mode!r} "
+            "(ROADMAP Queue 1, item 5)")
+    m = group.size
+    shard_cfg = sharding.shard_config(cfg, m)
+    pos_s = group.replicate(pos)
+    pages_s = [{k: v.to(d, non_blocking=True) for k, v in pages.items()}
+               for d in group.devices]
+    xs = _embed_shards(group, params, cfg, batch["tokens"])
+    for parts in zip(*(_layer_groups(cfg, t) for t in (*params, *cache))):
+        layers, prefix = parts[0][:2]
+        ps, cs = [g[2] for g in parts[:m]], [g[2] for g in parts[m:]]
+        for i, layer in enumerate(layers):
+            k = f"{prefix}{i}"
+            xs = _apply_layer_shards(group, [p[k] for p in ps], cfg,
+                                     shard_cfg, layer, xs,
+                                     [c[k] for c in cs], pos_s, mode,
+                                     pages_s)
+    return _logits_shards(group, params, cfg, xs), cache
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
-            cache=None, pos=None, pages=None, return_hidden: bool = False):
+            cache=None, pos=None, pages=None, return_hidden: bool = False,
+            group=None):
     """Returns (logits, cache) — in ``"train"`` mode (logits, aux).
     ``batch = {"tokens": [B, S] int32}`` (for a model with a modality
     frontend, in ``"train"`` and ``"prefill"``, also ``"frontend_embeds":
@@ -174,10 +300,16 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       ``pages = {"page_table", "q_len"}``) or ``"decode"`` (``[B, 1]``,
       ``pages = {"page_table"}`` over a block-paged cache, or ``None``
       over the dense arena): all positions' logits, and the cache updated
-      in place."""
+      in place.
+
+    With ``group`` (the chunked modes and paged decode): ``params`` and
+    ``cache`` hold one tree a model shard (:func:`_forward_shards`)."""
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
+    if group is not None:
+        return _forward_shards(group, params, cfg, batch, mode, cache, pos,
+                               pages)
     x = _embed(params, cfg, batch, mode)
     if pos is None:
         if mode not in ("train", "prefill"):
@@ -231,14 +363,15 @@ def prefill(params, cfg: ModelConfig, batch: dict, pos=None):
     return forward(params, cfg, batch, mode="prefill", pos=pos)
 
 
-def prefill_chunk(params, cfg: ModelConfig, tokens, cache, pos, pages):
+def prefill_chunk(params, cfg: ModelConfig, tokens, cache, pos, pages,
+                  group=None):
     """One chunked-prefill step: tokens [B, C] int32 (row b's chunk,
     padded past ``pages['q_len'][b]``); pos [B, C] per-row absolute
     positions; pages {"page_table": [B, P], "q_len": [B]}.  Writes the
     chunk's KV through the page tables and returns (logits [B, C, V],
     cache); logits past a row's q_len are unspecified."""
     return forward(params, cfg, {"tokens": tokens}, mode="prefill_chunk",
-                   cache=cache, pos=pos, pages=pages)
+                   cache=cache, pos=pos, pages=pages, group=group)
 
 
 def last_slot_gather(logits, q_len, *, flat: bool):
@@ -259,7 +392,8 @@ def last_slot_gather(logits, q_len, *, flat: bool):
     return logits[rows, last]
 
 
-def mixed_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
+def mixed_step(params, cfg: ModelConfig, tokens, cache, pos, pages,
+               group=None):
     """One padded mixed prefill+decode step: tokens [B, C] int32 — row
     b's next prefill chunk, its decode token in slot 0, or padding —
     with ``pages['q_len'][b]`` live slots; pos [B, C]; pages
@@ -269,11 +403,12 @@ def mixed_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
     logits."""
     logits, cache = forward(params, cfg, {"tokens": tokens},
                             mode="mixed_step", cache=cache, pos=pos,
-                            pages=pages)
+                            pages=pages, group=group)
     return last_slot_gather(logits, pages["q_len"], flat=False), cache
 
 
-def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
+def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages,
+                group=None):
     """One ragged flat token-batch prefill+decode step (O(live tokens)).
 
     tokens [1, W] int32 — the tick's live tokens packed contiguously:
@@ -288,7 +423,7 @@ def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages):
     """
     logits, cache = forward(params, cfg, {"tokens": tokens},
                             mode="ragged_step", cache=cache, pos=pos,
-                            pages=pages)
+                            pages=pages, group=group)
     return last_slot_gather(logits, pages["q_len"], flat=True), cache
 
 
@@ -303,7 +438,8 @@ def ragged_verify(params, cfg: ModelConfig, tokens, cache, pos, pages):
                    cache=cache, pos=pos, pages=pages)
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None):
+def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None,
+                group=None):
     """token [B, 1] int32; pos [B, 1] per-row decode positions;
     ``pages={"page_table": [B, P]}`` over a block-paged cache, where
     every attention layer runs the paged decode kernel, or ``pages=None``
@@ -311,4 +447,4 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None):
     ``[max_seq]`` keys).  Recurrent layers step their per-row state in
     place either way.  Returns (logits [B, 1, V], cache)."""
     return forward(params, cfg, {"tokens": token}, mode="decode",
-                   cache=cache, pos=pos, pages=pages)
+                   cache=cache, pos=pos, pages=pages, group=group)

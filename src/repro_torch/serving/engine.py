@@ -118,8 +118,7 @@ Neither adds a synchronisation or a transfer: ``host_syncs`` and the
 launch counts are the same with both on and off.  ``run(metrics_interval=)``
 hands a metrics snapshot to ``on_snapshot`` once per window.
 
-**Multi-device serving**, as in the JAX engine for meshes whose
-``model`` axis is 1: ``TierSpec.mesh`` (a
+**Multi-device serving**, as in the JAX engine: ``TierSpec.mesh`` (a
 :class:`repro_torch.launch.mesh.TierMesh`) places a tier on its own
 devices.  A ``1x1`` mesh moves the tier to one device of its own, under
 every executor: the fast tier on one card and the expensive one on
@@ -134,13 +133,25 @@ its rows (the ragged one at the bucket of the shard's own live tokens).
 So a sharded tier launches each kernel exactly ``D`` times as often as
 the same tier unsharded, and still pays one blocking fetch a tick: the
 shards' results come back by one asynchronous copy each, then one wait.
-Shards on one device share one replica of the params.  Data shards under
-uniform prefill, the dense arena or speculation, and a ``model`` axis
-over 1, raise (ROADMAP Queue 1, item 5).
+Shards on one device share one replica of the params.  A ``DxM`` mesh
+with ``M > 1`` adds tensor parallelism under the ragged, padded and split
+executors: each data shard's launch runs over its ``M`` model shards,
+each on its device, over its attention heads and KV heads, its FFN
+hidden units or experts and its vocabulary range, with the all-reduces
+and the logits' gather written out
+(:func:`repro_torch.models.transformer.forward` with ``group=``); the
+confidence gate runs once per data shard on the gathered logits, so the
+attention kernels and ``moe_route`` launch ``M`` times as often and the
+gate as often as without the model axis, with no added host sync.  The
+weights are each model shard's slices by ``param_specs``
+(``TierSpec.shard_params``) or views into one full replica per distinct
+device (the default: the compute still splits, as in the JAX engine).
+Data shards under uniform prefill, the dense arena or speculation, and a
+model axis over 1 under those, on a recurrent (RWKV-6, Mamba) or
+frontend tier, raise (ROADMAP Queue 1, item 5).
 
-Not ported from the JAX engine (later work): compile statistics (an
-eager engine compiles nothing; they wait for CUDA graphs) and tensor
-sharding over the ``model`` axis (``TierSpec.shard_params``).
+Not ported from the JAX engine: compile statistics (an eager engine
+compiles nothing; they wait for CUDA graphs).
 """
 from __future__ import annotations
 
@@ -156,8 +167,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
-from repro_torch.models.params import tree_map
-from repro_torch.models.sharding import data_axis_size
+from repro_torch.models.params import param_specs, tree_map
+from repro_torch.models.sharding import (ModelShards, data_axis_size,
+                                         kv_heads_per_shard,
+                                         model_axis_size,
+                                         model_shard_params)
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import observability as obs
 from repro_torch.serving.metrics import ServingMetrics, TierCost
@@ -188,11 +202,27 @@ class TierSpec:
     mesh's devices: the params are copied to each distinct one (from any
     device), and the KV arena splits its request rows and block pool into
     the data axis's shards.  Tiers may sit on disjoint devices or share
-    them."""
+    them.
+
+    A ``model`` axis over 1 splits each data shard's launches over that
+    many model shards (tensor parallelism): ``shard_params`` places each
+    model shard's slices of the params (by
+    :func:`repro_torch.models.params.param_specs`) on its device;
+    otherwise each distinct device holds one full replica, and the
+    shards on it compute over views of their slices.  With
+    ``shard_params``, ``params`` may also be one tree a model shard,
+    each already its shard's slices (weights too large to draw whole).
+    A model axis that the heads do not allow raises ValueError here
+    (:func:`repro_torch.models.sharding.kv_heads_per_shard`)."""
     name: str
     cfg: ModelConfig
     params: object
     mesh: Optional[object] = None
+    shard_params: bool = False
+
+    def __post_init__(self):
+        if self.model_shards() > 1:
+            kv_heads_per_shard(self.cfg, self.model_shards())
 
     def flops_per_request(self, gen_len: int) -> float:
         """Eq 7 cost: FLOPs/token = 2 * active params."""
@@ -200,6 +230,9 @@ class TierSpec:
 
     def data_shards(self) -> int:
         return data_axis_size(self.mesh)
+
+    def model_shards(self) -> int:
+        return model_axis_size(self.mesh)
 
 
 class WallClock:
@@ -312,7 +345,8 @@ class _TierRuntime:
     params are placed there (:meth:`_place_params`) and, with ``D`` data
     shards, its rows and KV blocks split into ``D`` contiguous shards, and
     every launch runs once per shard on that shard's device over that
-    shard's rows and arena."""
+    shard's rows and arena — over a model axis of ``M``, on the shard's
+    ``M`` model devices (``groups``), tensor-parallel."""
 
     def __init__(self, spec: TierSpec, capacity: int, prompt_len: int,
                  max_seq: int, device, *, block_size: int = 16,
@@ -327,11 +361,25 @@ class _TierRuntime:
         self.capacity = capacity
         self.mesh = spec.mesh
         self.data_shards = spec.data_shards()
-        if self.mesh is not None and self.mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"tier {spec.name}: mesh {self.mesh.shape} has a model axis "
-                "over 1; tensor sharding over the model axis is not ported "
-                "yet (ROADMAP Queue 1, item 5: the model axis)")
+        self.model_shards = spec.model_shards()
+        if self.model_shards > 1:
+            kinds = {layer.mixer.kind for layer in spec.cfg.layers}
+            refused = ("RWKV-6 and Mamba layers (their d_inner splits)"
+                       if kinds - {"attn"}
+                       else "a modality frontend" if spec.cfg.frontend
+                       else "the dense KV arena" if not use_paged_kv
+                       else "uniform one-shot prefill"
+                       if not use_chunked_prefill
+                       else "speculative cascade decoding"
+                       if speculation_k else None)
+            if refused is not None:
+                raise NotImplementedError(
+                    f"tier {spec.name}: a model axis of {self.model_shards} "
+                    f"under {refused} is not ported yet (ROADMAP Queue 1, "
+                    "item 5: the model axis under uniform, dense and "
+                    "speculation, recurrent and frontend tiers); the model "
+                    "axis runs the ragged, padded and split executors on "
+                    "attention tiers")
         if capacity % self.data_shards:
             raise ValueError(
                 f"tier {spec.name}: {capacity} slots must divide into the "
@@ -375,8 +423,13 @@ class _TierRuntime:
         else:
             self.pool = DenseTierSlotPool(spec.cfg, capacity, max_seq,
                                           device=self.device)
-        self.replicas = self._place_params(spec)
-        self.params = self.replicas[self.device]
+        # each data shard's model axis (None without one), and its
+        # weights: a tree, or one tree a model shard
+        self.groups = [ModelShards(self.mesh.model_devices(d))
+                       if self.model_shards > 1 else None
+                       for d in range(self.data_shards)]
+        self.replicas, self.weights = self._place_params(spec)
+        self.params = self.weights[0]
         self.slot_req: List[Optional[Request]] = [None] * capacity
         self.tok = np.zeros(capacity, np.int32)
         self.pos = np.zeros(capacity, np.int32)
@@ -389,21 +442,50 @@ class _TierRuntime:
         self.spec_draft = bool(spec_draft) and self.spec_k > 0
         self.draft_req: List[Optional[Request]] = [None] * capacity
 
-    def _place_params(self, spec: TierSpec) -> dict:
-        """The tier's params by device: one replica per distinct device of
-        its shards (shards sharing a device share the replica, so a card
-        holds the weights once however many shards it runs).  A tensor
-        already on its device is not copied; an unmeshed tier's params
-        stay as given."""
+    def _place_params(self, spec: TierSpec):
+        """(the placed weights by device — or, with ``shard_params``, by
+        (device, model shard) —, each data shard's weights: its tree, or
+        one tree a model shard).
+
+        Without ``shard_params``: one replica per distinct device of the
+        mesh (shards sharing a device share it, so a card holds the
+        weights once however many shards it runs), and each model shard
+        computes over views of its slices there.  With it: each model
+        shard's slices by ``param_specs`` on its device, placed once per
+        (device, model shard).  A tensor already on its device is not
+        copied (a slice of it is a view); an unmeshed tier's params stay
+        as given."""
         if self.mesh is None:
-            return {self.device: spec.params}
-        out = {}
-        for dev in self.devices:
-            if dev not in out:
-                out[dev] = tree_map(
-                    lambda t, d=dev: t.to(d) if torch.is_tensor(t) else t,
-                    spec.params)
-        return out
+            return {self.device: spec.params}, [spec.params]
+        m, cfg = self.model_shards, spec.cfg
+        rows = [self.mesh.model_devices(d) for d in range(self.data_shards)]
+
+        def to(tree, dev):
+            return tree_map(
+                lambda t: t.to(dev) if torch.is_tensor(t) else t, tree)
+        if not (spec.shard_params and m > 1):
+            placed = {}
+            for dev in self.mesh.devices.flat:
+                if dev not in placed:
+                    placed[dev] = to(spec.params, dev)
+            if m == 1:
+                return placed, [placed[devs[0]] for devs in rows]
+            specs = param_specs(cfg, self.mesh)
+            return placed, [[model_shard_params(placed[dev], cfg, specs, j, m)
+                             for j, dev in enumerate(devs)] for devs in rows]
+        specs = param_specs(cfg, self.mesh)
+        given = spec.params if isinstance(spec.params, (list, tuple)) \
+            else None
+        placed = {}
+        for devs in rows:
+            for j, dev in enumerate(devs):
+                if (dev, j) not in placed:
+                    placed[dev, j] = to(
+                        given[j] if given is not None else
+                        model_shard_params(spec.params, cfg, specs, j, m),
+                        dev)
+        return placed, [[placed[dev, j] for j, dev in enumerate(devs)]
+                        for devs in rows]
 
     def pick(self, logits2d):
         """Each row's (argmax token, max-softmax confidence), from the
@@ -419,8 +501,8 @@ class _TierRuntime:
                  "q_start": q_start}
         caches = self.pool.caches
         logits, caches[shard] = transformer.ragged_step(
-            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
-            caches[shard], pos, pages)
+            self.weights[shard], self.spec.cfg, tokens, caches[shard], pos,
+            pages, group=self.groups[shard])
         return self.pick(logits)
 
     def spec_fn(self, tokens, pos, page_table, q_len, q_start, draft_len,
@@ -473,8 +555,8 @@ class _TierRuntime:
         pages = {"page_table": page_table, "q_len": q_len}
         caches = self.pool.caches
         logits, caches[shard] = transformer.mixed_step(
-            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
-            caches[shard], pos, pages)
+            self.weights[shard], self.spec.cfg, tokens, caches[shard], pos,
+            pages, group=self.groups[shard])
         return self.pick(logits)
 
     def chunk_fn(self, tokens, pos, page_table, q_len, shard=0):
@@ -483,8 +565,9 @@ class _TierRuntime:
         position (the host keeps it for final chunks only)."""
         caches = self.pool.caches
         logits, caches[shard] = transformer.prefill_chunk(
-            self.replicas[self.devices[shard]], self.spec.cfg, tokens,
-            caches[shard], pos, {"page_table": page_table, "q_len": q_len})
+            self.weights[shard], self.spec.cfg, tokens, caches[shard], pos,
+            {"page_table": page_table, "q_len": q_len},
+            group=self.groups[shard])
         return self.pick(transformer.last_slot_gather(logits, q_len,
                                                       flat=False))
 
@@ -495,8 +578,8 @@ class _TierRuntime:
         pages = None if page_table is None else {"page_table": page_table}
         caches = self.pool.caches
         logits, caches[shard] = transformer.decode_step(
-            self.replicas[self.devices[shard]], self.spec.cfg, tok,
-            caches[shard], pos, pages=pages)
+            self.weights[shard], self.spec.cfg, tok, caches[shard], pos,
+            pages=pages, group=self.groups[shard])
         return self.pick(logits[:, 0])
 
     def prefill_fn(self, prompts):
@@ -2151,7 +2234,8 @@ class CascadeEngine:
         """Per-tier KV arena accounting: block geometry, arena bytes,
         high-water blocks and bytes actually mapped (paged: overall and
         per data shard), and what the dense one-row-per-request arena
-        would allocate."""
+        would allocate.  Byte figures are a device's: over a model axis,
+        one model shard's KV heads of each block."""
         return [dict(tier=rt.spec.name, **rt.pool.memory_stats())
                 for rt in self.runtimes]
 
@@ -2159,7 +2243,7 @@ class CascadeEngine:
         """Per-tier mesh layout, as the JAX engine records it (``mesh``
         None for an unmeshed tier): axis sizes, device count and indices
         (``torch.device.index``: None on the CPU), data shard count, and
-        whether params are tensor-sharded (never, in this port)."""
+        whether params are tensor-sharded (``TierSpec.shard_params``)."""
         out = []
         for rt in self.runtimes:
             if rt.mesh is None:
@@ -2172,7 +2256,7 @@ class CascadeEngine:
                 "devices": int(rt.mesh.devices.size),
                 "device_ids": [d.index for d in rt.mesh.devices.flat],
                 "data_shards": rt.data_shards,
-                "shard_params": False,
+                "shard_params": bool(rt.spec.shard_params),
             })
         return out
 
@@ -2213,7 +2297,9 @@ class CascadeEngine:
                     rt.run_prefill(np.zeros((rt.capacity, self.prompt_len),
                                             np.int32))
                 rt.run_step(zr)
-        for dev in {d for rt in self.runtimes for d in rt.devices}:
+        for dev in {d for rt in self.runtimes for d in (
+                rt.mesh.devices.flat if rt.mesh is not None
+                else rt.devices)}:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         self.reset_clock()

@@ -67,6 +67,15 @@ own null block: global id ``g`` of shard ``s > 0`` is local ``g - s *
 span + 1``, and the null entries of a page table stay 0.  Masked and
 unmapped pages of a shard's rows therefore land in that shard's null
 block, never on a live block of any shard.
+
+**Model shards** (a tier mesh with a ``model`` axis of ``M > 1``): each
+data shard keeps its one allocator, page tables and prefix index, and
+holds ``M`` cache trees (``caches[s]`` a list), one on each of its model
+devices, each with the KV heads of its model shard
+(:func:`repro_torch.models.sharding.shard_config`, by the KV-head rule
+of :func:`~repro_torch.models.sharding.kv_head_range`) for every block
+of the data shard.  A block id means the same block in all ``M`` trees,
+so the page tables are shared, and a block copy runs in each tree.
 """
 from __future__ import annotations
 
@@ -78,7 +87,8 @@ import torch
 
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.models.sharding import data_axis_size
+from repro_torch.models.sharding import (data_axis_size, model_axis_size,
+                                         shard_config)
 
 NULL_BLOCK = 0
 
@@ -356,7 +366,9 @@ class TierSlotPool:
     ``data_axis_size(mesh)`` contiguous shards (``capacity`` must divide;
     ``num_blocks`` is rounded up to divide), shard ``s``'s leaves
     (``caches[s]``) on the mesh's ``s``-th data device.  ``data_shards``
-    sets the shard count without a mesh, every shard on ``device``.
+    sets the shard count without a mesh, every shard on ``device``.  A
+    ``model`` axis of ``M > 1`` makes ``caches[s]`` a list of ``M`` trees,
+    one on each of the shard's model devices (:meth:`shard_trees`).
     """
 
     def __init__(self, cfg, capacity: int, max_seq: int,
@@ -403,21 +415,33 @@ class TierSlotPool:
                                              block_size, dtype)
         self.devices = (mesh.data_devices() if mesh is not None
                         else [torch.device(device)] * self.data_shards)
+        self.model_shards = model_axis_size(mesh)
+        shard_cfg = shard_config(cfg, self.model_shards)
         # shard s: its rows, and its block range (plus its own null block
-        # past shard 0), on its device
+        # past shard 0), on its device -- or, over a model axis, one tree
+        # a model shard, on that shard's device, with its KV heads
         span = self.blocks._span
-        self.caches = [cache_lib.init_paged_cache(
-            cfg, self._row_span, span + (s > 0), block_size, dtype, dev)
-            for s, dev in enumerate(self.devices)]
+
+        def trees(s):
+            devs = (mesh.model_devices(s) if self.model_shards > 1
+                    else [self.devices[s]])
+            out = [cache_lib.init_paged_cache(
+                shard_cfg, self._row_span, span + (s > 0), block_size,
+                dtype, dev) for dev in devs]
+            return out if self.model_shards > 1 else out[0]
+        self.caches = [trees(s) for s in range(self.data_shards)]
         # per leaf: ("paged", kv_blocks axis) or ("row", request-row axis)
         self._meta = tree_map(
             lambda c: (_LeafMeta("paged", c.axes.index("kv_blocks"))
                        if "kv_blocks" in c.axes
                        else _LeafMeta("row", c.axes.index("batch"))), decl)
+        # a block's bytes on one model device (its KV heads)
         self._per_block = sum(
             math.prod(c.shape) // self.num_blocks
             * torch.empty((), dtype=c.dtype).element_size()
-            for c in tree_leaves(decl) if "kv_blocks" in c.axes)
+            for c in tree_leaves(cache_lib.declare_paged_cache(
+                shard_cfg, capacity, self.num_blocks, block_size, dtype))
+            if "kv_blocks" in c.axes)
         self.page_table = np.zeros((capacity, self.pages_per_row), np.int32)
         self._row_blocks: List[List[int]] = [[] for _ in range(capacity)]
         self._row_demand: List[int] = [self.pages_per_row] * capacity
@@ -446,9 +470,15 @@ class TierSlotPool:
         self.caches[0] = tree
 
     def _one_shard(self, what: str) -> None:
-        if self.data_shards != 1:
-            raise ValueError(f"{what}: the pool has {self.data_shards} data "
-                             "shards; use the per-shard form")
+        if self.data_shards != 1 or self.model_shards != 1:
+            raise ValueError(
+                f"{what}: the pool has {self.data_shards} data and "
+                f"{self.model_shards} model shards; use the per-shard form")
+
+    def shard_trees(self, shard: int) -> list:
+        """Data shard `shard`'s cache trees, one a model shard."""
+        trees = self.caches[shard]
+        return trees if self.model_shards > 1 else [trees]
 
     def shard_rows(self, shard: int) -> slice:
         """The request rows of `shard` (a contiguous range)."""
@@ -811,13 +841,15 @@ class TierSlotPool:
         if shard:
             ids = np.where(ids == NULL_BLOCK, NULL_BLOCK,
                            ids - (shard * self.blocks._span - 1))
-        dev = self.devices[shard]
-        src_ids = torch.as_tensor(ids[0], device=dev)
-        dst_ids = torch.as_tensor(ids[1], device=dev)
-        for full, (kind, ax) in zip(tree_leaves(self.caches[shard]),
-                                    tree_leaves(self._meta)):
-            if kind == "paged":
-                full.index_copy_(ax, dst_ids, full.index_select(ax, src_ids))
+        for tree in self.shard_trees(shard):
+            dev = tree_leaves(tree)[0].device
+            src_ids = torch.as_tensor(ids[0], device=dev)
+            dst_ids = torch.as_tensor(ids[1], device=dev)
+            for full, (kind, ax) in zip(tree_leaves(tree),
+                                        tree_leaves(self._meta)):
+                if kind == "paged":
+                    full.index_copy_(ax, dst_ids,
+                                     full.index_select(ax, src_ids))
 
     # -- uniform prefill ---------------------------------------------------
 
@@ -853,8 +885,9 @@ class TierSlotPool:
     # -- memory accounting -------------------------------------------------
 
     def memory_stats(self) -> dict:
-        # the block pools' bytes per block (recurrent rows not counted);
-        # the arena counts each shard past 0's own null block
+        # the block pools' bytes per block (recurrent rows not counted) on
+        # one device: over a model axis, one model shard's KV heads; the
+        # arena counts each shard past 0's own null block
         per_block = self._per_block
         per_token = per_block // self.block_size
         return {

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
@@ -24,6 +25,7 @@ from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
+from repro_torch.models.sharding import shard_config  # noqa: E402
 
 
 @pytest.fixture
@@ -248,6 +250,23 @@ TILE_QLENS = [64, 37, 21, 63, 1, 0]
 TILE_LATE = [580, 600, 530, 560, 640, 0]
 VERIFY_QLENS = [5, 1, 3, 5, 2, 4, 5, 1]
 VERIFY_POS = [590, 595, 600, 605, 610, 615, 620, 625]
+
+
+def _shard_heads(name, m):
+    """(KV, G, hd) of one of ``m`` model shards of config ``name``, by
+    the KV-head rule the serving engine places them with."""
+    c = shard_config(get_config(name, ""), m)
+    return c.num_kv_heads, c.num_heads // c.num_kv_heads, c.head_dim
+
+
+# one model shard's heads under tensor parallelism: gemma3-1b on 2
+# shards (its one KV head, G 2, window 512), phi4-mini-3.8b on 2 (KV 4,
+# G 3), moonshot-v1-16b-a3b on 2 (KV 8, G 1), kimi-k2-1t-a32b on 8 (KV
+# 1, G 8, hd 112)
+GEMMA_M2 = _shard_heads("gemma3-1b", 2)
+PHI4_M2 = _shard_heads("phi4-mini-3.8b", 2)
+MOONSHOT_M2 = _shard_heads("moonshot-v1-16b-a3b", 2)
+KIMI_M8 = _shard_heads("kimi-k2-1t-a32b", 8)
 RAGGED_TILE_CASES = {
     "hd64-straddle": (TILE_QLENS, None, 2, 3, 64, "f32", None, 1.0),
     "hd128-straddle": (TILE_QLENS, None, 2, 3, 128, "f32", None, 1.0),
@@ -287,6 +306,14 @@ RAGGED_TILE_CASES = {
                                "int8+scales", None, 1.0),
     "kimi-hd112-verify": (VERIFY_QLENS, VERIFY_POS, 8, 8, 112, "f32", None,
                           1.0),
+    # one model shard's heads (GEMMA_M2 and the rest)
+    "m2-gemma3-G2-window512-late": (TILE_QLENS, TILE_LATE, *GEMMA_M2, "f32",
+                                    512, 1.0),
+    "m2-phi4-KV4-G3": (TILE_QLENS, TILE_LATE, *PHI4_M2, "f32", None, 1.0),
+    "m2-moonshot-KV8-G1": (TILE_QLENS, TILE_LATE, *MOONSHOT_M2, "f32", None,
+                           1.0),
+    "m8-kimi-KV1-G8-hd112": (TILE_QLENS, TILE_LATE, *KIMI_M8, "f32", None,
+                             1.0),
 }
 # flat widths off the powers of two, as ``--flat-buckets 16 48 160 512``
 # gives them: (W, q_len per row, q_start, KV, G, hd, window) — rows partly
@@ -324,6 +351,11 @@ PAGED_TILE_CASES = {
     "kimi-hd112-bf16": (8, 8, 8, 112, "bf16", None, (), 1.0),
     "kimi-hd112-int8-scales-masked": (9, 8, 8, 112, "int8+scales", None,
                                       (8,), 1.0),
+    # one model shard's heads, as RAGGED_TILE_CASES
+    "m2-gemma3-G2-window512-masked": (9, *GEMMA_M2, "f32", 512, (8,), 1.0),
+    "m2-phi4-KV4-G3": (8, *PHI4_M2, "f32", None, (), 1.0),
+    "m2-moonshot-KV8-G1-masked": (9, *MOONSHOT_M2, "f32", None, (8,), 1.0),
+    "m8-kimi-KV1-G8-hd112": (8, *KIMI_M8, "f32", None, (), 1.0),
 }
 TILE_TOLS = {"f32": (1e-4, 1e-4), "int8+scales": (1e-4, 1e-4),
              "bf16": (1e-3, 1e-2)}
@@ -436,6 +468,15 @@ MIXED_TILE_CASES = {
                         None, 1.0),
     "kimi-hd112-int8-scales": (MIXED_QLENS, 64, MIXED_LATE, 8, 8, 112,
                                "int8+scales", None, 1.0),
+    # one model shard's heads, as RAGGED_TILE_CASES
+    "m2-gemma3-G2-C64-window512-late": (MIXED_QLENS, 64, MIXED_LATE,
+                                        *GEMMA_M2, "f32", 512, 1.0),
+    "m2-phi4-KV4-G3-C64": (MIXED_QLENS, 64, MIXED_LATE, *PHI4_M2, "f32",
+                           None, 1.0),
+    "m2-moonshot-KV8-G1-C1": (MIXED_DECODE, 1, TILE_POS[:8], *MOONSHOT_M2,
+                              "f32", None, 1.0),
+    "m8-kimi-KV1-G8-hd112-C64": (MIXED_QLENS, 64, MIXED_LATE, *KIMI_M8,
+                                 "f32", None, 1.0),
 }
 
 
@@ -1349,3 +1390,30 @@ def test_cuda_kernels_launch_under_an_explicit_guard(name, cuda_device):
     """The same launches on ``cuda:0`` inside ``torch.cuda.device(0)``
     (one card is enough)."""
     _launch_on(torch.device("cuda", 0), torch.device("cuda", 0), name)
+
+
+@pytest.mark.cuda
+def test_cuda_model_shard_collectives_on_a_second_card(cuda_device):
+    """The model axis's collectives across ``cuda:0`` and ``cuda:1``:
+    ``all_reduce`` sums the two partials in shard order on ``cuda:0`` and
+    leaves the sum on each part's card, bit for bit the sum of the same
+    values on one card; ``all_gather`` concatenates in shard order on
+    ``cuda:0``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the collectives between cuda:0 and "
+                    "cuda:1 can only run where torch.cuda.device_count() "
+                    ">= 2")
+    from repro_torch.models import sharding
+
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    gen = torch.Generator().manual_seed(0)
+    host = [torch.randn(64, 3072, generator=gen) for _ in devs]
+    parts = [h.to(d) for h, d in zip(host, devs)]
+    out = sharding.all_reduce(parts)
+    want = host[0].to(devs[0]) + host[1].to(devs[0])
+    assert [o.device for o in out] == devs
+    for o in out:
+        assert torch.equal(o.to(devs[0]), want)
+    cat = sharding.all_gather(parts, -1)
+    assert cat.device == devs[0]
+    assert torch.equal(cat.cpu(), torch.cat(host, -1))

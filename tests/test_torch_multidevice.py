@@ -553,21 +553,38 @@ def test_shard_assignments_match_jax_on_8_host_devices(weights, jax_shards,
     ({"use_chunked_prefill": False}, (2, 1), NotImplementedError),
     ({"use_paged_kv": False}, (2, 1), NotImplementedError),
     ({"speculation_k": 2}, (2, 1), NotImplementedError),
-    ({}, (1, 2), NotImplementedError),
+    ({"use_chunked_prefill": False}, (1, 2), NotImplementedError),
+    ({"expensive": "rwkv6-3b"}, (1, 2), NotImplementedError),
+    ({}, (1, 3), ValueError),
     ({"slots": 6}, (4, 1), ValueError),
     ({"kv_block_size": 4, "kv_blocks": 8}, (2, 1), ValueError)],
-    ids=["uniform", "dense", "speculation", "model-axis", "uneven-rows",
+    ids=["uniform", "dense", "speculation", "model-axis-uniform",
+         "model-axis-rwkv6", "model-axis-heads", "uneven-rows",
          "blocks-per-shard"])
 def test_unsupported_meshes_raise(weights, flags, mesh, err):
     """Data shards under uniform prefill, the dense arena or speculation,
-    and a model axis over 1, raise naming the ROADMAP item; uneven rows
-    and too few blocks per shard raise the JAX engine's errors (the
-    pool's, held to JAX above)."""
+    and a model axis over 1 under uniform prefill or on an RWKV-6 tier,
+    raise naming the ROADMAP item; a model axis that does not divide the
+    query heads (3 of the smoke models' 4) raises ValueError naming the
+    shapes; uneven rows and too few blocks per shard raise the JAX
+    engine's errors (the pool's, held to JAX above)."""
+    if "expensive" in flags:
+        name = flags.pop("expensive")
+        cfg = configs_of(name)[1]
+        weights = (dict(weights[0], **{EXP: cfg}),
+                   dict(weights[1], **{EXP: init_params(cfg, 1,
+                                                        device="cpu")}),
+                   weights[2])
     with pytest.raises(err) as e:
         _engine(weights, _meshes(*mesh), 0.5, **flags)
     msg = str(e.value)
     if err is NotImplementedError:
         assert "ROADMAP" in msg
+    elif mesh[1] > 1:
+        assert msg == ("gemma3-1b-smoke: a model axis of 3 has no "
+                       "head-parallel layout for 4 query heads and 1 KV "
+                       "heads (it must divide the query heads, and divide "
+                       "or be a multiple of the KV heads)")
     elif "slots" in flags:
         # the scheduler's row allocator refuses first, in both engines
         assert msg == "capacity 6 must divide into 4 shards"
