@@ -18,8 +18,11 @@ without printing a result):
      layers run ``mamba_scan``, and phase 8's starcoder2-7b (G 9),
      musicgen-large, qwen2-vl-72b (flash at 8 x 1152), moonshot-v1-16b-a3b
      (``moe_route`` at 64 experts, top-6) and kimi-k2-1t-a32b (head width
-     112 in f32, bf16 and over int8 pools; 384 experts, top-8); the
-     ragged kernel also at the flat
+     112 in f32, bf16 and over int8 pools; 384 experts, top-8); phase
+     11's data shards: ``flash_attention`` at a shard's prefill batch of
+     4 x 640 and granite's route gathered from two shards' logits
+     (``transformer.route_data_shards``); the ragged kernel also at the
+     flat
      widths 48 and 160 of phase 4e's bucket override), with CUDA-event
      times for the
      kernel and the plain version (for the gate and the router also back
@@ -110,12 +113,13 @@ without printing a result):
      53.2 GB of f32 weights) on the uniform path it picks by itself and
      on the dense arena (``--dense-kv``), each run with the counters set
      to 0 just before and read just after, its launches checked exactly;
-  6. the workload once more inside ``torch.profiler``, with a virtual
-     clock, under each executor (the uniform one included), for phase
-     4b's four runs (at ``gen_len`` 8), for the MoE
-     cascade under the ragged one and for the RWKV-6 and jamba cascades:
-     device time by kernel kind (a kind's split-merge kernels counted
-     with it) and the device's idle share; and the split MoE cascade
+  6. the workload once more, cut to 8 requests, inside
+     ``torch.profiler``, with a virtual clock, under each executor (the
+     uniform one included), for the MoE cascade under the ragged one and
+     for the RWKV-6 and jamba cascades (phase 4b's four runs alone:
+     ``scripts/torch_speculation_profiles.py``): device time by kernel
+     kind (a kind's split-merge kernels counted with it) and the
+     device's idle share; and the split MoE cascade
      served twice under a virtual clock, to record whether its streams
      are equal run to run;
   7. training, after phase 6's phi4 profiles, on phase 4's weights:
@@ -193,7 +197,19 @@ without printing a result):
      (10b, only with two cards or more) moonshot-v1-16b-a3b at its 48
      layers drawn a model shard a card on a ``1x2`` mesh over two cards,
      serving the workload (with one card, a line saying 10b did not
-     run).
+     run);
+ 11. the data axis (alone: ``scripts/torch_data_axis_phase.py``), both
+     tiers on ``2x1`` over the first card twice against unsharded, 8
+     requests a run, launches exact (:func:`data_axis_launches`),
+     same-tier streams equal, peak memory without a second copy of the
+     weights: (11a, after phase 10 on phase 4's weights) the uniform
+     prefill path (640-token prompts), then the dense arena; (11b)
+     speculation at k = 4, ``gen_len`` 16; (11c, after phase 5's MoE
+     cascade) granite-moe-3b-a800m cut to 2 layers teacher-forced on
+     two data shards against unsharded over the JAX layout and against
+     the CPU, then its cascade served (``moe_route`` once a MoE layer a
+     tier launch; streams recorded, not held); (11d, after the RWKV-6 cascade)
+     gemma3-1b -> rwkv6-3b on ``2x1``.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -1048,7 +1064,70 @@ def check_router(dev, flush):
                 lambda: router_mod.router_gate(x, k), "router_gate", flush)
             emit(timing="router_gate", case=f"{name} k={k}", **t)
     worst = max(worst, check_route(rng, dev, flush, timed))
+    worst = max(worst, check_route_shards(rng, dev, flush, timed))
     return worst, timed
+
+
+ROUTE_SHARDS_TOL = "dest bit-equal, weights atol 1.2e-7"
+
+
+def check_route_shards(rng, dev, flush, timed):
+    """The route of a MoE layer on a data-sharded tier
+    (``transformer.route_data_shards``, phase 11): granite's published
+    route (40 experts, top-8, capacity factor 1.25) over a ragged launch
+    of two data shards holding 200 and 240 live tokens, each packed at
+    its own width 256, gathered into the tier's bucket of 512 (the JAX
+    layout; slots 440-511 zero) and routed in one ``moe_route`` launch:
+    each shard's ``dest`` bit-equal to the unsharded route's over the
+    gathered logits on the card and to the plain version's, its weights
+    within 1.2e-7 of both.  Timed against the plain route of the
+    gathered batch; the bound is ``moe_route``'s at [1, 512, 40] plus the
+    two shards' logits read once more and their picks written back."""
+    spec = next(l.ffn for l in get_config(MOE_NAME, "").layers
+                if l.ffn.kind == "moe")
+    E, k, total = spec.num_experts, spec.top_k, 512
+    live = (200, 240)
+    x = router_logits(rng, sum(live), E, k)
+    logits, slots, o = [], [], 0
+    for n in live:
+        lg = torch.zeros(256, E)
+        lg[:n] = x[o:o + n]
+        logits.append(lg.to(dev))
+        slots.append(np.concatenate([o + np.arange(n), [total] * (256 - n)]))
+        o += n
+    layout = transformer.MoeLayout(slots, total)
+    full = torch.zeros(1, total, E, device=dev)
+    full[0, :o] = x.to(dev)
+    cap = route_cap(total, k, E, spec.capacity_factor)
+    got = transformer.route_data_shards(spec, logits, layout)
+    torch.cuda.synchronize()
+    _, _, dest, w = router_mod.moe_route(full, k, cap)
+    _, _, ref_d, ref_w = router_mod.moe_route_ref(full, k, cap)
+    err, ok, o = 0.0, True, 0
+    for (d, ww, rows), n in zip(got, live):
+        for want_d, want_w in ((dest, w), (ref_d, ref_w)):
+            ok = ok and rows == cap and torch.equal(
+                d[:n], want_d[0, o:o + n]) and bool(
+                (d[n:] == E * cap).all())
+            err = max(err, (ww[:n] - want_w[0, o:o + n]).abs().max().item())
+        o += n
+    ok = ok and err <= 1.2e-7
+    name = "moe_route over 2 data shards (200 + 240 live) [1, 512, 40]"
+    emit(check="moe_route", case=f"{name} k={k} cap={cap}",
+         max_abs_err=err, tol=ROUTE_SHARDS_TOL,
+         dropped_pairs=int((dest == E * cap).sum()), ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"moe_route {name}: max abs err {err} or dest "
+                             "differs")
+    pairs = total * k
+    nbytes = full.numel() * 4 + pairs * 20 + 2 * o * E * 4 + o * k * 12
+    nops = total * (3 * E + k * E + 2 * k) + pairs * 4
+    t = time_case(name, timed,
+                  lambda: transformer.route_data_shards(spec, logits, layout),
+                  lambda: router_mod.moe_route_ref(full, k, cap),
+                  (nbytes, nops), flush)
+    emit(timing="moe_route", case=f"{name} k={k} cap={cap}", **t)
+    return err
 
 
 def visible_pairs(S, window):
@@ -1084,6 +1163,11 @@ def check_flash(dev, flush):
              ("phi4", 8, 24, 8, 128, None, "bf16"),
              ("gemma window=512", 8, 4, 1, 256, 512, "bf16")]
     cases = [c[:-1] + (640, c[-1]) for c in cases] + [
+        # phase 11's uniform prefill on a 2x1 tier of 8 slots: each data
+        # shard prefills its 4 rows
+        ("phi4 data shard", 4, 24, 8, 128, None, 640, "f32"),
+        ("gemma data shard window=512", 4, 4, 1, 256, 512, 640, "f32"),
+        ("gemma data shard global", 4, 4, 1, 256, None, 640, "f32"),
         # phase 8's uniform prefills: qwen2-vl-72b's 1152-token prompts
         # (1024 patch positions, then 128 text), the others' 640; kimi's
         # head width 112
@@ -3411,18 +3495,24 @@ KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
                 "mamba_scan": ("mamba_kernel",)}
 
 
+PROFILE_REQUESTS = 8
+
+
 def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
                   cfgs=None, **flags):
     """Where a tick's device time goes under one executor: the phase-4
-    workload (the cascade to ``expensive``; ``flags`` adds CLI flags:
-    speculation's) served again under a VirtualClock (no waiting for
-    arrivals) inside ``torch.profiler``; kernel time summed by kind, and
-    the device's idle share of the serving loop's wall time.  The top
-    kernels list shows the MoE cascade's expert products among the
-    matrix products."""
+    workload cut to :data:`PROFILE_REQUESTS` requests (the cascade to
+    ``expensive``; ``flags`` adds CLI flags: speculation's) served again
+    under a VirtualClock (no waiting for arrivals) inside
+    ``torch.profiler``; kernel time summed by kind, and the device's idle
+    share of the serving loop's wall time.  The top kernels list shows
+    the MoE cascade's expert products among the matrix products.  Reading
+    the trace costs about 0.25 ms a kernel launch, several times the
+    serving loop, hence the cut."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = main_path_args(expensive, **ALL_EXECUTORS[executor], **flags)
+    args = main_path_args(expensive, requests=PROFILE_REQUESTS,
+                          **ALL_EXECUTORS[executor], **flags)
     engine, vocab = serve_async.build_engine(args, VirtualClock(), params,
                                              cfgs)
     prompts = bigram_lm(
@@ -3473,6 +3563,20 @@ def profile_ticks(card: str, params, executor: str, expensive=PHI4_NAME,
          else None,
          top_kernels=[[round(us / 1e3, 3), n, name[:80]]
                       for us, n, name in rows[:12]])
+
+
+def profile_speculation(card: str, params) -> None:
+    """Phase 4b's runs profiled (:func:`profile_ticks`), k = 0 against
+    k = 4, both cascades, at phase 4's ``gen_len`` 8 (a trace of phase
+    4b's ``gen_len`` 32 holds ~1M launches, and reading it costs
+    minutes).  Run by ``scripts/torch_speculation_profiles.py``, not by
+    ``main``: reading the four traces took ~100 s of the script's 1200."""
+    for expensive, pair, seed in ((PHI4_NAME, params, {}),
+                                  ("gemma3-1b", (params[0], params[0]),
+                                   {"expensive_seed": 0})):
+        for k in (0, SPEC_K):
+            profile_ticks(card, pair, "ragged", expensive, speculate=k,
+                          spec_delta=0.0 if k else None, **seed)
 
 
 def check_split_moe_determinism(card: str, params) -> None:
@@ -4010,6 +4114,335 @@ def check_model_axis_cards(card: str, params) -> dict:
     return out
 
 
+# phase 11: the data axis -- data-sharded tiers under uniform prefill,
+# the dense arena and speculation, and on MoE and RWKV-6 tiers
+DATA_MESH = "2x1"
+DATA_REQUESTS = 8
+DATA_SPEC_GEN_LEN = 16
+
+
+class PrefillTap:
+    """While open, records each uniform prefill launch's data shards that
+    hold an admitted row, by tier name (warmup included): the shards
+    that launch (a class-level patch of ``_TierRuntime.run_prefill``,
+    restored on exit)."""
+
+    def __enter__(self):
+        self.shards = {}
+        self.orig = run = _TierRuntime.run_prefill
+        seen = self.shards
+
+        def recorded(rt, slot_ids, prompts):
+            span = rt.rows[0].stop
+            seen.setdefault(rt.spec.name, []).append(
+                len({s // span for s in slot_ids}))
+            return run(rt, slot_ids, prompts)
+        _TierRuntime.run_prefill = recorded
+        return self
+
+    def __exit__(self, *exc):
+        _TierRuntime.run_prefill = self.orig
+
+
+def data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
+                       paged=True) -> dict:
+    """Launches a run over data-sharded tiers must count (the engine's
+    docstring formula): a tier of D shards launches each attention
+    kernel and the gate D times a tier launch; a uniform prefill's
+    ``flash_attention``, scans and gate once per shard holding an
+    admitted row (``prefills[t]``, warmup included); each draft-loop step
+    of a shard (``steps``, summed over shards) one ``paged_attention`` a
+    layer and one gate; ``moe_route`` once per MoE layer a tier launch,
+    however many shards.  ``warm`` adds the warmup's other launches."""
+    out = dict.fromkeys(COUNTED, 0)
+    for t, cfg in enumerate(cfgs):
+        n, d = layer_counts(cfg), shards[t]
+        k = dict(kinds[t])
+        for kind, w in warm[t].items():
+            k[kind] = k.get(kind, 0) + w
+        k.pop("prefill", None)
+        ps, p = sum(prefills[t]), len(prefills[t])
+        out["ragged_attention"] += n["attn"] * d * (k.get("ragged", 0)
+                                                    + k.get("spec", 0))
+        out["mixed_attention"] += n["attn"] * d * (k.get("mixed", 0)
+                                                   + k.get("chunk", 0))
+        out["paged_attention"] += n["attn"] * (d * k.get("step", 0) * paged
+                                               + steps[t])
+        out["flash_attention"] += n["attn"] * ps
+        out["rwkv6_scan"] += n["rwkv6"] * ps
+        out["mamba_scan"] += n["mamba"] * ps
+        out["router_gate"] += n["moe"] * (sum(k.values()) + p)
+        out["confidence_gate"] += d * sum(k.values()) + ps + steps[t]
+    return out
+
+
+def serve_data_axis(card: str, params, label: str, tier_mesh=None,
+                    expensive=PHI4_NAME, **flags) -> dict:
+    """Serve :data:`DATA_REQUESTS` requests of phase 4's workload on
+    ``params`` (gemma3-1b -> ``expensive``) under ``--tier-mesh`` over
+    the first card twice, every counter set to 0 just before and read
+    just after.  Checks: launches exactly :func:`data_axis_launches`,
+    every request DONE (conservation), blocks conserved in every pool
+    and shard, confidences finite, host syncs at most one per active
+    tier a tick plus one per uniform prefill.  Returns the counts,
+    per-request records, summary and peak memory."""
+    args = main_path_args(expensive, requests=DATA_REQUESTS,
+                          tier_mesh=tier_mesh,
+                          mesh_devices=card_devices()[:1] * 2, **flags)
+    torch.cuda.reset_peak_memory_stats()
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
+    with EngineTap() as tap, PrefillTap() as pre:
+        s = serve_async.run(args, None, params=params)
+    torch.cuda.synchronize()
+    counts = {name: getattr(ops, name).launches for name in COUNTED}
+    peak = torch.cuda.max_memory_allocated()
+    eng = tap.engine
+    cfgs = serve_async.tier_configs(args)
+    shards = [rt.data_shards for rt in eng.runtimes]
+    kinds = s["launches_by_kind"]
+    warm = [{"spec" if s["speculation_k"] else "ragged": len(b)}
+            if b is not None else
+            {"mixed": 2} if s["unified_step"] else
+            {"chunk": 1, "step": 1} if s["chunked_prefill"] else
+            {"step": 1} for b in s["flat_buckets"]]
+    steps = s["speculation"]["draft_steps_by_tier"]
+    prefills = [pre.shards.get(rt.spec.name, []) for rt in eng.runtimes]
+    want = data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
+                              s["paged_kv"])
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts} != {want}")
+    per_req = s["per_request"]
+    if s["completed"] != args.requests or not s["conservation"]["ok"] \
+            or not all(len(r["tokens"]) == args.gen_len for r in per_req):
+        problems.append(f"not every request DONE: {s['conservation']}")
+    leaks = pool_leaks(eng) + (shard_conservation(eng) if s["paged_kv"]
+                               else [])
+    if leaks:
+        problems.append(f"blocks not conserved: {leaks}")
+    if not all(np.isfinite(r.token_conf).all() for r in eng.requests):
+        problems.append("a token's confidence is not finite")
+    npre = [len(x) for x in prefills]
+    if any(h > a + p for h, a, p in zip(s["host_syncs"], s["active_ticks"],
+                                        npre)):
+        problems.append(f"host syncs {s['host_syncs']} over active ticks "
+                        f"{s['active_ticks']} + prefills {npre}")
+    if args.speculate and not steps[0]:
+        problems.append("the draft tier ran no draft step")
+    gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
+    emit(phase="data axis", run=label, card=card,
+         tier_meshes=s["tier_meshes"], data_shards=shards,
+         configs=[args.fast, args.expensive], requests=args.requests,
+         gen_len=args.gen_len, steps=s["steps"],
+         tier_launches=s["launches"], launches_by_kind=kinds,
+         prefill_shards=prefills, draft_steps_by_tier=steps,
+         kernel_launches_window=counts, active_ticks=s["active_ticks"],
+         host_syncs=s["host_syncs"],
+         escalation_rate=s["escalation_rates"],
+         generated_tokens_per_s=gen_tokens / s["elapsed"],
+         makespan_s=s["elapsed"], tick_p50_s=s["tick_duration_p50"],
+         ttft_p50_s=s["ttft_p50"], max_memory_allocated_bytes=peak,
+         kv_arena=[{k: m[k] for k in ("kv_arena_bytes", "data_shards")}
+                   for m in s["kv_arena"]],
+         speculation=s["speculation"] if args.speculate else None,
+         stream_checksum=s["stream_checksum"], problems=problems)
+    del tap, eng
+    if problems:
+        raise AssertionError(f"data axis {label}: " + "; ".join(problems))
+    return dict(counts=counts, per_req=per_req, summary=s, peak=peak)
+
+
+def data_axis_turns(card, params, name, flags, expensive=PHI4_NAME,
+                    order=("unsharded", DATA_MESH),
+                    same_streams=True) -> dict:
+    """Runs of :func:`serve_data_axis` in ``order`` (unsharded, or both
+    tiers on ``2x1``), held to the first: same-tier streams equal (with
+    ``same_streams``; a MoE tier whose capacity binds routes a sharded
+    tier's batch in another order, so its streams are only recorded),
+    and no run's peak memory more than half of gemma3-1b's weights above
+    the lowest unsharded one (a second copy of either tier's weights
+    would add 4-15 GB).  Emits the comparison; returns the runs'
+    counts."""
+    runs = [serve_data_axis(card, params, f"{name} {m}, turn {i}",
+                            None if m == "unsharded" else [m], expensive,
+                            **flags)
+            for i, m in enumerate(order)]
+    differ = [same_tier_differences(runs[0]["per_req"], x["per_req"])
+              for x in runs[1:]]
+    fast_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(params[0]))
+    low = min(x["peak"] for x, m in zip(runs, order) if m == "unsharded")
+    grew = max(x["peak"] for x in runs) - low
+    problems = []
+    if same_streams and any(differ):
+        problems.append(f"same-tier streams differ: {differ}")
+    if grew > fast_bytes / 2:
+        problems.append(f"peak memory grew {grew} bytes")
+    tps = [sum(x["summary"]["gen_len"] * (r["tier"] + 1)
+               for r in x["per_req"]) / x["summary"]["elapsed"]
+           for x in runs]
+    emit(check=f"data axis {name}: {list(order)}", card=card,
+         tokens_per_s=tps, tick_p50_s=[x["summary"]["tick_duration_p50"]
+                                       for x in runs],
+         same_streams_required=same_streams,
+         peak_bytes=[x["peak"] for x in runs], peak_growth_bytes=grew,
+         same_tier_differing_rids=differ, problems=problems)
+    if problems:
+        raise AssertionError(f"data axis {name}: " + "; ".join(problems))
+    return {f"data axis {name} {m} {i}": x["counts"]
+            for i, (m, x) in enumerate(zip(order, runs))}
+
+
+def check_data_axis(card: str, params) -> dict:
+    """Phase 11a-b, on phase 4's weights (alone:
+    ``scripts/torch_data_axis_phase.py``): (11a) the uniform prefill path
+    (8 prompts of exactly 640 tokens) unsharded and with both tiers on
+    ``2x1`` over the first card twice, and the dense arena
+    (``--dense-kv``) sharded and unsharded; (11b) speculation at k = 4,
+    ``gen_len`` 16, on ``2x1`` against unsharded.  Each run's launches exact
+    (:func:`data_axis_launches`), same-tier streams equal, peak memory
+    without a second copy of the weights.  Returns the launch counts by
+    run."""
+    t0 = time.perf_counter()
+    out = data_axis_turns(card, params, "uniform",
+                          {"no_chunked_prefill": True})
+    out.update(data_axis_turns(card, params, "dense", {"dense_kv": True},
+                               order=(DATA_MESH, "unsharded")))
+    out.update(data_axis_turns(
+        card, params, "speculation k=4",
+        {"speculate": SPEC_K, "spec_delta": 0.0,
+         "gen_len": DATA_SPEC_GEN_LEN}))
+    emit(phase="data axis 11a-b", phase_s=time.perf_counter() - t0)
+    return out
+
+
+DATA_TF_QLENS = [64, 40, 64, 17, 64, 64, 30, 64]
+
+
+def moe_shard_logits(cfg, params, dev, sharded: bool):
+    """A teacher-forced ragged step of ``cfg`` over rows of
+    :data:`DATA_TF_QLENS` seeded tokens at positions 0.. on fresh pages
+    of 16 tokens, on ``dev``: unsharded (one flat batch at the tier's
+    bucket, the JAX layout) or on two data shards of 4 rows, each packed
+    at its own width (``transformer.forward_data_shards``; ``sharded``
+    "alone": each shard's own ``ragged_step``, routed over its own
+    tokens).  Returns every row's last-position logits [8, V] on the CPU
+    and the ``moe_route`` launches."""
+    rng = np.random.default_rng(11)
+    qlen = np.asarray(DATA_TF_QLENS, np.int32)
+    toks = [rng.integers(0, cfg.vocab_size, n) for n in qlen]
+    bs, P = TF_BLOCK, -(-max(qlen) // TF_BLOCK)
+
+    def launch(rows, width):
+        t = np.zeros((1, width), np.int32)
+        pos = np.zeros((1, width), np.int32)
+        o = 0
+        for b in rows:
+            t[0, o:o + qlen[b]] = toks[b]
+            pos[0, o:o + qlen[b]] = np.arange(qlen[b])
+            o += qlen[b]
+        pt = np.arange(1, len(rows) * P + 1, dtype=np.int32).reshape(-1, P)
+        pages = {"page_table": pt, "q_len": qlen[list(rows)],
+                 "q_start": np.zeros(len(rows), np.int32)}
+        return ({"tokens": torch.from_numpy(t).to(dev)},
+                torch.from_numpy(pos).to(dev),
+                {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in pages.items()},
+                init_paged_cache(cfg, len(rows), len(rows) * P + 1, bs,
+                                 torch.float32, dev), int(o))
+    ops.router_gate.launches = 0
+    halves = [range(0, 4), range(4, 8)]
+    if not sharded:
+        b, pos, pages, cache, _ = launch(range(8), 512)
+        logits, _ = transformer.ragged_step(params, cfg, b["tokens"], cache,
+                                            pos, pages)
+        out = [logits]
+    elif sharded == "alone":
+        out = []
+        for rows in halves:
+            b, pos, pages, cache, _ = launch(rows, 256)
+            out.append(transformer.ragged_step(params, cfg, b["tokens"],
+                                               cache, pos, pages)[0])
+    else:
+        ins = [launch(rows, 256) for rows in halves]
+        total = sum(i[4] for i in ins)
+        slots, o = [], 0
+        for i in ins:
+            slots.append(np.concatenate([o + np.arange(i[4]),
+                                         [512] * (256 - i[4])]))
+            o += i[4]
+        res = transformer.forward_data_shards(
+            [params, params], cfg, [i[0] for i in ins],
+            mode="ragged_step", caches=[i[3] for i in ins],
+            pos=[i[1] for i in ins], pages=[i[2] for i in ins],
+            groups=[None, None], layout=transformer.MoeLayout(slots, 512))
+        assert total <= 512
+        out = [transformer.last_slot_gather(lg, i[2]["q_len"], flat=True)
+               for (lg, _), i in zip(res, ins)]
+    torch.cuda.synchronize()
+    return torch.cat([o.cpu() for o in out]), ops.router_gate.launches
+
+
+def check_data_axis_moe(card: str, params) -> dict:
+    """Phase 11c, on phase 5's gemma3-1b -> granite-moe-3b-a800m weights:
+    granite at its published widths cut to 2 layers, teacher-forced
+    (:func:`moe_shard_logits`) on two data shards on the card against the
+    same on the CPU and against the unsharded step over the JAX layout
+    (logits within 1e-4, one ``moe_route`` launch a MoE layer; routing
+    each shard alone recorded beside it); then the granite cascade served
+    unsharded and on ``2x1`` over the first card twice, launches exact
+    (``moe_route`` once a MoE layer a tier launch), tokens/s of each (each
+    shard's experts run over the capacity buffer of the routing groups
+    its tokens fall in).  Returns the served runs' counts."""
+    t0 = time.perf_counter()
+    dev = card_devices()[0]
+    cfg = dataclasses.replace(get_config(MOE_NAME, ""), num_periods=2)
+    p_dev = init_params(cfg, 1, torch.float32, dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    base, n_base = moe_shard_logits(cfg, p_dev, dev, False)
+    got, n_got = moe_shard_logits(cfg, p_dev, dev, True)
+    cpu, _ = moe_shard_logits(cfg, p_cpu, torch.device("cpu"), True)
+    alone, _ = moe_shard_logits(cfg, p_dev, dev, "alone")
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+    err_base = (got - base).abs().max().item()
+    err_cpu = (got - cpu).abs().max().item()
+    problems = []
+    if err_base > TF_TOL or err_cpu > TF_TOL:
+        problems.append(f"logits off by {err_base} (unsharded), {err_cpu} "
+                        f"(CPU), past {TF_TOL}")
+    n_moe = layer_counts(cfg)["moe"]
+    if n_got != n_moe or n_base != n_moe:
+        problems.append(f"moe_route launches {n_got} sharded, {n_base} "
+                        f"unsharded (one a MoE layer: {n_moe})")
+    emit(check="data axis 11c: granite-moe-3b-a800m 2 layers teacher-"
+               "forced on two data shards", card=card,
+         q_len=DATA_TF_QLENS, max_abs_err_vs_unsharded=err_base,
+         max_abs_err_vs_cpu=err_cpu, tol=TF_TOL,
+         argmax_equal=bool(torch.equal(got.argmax(-1), base.argmax(-1))),
+         moe_route_launches=n_got,
+         each_shard_alone_max_abs_err=(alone - base).abs().max().item(),
+         problems=problems)
+    if problems:
+        raise AssertionError("data axis 11c: " + "; ".join(problems))
+    out = data_axis_turns(card, params, "granite", {}, MOE_NAME,
+                          same_streams=False)
+    emit(phase="data axis 11c", phase_s=time.perf_counter() - t0)
+    return out
+
+
+def check_data_axis_rwkv(card: str, params) -> dict:
+    """Phase 11d, on phase 5's gemma3-1b -> rwkv6-3b weights: the cascade
+    (uniform by itself) on ``2x1`` over the first card twice against
+    unsharded: launches exact (``rwkv6_scan`` once a layer a shard
+    holding an admitted row), same-tier streams equal."""
+    t0 = time.perf_counter()
+    out = data_axis_turns(card, params, "rwkv6", {}, RWKV_NAME)
+    emit(phase="data axis 11d", phase_s=time.perf_counter() - t0)
+    return out
+
+
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4106,21 +4539,16 @@ def main() -> int:
     # tiers on 1x2 meshes over one card (10a), moonshot at 48 layers
     # over two cards where there are two (10b)
     model_runs = check_model_axis(card, params)
+    # phase 11a-b, the data axis, on the same weights: uniform prefill,
+    # the dense arena and speculation on 2x1 meshes over one card
+    data_runs = check_data_axis(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
     torch.cuda.empty_cache()
     for ex in list(EXECUTORS) + ["uniform"]:
         profile_ticks(card, params, ex)
-    # the speculation phase's runs, k = 0 against k = 4, both cascades,
-    # at phase 4's gen_len 8 (a trace of phase 4b's gen_len 32 holds ~1M
-    # launches, and reading it costs minutes)
-    for expensive, pair, seed in ((PHI4_NAME, params, {}),
-                                  ("gemma3-1b", (params[0], params[0]),
-                                   {"expensive_seed": 0})):
-        for k in (0, SPEC_K):
-            profile_ticks(card, pair, "ragged", expensive, speculate=k,
-                          spec_delta=0.0 if k else None, **seed)
+    # the speculation phase's profiles: scripts/torch_speculation_profiles.py
     # phase 7, training, on the same weights (phi4-mini-3.8b the frozen
     # expensive model), the serving runs' KV pools freed
     torch.cuda.empty_cache()
@@ -4139,6 +4567,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_ticks(card, params, "ragged", MOE_NAME)
     check_split_moe_determinism(card, params)
+    # phase 11c: the MoE tier on two data shards, routed over its batch
+    data_runs.update(check_data_axis_moe(card, params))
     # the RWKV-6 cascade: rwkv6-3b's weights (12.3 GB) in place of
     # granite's; the engine serves it on the uniform prefill path
     params = (params[0], None)
@@ -4147,6 +4577,8 @@ def main() -> int:
         get_config(RWKV_NAME, moe_args.variant), moe_args.seed + 1,
         torch.float32, dev))
     rwkv_counts, _, _ = serve(card, params, "auto", RWKV_NAME)
+    # phase 11d: the RWKV-6 tier on two data shards
+    data_runs.update(check_data_axis_rwkv(card, params))
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", RWKV_NAME)
     # the hybrid cascade: jamba-v0.1-52b cut to 1 of its 4 periods (its 4
@@ -4179,6 +4611,7 @@ def main() -> int:
     counts.update(obs_runs)
     counts.update(multi_runs)
     counts.update(model_runs)
+    counts.update(data_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
@@ -4195,10 +4628,14 @@ def main() -> int:
     served = ("serve_cascade untrained", "serve_cascade trained")
     rwkv_served = tuple(f"rwkv6 {p}" for p in served)
     trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
+    data_uniform = tuple(p for p in data_runs if "uniform" in p
+                         or "rwkv6" in p)
+    data_spec = tuple(p for p in data_runs if "speculation" in p)
+    data_moe = tuple(p for p in data_runs if "granite" in p)
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
                       + obs_paths + tuple(multi_runs) + tuple(model_runs)
-                      + served
+                      + data_spec + data_moe + served
                       + ("starcoder2 ragged", "moonshot 1 + 8 layers "
                                               "ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
@@ -4214,20 +4651,22 @@ def main() -> int:
                                           "starcoder2 split",
                                           "musicgen auto",
                                           "qwen2-vl 8 layers auto")
-                      + rwkv_served
+                      + rwkv_served + data_uniform + data_spec
                       + tuple(p for p in spec_paths if "k=0" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
-                      + jamba_paths + rwkv_served
+                      + jamba_paths + rwkv_served + data_uniform
+                      + tuple(p for p in data_runs if "dense" in p)
                       + ("musicgen auto", "qwen2-vl 8 layers auto")),
                      ("confidence_gate", tuple(
                          p for p in counts if p not in trained_only
                          and not p.endswith(" step"))),
-                     ("router_gate", moe_paths + jamba_paths
+                     ("router_gate", moe_paths + jamba_paths + data_moe
                       + ("train steps", "recurrent train steps",
                          "moonshot 1 + 8 layers ragged",
                          "model axis moonshot 1 + 8 step")),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
-                                     "LtC rwkv6") + rwkv_served),
+                                     "LtC rwkv6") + rwkv_served
+                      + tuple(p for p in data_runs if "rwkv6" in p)),
                      ("mamba_scan", jamba_paths
                       + ("recurrent train steps",))):
         if not all(counts[e][name] > 0 for e in ex):

@@ -62,8 +62,11 @@ contiguous slice of the visible cards, wrapping to the first card when
 the tiers overrun them (``--device cpu``: over the CPU device repeated).
 ``--tier-mesh 1 1`` on two cards serves the fast tier on ``cuda:0`` and
 the expensive one on ``cuda:1``; ``--tier-mesh 2x1 2x1`` splits each
-tier's rows and KV block pool into two data shards, each launch running
-once per shard on its card.  ``--tier-mesh 1x2`` adds tensor
+tier's rows and KV arena into two data shards, each launch running
+once per shard on its card, under every executor (``--no-chunked-prefill``,
+``--dense-kv`` and ``--speculate`` too) and for every tier family (a MoE
+tier's shards advance layer by layer, each MoE layer routed once over the
+tier's whole batch).  ``--tier-mesh 1x2`` adds tensor
 parallelism: each launch splits over two model shards (attention and KV
 heads, FFN hidden units or experts, the vocabulary), all-reducing
 between layers, and ``--shard-params`` places each model shard's slices

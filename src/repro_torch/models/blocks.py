@@ -579,35 +579,46 @@ def dense_ffn(p, cfg: ModelConfig, spec, x):
 def _moe_group(p, spec, x):
     """The ``N = B·S`` token slots, padding included, in ``G`` groups of
     ``gs = min(1024, N)``: (xg [G, gs, d], router logits [G, gs, E] f32,
-    cap = min(gs, max(1, ceil(gs·k·capacity_factor / E))))."""
+    cap = :func:`moe_capacity`)."""
     B, S, D = x.shape
-    E, K = spec.num_experts, spec.top_k
     gs = min(MOE_GROUP_SIZE, B * S)
     xg = x.reshape(B * S // gs, gs, D)
-    logits = (xg @ p["router"]).float()
-    cap = min(max(1, int(math.ceil(gs * K * spec.capacity_factor / E))), gs)
-    return xg, logits, cap
+    return xg, moe_logits(p, xg), moe_capacity(spec, gs)
 
 
-def _moe_experts(p, spec, xg, dest, w, cap, *, inplace):
-    """Dispatch, expert products and combine.  A kept pair's ``dest`` is
-    row ``(e·G + g)·cap + rank`` of the dense ``[E, G·cap, d]`` capacity
-    buffer; a dropped pair's is the spare last row (written by every
-    dropped pair, read by no expert) and its ``w`` is 0.  ``inplace``
-    scatters into the buffer and writes the experts' products through
-    ``out=``; autograd follows neither, so training passes False.
-    Returns [G, gs, d]."""
-    G, gs, D = xg.shape
+def moe_logits(p, x):
+    """The router logits of ``x``'s token slots, ``[..., E]`` f32."""
+    return (x @ p["router"]).float()
+
+
+def moe_capacity(spec, gs: int) -> int:
+    """An expert's queue length in a group of ``gs`` token slots:
+    ``min(gs, max(1, ceil(gs·k·capacity_factor / E)))``."""
+    return min(max(1, int(math.ceil(
+        gs * spec.top_k * spec.capacity_factor / spec.num_experts))), gs)
+
+
+def _moe_experts(p, spec, x, dest, w, rows_per_expert: int, *, inplace):
+    """Dispatch, expert products and combine of the ``N`` token slots of
+    ``x`` [N, d].  A kept pair's ``dest`` [N, k] is its row of expert
+    ``e``'s ``rows_per_expert`` in the dense ``[E, rows_per_expert, d]``
+    capacity buffer (``e · G·cap + g·cap + rank`` for ``x``'s own route);
+    a dropped pair's is the spare last row (written by
+    every dropped pair, read by no expert) and its ``w`` is 0.
+    ``inplace`` scatters into the buffer and writes the experts' products
+    through ``out=``; autograd follows neither, so training passes
+    False.  Returns [N, d]."""
+    N, D = x.shape
     E, K = p["wo"].shape[0], spec.top_k     # the experts held here
-    rows = E * G * cap
+    rows = E * rows_per_expert
     dest = dest.reshape(-1)
-    src = xg[:, :, None, :].expand(G, gs, K, D).reshape(-1, D)
+    src = x[:, None, :].expand(N, K, D).reshape(-1, D)
     if inplace:
-        buf = xg.new_zeros(rows + 1, D)
+        buf = x.new_zeros(rows + 1, D)
         buf[dest] = src
     else:
-        buf = xg.new_zeros(rows + 1, D).index_put((dest,), src)
-    xin = buf[:-1].view(E, G * cap, D)
+        buf = x.new_zeros(rows + 1, D).index_put((dest,), src)
+    xin = buf[:-1].view(E, rows_per_expert, D)
     if spec.act == "swiglu":
         h = F.silu(torch.bmm(xin, p["wi0"])) * torch.bmm(xin, p["wi1"])
     elif spec.act == "gelu":
@@ -616,15 +627,15 @@ def _moe_experts(p, spec, xg, dest, w, cap, *, inplace):
         raise NotImplementedError(f"moe act {spec.act!r} is not ported")
     # the experts' rows, then a zero spare row that dropped pairs read
     if inplace:
-        eout = xg.new_empty(rows + 1, D)
-        torch.bmm(h, p["wo"], out=eout[:-1].view(E, G * cap, D))
+        eout = x.new_empty(rows + 1, D)
+        torch.bmm(h, p["wo"], out=eout[:-1].view(E, rows_per_expert, D))
         eout[-1].zero_()
     else:
         eout = torch.cat([torch.bmm(h, p["wo"]).reshape(rows, D),
-                          xg.new_zeros(1, D)])
+                          x.new_zeros(1, D)])
     # combine: each token's picks, weighted by their gates (0 if dropped)
-    out = (w.reshape(-1, 1).to(xg.dtype) * eout[dest]).view(G, gs, K, D)
-    return out.sum(2)
+    out = (w.reshape(-1, 1).to(x.dtype) * eout[dest]).view(N, K, D)
+    return out.sum(1)
 
 
 def _shard_picks(dest, w, lo: int, experts: int, rows_per_expert: int):
@@ -642,7 +653,7 @@ def _shard_picks(dest, w, lo: int, experts: int, rows_per_expert: int):
                                                    torch.zeros_like(w))
 
 
-def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0):
+def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0, route=None):
     """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
     moe_ffn``), routed and ranked by the ``moe_route`` kernel.
 
@@ -660,6 +671,12 @@ def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0):
     order of the combine's sum differs.  The expert products stay
     batched matrix products over the capacity buffer.
 
+    ``route = (dest, w, rows)`` hands in the routing of ``x``'s token
+    slots instead (``dest``/``w`` [B·S, k], into a capacity buffer of
+    ``rows`` rows an expert): a data shard's share of a route taken over
+    the whole tier's batch
+    (:func:`repro_torch.models.transformer.route_data_shards`).
+
     Serving reads only the output; training calls
     :func:`moe_ffn_train`, which also returns the load-balance and z
     aux losses.
@@ -673,14 +690,16 @@ def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0):
     pairs add nothing.  ``ffn`` split inside every expert: every shard
     routes alike and computes its slice of each expert's hidden units.
     """
-    xg, logits, cap = _moe_group(p, spec, x)
-    _, _, dest, w = kernel_ops.moe_route(logits, spec.top_k, cap)
+    if route is None:
+        xg, logits, cap = _moe_group(p, spec, x)
+        _, _, dest, w = kernel_ops.moe_route(logits, spec.top_k, cap)
+        route = (dest, w, xg.shape[0] * cap)
+    dest, w, rows = route
     held = p["wo"].shape[0]
     if held < spec.num_experts:
-        dest, w = _shard_picks(dest, w, shard * held, held,
-                               xg.shape[0] * cap)
-    return _moe_experts(p, spec, xg, dest, w, cap,
-                        inplace=True).reshape(x.shape)
+        dest, w = _shard_picks(dest, w, shard * held, held, rows)
+    return _moe_experts(p, spec, x.reshape(-1, x.shape[-1]), dest, w,
+                        rows, inplace=True).reshape(x.shape)
 
 
 def moe_ffn_train(p, cfg: ModelConfig, spec, x):
@@ -703,7 +722,8 @@ def moe_ffn_train(p, cfg: ModelConfig, spec, x):
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     kept = dest != E * xg.shape[0] * cap
     w = torch.where(kept, gates, torch.zeros_like(gates))
-    y = _moe_experts(p, spec, xg, dest, w, cap, inplace=False)
+    y = _moe_experts(p, spec, xg.reshape(-1, xg.shape[-1]), dest, w,
+                     xg.shape[0] * cap, inplace=False)
     picks = F.one_hot(idx.long(), E).float() * kept[..., None].float()
     lb = E * (probs.mean(dim=(0, 1)) * picks.sum(2).mean(dim=(0, 1))).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
@@ -725,14 +745,44 @@ def train_ffn(p, cfg: ModelConfig, spec, x):
     return dense_ffn(p, cfg, spec, x), zero_aux(x.device)
 
 
-def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode):
+def apply_ffn(p, cfg: ModelConfig, spec, x, cache, mode, route=None):
     """The layer's FFN: (y, cache) — the channel mix's token-shift cache,
-    or ``{}`` for the stateless FFNs."""
+    or ``{}`` for the stateless FFNs.  ``route``: a MoE layer's routing
+    handed in (:func:`moe_ffn`)."""
     if spec.kind == "moe":
-        return moe_ffn(p, cfg, spec, x), {}
+        return moe_ffn(p, cfg, spec, x, route=route), {}
     if spec.act == "rwkv_cmix":
         return rwkv_cmix(p, cfg, spec, x, cache, mode)
     return dense_ffn(p, cfg, spec, x), {}
+
+
+def mixer_half(p, cfg: ModelConfig, layer, x, cache, pos, mode,
+               pages=None):
+    """A layer's first residual half, ``x + mixer(norm1(x))``: returns
+    (x, ``norm2(x)`` — the FFN half's input —, the mixer's new or
+    in-place-updated cache).  ``cache`` is the mixer's (None in prefill
+    and train)."""
+    if layer.mixer.kind not in MIXERS or layer.ffn.kind not in ("dense",
+                                                               "moe"):
+        raise NotImplementedError(
+            f"{layer.mixer.kind}/{layer.ffn.kind} layers are not ported")
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    y, new_mix = MIXERS[layer.mixer.kind](p["mixer"], cfg, layer.mixer, h,
+                                          cache, pos, mode, pages=pages)
+    x = x + y
+    return x, rmsnorm(x, p["norm2"], cfg.norm_eps), new_mix
+
+
+def ffn_half(p, cfg: ModelConfig, layer, x, h, cache, mode, route=None):
+    """A layer's second residual half, ``x + ffn(h)`` with ``h`` from
+    :func:`mixer_half`: returns (x, the FFN's cache) — in train mode
+    (x, aux), the FFN's ``{"lb_loss", "z_loss"}``."""
+    if mode == "train":
+        y, aux = train_ffn(p["ffn"], cfg, layer.ffn, h)
+        return x + y, aux
+    y, new_ffn = apply_ffn(p["ffn"], cfg, layer.ffn, h, cache, mode,
+                           route=route)
+    return x + y, new_ffn
 
 
 def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
@@ -741,19 +791,11 @@ def apply_layer(p, cfg: ModelConfig, layer, x, cache, pos, mode,
     ``cache`` is the layer's ``{"mixer", "ffn"}`` slot (None in prefill
     and train); returns (x, the layer's new or in-place-updated slot) —
     in train mode (x, aux), the FFN's ``{"lb_loss", "z_loss"}``."""
-    if layer.mixer.kind not in MIXERS or layer.ffn.kind not in ("dense",
-                                                               "moe"):
-        raise NotImplementedError(
-            f"{layer.mixer.kind}/{layer.ffn.kind} layers are not ported")
-    mix_cache = cache.get("mixer") if cache else None
-    ffn_cache = cache.get("ffn") if cache else None
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, new_mix = MIXERS[layer.mixer.kind](p["mixer"], cfg, layer.mixer, h,
-                                          mix_cache, pos, mode, pages=pages)
-    x = x + y
-    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    x, h, new_mix = mixer_half(p, cfg, layer, x,
+                               cache.get("mixer") if cache else None, pos,
+                               mode, pages)
+    x, new_ffn = ffn_half(p, cfg, layer, x, h,
+                          cache.get("ffn") if cache else None, mode)
     if mode == "train":
-        y, aux = train_ffn(p["ffn"], cfg, layer.ffn, h)
-        return x + y, aux
-    y, new_ffn = apply_ffn(p["ffn"], cfg, layer.ffn, h, ffn_cache, mode)
-    return x + y, {"mixer": new_mix, "ffn": new_ffn}
+        return x, new_ffn
+    return x, {"mixer": new_mix, "ffn": new_ffn}

@@ -32,9 +32,11 @@ JAX package's :func:`cache_spec_leaf` rules): the ``kv_blocks`` pool
 and per-row recurrent ``batch`` dims over ``data``, KV heads over
 ``model`` when divisible, as a description of the JAX placement (the
 serving engine declares each model shard's cache by
-:func:`repro_torch.models.sharding.shard_config`).  The dense arena's
-``cache_specs`` and ``cache_shapes`` serve the JAX package's dry-run
-tooling, a later slice of the port.
+:func:`repro_torch.models.sharding.shard_config`).  :func:`cache_specs`
+gives the dense arena's, at the JAX package's ``shard_seq=False``: the
+request rows over ``data``, which is how the engine's sharded dense
+arena splits them.  ``cache_shapes`` and the sequence-sharding options
+serve the JAX package's dry-run tooling, a later slice of the port.
 """
 from __future__ import annotations
 
@@ -191,6 +193,17 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, num_blocks: int,
     device, while a shard holds only the one head its query heads read
     (:func:`repro_torch.models.sharding.kv_head_range`)."""
     decl = declare_paged_cache(cfg, batch, num_blocks, block_size, dtype)
+    return tree_map(lambda c: cache_spec_leaf(c, mesh), decl)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, mesh,
+                dtype=torch.float32):
+    """Partition specs of the dense arena (:func:`declare_cache`) on
+    ``mesh``, by :func:`cache_spec_leaf`: the JAX package's
+    ``cache_specs`` at ``shard_seq=False``, the layout of its dense
+    serving pool.  The engine's ``DenseTierSlotPool`` holds each data
+    shard's rows on its device."""
+    decl = declare_cache(cfg, batch, seq_len, dtype)
     return tree_map(lambda c: cache_spec_leaf(c, mesh), decl)
 
 

@@ -23,7 +23,7 @@ take ``group=`` (a :class:`repro_torch.models.sharding.ModelShards`),
 (:func:`repro_torch.models.sharding.model_shard_params`) and ``cache`` as
 one tree per model shard (the shard's KV heads).  The function is the
 unsharded one, as the JAX package's GSPMD placement computes it, with
-the collectives written out (:func:`_forward_shards`): the embedding
+the collectives written out (:func:`forward_data_shards`): the embedding
 looks up each shard's vocabulary range and all-reduces; every layer runs
 its attention and FFN once per model shard, on the shard's device, over
 its heads, hidden units or experts, and all-reduces the partial outputs,
@@ -31,13 +31,25 @@ so the residual stream (and every norm) is replicated on each model
 device; the LM head computes each shard's vocabulary columns and gathers
 them in vocabulary order on shard 0's device, where the caller's
 confidence gate runs once.  The chunked modes and paged decode only.
+
+**Data shards with MoE layers**: a data-sharded tier runs each shard's
+step on its own rows, which changes nothing for attention, dense FFNs
+and the recurrent layers, whose tokens do not meet; a MoE layer ranks
+every token of the launch for expert capacity.  The JAX package routes
+a data-sharded tier's launch over its whole batch, so
+:func:`forward_data_shards` advances the shards layer by layer and
+routes each MoE layer once over all of them
+(:func:`route_data_shards`, in the JAX batch's slot order,
+:class:`MoeLayout`); every other layer runs on each shard alone.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import blocks
 from repro_torch.models import sharding
 from repro_torch.models.params import tree_map
@@ -93,13 +105,37 @@ def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
         if exits is not None and i in cfg.early_exit_periods:
             exits[i] = x
     if mode == "prefill":
-        return x, tree_map(lambda *leaves: torch.stack(leaves), *new), aux
+        return x, _stack(new), aux
     return x, cache, aux
+
+
+def _stack(periods):
+    """Each period's prefill part cache stacked on a leading
+    ``num_periods`` dim (the JAX package's tree)."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *periods)
+
+
+def _positions(batch, x, pos, mode):
+    """``pos``, or ``arange(S)`` per row where train and prefill leave it
+    out."""
+    if pos is not None:
+        return pos
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"{mode} requires pos")
+    B, S = batch["tokens"].shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=x.device)[None].expand(B, S)
 
 
 def _logits(params, cfg: ModelConfig, x):
     x = blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ lm_proj(params, cfg)
+
+
+def _out_logits(params, cfg: ModelConfig, x, mode):
+    """A serving forward's logits: the last position's only in prefill
+    (:func:`forward`)."""
+    return _logits(params, cfg, x[:, -1:] if mode == "prefill" else x)
 
 
 def _exit_logits(p, cfg: ModelConfig, h):
@@ -152,15 +188,22 @@ def lm_proj(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _layer_groups(cfg: ModelConfig, tree):
-    """(layers, key prefix, their subtree) in order: the head layers,
-    each period (its stacked leaves indexed), the tail layers."""
+def _sections(cfg: ModelConfig):
+    """(section, period index or None, layers, key prefix) in order: the
+    head layers, each period, the tail layers."""
     if cfg.head:
-        yield cfg.head, "layer", tree["head"]
+        yield "head", None, cfg.head, "layer"
     for i in range(cfg.num_periods):
-        yield cfg.period, "block", tree_map(lambda a: a[i], tree["period"])
+        yield "period", i, cfg.period, "block"
     if cfg.tail:
-        yield cfg.tail, "layer", tree["tail"]
+        yield "tail", None, cfg.tail, "layer"
+
+
+def _section(tree, section: str, i):
+    """A section's subtree; a period's is its stacked leaves indexed."""
+    if i is None:
+        return tree[section]
+    return tree_map(lambda a: a[i], tree[section])
 
 
 def _ffn_split(p, spec) -> bool:
@@ -173,34 +216,40 @@ def _ffn_split(p, spec) -> bool:
     return p["wo"].shape[0] < spec.d_ff
 
 
-def _apply_layer_shards(group, ps, cfg, shard_cfg, layer, xs, caches, pos,
-                        mode, pages):
-    """:func:`repro_torch.models.blocks.apply_layer` over the model
-    shards: each shard's attention over its heads (its KV written into
-    its own cache), all-reduced into the residual; then each shard's FFN
-    partial, all-reduced.  ``xs``, ``pos``, ``pages`` and ``caches`` hold
-    one entry a model shard, on its device."""
-    m = group.size
-    eps = cfg.norm_eps
+def _mixer_shards(group, ps, shard_cfg, layer, xs, caches, pos, mode,
+                  pages):
+    """The mixer half of :func:`repro_torch.models.blocks.apply_layer`
+    over the model shards: each shard's attention over its heads (its KV
+    written into its own cache), all-reduced into the residual.  ``xs``,
+    ``pos``, ``pages`` and ``caches`` hold one entry a model shard, on
+    its device.  Returns (the residual, its FFN input) a model shard."""
     ys = []
-    for j in range(m):
-        h = blocks.rmsnorm(xs[j], ps[j]["norm1"], eps)
+    for j in range(group.size):
+        h = blocks.rmsnorm(xs[j], ps[j]["norm1"], shard_cfg.norm_eps)
         y, _ = blocks.attention(ps[j]["mixer"], shard_cfg, layer.mixer, h,
                                 caches[j]["mixer"], pos[j], mode,
                                 pages=pages[j])
         ys.append(y)
     xs = [x + y for x, y in zip(xs, sharding.all_reduce(ys))]
-    hs = [blocks.rmsnorm(x, p["norm2"], eps) for x, p in zip(xs, ps)]
-    spec = layer.ffn
-    ffn = (lambda p, h, j: blocks.moe_ffn(p, cfg, spec, h, shard=j)) \
-        if spec.kind == "moe" else \
-        (lambda p, h, j: blocks.dense_ffn(p, cfg, spec, h))
+    return xs, [blocks.rmsnorm(x, p["norm2"], shard_cfg.norm_eps)
+                for x, p in zip(xs, ps)]
+
+
+def _ffn_shards(group, ps, cfg, spec, hs, routes=None):
+    """The FFN half over the model shards: each shard's partial, all-
+    reduced (a layer the model axis does not divide runs once, on shard
+    0, and is copied).  ``routes`` (a MoE layer on a data-sharded tier)
+    hands each model shard its share of the tier's route."""
+    def ffn(p, h, j):
+        if spec.kind == "moe":
+            return blocks.moe_ffn(p, cfg, spec, h, shard=j,
+                                  route=None if routes is None
+                                  else routes[j])
+        return blocks.dense_ffn(p, cfg, spec, h)
     if _ffn_split(ps[0]["ffn"], spec):
-        ys = sharding.all_reduce([ffn(p["ffn"], h, j)
-                                  for j, (p, h) in enumerate(zip(ps, hs))])
-    else:
-        ys = group.replicate(ffn(ps[0]["ffn"], hs[0], 0))
-    return [x + y for x, y in zip(xs, ys)]
+        return sharding.all_reduce([ffn(p["ffn"], h, j) for j, (p, h)
+                                    in enumerate(zip(ps, hs))])
+    return group.replicate(ffn(ps[0]["ffn"], hs[0], 0))
 
 
 def _embed_shards(group, params, cfg: ModelConfig, tokens):
@@ -232,33 +281,193 @@ def _logits_shards(group, params, cfg: ModelConfig, xs):
         [_logits(p, cfg, x) for p, x in zip(params, xs)], -1)
 
 
-def _forward_shards(group, params, cfg: ModelConfig, batch, mode, cache,
-                    pos, pages):
-    """:func:`forward` over a tier's model shards (the module docstring):
-    ``params`` and ``cache`` one tree a model shard; the step's inputs on
-    any device, copied to each shard's.  Returns (logits on shard 0's
-    device, ``cache``, updated in place)."""
-    if mode not in _CHUNKED + ("decode",) or pages is None or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis over 1 serves the chunked steps and "
-            f"paged decode of a frontend-free model, not {mode!r} "
-            "(ROADMAP Queue 1, item 5)")
-    m = group.size
+class MoeLayout:
+    """Where each data shard's token slots sit in the batch the JAX
+    package routes a MoE layer over: that batch has ``total`` token
+    slots (its groups, ``gs`` and ``cap`` follow from it), and
+    ``slots[s][i]`` is the place of data shard ``s``'s local token slot
+    ``i`` (its ``[B, S]`` batch flattened), or ``total`` for a slot the
+    JAX batch does not hold (a shard's own flat padding, a uniform
+    prefill's zero rows).  Every slot of the JAX batch that no shard
+    holds ranks after every held one, so its router logits are taken as
+    zeros."""
+
+    def __init__(self, slots, total: int):
+        self.slots = [np.asarray(s, np.int64) for s in slots]
+        self.total = int(total)
+        self._on = {}
+        self._groups = {}
+
+    def on(self, device) -> list:
+        """``slots`` as tensors on ``device`` (copied once)."""
+        if device not in self._on:
+            self._on[device] = [torch.from_numpy(s).to(device)
+                                for s in self.slots]
+        return self._on[device]
+
+    def groups(self, gs: int) -> list:
+        """Each shard's (first group, number of groups) of the routing
+        groups of ``gs`` slots that its held slots fall in ((0, 0) for a
+        shard holding none)."""
+        if gs not in self._groups:
+            out = []
+            for s in self.slots:
+                held = s[s < self.total]
+                g0 = int(held.min()) // gs if held.size else 0
+                out.append((g0, int(held.max()) // gs - g0 + 1
+                            if held.size else 0))
+            self._groups[gs] = out
+        return self._groups[gs]
+
+
+def route_data_shards(spec, logits, layout: MoeLayout):
+    """One ``moe_route`` launch over a data-sharded tier's whole batch,
+    as the JAX package routes it: each shard's router logits ``[N_s,
+    E]`` (on its device) are gathered into the JAX batch's ``[total,
+    E]`` on shard 0's device, grouped (``gs = min(1024, total)``), and
+    routed there.  Each shard gets back its slots' ``(dest, w, rows)`` on
+    its own device, for :func:`repro_torch.models.blocks.moe_ffn`: its
+    own capacity buffer holds ``rows = n·cap`` rows an expert, the ``n``
+    groups its slots fall in, so a kept pair of group ``g`` in expert
+    ``e``'s queue at rank ``r`` goes to row ``e·rows + (g − g0)·cap + r``
+    (``g0`` the shard's first group); a dropped pair, or a slot the JAX
+    batch does not hold, goes to the spare row ``E·rows`` with weight
+    0."""
+    total = layout.total
+    gs = min(blocks.MOE_GROUP_SIZE, total)
+    if total % gs:
+        raise ValueError(f"{total} token slots do not split into MoE "
+                         f"groups of {gs}")
+    cap = blocks.moe_capacity(spec, gs)
+    rows = total // gs * cap
+    dev = logits[0].device
+    slots = layout.on(dev)
+    full = torch.zeros(total + 1, logits[0].shape[-1], dtype=torch.float32,
+                       device=dev)
+    for lg, sl in zip(logits, slots):
+        full.index_copy_(0, sl, lg.to(dev, non_blocking=True))
+    _, _, dest, w = kernel_ops.moe_route(
+        full[:total].view(total // gs, gs, -1), spec.top_k, cap)
+    k, E = spec.top_k, spec.num_experts
+    dest = torch.cat([dest.reshape(total, k),
+                      dest.new_full((1, k), E * rows)])
+    w = torch.cat([w.reshape(total, k), w.new_zeros(1, k)])
+    out = []
+    for lg, sl, (g0, n) in zip(logits, slots, layout.groups(gs)):
+        d, own = dest[sl], n * cap
+        e = d // rows
+        d = torch.where(d < E * rows, e * own + d - e * rows - g0 * cap,
+                        E * own)
+        out.append((d.to(lg.device, non_blocking=True),
+                    w[sl].to(lg.device, non_blocking=True), own))
+    return out
+
+
+def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
+                        caches, pos, pages, groups, layout=None):
+    """:func:`forward` of each data shard of a tier, the shards advanced
+    layer by layer so that each MoE layer routes once over the tier's
+    whole batch (:func:`route_data_shards`, in the JAX package's slot
+    order, ``layout``; None: each shard routes its own tokens) instead of
+    over each shard's own tokens; every other layer runs on each shard
+    alone, on its device.  ``params``, ``batches``, ``caches`` (None in
+    prefill), ``pos`` (None: ``arange``), ``pages`` and ``groups`` hold one
+    entry a data shard.  A shard with a model axis (``groups[s]``, the
+    module docstring: the chunked modes and paged decode of a
+    frontend-free model) holds one params and one cache tree a model
+    shard, runs each layer's attention and FFN over its model shards with
+    the all-reduces written out, and gathers its logits on model shard
+    0's device; its MoE layers route once a model shard.  Returns
+    (logits, cache) a data shard, as :func:`forward`."""
+    n = len(batches)
+    m = 1 if groups[0] is None else groups[0].size
+    xs, ps, pg = [], [], []
+    for s in range(n):
+        g = groups[s]
+        if g is None:
+            xs.append([_embed(params[s], cfg, batches[s], mode)])
+            ps.append(_positions(batches[s], xs[s][0], pos[s], mode))
+            pg.append(pages[s])
+            continue
+        if mode not in _CHUNKED + ("decode",) or pages[s] is None \
+                or cfg.frontend:
+            raise NotImplementedError(
+                f"{cfg.name}: a model axis over 1 serves the chunked steps "
+                f"and paged decode of a frontend-free model, not {mode!r} "
+                "(ROADMAP Queue 1, item 2)")
+        ps.append(g.replicate(pos[s]))
+        pg.append([{k: v.to(d, non_blocking=True)
+                    for k, v in pages[s].items()} for d in g.devices])
+        xs.append(_embed_shards(g, params[s], cfg, batches[s]["tokens"]))
     shard_cfg = sharding.shard_config(cfg, m)
-    pos_s = group.replicate(pos)
-    pages_s = [{k: v.to(d, non_blocking=True) for k, v in pages.items()}
-               for d in group.devices]
-    xs = _embed_shards(group, params, cfg, batch["tokens"])
-    for parts in zip(*(_layer_groups(cfg, t) for t in (*params, *cache))):
-        layers, prefix = parts[0][:2]
-        ps, cs = [g[2] for g in parts[:m]], [g[2] for g in parts[m:]]
-        for i, layer in enumerate(layers):
-            k = f"{prefix}{i}"
-            xs = _apply_layer_shards(group, [p[k] for p in ps], cfg,
-                                     shard_cfg, layer, xs,
-                                     [c[k] for c in cs], pos_s, mode,
-                                     pages_s)
-    return _logits_shards(group, params, cfg, xs), cache
+    new = [{} for _ in range(n)]
+    for section, i, layers, prefix in _sections(cfg):
+        # each data shard's weights and cache trees of the section, one a
+        # model shard
+        wt = [[_section(t, section, i) for t in
+               (params[s] if groups[s] else [params[s]])] for s in range(n)]
+        ct = [None if caches[s] is None else
+              [_section(t, section, i) for t in
+               (caches[s] if groups[s] else [caches[s]])] for s in range(n)]
+        slots = [{} for _ in range(n)]
+        for li, layer in enumerate(layers):
+            key = f"{prefix}{li}"
+            w = [[t[key] for t in wt[s]] for s in range(n)]
+            hs = []
+            for s in range(n):
+                c = None if ct[s] is None else [t[key] for t in ct[s]]
+                if groups[s] is not None:
+                    xs[s], h = _mixer_shards(groups[s], w[s], shard_cfg,
+                                             layer, xs[s], c, ps[s], mode,
+                                             pg[s])
+                    hs.append(h)
+                    continue
+                x, h, mix = blocks.mixer_half(
+                    w[s][0], cfg, layer, xs[s][0],
+                    None if c is None else c[0]["mixer"], ps[s], mode,
+                    pg[s])
+                xs[s] = [x]
+                hs.append([h])
+                slots[s][key] = {"mixer": mix}
+            spec = layer.ffn
+            # a MoE layer over a layout: one route a model shard, over
+            # every data shard's router logits (the router is replicated)
+            routes = [[None] * m for _ in range(n)]
+            moe = spec.kind == "moe" and layout is not None
+            for j in range(m if moe else 0):
+                got = route_data_shards(spec, [blocks.moe_logits(
+                    w[s][j]["ffn"], hs[s][j].reshape(-1, cfg.d_model))
+                    for s in range(n)], layout)
+                for s in range(n):
+                    routes[s][j] = got[s]
+            for s in range(n):
+                if groups[s] is not None:
+                    ys = _ffn_shards(groups[s], w[s], cfg, spec, hs[s],
+                                     routes[s])
+                    xs[s] = [x + y for x, y in zip(xs[s], ys)]
+                    continue
+                x, slots[s][key]["ffn"] = blocks.ffn_half(
+                    w[s][0], cfg, layer, xs[s][0], hs[s][0],
+                    None if ct[s] is None else ct[s][0][key]["ffn"], mode,
+                    route=routes[s][0])
+                xs[s] = [x]
+        if mode == "prefill":
+            for s in range(n):
+                if i is None:
+                    new[s][section] = slots[s]
+                else:
+                    new[s].setdefault(section, []).append(slots[s])
+    out = []
+    for s in range(n):
+        if groups[s] is not None:
+            out.append((_logits_shards(groups[s], params[s], cfg, xs[s]),
+                        caches[s]))
+        else:
+            out.append((_out_logits(params[s], cfg, xs[s][0], mode),
+                        {k: _stack(v) if k == "period" else v
+                         for k, v in new[s].items()}
+                        if mode == "prefill" else caches[s]))
+    return out
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
@@ -303,20 +512,16 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       in place.
 
     With ``group`` (the chunked modes and paged decode): ``params`` and
-    ``cache`` hold one tree a model shard (:func:`_forward_shards`)."""
+    ``cache`` hold one tree a model shard (:func:`forward_data_shards`)."""
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
     if group is not None:
-        return _forward_shards(group, params, cfg, batch, mode, cache, pos,
-                               pages)
+        return forward_data_shards([params], cfg, [batch], mode=mode,
+                                   caches=[cache], pos=[pos], pages=[pages],
+                                   groups=[group])[0]
     x = _embed(params, cfg, batch, mode)
-    if pos is None:
-        if mode not in ("train", "prefill"):
-            raise ValueError(f"{mode} requires pos")
-        B, S = batch["tokens"].shape
-        pos = torch.arange(S, dtype=torch.int32,
-                           device=x.device)[None].expand(B, S)
+    pos = _positions(batch, x, pos, mode)
     if mode not in ("train", "prefill") and cache is None:
         raise ValueError(f"{mode} requires a cache")
     new_cache = {}
@@ -342,9 +547,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
         if return_hidden:
             return blocks.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
         return _logits(params, cfg, x), aux
-    if mode == "prefill":
-        x = x[:, -1:]
-    return _logits(params, cfg, x), new_cache
+    return _out_logits(params, cfg, x, mode), new_cache
 
 
 def train_logits(params, cfg: ModelConfig, batch: dict):

@@ -122,18 +122,36 @@ hands a metrics snapshot to ``on_snapshot`` once per window.
 :class:`repro_torch.launch.mesh.TierMesh`) places a tier on its own
 devices.  A ``1x1`` mesh moves the tier to one device of its own, under
 every executor: the fast tier on one card and the expensive one on
-another.  A ``Dx1`` mesh splits the tier's rows and KV block pool into
-``D`` data shards (:class:`repro_torch.serving.slots.TierSlotPool`):
-admission picks a shard per request
-(:meth:`CascadeEngine._pick_shard_prefix`), each shard's rows keep
-their blocks, prefix index and oldest-first
-reserve on their own shard, and under the ragged, padded and split
-executors every launch runs once per shard on that shard's device, over
-its rows (the ragged one at the bucket of the shard's own live tokens).
-So a sharded tier launches each kernel exactly ``D`` times as often as
-the same tier unsharded, and still pays one blocking fetch a tick: the
-shards' results come back by one asynchronous copy each, then one wait.
-Shards on one device share one replica of the params.  A ``DxM`` mesh
+another.  A ``Dx1`` mesh splits the tier's rows and KV arena into ``D``
+data shards (:class:`repro_torch.serving.slots.TierSlotPool`, or the
+dense :class:`~repro_torch.serving.slots.DenseTierSlotPool`), under every
+executor and for every tier family: admission picks a shard per request
+(:meth:`CascadeEngine._pick_shard_prefix`; the uniform path
+:meth:`CascadeEngine._pick_shard`; the dense arena the row allocator's
+balance), each shard's rows keep their blocks, prefix index and
+oldest-first reserve on their own shard, and every launch runs once per
+shard on that shard's device, over its rows and with its weights: the
+ragged one at the bucket of the shard's own live tokens, a speculative
+one the same with the shard's own draft loop of ``max(its draft_len) -
+1`` decode steps, a uniform prefill over the shard's ``[capacity / D,
+prompt_len]`` (its admitted rows, then zero rows; a shard that admitted
+nothing does not launch).  So each attention kernel, scan and the gate
+launch exactly ``D`` times a tier launch where the unsharded tier
+launches once — a uniform prefill once per shard holding an admitted
+row, a draft loop once per step of each shard — and the tier still pays
+one blocking fetch a tick: the shards' results come back by one
+asynchronous copy each, then one wait.  A tier with MoE layers runs each
+launch over all its shards at once, layer by layer
+(:func:`repro_torch.models.transformer.forward_data_shards`), so that
+every MoE layer routes once over the tier's whole batch, as the JAX
+engine's GSPMD placement routes it (the ragged batch: live tokens in
+row order at the bucket of the tier's total; the padded, split and
+decode batches ``[capacity, width]`` row-major; the uniform prefill's
+packed ``[capacity, prompt_len]``): ``moe_route`` launches once per MoE
+layer a tier launch, as unsharded, not ``D`` times; each shard's
+experts run over the capacity buffer of the routing groups its tokens
+fall in.  Speculation refuses a draft tier with MoE layers, so no draft
+step routes.  Shards on one device share one replica of the params.  A ``DxM`` mesh
 with ``M > 1`` adds tensor parallelism under the ragged, padded and split
 executors: each data shard's launch runs over its ``M`` model shards,
 each on its device, over its attention heads and KV heads, its FFN
@@ -146,9 +164,9 @@ gate as often as without the model axis, with no added host sync.  The
 weights are each model shard's slices by ``param_specs``
 (``TierSpec.shard_params``) or views into one full replica per distinct
 device (the default: the compute still splits, as in the JAX engine).
-Data shards under uniform prefill, the dense arena or speculation, and a
-model axis over 1 under those, on a recurrent (RWKV-6, Mamba) or
-frontend tier, raise (ROADMAP Queue 1, item 5).
+A model axis over 1 under uniform prefill, the dense arena or
+speculation, or on a recurrent (RWKV-6, Mamba) or frontend tier, raises
+(ROADMAP Queue 1, item 2).
 
 Not ported from the JAX engine: compile statistics (an eager engine
 compiles nothing; they wait for CUDA graphs).
@@ -376,7 +394,7 @@ class _TierRuntime:
                 raise NotImplementedError(
                     f"tier {spec.name}: a model axis of {self.model_shards} "
                     f"under {refused} is not ported yet (ROADMAP Queue 1, "
-                    "item 5: the model axis under uniform, dense and "
+                    "item 2: the model axis under uniform, dense and "
                     "speculation, recurrent and frontend tiers); the model "
                     "axis runs the ragged, padded and split executors on "
                     "attention tiers")
@@ -384,19 +402,6 @@ class _TierRuntime:
             raise ValueError(
                 f"tier {spec.name}: {capacity} slots must divide into the "
                 f"mesh's {self.data_shards} data shards")
-        if self.data_shards > 1:
-            refused = ("the dense KV arena" if not use_paged_kv
-                       else "uniform one-shot prefill"
-                       if not use_chunked_prefill
-                       else "speculative cascade decoding"
-                       if speculation_k else None)
-            if refused is not None:
-                raise NotImplementedError(
-                    f"tier {spec.name}: {self.data_shards} data shards "
-                    f"under {refused} are not ported yet (ROADMAP Queue 1, "
-                    "item 5: data shards under uniform, dense and "
-                    "speculation); data shards run the ragged, padded and "
-                    "split executors")
         # each data shard's device and request rows
         self.devices = ([torch.device(d) for d in self.mesh.data_devices()]
                         if self.mesh is not None else [device])
@@ -409,9 +414,18 @@ class _TierRuntime:
         self.unified = bool(use_unified_step)
         self.ragged = bool(use_ragged_step) and self.unified
         self.chunk = min(prefill_chunk, prompt_len)
-        self.flat_buckets = (self._default_buckets()
+        # a data-sharded tier with MoE layers runs each launch over all
+        # its shards at once, layer by layer, so that every MoE layer
+        # routes over the tier's whole batch as the JAX package routes it
+        # (transformer.forward_data_shards): a ragged launch's at the JAX
+        # engine's bucket of the tier's total live tokens (tier_buckets)
+        self.joint = self.data_shards > 1 and any(
+            layer.ffn.kind == "moe" for layer in spec.cfg.layers)
+        self.flat_buckets = (self._default_buckets(self.rows[0].stop)
                              if flat_buckets is None
                              else self._validate_buckets(flat_buckets))
+        self.tier_buckets = (self._default_buckets(capacity)
+                             if flat_buckets is None else self.flat_buckets)
         self.prefix = bool(prefix_cache) and self.paged and self.chunked
         if self.paged:
             self.pool = TierSlotPool(spec.cfg, capacity, max_seq,
@@ -422,14 +436,13 @@ class _TierRuntime:
                                                    else None))
         else:
             self.pool = DenseTierSlotPool(spec.cfg, capacity, max_seq,
-                                          device=self.device)
+                                          device=device, mesh=self.mesh)
         # each data shard's model axis (None without one), and its
         # weights: a tree, or one tree a model shard
         self.groups = [ModelShards(self.mesh.model_devices(d))
                        if self.model_shards > 1 else None
                        for d in range(self.data_shards)]
         self.replicas, self.weights = self._place_params(spec)
-        self.params = self.weights[0]
         self.slot_req: List[Optional[Request]] = [None] * capacity
         self.tok = np.zeros(capacity, np.int32)
         self.pos = np.zeros(capacity, np.int32)
@@ -506,27 +519,29 @@ class _TierRuntime:
         return self.pick(logits)
 
     def spec_fn(self, tokens, pos, page_table, q_len, q_start, draft_len,
-                draft_steps: int) -> dict:
-        """The speculative ragged step: the ragged forward keeping every
-        position's logits, the gate kernel over all ``W`` flat slots and
-        the :func:`~repro_torch.kernels.ops.spec_accept` epilogue (each
-        row's pick, its window of picks and its accepted draft count);
-        then, on a draft tier, ``draft_steps`` paged decode steps extend
-        each drafting row's catch-up pick into ``draft_len[s]`` draft
-        tokens.  At step j a row with ``draft_len <= j`` decodes through
-        an all-null page-table row at position 0: its write lands in the
-        null block and its pick is discarded.  Every pick stays on the
-        device.  One data shard (speculation takes no more)."""
+                draft_steps: int, shard=0, logits=None) -> dict:
+        """The speculative ragged step of one data shard: the ragged
+        forward keeping every position's logits (``logits``: already
+        computed, over every shard of a MoE tier), the gate kernel over
+        all ``W`` flat slots and the
+        :func:`~repro_torch.kernels.ops.spec_accept` epilogue (each row's
+        pick, its window of picks and its accepted draft count); then,
+        on a draft tier, ``draft_steps`` paged decode steps extend each
+        drafting row's catch-up pick into ``draft_len[s]`` draft tokens.
+        At step j a row with ``draft_len <= j`` decodes through an
+        all-null page-table row at position 0: its write lands in the
+        shard's null block and its pick is discarded.  A draft tier has
+        no MoE layers (the engine refuses one: those masked rows would
+        route and take expert capacity), so each shard's draft loop runs
+        alone.  Every pick stays on the device."""
         pages = {"page_table": page_table, "q_len": q_len,
                  "q_start": q_start}
-        # a draft tier with a larger vocabulary can draft ids past this
-        # tier's: embed them as its last id, as the JAX package's
-        # clamping gather does; the accept epilogue compares the drafted
-        # ids themselves, so such a draft is rejected
-        logits, self.pool.cache = transformer.ragged_verify(
-            self.params, self.spec.cfg,
-            tokens.clamp(max=self.spec.cfg.vocab_size - 1), self.pool.cache,
-            pos, pages)
+        caches, params, cfg = self.pool.caches, self.weights[shard], \
+            self.spec.cfg
+        if logits is None:
+            logits, caches[shard] = transformer.ragged_verify(
+                params, cfg, self._clamped(tokens), caches[shard], pos,
+                pages)
         out = kernel_ops.spec_accept(*self.pick(logits[0]), q_len, tokens,
                                      self.spec_k)
         if not self.spec_draft:
@@ -535,9 +550,9 @@ class _TierRuntime:
         cur = q_start + q_len       # where the first draft step writes
         for j in range(1, draft_steps + 1):
             live = draft_len > j
-            logits, self.pool.cache = transformer.decode_step(
-                self.params, self.spec.cfg, dtok[-1][:, None],
-                self.pool.cache, torch.where(live, cur, 0)[:, None],
+            logits, caches[shard] = transformer.decode_step(
+                params, cfg, dtok[-1][:, None], caches[shard],
+                torch.where(live, cur, 0)[:, None],
                 pages={"page_table": torch.where(live[:, None], page_table,
                                                  0)})
             t, c = self.pick(logits[:, 0])
@@ -547,6 +562,14 @@ class _TierRuntime:
         out["draft_tok"] = torch.stack(dtok, 1)
         out["draft_conf"] = torch.stack(dconf, 1)
         return out
+
+    def _clamped(self, tokens):
+        """A verify's flat tokens as this tier embeds them: a draft tier
+        with a larger vocabulary can draft ids past this tier's, which are
+        embedded as its last id, as the JAX package's clamping gather
+        does; the accept epilogue compares the drafted ids themselves, so
+        such a draft is rejected."""
+        return tokens.clamp(max=self.spec.cfg.vocab_size - 1)
 
     def mixed_fn(self, tokens, pos, page_table, q_len, shard=0):
         """The padded unified step of one data shard: every live row's
@@ -582,26 +605,80 @@ class _TierRuntime:
             pages=pages, group=self.groups[shard])
         return self.pick(logits[:, 0])
 
-    def prefill_fn(self, prompts):
-        """The uniform one-shot prefill of ``prompts`` [capacity,
-        prompt_len] (rows past the admitted ones are zeros): returns the
-        part cache for ``write_prefill`` and each row's first pick from
-        its last-position logits.  A tier with a modality frontend gets
-        zero frontend embeddings, as in the JAX engine."""
-        cfg = self.spec.cfg
-        batch = {"tokens": prompts, **transformer.zero_frontend(
-            cfg, prompts.shape[0], prompts.device)}
-        logits, part = transformer.prefill(self.params, cfg, batch)
+    def prefill_fn(self, prompts, shard=0):
+        """The uniform one-shot prefill of data shard ``shard``'s
+        ``prompts`` [rows, prompt_len] (rows past the admitted ones are
+        zeros): returns the part cache for ``write_prefill`` and each
+        row's first pick from its last-position logits.  A tier with a
+        modality frontend gets zero frontend embeddings, as in the JAX
+        engine."""
+        logits, part = transformer.prefill(self.weights[shard], self.spec.cfg,
+                                           self._prefill_batch(prompts))
         tok, conf = self.pick(logits[:, -1])
         return part, tok, conf
 
+    def _prefill_batch(self, prompts) -> dict:
+        return {"tokens": prompts, **transformer.zero_frontend(
+            self.spec.cfg, prompts.shape[0], prompts.device)}
+
+    def forward_shards(self, mode: str, ins, layout, shards=None):
+        """One forward over data shards ``shards`` (default: all) of a MoE
+        tier, advanced layer by layer so that every MoE layer routes over
+        the tier's whole batch (:func:`repro_torch.models.transformer.
+        forward_data_shards`, ``layout`` its JAX slot order): ``ins`` holds
+        each shard's ``(tokens, pos, pages)`` on its device (``pos`` and
+        ``pages`` None in prefill).  Returns each shard's logits, and its
+        part cache in prefill; the other modes update the shards' caches
+        in place."""
+        shards = range(self.data_shards) if shards is None else shards
+        caches = self.pool.caches
+        prefill = mode == "prefill"
+        res = transformer.forward_data_shards(
+            [self.weights[sh] for sh in shards], self.spec.cfg,
+            [self._prefill_batch(i[0]) if prefill else {"tokens": i[0]}
+             for i in ins], mode=mode,
+            caches=[None if prefill else caches[sh] for sh in shards],
+            pos=[i[1] for i in ins], pages=[i[2] for i in ins],
+            groups=[self.groups[sh] for sh in shards], layout=layout)
+        if prefill:
+            return res
+        for sh, (_, c) in zip(shards, res):
+            caches[sh] = c
+        return [lg for lg, _ in res]
+
+    def row_layout(self, width: int):
+        """The JAX batch of a padded launch, ``[capacity, width]`` token
+        slots in row-major order: data shard ``s``'s slots are the
+        ``span * width`` after shard ``s - 1``'s (padding slots inside a
+        row count, and rank ahead of later rows)."""
+        n = self.rows[0].stop * width
+        return transformer.MoeLayout(
+            [s * n + np.arange(n) for s in range(self.data_shards)],
+            self.capacity * width)
+
+    def flat_layout(self, qlen, widths):
+        """The JAX batch of a ragged launch: every row's live tokens in
+        global row order, then the padding up to the bucket of the tier's
+        total live tokens (over :attr:`tier_buckets`); a shard's own flat
+        padding is in no JAX slot."""
+        live = [int(np.asarray(qlen)[rows].sum()) for rows in self.rows]
+        total = self.bucket_width(sum(live), self.tier_buckets)
+        slots, o = [], 0
+        for n, w in zip(live, widths):
+            sl = np.full(w, total, np.int64)
+            sl[:n] = o + np.arange(n)
+            slots.append(sl)
+            o += n
+        return transformer.MoeLayout(slots, total)
+
     # -- ragged flat-width buckets ------------------------------------------
 
-    def _default_buckets(self) -> List[int]:
+    def _default_buckets(self, rows: int) -> List[int]:
         """Powers of two from 8 up to the first covering the worst-case
-        tick of one data shard (every row of the shard prefilling a full
-        chunk = capacity / D * chunk live tokens)."""
-        worst = max(self.rows[0].stop * self.chunk, 1)
+        tick of ``rows`` rows (each prefilling a full chunk): one data
+        shard's for its own packing, the whole tier's for the JAX
+        engine's."""
+        worst = max(rows * self.chunk, 1)
         buckets, w = [], 8
         while w < worst:
             buckets.append(w)
@@ -617,7 +694,8 @@ class _TierRuntime:
         work_items`), but the port accepts exactly the JAX engine's
         bucket sets.  Each data shard packs its own rows, so the largest
         bucket covers one shard's worst-case tick (the whole tier's
-        without a mesh)."""
+        without a mesh, and on a MoE tier, whose route takes the JAX
+        engine's width of the whole tier's tick)."""
         out = sorted({int(b) for b in buckets})
         if not out or out[0] <= 0:
             raise ValueError(f"flat_buckets must be positive: {buckets}")
@@ -627,7 +705,7 @@ class _TierRuntime:
                     f"flat bucket {b} must be a multiple of the ragged "
                     "kernel's 16-token query tile (widths <= 16 are "
                     "single-tile and exempt)")
-        rows = self.rows[0].stop
+        rows = self.capacity if self.joint else self.rows[0].stop
         worst = rows * self.chunk
         if out[-1] < worst:
             raise ValueError(
@@ -636,13 +714,15 @@ class _TierRuntime:
                 f"({rows} slots x {self.chunk}-token chunks)")
         return out
 
-    def bucket_width(self, live_tokens: int) -> int:
-        """Smallest bucket holding `live_tokens` (>= 1 slot)."""
+    def bucket_width(self, live_tokens: int, buckets=None) -> int:
+        """Smallest bucket of ``buckets`` (default: the shards'
+        :attr:`flat_buckets`) holding `live_tokens` (>= 1 slot)."""
+        buckets = buckets or self.flat_buckets
         need = max(int(live_tokens), 1)
-        for b in self.flat_buckets:
+        for b in buckets:
             if b >= need:
                 return b
-        return self.flat_buckets[-1]
+        return buckets[-1]
 
     # -- device placement ---------------------------------------------------
 
@@ -667,61 +747,157 @@ class _TierRuntime:
             o += n
         return out
 
-    def _per_shard(self, launch, arrays, page_table=None):
-        """``launch(shard, *inputs)`` once per data shard, on its device:
-        the shard's rows of each host array of ``arrays`` and, where
-        given, of ``page_table`` in its arena's local block ids, in one
-        copy.  One shard: the launch's outputs; more: a :class:`Sharded`
-        per output."""
-        outs = []
+    def _shard_inputs(self, arrays, page_table=None) -> list:
+        """Each data shard's rows of each host array of ``arrays`` and,
+        where given, of ``page_table`` in its arena's local block ids, on
+        its device in one copy."""
+        ins = []
         for sh, rows in enumerate(self.rows):
             host = [np.asarray(a)[rows] for a in arrays]
             if page_table is not None:
                 host.append(self.pool.local_page_table(sh, page_table))
-            outs.append(launch(sh, *self.put(*host, shard=sh)))
-        return _joined(outs)
+            ins.append(self.put(*host, shard=sh))
+        return ins
 
     def run_ragged(self, flat_tokens, flat_pos, qlen, qstart, widths=None):
         """The tick's ragged launch at a bucketed flat width, one per data
         shard: ``widths`` (one per shard, summing to the flat width;
         default: the whole width, one shard) cuts the flat batch into
-        each shard's own packing."""
-        outs, o = [], 0
-        for sh, (rows, w) in enumerate(zip(
-                self.rows, widths or [flat_tokens.shape[1]])):
-            outs.append(self.ragged_fn(*self.put(
+        each shard's own packing.  A MoE tier's shards run as one forward
+        (:meth:`forward_shards`)."""
+        widths = widths or [flat_tokens.shape[1]]
+        ins = self._flat_inputs(flat_tokens, flat_pos, qlen, qstart,
+                                widths)
+        if not self.joint:
+            return _joined([self.ragged_fn(*i, shard=sh)
+                            for sh, i in enumerate(ins)])
+        logits = self.forward_shards(
+            "ragged_step", [(t, p, {"page_table": pt, "q_len": q,
+                                    "q_start": qs})
+                            for t, p, pt, q, qs, *_ in ins],
+            self.flat_layout(qlen, widths))
+        return _joined([self.pick(transformer.last_slot_gather(
+            lg, i[3], flat=True)) for lg, i in zip(logits, ins)])
+
+    def _flat_inputs(self, flat_tokens, flat_pos, qlen, qstart, widths,
+                     *extra):
+        """Each data shard's cut of a flat batch, its page table, its
+        rows of ``qlen``, ``qstart`` and each array of ``extra``, on its
+        device in one copy."""
+        ins, o = [], 0
+        for sh, (rows, w) in enumerate(zip(self.rows, widths)):
+            ins.append(self.put(
                 flat_tokens[:, o:o + w], flat_pos[:, o:o + w],
                 self.pool.local_page_table(sh), qlen[rows], qstart[rows],
-                shard=sh), shard=sh))
+                *(np.asarray(e)[rows] for e in extra), shard=sh))
             o += w
-        return _joined(outs)
+        return ins
 
     def run_spec(self, flat_tokens, flat_pos, qlen, qstart, draft_len,
-                 draft_steps: int) -> dict:
-        """The speculative launch: :meth:`run_ragged`'s flat batch plus
-        each row's draft budget ``draft_len`` [capacity], in one copy."""
-        return self.spec_fn(*self.put(flat_tokens, flat_pos,
-                                      self.pool.page_table, qlen, qstart,
-                                      draft_len), draft_steps)
+                 widths=None) -> tuple:
+        """The speculative launch, one per data shard: :meth:`run_ragged`'s
+        flat batch plus each row's draft budget ``draft_len`` [capacity],
+        in one copy a shard; each shard's draft loop runs ``max(its
+        draft_len) - 1`` decode steps on its own (a draft tier routes no
+        MoE layer, :meth:`spec_fn`).  Returns the outputs joined
+        (:class:`Sharded` values for more than one shard) and the draft
+        steps summed over the shards."""
+        widths = widths or [flat_tokens.shape[1]]
+        ins = self._flat_inputs(flat_tokens, flat_pos, qlen, qstart,
+                                widths, draft_len)
+        steps = [max(int(np.asarray(draft_len)[rows].max()) - 1, 0)
+                 for rows in self.rows]
+        logits = [None] * self.data_shards
+        if self.joint:
+            logits = self.forward_shards(
+                "ragged_step", [(self._clamped(t), p,
+                                 {"page_table": pt, "q_len": q,
+                                  "q_start": qs})
+                                for t, p, pt, q, qs, _ in ins],
+                self.flat_layout(qlen, widths))
+        outs = [self.spec_fn(*i, steps[sh], shard=sh, logits=logits[sh])
+                for sh, i in enumerate(ins)]
+        if len(outs) == 1:
+            return outs[0], steps[0]
+        # each shard's drafts to the widest shard's columns
+        for o in outs:
+            for k in ("draft_tok", "draft_conf"):
+                if k in o:
+                    o[k] = torch.nn.functional.pad(
+                        o[k], (0, max(steps) + 1 - o[k].shape[1]))
+        return {k: Sharded(o[k] for o in outs) for k in outs[0]}, sum(steps)
 
     def run_mixed(self, tokens, pos, qlen):
         """The padded unified launch, one per data shard: each row
         scatters into and attends its own pages, so no page-table masking
         is needed."""
-        return self._per_shard(
-            lambda sh, t, p, q, pt: self.mixed_fn(t, p, pt, q, shard=sh),
-            (tokens, pos, qlen), self.pool.page_table)
+        ins = self._shard_inputs((tokens, pos, qlen), self.pool.page_table)
+        if not self.joint:
+            return _joined([self.mixed_fn(t, p, pt, q, shard=sh)
+                            for sh, (t, p, q, pt) in enumerate(ins)])
+        logits = self.forward_shards(
+            "mixed_step", [(t, p, {"page_table": pt, "q_len": q})
+                           for t, p, q, pt in ins],
+            self.row_layout(tokens.shape[1]))
+        return _joined([self.pick(transformer.last_slot_gather(
+            lg, i[2], flat=False)) for lg, i in zip(logits, ins)])
 
-    def run_prefill(self, prompts):
-        """The uniform prefill launch over all rows."""
-        return self.prefill_fn(*self.put(prompts))
+    def run_prefill(self, slot_ids, prompts):
+        """The uniform prefill launch, one per data shard holding an
+        admitted row (a shard with none does not launch): each shard
+        prefills ``[capacity / D, prompt_len]`` on its device — its
+        admitted rows in admission order, then zero rows — with its
+        weights (a MoE tier's shards as one forward, routed over the JAX
+        package's packed ``[capacity, prompt_len]`` batch).  Returns
+        ``(parts, tok, conf, order)``: each launching shard's ``(slots,
+        part cache)``, the first picks joined over the launching shards'
+        rows, and where each admitted request's pick sits in them."""
+        span, plen = self.rows[0].stop, np.shape(prompts)[1]
+        by_shard = {}
+        for i, slot in enumerate(slot_ids):
+            by_shard.setdefault(slot // span, []).append(i)
+        shards = sorted(by_shard)
+        ins = []
+        for sh in shards:
+            batch = np.zeros((span, plen), np.int32)
+            batch[:len(by_shard[sh])] = np.asarray(prompts)[by_shard[sh]]
+            ins.append(self.put(batch, shard=sh))
+        if self.joint:
+            slots = []
+            for sh in shards:
+                sl = np.full((span, plen), self.capacity * plen, np.int64)
+                for r, i in enumerate(by_shard[sh]):
+                    sl[r] = i * plen + np.arange(plen)
+                slots.append(sl.ravel())
+            res = self.forward_shards(
+                "prefill", [(b, None, None) for (b,) in ins],
+                transformer.MoeLayout(slots, self.capacity * plen), shards)
+            outs = [(part, *self.pick(lg[:, -1])) for lg, part in res]
+        else:
+            outs = [self.prefill_fn(b, shard=sh)
+                    for sh, (b,) in zip(shards, ins)]
+        parts = [([slot_ids[i] for i in by_shard[sh]], part)
+                 for sh, (part, _, _) in zip(shards, outs)]
+        order = [0] * len(slot_ids)
+        for k, sh in enumerate(shards):
+            for r, i in enumerate(by_shard[sh]):
+                order[i] = k * span + r
+        _, tok, conf = _joined(outs)
+        return parts, tok, conf, order
 
     def run_chunk(self, tokens, pos, qlen):
         """The split executor's chunk launch over the prefill rows, one
         per data shard."""
-        return self._per_shard(
-            lambda sh, t, p, q, pt: self.chunk_fn(t, p, pt, q, shard=sh),
-            (tokens, pos, qlen), self.pool.page_table)
+        ins = self._shard_inputs((tokens, pos, qlen), self.pool.page_table)
+        if not self.joint:
+            return _joined([self.chunk_fn(t, p, pt, q, shard=sh)
+                            for sh, (t, p, q, pt) in enumerate(ins)])
+        logits = self.forward_shards(
+            "prefill_chunk", [(t, p, {"page_table": pt, "q_len": q})
+                              for t, p, q, pt in ins],
+            self.row_layout(tokens.shape[1]))
+        return _joined([self.pick(transformer.last_slot_gather(
+            lg, i[2], flat=False)) for lg, i in zip(logits, ins)])
 
     def run_step(self, tok, mask_rows=(), first=None, fresh=()):
         """The split executor's decode launch, one per data shard: row s
@@ -734,16 +910,22 @@ class _TierRuntime:
         is_fresh = np.zeros(self.capacity, np.int32)
         is_fresh[list(fresh)] = 1
         pt = self.masked_page_table(mask_rows) if self.paged else None
-
-        def launch(sh, tok_in, is_fresh, pos, pt=None):
+        ins = self._shard_inputs((np.asarray(tok, np.int32)[:, None],
+                                  is_fresh, self.pos[:, None]), pt)
+        steps = []
+        for sh, (tok_in, fr, pos, *page) in enumerate(ins):
             if first is not None:
                 f = first[sh] if isinstance(first, Sharded) else first
-                tok_in = torch.where(is_fresh[:, None].bool(),
+                tok_in = torch.where(fr[:, None].bool(),
                                      f[:, None].to(torch.int32), tok_in)
-            return self.step_fn(tok_in, pos, pt, shard=sh)
-        return self._per_shard(
-            launch, (np.asarray(tok, np.int32)[:, None], is_fresh,
-                     self.pos[:, None]), pt)
+            steps.append((tok_in, pos, page[0] if page else None))
+        if not self.joint:
+            return _joined([self.step_fn(*st, shard=sh)
+                            for sh, st in enumerate(steps)])
+        logits = self.forward_shards(
+            "decode", [(t, p, None if pt is None else {"page_table": pt})
+                       for t, p, pt in steps], self.row_layout(1))
+        return _joined([self.pick(lg[:, 0]) for lg in logits])
 
     def masked_page_table(self, mask_rows: Sequence[int] = ()):
         """The host page tables a launch copies to the device (the JAX
@@ -1401,9 +1583,10 @@ class CascadeEngine:
                 prompts[i] = req.prompt
             try:
                 with self._annotate("run_prefill", rt):
-                    part_cache, ftok, fconf = self._launch(
+                    parts, ftok, fconf, order = self._launch(
                         tier, "run_prefill",
-                        lambda p=prompts: rt.run_prefill(p))
+                        lambda p=prompts, s=list(slot_ids):
+                            rt.run_prefill(s, p))
                 break
             except _RetryExhausted as e:
                 req, slot = reqs.pop(), slot_ids.pop()
@@ -1421,15 +1604,16 @@ class CascadeEngine:
             tr.phase("launch", tier, t0, tick=self.tick_id, kind="prefill",
                      width=self.prompt_len)
         self.metrics.record_launches(tier, "prefill")
-        if rt.paged:
-            rt.pool.write_prefill(slot_ids, part_cache, self.prompt_len)
-        else:
-            rt.pool.write_prefill(slot_ids, part_cache)
-        del part_cache
+        for slots, part in parts:
+            if rt.paged:
+                rt.pool.write_prefill(slots, part, self.prompt_len)
+            else:
+                rt.pool.write_prefill(slots, part)
+        del parts
         # timestamp with the post-compute clock, so TTFT includes prefill
         ftok, fconf = self._fetch(tier, ftok, fconf)
         t_emit = self.clock.now()
-        for i, (req, slot) in enumerate(zip(reqs, slot_ids)):
+        for i, (req, slot) in zip(order, zip(reqs, slot_ids)):
             shard = rt.pool.shard_of(slot) if rt.paged else None
             self._trace_req(req, "PREFILL", tier, shard)
             req.start_decode(t_emit)
@@ -1825,12 +2009,10 @@ class CascadeEngine:
             try:
                 with self._annotate(name, rt):
                     if rt.spec_k:
-                        steps = max(int(plan.draft_len.max()) - 1, 0)
-                        spec = self._launch(
-                            tier, name,
-                            lambda p=plan, n=steps: rt.run_spec(
+                        spec, steps = self._launch(
+                            tier, name, lambda p=plan: rt.run_spec(
                                 p.flat_tokens, p.flat_pos, p.q_len,
-                                p.q_start, p.draft_len, n))
+                                p.q_start, p.draft_len, p.flat_widths))
                         tok, conf = spec["tok"], spec["conf"]
                         processed, kind = plan.flat_width, "spec"
                     elif rt.ragged:
@@ -2282,7 +2464,7 @@ class CascadeEngine:
                 for w in rt.flat_buckets:
                     z = np.zeros((1, w * rt.data_shards), np.int32)
                     if rt.spec_k:
-                        rt.run_spec(z, z, zr, zr, zr, 0)
+                        rt.run_spec(z, z, zr, zr, zr, [w] * rt.data_shards)
                     else:
                         rt.run_ragged(z, z, zr, zr, [w] * rt.data_shards)
             elif rt.unified:
@@ -2294,8 +2476,12 @@ class CascadeEngine:
                     z = np.zeros((rt.capacity, rt.chunk), np.int32)
                     rt.run_chunk(z, z, zr)
                 else:
-                    rt.run_prefill(np.zeros((rt.capacity, self.prompt_len),
-                                            np.int32))
+                    # one row a shard, so that every shard prefills
+                    span = rt.rows[0].stop
+                    rt.run_prefill(
+                        list(range(0, rt.capacity, span)),
+                        np.zeros((rt.data_shards, self.prompt_len),
+                                 np.int32))
                 rt.run_step(zr)
         for dev in {d for rt in self.runtimes for d in (
                 rt.mesh.devices.flat if rt.mesh is not None

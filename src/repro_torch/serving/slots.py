@@ -16,8 +16,9 @@ Each cascade tier owns
     and keeps one ``[capacity, ...]`` row per request.
 
 :meth:`TierSlotPool.write_prefill` scatters a uniform prefill's part
-cache into the arena; :class:`DenseTierSlotPool` is the one-row-per-
-request ``[capacity, max_seq, ...]`` arena of ``--dense-kv``.
+cache into the arena (one data shard's at a time); :class:`DenseTierSlotPool`
+is the one-row-per-request ``[capacity, max_seq, ...]`` arena of
+``--dense-kv``, its rows split over the data shards too.
 
 Freeing returns blocks to the free list without touching device memory.
 Reuse is safe because a block only becomes reachable through a row's page
@@ -855,24 +856,31 @@ class TierSlotPool:
 
     def write_prefill(self, slot_ids: Sequence[int], part_cache,
                       prompt_len: int) -> None:
-        """Scatter a packed prefill cache (rows ``0..n-1`` of a
-        ``[capacity, prompt_len, ...]`` tree from ``transformer.prefill``)
-        into the arena, in place: attention KV through the page tables
-        into the block pool, recurrent leaves into their request rows,
-        each sliced to the ``n`` admitted rows.  ``bind`` must have mapped
-        each slot's prompt pages already.  Unsharded pools only (the
-        uniform prefill path takes no data shards)."""
-        self._one_shard("write_prefill")
+        """Scatter a packed prefill cache (rows ``0..n-1`` of a ``[rows,
+        prompt_len, ...]`` tree from ``transformer.prefill``) into the
+        arena, in place: attention KV through the page tables (in the
+        shard's local block ids) into the block pool, recurrent leaves
+        into their request rows (the shard's local rows), each sliced to
+        the ``n`` admitted rows.  Every slot lies on one data shard, whose
+        arena the part cache was computed beside; ``bind`` must have
+        mapped each slot's prompt pages already.  One model shard."""
+        shard = _one_shard_of(self.shard_of, slot_ids)
+        if self.model_shards != 1:
+            raise ValueError("write_prefill: the uniform prefill takes no "
+                             "model axis")
         n = len(slot_ids)
         ids = np.asarray(slot_ids, np.int64)
-        dev = next(iter(tree_leaves(self.cache))).device
+        tree = self.caches[shard]
+        dev = next(iter(tree_leaves(tree))).device
         # token t of row i lives at (page_table[slot_i, t // bs], t % bs)
         t = np.arange(prompt_len)
-        blk = torch.from_numpy(self.page_table[ids][:, t // self.block_size]
+        pt = self.local_page_table(shard)
+        local = ids - shard * self._row_span
+        blk = torch.from_numpy(pt[local][:, t // self.block_size]
                                .astype(np.int64)).to(dev)
         off = torch.from_numpy(np.broadcast_to(
             t % self.block_size, (n, prompt_len)).astype(np.int64)).to(dev)
-        rows = torch.from_numpy(ids).to(dev)
+        rows = torch.from_numpy(local).to(dev)
 
         def write(full, part, meta):
             kind, ax = meta
@@ -880,7 +888,7 @@ class TierSlotPool:
                 _write_paged(full, part, ax, blk, off)
             else:
                 _write_rows(full, part.narrow(ax, 0, n), ax, rows)
-        tree_map(write, self.cache, part_cache, self._meta)
+        tree_map(write, tree, part_cache, self._meta)
 
     # -- memory accounting -------------------------------------------------
 
@@ -912,23 +920,47 @@ class TierSlotPool:
         }
 
 
+def _one_shard_of(shard_of, slot_ids: Sequence[int]) -> int:
+    """The one data shard that every slot of ``slot_ids`` lies on."""
+    shards = {shard_of(int(s)) for s in slot_ids}
+    if len(shards) != 1:
+        raise ValueError(f"slots {list(slot_ids)} lie on data shards "
+                         f"{sorted(shards)}: write each shard's apart")
+    return shards.pop()
+
+
 class DenseTierSlotPool:
     """The one-row-per-request arena (``[capacity, max_seq, ...]`` KV rows
     and recurrent state, from :func:`repro_torch.models.cache.init_cache`)
     of ``CascadeEngine(use_paged_kv=False)``: no blocks, no page tables
     (and no ``shrink``: a fault plan's shrink skips this arena); a row's
-    KV sits at its own positions.  One data shard: ``caches`` holds its
-    one tree."""
+    KV sits at its own positions.
+
+    ``mesh`` (or ``data_shards`` without one, every shard on ``device``)
+    splits the request rows into ``D`` contiguous shards, as the JAX
+    package lays the arena out by ``cache_specs`` (``batch`` over the
+    data axis): ``caches[s]`` holds shard ``s``'s ``[capacity / D,
+    max_seq, ...]`` rows on its device.  No model axis."""
 
     def __init__(self, cfg, capacity: int, max_seq: int,
-                 dtype=torch.float32, *, device="cuda"):
+                 dtype=torch.float32, *, device="cuda", mesh=None,
+                 data_shards: Optional[int] = None):
         self.cfg = cfg
         self.capacity = capacity
         self.max_seq = max_seq
         self.dtype = dtype
+        self.data_shards = (data_axis_size(mesh) if data_shards is None
+                            else int(data_shards))
+        if self.data_shards <= 0 or capacity % self.data_shards:
+            raise ValueError(
+                f"capacity {capacity} must divide into {self.data_shards} "
+                "data shards")
+        self._row_span = capacity // self.data_shards
+        devices = (mesh.data_devices() if mesh is not None
+                   else [torch.device(device)] * self.data_shards)
         decl = cache_lib.declare_cache(cfg, capacity, max_seq, dtype)
-        self.caches = [cache_lib.init_cache(cfg, capacity, max_seq, dtype,
-                                            device)]
+        self.caches = [cache_lib.init_cache(cfg, self._row_span, max_seq,
+                                            dtype, dev) for dev in devices]
         self._bax = tree_map(lambda c: c.axes.index("batch"), decl)
         self._kv_bytes = sum(
             math.prod(c.shape) * torch.empty((), dtype=c.dtype).element_size()
@@ -936,22 +968,30 @@ class DenseTierSlotPool:
 
     @property
     def cache(self):
+        """The one shard's rows (a sharded arena's are in :attr:`caches`)."""
+        if self.data_shards != 1:
+            raise ValueError(f"cache: the arena has {self.data_shards} data "
+                             "shards; use caches[shard]")
         return self.caches[0]
 
-    @cache.setter
-    def cache(self, tree) -> None:
-        self.caches[0] = tree
+    def shard_of(self, slot: int) -> int:
+        """The data shard owning request row `slot`."""
+        return slot // self._row_span
 
     def write_prefill(self, slot_ids: Sequence[int], part_cache) -> None:
         """Write a packed prefill cache's first ``len(slot_ids)`` rows into
         those request rows (KV at positions ``0..prompt_len-1``), in
-        place."""
+        place; every slot lies on one data shard, written at its local
+        rows."""
+        shard = _one_shard_of(self.shard_of, slot_ids)
         n = len(slot_ids)
-        dev = next(iter(tree_leaves(self.cache))).device
-        rows = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+        tree = self.caches[shard]
+        dev = next(iter(tree_leaves(tree))).device
+        rows = torch.as_tensor(np.asarray(slot_ids, np.int64)
+                               - shard * self._row_span, device=dev)
         tree_map(lambda full, part, bax: _write_rows(
             full, part.narrow(bax, 0, n), bax, rows),
-            self.cache, part_cache, self._bax)
+            tree, part_cache, self._bax)
 
     def memory_stats(self) -> dict:
         total = self._kv_bytes
@@ -960,6 +1000,6 @@ class DenseTierSlotPool:
             "num_blocks": self.capacity,
             "kv_arena_bytes": total,
             "kv_high_water_bytes": total,
-            "data_shards": 1,
+            "data_shards": self.data_shards,
             "dense_equiv_bytes": total,
         }

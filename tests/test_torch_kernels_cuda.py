@@ -1062,6 +1062,74 @@ def test_cuda_flash_attention_matches_plain(case, dtype, cuda_device):
                                rtol=1e-4 if dtype == torch.float32 else 1e-2)
 
 
+# (B, H, KV, S, d, window): one data shard's uniform prefill on a 2x1
+# tier of 8 slots, 4 rows of 640 tokens: phi4-mini-3.8b, and gemma3-1b's
+# sliding (window 512) and global layers
+DATA_SHARD_PREFILL = {
+    "phi4-4x640": (4, 24, 8, 640, 128, None),
+    "gemma3-4x640-window512": (4, 4, 1, 640, 256, 512),
+    "gemma3-4x640-global": (4, 4, 1, 640, 256, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DATA_SHARD_PREFILL))
+def test_cuda_flash_attention_data_shard_prefill(case, cuda_device):
+    """A data shard's prefill batch against the plain version, within
+    atol = rtol = 1e-4."""
+    B, H, KV, S, d, window = DATA_SHARD_PREFILL[case]
+    q, k, v = (torch.from_numpy(a)
+               for a in _flash_inputs(len(case), B, H, KV, S, S, d))
+    got = flash_mod.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                    v.to(cuda_device), causal=True,
+                                    window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_route_over_data_shards(cuda_device):
+    """granite's published route (40 experts, top-8, capacity factor
+    1.25) over a ragged launch of two data shards holding 200 and 240
+    live tokens, each packed at width 256, gathered into the tier's
+    bucket of 512 by ``transformer.route_data_shards``: each shard's
+    ``dest`` bit-equal to the unsharded route's over the gathered logits
+    (and the plain version's), its padding on the spare row at weight 0,
+    its weights within 1.2e-7."""
+    from repro_torch.models import transformer
+    spec = next(l.ffn for l in get_config("granite-moe-3b-a800m", "").layers
+                if l.ffn.kind == "moe")
+    E, k, total, live = spec.num_experts, spec.top_k, 512, (200, 240)
+    x = torch.from_numpy(_router_logits((sum(live), E), k, seed=31))
+    logits, slots, o = [], [], 0
+    for n in live:
+        lg = torch.zeros(256, E)
+        lg[:n] = x[o:o + n]
+        logits.append(lg.to(cuda_device))
+        slots.append(np.concatenate([o + np.arange(n), [total] * (256 - n)]))
+        o += n
+    full = torch.zeros(1, total, E)
+    full[0, :o] = x
+    cap = _route_cap(total, k, E, spec.capacity_factor)
+    got = transformer.route_data_shards(
+        spec, logits, transformer.MoeLayout(slots, total))
+    _, _, dest, w = (t.cpu() for t in router_mod.moe_route(
+        full.to(cuda_device), k, cap))
+    _, _, ref_d, ref_w = router_mod.moe_route_ref(full, k, cap)
+    assert torch.equal(dest, ref_d)
+    o = 0
+    for (d, ww, rows), n in zip(got, live):
+        d, ww = d.cpu(), ww.cpu()
+        assert rows == cap and d.shape == ww.shape == (256, k)
+        assert torch.equal(d[:n], dest[0, o:o + n])
+        assert bool((d[n:] == E * cap).all()) and not ww[n:].any()
+        torch.testing.assert_close(ww[:n], w[0, o:o + n], atol=1.2e-7,
+                                   rtol=0)
+        torch.testing.assert_close(ww[:n], ref_w[0, o:o + n], atol=1.2e-7,
+                                   rtol=0)
+        o += n
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_unaligned_views(cuda_device):
     """Inputs whose storage starts one element off the 16-byte alignment

@@ -550,24 +550,28 @@ def test_shard_assignments_match_jax_on_8_host_devices(weights, jax_shards,
 
 
 @pytest.mark.parametrize("flags,mesh,err", [
-    ({"use_chunked_prefill": False}, (2, 1), NotImplementedError),
-    ({"use_paged_kv": False}, (2, 1), NotImplementedError),
-    ({"speculation_k": 2}, (2, 1), NotImplementedError),
+    ({"speculation_k": 2}, (1, 2), NotImplementedError),
+    ({"use_paged_kv": False}, (1, 2), NotImplementedError),
+    ({"expensive": "musicgen-large", "reason": "a modality frontend"},
+     (1, 2), NotImplementedError),
     ({"use_chunked_prefill": False}, (1, 2), NotImplementedError),
     ({"expensive": "rwkv6-3b"}, (1, 2), NotImplementedError),
     ({}, (1, 3), ValueError),
     ({"slots": 6}, (4, 1), ValueError),
     ({"kv_block_size": 4, "kv_blocks": 8}, (2, 1), ValueError)],
-    ids=["uniform", "dense", "speculation", "model-axis-uniform",
-         "model-axis-rwkv6", "model-axis-heads", "uneven-rows",
-         "blocks-per-shard"])
+    ids=["model-axis-speculation", "model-axis-dense",
+         "model-axis-frontend", "model-axis-uniform", "model-axis-rwkv6",
+         "model-axis-heads", "uneven-rows", "blocks-per-shard"])
 def test_unsupported_meshes_raise(weights, flags, mesh, err):
-    """Data shards under uniform prefill, the dense arena or speculation,
-    and a model axis over 1 under uniform prefill or on an RWKV-6 tier,
-    raise naming the ROADMAP item; a model axis that does not divide the
-    query heads (3 of the smoke models' 4) raises ValueError naming the
-    shapes; uneven rows and too few blocks per shard raise the JAX
+    """A model axis over 1 under speculation, the dense arena or uniform
+    prefill, or on a frontend or RWKV-6 tier, raises naming the ROADMAP
+    item (data shards serve all of them:
+    ``tests/test_torch_data_axis.py``); a model axis that does not divide
+    the query heads (3 of the smoke models' 4) raises ValueError naming
+    the shapes; uneven rows and too few blocks per shard raise the JAX
     engine's errors (the pool's, held to JAX above)."""
+    flags = dict(flags)
+    reason = flags.pop("reason", None)
     if "expensive" in flags:
         name = flags.pop("expensive")
         cfg = configs_of(name)[1]
@@ -575,11 +579,16 @@ def test_unsupported_meshes_raise(weights, flags, mesh, err):
                    dict(weights[1], **{EXP: init_params(cfg, 1,
                                                         device="cpu")}),
                    weights[2])
+    meshes = _meshes(*mesh)
+    if reason is not None:
+        meshes[0] = None            # the model axis on the refused tier only
     with pytest.raises(err) as e:
-        _engine(weights, _meshes(*mesh), 0.5, **flags)
+        _engine(weights, meshes, 0.5, **flags)
     msg = str(e.value)
     if err is NotImplementedError:
-        assert "ROADMAP" in msg
+        assert "ROADMAP Queue 1, item 2" in msg
+        assert reason is None or f"tier exp: a model axis of 2 under " \
+            f"{reason}" in msg
     elif mesh[1] > 1:
         assert msg == ("gemma3-1b-smoke: a model axis of 3 has no "
                        "head-parallel layout for 4 query heads and 1 KV "
