@@ -21,7 +21,10 @@ without printing a result):
      112 in f32, bf16 and over int8 pools; 384 experts, top-8); phase
      11's data shards: ``flash_attention`` at a shard's prefill batch of
      4 x 640 and granite's route gathered from two shards' logits
-     (``transformer.route_data_shards``); the ragged kernel also at the
+     (``transformer.route_data_shards``); phase 12's model shards:
+     ``flash_attention`` at one shard's heads of phi4, gemma3 and
+     qwen2-vl, ``rwkv6_scan`` at 20 heads, ``mamba_scan`` at 4096
+     channels; the ragged kernel also at the
      flat
      widths 48 and 160 of phase 4e's bucket override), with CUDA-event
      times for the
@@ -170,7 +173,8 @@ without printing a result):
      confidences and block conservation, tokens/s, TTFT and peak memory;
   9. multi-device serving, after phase 4e on phase 4's weights
      (``check_multidevice``; alone: ``scripts/torch_multidevice_phase.py``):
-     (9a) the workload unsharded and with both tiers on ``2x1`` meshes
+     (9a) the workload (8 requests since PR 32) unsharded and with both
+     tiers on ``2x1`` meshes
      over the first card twice (two data shards a tier: rows, KV blocks
      and prefix index per shard, each launch once per shard), in turns
      (unsharded, sharded, sharded, unsharded; traced: each tier's host
@@ -188,7 +192,8 @@ without printing a result):
      (10a) teacher-forced full-bucket ragged steps of gemma3-1b and
      phi4-mini-3.8b on two model shards over the first card twice
      against unsharded (logits within 1e-4, argmax equal past that
-     margin); the workload unsharded and with both tiers on ``1x2``
+     margin); the workload (8 requests since PR 32) unsharded and with
+     both tiers on ``1x2``
      meshes over the first card twice with ``--shard-params``, in turns
      (traced) — same-tier streams equal, the attention kernels exactly
      twice the unsharded formula, the gate once; then
@@ -204,12 +209,34 @@ without printing a result):
      same-tier streams equal, peak memory without a second copy of the
      weights: (11a, after phase 10 on phase 4's weights) the uniform
      prefill path (640-token prompts), then the dense arena; (11b)
-     speculation at k = 4, ``gen_len`` 16; (11c, after phase 5's MoE
-     cascade) granite-moe-3b-a800m cut to 2 layers teacher-forced on
+     speculation at k = 4, ``gen_len`` 8 (16 before PR 32); (11c,
+     after phase 5's MoE cascade) granite-moe-3b-a800m cut to 2 layers
+     teacher-forced on
      two data shards against unsharded over the JAX layout and against
      the CPU, then its cascade served (``moe_route`` once a MoE layer a
      tier launch; streams recorded, not held); (11d, after the RWKV-6 cascade)
-     gemma3-1b -> rwkv6-3b on ``2x1``.
+     gemma3-1b -> rwkv6-3b on ``2x1``;
+ 12. the model axis under every executor and tier family (alone:
+     ``scripts/torch_model_axis_executors_phase.py``), both tiers on
+     ``1x2`` over the first card twice with ``--shard-params`` against
+     unsharded (phase 11's unsharded runs where the workload and the
+     weights are the same), 8 requests a run, launches exact (every
+     kernel twice the unsharded formula, the gate once), same-tier
+     streams equal, blocks conserved, peak memory without a second copy
+     of the weights:
+     (12a, after phase 11b on phase 4's weights) the uniform prefill,
+     then the dense arena; (12b) speculation at k = 4; (12c, after 11d)
+     gemma3-1b -> rwkv6-3b (RWKV-6 heads split); (12d, after phase 5's
+     jamba) -> jamba-v0.1-52b cut to 1 period (Mamba channels, experts
+     and heads split); (12e, after phase 8) -> qwen2-vl-72b cut to 8
+     layers (the frontend's rows and M-RoPE heads split); 12c-e each also
+     teacher-force a uniform prefill and one dense decode step of the
+     tier cut to 2 layers (jamba: the narrow 8-layer period) on two
+     model shards against unsharded, logits within 5e-5; (12b, only with
+     five cards or more) qwen2-vl-72b at its 80 layers drawn a model
+     shard a card on a ``1x4`` mesh behind gemma3-1b on a fifth card,
+     its fit per card printed first, slots halved until it fits (with
+     fewer cards, a line saying 12b did not run).
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -255,7 +282,8 @@ from repro_torch.launch.mesh import make_tier_mesh  # noqa: E402
 from repro_torch.models import (blocks, classifier,  # noqa: E402
                                 init_params, sharding, transformer)
 from repro_torch.models import params as params_lib  # noqa: E402
-from repro_torch.models.cache import init_paged_cache  # noqa: E402
+from repro_torch.models.cache import (declare_paged_cache,  # noqa: E402
+                                     init_paged_cache)
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import Optimizer  # noqa: E402
 from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
@@ -1168,6 +1196,13 @@ def check_flash(dev, flush):
         ("phi4 data shard", 4, 24, 8, 128, None, 640, "f32"),
         ("gemma data shard window=512", 4, 4, 1, 256, 512, 640, "f32"),
         ("gemma data shard global", 4, 4, 1, 256, None, 640, "f32"),
+        # phase 12's uniform prefill on 1x2 tiers: each model shard's
+        # query and KV heads of 8 rows (phi4's 12 over 4, gemma3's 2 over
+        # its one, qwen2-vl's 32 over 4 at 1152 tokens)
+        ("phi4 model shard", 8, 12, 4, 128, None, 640, "f32"),
+        ("gemma model shard window=512", 8, 2, 1, 256, 512, 640, "f32"),
+        ("gemma model shard global", 8, 2, 1, 256, None, 640, "f32"),
+        ("qwen2-vl model shard", 8, 32, 4, 128, None, 1152, "f32"),
         # phase 8's uniform prefills: qwen2-vl-72b's 1152-token prompts
         # (1024 patch positions, then 128 text), the others' 640; kimi's
         # head width 112
@@ -1231,6 +1266,7 @@ RWKV_TOL = "y and final state atol=rtol=1e-4"
 def check_rwkv(dev, flush):
     """rwkv6_scan against its plain version at rwkv6-3b's uniform prefill:
     r, k, v, w [8, 40, 640, 64] (w = exp(-exp(.)) in (0, 1)), u [40, 64],
+    and at one of phase 12's two model shards' heads, [8, 20, 640, 64];
     both outputs (y and the final state) compared.  Work for the bound:
     the five inputs read and y and the state written once; per step and
     head 5·hd² f32 operations (2·hd² for r·S, 3·hd² for the decayed
@@ -1239,35 +1275,39 @@ def check_rwkv(dev, flush):
     so there is no yardstick."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    B, H, T, hd = 8, 40, 640, 64
-    r, k, v = (torch.randn(B, H, T, hd, generator=gen, device=dev) * 0.5
-               for _ in range(3))
-    w = torch.exp(-torch.exp(torch.randn(B, H, T, hd, generator=gen,
-                                         device=dev) * 0.5 - 0.5))
-    u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
-    y, s_T = rwkv_mod.rwkv6_scan(r, k, v, w, u)
-    torch.cuda.synchronize()
-    want_y, want_s = rwkv_mod.rwkv6_scan_ref(r, k, v, w, u)
-    errs = {"y": (y - want_y).abs().max().item(),
-            "state": (s_T - want_s).abs().max().item()}
-    ok = bool(torch.allclose(y, want_y, atol=1e-4, rtol=1e-4)
-              and torch.allclose(s_T, want_s, atol=1e-4, rtol=1e-4))
-    name = f"rwkv6-3b [{B}, {H}, {T}, {hd}] f32"
-    emit(check="rwkv6_scan", case=name, max_abs_err=errs, tol=RWKV_TOL,
-         ok=ok)
-    if not ok:
-        raise AssertionError(f"rwkv6_scan {name}: {errs}")
-    nbytes = 4 * (5 * r.numel() + u.numel() + s_T.numel())
-    nops = (5 * hd * hd + 3 * hd) * T * B * H
-    timed = {}
-    t = time_case(name, timed, lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
-                  lambda: rwkv_mod.rwkv6_scan_ref(r, k, v, w, u),
-                  (nbytes, nops), flush)
-    t["kernel_ms"] = kernel_ms(lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
-                               "rwkv6_scan", flush)
-    emit(timing="rwkv6_scan", case=name,
-         ptxas=ptxas_lines("rwkv6_scan", f"wkv_kernelILi{hd}E"), **t)
-    return max(errs.values()), timed
+    worst, timed = 0.0, {}
+    for label, (B, H, T, hd) in (("rwkv6-3b", (8, 40, 640, 64)),
+                                 ("rwkv6-3b model shard", (8, 20, 640, 64))):
+        r, k, v = (torch.randn(B, H, T, hd, generator=gen, device=dev) * 0.5
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(B, H, T, hd, generator=gen,
+                                             device=dev) * 0.5 - 0.5))
+        u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
+        y, s_T = rwkv_mod.rwkv6_scan(r, k, v, w, u)
+        torch.cuda.synchronize()
+        want_y, want_s = rwkv_mod.rwkv6_scan_ref(r, k, v, w, u)
+        errs = {"y": (y - want_y).abs().max().item(),
+                "state": (s_T - want_s).abs().max().item()}
+        ok = bool(torch.allclose(y, want_y, atol=1e-4, rtol=1e-4)
+                  and torch.allclose(s_T, want_s, atol=1e-4, rtol=1e-4))
+        name = f"{label} [{B}, {H}, {T}, {hd}] f32"
+        emit(check="rwkv6_scan", case=name, max_abs_err=errs, tol=RWKV_TOL,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"rwkv6_scan {name}: {errs}")
+        worst = max(worst, *errs.values())
+        nbytes = 4 * (5 * r.numel() + u.numel() + s_T.numel())
+        nops = (5 * hd * hd + 3 * hd) * T * B * H
+        t = time_case(name, timed,
+                      lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
+                      lambda: rwkv_mod.rwkv6_scan_ref(r, k, v, w, u),
+                      (nbytes, nops), flush)
+        t["kernel_ms"] = kernel_ms(
+            lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u), "rwkv6_scan", flush)
+        emit(timing="rwkv6_scan", case=name,
+             ptxas=ptxas_lines("rwkv6_scan", f"wkv_kernelILi{hd}E"), **t)
+        del r, k, v, w, u, y, s_T, want_y, want_s
+    return worst, timed
 
 
 MAMBA_TOL = "y and final state atol=rtol=1e-4"
@@ -1291,7 +1331,8 @@ def mamba_inputs(gen, dev, B, T, d, n):
 def check_mamba(dev, flush):
     """mamba_scan against its plain version at jamba-v0.1-52b's uniform
     prefill, x and dt [8, 640, 8192], B_t and C_t [8, 640, 16], A [8192,
-    16], and at a small ragged case (T = 70 off the 64-step chunk, d =
+    16], at one of phase 12's two model shards' channels, x [8, 640,
+    4096], and at a small ragged case (T = 70 off the 64-step chunk, d =
     200 off the 128-channel block, n 8): y and the final state both
     compared.  Work for the bound: the five inputs read and y and the
     state written once; per (b, t, channel) 7n + 1 f32 operations (dt·x,
@@ -1304,6 +1345,7 @@ def check_mamba(dev, flush):
     gen.manual_seed(7)
     worst, timed = 0.0, {}
     for label, (B, T, d, n) in (("jamba-v0.1-52b", (8, 640, 8192, 16)),
+                                ("jamba model shard", (8, 640, 4096, 16)),
                                 ("ragged", (2, 70, 200, 8))):
         args = mamba_inputs(gen, dev, B, T, d, n)
         y, h_T = mamba_mod.mamba_scan(*args)
@@ -3615,6 +3657,11 @@ MULTI_OVER = dict(kv_blocks=64, kv_block_size=32, preemption="youngest",
                   delta=1.0, shared_prefix_frac=0.75)
 
 
+# requests a run of 9a's and 10a's turns (phase 4's workload has 16): cut
+# to keep chip_smoke.py inside its time once phase 12 joined
+SHARD_TURN_REQUESTS = 8
+
+
 def card_devices() -> list:
     """``cuda:0 … cuda:{n-1}``: the cards phase 9 may place tiers on."""
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -3797,7 +3844,7 @@ def check_multidevice(card: str, params) -> dict:
     t0 = time.perf_counter()
     one = card_devices()[:1] * 2
     turns = [serve_meshed(card, params, f"{label}, turn {i}", mesh, one,
-                          traced=True)
+                          traced=True, requests=SHARD_TURN_REQUESTS)
              for i, (label, mesh) in enumerate((
                  ("unsharded", None), ("2x1 on one card", ["2x1"]),
                  ("2x1 on one card", ["2x1"]), ("unsharded", None)))]
@@ -4009,7 +4056,8 @@ def check_model_axis(card: str, params) -> dict:
     teacher-forced full-bucket ragged steps of gemma3-1b and
     phi4-mini-3.8b on two model shards over the first card twice
     against unsharded (:func:`compare_teacher_forced`); the workload
-    unsharded and with both tiers on ``1x2`` meshes over the first card
+    (:data:`SHARD_TURN_REQUESTS` requests) unsharded and with both tiers
+    on ``1x2`` meshes over the first card
     twice with ``--shard-params``, in turns (unsharded, sharded,
     sharded, unsharded; traced): same-tier streams equal, the attention
     kernels exactly twice the unsharded formula and the gate once,
@@ -4034,7 +4082,8 @@ def check_model_axis(card: str, params) -> dict:
         out[f"model axis {label} step"] = compare_teacher_forced(
             card, label, cfg, p, one)
     turns = [serve_meshed(card, params, f"model axis {label}, turn {i}",
-                          mesh, one, traced=True, shard_params=True)
+                          mesh, one, traced=True, shard_params=True,
+                          requests=SHARD_TURN_REQUESTS)
              for i, (label, mesh) in enumerate((
                  ("unsharded", None), ("1x2 on one card", [MODEL_MESH]),
                  ("1x2 on one card", [MODEL_MESH]), ("unsharded", None)))]
@@ -4118,7 +4167,8 @@ def check_model_axis_cards(card: str, params) -> dict:
 # the dense arena and speculation, and on MoE and RWKV-6 tiers
 DATA_MESH = "2x1"
 DATA_REQUESTS = 8
-DATA_SPEC_GEN_LEN = 16
+# speculation's gen_len in phases 11b and 12b (16 until phase 12 joined)
+DATA_SPEC_GEN_LEN = 8
 
 
 class PrefillTap:
@@ -4145,7 +4195,7 @@ class PrefillTap:
 
 
 def data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
-                       paged=True) -> dict:
+                       paged=True, models=None) -> dict:
     """Launches a run over data-sharded tiers must count (the engine's
     docstring formula): a tier of D shards launches each attention
     kernel and the gate D times a tier launch; a uniform prefill's
@@ -4153,10 +4203,15 @@ def data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
     admitted row (``prefills[t]``, warmup included); each draft-loop step
     of a shard (``steps``, summed over shards) one ``paged_attention`` a
     layer and one gate; ``moe_route`` once per MoE layer a tier launch,
-    however many shards.  ``warm`` adds the warmup's other launches."""
+    however many shards.  ``warm`` adds the warmup's other launches.  A
+    model axis of ``models[t]`` multiplies every kernel but the gate by
+    it (each model shard launches its share; the gate runs once on the
+    gathered logits)."""
     out = dict.fromkeys(COUNTED, 0)
     for t, cfg in enumerate(cfgs):
         n, d = layer_counts(cfg), shards[t]
+        m = 1 if models is None else models[t]
+        n = {k: v * m for k, v in n.items()}
         k = dict(kinds[t])
         for kind, w in warm[t].items():
             k[kind] = k.get(kind, 0) + w
@@ -4177,29 +4232,34 @@ def data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
 
 
 def serve_data_axis(card: str, params, label: str, tier_mesh=None,
-                    expensive=PHI4_NAME, **flags) -> dict:
+                    expensive=PHI4_NAME, cfgs=None, phase="data axis",
+                    devices=None, **flags) -> dict:
     """Serve :data:`DATA_REQUESTS` requests of phase 4's workload on
-    ``params`` (gemma3-1b -> ``expensive``) under ``--tier-mesh`` over
-    the first card twice, every counter set to 0 just before and read
-    just after.  Checks: launches exactly :func:`data_axis_launches`,
-    every request DONE (conservation), blocks conserved in every pool
-    and shard, confidences finite, host syncs at most one per active
-    tier a tick plus one per uniform prefill.  Returns the counts,
+    ``params`` (gemma3-1b -> ``expensive``; ``cfgs`` the tiers' configs
+    where they are cut) under ``--tier-mesh`` over ``devices`` (default:
+    the first card twice), every counter set to 0 just before and read
+    just after.  Checks:
+    launches exactly :func:`data_axis_launches` (with the tiers' model
+    axes), every request DONE (conservation), blocks conserved in every
+    pool and shard, confidences finite, host syncs at most one per
+    active tier a tick plus one per uniform prefill.  Returns the counts,
     per-request records, summary and peak memory."""
     args = main_path_args(expensive, requests=DATA_REQUESTS,
                           tier_mesh=tier_mesh,
-                          mesh_devices=card_devices()[:1] * 2, **flags)
+                          mesh_devices=devices or card_devices()[:1] * 2,
+                          **flags)
     torch.cuda.reset_peak_memory_stats()
     for name in COUNTED:
         getattr(ops, name).launches = 0
     with EngineTap() as tap, PrefillTap() as pre:
-        s = serve_async.run(args, None, params=params)
+        s = serve_async.run(args, None, params=params, cfgs=cfgs)
     torch.cuda.synchronize()
     counts = {name: getattr(ops, name).launches for name in COUNTED}
     peak = torch.cuda.max_memory_allocated()
     eng = tap.engine
-    cfgs = serve_async.tier_configs(args)
+    cfgs = serve_async.tier_configs(args, cfgs)
     shards = [rt.data_shards for rt in eng.runtimes]
+    models = [rt.model_shards for rt in eng.runtimes]
     kinds = s["launches_by_kind"]
     warm = [{"spec" if s["speculation_k"] else "ragged": len(b)}
             if b is not None else
@@ -4209,7 +4269,7 @@ def serve_data_axis(card: str, params, label: str, tier_mesh=None,
     steps = s["speculation"]["draft_steps_by_tier"]
     prefills = [pre.shards.get(rt.spec.name, []) for rt in eng.runtimes]
     want = data_axis_launches(cfgs, shards, kinds, warm, prefills, steps,
-                              s["paged_kv"])
+                              s["paged_kv"], models)
     problems = []
     if counts != want:
         problems.append(f"launches {counts} != {want}")
@@ -4231,8 +4291,9 @@ def serve_data_axis(card: str, params, label: str, tier_mesh=None,
     if args.speculate and not steps[0]:
         problems.append("the draft tier ran no draft step")
     gen_tokens = sum(args.gen_len * (r["tier"] + 1) for r in per_req)
-    emit(phase="data axis", run=label, card=card,
+    emit(phase=phase, run=label, card=card,
          tier_meshes=s["tier_meshes"], data_shards=shards,
+         model_shards=models,
          configs=[args.fast, args.expensive], requests=args.requests,
          gen_len=args.gen_len, steps=s["steps"],
          tier_launches=s["launches"], launches_by_kind=kinds,
@@ -4249,25 +4310,45 @@ def serve_data_axis(card: str, params, label: str, tier_mesh=None,
          stream_checksum=s["stream_checksum"], problems=problems)
     del tap, eng
     if problems:
-        raise AssertionError(f"data axis {label}: " + "; ".join(problems))
+        raise AssertionError(f"{phase} {label}: " + "; ".join(problems))
     return dict(counts=counts, per_req=per_req, summary=s, peak=peak)
+
+
+# unsharded runs by (run name, expensive tier, its weights, flags): phase
+# 12 holds its 1x2 runs against phase 11's unsharded ones where the
+# workload and the weights are the same, instead of serving them again
+_UNSHARDED = {}
 
 
 def data_axis_turns(card, params, name, flags, expensive=PHI4_NAME,
                     order=("unsharded", DATA_MESH),
-                    same_streams=True) -> dict:
+                    same_streams=True, cfgs=None,
+                    phase="data axis") -> dict:
     """Runs of :func:`serve_data_axis` in ``order`` (unsharded, or both
-    tiers on ``2x1``), held to the first: same-tier streams equal (with
-    ``same_streams``; a MoE tier whose capacity binds routes a sharded
-    tier's batch in another order, so its streams are only recorded),
-    and no run's peak memory more than half of gemma3-1b's weights above
-    the lowest unsharded one (a second copy of either tier's weights
-    would add 4-15 GB).  Emits the comparison; returns the runs'
-    counts."""
-    runs = [serve_data_axis(card, params, f"{name} {m}, turn {i}",
-                            None if m == "unsharded" else [m], expensive,
-                            **flags)
-            for i, m in enumerate(order)]
+    tiers on the mesh named, ``2x1`` or phase 12's ``1x2``), held to the
+    first: same-tier streams equal (with ``same_streams``; a MoE tier
+    whose capacity binds routes a sharded tier's batch in another order,
+    so its streams are only recorded), and no run's peak memory more
+    than half of gemma3-1b's weights above the lowest unsharded one (a
+    second copy of either tier's weights would add 4-15 GB).  An
+    unsharded run this call made before on the same weights and flags
+    (``--shard-params`` changes nothing without a mesh) is taken from
+    :data:`_UNSHARDED`, not served again, and its counts are not
+    returned twice.  Emits the comparison; returns the counts of the
+    runs served."""
+    key = (name, expensive, id(params[1]), tuple(sorted(
+        (k, repr(v)) for k, v in flags.items() if k != "shard_params")))
+    runs, reused = [], set()
+    for i, m in enumerate(order):
+        if m == "unsharded" and key in _UNSHARDED:
+            runs.append(_UNSHARDED[key])
+            reused.add(i)
+            continue
+        runs.append(serve_data_axis(card, params, f"{name} {m}, turn {i}",
+                                    None if m == "unsharded" else [m],
+                                    expensive, cfgs, phase, **flags))
+        if m == "unsharded":
+            _UNSHARDED[key] = runs[-1]
     differ = [same_tier_differences(runs[0]["per_req"], x["per_req"])
               for x in runs[1:]]
     fast_bytes = sum(t.numel() * t.element_size()
@@ -4282,16 +4363,18 @@ def data_axis_turns(card, params, name, flags, expensive=PHI4_NAME,
     tps = [sum(x["summary"]["gen_len"] * (r["tier"] + 1)
                for r in x["per_req"]) / x["summary"]["elapsed"]
            for x in runs]
-    emit(check=f"data axis {name}: {list(order)}", card=card,
+    emit(check=f"{phase} {name}: {list(order)}", card=card,
          tokens_per_s=tps, tick_p50_s=[x["summary"]["tick_duration_p50"]
                                        for x in runs],
          same_streams_required=same_streams,
          peak_bytes=[x["peak"] for x in runs], peak_growth_bytes=grew,
+         host_syncs=[x["summary"]["host_syncs"] for x in runs],
+         unsharded_run_reused=bool(reused),
          same_tier_differing_rids=differ, problems=problems)
     if problems:
-        raise AssertionError(f"data axis {name}: " + "; ".join(problems))
-    return {f"data axis {name} {m} {i}": x["counts"]
-            for i, (m, x) in enumerate(zip(order, runs))}
+        raise AssertionError(f"{phase} {name}: " + "; ".join(problems))
+    return {f"{phase} {name} {m} {i}": x["counts"]
+            for i, (m, x) in enumerate(zip(order, runs)) if i not in reused}
 
 
 def check_data_axis(card: str, params) -> dict:
@@ -4300,7 +4383,7 @@ def check_data_axis(card: str, params) -> dict:
     (8 prompts of exactly 640 tokens) unsharded and with both tiers on
     ``2x1`` over the first card twice, and the dense arena
     (``--dense-kv``) sharded and unsharded; (11b) speculation at k = 4,
-    ``gen_len`` 16, on ``2x1`` against unsharded.  Each run's launches exact
+    ``gen_len`` 8, on ``2x1`` against unsharded.  Each run's launches exact
     (:func:`data_axis_launches`), same-tier streams equal, peak memory
     without a second copy of the weights.  Returns the launch counts by
     run."""
@@ -4443,6 +4526,230 @@ def check_data_axis_rwkv(card: str, params) -> dict:
     return out
 
 
+# phase 12: the model axis under every executor and tier family -- both
+# tiers on 1x2 meshes over the one card, --shard-params, against
+# unsharded
+MODEL_EXEC = dict(shard_params=True)
+MODEL_ORDER = ("unsharded", MODEL_MESH)
+# a teacher-forced uniform prefill and one dense decode step: 8 rows of
+# 640 tokens (qwen2-vl's 1152: its 1024 patch positions, then 128 text)
+TF_PREFILL_ROWS, TF_PREFILL_TOL = 8, 5e-5
+
+
+def prefill_teacher_forced(cfg, weights, devices, tokens: int, seed=0):
+    """A uniform ``prefill`` of :data:`TF_PREFILL_ROWS` seeded prompts of
+    ``tokens`` ids (a frontend model's ``frontend_embeds`` seeded too),
+    its part cache written into a dense arena (``DenseTierSlotPool``),
+    then one dense ``decode_step`` of a seeded token at position
+    ``tokens``: unsharded (``weights`` a tree, ``devices`` one device) or
+    over ``len(devices)`` model shards (``weights`` one tree a model
+    shard; the arena one tree a model shard).  Returns the prefill's
+    last-position logits and the decode step's, each [rows, V], on the
+    first device."""
+    m, dev, rows = len(devices), devices[0], TF_PREFILL_ROWS
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, tokens),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.randn(
+            rows, cfg.frontend_len, cfg.frontend_dim, generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                        dtype=torch.int32).to(dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    group = None if m == 1 else sharding.ModelShards(devices)
+    pool = DenseTierSlotPool(cfg, rows, tokens + 1, device=dev,
+                             mesh=None if m == 1
+                             else make_tier_mesh(1, m, devices))
+    with torch.no_grad():
+        logits, part = transformer.prefill(weights, cfg, batch, group=group)
+        pool.write_prefill(list(range(rows)), part)
+        pos = torch.full((rows, 1), tokens, dtype=torch.int32, device=dev)
+        step, _ = transformer.decode_step(weights, cfg, nxt, pool.caches[0],
+                                          pos, group=group)
+    return logits[:, 0], step[:, 0]
+
+
+def compare_prefill_teacher_forced(card: str, label: str, cfg, params,
+                                   devices, tokens: int) -> dict:
+    """:func:`prefill_teacher_forced` over ``devices`` (model shards of
+    ``params``, :func:`model_shard_weights`) against unsharded on
+    ``devices[0]``, the counters set to 0 just before the sharded run
+    and read after: both logits within :data:`TF_PREFILL_TOL` absolute,
+    no argmax flip past that margin, and launches exactly M times the
+    layers' (``flash_attention`` a prefill's attention layer, each scan
+    a recurrent layer, ``moe_route`` a MoE layer in the prefill and the
+    decode step; the dense decode attends in plain torch, and the caller
+    gates).  Returns the sharded run's counts."""
+    want = prefill_teacher_forced(cfg, params, devices[:1], tokens)
+    shards = model_shard_weights(params, cfg, devices)
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
+    got = prefill_teacher_forced(cfg, shards, devices, tokens)
+    torch.cuda.synchronize()
+    counts = {name: getattr(ops, name).launches for name in COUNTED}
+    m, n = len(devices), layer_counts(cfg)
+    expect = dict.fromkeys(COUNTED, 0)
+    expect.update(flash_attention=m * n["attn"], rwkv6_scan=m * n["rwkv6"],
+                  mamba_scan=m * n["mamba"], router_gate=2 * m * n["moe"])
+    errs, flips, problems = [], 0, []
+    for g, w in zip(got, want):
+        errs.append(float((g - w).abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > TF_PREFILL_TOL
+        flips += int((g.argmax(-1) != w.argmax(-1))[sure].sum())
+    if not max(errs) <= TF_PREFILL_TOL:
+        problems.append(f"logits {errs} off unsharded (tolerance "
+                        f"{TF_PREFILL_TOL})")
+    if flips:
+        problems.append(f"{flips} argmax flips past the margin")
+    if counts != expect:
+        problems.append(f"launches {counts} != {expect}")
+    emit(check=f"model axis 12 teacher-forced {label}", card=card,
+         model_shards=m, rows=TF_PREFILL_ROWS, tokens_per_row=tokens,
+         max_abs_err_prefill=errs[0], max_abs_err_decode=errs[1],
+         tolerance=TF_PREFILL_TOL, argmax_flips=flips, launches=counts,
+         problems=problems)
+    del shards
+    if problems:
+        raise AssertionError(f"model axis 12 {label}: " + "; ".join(problems))
+    return counts
+
+
+def check_model_axis_executors(card: str, params) -> dict:
+    """Phase 12a-b, on phase 4's weights (alone:
+    ``scripts/torch_model_axis_executors_phase.py``): the phi4 cascade
+    with both tiers on ``1x2`` over the first card twice
+    (``--shard-params``) against unsharded, in turns, under (12a) the
+    uniform prefill (8 prompts of exactly 640 tokens) and the dense
+    arena, and (12b) speculation at k = 4, ``gen_len`` 8.  Each run's
+    launches exact (:func:`data_axis_launches` with M = 2: every kernel
+    twice, the gate once), same-tier streams equal, blocks conserved,
+    peak memory without a second copy of the weights.  Returns the
+    launch counts by run."""
+    t0 = time.perf_counter()
+    out = data_axis_turns(card, params, "uniform",
+                          {"no_chunked_prefill": True, **MODEL_EXEC},
+                          order=MODEL_ORDER, phase="model axis")
+    out.update(data_axis_turns(card, params, "dense",
+                               {"dense_kv": True, **MODEL_EXEC},
+                               order=MODEL_ORDER, phase="model axis"))
+    out.update(data_axis_turns(
+        card, params, "speculation k=4",
+        {"speculate": SPEC_K, "spec_delta": 0.0,
+         "gen_len": DATA_SPEC_GEN_LEN, **MODEL_EXEC}, order=MODEL_ORDER,
+        phase="model axis"))
+    emit(phase="model axis 12a-b", phase_s=time.perf_counter() - t0)
+    return out
+
+
+def check_model_axis_family(card: str, params, label: str, expensive,
+                            cfgs, tf_label: str, tf_cfg, tf_params,
+                            tokens: int, **flags) -> dict:
+    """Phase 12c-e, on the weights of the cascade gemma3-1b ->
+    ``expensive`` (its configs ``cfgs``, cut as phase 5 or 8 cuts them):
+    the cascade, uniform by itself, with both tiers on ``1x2`` over the
+    first card twice (``--shard-params``) against unsharded, in turns
+    (launches exact: each scan, ``flash_attention`` and ``moe_route``
+    twice, the gate once; same-tier streams equal; blocks conserved);
+    then ``tf_cfg`` (``tf_label``: the tier cut to 2 layers, or the
+    narrow jamba period) on ``tf_params`` teacher-forced on two model
+    shards against
+    unsharded (:func:`compare_prefill_teacher_forced`, prompts of
+    ``tokens``).  Returns the counts by run."""
+    t0 = time.perf_counter()
+    out = data_axis_turns(card, params, label, {**MODEL_EXEC, **flags},
+                          expensive, order=MODEL_ORDER, cfgs=cfgs,
+                          phase="model axis")
+    one = card_devices()[:1] * 2
+    out[f"model axis {tf_label} step"] = compare_prefill_teacher_forced(
+        card, tf_label, tf_cfg, tf_params, one, tokens)
+    emit(phase=f"model axis 12 {label}", phase_s=time.perf_counter() - t0)
+    return out
+
+
+# phase 12b: qwen2-vl-72b at its 80 layers over four cards (290.9 GB in
+# f32), gemma3-1b on a fifth; an 80 GB card, less a margin for the
+# allocator and the CUDA context
+QWEN_CARDS, CARD_BYTES = 4, 76e9
+
+
+def qwen_fit(cfg, m: int, slots: int, prompt_len: int, gen_len: int) -> dict:
+    """Bytes one of ``m`` model shards of ``cfg`` needs on its card with
+    ``slots`` rows: its weights (:func:`draw_model_shard`'s shapes), its
+    fully provisioned KV arena (its KV heads) and the uniform prefill's
+    transient — ``slots × prompt_len`` tokens of a shard's swiglu hidden
+    units (two products and their product, ``3·d_ff / m``) and six
+    residual-wide f32 buffers (residual, norm, q/k/v and attention
+    output), and the last position's logits."""
+    specs = params_lib.param_specs(cfg, make_tier_mesh(
+        1, m, [torch.device("meta")] * m))
+    weights = 4 * sum(t.numel() for t in tree_leaves(
+        sharding.model_shard_params(params_lib.param_shapes(
+            cfg, torch.float32), cfg, specs, 0, m)))
+    bs = 16
+    blocks_n = slots * -(-(prompt_len + gen_len) // bs) + 1
+    arena = sum(math.prod(c.shape) * 4 for c in tree_leaves(
+        declare_paged_cache(sharding.shard_config(cfg, m), slots, blocks_n,
+                            bs)))
+    d_ff = cfg.period[0].ffn.d_ff
+    tokens = slots * prompt_len
+    transient = 4 * (tokens * (3 * d_ff // m + 6 * cfg.d_model)
+                     + slots * cfg.vocab_size)
+    return {"slots": slots, "weights": weights, "kv_arena": arena,
+            "prefill_transient": transient,
+            "total": weights + arena + transient}
+
+
+def check_qwen_cards(card: str, fast_params) -> None:
+    """Phase 12b, only where five cards or more are visible:
+    qwen2-vl-72b at its 80 layers (290.9 GB in f32) drawn a model shard a
+    card (:func:`draw_model_shard`) on a ``1x4`` mesh over cards 1-4 with
+    ``--shard-params``, behind phase 4's gemma3-1b on card 0, serving the
+    workload (1152-token prompts) with exact launches.  It first prints
+    each card's fit (:func:`qwen_fit`: weights, KV arena, prefill
+    transient) and halves the slots until it fits, never the widths or
+    the depth.  With fewer cards, one line saying why it did not run."""
+    cards = card_devices()
+    if len(cards) < QWEN_CARDS + 1:
+        emit(check="model axis 12b", ran=False, card=card,
+             reason=f"torch.cuda.device_count() is {len(cards)}: "
+                    "qwen2-vl-72b at 80 layers (290.9 GB in f32) needs its "
+                    f"{QWEN_CARDS} model shards on {QWEN_CARDS} cards and "
+                    "gemma3-1b on a fifth")
+        return
+    t0 = time.perf_counter()
+    cfg = get_config(QWEN_NAME, "")
+    args = main_path_args(QWEN_NAME)
+    slots = args.slots
+    fit = qwen_fit(cfg, QWEN_CARDS, slots, QWEN_PROMPT_LEN, args.gen_len)
+    while fit["total"] > CARD_BYTES and slots > 1:
+        slots //= 2
+        fit = qwen_fit(cfg, QWEN_CARDS, slots, QWEN_PROMPT_LEN,
+                       args.gen_len)
+    emit(check="model axis 12b fit per card", card=card,
+         card_bytes=CARD_BYTES, **fit)
+    devs = cards[1:QWEN_CARDS + 1]
+    shards = [draw_model_shard(cfg, args.seed + 1, devs, j)
+              for j in range(QWEN_CARDS)]
+    mesh = f"1x{QWEN_CARDS}"
+    run = serve_data_axis(
+        card, (fast_params, shards), f"qwen2-vl-72b 80 layers on {mesh}",
+        ["1", mesh], QWEN_NAME, (get_config("gemma3-1b", ""), cfg),
+        "model axis 12b", cards[:QWEN_CARDS + 1], shard_params=True,
+        prompt_len=QWEN_PROMPT_LEN, slots=slots)
+    emit(check="model axis 12b", ran=True, card=card, devices=len(cards),
+         slots=slots, tier_meshes=run["summary"]["tier_meshes"],
+         phase_s=time.perf_counter() - t0)
+    del shards, run
+    torch.cuda.empty_cache()
+
+
+def first_periods(params, n: int):
+    """``params`` cut to its first ``n`` periods (views of the stacked
+    leaves)."""
+    return {**params, "period": tree_map(lambda a: a[:n], params["period"])}
+
+
 def timed_cases(timed: dict) -> list:
     """Every timed case of one kernel, for the ``kernels`` line."""
     keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -4542,6 +4849,9 @@ def main() -> int:
     # phase 11a-b, the data axis, on the same weights: uniform prefill,
     # the dense arena and speculation on 2x1 meshes over one card
     data_runs = check_data_axis(card, params)
+    # phase 12a-b, the model axis under the uniform prefill, the dense
+    # arena and speculation: both tiers on 1x2 over one card
+    model_exec_runs = check_model_axis_executors(card, params)
     uniform_runs = {ex: serve(card, params, ex) for ex in ("uniform",
                                                            "dense")}
     compare_streams({ex: r for ex, (_, r, _) in uniform_runs.items()})
@@ -4579,6 +4889,13 @@ def main() -> int:
     rwkv_counts, _, _ = serve(card, params, "auto", RWKV_NAME)
     # phase 11d: the RWKV-6 tier on two data shards
     data_runs.update(check_data_axis_rwkv(card, params))
+    # phase 12c: the RWKV-6 tier on two model shards, its first 2 layers
+    # teacher-forced
+    rwkv_cfg = get_config(RWKV_NAME, moe_args.variant)
+    model_exec_runs.update(check_model_axis_family(
+        card, params, "rwkv6", RWKV_NAME, None, "rwkv6-3b 2 layers",
+        dataclasses.replace(rwkv_cfg, num_periods=2),
+        first_periods(params[1], 2), moe_args.prompt_len))
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", RWKV_NAME)
     # the hybrid cascade: jamba-v0.1-52b cut to 1 of its 4 periods (its 4
@@ -4598,11 +4915,37 @@ def main() -> int:
                     JAMBA_NAME)
     torch.cuda.empty_cache()
     profile_ticks(card, params, "auto", JAMBA_NAME, jamba_cfgs)
+    # phase 12d: the jamba tier on two model shards (Mamba channels,
+    # experts, heads), the narrow 8-layer period teacher-forced
+    narrow = narrow_jamba_period(get_config(JAMBA_NAME, "smoke"))
+    model_exec_runs.update(check_model_axis_family(
+        card, params, "jamba 1 period", JAMBA_NAME, jamba_cfgs,
+        "jamba narrow period", narrow,
+        init_params(narrow, moe_args.seed + 1, torch.float32, dev),
+        moe_args.prompt_len))
     # phase 8, the rest of the registry: jamba's weights freed, gemma3-1b
     # beside one expensive tier at a time
     params = (params[0], None)
     torch.cuda.empty_cache()
     registry_runs = check_configs(card, dev, params[0])
+    # phase 12e: qwen2-vl-72b cut to 8 layers (as phase 8 cuts it) on two
+    # model shards, its first 2 layers teacher-forced
+    qwen_cfgs = (get_config("gemma3-1b", moe_args.variant),
+                 dataclasses.replace(get_config(QWEN_NAME, moe_args.variant),
+                                     num_periods=8))
+    params = (params[0], init_params(qwen_cfgs[1], moe_args.seed + 1,
+                                     torch.float32, dev))
+    model_exec_runs.update(check_model_axis_family(
+        card, params, "qwen2-vl 8 layers", QWEN_NAME, qwen_cfgs,
+        "qwen2-vl-72b 2 layers",
+        dataclasses.replace(qwen_cfgs[1], num_periods=2),
+        first_periods(params[1], 2), QWEN_PROMPT_LEN,
+        prompt_len=QWEN_PROMPT_LEN))
+    params = (params[0], None)
+    torch.cuda.empty_cache()
+    # phase 12b: qwen2-vl-72b at its 80 layers over four cards, where
+    # five are visible
+    check_qwen_cards(card, params[0])
     counts = {ex: c for ex, (c, _, _) in runs.items()}
     counts.update({ex: c for ex, (c, _, _) in uniform_runs.items()})
     counts.update(spec_runs)
@@ -4612,6 +4955,7 @@ def main() -> int:
     counts.update(multi_runs)
     counts.update(model_runs)
     counts.update(data_runs)
+    counts.update(model_exec_runs)
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
@@ -4632,10 +4976,15 @@ def main() -> int:
                          or "rwkv6" in p)
     data_spec = tuple(p for p in data_runs if "speculation" in p)
     data_moe = tuple(p for p in data_runs if "granite" in p)
+    # phase 12's served runs (unsharded and 1x2) and teacher-forced steps
+    me_served = tuple(p for p in model_exec_runs if not p.endswith(" step"))
+    me_spec = tuple(p for p in me_served if "speculation" in p)
+    me_prefill = tuple(p for p in me_served if p not in me_spec)
+    me_steps = tuple(p for p in model_exec_runs if p.endswith(" step"))
     for name, ex in (("ragged_attention", ("ragged", "moe ragged")
                       + spec_paths + prefix_ragged + overload_ragged
                       + obs_paths + tuple(multi_runs) + tuple(model_runs)
-                      + data_spec + data_moe + served
+                      + data_spec + data_moe + served + me_spec
                       + ("starcoder2 ragged", "moonshot 1 + 8 layers "
                                               "ragged")),
                      ("mixed_attention", ("padded", "split", "moe padded",
@@ -4652,23 +5001,30 @@ def main() -> int:
                                           "musicgen auto",
                                           "qwen2-vl 8 layers auto")
                       + rwkv_served + data_uniform + data_spec
-                      + tuple(p for p in spec_paths if "k=0" not in p)),
+                      + tuple(p for p in spec_paths if "k=0" not in p)
+                      + me_spec + tuple(p for p in me_prefill
+                                        if "dense" not in p)),
                      ("flash_attention", ("uniform", "dense", "rwkv")
                       + jamba_paths + rwkv_served + data_uniform
                       + tuple(p for p in data_runs if "dense" in p)
-                      + ("musicgen auto", "qwen2-vl 8 layers auto")),
+                      + ("musicgen auto", "qwen2-vl 8 layers auto")
+                      + me_prefill + tuple(p for p in me_steps
+                                           if "rwkv6" not in p)),
                      ("confidence_gate", tuple(
                          p for p in counts if p not in trained_only
                          and not p.endswith(" step"))),
                      ("router_gate", moe_paths + jamba_paths + data_moe
+                      + tuple(p for p in model_exec_runs if "jamba" in p)
                       + ("train steps", "recurrent train steps",
                          "moonshot 1 + 8 layers ragged",
                          "model axis moonshot 1 + 8 step")),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
                                      "LtC rwkv6") + rwkv_served
-                      + tuple(p for p in data_runs if "rwkv6" in p)),
+                      + tuple(p for p in data_runs if "rwkv6" in p)
+                      + tuple(p for p in model_exec_runs if "rwkv6" in p)),
                      ("mamba_scan", jamba_paths
-                      + ("recurrent train steps",))):
+                      + ("recurrent train steps",)
+                      + tuple(p for p in model_exec_runs if "jamba" in p))):
         if not all(counts[e][name] > 0 for e in ex):
             raise AssertionError(f"{name} was not launched on {ex}: "
                                  f"{counts}")

@@ -68,12 +68,15 @@ once per shard on its card, under every executor (``--no-chunked-prefill``,
 tier's shards advance layer by layer, each MoE layer routed once over the
 tier's whole batch).  ``--tier-mesh 1x2`` adds tensor
 parallelism: each launch splits over two model shards (attention and KV
-heads, FFN hidden units or experts, the vocabulary), all-reducing
-between layers, and ``--shard-params`` places each model shard's slices
-of the weights on its card instead of a full replica on each (ragged,
-padded and split executors, attention tiers: a model axis under the
-uniform prefill, the dense arena, speculation, or with an RWKV-6, Mamba
-or frontend tier raises).
+heads, RWKV-6 heads or Mamba channels, FFN hidden units or experts, a
+frontend's projection rows, the vocabulary), all-reducing between
+layers, and ``--shard-params`` places each model shard's slices of the
+weights on its card instead of a full replica on each, under every
+executor (``--no-chunked-prefill``, ``--dense-kv`` and ``--speculate``
+too) and for every tier family; ``2x2`` combines both axes.  A model
+axis the layers do not allow (one that cuts a head, or does not divide
+Mamba's channels or a frontend's rows) raises ValueError naming the
+shapes.
 
 Observability: ``--trace-out trace.json`` records every request's
 lifecycle (QUEUED -> PREFILL -> DECODE -> ESCALATED -> DONE) and every

@@ -437,17 +437,45 @@ def mamba(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     h = 0 (through :class:`_MambaScan`, differentiable); prefill returns
     ``{"conv", "ssm"}`` (the last ``d_conv-1`` conv inputs and the final
     state), train no cache; decode takes one plain-torch step from the
-    cached state and writes both leaves in place."""
-    _recurrent_mode("mamba", mode)
-    n = spec.d_state
-    dt_rank = math.ceil(cfg.d_model / 16)
+    cached state and writes both leaves in place.  The two halves
+    :func:`mamba_in` and :func:`mamba_out`, which a tensor-parallel tier
+    runs on each model shard with the ``x_proj`` product all-reduced
+    between them."""
+    first = mamba_in(p, cfg, spec, x, cache, mode)
+    return mamba_out(p, cfg, spec, first, first[2], cache, mode)
 
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+
+def mamba_in(p, cfg: ModelConfig, spec, x, cache, mode) -> tuple:
+    """The first half of :func:`mamba`, up to the ``x_proj`` product:
+    ``(xi, z, proj, new_conv)`` — the conv branch after its activation,
+    the gate branch, ``xi @ x_proj`` ``[B, S, r + 2n]`` and the conv
+    window to cache.  On a model shard ``in_proj`` is the ``[d, 2,
+    d_in / m]`` view of the shard's channels of both halves
+    (:func:`repro_torch.models.sharding.model_shard_params`) and ``proj``
+    the shard's partial sum over its ``x_proj`` rows, which the caller
+    all-reduces before :func:`mamba_out` slices ``dt``, ``B_t`` and
+    ``C_t`` from it."""
+    _recurrent_mode("mamba", mode)
+    w = p["in_proj"]
+    if w.dim() == 3:
+        xi, z = x @ w[:, 0], x @ w[:, 1]
+    else:
+        xi, z = (x @ w).chunk(2, dim=-1)
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                 cache["conv"] if mode == "decode" else None,
                                 mode)
     xi = F.silu(xi)
-    proj = xi @ p["x_proj"]                                  # [B,S,r+2n]
+    return xi, z, xi @ p["x_proj"], new_conv                 # [B,S,r+2n]
+
+
+def mamba_out(p, cfg: ModelConfig, spec, first, proj, cache, mode):
+    """The second half of :func:`mamba` from :func:`mamba_in`'s ``first``
+    and the whole ``x_proj`` product ``proj``: the selective scan over
+    the channels ``p`` holds, the skip and the gate, then ``out_proj``
+    (a model shard's partial over its rows).  Returns ``(y, cache)``."""
+    xi, z, _, new_conv = first
+    n = spec.d_state
+    dt_rank = math.ceil(cfg.d_model / 16)
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
                     + p["dt_bias"]).float()                  # [B,S,d_in]
     Bt = proj[..., dt_rank:dt_rank + n].float()              # [B,S,n]
@@ -472,7 +500,7 @@ def mamba(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
                                                   "ssm": h1}
 
     y = y + xf * p["D"].float()
-    y = (y * F.silu(z.float())).to(x.dtype)
+    y = (y * F.silu(z.float())).to(xi.dtype)
     return y @ p["out_proj"], new_cache
 
 
@@ -491,11 +519,17 @@ def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     and train run the WKV recurrence in the ``rwkv6_scan`` kernel from
     the zero state (through :class:`_RWKV6Scan`, differentiable); prefill
     returns ``{"x_prev", "state"}``, train no cache; decode takes one
-    step from the cached state and writes both leaves in place."""
+    step from the cached state and writes both leaves in place.
+
+    The heads are those of ``p``'s ``wr`` columns: on a model shard
+    (:func:`repro_torch.models.sharding.model_shard_params`) its ``H /
+    m`` heads, with ``w0``, ``bonus`` and ``ln_x`` narrowed to them and
+    ``wo``'s rows, so the output is the shard's partial sum; ``x`` and
+    ``x_prev`` stay ``d_model`` wide."""
     _recurrent_mode("rwkv6", mode)
     B, S, D = x.shape
     hd = spec.head_dim
-    H = D // hd
+    H = p["wr"].shape[-1] // hd      # a model shard's heads: its columns
     xs = _token_shift(x, cache["x_prev"] if mode == "decode" else None,
                       mode)
 
@@ -532,7 +566,7 @@ def rwkv6(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     mean = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(B, S, D) * p["ln_x"].float()
+    y = y.reshape(B, S, H * hd) * p["ln_x"].float()
     out = (y.to(x.dtype) * g) @ p["wo"]
     return out, new_cache
 
@@ -550,17 +584,27 @@ def rwkv_cmix(p, cfg: ModelConfig, spec, x, cache, mode):
     ``dense_ffn``): token-shift lerp, squared-relu key, receptance gate.
     Returns (y, cache): prefill (and train) a new ``{"x_prev"}``, decode
     the same cache with ``x_prev`` written in place."""
+    gate, kv, new_cache = rwkv_cmix_parts(p, cfg, spec, x, cache, mode)
+    return gate * kv, new_cache
+
+
+def rwkv_cmix_parts(p, cfg: ModelConfig, spec, x, cache, mode):
+    """:func:`rwkv_cmix` before its product: ``(sigmoid(xr @ wr),
+    relu(xk @ wk)² @ wv, cache)``.  On a model shard the key and value
+    split ``ffn``, so the second is a partial sum to all-reduce, and the
+    receptance ``wr`` splits its output columns, so the first is the
+    shard's columns of the gate, which multiplies the whole sum."""
     _recurrent_mode("rwkv_cmix", mode)
     xs = _token_shift(x, cache["x_prev"] if mode == "decode" else None,
                       mode)
     xk = x + (xs - x) * p["mix_k"]
     xr = x + (xs - x) * p["mix_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    kv = torch.square(F.relu(xk @ p["wk"])) @ p["wv"]
+    gate = torch.sigmoid(xr @ p["wr"])
     if mode == "decode":
         cache["x_prev"].copy_(x[:, -1:])
-        return out, cache
-    return out, {"x_prev": x[:, -1:].clone()}
+        return gate, kv, cache
+    return gate, kv, {"x_prev": x[:, -1:].clone()}
 
 
 def dense_ffn(p, cfg: ModelConfig, spec, x):

@@ -29,10 +29,13 @@ buffers on accelerators); here decode steps update the cache in place.
 :func:`paged_cache_specs` gives a block-paged cache's partition specs on
 a tier mesh (tuples of ``"data"``, ``"model"`` or None per dim, by the
 JAX package's :func:`cache_spec_leaf` rules): the ``kv_blocks`` pool
-and per-row recurrent ``batch`` dims over ``data``, KV heads over
-``model`` when divisible, as a description of the JAX placement (the
-serving engine declares each model shard's cache by
-:func:`repro_torch.models.sharding.shard_config`).  :func:`cache_specs`
+and per-row recurrent ``batch`` dims over ``data``, KV heads, RWKV-6
+heads and Mamba ``d_inner`` over ``model`` when divisible, as a
+description of the JAX placement (the serving engine declares each model
+shard's cache by :func:`repro_torch.models.sharding.shard_config`, whose
+``model_shards`` sizes the recurrent leaves: a ``ShardConfig``'s
+``[B, H / m, hd, hd]`` RWKV-6 state and ``[B, d_conv - 1, d_in / m]`` /
+``[B, d_in / m, n]`` Mamba state).  :func:`cache_specs`
 gives the dense arena's, at the JAX package's ``shard_seq=False``: the
 request rows over ``data``, which is how the engine's sharded dense
 arena splits them.  ``cache_shapes`` and the sequence-sharding options
@@ -47,6 +50,7 @@ import torch
 
 from repro_torch.configs.base import Layer, ModelConfig
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.sharding import shards_of
 
 
 class CP(NamedTuple):
@@ -67,14 +71,17 @@ def _mixer_cache_decl(cfg: ModelConfig, m, B: int, S: int, dtype) -> dict:
                     "k_scale": CP(sc, sax, torch.float32),
                     "v_scale": CP(sc, sax, torch.float32)}
         return {"k": CP(kv, ax, dtype), "v": CP(kv, ax, dtype)}
+    # one model shard's recurrent leaves (a shard_config) at the shard's
+    # width: d_inner / m Mamba channels, H / m RWKV-6 heads
+    shards = shards_of(cfg)
     if m.kind == "mamba":
-        d_in = m.expand * cfg.d_model
+        d_in = m.expand * cfg.d_model // shards
         return {"conv": CP((B, m.d_conv - 1, d_in),
                            ("batch", None, "d_inner"), dtype),
                 "ssm": CP((B, d_in, m.d_state), ("batch", "d_inner", None),
                           torch.float32)}
     if m.kind == "rwkv6":
-        h = cfg.d_model // m.head_dim
+        h = cfg.d_model // m.head_dim // shards
         return {"x_prev": CP((B, 1, cfg.d_model), ("batch", None, None),
                              dtype),
                 "state": CP((B, h, m.head_dim, m.head_dim),

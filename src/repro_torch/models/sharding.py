@@ -22,7 +22,16 @@ a MoE FFN splits its experts (or, when the model axis does not divide
 them, ``ffn`` inside every expert) with the router replicated, and the
 embedding and LM head split the vocabulary when the model axis divides
 it.  Which KV heads a shard holds is decided once, by
-:func:`kv_head_range`.
+:func:`kv_head_range`; which RWKV-6 heads and Mamba channels, by
+:func:`inner_range`.  The recurrent mixers split ``d_inner``: RWKV-6's
+``wr``/``wk``/``wv``/``wg``/``wB`` columns and ``wo`` rows by whole
+heads (its per-head ``w0``, ``ln_x`` and ``bonus``, which the spec
+leaves replicated, narrowed to the shard's heads), Mamba's channels
+(``in_proj``'s columns of both its ``x`` and ``z`` halves, the
+per-channel leaves, ``x_proj`` and ``out_proj`` rows); the RWKV-6
+channel mix splits ``ffn`` in its key and value and ``d_inner`` in its
+receptance gate; a frontend's ``frontend_proj`` splits its rows.
+:func:`check_model_axis` refuses a model axis no layer layout allows.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from typing import List, Sequence
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import declare_model
 
 
@@ -81,15 +91,87 @@ def kv_head_range(cfg, index: int, m: int) -> tuple:
     return index * (cfg.num_heads // m) // group, count
 
 
+def _kinds(cfg) -> set:
+    return {layer.mixer.kind for layer in cfg.layers}
+
+
+def check_model_axis(cfg, m: int) -> None:
+    """ValueError naming the shapes where a model axis of ``m`` has no
+    layout for ``cfg``: attention's heads (:func:`kv_heads_per_shard`),
+    RWKV-6 heads or Mamba channels it does not divide, or a frontend's
+    ``frontend_dim`` rows it does not divide.  Raised where the spec
+    leaves such a leaf whole too: a shard runs its share of every
+    mixer, so a layer the axis cannot split has no place to run."""
+    kinds = _kinds(cfg)
+    if "attn" in kinds:
+        kv_heads_per_shard(cfg, m)
+    for layer in cfg.layers:
+        mix = layer.mixer
+        if mix.kind == "rwkv6" and (cfg.d_model // mix.head_dim) % m:
+            raise ValueError(
+                f"{cfg.name}: a model axis of {m} cuts the RWKV-6 heads: "
+                f"{cfg.d_model // mix.head_dim} heads of {mix.head_dim} "
+                f"(d_model {cfg.d_model}) do not divide into {m} shards")
+        if mix.kind == "mamba" and (mix.expand * cfg.d_model) % m:
+            raise ValueError(
+                f"{cfg.name}: a model axis of {m} does not divide the Mamba "
+                f"d_inner of {mix.expand * cfg.d_model} channels "
+                f"(expand {mix.expand} x d_model {cfg.d_model})")
+    if cfg.frontend and cfg.frontend_dim % m:
+        raise ValueError(
+            f"{cfg.name}: a model axis of {m} does not divide the "
+            f"{cfg.frontend} frontend's {cfg.frontend_dim} frontend_proj "
+            "rows")
+
+
+def inner_range(cfg, mixer, index: int, m: int) -> tuple:
+    """``(first, count)``: the ``d_inner`` channels of ``mixer`` (an
+    RWKV-6 or Mamba layer's spec) that model shard ``index`` of ``m``
+    holds, the ``index``-th of ``m`` equal runs: RWKV-6's whole heads
+    (``count / head_dim`` of them, from head ``first / head_dim``), or
+    Mamba's channels.  The one place that decides a shard's recurrent
+    width: its weights (:func:`model_shard_params`, the spec's equal
+    split, and the per-head and ``in_proj`` leaves narrowed here) and
+    its cache (:func:`shard_config`) both follow it.  ValueError where
+    the axis cuts a head or a channel run (:func:`check_model_axis`)."""
+    check_model_axis(cfg, m)
+    width = (cfg.d_model if mixer.kind == "rwkv6"
+             else mixer.expand * cfg.d_model)
+    return index * (width // m), width // m
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(ModelConfig):
+    """A :class:`ModelConfig` as one of ``model_shards`` model shards
+    sees it (:func:`shard_config`): the cache declarations read the
+    recurrent widths from ``model_shards``."""
+    model_shards: int = 1
+
+
+def shards_of(cfg) -> int:
+    """The model shards ``cfg`` describes one of (1 for a whole
+    model's config)."""
+    return getattr(cfg, "model_shards", 1)
+
+
 def shard_config(cfg, m: int):
     """``cfg`` as one of ``m`` model shards sees it: ``H / m`` query
     heads over :func:`kv_heads_per_shard` KV heads (the same head width),
     so the attention code and kernels run unchanged at the shard's head
-    counts, and a serving pool declares each shard's cache from it."""
+    counts, and a serving pool declares each shard's cache from it; its
+    ``model_shards`` gives the recurrent leaves their shard's width
+    (:func:`inner_range`: RWKV-6 state over ``H / m`` heads, Mamba's
+    conv and ssm state over ``d_inner / m`` channels).  A model without
+    attention layers keeps its head counts."""
     if m == 1:
         return cfg
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=kv_heads_per_shard(cfg, m))
+    check_model_axis(cfg, m)
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    if "attn" in _kinds(cfg):
+        fields.update(num_heads=cfg.num_heads // m,
+                      num_kv_heads=kv_heads_per_shard(cfg, m))
+    fields["model_shards"] = m
+    return ShardConfig(**fields)
 
 
 def shard_leaf(t, spec: Sequence, index: int, m: int):
@@ -105,23 +187,67 @@ def shard_leaf(t, spec: Sequence, index: int, m: int):
     return t
 
 
+def _inner_leaves(p, cfg, mixer, index: int, m: int) -> dict:
+    """The leaves of a recurrent mixer's weights ``p`` that model shard
+    ``index`` of ``m`` holds other than by their spec: RWKV-6's per-head
+    ``w0``/``ln_x`` (``[.., d]``) and ``bonus`` (``[.., H, hd]``),
+    narrowed to the shard's heads; Mamba's ``in_proj`` ``[.., d, 2·d_in]``
+    as the ``[.., d, 2, d_in / m]`` view of the shard's channels of both
+    halves (:func:`inner_range`)."""
+    if mixer.kind not in ("rwkv6", "mamba"):
+        return {}
+    lo, n = inner_range(cfg, mixer, index, m)
+    if mixer.kind == "mamba":
+        return {"in_proj": p["in_proj"].unflatten(-1, (2, -1)).narrow(
+            -1, lo, n)}
+    hd = mixer.head_dim
+    return {"w0": p["w0"].narrow(-1, lo, n),
+            "ln_x": p["ln_x"].narrow(-1, lo, n),
+            "bonus": p["bonus"].narrow(-2, lo // hd, n // hd)}
+
+
+# each section of a parameter tree, and the key prefix of its layers
+_SECTIONS = {"head": "layer", "period": "block", "tail": "layer"}
+
+
 def model_shard_params(params, cfg, specs, index: int, m: int):
     """Model shard ``index``'s weights, as views of ``params`` (a whole
     parameter tree of ``cfg``; ``meta`` tensors give the shard's shapes):
     every leaf sliced by its spec (:func:`shard_leaf`; ``specs`` from
-    :func:`repro_torch.models.params.param_specs`), except the KV
-    projections of attention (``wk``/``wv``, whose columns are
-    ``fused_heads`` in the declaration), which take the columns of the
-    shard's own KV heads (:func:`kv_head_range`).  Where ``m`` divides
-    the KV heads that is the spec's equal split; where ``m`` outnumbers
-    them the spec would cut a head's width, and the shard holds the head
-    its query heads read whole."""
-    first, count = kv_head_range(cfg, index, m)
+    :func:`repro_torch.models.params.param_specs`), except
+
+    * the KV projections of attention (``wk``/``wv``, whose columns are
+      ``fused_heads`` in the declaration), which take the columns of the
+      shard's own KV heads (:func:`kv_head_range`).  Where ``m`` divides
+      the KV heads that is the spec's equal split; where ``m``
+      outnumbers them the spec would cut a head's width, and the shard
+      holds the head its query heads read whole;
+    * RWKV-6's per-head ``w0``, ``ln_x`` and ``bonus``, which the spec
+      replicates, narrowed to the shard's heads, as its
+      ``wr``/``wk``/``wv``/``wg``/``wB`` columns are split; and Mamba's
+      ``in_proj``, whose two halves ``x | z`` each hold every channel,
+      as the shard's channels of both (the spec's equal split of its
+      last dim would give shard 0 all of ``x``): :func:`_inner_leaves`.
+
+    The RWKV-6 channel mix needs no exception: the spec splits its key
+    ``wk`` columns and value ``wv`` rows on ``ffn`` and its receptance
+    ``wr`` columns on ``d_inner``."""
+    first, count = (kv_head_range(cfg, index, m) if "attn" in _kinds(cfg)
+                    else (0, 0))
     hd = cfg.head_dim
 
-    def walk(p, decl, s, key=None):
+    def walk(p, decl, s, key=None, layer=None):
         if isinstance(p, dict):
-            return {k: walk(v, decl[k], s[k], k) for k, v in p.items()}
+            own = (_inner_leaves(p, cfg, layer.mixer, index, m)
+                   if key == "mixer" else {})
+            out = {}
+            for k, v in p.items():
+                sub = layer
+                if key in _SECTIONS and layer is None:
+                    sub = getattr(cfg, key)[int(k[len(_SECTIONS[key]):])]
+                out[k] = own[k] if k in own else walk(v, decl[k], s[k], k,
+                                                      sub)
+            return out
         if key in ("wk", "wv") and decl.axes[-1] == "fused_heads":
             return p.narrow(-1, first * hd, count * hd)
         return shard_leaf(p, s, index, m)

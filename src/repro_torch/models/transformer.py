@@ -30,7 +30,15 @@ its heads, hidden units or experts, and all-reduces the partial outputs,
 so the residual stream (and every norm) is replicated on each model
 device; the LM head computes each shard's vocabulary columns and gathers
 them in vocabulary order on shard 0's device, where the caller's
-confidence gate runs once.  The chunked modes and paged decode only.
+confidence gate runs once.  Every serving mode: the chunked steps, the
+uniform prefill (one part cache a model shard), paged and dense decode.
+An RWKV-6 layer runs each shard's heads (its ``wr``/``wk``/``wv``/``wg``
+columns, its ``w0``, ``bonus`` and ``ln_x``, its state rows) and a Mamba
+layer each shard's channels (``in_proj``'s columns of both halves, the
+conv and scan), its ``x_proj`` product all-reduced before ``dt``, ``B``
+and ``C`` are sliced; the RWKV-6 channel mix all-reduces its value
+product and multiplies it by each shard's gate columns, gathered; a
+frontend's projection all-reduces each shard's rows.
 
 **Data shards with MoE layers**: a data-sharded tier runs each shard's
 step on its own rows, which changes nothing for attention, dense FFNs
@@ -147,6 +155,25 @@ def _exit_logits(p, cfg: ModelConfig, h):
 _CHUNKED = ("prefill_chunk", "mixed_step", "ragged_step")
 
 
+def _frontend_positions(cfg: ModelConfig, x, mode) -> bool:
+    """Whether ``x``'s first ``frontend_len`` positions take a modality
+    frontend's projected embeddings: a frontend model outside decode.
+    The chunked modes do not inject them and raise, as in the JAX
+    package, as does a prompt shorter than the frontend's positions."""
+    if not cfg.frontend or mode == "decode":
+        return False
+    if mode in _CHUNKED:
+        raise NotImplementedError(
+            "chunked/unified token-batch steps do not inject modality "
+            "frontend embeddings; frontend models require the dense "
+            "uniform prefill path")
+    if x.shape[1] < cfg.frontend_len:
+        raise ValueError(
+            f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
+            f"the frontend's {cfg.frontend_len} positions")
+    return True
+
+
 def _embed(params, cfg: ModelConfig, batch, mode):
     """The token embeddings of ``batch["tokens"]`` [B, S]; for a model
     with a modality frontend, outside decode, the first ``frontend_len``
@@ -155,20 +182,10 @@ def _embed(params, cfg: ModelConfig, batch, mode):
     sanctioned stub: precomputed patch or frame embeddings).  The chunked
     modes do not inject them and raise, as in the JAX package."""
     x = params["embed"][batch["tokens"].long()]
-    if not cfg.frontend or mode == "decode":
+    if not _frontend_positions(cfg, x, mode):
         return x
-    if mode in _CHUNKED:
-        raise NotImplementedError(
-            "chunked/unified token-batch steps do not inject modality "
-            "frontend embeddings; frontend models require the dense "
-            "uniform prefill path")
-    fl = cfg.frontend_len
-    if x.shape[1] < fl:
-        raise ValueError(
-            f"{cfg.name}: a prompt of {x.shape[1]} tokens is shorter than "
-            f"the frontend's {fl} positions")
     emb = batch["frontend_embeds"] @ params["frontend_proj"]
-    return torch.cat([emb.to(x.dtype), x[:, fl:]], dim=1)
+    return torch.cat([emb.to(x.dtype), x[:, cfg.frontend_len:]], dim=1)
 
 
 def zero_frontend(cfg: ModelConfig, rows: int, device) -> dict:
@@ -213,61 +230,123 @@ def _ffn_split(p, spec) -> bool:
     if spec.kind == "moe":
         return p["wo"].shape[0] < spec.num_experts \
             or p["wo"].shape[1] < spec.d_ff
+    if spec.act == "rwkv_cmix":
+        return p["wv"].shape[0] < spec.d_ff
     return p["wo"].shape[0] < spec.d_ff
 
 
 def _mixer_shards(group, ps, shard_cfg, layer, xs, caches, pos, mode,
                   pages):
     """The mixer half of :func:`repro_torch.models.blocks.apply_layer`
-    over the model shards: each shard's attention over its heads (its KV
-    written into its own cache), all-reduced into the residual.  ``xs``,
-    ``pos``, ``pages`` and ``caches`` hold one entry a model shard, on
-    its device.  Returns (the residual, its FFN input) a model shard."""
-    ys = []
-    for j in range(group.size):
-        h = blocks.rmsnorm(xs[j], ps[j]["norm1"], shard_cfg.norm_eps)
-        y, _ = blocks.attention(ps[j]["mixer"], shard_cfg, layer.mixer, h,
-                                caches[j]["mixer"], pos[j], mode,
-                                pages=pages[j])
-        ys.append(y)
-    xs = [x + y for x, y in zip(xs, sharding.all_reduce(ys))]
+    over the model shards: each shard's mixer over its attention heads
+    (its KV written into its own cache), RWKV-6 heads or Mamba channels
+    (its recurrent state in its own cache), all-reduced into the
+    residual.  A Mamba layer all-reduces its ``x_proj`` product too,
+    between :func:`~repro_torch.models.blocks.mamba_in` and
+    :func:`~repro_torch.models.blocks.mamba_out`.  ``xs``, ``pos``,
+    ``pages`` and ``caches`` (None in prefill) hold one entry a model
+    shard, on its device.  Returns (the residual, its FFN input, the
+    mixers' new or in-place-updated caches) a model shard."""
+    m, spec = group.size, layer.mixer
+    hs = [blocks.rmsnorm(x, p["norm1"], shard_cfg.norm_eps)
+          for x, p in zip(xs, ps)]
+    cs = [None] * m if caches is None else [c["mixer"] for c in caches]
+    if spec.kind == "mamba":
+        firsts = [blocks.mamba_in(p["mixer"], shard_cfg, spec, h, c, mode)
+                  for p, h, c in zip(ps, hs, cs)]
+        projs = sharding.all_reduce([f[2] for f in firsts])
+        outs = [blocks.mamba_out(p["mixer"], shard_cfg, spec, f, pr, c, mode)
+                for p, f, pr, c in zip(ps, firsts, projs, cs)]
+    else:
+        mixer = blocks.MIXERS[spec.kind]
+        outs = [mixer(p["mixer"], shard_cfg, spec, h, c, pos[j], mode,
+                      pages=pages[j])
+                for j, (p, h, c) in enumerate(zip(ps, hs, cs))]
+    xs = [x + y for x, y in zip(xs, sharding.all_reduce([y for y, _ in outs]))]
     return xs, [blocks.rmsnorm(x, p["norm2"], shard_cfg.norm_eps)
-                for x, p in zip(xs, ps)]
+                for x, p in zip(xs, ps)], [c for _, c in outs]
 
 
-def _ffn_shards(group, ps, cfg, spec, hs, routes=None):
+def _ffn_shards(group, ps, cfg, spec, hs, routes=None, caches=None,
+                mode=None):
     """The FFN half over the model shards: each shard's partial, all-
     reduced (a layer the model axis does not divide runs once, on shard
     0, and is copied).  ``routes`` (a MoE layer on a data-sharded tier)
-    hands each model shard its share of the tier's route."""
+    hands each model shard its share of the tier's route.  The RWKV-6
+    channel mix all-reduces its value product and multiplies it by the
+    gate's columns each shard holds, gathered
+    (:func:`_cmix_shards`).  Returns (the FFN's output, its new or
+    in-place-updated cache) a model shard."""
+    if spec.act == "rwkv_cmix":
+        return _cmix_shards(group, ps, cfg, spec, hs, caches, mode)
+
     def ffn(p, h, j):
         if spec.kind == "moe":
             return blocks.moe_ffn(p, cfg, spec, h, shard=j,
                                   route=None if routes is None
                                   else routes[j])
         return blocks.dense_ffn(p, cfg, spec, h)
+    stateless = [{}] * group.size
     if _ffn_split(ps[0]["ffn"], spec):
         return sharding.all_reduce([ffn(p["ffn"], h, j) for j, (p, h)
-                                    in enumerate(zip(ps, hs))])
-    return group.replicate(ffn(ps[0]["ffn"], hs[0], 0))
+                                    in enumerate(zip(ps, hs))]), stateless
+    return group.replicate(ffn(ps[0]["ffn"], hs[0], 0)), stateless
 
 
-def _embed_shards(group, params, cfg: ModelConfig, tokens):
+def _cmix_shards(group, ps, cfg, spec, hs, caches, mode):
+    """The RWKV-6 channel mix over the model shards: each shard's
+    ``relu(xk @ wk)² @ wv`` over its ``ffn`` units, all-reduced (once on
+    shard 0 where the axis does not divide ``ffn``), then each shard's
+    gate columns ``sigmoid(xr @ wr)`` times its columns of the sum,
+    gathered in column order and copied to every shard.  Each shard
+    writes its own copy of the ``x_prev`` token shift."""
+    cs = ([None] * group.size if caches is None
+          else [c["ffn"] for c in caches])
+    gates, kvs, new = zip(*[blocks.rwkv_cmix_parts(
+        p["ffn"], cfg, spec, h, c, mode) for p, h, c in zip(ps, hs, cs)])
+    kv = (sharding.all_reduce(kvs) if _ffn_split(ps[0]["ffn"], spec)
+          else group.replicate(kvs[0]))
+    cols, o = [], 0
+    for g, k in zip(gates, kv):
+        cols.append(g * k[..., o:o + g.shape[-1]])
+        o += g.shape[-1]
+    return group.replicate(sharding.all_gather(cols, -1)), list(new)
+
+
+def _embed_shards(group, params, cfg: ModelConfig, tokens, mode=None,
+                  frontend_embeds=None):
     """The token embeddings on every model device: each shard looks up
     the ids of its vocabulary range (zeros for the rest) and the parts
     are all-reduced; a vocabulary the model axis does not divide is
-    looked up once, on shard 0's device, and copied."""
+    looked up once, on shard 0's device, and copied.  A model with a
+    modality frontend, given the serving ``mode`` (outside decode;
+    :func:`_embed`), takes the projected ``frontend_embeds`` over its
+    first ``frontend_len`` positions: each shard projects its slice of
+    the embeddings' last dim through its ``frontend_proj`` rows, and the
+    partials are all-reduced."""
     held = params[0]["embed"].shape[0]
     if held == cfg.vocab_size:
-        return group.replicate(params[0]["embed"][
+        xs = group.replicate(params[0]["embed"][
             tokens.to(group.devices[0]).long()])
-    parts = []
-    for j, (p, dev) in enumerate(zip(params, group.devices)):
-        ids = tokens.to(dev, non_blocking=True).long() - j * held
-        hit = ((ids >= 0) & (ids < held))[..., None]
-        e = p["embed"][ids.clamp(0, held - 1)]
-        parts.append(torch.where(hit, e, torch.zeros_like(e)))
-    return sharding.all_reduce(parts)
+    else:
+        parts = []
+        for j, (p, dev) in enumerate(zip(params, group.devices)):
+            ids = tokens.to(dev, non_blocking=True).long() - j * held
+            hit = ((ids >= 0) & (ids < held))[..., None]
+            e = p["embed"][ids.clamp(0, held - 1)]
+            parts.append(torch.where(hit, e, torch.zeros_like(e)))
+        xs = sharding.all_reduce(parts)
+    if mode is None or not _frontend_positions(cfg, xs[0], mode):
+        return xs
+    # check_model_axis holds frontend_dim divisible: each shard has rows
+    rows = params[0]["frontend_proj"].shape[0]
+    emb = sharding.all_reduce([
+        frontend_embeds.to(d, non_blocking=True)[..., j * rows:(j + 1) * rows]
+        @ p["frontend_proj"]
+        for j, (p, d) in enumerate(zip(params, group.devices))])
+    fl = cfg.frontend_len
+    return [torch.cat([e.to(x.dtype), x[:, fl:]], dim=1)
+            for e, x in zip(emb, xs)]
 
 
 def _logits_shards(group, params, cfg: ModelConfig, xs):
@@ -371,14 +450,16 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
     order, ``layout``; None: each shard routes its own tokens) instead of
     over each shard's own tokens; every other layer runs on each shard
     alone, on its device.  ``params``, ``batches``, ``caches`` (None in
-    prefill), ``pos`` (None: ``arange``), ``pages`` and ``groups`` hold one
-    entry a data shard.  A shard with a model axis (``groups[s]``, the
-    module docstring: the chunked modes and paged decode of a
-    frontend-free model) holds one params and one cache tree a model
-    shard, runs each layer's attention and FFN over its model shards with
-    the all-reduces written out, and gathers its logits on model shard
-    0's device; its MoE layers route once a model shard.  Returns
-    (logits, cache) a data shard, as :func:`forward`."""
+    prefill), ``pos`` (None: ``arange``), ``pages`` (None: prefill, or
+    decode over the dense arena) and ``groups`` hold one entry a data
+    shard.  A shard with a model axis (``groups[s]``, the module
+    docstring; every mode but train) holds one params and one cache tree
+    a model shard, runs each layer's mixer and FFN over its model shards
+    with the all-reduces written out, and gathers its logits on model
+    shard 0's device; its MoE layers route once a model shard.  Returns
+    (logits, cache) a data shard, as :func:`forward`: in prefill the
+    last position's logits and the new part cache — over a model axis,
+    one part cache a model shard, at its heads and widths."""
     n = len(batches)
     m = 1 if groups[0] is None else groups[0].size
     xs, ps, pg = [], [], []
@@ -389,18 +470,20 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
             ps.append(_positions(batches[s], xs[s][0], pos[s], mode))
             pg.append(pages[s])
             continue
-        if mode not in _CHUNKED + ("decode",) or pages[s] is None \
-                or cfg.frontend:
+        if mode == "train":
             raise NotImplementedError(
-                f"{cfg.name}: a model axis over 1 serves the chunked steps "
-                f"and paged decode of a frontend-free model, not {mode!r} "
-                "(ROADMAP Queue 1, item 2)")
-        ps.append(g.replicate(pos[s]))
-        pg.append([{k: v.to(d, non_blocking=True)
+                f"{cfg.name}: a model axis serves the serving modes, not "
+                "train")
+        xs.append(_embed_shards(g, params[s], cfg, batches[s]["tokens"],
+                                mode, batches[s].get("frontend_embeds")))
+        ps.append(g.replicate(_positions(batches[s], xs[s][0], pos[s],
+                                         mode)))
+        pg.append([None if pages[s] is None else
+                   {k: v.to(d, non_blocking=True)
                     for k, v in pages[s].items()} for d in g.devices])
-        xs.append(_embed_shards(g, params[s], cfg, batches[s]["tokens"]))
     shard_cfg = sharding.shard_config(cfg, m)
-    new = [{} for _ in range(n)]
+    # each data shard's new part cache in prefill, one a model shard
+    new = [[{} for _ in range(m if groups[s] else 1)] for s in range(n)]
     for section, i, layers, prefix in _sections(cfg):
         # each data shard's weights and cache trees of the section, one a
         # model shard
@@ -409,26 +492,27 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
         ct = [None if caches[s] is None else
               [_section(t, section, i) for t in
                (caches[s] if groups[s] else [caches[s]])] for s in range(n)]
-        slots = [{} for _ in range(n)]
+        slots = [[{} for _ in t] for t in new]
         for li, layer in enumerate(layers):
             key = f"{prefix}{li}"
             w = [[t[key] for t in wt[s]] for s in range(n)]
+            c = [None if ct[s] is None else [t[key] for t in ct[s]]
+                 for s in range(n)]
             hs = []
             for s in range(n):
-                c = None if ct[s] is None else [t[key] for t in ct[s]]
                 if groups[s] is not None:
-                    xs[s], h = _mixer_shards(groups[s], w[s], shard_cfg,
-                                             layer, xs[s], c, ps[s], mode,
-                                             pg[s])
-                    hs.append(h)
-                    continue
-                x, h, mix = blocks.mixer_half(
-                    w[s][0], cfg, layer, xs[s][0],
-                    None if c is None else c[0]["mixer"], ps[s], mode,
-                    pg[s])
-                xs[s] = [x]
-                hs.append([h])
-                slots[s][key] = {"mixer": mix}
+                    xs[s], h, mix = _mixer_shards(
+                        groups[s], w[s], shard_cfg, layer, xs[s], c[s],
+                        ps[s], mode, pg[s])
+                else:
+                    x, h, mix = blocks.mixer_half(
+                        w[s][0], cfg, layer, xs[s][0],
+                        None if c[s] is None else c[s][0]["mixer"], ps[s],
+                        mode, pg[s])
+                    xs[s], h, mix = [x], [h], [mix]
+                hs.append(h)
+                for j, mj in enumerate(mix):
+                    slots[s][j][key] = {"mixer": mj}
             spec = layer.ffn
             # a MoE layer over a layout: one route a model shard, over
             # every data shard's router logits (the router is replicated)
@@ -442,31 +526,35 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                     routes[s][j] = got[s]
             for s in range(n):
                 if groups[s] is not None:
-                    ys = _ffn_shards(groups[s], w[s], cfg, spec, hs[s],
-                                     routes[s])
+                    ys, fc = _ffn_shards(groups[s], w[s], cfg, spec, hs[s],
+                                         routes[s], c[s], mode)
                     xs[s] = [x + y for x, y in zip(xs[s], ys)]
-                    continue
-                x, slots[s][key]["ffn"] = blocks.ffn_half(
-                    w[s][0], cfg, layer, xs[s][0], hs[s][0],
-                    None if ct[s] is None else ct[s][0][key]["ffn"], mode,
-                    route=routes[s][0])
-                xs[s] = [x]
+                else:
+                    x, f = blocks.ffn_half(
+                        w[s][0], cfg, layer, xs[s][0], hs[s][0],
+                        None if c[s] is None else c[s][0]["ffn"], mode,
+                        route=routes[s][0])
+                    xs[s], fc = [x], [f]
+                for j, fj in enumerate(fc):
+                    slots[s][j][key]["ffn"] = fj
         if mode == "prefill":
             for s in range(n):
-                if i is None:
-                    new[s][section] = slots[s]
-                else:
-                    new[s].setdefault(section, []).append(slots[s])
+                for j, sl in enumerate(slots[s]):
+                    if i is None:
+                        new[s][j][section] = sl
+                    else:
+                        new[s][j].setdefault(section, []).append(sl)
     out = []
     for s in range(n):
+        parts = [{k: _stack(v) if k == "period" else v for k, v in t.items()}
+                 for t in new[s]] if mode == "prefill" else None
         if groups[s] is not None:
-            out.append((_logits_shards(groups[s], params[s], cfg, xs[s]),
-                        caches[s]))
+            last = [x[:, -1:] if mode == "prefill" else x for x in xs[s]]
+            out.append((_logits_shards(groups[s], params[s], cfg, last),
+                        parts if mode == "prefill" else caches[s]))
         else:
             out.append((_out_logits(params[s], cfg, xs[s][0], mode),
-                        {k: _stack(v) if k == "period" else v
-                         for k, v in new[s].items()}
-                        if mode == "prefill" else caches[s]))
+                        parts[0] if mode == "prefill" else caches[s]))
     return out
 
 
@@ -511,8 +599,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       over the dense arena): all positions' logits, and the cache updated
       in place.
 
-    With ``group`` (the chunked modes and paged decode): ``params`` and
-    ``cache`` hold one tree a model shard (:func:`forward_data_shards`)."""
+    With ``group`` (every mode but ``"train"``): ``params`` and ``cache``
+    hold one tree a model shard (:func:`forward_data_shards`), and a
+    prefill returns one part cache a model shard."""
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
@@ -556,14 +645,15 @@ def train_logits(params, cfg: ModelConfig, batch: dict):
     return forward(params, cfg, batch, mode="train")
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, pos=None):
+def prefill(params, cfg: ModelConfig, batch: dict, pos=None, group=None):
     """Uniform one-shot prefill of ``batch["tokens"]`` [B, S] (every row
     a whole prompt at positions ``0..S-1`` unless ``pos`` says
     otherwise): returns (last-position logits [B, 1, V], part cache),
     the part cache being the dense ``[B, S, ...]`` tree
     ``TierSlotPool.write_prefill`` / ``DenseTierSlotPool.write_prefill``
-    scatter into the arena."""
-    return forward(params, cfg, batch, mode="prefill", pos=pos)
+    scatter into the arena — with ``group``, one such tree a model
+    shard, at the shard's KV heads and recurrent widths."""
+    return forward(params, cfg, batch, mode="prefill", pos=pos, group=group)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, cache, pos, pages,
@@ -630,15 +720,17 @@ def ragged_step(params, cfg: ModelConfig, tokens, cache, pos, pages,
     return last_slot_gather(logits, pages["q_len"], flat=True), cache
 
 
-def ragged_verify(params, cfg: ModelConfig, tokens, cache, pos, pages):
+def ragged_verify(params, cfg: ModelConfig, tokens, cache, pos, pages,
+                  group=None):
     """The speculative verify's step: :func:`ragged_step`'s flat ``[1,
     W]`` layout, KV writes and pages contract, but returning every
     position's logits ``[1, W, V]`` (with the cache) instead of the
     last-slot gather, so a verify row (``q_len = 1 + k`` flat slots) is
     scored at every drafted position in the one launch.  Padding slots
-    and ``q_len == 0`` rows yield unspecified logits."""
+    and ``q_len == 0`` rows yield unspecified logits.  With ``group``
+    the logits are gathered on model shard 0's device."""
     return forward(params, cfg, {"tokens": tokens}, mode="ragged_step",
-                   cache=cache, pos=pos, pages=pages)
+                   cache=cache, pos=pos, pages=pages, group=group)
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, pages=None,

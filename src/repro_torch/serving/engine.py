@@ -151,22 +151,25 @@ packed ``[capacity, prompt_len]``): ``moe_route`` launches once per MoE
 layer a tier launch, as unsharded, not ``D`` times; each shard's
 experts run over the capacity buffer of the routing groups its tokens
 fall in.  Speculation refuses a draft tier with MoE layers, so no draft
-step routes.  Shards on one device share one replica of the params.  A ``DxM`` mesh
-with ``M > 1`` adds tensor parallelism under the ragged, padded and split
-executors: each data shard's launch runs over its ``M`` model shards,
-each on its device, over its attention heads and KV heads, its FFN
-hidden units or experts and its vocabulary range, with the all-reduces
-and the logits' gather written out
-(:func:`repro_torch.models.transformer.forward` with ``group=``); the
-confidence gate runs once per data shard on the gathered logits, so the
-attention kernels and ``moe_route`` launch ``M`` times as often and the
-gate as often as without the model axis, with no added host sync.  The
-weights are each model shard's slices by ``param_specs``
-(``TierSpec.shard_params``) or views into one full replica per distinct
-device (the default: the compute still splits, as in the JAX engine).
-A model axis over 1 under uniform prefill, the dense arena or
-speculation, or on a recurrent (RWKV-6, Mamba) or frontend tier, raises
-(ROADMAP Queue 1, item 2).
+step routes.  Shards on one device share one replica of the params.  A
+``DxM`` mesh with ``M > 1`` adds tensor parallelism under every executor
+— ragged, padded, split, uniform one-shot prefill, the dense arena and
+speculation — and for every tier family: each data shard's launch runs
+over its ``M`` model shards, each on its device, over its attention
+heads and KV heads, its RWKV-6 heads or Mamba channels, its FFN hidden
+units or experts, its frontend rows and its vocabulary range, with the
+all-reduces and the logits' gather written out
+(:func:`repro_torch.models.transformer.forward` with ``group=``); a
+uniform prefill returns one part cache a model shard, which the pool
+writes into that shard's tree (its KV heads, its recurrent widths), and
+the dense arena holds one tree a model shard likewise.  The confidence
+gate runs once per data shard on the gathered logits (a verify's on the
+whole ``[W, V]``), so the attention kernels, the scans and ``moe_route``
+launch ``M`` times as often and the gate as often as without the model
+axis, with no added host sync.  The weights are each model shard's
+slices by ``param_specs`` (``TierSpec.shard_params``) or views into one
+full replica per distinct device (the default: the compute still
+splits, as in the JAX engine).
 
 Not ported from the JAX engine: compile statistics (an eager engine
 compiles nothing; they wait for CUDA graphs).
@@ -186,9 +189,8 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import transformer
 from repro_torch.models.params import param_specs, tree_map
-from repro_torch.models.sharding import (ModelShards, data_axis_size,
-                                         kv_heads_per_shard,
-                                         model_axis_size,
+from repro_torch.models.sharding import (ModelShards, check_model_axis,
+                                         data_axis_size, model_axis_size,
                                          model_shard_params)
 from repro_torch.serving import faults as faults_lib
 from repro_torch.serving import observability as obs
@@ -230,8 +232,11 @@ class TierSpec:
     shards on it compute over views of their slices.  With
     ``shard_params``, ``params`` may also be one tree a model shard,
     each already its shard's slices (weights too large to draw whole).
-    A model axis that the heads do not allow raises ValueError here
-    (:func:`repro_torch.models.sharding.kv_heads_per_shard`)."""
+    A model axis that the layers do not allow raises ValueError here,
+    naming the shapes: attention heads it cannot split
+    (:func:`repro_torch.models.sharding.kv_heads_per_shard`), RWKV-6 heads
+    it would cut, Mamba channels or frontend rows it does not divide
+    (:func:`repro_torch.models.sharding.check_model_axis`)."""
     name: str
     cfg: ModelConfig
     params: object
@@ -240,7 +245,7 @@ class TierSpec:
 
     def __post_init__(self):
         if self.model_shards() > 1:
-            kv_heads_per_shard(self.cfg, self.model_shards())
+            check_model_axis(self.cfg, self.model_shards())
 
     def flops_per_request(self, gen_len: int) -> float:
         """Eq 7 cost: FLOPs/token = 2 * active params."""
@@ -380,24 +385,6 @@ class _TierRuntime:
         self.mesh = spec.mesh
         self.data_shards = spec.data_shards()
         self.model_shards = spec.model_shards()
-        if self.model_shards > 1:
-            kinds = {layer.mixer.kind for layer in spec.cfg.layers}
-            refused = ("RWKV-6 and Mamba layers (their d_inner splits)"
-                       if kinds - {"attn"}
-                       else "a modality frontend" if spec.cfg.frontend
-                       else "the dense KV arena" if not use_paged_kv
-                       else "uniform one-shot prefill"
-                       if not use_chunked_prefill
-                       else "speculative cascade decoding"
-                       if speculation_k else None)
-            if refused is not None:
-                raise NotImplementedError(
-                    f"tier {spec.name}: a model axis of {self.model_shards} "
-                    f"under {refused} is not ported yet (ROADMAP Queue 1, "
-                    "item 2: the model axis under uniform, dense and "
-                    "speculation, recurrent and frontend tiers); the model "
-                    "axis runs the ragged, padded and split executors on "
-                    "attention tiers")
         if capacity % self.data_shards:
             raise ValueError(
                 f"tier {spec.name}: {capacity} slots must divide into the "
@@ -533,15 +520,19 @@ class _TierRuntime:
         shard's null block and its pick is discarded.  A draft tier has
         no MoE layers (the engine refuses one: those masked rows would
         route and take expert capacity), so each shard's draft loop runs
-        alone.  Every pick stays on the device."""
+        alone.  Over a model axis the verify and every draft step run
+        over the shard's model shards (``group=``), their logits gathered
+        on model shard 0's device, where the gate runs once on the whole
+        ``[W, V]``.  Every pick stays on the device."""
         pages = {"page_table": page_table, "q_len": q_len,
                  "q_start": q_start}
         caches, params, cfg = self.pool.caches, self.weights[shard], \
             self.spec.cfg
+        group = self.groups[shard]
         if logits is None:
             logits, caches[shard] = transformer.ragged_verify(
                 params, cfg, self._clamped(tokens), caches[shard], pos,
-                pages)
+                pages, group=group)
         out = kernel_ops.spec_accept(*self.pick(logits[0]), q_len, tokens,
                                      self.spec_k)
         if not self.spec_draft:
@@ -554,7 +545,7 @@ class _TierRuntime:
                 params, cfg, dtok[-1][:, None], caches[shard],
                 torch.where(live, cur, 0)[:, None],
                 pages={"page_table": torch.where(live[:, None], page_table,
-                                                 0)})
+                                                 0)}, group=group)
             t, c = self.pick(logits[:, 0])
             dtok.append(t)
             dconf.append(c)
@@ -611,9 +602,11 @@ class _TierRuntime:
         zeros): returns the part cache for ``write_prefill`` and each
         row's first pick from its last-position logits.  A tier with a
         modality frontend gets zero frontend embeddings, as in the JAX
-        engine."""
+        engine.  Over a model axis the part cache is one tree a model
+        shard."""
         logits, part = transformer.prefill(self.weights[shard], self.spec.cfg,
-                                           self._prefill_batch(prompts))
+                                           self._prefill_batch(prompts),
+                                           group=self.groups[shard])
         tok, conf = self.pick(logits[:, -1])
         return part, tok, conf
 

@@ -75,8 +75,13 @@ holds ``M`` cache trees (``caches[s]`` a list), one on each of its model
 devices, each with the KV heads of its model shard
 (:func:`repro_torch.models.sharding.shard_config`, by the KV-head rule
 of :func:`~repro_torch.models.sharding.kv_head_range`) for every block
-of the data shard.  A block id means the same block in all ``M`` trees,
-so the page tables are shared, and a block copy runs in each tree.
+of the data shard, and its recurrent state at its width (its RWKV-6
+heads, its Mamba channels: :func:`~repro_torch.models.sharding.
+inner_range`) for every row.  A block id means the same block in all
+``M`` trees, so the page tables are shared, a block copy runs in each
+tree, and a uniform prefill writes each model shard's part cache into
+its own tree.  The dense arena (:class:`DenseTierSlotPool`) holds ``M``
+trees a data shard alike.
 """
 from __future__ import annotations
 
@@ -863,32 +868,32 @@ class TierSlotPool:
         into their request rows (the shard's local rows), each sliced to
         the ``n`` admitted rows.  Every slot lies on one data shard, whose
         arena the part cache was computed beside; ``bind`` must have
-        mapped each slot's prompt pages already.  One model shard."""
+        mapped each slot's prompt pages already.  Over a model axis
+        ``part_cache`` holds one tree a model shard, each written into
+        that shard's tree (:meth:`shard_trees`) on its device."""
         shard = _one_shard_of(self.shard_of, slot_ids)
-        if self.model_shards != 1:
-            raise ValueError("write_prefill: the uniform prefill takes no "
-                             "model axis")
+        parts = part_cache if self.model_shards > 1 else [part_cache]
         n = len(slot_ids)
         ids = np.asarray(slot_ids, np.int64)
-        tree = self.caches[shard]
-        dev = next(iter(tree_leaves(tree))).device
         # token t of row i lives at (page_table[slot_i, t // bs], t % bs)
         t = np.arange(prompt_len)
-        pt = self.local_page_table(shard)
         local = ids - shard * self._row_span
-        blk = torch.from_numpy(pt[local][:, t // self.block_size]
-                               .astype(np.int64)).to(dev)
-        off = torch.from_numpy(np.broadcast_to(
-            t % self.block_size, (n, prompt_len)).astype(np.int64)).to(dev)
-        rows = torch.from_numpy(local).to(dev)
+        pt_blk = self.local_page_table(shard)[local][
+            :, t // self.block_size].astype(np.int64)
+        off = np.broadcast_to(t % self.block_size,
+                              (n, prompt_len)).astype(np.int64)
+        for tree, part in zip(self.shard_trees(shard), parts):
+            dev = next(iter(tree_leaves(tree))).device
+            blk, offs, rows = (torch.from_numpy(a).to(dev)
+                               for a in (pt_blk, off, local))
 
-        def write(full, part, meta):
-            kind, ax = meta
-            if kind == "paged":
-                _write_paged(full, part, ax, blk, off)
-            else:
-                _write_rows(full, part.narrow(ax, 0, n), ax, rows)
-        tree_map(write, tree, part_cache, self._meta)
+            def write(full, part, meta):
+                kind, ax = meta
+                if kind == "paged":
+                    _write_paged(full, part, ax, blk, offs)
+                else:
+                    _write_rows(full, part.narrow(ax, 0, n), ax, rows)
+            tree_map(write, tree, part, self._meta)
 
     # -- memory accounting -------------------------------------------------
 
@@ -940,7 +945,12 @@ class DenseTierSlotPool:
     splits the request rows into ``D`` contiguous shards, as the JAX
     package lays the arena out by ``cache_specs`` (``batch`` over the
     data axis): ``caches[s]`` holds shard ``s``'s ``[capacity / D,
-    max_seq, ...]`` rows on its device.  No model axis."""
+    max_seq, ...]`` rows on its device.  A ``model`` axis of ``M > 1``
+    makes ``caches[s]`` a list of ``M`` trees, one on each of the shard's
+    model devices (:meth:`shard_trees`), each declared from
+    :func:`repro_torch.models.sharding.shard_config`: its KV heads by
+    :func:`~repro_torch.models.sharding.kv_head_range`, its recurrent
+    leaves at its width."""
 
     def __init__(self, cfg, capacity: int, max_seq: int,
                  dtype=torch.float32, *, device="cuda", mesh=None,
@@ -956,23 +966,40 @@ class DenseTierSlotPool:
                 f"capacity {capacity} must divide into {self.data_shards} "
                 "data shards")
         self._row_span = capacity // self.data_shards
+        self.model_shards = model_axis_size(mesh)
+        shard_cfg = shard_config(cfg, self.model_shards)
         devices = (mesh.data_devices() if mesh is not None
                    else [torch.device(device)] * self.data_shards)
-        decl = cache_lib.declare_cache(cfg, capacity, max_seq, dtype)
-        self.caches = [cache_lib.init_cache(cfg, self._row_span, max_seq,
-                                            dtype, dev) for dev in devices]
-        self._bax = tree_map(lambda c: c.axes.index("batch"), decl)
+
+        def trees(s):
+            devs = (mesh.model_devices(s) if self.model_shards > 1
+                    else [devices[s]])
+            out = [cache_lib.init_cache(shard_cfg, self._row_span, max_seq,
+                                        dtype, dev) for dev in devs]
+            return out if self.model_shards > 1 else out[0]
+        self.caches = [trees(s) for s in range(self.data_shards)]
+        self._bax = tree_map(lambda c: c.axes.index("batch"),
+                             cache_lib.declare_cache(cfg, 1, 1, dtype))
+        # the KV rows' bytes on one device: over a model axis, one model
+        # shard's KV heads
         self._kv_bytes = sum(
             math.prod(c.shape) * torch.empty((), dtype=c.dtype).element_size()
-            for c in tree_leaves(decl) if "kv_seq" in c.axes)
+            for c in tree_leaves(cache_lib.declare_cache(
+                shard_cfg, capacity, max_seq, dtype)) if "kv_seq" in c.axes)
 
     @property
     def cache(self):
         """The one shard's rows (a sharded arena's are in :attr:`caches`)."""
-        if self.data_shards != 1:
+        if self.data_shards != 1 or self.model_shards != 1:
             raise ValueError(f"cache: the arena has {self.data_shards} data "
-                             "shards; use caches[shard]")
+                             f"and {self.model_shards} model shards; use "
+                             "caches[shard]")
         return self.caches[0]
+
+    def shard_trees(self, shard: int) -> list:
+        """Data shard `shard`'s cache trees, one a model shard."""
+        trees = self.caches[shard]
+        return trees if self.model_shards > 1 else [trees]
 
     def shard_of(self, slot: int) -> int:
         """The data shard owning request row `slot`."""
@@ -982,18 +1009,21 @@ class DenseTierSlotPool:
         """Write a packed prefill cache's first ``len(slot_ids)`` rows into
         those request rows (KV at positions ``0..prompt_len-1``), in
         place; every slot lies on one data shard, written at its local
-        rows."""
+        rows — over a model axis, ``part_cache`` one tree a model shard,
+        each into that shard's tree."""
         shard = _one_shard_of(self.shard_of, slot_ids)
+        parts = part_cache if self.model_shards > 1 else [part_cache]
         n = len(slot_ids)
-        tree = self.caches[shard]
-        dev = next(iter(tree_leaves(tree))).device
-        rows = torch.as_tensor(np.asarray(slot_ids, np.int64)
-                               - shard * self._row_span, device=dev)
-        tree_map(lambda full, part, bax: _write_rows(
-            full, part.narrow(bax, 0, n), bax, rows),
-            tree, part_cache, self._bax)
+        local = np.asarray(slot_ids, np.int64) - shard * self._row_span
+        for tree, part in zip(self.shard_trees(shard), parts):
+            rows = torch.as_tensor(
+                local, device=next(iter(tree_leaves(tree))).device)
+            tree_map(lambda full, p, bax: _write_rows(
+                full, p.narrow(bax, 0, n), bax, rows), tree, part, self._bax)
 
     def memory_stats(self) -> dict:
+        # the KV rows' bytes on one device (over a model axis, one model
+        # shard's KV heads), as the paged pool counts its blocks
         total = self._kv_bytes
         return {
             "block_size": self.max_seq,

@@ -1087,6 +1087,79 @@ def test_cuda_flash_attention_data_shard_prefill(case, cuda_device):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
+def _model_shard_prefill(name, m, S, window=None):
+    """(B, H, KV, S, d, window) of one of ``m`` model shards' uniform
+    prefill of 8 rows of ``S`` tokens of config ``name``."""
+    KV, G, hd = _shard_heads(name, m)
+    return (8, KV * G, KV, S, hd, window)
+
+
+# one model shard's uniform prefill at phase 12's 1x2 meshes (8 rows):
+# phi4-mini-3.8b's 12 query heads over 4 KV heads, gemma3-1b's 2 over its
+# one KV head (window 512 and global), qwen2-vl-72b's 32 over 4 at 1152
+# tokens
+MODEL_SHARD_PREFILL = {
+    "phi4-m2": _model_shard_prefill("phi4-mini-3.8b", 2, 640),
+    "gemma3-m2-window512": _model_shard_prefill("gemma3-1b", 2, 640, 512),
+    "gemma3-m2-global": _model_shard_prefill("gemma3-1b", 2, 640),
+    "qwen2vl-m2": _model_shard_prefill("qwen2-vl-72b", 2, 1152),
+}
+
+
+def _inner_width(name, m):
+    """One of ``m`` model shards' ``d_inner`` channels of config
+    ``name``'s recurrent layers (``sharding.inner_range``)."""
+    from repro_torch.models import sharding
+    cfg = get_config(name, "")
+    mixer = next(l.mixer for l in cfg.layers
+                 if l.mixer.kind in ("rwkv6", "mamba"))
+    return sharding.inner_range(cfg, mixer, 0, m)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MODEL_SHARD_PREFILL))
+def test_cuda_flash_attention_model_shard_prefill(case, cuda_device):
+    """A model shard's uniform prefill, at its query and KV heads,
+    against the plain version (on the card: qwen2-vl's 1152 tokens
+    would take the CPU long), within atol = rtol = 1e-4."""
+    B, H, KV, S, d, window = MODEL_SHARD_PREFILL[case]
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _flash_inputs(len(case), B, H, KV, S, S, d))
+    got = flash_mod.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_scan_model_shard(cuda_device):
+    """rwkv6-3b's scan at one of two model shards' heads, r/k/v/w [8, 20,
+    640, 64], against the plain version on the card: y and the final
+    state within atol = rtol = 1e-4."""
+    H = _inner_width("rwkv6-3b", 2) // 64
+    assert H == 20
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _rwkv_inputs(20, 8, H, 640, 64)]
+    y, s_T = rwkv_mod.rwkv6_scan(*args)
+    want_y, want_s = ref.rwkv6_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s_T, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_model_shard(cuda_device):
+    """jamba-v0.1-52b's scan at one of two model shards' channels, x [8,
+    640, 4096], n 16, against the plain version on the card: y and the
+    final state within atol = rtol = 1e-4."""
+    d = _inner_width("jamba-v0.1-52b", 2)
+    assert d == 4096
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _mamba_inputs(21, 8, 640, d, 16)]
+    y, h_T = mamba_mod.mamba_scan(*args)
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h_T, want_h, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_cuda_moe_route_over_data_shards(cuda_device):
     """granite's published route (40 experts, top-8, capacity factor

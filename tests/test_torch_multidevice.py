@@ -549,29 +549,24 @@ def test_shard_assignments_match_jax_on_8_host_devices(weights, jax_shards,
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flags,mesh,err", [
-    ({"speculation_k": 2}, (1, 2), NotImplementedError),
-    ({"use_paged_kv": False}, (1, 2), NotImplementedError),
-    ({"expensive": "musicgen-large", "reason": "a modality frontend"},
-     (1, 2), NotImplementedError),
-    ({"use_chunked_prefill": False}, (1, 2), NotImplementedError),
-    ({"expensive": "rwkv6-3b"}, (1, 2), NotImplementedError),
-    ({}, (1, 3), ValueError),
-    ({"slots": 6}, (4, 1), ValueError),
-    ({"kv_block_size": 4, "kv_blocks": 8}, (2, 1), ValueError)],
+@pytest.mark.parametrize("flags,work", [
+    ({"speculation_k": 2, "spec_delta": 0.0, "flat_buckets": [64]},
+     "lognormal"),
+    ({"use_paged_kv": False}, "uniform"),
+    ({"expensive": "musicgen-large", "refused_tier_only": True}, "uniform"),
+    ({"use_chunked_prefill": False}, "uniform"),
+    ({"expensive": "rwkv6-3b"}, "uniform")],
     ids=["model-axis-speculation", "model-axis-dense",
-         "model-axis-frontend", "model-axis-uniform", "model-axis-rwkv6",
-         "model-axis-heads", "uneven-rows", "blocks-per-shard"])
-def test_unsupported_meshes_raise(weights, flags, mesh, err):
-    """A model axis over 1 under speculation, the dense arena or uniform
-    prefill, or on a frontend or RWKV-6 tier, raises naming the ROADMAP
-    item (data shards serve all of them:
-    ``tests/test_torch_data_axis.py``); a model axis that does not divide
-    the query heads (3 of the smoke models' 4) raises ValueError naming
-    the shapes; uneven rows and too few blocks per shard raise the JAX
-    engine's errors (the pool's, held to JAX above)."""
+         "model-axis-frontend", "model-axis-uniform", "model-axis-rwkv6"])
+def test_model_axis_serves_the_lifted_cases(weights, flags, work):
+    """A model axis of 2 under speculation, the dense arena or uniform
+    prefill, and on a frontend or RWKV-6 tier, which the port refused
+    before (``tests/test_torch_model_axis_executors.py`` holds them to
+    the JAX engine): the engine builds on ``1x2`` (the frontend tier's
+    only, as the refusal was) and serves the unsharded engine's
+    streams."""
     flags = dict(flags)
-    reason = flags.pop("reason", None)
+    alone = flags.pop("refused_tier_only", False)
     if "expensive" in flags:
         name = flags.pop("expensive")
         cfg = configs_of(name)[1]
@@ -579,17 +574,35 @@ def test_unsupported_meshes_raise(weights, flags, mesh, err):
                    dict(weights[1], **{EXP: init_params(cfg, 1,
                                                         device="cpu")}),
                    weights[2])
-    meshes = _meshes(*mesh)
-    if reason is not None:
-        meshes[0] = None            # the model axis on the refused tier only
+    meshes = _meshes(1, 2)
+    if alone:
+        meshes[0] = None
+    eng = _engine(weights, meshes, 0.5, **flags)
+    assert eng.runtimes[1].model_shards == 2
+    got = _drain(eng, WORK[work])
+    want = _drain(_engine(weights, None, 0.5, **flags), WORK[work])
+    assert [r[:3] for r in got] == [r[:3] for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[3], w[3], rtol=0, atol=1e-6)
+    assert eng.metrics.summary()["conservation"]["ok"]
+
+
+@pytest.mark.parametrize("flags,mesh,err", [
+    ({}, (1, 3), ValueError),
+    ({"slots": 6}, (4, 1), ValueError),
+    ({"kv_block_size": 4, "kv_blocks": 8}, (2, 1), ValueError)],
+    ids=["model-axis-heads", "uneven-rows", "blocks-per-shard"])
+def test_unsupported_meshes_raise(weights, flags, mesh, err):
+    """A model axis that does not divide the query heads (3 of the smoke
+    models' 4) raises ValueError naming the shapes; uneven rows and too
+    few blocks per shard raise the JAX engine's errors (the pool's, held
+    to JAX above).  A model axis under speculation, the dense arena or
+    uniform prefill, or on a frontend or RWKV-6 tier, serves:
+    :func:`test_model_axis_serves_the_lifted_cases`."""
     with pytest.raises(err) as e:
-        _engine(weights, meshes, 0.5, **flags)
+        _engine(weights, _meshes(*mesh), 0.5, **flags)
     msg = str(e.value)
-    if err is NotImplementedError:
-        assert "ROADMAP Queue 1, item 2" in msg
-        assert reason is None or f"tier exp: a model axis of 2 under " \
-            f"{reason}" in msg
-    elif mesh[1] > 1:
+    if mesh[1] > 1:
         assert msg == ("gemma3-1b-smoke: a model axis of 3 has no "
                        "head-parallel layout for 4 query heads and 1 KV "
                        "heads (it must divide the query heads, and divide "
