@@ -24,7 +24,11 @@ without printing a result):
      (``transformer.route_data_shards``); phase 12's model shards:
      ``flash_attention`` at one shard's heads of phi4, gemma3 and
      qwen2-vl, ``rwkv6_scan`` at 20 heads, ``mamba_scan`` at 4096
-     channels; the ragged kernel also at the
+     channels; phase 13's sharded train step: ``moe_route`` on granite's
+     global route [1, 1024, 40] and ``rwkv6_scan`` at one model shard's
+     [4, 20, 256, 64], there also the differentiable ``_RWKV6Scan``
+     (forward and every input's gradient) against plain-torch autograd;
+     the ragged kernel also at the
      flat
      widths 48 and 160 of phase 4e's bucket override), with CUDA-event
      times for the
@@ -116,11 +120,12 @@ without printing a result):
      53.2 GB of f32 weights) on the uniform path it picks by itself and
      on the dense arena (``--dense-kv``), each run with the counters set
      to 0 just before and read just after, its launches checked exactly;
-  6. the workload once more, cut to 8 requests, inside
-     ``torch.profiler``, with a virtual clock, under each executor (the
-     uniform one included), for the MoE cascade under the ragged one and
-     for the RWKV-6 and jamba cascades (phase 4b's four runs alone:
-     ``scripts/torch_speculation_profiles.py``): device time by kernel
+  6. the workload once more, cut to 8 requests (phase 4's 8 slots
+     full), inside ``torch.profiler``, with a virtual clock, under each
+     executor (the uniform one included; the MoE, RWKV-6 and jamba
+     cascades' profiles alone: ``scripts/torch_family_profiles.py``,
+     phase 4b's four runs: ``scripts/torch_speculation_profiles.py``):
+     device time by kernel
      kind (a kind's split-merge kernels counted with it) and the
      device's idle share; and the split MoE cascade
      served twice under a virtual clock, to record whether its streams
@@ -236,7 +241,22 @@ without printing a result):
      five cards or more) qwen2-vl-72b at its 80 layers drawn a model
      shard a card on a ``1x4`` mesh behind gemma3-1b on a fifth card,
      its fit per card printed first, slots halved until it fits (with
-     fewer cards, a line saying 12b did not run).
+     fewer cards, a line saying 12b did not run);
+ 13. sharded training, after phase 7 on phase 4's phi4-mini-3.8b
+     (``check_sharded_training``; alone:
+     ``scripts/torch_sharded_train_phase.py``): two steps of the train
+     and LtC steps built with ``mesh=`` (params and adafactor state
+     placed by their specs, the batch split by ``shard_batch``) on
+     ``2x1`` and ``1x2`` over one card against the unsharded steps on
+     phase 7b's batches (4 x 256 tokens): (13a) LtC of the published
+     gemma3-1b against the frozen phi4-mini-3.8b (also ``2x1`` over two
+     cards where two are visible), (13b) granite-moe-3b-a800m at its
+     published widths cut to 2 layers, each MoE layer routed once over
+     the global batch (``moe_route`` [1, 1024, 40]), (13c) rwkv6-3b cut
+     to 2 layers on ``1x2``: per-step losses and, after each step, the
+     gathered params and Adafactor state against unsharded's (every step
+     before a routing near-tie), exact ``moe_route`` / ``rwkv6_scan``
+     launches, step ms, tokens/s and peak memory.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -969,13 +989,14 @@ ROUTER_TOL = "gates rtol 1e-5 (atol 0), indices exact"
 ROUTE_TOL = ("gates and weights rtol 1e-5 (atol 0); idx, dest and keep "
              "exact")
 # moe_route at the main paths' shapes: (name, G, gs, k, E, capacity
-# factor, ties, dtype) — granite's full ragged/padded bucket and its
-# decode width, moonshot's (64 experts, top-6) and kimi's (384, top-8)
+# factor, ties, dtype) — granite's full ragged/padded bucket, its decode
+# width and phase 13's train route (4 x 256 tokens, one group), moonshot's (64 experts, top-6) and kimi's (384, top-8)
 # full bucket, jamba's uniform prefill (5120 tokens: 5 groups of 1024),
 # E at the kernel's 1024 limit, rows of exact ties, bf16 logits
 ROUTE_CASES = (
     ("granite bucket [1, 512, 40]", 1, 512, 8, 40, 1.25, False, "f32"),
     ("granite decode [1, 8, 40]", 1, 8, 8, 40, 1.25, False, "f32"),
+    ("granite train [1, 1024, 40]", 1, 1024, 8, 40, 1.25, False, "f32"),
     ("moonshot bucket [1, 512, 64]", 1, 512, 6, 64, 1.25, False, "f32"),
     ("kimi bucket [1, 512, 384]", 1, 512, 8, 384, 1.25, False, "f32"),
     ("jamba prefill [5, 1024, 16]", 5, 1024, 2, 16, 1.25, False, "f32"),
@@ -1266,8 +1287,11 @@ RWKV_TOL = "y and final state atol=rtol=1e-4"
 def check_rwkv(dev, flush):
     """rwkv6_scan against its plain version at rwkv6-3b's uniform prefill:
     r, k, v, w [8, 40, 640, 64] (w = exp(-exp(.)) in (0, 1)), u [40, 64],
-    and at one of phase 12's two model shards' heads, [8, 20, 640, 64];
-    both outputs (y and the final state) compared.  Work for the bound:
+    at one of phase 12's two model shards' heads, [8, 20, 640, 64], and
+    at phase 13's train step on one of two model shards, [4, 20, 256,
+    64], where the differentiable ``blocks._RWKV6Scan`` is also held to
+    plain-torch autograd (:func:`check_rwkv_function`); both outputs (y
+    and the final state) compared.  Work for the bound:
     the five inputs read and y and the state written once; per step and
     head 5·hd² f32 operations (2·hd² for r·S, 3·hd² for the decayed
     update w ⊙ S + k vᵀ) and 3·hd for the bonus term, folded into one
@@ -1277,7 +1301,9 @@ def check_rwkv(dev, flush):
     gen.manual_seed(6)
     worst, timed = 0.0, {}
     for label, (B, H, T, hd) in (("rwkv6-3b", (8, 40, 640, 64)),
-                                 ("rwkv6-3b model shard", (8, 20, 640, 64))):
+                                 ("rwkv6-3b model shard", (8, 20, 640, 64)),
+                                 ("rwkv6-3b train model shard",
+                                  (4, 20, 256, 64))):
         r, k, v = (torch.randn(B, H, T, hd, generator=gen, device=dev) * 0.5
                    for _ in range(3))
         w = torch.exp(-torch.exp(torch.randn(B, H, T, hd, generator=gen,
@@ -1306,8 +1332,38 @@ def check_rwkv(dev, flush):
             lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u), "rwkv6_scan", flush)
         emit(timing="rwkv6_scan", case=name,
              ptxas=ptxas_lines("rwkv6_scan", f"wkv_kernelILi{hd}E"), **t)
+        if "train" in label:
+            check_rwkv_function(name, (r, k, v, w, u))
         del r, k, v, w, u, y, s_T, want_y, want_s
     return worst, timed
+
+
+def check_rwkv_function(name, inputs) -> None:
+    """``blocks._RWKV6Scan`` (the kernel forward, the plain recurrence's
+    backward) at the train step's shapes: y, the final state and the
+    gradient of every input under random cotangents on both outputs,
+    against plain-torch autograd through ``rwkv6_scan_ref`` on the same
+    inputs, within ``RWKV_TOL``."""
+    gen = torch.Generator(device=inputs[0].device)
+    gen.manual_seed(7)
+    ins = [[t.detach().clone().requires_grad_(True) for t in inputs]
+           for _ in range(2)]
+    got = blocks._RWKV6Scan.apply(*ins[0])
+    want = rwkv_mod.rwkv6_scan_ref(*ins[1])
+    cot = [torch.randn(o.shape, generator=gen, device=o.device)
+           for o in want]
+    for outs in (got, want):
+        sum((o * c).sum() for o, c in zip(outs, cot)).backward()
+    pairs = list(zip(got, want)) + [(a.grad, b.grad) for a, b in zip(*ins)]
+    errs = {n: (a.detach() - b.detach()).abs().max().item()
+            for n, (a, b) in zip(("y", "state", "dr", "dk", "dv", "dw", "du"),
+                                 pairs)}
+    ok = all(torch.allclose(a.detach(), b.detach(), atol=1e-4, rtol=1e-4)
+             for a, b in pairs)
+    emit(check="rwkv6_scan autograd.Function", case=name, max_abs_err=errs,
+         tol=RWKV_TOL + "; every input's gradient atol=rtol=1e-4", ok=ok)
+    if not ok:
+        raise AssertionError(f"_RWKV6Scan {name}: {errs}")
 
 
 MAMBA_TOL = "y and final state atol=rtol=1e-4"
@@ -3537,6 +3593,9 @@ KERNEL_NAMES = {"ragged_attention": ("ragged_kernel", "ragged_merge_kernel"),
                 "mamba_scan": ("mamba_kernel",)}
 
 
+# each profile's requests: phase 4's 8 slots full at the start (reading a
+# trace costs ~0.25 ms a launch, and the whole script must end within
+# 1200 s)
 PROFILE_REQUESTS = 8
 
 
@@ -3619,6 +3678,29 @@ def profile_speculation(card: str, params) -> None:
         for k in (0, SPEC_K):
             profile_ticks(card, pair, "ragged", expensive, speculate=k,
                           spec_delta=0.0 if k else None, **seed)
+
+
+def profile_families(card: str, fast) -> None:
+    """Phase 6's profiles (:func:`profile_ticks`) of the other cascades,
+    gemma3-1b's weights ``fast`` beside each expensive tier's drawn in
+    turn as ``main`` draws them: granite-moe-3b-a800m under the ragged
+    executor, rwkv6-3b and jamba-v0.1-52b cut to 1 of its 4 periods on
+    the uniform path they take by themselves.  Run by
+    ``scripts/torch_family_profiles.py``, not by ``main``: the three
+    took ~40 s of the script's 1200 at 4 requests."""
+    args = main_path_args(MOE_NAME)
+    dev = fast["embed"].device
+    jamba = dataclasses.replace(get_config(JAMBA_NAME, args.variant),
+                                num_periods=1)
+    for name, executor, cfgs in (
+            (MOE_NAME, "ragged", None), (RWKV_NAME, "auto", None),
+            (JAMBA_NAME, "auto", (get_config("gemma3-1b", args.variant),
+                                  jamba))):
+        cfg = cfgs[1] if cfgs else get_config(name, args.variant)
+        params = (fast, init_params(cfg, args.seed + 1, torch.float32, dev))
+        profile_ticks(card, params, executor, name, cfgs)
+        del params
+        torch.cuda.empty_cache()
 
 
 def check_split_moe_determinism(card: str, params) -> None:
@@ -4744,6 +4826,251 @@ def check_qwen_cards(card: str, fast_params) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 13: sharded training
+# --------------------------------------------------------------------------
+
+# phase 7b's batches (4 x 256 tokens of bigram_lm over 4096 ids, the
+# Batches order of launch.train.run), 2 steps, adafactor at lr 1e-3
+SHARDED_TRAIN = dict(steps=2, batch=4, seq=256, vocab=4096, lr=1e-3)
+SHARDED_MESHES = ((2, 1), (1, 2))
+SHARDED_TOL = ("per step, up to the first step whose routing differs from "
+               "unsharded's at a near-tie (reported; every step without "
+               "MoE): losses rtol 1e-5 (l_casc also within two flipped "
+               "argmax indicators, 2 / tokens), every parameter after the "
+               "step atol 1e-5, every optimizer-state leaf (Adafactor's "
+               "vr, vc and v, gathered) within 1e-4 of its largest "
+               "magnitude (rwkv6-3b: 5e-5 and 5e-3), the step count "
+               "equal")
+# (param atol, state error relative to the leaf's largest magnitude);
+# rwkv6-3b's gradients pass through the plain scan backward's 256 steps,
+# which carry the shards' other rounding further (its smoke widths on the
+# CPU: 1.06e-5 and 9.6e-4 after step 2)
+SHARDED_PARAM_STATE_TOL = (1e-5, 1e-4)
+SHARDED_DEEP_TOL = (5e-5, 5e-3)
+
+
+def sharded_train_batches() -> list:
+    """Phase 7b's first ``SHARDED_TRAIN["steps"]`` batches."""
+    B, S = SHARDED_TRAIN["batch"], SHARDED_TRAIN["seq"]
+    data = bigram_lm(num_seqs=max(B * 16, 256), seq_len=S,
+                     vocab=SHARDED_TRAIN["vocab"], seed=0,
+                     trigram_frac=0.3)
+    it = iter(Batches({"tokens": data}, B, seed=0))
+    return [torch.as_tensor(next(it)["tokens"])
+            for _ in range(SHARDED_TRAIN["steps"])]
+
+
+def tree_errors(got, want) -> dict:
+    """``got`` against ``want`` (trees of one structure; ``want`` may
+    lie on the host), leaf by leaf on ``got``'s device: the largest
+    absolute error of the floating leaves (``abs``), the largest error
+    of a leaf relative to that leaf's largest magnitude (``rel``), and
+    whether the other leaves (a step count) are equal."""
+    errs = {"abs": 0.0, "rel": 0.0, "equal": True}
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.to(a.device)
+        if not a.is_floating_point():
+            errs["equal"] &= bool(torch.equal(a, b))
+            continue
+        e = (a.float() - b.float()).abs().max().item()
+        errs["abs"] = max(errs["abs"], e)
+        errs["rel"] = max(errs["rel"],
+                          e / max(b.float().abs().max().item(), 1e-30))
+    return errs
+
+
+def sharded_train_run(cfg, params, batches, dev, mesh=None, exp=None,
+                      ref=None):
+    """``SHARDED_TRAIN["steps"]`` steps of ``make_train_step`` (or of
+    ``make_ltc_train_step`` against ``exp = (config, params)``, frozen)
+    from ``params``, unsharded or built with ``mesh=`` on the params and
+    optimizer state placed by their specs (``steps.place``).  After each
+    step, outside its time and its peak: unsharded (``ref`` None), the
+    params and optimizer state copied to the host; on a mesh, the
+    gathered params' and state's :func:`tree_errors` against ``ref``'s
+    host copies of that step.  Returns (per-step metrics, per-step ms,
+    peak device bytes above the resident ones, the ``TRAIN_COUNTED``
+    launches of the steps — the counters set to 0 just before and read
+    just after —, the router calls, per-step host copies or errors)."""
+    lr = SHARDED_TRAIN["lr"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if exp is None:
+        step, opt = steps.make_train_step(cfg, lr=lr, mesh=mesh)
+        extra = ()
+    else:
+        step, opt = steps.make_ltc_train_step(cfg, exp[0], lr=lr, mesh=mesh)
+        extra = (exp[1] if mesh is None else steps.place(
+            exp[1], params_lib.param_specs(exp[0], mesh), mesh),)
+    if mesh is None:
+        p, s = params, opt.init(params)
+    else:
+        specs = params_lib.param_specs(cfg, mesh)
+        ospecs = steps.opt_state_specs(opt.name, cfg, mesh)
+        p = steps.place(params, specs, mesh)
+        s = steps.place(opt.init(params), ospecs, mesh)
+    metrics, ms, after, peak = [], [], [], base
+    launched = dict.fromkeys(TRAIN_COUNTED, 0)
+    with RouterTap() as tap:
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            train_launches()
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, *extra, {"tokens": b.to(dev)})
+            metrics.append({k: float(v) for k, v in m.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k, n in train_launches().items():
+                launched[k] += n
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if ref is None:
+                after.append(tuple(tree_map(lambda t: t.detach().cpu(), x)
+                                   for x in (p, s)))
+            else:
+                after.append(tuple(tree_errors(
+                    steps.gather(x, sp), want) for x, sp, want in zip(
+                        (p, s), (specs, ospecs), ref[i])))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    del p, s, extra
+    return metrics, ms, peak - base, launched, tap.calls, after
+
+
+def sharded_train_launches(cfg, mesh_shape) -> dict:
+    """The ``TRAIN_COUNTED`` launches of ``SHARDED_TRAIN["steps"]``
+    sharded steps (remat on): ``moe_route`` twice a MoE layer a step,
+    once over the global batch whatever the mesh; each scan twice a
+    recurrent layer a step on each of the ``D x M`` devices (a data
+    shard's rows, a model shard's heads or channels)."""
+    D, M = mesh_shape
+    n = layer_counts(cfg)
+    k = 2 * SHARDED_TRAIN["steps"]
+    return {"router_gate": k * n["moe"], "rwkv6_scan": k * n["rwkv6"] * D * M,
+            "mamba_scan": k * n["mamba"] * D * M}
+
+
+def check_sharded_case(card: str, dev, label: str, cfg, params, exp=None,
+                       meshes=SHARDED_MESHES, devices=None,
+                       tol=SHARDED_PARAM_STATE_TOL) -> dict:
+    """Phase 13's case ``label``: the steps unsharded, then on each of
+    ``meshes`` (over ``devices``, default the one card repeated), from
+    the same weights on the same batches.  Each step before the first
+    whose routing differs from unsharded's (all of them without MoE) is
+    compared with unsharded's: its losses, and the params and optimizer
+    state after it (gathered), within :data:`SHARDED_TOL` (``tol``: the
+    params' and the state's); a routing
+    difference off a near-tie fails.  Also the launches (exact:
+    :func:`sharded_train_launches`), step ms, training tokens/s (of the
+    last step) and peak memory above the resident weights.  Returns
+    each mesh run's launches by path."""
+    batches = sharded_train_batches()
+    if cfg.vocab_size < SHARDED_TRAIN["vocab"]:
+        batches = [b % cfg.vocab_size for b in batches]
+    tokens = SHARDED_TRAIN["batch"] * SHARDED_TRAIN["seq"]
+    want, want_ms, want_peak, _, want_calls, ref = sharded_train_run(
+        cfg, params, batches, dev, exp=exp)
+    per_step = len(want_calls) // len(batches)
+    counts = {}
+    for shape in meshes:
+        devs = devices or [dev] * (shape[0] * shape[1])
+        mesh = make_tier_mesh(*shape, devs)
+        name = "%dx%d" % shape
+        got, ms, peak, launched, calls, errs = sharded_train_run(
+            cfg, params, batches, dev, mesh, exp, ref)
+        routing = first_routing_difference(want_calls, calls)
+        compared = len(batches) if routing is None else routing[0] // per_step
+        rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in w}
+               for g, w in zip(got, want)]
+        problems = []
+        if launched != sharded_train_launches(cfg, shape):
+            problems.append(f"launches {launched} != "
+                            f"{sharded_train_launches(cfg, shape)}")
+        if not np.isfinite([v for m in got for v in m.values()]).all():
+            problems.append("a loss is not finite")
+        if routing is not None and not routing[2]:
+            problems.append(f"routing differs off a near-tie: {routing}")
+        for i in range(compared):
+            for k, e in rel[i].items():
+                flips = (k == "l_casc" and abs(got[i][k] - want[i][k])
+                         <= 2 / (tokens - SHARDED_TRAIN["batch"]))
+                if e > 1e-5 and not flips:
+                    problems.append(f"step {i + 1} {k} rel err {e}")
+            pe, se = errs[i]
+            if pe["abs"] > tol[0]:
+                problems.append(f"step {i + 1} param err {pe['abs']}")
+            if se["rel"] > tol[1] or not se["equal"]:
+                problems.append(f"step {i + 1} optimizer state {se}")
+        rec = dict(check="sharded training", card=card, model=label,
+                   mesh=name, devices=[str(d) for d in devs],
+                   step="make_ltc_train_step" if exp else "make_train_step",
+                   expensive=exp and exp[0].name, optimizer="adafactor",
+                   remat=True, **SHARDED_TRAIN,
+                   metrics=got, unsharded_metrics=want, rel_err=rel,
+                   param_err=[e[0]["abs"] for e in errs],
+                   state_err=[e[1] for e in errs],
+                   max_param_err=max(e[0]["abs"] for e in errs),
+                   steps_compared=compared, routing=routing, tol=SHARDED_TOL,
+                   launches=launched, step_ms=ms, unsharded_step_ms=want_ms,
+                   train_tokens_per_s=tokens / (ms[-1] / 1e3),
+                   unsharded_train_tokens_per_s=tokens / (want_ms[-1] / 1e3),
+                   peak_bytes_above_resident=peak,
+                   unsharded_peak_bytes_above_resident=want_peak,
+                   problems=problems)
+        emit(**rec)
+        if problems:
+            raise AssertionError(f"sharded training {label} {name}: "
+                                 f"{problems}")
+        counts[f"sharded train {label} {name}"] = {
+            **dict.fromkeys(COUNTED, 0), **launched}
+    del ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_sharded_training(card: str, dev, exp_params) -> dict:
+    """Phase 13, sharded training on meshes over one card (the train and
+    LtC steps built with ``mesh=``; :func:`check_sharded_case` each):
+    (a) LtC of the published gemma3-1b against the frozen phi4-mini-3.8b
+    (``exp_params``: phase 4's weights) on ``2x1`` and ``1x2``, and on
+    ``2x1`` over two cards where two are visible; (b) granite-moe-3b-a800m
+    at its published widths (40 experts, top-8; cut to 2 layers)
+    next-token training on ``2x1`` and ``1x2``, each MoE layer routed
+    once a forward over the global batch, ``moe_route`` on [1, 1024,
+    40]; (c) rwkv6-3b at its published widths cut to 2 layers on
+    ``1x2`` (20 heads a model shard).  Returns the mesh runs' launches
+    by path."""
+    t0 = time.perf_counter()
+    gemma = get_config("gemma3-1b", "")
+    fast = init_params(gemma, 0, torch.float32, dev)
+    exp = (get_config(PHI4_NAME, ""), exp_params)
+    counts = check_sharded_case(card, dev, "gemma3-1b LtC", gemma, fast, exp)
+    cards = card_devices()
+    if len(cards) >= 2:
+        counts.update(check_sharded_case(
+            card, dev, "gemma3-1b LtC two cards", gemma, fast, exp,
+            meshes=((2, 1),), devices=cards[:2]))
+    else:
+        emit(check="sharded training", card=card,
+             model="gemma3-1b LtC two cards", ran=False,
+             reason=f"{len(cards)} card visible")
+    del fast
+    granite = dataclasses.replace(get_config(MOE_NAME, ""), num_periods=2)
+    counts.update(check_sharded_case(
+        card, dev, "granite-moe-3b-a800m 2 layers", granite,
+        init_params(granite, 2, torch.float32, dev)))
+    rwkv = dataclasses.replace(get_config(RWKV_NAME, ""), num_periods=2)
+    counts.update(check_sharded_case(
+        card, dev, "rwkv6-3b 2 layers", rwkv,
+        init_params(rwkv, 3, torch.float32, dev), meshes=((1, 2),),
+        tol=SHARDED_DEEP_TOL))
+    torch.cuda.empty_cache()
+    emit(phase="sharded training summary", card=card,
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def first_periods(params, n: int):
     """``params`` cut to its first ``n`` periods (views of the stacked
     leaves)."""
@@ -4863,6 +5190,9 @@ def main() -> int:
     # expensive model), the serving runs' KV pools freed
     torch.cuda.empty_cache()
     train_counts = check_training(card, dev, params)
+    # phase 13, sharded training: LtC against the same phi4-mini-3.8b,
+    # granite and rwkv6-3b cut to 2 layers, on 2x1 and 1x2 over one card
+    sharded_counts = check_sharded_training(card, dev, params[1])
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)
@@ -4875,7 +5205,8 @@ def main() -> int:
     compare_streams({ex: r for ex, (_, r, _) in moe_runs.items()},
                     MOE_NAME)
     torch.cuda.empty_cache()
-    profile_ticks(card, params, "ragged", MOE_NAME)
+    # the MoE, RWKV-6 and jamba cascades' profiles:
+    # scripts/torch_family_profiles.py
     check_split_moe_determinism(card, params)
     # phase 11c: the MoE tier on two data shards, routed over its batch
     data_runs.update(check_data_axis_moe(card, params))
@@ -4897,7 +5228,6 @@ def main() -> int:
         dataclasses.replace(rwkv_cfg, num_periods=2),
         first_periods(params[1], 2), moe_args.prompt_len))
     torch.cuda.empty_cache()
-    profile_ticks(card, params, "auto", RWKV_NAME)
     # the hybrid cascade: jamba-v0.1-52b cut to 1 of its 4 periods (its 4
     # periods, 206 GB in f32, do not fit the card), 53.2 GB of weights in
     # place of rwkv6-3b's; the engine serves it on the uniform path
@@ -4914,7 +5244,6 @@ def main() -> int:
     compare_streams({ex: r for ex, (_, r, _) in jamba_runs.items()},
                     JAMBA_NAME)
     torch.cuda.empty_cache()
-    profile_ticks(card, params, "auto", JAMBA_NAME, jamba_cfgs)
     # phase 12d: the jamba tier on two model shards (Mamba channels,
     # experts, heads), the narrow 8-layer period teacher-forced
     narrow = narrow_jamba_period(get_config(JAMBA_NAME, "smoke"))
@@ -4959,6 +5288,7 @@ def main() -> int:
     counts.update({f"moe {ex}": c for ex, (c, _, _) in moe_runs.items()})
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
+    counts.update(sharded_counts)
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
                    jamba_runs.items()})
     counts.update(registry_runs)
@@ -4971,7 +5301,9 @@ def main() -> int:
     obs_paths = tuple(obs_runs)
     served = ("serve_cascade untrained", "serve_cascade trained")
     rwkv_served = tuple(f"rwkv6 {p}" for p in served)
-    trained_only = ("train steps", "recurrent train steps", "LtC rwkv6")
+    sharded_train = tuple(sharded_counts)
+    trained_only = ("train steps", "recurrent train steps",
+                    "LtC rwkv6") + sharded_train
     data_uniform = tuple(p for p in data_runs if "uniform" in p
                          or "rwkv6" in p)
     data_spec = tuple(p for p in data_runs if "speculation" in p)
@@ -5017,9 +5349,11 @@ def main() -> int:
                       + tuple(p for p in model_exec_runs if "jamba" in p)
                       + ("train steps", "recurrent train steps",
                          "moonshot 1 + 8 layers ragged",
-                         "model axis moonshot 1 + 8 step")),
+                         "model axis moonshot 1 + 8 step")
+                      + tuple(p for p in sharded_train if "granite" in p)),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
                                      "LtC rwkv6") + rwkv_served
+                      + tuple(p for p in sharded_train if "rwkv6" in p)
                       + tuple(p for p in data_runs if "rwkv6" in p)
                       + tuple(p for p in model_exec_runs if "rwkv6" in p)),
                      ("mamba_scan", jamba_paths

@@ -10,6 +10,12 @@ A cascade tier may run on its own mesh of devices with the axes
     mesh (attention heads, FFN hidden units, experts and the vocabulary;
     ``repro_torch.models.sharding``).
 
+The same mesh shards a train step (``repro_torch.launch.steps``'
+``make_train_step(mesh=)`` / ``make_ltc_train_step(mesh=)``): each data
+shard takes its rows of the batch (``data.shard_batch``), each model
+shard its slices of the weights and optimizer state by their specs
+(``steps.place``).
+
 A :class:`TierMesh` is a plain description: its shape ``(data, model)``,
 its axis names and a row-major array of ``torch.device``s.  Building one
 touches no device, so importing this module and building meshes over
@@ -55,7 +61,7 @@ class TierMesh:
     def data_devices(self) -> List[torch.device]:
         """The device of each data shard, in shard order: its model shard
         0's (column 0 of the mesh), which holds the shard's gathered
-        logits."""
+        logits and its rows of a train batch."""
         return list(self.devices[:, 0])
 
     def model_devices(self, d: int) -> List[torch.device]:

@@ -697,7 +697,8 @@ def _shard_picks(dest, w, lo: int, experts: int, rows_per_expert: int):
                                                    torch.zeros_like(w))
 
 
-def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0, route=None):
+def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0, route=None,
+            train: bool = False):
     """GShard-style token-choice top-k MoE (``repro/models/blocks.py::
     moe_ffn``), routed and ranked by the ``moe_route`` kernel.
 
@@ -733,6 +734,9 @@ def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0, route=None):
     the picks of its own experts (:func:`_shard_picks`); the other
     pairs add nothing.  ``ffn`` split inside every expert: every shard
     routes alike and computes its slice of each expert's hidden units.
+    ``train`` keeps the dispatch and the products out of place, so that
+    autograd follows them (a sharded train step hands in its route,
+    :func:`moe_train_route`).
     """
     if route is None:
         xg, logits, cap = _moe_group(p, spec, x)
@@ -743,35 +747,45 @@ def moe_ffn(p, cfg: ModelConfig, spec, x, shard: int = 0, route=None):
     if held < spec.num_experts:
         dest, w = _shard_picks(dest, w, shard * held, held, rows)
     return _moe_experts(p, spec, x.reshape(-1, x.shape[-1]), dest, w,
-                        rows, inplace=True).reshape(x.shape)
+                        rows, inplace=not train).reshape(x.shape)
 
 
-def moe_ffn_train(p, cfg: ModelConfig, spec, x):
-    """:func:`moe_ffn` for training: (y, aux), differentiable in x and
-    every weight, the router included.
+def moe_train_route(spec, logits):
+    """The train route of router logits ``[G, gs, E]`` (f32, grouped):
+    ``(dest, w, rows, aux)``, differentiable in ``logits`` through ``w``.
 
     The ``moe_route`` kernel routes ``logits.detach()``: its ``idx`` and
     ``dest`` are integer decisions.  The gates are recomputed from
     ``softmax(logits)`` gathered at ``idx`` and renormalised (as the JAX
     package takes them from ``lax.top_k`` of the probabilities), so the
-    gradient reaches the router, and zeroed where the pair was dropped.
-    ``aux`` is the JAX package's Switch-Transformer pair:
+    gradient reaches the router, and zeroed where the pair was dropped;
+    ``rows = G·cap`` rows an expert.  ``aux`` is the JAX package's
+    Switch-Transformer pair over all ``G·gs`` slots:
     ``lb_loss = E·Σ_e mean(probs_e)·mean(kept picks of e)`` and
     ``z_loss = mean(logsumexp(logits)²)``."""
     E = spec.num_experts
-    xg, logits, cap = _moe_group(p, spec, x)
+    G, gs = logits.shape[:2]
+    cap = moe_capacity(spec, gs)
     _, idx, dest, _ = kernel_ops.moe_route(logits.detach(), spec.top_k, cap)
     probs = torch.softmax(logits, dim=-1)
     gates = probs.gather(-1, idx.long())                     # [G, gs, K]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    kept = dest != E * xg.shape[0] * cap
+    kept = dest != E * G * cap
     w = torch.where(kept, gates, torch.zeros_like(gates))
-    y = _moe_experts(p, spec, xg.reshape(-1, xg.shape[-1]), dest, w,
-                     xg.shape[0] * cap, inplace=False)
     picks = F.one_hot(idx.long(), E).float() * kept[..., None].float()
     lb = E * (probs.mean(dim=(0, 1)) * picks.sum(2).mean(dim=(0, 1))).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
-    return y.reshape(x.shape), {"lb_loss": lb, "z_loss": z}
+    return dest, w, G * cap, {"lb_loss": lb, "z_loss": z}
+
+
+def moe_ffn_train(p, cfg: ModelConfig, spec, x):
+    """:func:`moe_ffn` for training: (y, aux), differentiable in x and
+    every weight, the router included (:func:`moe_train_route`)."""
+    xg, logits, _ = _moe_group(p, spec, x)
+    dest, w, rows, aux = moe_train_route(spec, logits)
+    y = _moe_experts(p, spec, xg.reshape(-1, xg.shape[-1]), dest, w, rows,
+                     inplace=False)
+    return y.reshape(x.shape), aux
 
 
 def zero_aux(device) -> dict:

@@ -42,7 +42,7 @@ from typing import List, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import declare_model
+from repro_torch.models.params import declare_model, tree_map
 
 
 def data_axis_size(mesh) -> int:
@@ -187,27 +187,59 @@ def shard_leaf(t, spec: Sequence, index: int, m: int):
     return t
 
 
-def _inner_leaves(p, cfg, mixer, index: int, m: int) -> dict:
-    """The leaves of a recurrent mixer's weights ``p`` that model shard
-    ``index`` of ``m`` holds other than by their spec: RWKV-6's per-head
-    ``w0``/``ln_x`` (``[.., d]``) and ``bonus`` (``[.., H, hd]``),
-    narrowed to the shard's heads; Mamba's ``in_proj`` ``[.., d, 2·d_in]``
-    as the ``[.., d, 2, d_in / m]`` view of the shard's channels of both
-    halves (:func:`inner_range`)."""
-    if mixer.kind not in ("rwkv6", "mamba"):
-        return {}
-    lo, n = inner_range(cfg, mixer, index, m)
-    if mixer.kind == "mamba":
-        return {"in_proj": p["in_proj"].unflatten(-1, (2, -1)).narrow(
-            -1, lo, n)}
-    hd = mixer.head_dim
-    return {"w0": p["w0"].narrow(-1, lo, n),
-            "ln_x": p["ln_x"].narrow(-1, lo, n),
-            "bonus": p["bonus"].narrow(-2, lo // hd, n // hd)}
+def _inner_rule(cfg, mixer, name: str, index: int, m: int):
+    """How model shard ``index`` of ``m`` takes a recurrent mixer's leaf
+    ``name`` other than by its spec, as a function of the whole leaf (or
+    None): RWKV-6's per-head ``w0``/``ln_x`` (``[.., d]``) and ``bonus``
+    (``[.., H, hd]``), narrowed to the shard's heads; Mamba's ``in_proj``
+    ``[.., d, 2·d_in]`` as the ``[.., d, 2, d_in / m]`` view of the
+    shard's channels of both halves (:func:`inner_range`)."""
+    if mixer.kind == "mamba" and name == "in_proj":
+        lo, n = inner_range(cfg, mixer, index, m)
+        return lambda t: t.unflatten(-1, (2, -1)).narrow(-1, lo, n)
+    if mixer.kind == "rwkv6" and name in ("w0", "ln_x", "bonus"):
+        lo, n = inner_range(cfg, mixer, index, m)
+        if name == "bonus":
+            hd = mixer.head_dim
+            return lambda t: t.narrow(-2, lo // hd, n // hd)
+        return lambda t: t.narrow(-1, lo, n)
+    return None
 
 
 # each section of a parameter tree, and the key prefix of its layers
 _SECTIONS = {"head": "layer", "period": "block", "tail": "layer"}
+
+
+def _shard_walk(tree, cfg, specs, index: int, m: int, leaf):
+    """``leaf(p, spec, rule, path)`` over the leaves of ``tree`` (a tree
+    of ``cfg``'s parameter structure), ``rule`` the function that takes
+    model shard ``index``'s slice of the whole leaf where the shard holds
+    it other than by its spec (:func:`model_shard_params`), else None;
+    ``path`` the leaf's keys."""
+    kv_rule = None
+    if "attn" in _kinds(cfg) and cfg.num_kv_heads % m:
+        first, count = kv_head_range(cfg, index, m)
+        hd = cfg.head_dim
+        kv_rule = lambda t: t.narrow(-1, first * hd, count * hd)  # noqa: E731
+
+    def walk(p, decl, s, path, layer):
+        if isinstance(p, dict):
+            out = {}
+            for k, v in p.items():
+                sub = layer
+                if path and path[-1] in _SECTIONS and layer is None:
+                    sub = getattr(cfg, path[-1])[int(
+                        k[len(_SECTIONS[path[-1]]):])]
+                out[k] = walk(v, decl[k], s[k], path + (k,), sub)
+            return out
+        key = path[-1]
+        rule = None
+        if key in ("wk", "wv") and decl.axes[-1] == "fused_heads":
+            rule = kv_rule
+        elif len(path) > 1 and path[-2] == "mixer" and layer is not None:
+            rule = _inner_rule(cfg, layer.mixer, key, index, m)
+        return leaf(p, s, rule, path)
+    return walk(tree, declare_model(cfg), specs, (), None)
 
 
 def model_shard_params(params, cfg, specs, index: int, m: int):
@@ -217,41 +249,23 @@ def model_shard_params(params, cfg, specs, index: int, m: int):
     :func:`repro_torch.models.params.param_specs`), except
 
     * the KV projections of attention (``wk``/``wv``, whose columns are
-      ``fused_heads`` in the declaration), which take the columns of the
-      shard's own KV heads (:func:`kv_head_range`).  Where ``m`` divides
-      the KV heads that is the spec's equal split; where ``m``
-      outnumbers them the spec would cut a head's width, and the shard
-      holds the head its query heads read whole;
+      ``fused_heads`` in the declaration) where ``m`` outnumbers the KV
+      heads: the spec would cut a head's width, and the shard holds the
+      head its query heads read whole (:func:`kv_head_range`; where
+      ``m`` divides the KV heads the spec's equal split is that rule);
     * RWKV-6's per-head ``w0``, ``ln_x`` and ``bonus``, which the spec
       replicates, narrowed to the shard's heads, as its
       ``wr``/``wk``/``wv``/``wg``/``wB`` columns are split; and Mamba's
       ``in_proj``, whose two halves ``x | z`` each hold every channel,
       as the shard's channels of both (the spec's equal split of its
-      last dim would give shard 0 all of ``x``): :func:`_inner_leaves`.
+      last dim would give shard 0 all of ``x``): :func:`_inner_rule`.
 
     The RWKV-6 channel mix needs no exception: the spec splits its key
     ``wk`` columns and value ``wv`` rows on ``ffn`` and its receptance
     ``wr`` columns on ``d_inner``."""
-    first, count = (kv_head_range(cfg, index, m) if "attn" in _kinds(cfg)
-                    else (0, 0))
-    hd = cfg.head_dim
-
-    def walk(p, decl, s, key=None, layer=None):
-        if isinstance(p, dict):
-            own = (_inner_leaves(p, cfg, layer.mixer, index, m)
-                   if key == "mixer" else {})
-            out = {}
-            for k, v in p.items():
-                sub = layer
-                if key in _SECTIONS and layer is None:
-                    sub = getattr(cfg, key)[int(k[len(_SECTIONS[key]):])]
-                out[k] = own[k] if k in own else walk(v, decl[k], s[k], k,
-                                                      sub)
-            return out
-        if key in ("wk", "wv") and decl.axes[-1] == "fused_heads":
-            return p.narrow(-1, first * hd, count * hd)
-        return shard_leaf(p, s, index, m)
-    return walk(params, declare_model(cfg), specs)
+    return _shard_walk(params, cfg, specs, index, m,
+                       lambda p, s, rule, path: rule(p) if rule
+                       else shard_leaf(p, s, index, m))
 
 
 class ModelShards:
@@ -293,3 +307,160 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     device (asynchronous copies, no host sync)."""
     dev = parts[0].device
     return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim)
+
+
+# --------------------------------------------------------------------------
+# Training over a mesh: trees placed by their specs
+# --------------------------------------------------------------------------
+#
+# A placed tree is a grid ``placed[d][j]`` of trees, one a device of a
+# ``(data, model)`` mesh: each leaf the device's slice of the global leaf
+# by its spec (``"data"`` dims split by ``d``, ``"model"`` dims by ``j``,
+# whole along the rest), as a JAX ``NamedSharding`` gives each device its
+# addressable shard.  A leaf the spec replicates is held by every device
+# it is replicated over.
+
+
+AXIS_INDEX = {"data": 0, "model": 1}
+
+
+def _subtrees(tree, like) -> list:
+    """The subtrees of ``tree`` at the leaves of ``like`` (the same
+    structure down to them), in ``tree_leaves`` order."""
+    out = []
+    tree_map(lambda _, t: out.append(t), like, tree)
+    return out
+
+
+def leaf_specs(tree, specs) -> list:
+    """The spec of each leaf of ``tree``, in ``tree_leaves`` order
+    (``specs`` a tree of tuples of the same structure)."""
+    return [tuple(s) for s in _subtrees(specs, tree)]
+
+
+def map_leaves(fn, specs, *grids) -> list:
+    """``fn(spec, *parts)`` for each leaf of placed trees: ``parts`` the
+    ``[d][j]`` grid of that leaf in each of ``grids`` (the first's trees
+    give the leaves; a later grid may hold a subtree at each, as an
+    optimizer's state does).  Returns the results in :func:`tree_leaves`
+    order."""
+    like = grids[0][0][0]
+    flat = [[[_subtrees(t, like) for t in row] for row in g] for g in grids]
+    return [fn(s, *([[ls[i] for ls in row] for row in f] for f in flat))
+            for i, s in enumerate(leaf_specs(like, specs))]
+
+
+def grid_of(like, per_leaf) -> list:
+    """Placed trees of ``like``'s structure from ``per_leaf``, each
+    leaf's ``[d][j]`` grid in ``tree_leaves`` order (as
+    :func:`map_leaves` returns them)."""
+    out = []
+    for d, row in enumerate(like):
+        out.append([])
+        for j, t in enumerate(row):
+            it = iter(g[d][j] for g in per_leaf)
+            out[-1].append(tree_map(lambda _: next(it), t))
+    return out
+
+
+def spec_slice(t, spec: Sequence, d: int, j: int, mesh_shape):
+    """Device ``(d, j)``'s slice (a view) of the global leaf ``t`` by
+    ``spec`` on a mesh of ``mesh_shape = (D, M)``: the ``"data"`` dim
+    narrowed to data shard ``d``'s, then :func:`shard_leaf`'s."""
+    for dim, axis in enumerate(spec):
+        if axis == "data":
+            n = t.shape[dim] // mesh_shape[0]
+            t = t.narrow(dim, d * n, n)
+    return shard_leaf(t, spec, j, mesh_shape[1])
+
+
+def spec_gather(parts, spec: Sequence, device=None):
+    """The global leaf from its slices ``parts[d][j]`` (the inverse of
+    :func:`spec_slice`), on ``device`` (default: device ``(0, 0)``'s)."""
+    device = parts[0][0].device if device is None else device
+    rows = [torch.cat([p.to(device, non_blocking=True) for p in row],
+                      list(spec).index("model")) if "model" in spec
+            else row[0].to(device, non_blocking=True) for row in parts]
+    return (torch.cat(rows, list(spec).index("data")) if "data" in spec
+            else rows[0])
+
+
+def group_sum(parts, axes) -> list:
+    """``parts[d][j]`` (one tensor a device) summed over the devices that
+    differ only along the mesh ``axes`` (``"data"``, ``"model"``): each
+    device gets its group's sum (:func:`all_reduce`, in row-major device
+    order, so every member holds the same bits).  No axis: ``parts``."""
+    axes = set(axes) & set(AXIS_INDEX)
+    if not axes:
+        return parts
+    D, M = len(parts), len(parts[0])
+    out = [[None] * M for _ in range(D)]
+    ds = range(D) if "data" in axes else None
+    ms = range(M) if "model" in axes else None
+    for d0 in ([0] if ds else range(D)):
+        for j0 in ([0] if ms else range(M)):
+            members = [(d, j) for d in (ds or [d0]) for j in (ms or [j0])]
+            for (d, j), t in zip(members, all_reduce(
+                    [parts[d][j] for d, j in members])):
+                out[d][j] = t
+    return out
+
+
+def sync_grads(grads, specs) -> list:
+    """Data-parallel (and replicated-leaf) gradient sums: each leaf's
+    gradient summed over the devices that hold the same slice of it —
+    the mesh axes its spec does not split — so that every replica takes
+    the whole gradient and steps alike.  ``grads`` and the result are
+    placed trees."""
+    return grid_of(grads, map_leaves(
+        lambda s, g: group_sum(g, set(AXIS_INDEX) - set(s)), specs, grads))
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def train_shard_params(placed, cfg, specs, devices):
+    """Each device's weights for the train forward, ``[d][j]``, from a
+    placed tree (``placed[d][j]``, by ``specs``; ``devices`` the mesh's
+    ``[D, M]`` device array), differentiable back to the placed leaves:
+
+    * a leaf the spec splits over ``data`` (the fsdp rule) is gathered
+      whole along that dim on each device from its data shards' slices
+      (the JAX package's all-gather before use); its gradient comes back
+      to each slice summed over the data shards that read it;
+    * a leaf model shard ``j`` holds other than by its spec
+      (:func:`model_shard_params`: a KV head the model axis outnumbers,
+      RWKV-6's per-head leaves, Mamba's ``in_proj``) is gathered whole
+      over the model axis where the spec splits it, then sliced by its
+      rule;
+    * every other leaf is the device's placed slice, which is its model
+      shard's slice by :func:`model_shard_params` already."""
+    D, M = len(placed), len(placed[0])
+
+    def fsdp(path, spec, d, j):
+        t = _get(placed[d][j], path)
+        if "data" not in spec:
+            return t
+        dev = devices[d][j]
+        return torch.cat([_get(placed[e][j], path).to(dev, non_blocking=True)
+                          for e in range(D)], list(spec).index("data"))
+
+    out = []
+    for d in range(D):
+        row = []
+        for j in range(M):
+            def leaf(p, s, rule, path, d=d, j=j):
+                t = fsdp(path, s, d, j)
+                if rule is None or M == 1:
+                    return t
+                if "model" in s:
+                    t = torch.cat([fsdp(path, s, d, k).to(
+                        devices[d][j], non_blocking=True) for k in range(M)],
+                        list(s).index("model"))
+                return rule(t)
+            row.append(_shard_walk(placed[d][j], cfg, specs, j, M, leaf))
+        out.append(row)
+    return out

@@ -49,6 +49,15 @@ a data-sharded tier's launch over its whole batch, so
 routes each MoE layer once over all of them
 (:func:`route_data_shards`, in the JAX batch's slot order,
 :class:`MoeLayout`); every other layer runs on each shard alone.
+
+**Training over a mesh** (``launch.steps`` built with ``mesh=``):
+:func:`forward_data_shards` in ``"train"`` mode runs a step's data
+shards and their model shards as one differentiable graph — the
+collectives are ``.to`` copies, adds and concatenations, which autograd
+carries back — each MoE layer routed once over the global batch
+(:func:`moe_train_shards`), each period checkpointed across every shard
+under ``cfg.remat``, the exit heads' columns gathered like the LM
+head's.
 """
 from __future__ import annotations
 
@@ -349,15 +358,21 @@ def _embed_shards(group, params, cfg: ModelConfig, tokens, mode=None,
             for e, x in zip(emb, xs)]
 
 
-def _logits_shards(group, params, cfg: ModelConfig, xs):
+def _logits_shards(group, params, cfg: ModelConfig, xs, exit_head=None):
     """Every position's logits on shard 0's device: each shard's
     vocabulary columns from its replica of the residual stream, gathered
     in vocabulary order; an LM head the model axis does not split runs
-    once, on shard 0."""
-    if lm_proj(params[0], cfg).shape[1] == cfg.vocab_size:
-        return _logits(params[0], cfg, xs[0])
-    return sharding.all_gather(
-        [_logits(p, cfg, x) for p, x in zip(params, xs)], -1)
+    once, on shard 0.  ``exit_head``: early-exit head ``i``'s logits
+    (:func:`_exit_logits`) instead."""
+    def head(p, x):
+        if exit_head is None:
+            return _logits(p, cfg, x)
+        return _exit_logits(p["exit_heads"][f"exit{exit_head}"], cfg, x)
+    proj = (lm_proj(params[0], cfg) if exit_head is None
+            else params[0]["exit_heads"][f"exit{exit_head}"]["proj"])
+    if proj.shape[1] == cfg.vocab_size:
+        return head(params[0], xs[0])
+    return sharding.all_gather([head(p, x) for p, x in zip(params, xs)], -1)
 
 
 class MoeLayout:
@@ -433,35 +448,109 @@ def route_data_shards(spec, logits, layout: MoeLayout):
     w = torch.cat([w.reshape(total, k), w.new_zeros(1, k)])
     out = []
     for lg, sl, (g0, n) in zip(logits, slots, layout.groups(gs)):
-        d, own = dest[sl], n * cap
-        e = d // rows
-        d = torch.where(d < E * rows, e * own + d - e * rows - g0 * cap,
-                        E * own)
+        d, own = _local_dest(dest[sl], g0, n, cap, rows, E)
         out.append((d.to(lg.device, non_blocking=True),
                     w[sl].to(lg.device, non_blocking=True), own))
     return out
 
 
+def _local_dest(dest, g0: int, n: int, cap: int, rows: int, E: int):
+    """A data shard's picks of a route over the whole batch, into its own
+    capacity buffer of the ``n`` groups from ``g0`` its slots fall in:
+    ``(dest, own)``, ``own = n·cap`` rows an expert.  A kept pair's row
+    ``e·rows + g·cap + r`` becomes ``e·own + (g − g0)·cap + r``; a
+    dropped pair (``E·rows``) the spare row ``E·own``."""
+    own = n * cap
+    e = dest // rows
+    return torch.where(dest < E * rows, e * own + dest - e * rows - g0 * cap,
+                       E * own), own
+
+
+def moe_train_shards(groups, ws, cfg: ModelConfig, spec, hs):
+    """A MoE layer's FFN in a sharded train forward (the JAX package's
+    ``moe_ffn`` over the global batch): each data shard's router logits
+    (from its model shard 0's replica of the layer input, ``hs[s][j]``)
+    gathered in the global row-major token order on data shard 0's
+    device, grouped (``gs = min(1024, B·S)``, so a group may span data
+    shards) and routed there in one ``moe_route`` launch
+    (:func:`repro_torch.models.blocks.moe_train_route`, whose aux losses
+    are the global batch's); each data shard takes its slots' picks into
+    the buffer of the groups they fall in (:func:`_local_dest`) and its
+    model shards run their experts (or their slice of every expert's
+    units) on them, all-reduced.  The gates' gradient flows back through
+    the gather to each shard's router.  ``ws[s][j]`` is device ``(s,
+    j)``'s layer weights; ``groups[s]`` None for a shard without a model
+    axis.  Returns (each data shard's output a model shard, aux)."""
+    n, E, k = len(hs), spec.num_experts, spec.top_k
+    full = sharding.all_gather([blocks.moe_logits(
+        ws[s][0]["ffn"], hs[s][0].reshape(-1, cfg.d_model))
+        for s in range(n)], 0)                                # [N, E]
+    N = full.shape[0]
+    gs = min(blocks.MOE_GROUP_SIZE, N)
+    if N % gs or N % n:
+        raise ValueError(f"{N} token slots over {n} data shards do not "
+                         f"split into MoE groups of {gs}")
+    dest, w, rows, aux = blocks.moe_train_route(spec,
+                                                full.view(N // gs, gs, -1))
+    cap, per = rows // (N // gs), N // n
+    dest, w = dest.reshape(N, k), w.reshape(N, k)
+    ys = []
+    for s in range(n):
+        g0 = s * per // gs
+        d, own = _local_dest(dest[s * per:(s + 1) * per], g0,
+                             ((s + 1) * per - 1) // gs - g0 + 1, cap, rows,
+                             E)
+        ws_s, w_s = ws[s], w[s * per:(s + 1) * per]
+        devs = [h.device for h in hs[s]]
+
+        def ffn(j):
+            return blocks.moe_ffn(
+                ws_s[j]["ffn"], cfg, spec, hs[s][j], shard=j, train=True,
+                route=(d.to(devs[j], non_blocking=True),
+                       w_s.to(devs[j], non_blocking=True), own))
+        if groups[s] is None:
+            ys.append([ffn(0)])
+        elif _ffn_split(ws_s[0]["ffn"], spec):
+            ys.append(sharding.all_reduce([ffn(j) for j in range(len(devs))]))
+        else:
+            ys.append(groups[s].replicate(ffn(0)))
+    return ys, aux
+
+
 def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
-                        caches, pos, pages, groups, layout=None):
+                        caches, pos, pages, groups, layout=None,
+                        return_hidden: bool = False):
     """:func:`forward` of each data shard of a tier, the shards advanced
     layer by layer so that each MoE layer routes once over the tier's
     whole batch (:func:`route_data_shards`, in the JAX package's slot
     order, ``layout``; None: each shard routes its own tokens) instead of
     over each shard's own tokens; every other layer runs on each shard
     alone, on its device.  ``params``, ``batches``, ``caches`` (None in
-    prefill), ``pos`` (None: ``arange``), ``pages`` (None: prefill, or
-    decode over the dense arena) and ``groups`` hold one entry a data
-    shard.  A shard with a model axis (``groups[s]``, the module
-    docstring; every mode but train) holds one params and one cache tree
-    a model shard, runs each layer's mixer and FFN over its model shards
-    with the all-reduces written out, and gathers its logits on model
-    shard 0's device; its MoE layers route once a model shard.  Returns
+    prefill and train), ``pos`` (None: ``arange``), ``pages`` (None:
+    prefill, train, or decode over the dense arena) and ``groups`` hold
+    one entry a data shard.  A shard with a model axis (``groups[s]``,
+    the module docstring) holds one params and one cache tree a model
+    shard, runs each layer's mixer and FFN over its model shards with
+    the all-reduces written out, and gathers its logits on model shard
+    0's device; its MoE layers route once a model shard.  Returns
     (logits, cache) a data shard, as :func:`forward`: in prefill the
     last position's logits and the new part cache — over a model axis,
-    one part cache a model shard, at its heads and widths."""
+    one part cache a model shard, at its heads and widths.
+
+    In ``"train"`` mode the shards are a train step's data shards (equal
+    rows, the global batch in shard order) and every MoE layer routes
+    once over all of them in the global token order
+    (:func:`moe_train_shards`, one route however many model shards;
+    ``layout`` is not read); ``cfg.remat`` recomputes each period of
+    every shard in backward, the collectives inside.  Returns (each
+    shard's every-position logits — or with ``return_hidden`` its model
+    shard 0's final-norm hidden states —, aux) a data shard: ``aux`` the
+    global batch's MoE losses, on data shard 0's device, with the
+    shard's ``"exit_logits"`` (each exit head's vocabulary columns
+    gathered) for a config with ``early_exit_periods``."""
     n = len(batches)
     m = 1 if groups[0] is None else groups[0].size
+    train = mode == "train"
     xs, ps, pg = [], [], []
     for s in range(n):
         g = groups[s]
@@ -470,10 +559,6 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
             ps.append(_positions(batches[s], xs[s][0], pos[s], mode))
             pg.append(pages[s])
             continue
-        if mode == "train":
-            raise NotImplementedError(
-                f"{cfg.name}: a model axis serves the serving modes, not "
-                "train")
         xs.append(_embed_shards(g, params[s], cfg, batches[s]["tokens"],
                                 mode, batches[s].get("frontend_embeds")))
         ps.append(g.replicate(_positions(batches[s], xs[s][0], pos[s],
@@ -482,17 +567,13 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                    {k: v.to(d, non_blocking=True)
                     for k, v in pages[s].items()} for d in g.devices])
     shard_cfg = sharding.shard_config(cfg, m)
+    widths = [m if groups[s] else 1 for s in range(n)]
     # each data shard's new part cache in prefill, one a model shard
-    new = [[{} for _ in range(m if groups[s] else 1)] for s in range(n)]
-    for section, i, layers, prefix in _sections(cfg):
-        # each data shard's weights and cache trees of the section, one a
-        # model shard
-        wt = [[_section(t, section, i) for t in
-               (params[s] if groups[s] else [params[s]])] for s in range(n)]
-        ct = [None if caches[s] is None else
-              [_section(t, section, i) for t in
-               (caches[s] if groups[s] else [caches[s]])] for s in range(n)]
-        slots = [[{} for _ in t] for t in new]
+    new = [[{} for _ in range(widths[s])] for s in range(n)]
+
+    def run_layers(xs, aux, wt, ct, layers, prefix):
+        xs = [list(x) for x in xs]
+        slots = [[{} for _ in range(widths[s])] for s in range(n)]
         for li, layer in enumerate(layers):
             key = f"{prefix}{li}"
             w = [[t[key] for t in wt[s]] for s in range(n)]
@@ -514,6 +595,12 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                 for j, mj in enumerate(mix):
                     slots[s][j][key] = {"mixer": mj}
             spec = layer.ffn
+            if train and spec.kind == "moe":
+                ys, got = moe_train_shards(groups, w, cfg, spec, hs)
+                aux = _add_aux(aux, got)
+                xs = [[x + y for x, y in zip(xs[s], ys[s])]
+                      for s in range(n)]
+                continue
             # a MoE layer over a layout: one route a model shard, over
             # every data shard's router logits (the router is replicated)
             routes = [[None] * m for _ in range(n)]
@@ -537,6 +624,26 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                     xs[s], fc = [x], [f]
                 for j, fj in enumerate(fc):
                     slots[s][j][key]["ffn"] = fj
+        return xs, aux, slots
+
+    aux = blocks.zero_aux(xs[0][0].device) if train else None
+    exits = {}
+    for section, i, layers, prefix in _sections(cfg):
+        # each data shard's weights and cache trees of the section, one a
+        # model shard
+        wt = [[_section(t, section, i) for t in
+               (params[s] if groups[s] else [params[s]])] for s in range(n)]
+        ct = [None if caches[s] is None else
+              [_section(t, section, i) for t in
+               (caches[s] if groups[s] else [caches[s]])] for s in range(n)]
+        args = (xs, aux, wt, ct, layers, prefix)
+        if train and cfg.remat and i is not None:
+            xs, aux, slots = checkpoint(run_layers, *args,
+                                        use_reentrant=False)
+        else:
+            xs, aux, slots = run_layers(*args)
+        if train and i in cfg.early_exit_periods:
+            exits[i] = xs
         if mode == "prefill":
             for s in range(n):
                 for j, sl in enumerate(slots[s]):
@@ -544,6 +651,10 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                         new[s][j][section] = sl
                     else:
                         new[s][j].setdefault(section, []).append(sl)
+    if train:
+        return [_train_out(params[s], cfg, groups[s], xs[s], aux,
+                           {i: e[s] for i, e in exits.items()},
+                           return_hidden) for s in range(n)]
     out = []
     for s in range(n):
         parts = [{k: _stack(v) if k == "period" else v for k, v in t.items()}
@@ -556,6 +667,37 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
             out.append((_out_logits(params[s], cfg, xs[s][0], mode),
                         parts[0] if mode == "prefill" else caches[s]))
     return out
+
+
+def _train_out(params, cfg: ModelConfig, group, xs, aux, exits,
+               return_hidden: bool):
+    """A data shard's train-mode output of :func:`forward_data_shards`:
+    (logits gathered on model shard 0's device, or its final-norm hidden
+    states; ``aux`` with the shard's exit logits)."""
+    if exits:
+        aux = {**aux, "exit_logits": tuple(
+            _exit_logits(params["exit_heads"][f"exit{i}"], cfg, exits[i][0])
+            if group is None else
+            _logits_shards(group, params, cfg, exits[i], exit_head=i)
+            for i in cfg.early_exit_periods)}
+    p0 = params if group is None else params[0]
+    if return_hidden:
+        return blocks.rmsnorm(xs[0], p0["final_norm"], cfg.norm_eps), aux
+    if group is None:
+        return _logits(params, cfg, xs[0]), aux
+    return _logits_shards(group, params, cfg, xs), aux
+
+
+def lm_proj_shards(group, params, cfg: ModelConfig):
+    """The output projection ``[D, V]`` on model shard 0's device: each
+    model shard's vocabulary columns gathered in order (``params`` one
+    tree a model shard), or shard 0's whole head where the model axis
+    does not split it; ``params`` itself without a ``group``."""
+    if group is None:
+        return lm_proj(params, cfg)
+    if lm_proj(params[0], cfg).shape[1] == cfg.vocab_size:
+        return lm_proj(params[0], cfg)
+    return sharding.all_gather([lm_proj(p, cfg) for p in params], -1)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
@@ -599,16 +741,18 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,
       over the dense arena): all positions' logits, and the cache updated
       in place.
 
-    With ``group`` (every mode but ``"train"``): ``params`` and ``cache``
-    hold one tree a model shard (:func:`forward_data_shards`), and a
-    prefill returns one part cache a model shard."""
+    With ``group``: ``params`` and ``cache`` hold one tree a model shard
+    (:func:`forward_data_shards`), a prefill returns one part cache a
+    model shard, and train mode its logits (or hidden states) on model
+    shard 0's device."""
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"forward mode {mode!r} is not ported")
     if group is not None:
         return forward_data_shards([params], cfg, [batch], mode=mode,
                                    caches=[cache], pos=[pos], pages=[pages],
-                                   groups=[group])[0]
+                                   groups=[group],
+                                   return_hidden=return_hidden)[0]
     x = _embed(params, cfg, batch, mode)
     pos = _positions(batch, x, pos, mode)
     if mode not in ("train", "prefill") and cache is None:

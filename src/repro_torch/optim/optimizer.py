@@ -9,6 +9,17 @@ API::
 
 ``params`` and ``grads`` are trees of tensors (dicts, lists, tuples);
 ``update`` returns new tensors and never writes the ones it is given.
+
+``opt.update_sharded(params, grads, state, lr, specs)`` is the update of
+trees placed on a ``(data, model)`` mesh (``params[d][j]`` device ``(d,
+j)``'s slices by ``specs``, :mod:`repro_torch.models.sharding`): each
+device steps its own slice of each leaf and its own replica of
+``"step"``, with the gradients already summed over each leaf's replicas
+(``sharding.sync_grads``).  SGD and AdamW act elementwise; every
+reduction Adafactor takes over a leaf (``vr``'s mean over the last dim,
+``vc``'s over the second-to-last, ``denom`` and the RMS clip) is summed
+over the devices whose slices split the reduced dims, so each slice
+steps as the whole leaf would.
 The math is the JAX package's, not ``torch.optim``'s defaults: SGD adds
 the weight decay to the gradient before the momentum, AdamW decays
 decoupled (``p - lr·(m̂/(√v̂+eps) + wd·p)``), and Adafactor (factored
@@ -24,6 +35,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models.params import tree_leaves, tree_map
 
 
@@ -31,6 +43,19 @@ class Optimizer(NamedTuple):
     init: Callable
     update: Callable   # (params, grads, state, lr) -> (params, state)
     name: str
+    # (placed params, grads, state, lr, specs) -> (params, state)
+    update_sharded: Callable = None
+
+
+def _elementwise_sharded(update):
+    """The sharded update of an elementwise optimizer: each device's
+    ``update`` of its own slices."""
+    def update_sharded(params, grads, state, lr, specs):
+        out = [[update(p, g, s, lr) for p, g, s in zip(*rows)]
+               for rows in zip(params, grads, state)]
+        return ([[o[0] for o in row] for row in out],
+                [[o[1] for o in row] for row in out])
+    return update_sharded
 
 
 def _step0(params):
@@ -58,7 +83,8 @@ def sgd_momentum(momentum: float = 0.9, weight_decay: float = 0.0,
                           step_dir)
         return params, {"mu": mu, "step": state["step"] + 1}
 
-    return Optimizer(init, update, "sgd_momentum")
+    return Optimizer(init, update, "sgd_momentum",
+                     _elementwise_sharded(update))
 
 
 def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -82,7 +108,38 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
         return tree_map(upd, params, m, v), {"m": m, "v": v, "step": t}
 
-    return Optimizer(init, update, "adamw")
+    return Optimizer(init, update, "adamw", _elementwise_sharded(update))
+
+
+def _mean_whole(xs, dim, axes, keepdim=False):
+    """The mean of each of ``xs`` (one whole leaf) over ``dim`` (None:
+    every dim); ``axes`` is not read."""
+    return [x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+            for x in xs]
+
+
+def _mean_placed(M: int):
+    """The mean over ``dim`` of the whole leaf whose slices ``xs`` (one a
+    device of a ``[D, M]`` mesh, row-major) are, at each slice: local
+    sums added over the devices that split the reduced dims (``axes``,
+    the mesh axes on them; :func:`sharding.group_sum`) over the whole
+    leaf's count; a plain mean where no axis splits them."""
+    def mean(xs, dim, axes, keepdim=False):
+        axes = set(axes) - {None}
+        if not axes:
+            return _mean_whole(xs, dim, axes, keepdim)
+        dims = tuple(range(xs[0].dim())) if dim is None else (dim,)
+        sizes = {"data": len(xs) // M, "model": M}
+        count = 1
+        for t_dim in dims:
+            count *= xs[0].shape[t_dim]
+        for a in axes:
+            count *= sizes[a]
+        parts = [[x.sum(dim=dims, keepdim=keepdim) for x in xs[r:r + M]]
+                 for r in range(0, len(xs), M)]
+        return [t / count for row in sharding.group_sum(parts, axes)
+                for t in row]
+    return mean
 
 
 def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
@@ -101,42 +158,77 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
             return {"v": torch.zeros(p.shape, **f32)}
         return {"v": tree_map(leaf, params), "step": _step0(params)}
 
-    def update(params, grads, state, lr):
+    def upd(ps, gs, ss, betas, lr, spec, mean):
+        """One leaf's step over its slices ``ps`` (their gradients
+        ``gs``, states ``ss`` and steps' ``betas``; one whole leaf
+        unsharded): ``mean(xs, dim, axes)`` is the whole leaf's mean
+        over ``dim`` at each slice, ``axes`` the mesh axes of ``spec``
+        on the reduced dims."""
+        g32 = [g.float() for g in gs]
+        g2 = [g * g + eps for g in g32]
+        if ps[0].dim() >= 2:
+            vr = [b * s["vr"] + (1 - b) * r for b, s, r in
+                  zip(betas, ss, mean(g2, -1, {spec[-1]}))]
+            vc = [b * s["vc"] + (1 - b) * c for b, s, c in
+                  zip(betas, ss, mean(g2, -2, {spec[-2]}))]
+            denom = mean(vr, -1, {spec[-2]}, keepdim=True)
+            us = [g * torch.rsqrt(((r[..., None] / dn[..., None].clamp_min(
+                eps)) * c[..., None, :]).clamp_min(eps))
+                for g, r, c, dn in zip(g32, vr, vc, denom)]
+            ns = [{"vr": r, "vc": c} for r, c in zip(vr, vc)]
+        else:
+            v = [b * s["v"] + (1 - b) * g for b, s, g in zip(betas, ss, g2)]
+            us = [g * torch.rsqrt(vv.clamp_min(eps)) for g, vv in zip(g32, v)]
+            ns = [{"v": vv} for vv in v]
+        rms = [torch.sqrt(r) for r in mean([u * u for u in us], None,
+                                           set(spec))]
+        us = [u / torch.clamp_min(r / clip_threshold, 1.0)
+              for u, r in zip(us, rms)]
+        return [(p.float() - lr * u).to(p.dtype) for p, u in zip(ps, us)], ns
+
+    def _beta(state):
         t = state["step"] + 1
-        beta = 1.0 - (t.float() + 1.0) ** -decay
+        return t, 1.0 - (t.float() + 1.0) ** -decay
 
-        def upd(p, g, s):
-            g32 = g.float()
-            g2 = g32 * g32 + eps
-            if p.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
-                denom = vr.mean(dim=-1, keepdim=True)
-                precond = (vr[..., None] / denom[..., None].clamp_min(eps)) \
-                    * vc[..., None, :]
-                u = g32 * torch.rsqrt(precond.clamp_min(eps))
-                ns = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g32 * torch.rsqrt(v.clamp_min(eps))
-                ns = {"v": v}
-            rms = torch.sqrt((u * u).mean())
-            u = u / torch.clamp_min(rms / clip_threshold, 1.0)
-            return (p.float() - lr * u).to(p.dtype), ns
-
+    def update(params, grads, state, lr):
+        t, beta = _beta(state)
         states = []
 
         def step_leaf(p, g, s):
-            new, ns = upd(p, g, s)
-            states.append(ns)
-            return new
+            new, ns = upd([p], [g], [s], [beta], lr, (None,) * p.dim(),
+                          _mean_whole)
+            states.append(ns[0])
+            return new[0]
 
         new_p = tree_map(step_leaf, params, grads, state["v"])
         it = iter(states)      # tree_map visits the leaves in one order
         return new_p, {"v": tree_map(lambda _: next(it), params),
                        "step": t}
 
-    return Optimizer(init, update, "adafactor")
+    def update_sharded(params, grads, state, lr, specs):
+        M = len(params[0])
+        steps = [[_beta(s) for s in row] for row in state]
+        betas = [b for row in steps for _, b in row]
+        mean = _mean_placed(M)
+
+        def flat(grid):
+            return [t for row in grid for t in row]
+
+        def regrid(xs):
+            return [xs[r:r + M] for r in range(0, len(xs), M)]
+
+        def leaf(spec, ps, gs, ss):
+            new, ns = upd(flat(ps), flat(gs), flat(ss), betas, lr, spec,
+                          mean)
+            return regrid(new), regrid(ns)
+        out = sharding.map_leaves(leaf, specs, params, grads,
+                                  [[s["v"] for s in row] for row in state])
+        new_v = sharding.grid_of(params, [o[1] for o in out])
+        return (sharding.grid_of(params, [o[0] for o in out]),
+                [[{"v": v, "step": t} for v, (t, _) in zip(vr, sr)]
+                 for vr, sr in zip(new_v, steps)])
+
+    return Optimizer(init, update, "adafactor", update_sharded)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

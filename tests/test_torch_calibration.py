@@ -39,6 +39,7 @@ from tests.test_torch_serving import (EXECUTORS, EXP, FAST, _drain,  # noqa: E40
                                       _jax_engine, _probe_delta,
                                       _torch_engine, _workload)
 from tests.test_torch_serving import _req  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 def assert_close_tree(got, want, path="", atol=1e-9):

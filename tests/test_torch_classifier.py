@@ -29,6 +29,7 @@ from repro_torch.data import Batches, synthetic  # noqa: E402
 from repro_torch.models import classifier  # noqa: E402
 from repro_torch.models.params import from_jax  # noqa: E402
 from tests.test_torch_train import assert_trees_close  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 IN_DIM, CLASSES = 12, 10
 

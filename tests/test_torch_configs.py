@@ -41,21 +41,13 @@ from repro_torch.models import params, transformer  # noqa: E402
 from repro_torch.models.params import from_jax, value_and_grad  # noqa: E402
 from tests import test_torch_serving as serving  # noqa: E402
 from tests.test_torch_model import _leaves, _plan  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 NEW = ("starcoder2-7b", "musicgen-large", "qwen2-vl-72b",
        "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b")
 FAST, VISION, MOONSHOT, STARCODER, KIMI = (
     "gemma3-1b", "qwen2-vl-72b", "moonshot-v1-16b-a3b", "starcoder2-7b",
     "kimi-k2-1t-a32b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def with_head(configs, name, num_periods=1, **widths):

@@ -65,6 +65,7 @@ from repro_torch.serving import CascadeEngine, TierSpec  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from tests.test_torch_model_axis import StubMesh, _flat, _jax_specs  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
@@ -75,14 +76,6 @@ MOE_CF = 0.5
 PLEN, GLEN, N_REQ = 16, 4, 10
 KW = dict(slots=8, prompt_len=PLEN, gen_len=GLEN, prefill_chunk=8)
 CONF_ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def smoke(name, get=get_config):

@@ -58,6 +58,7 @@ from tests.test_torch_model import configs_of  # noqa: E402
 from tests.test_torch_prefix_cache import _assert_margins  # noqa: E402
 from tests.test_torch_serving import (_tap_jax_logits,  # noqa: E402
                                       _tap_torch_rows)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST = "gemma3-1b"
 PACKAGES = {"jax": jax_faults, "torch": faults}

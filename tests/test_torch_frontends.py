@@ -32,19 +32,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import blocks, init_params, transformer  # noqa: E402
 from repro_torch.models.cache import init_cache  # noqa: E402
 from repro_torch.models.params import from_jax, tree_map  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 VISION, AUDIO = "qwen2-vl-72b", "musicgen-large"
 FRONTENDS = (VISION, AUDIO)
 B, S, DECODE = 2, 14, 3        # S - DECODE prompt tokens, then 3 decodes
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

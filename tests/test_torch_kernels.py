@@ -48,6 +48,7 @@ from tests.test_torch_kernels_cuda import (FLASH_CASES,  # noqa: E402
                                            _mixed_inputs, _paged_inputs,
                                            _ragged_inputs, _router_logits,
                                            _rwkv_inputs, _torch)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 # --------------------------------------------------------------------------

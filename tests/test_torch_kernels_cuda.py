@@ -87,9 +87,11 @@ ROUTER_CASES = {
 # groups of 1024), E at the kernel's 1024 limit, a capacity of the whole
 # group (nothing dropped) and capacity factor 0.5 (about half the pairs
 # dropped); moonshot's 64 experts top-6 and kimi's 384 top-8 over the
-# full ragged bucket
+# full ragged bucket; granite's train route over a sharded step's global
+# batch of 4 x 256 tokens (one group of 1024)
 ROUTE_CASES = {
     "granite-bucket": (1, 512, 8, 40, 1.25),
+    "granite-train": (1, 1024, 8, 40, 1.25),
     "moonshot-bucket": (1, 512, 6, 64, 1.25),
     "kimi-bucket": (1, 512, 8, 384, 1.25),
     "granite-decode": (1, 8, 8, 40, 1.25),
@@ -1204,6 +1206,52 @@ def test_cuda_moe_route_over_data_shards(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_moe_train_route_matches_plain(cuda_device):
+    """The route a sharded train step takes over granite's global batch
+    of 4 x 256 tokens (``blocks.moe_train_route`` on the gathered [1,
+    1024, 40] logits, one ``moe_route`` launch) and each of two data
+    shards' picks of it (``transformer._local_dest``), on the card
+    against the same on the CPU (the plain version): ``dest`` exact,
+    the differentiable weights within 1.2e-7, the aux losses within rtol
+    1e-6, the logits' gradient of a weighted sum of the weights within
+    atol 1e-6."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, transformer
+    spec = next(l.ffn for l in get_config("granite-moe-3b-a800m", "").layers
+                if l.ffn.kind == "moe")
+    G, gs, k, E, cf = ROUTE_CASES["granite-train"]
+    assert (k, E, cf) == (spec.top_k, spec.num_experts,
+                          spec.capacity_factor)
+    x = torch.from_numpy(_route_logits("granite-train", seed=41))
+    cot = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (G, gs, k)).astype(np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        lg = x.to(dev).requires_grad_(True)
+        before = ops.router_gate.launches
+        dest, w, rows, aux = blocks.moe_train_route(spec, lg)
+        launched = ops.router_gate.launches - before
+        (g,) = torch.autograd.grad((w * cot.to(dev)).sum(), lg)
+        local = [transformer._local_dest(dest.reshape(-1, k)[s * 512:
+                                                             (s + 1) * 512],
+                                         0, 1, rows, rows, E)
+                 for s in range(2)]
+        outs.append((dest.cpu(), w.detach().cpu(), rows,
+                     {n: float(v) for n, v in aux.items()}, g.cpu(),
+                     [(d.cpu(), own) for d, own in local], launched))
+    (dest, w, rows, aux, g, local, n), (ref_d, ref_w, ref_rows, ref_aux,
+                                        ref_g, ref_local, _) = outs
+    assert n == 1 and rows == ref_rows == _route_cap(gs, k, E, cf)
+    assert torch.equal(dest, ref_d)
+    torch.testing.assert_close(w, ref_w, atol=1.2e-7, rtol=0)
+    for name in aux:
+        assert abs(aux[name] - ref_aux[name]) <= 1e-6 * abs(ref_aux[name])
+    torch.testing.assert_close(g, ref_g, atol=1e-6, rtol=0)
+    for (d, own), (rd, rown) in zip(local, ref_local):
+        assert own == rown == rows and torch.equal(d, rd)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_unaligned_views(cuda_device):
     """Inputs whose storage starts one element off the 16-byte alignment
     the kernel's vector loads need are refused, not copied."""
@@ -1333,9 +1381,12 @@ def test_cuda_mamba_scan_refuses_what_it_cannot_take(cuda_device):
 
 # the differentiable scans of the train mode at layer shapes: rwkv6-3b's
 # 40 heads of 64 and jamba's Mamba (d_inner 8192, n 16), 2 rows x 64
-# tokens (``chip_smoke.py`` phase 7e's train-step batch)
+# tokens (``chip_smoke.py`` phase 7e's train-step batch); rwkv6-3b's 20
+# heads of one of two model shards over 4 x 256 tokens (phase 13c)
 SCAN_GRAD_CASES = {"rwkv6-3b": ("rwkv6", (2, 40, 64, 64)),
-                   "jamba": ("mamba", (2, 64, 8192, 16))}
+                   "jamba": ("mamba", (2, 64, 8192, 16)),
+                   "rwkv6-3b-model-shard-train": ("rwkv6",
+                                                  (4, 20, 256, 64))}
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from repro_torch.core import calibration, cascade, confidence  # noqa: E402
 from repro_torch.core import losses, thresholds  # noqa: E402
 from repro_torch.models.params import tree_map  # noqa: E402
 from repro_torch.optim import optimizer  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 N, K = 64, 10
 TOL = dict(atol=1e-6, rtol=1e-5)

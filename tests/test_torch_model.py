@@ -38,6 +38,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import blocks, params, transformer  # noqa: E402
 from repro_torch.models import cache as cache_lib  # noqa: E402
 from repro_torch.models.cache import init_paged_cache  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 MODELS = ("gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m")
 JAMBA = "jamba-v0.1-52b"

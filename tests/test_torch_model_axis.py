@@ -70,6 +70,7 @@ from repro_torch.serving import CascadeEngine, TierSpec  # noqa: E402
 from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from repro_torch.serving.slots import TierSlotPool  # noqa: E402
 from tests.test_torch_model import _plan, configs_of  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
@@ -79,14 +80,6 @@ MESHES = ((1, 2), (2, 2), (1, 4), (1, 8))
 BLOCK_TOL = dict(atol=1e-5, rtol=1e-5)
 STEP_TOL = dict(atol=1e-4, rtol=1e-4)
 CONF_ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

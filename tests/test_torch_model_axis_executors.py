@@ -63,6 +63,7 @@ from tests.test_torch_data_axis import (  # noqa: E402
     COUNTED, PLAIN, WORK, _layers, _recorded, smoke)
 from tests.test_torch_model import configs_of  # noqa: E402
 from tests.test_torch_model_axis import _flat, _shards  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
@@ -74,14 +75,6 @@ BLOCK_TOL = dict(atol=1e-5, rtol=1e-5)
 CONF_ATOL = 1e-5
 N_REQ = 10
 KW = dict(slots=8, prompt_len=16, gen_len=4, prefill_chunk=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from tests.test_torch_kernels_cuda import (ROUTE_CASES,  # noqa: E402
                                            _route_cap, _route_logits)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 CASES = [(c, False) for c in sorted(ROUTE_CASES)] + [
     ("granite-bucket", True), ("granite-decode", True),

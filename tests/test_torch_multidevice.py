@@ -53,6 +53,7 @@ from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from repro_torch.serving.observability import REQUEST_PID_BASE  # noqa: E402
 from tests.test_slots_properties import check_invariants  # noqa: E402
 from tests.test_torch_model import configs_of  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAST, EXP = "gemma3-1b", "phi4-mini-3.8b"
@@ -63,14 +64,6 @@ KW = dict(slots=8, prompt_len=PLEN, gen_len=GLEN, prefill_chunk=8)
 # over-subscribes (6 a shard over 4 shards: one full request + null)
 OVER = dict(kv_block_size=4, kv_blocks=24)
 PACKAGES = {"jax": jax_slots, "torch": port_slots}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

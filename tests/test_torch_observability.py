@@ -51,20 +51,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import check_trace  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 ENGINE_KW = dict(slots=3, prompt_len=16, gen_len=4, deltas=[0.5],
                  kv_block_size=4, prefill_chunk=5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The smoke-width engines run op by op on tiny tensors: one intra-op
-    thread is as fast alone and does not spin against the other test
-    workers' threads (restored for the worker's next module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from tests.test_torch_kernels_cuda import (MIXED_TILE_CASES,  # noqa: E402
                                            _ragged_inputs,
                                            _ragged_tile_inputs, _tf32,
                                            _torch)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 H100_SMS = 132
 plan = functools.partial(paged_mod.plan_page_splits, sms=H100_SMS)

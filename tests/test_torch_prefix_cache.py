@@ -51,8 +51,9 @@ from repro_torch.serving.slots import NULL_BLOCK, PrefixEntry  # noqa: E402
 from tests.test_slots_properties import (BS, CAPACITY, CHUNK,  # noqa: E402
                                          MAX_SEQ, Driver, check_invariants)
 from tests.test_torch_model import configs_of  # noqa: E402
-from tests.test_torch_serving import (_tap_jax_logits,  # noqa: E402
-                                      _tap_torch_rows)
+from tests.test_torch_serving import (_share_jits,  # noqa: E402
+                                      _tap_jax_logits, _tap_torch_rows)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST, EXP = "gemma3-1b", "phi4-mini-3.8b"
 ENGINE_KW = dict(slots=2, prompt_len=24, gen_len=4, prefill_chunk=8,
@@ -152,6 +153,11 @@ def _two_tier_delta(weights, prompts):
     return float((confs[i] + confs[i + 1]) / 2)
 
 
+# the module's JAX engines' jitted step functions, untapped and tapped
+# (tests/test_torch_serving)
+_JITS = {False: {}, True: {}}
+
+
 @pytest.fixture(scope="module")
 def served(weights):
     """(package, case, executor, cache[, k]) -> run, each made once on
@@ -178,6 +184,9 @@ def served(weights):
         out = {"engine": eng}
         tap = cache and not k
         if package == "jax":
+            # tapped runs on the tapped runs' jitted functions, the others
+            # on the others' (the taps enter at trace time)
+            _share_jits(eng, _JITS[tap])
             with pytest.MonkeyPatch.context() as mp:
                 recording = [tap]
                 logits = _tap_jax_logits(mp, recording) if tap else None

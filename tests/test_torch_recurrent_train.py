@@ -46,6 +46,7 @@ from repro_torch.models import blocks, init_params, transformer  # noqa: E402
 from repro_torch.models import params as params_mod  # noqa: E402
 from repro_torch.models.params import from_jax, value_and_grad  # noqa: E402
 from tests.test_torch_train import assert_trees_close  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST, RWKV, JAMBA, EXP = ("gemma3-1b", "rwkv6-3b", "jamba-v0.1-52b",
                           "phi4-mini-3.8b")
@@ -57,17 +58,6 @@ GTOL = dict(atol=1e-4, rtol=1e-4)           # gradients
 # order differs between the packages' products and scans, and RWKV-6's
 # per-head group norm and 16 layers of depth amplify it past 1e-5
 DEEP_TOL = dict(atol=5e-5, rtol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Smoke widths run op by op on tiny tensors: one intra-op thread is
-    as fast alone and does not spin against the other test workers'
-    threads (restored for the worker's next module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def narrow_jamba(get, layer_cls, periods=2):

@@ -54,6 +54,7 @@ from repro_torch.serving.request import RequestState  # noqa: E402
 from tests.test_slots_properties import check_invariants  # noqa: E402
 from tests.test_torch_model import (HYBRID, JAMBA,  # noqa: E402
                                     configs_of, with_capacity)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
 RWKV = "rwkv6-3b"
@@ -341,16 +342,26 @@ UNIFORM = {"uniform": {"use_chunked_prefill": False},
            "auto": {}}
 
 
+# where a tapped JAX launch records: the sink and the recording switch
+# of the latest _tap_jax_logits call (a jitted function traced under a
+# tap keeps calling _tap, so engines may share tapped jitted functions)
+_TAP = {"logits": None, "recording": [False]}
+
+
+def _tap(tier, logits):
+    if _TAP["recording"][0]:
+        _TAP["logits"][tier].append(np.array(logits))
+
+
 def _tap_jax_logits(monkeypatch, recording):
     """Record each JAX launch's per-row next-token logits, per tier: the
     unified steps' last-slot logits, the chunk launch's logits at each
     row's last live slot, the decode launch's single position, the
-    uniform prefill's last position."""
+    uniform prefill's last position.  The records go to the dict this
+    returns, while ``recording[0]`` is set, until the next call."""
     logits_by_tier = {0: [], 1: []}
-
-    def tap(tier, logits):
-        if recording[0]:
-            logits_by_tier[tier].append(np.array(logits))
+    _TAP.update(logits=logits_by_tier, recording=recording)
+    tap = _tap
 
     def tapped(fn, per_row):
         def run(params, cfg, tokens, cache, pos, pages=None):
@@ -428,6 +439,25 @@ def _tap_torch_rows(eng):
 
 
 _PROBED = {}
+# the tapped JAX engines' jitted step functions, by model and runtime
+_TAPPED_JITS: dict = {}
+
+
+def _share_jits(eng, registry: dict) -> None:
+    """Hand a JAX engine the jitted step functions of the earlier engines
+    in ``registry`` (one a module; tapped engines apart from untapped
+    ones) with the same config, arena kind and speculation: the same
+    closures over the same config, so each shape compiles once per
+    module instead of once per engine (the reference computes exactly
+    what it would with its own; a tapped function records through
+    :data:`_TAP`)."""
+    for rt in eng.runtimes:
+        fns = registry.setdefault((rt.spec.cfg, rt.paged, rt.spec_k,
+                                   rt.spec_draft), {})
+        for name in ("prefill_fn", "step_fn", "chunk_fn", "mixed_fn",
+                     "ragged_fn", "spec_fn"):
+            if getattr(rt, name) is not None:
+                setattr(rt, name, fns.setdefault(name, getattr(rt, name)))
 
 
 def _probe_delta(weights, dist):
@@ -456,12 +486,14 @@ def _check_stream_parity(weights, dist, monkeypatch, executor, exp=EXP):
     recording = [False]
     jax_logits = _tap_jax_logits(monkeypatch, recording)
     ref = _jax_engine(weights, delta, **kw)
+    _share_jits(ref, _TAPPED_JITS)
     ref.warmup()
     recording[0] = True
     for p, t in work:
         ref.submit(p, arrival_time=t)
     ref.run(max_steps=500)
     jax.effects_barrier()
+    recording[0] = False
 
     mine = _torch_engine(weights, delta, **kw)
     torch_logits, emitted = _tap_torch_rows(mine)

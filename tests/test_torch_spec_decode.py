@@ -45,6 +45,8 @@ from repro_torch.serving.engine import VirtualClock  # noqa: E402
 from repro_torch.serving.request import RequestState  # noqa: E402
 from tests.test_torch_model import (MODELS, _leaves, _np_tree,  # noqa: E402
                                     _plan, configs_of)
+from tests.test_torch_serving import _share_jits  # noqa: E402
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST = "gemma3-1b"
 ENGINE_KW = dict(slots=4, prompt_len=24, gen_len=8, prefill_chunk=8,
@@ -161,6 +163,16 @@ def _prompts(vocab, n=6, seed=3):
             for _ in range(n)]
 
 
+# the module's JAX engines' jitted step functions (tests/test_torch_serving)
+_JITS: dict = {}
+
+
+def _shared(eng):
+    """``eng`` (a JAX engine) on the module's jitted step functions."""
+    _share_jits(eng, _JITS)
+    return eng
+
+
 def _engine(weights, package, k, seeds=(0, 1), **kw):
     """A two-tier gemma3 cascade (tier weights from ``seeds``) of the
     given package at speculation_k = k."""
@@ -170,9 +182,9 @@ def _engine(weights, package, k, seeds=(0, 1), **kw):
         kw.setdefault("speculation_k", k)
         kw.setdefault("spec_delta", 0.0)        # stage every drafted token
     if package == "jax":
-        return JaxEngine([JaxTierSpec(f"t{i}", jcfg, params[s][0])
-                          for i, s in enumerate(seeds)],
-                         clock=JaxVirtualClock(), **kw)
+        return _shared(JaxEngine([JaxTierSpec(f"t{i}", jcfg, params[s][0])
+                                  for i, s in enumerate(seeds)],
+                                 clock=JaxVirtualClock(), **kw))
     return CascadeEngine([TierSpec(f"t{i}", cfg, params[s][1])
                           for i, s in enumerate(seeds)],
                          clock=VirtualClock(), device="cpu", **kw)
@@ -323,9 +335,9 @@ def test_drafts_past_the_verifier_vocab_match_jax(weights):
         kw = dict(ENGINE_KW, **({"speculation_k": k, "spec_delta": 0.0}
                                 if k else {}))
         if package == "jax":
-            eng = JaxEngine([JaxTierSpec("draft", jcfg, params[0][0]),
-                             JaxTierSpec("verify", jsmall, jp)],
-                            clock=JaxVirtualClock(), **kw)
+            eng = _shared(JaxEngine([JaxTierSpec("draft", jcfg, params[0][0]),
+                                     JaxTierSpec("verify", jsmall, jp)],
+                                    clock=JaxVirtualClock(), **kw))
         else:
             eng = CascadeEngine([TierSpec("draft", cfg, params[0][1]),
                                  TierSpec("verify", small, from_jax(jp))],

@@ -44,6 +44,7 @@ from repro_torch.models.params import (from_jax, tree_leaves,  # noqa: E402
 from repro_torch.serving import CascadeEngine  # noqa: E402
 from tests.test_torch_serving import (_tap_jax_logits,  # noqa: E402
                                       _tap_torch_rows)
+from tests.torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 FAST, EXP, MOE = "gemma3-1b", "phi4-mini-3.8b", "granite-moe-3b-a800m"
 MODELS = (FAST, EXP, MOE)
