@@ -257,6 +257,18 @@ without printing a result):
      gathered params and Adafactor state against unsharded's (every step
      before a routing near-tie), exact ``moe_route`` / ``rwkv6_scan``
      launches, step ms, tokens/s and peak memory.
+ 14. the dry-run's accounting against the card, after phase 13 on phase
+     4's phi4-mini-3.8b (``check_dryrun``; alone:
+     ``scripts/torch_dryrun_phase.py``): each step traced on a mesh of
+     ``meta`` devices (``launch.dryrun.trace_cfg``), then run on the
+     same mesh over the card under the same counting mode — (14a)
+     phi4's prefill of 8 x 640 tokens on ``1x1`` and ``1x2``, (14b) its
+     decode over a 640-token dense cache on ``1x1`` and ``2x1``, (14c)
+     granite-moe-3b-a800m cut to 2 layers, a train step of 4 x 256
+     tokens on ``2x1``: FLOPs, bytes, kernel calls and collectives equal,
+     launches equal to the traced calls, argument bytes exact, the
+     roofline's share of the step at most 1.05, the peak estimate beside
+     ``max_memory_allocated``.
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -286,7 +298,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import Layer, get_config  # noqa: E402
 from repro_torch.core import (calibration, cascade,  # noqa: E402
                               confidence, losses, thresholds)
-from repro_torch.data import Batches, bigram_lm, teacher_task  # noqa: E402
+from repro_torch.data import (Batches, bigram_lm, shard_batch,  # noqa: E402
+                              teacher_task)
 from repro_torch.kernels import confidence_gate as gate_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as mamba_mod  # noqa: E402
@@ -297,13 +310,15 @@ from repro_torch.kernels import ragged_attention as ragged_mod  # noqa: E402
 from repro_torch.kernels import router_gate as router_mod  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rwkv_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
-from repro_torch.launch import serve_async, steps, train  # noqa: E402
-from repro_torch.launch.mesh import make_tier_mesh  # noqa: E402
+from repro_torch.launch import dryrun, serve_async, steps, train  # noqa: E402
+from repro_torch.launch import shapes as shapes_lib  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_F32,  # noqa: E402
+                                     PEAK_FLOPS_TF32, make_tier_mesh)
 from repro_torch.models import (blocks, classifier,  # noqa: E402
                                 init_params, sharding, transformer)
 from repro_torch.models import params as params_lib  # noqa: E402
-from repro_torch.models.cache import (declare_paged_cache,  # noqa: E402
-                                     init_paged_cache)
+from repro_torch.models.cache import (declare_cache,  # noqa: E402
+                                     declare_paged_cache, init_paged_cache)
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import Optimizer  # noqa: E402
 from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
@@ -311,13 +326,6 @@ from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
 from repro_torch.serving.slots import (DenseTierSlotPool,  # noqa: E402
                                        TierSlotPool)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-# (non-tensor-core) operations/s, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# dense TF32 on the tensor cores (NVIDIA data sheet), for the tensor-core
-# bound of flash_attention, whose f32 products take 3 TF32 products each
-TF32_OPS_PER_S = 495e12
 
 
 def emit(**record) -> None:
@@ -439,42 +447,11 @@ def ragged_case(gen, dev, *, KV, G, hd, qlens, q_start, window, dtype,
     return args, kw
 
 
-def attention_work(q, kp, pt, queries, kw):
-    """(bytes, f32 ops) one paged attention call's data needs: q read
-    and out written once, every K/V page some live query of a row can
-    see read once (with its scales), the page table and per-row scalars
-    once, and per live (query, visible key) pair 2*hd multiply-adds for
-    q.k and for p.v per query head.  ``queries`` lists (page-table row,
-    position) of every live query."""
-    KV, G, hd = q.shape[-3:]
-    bs = kp.shape[1]
-    window = kw["window"]
-    pt_h = pt.cpu().numpy()
-    pages, pairs = set(), 0
-    for b, pos in queries:
-        lo = max(0, pos - window + 1) if window else 0
-        pairs += pos - lo + 1
-        for j in range(lo // bs, pos // bs + 1):
-            pages.add(int(pt_h[b, j]))
-    kv_bytes = len(pages) * bs * KV * hd * kp.element_size() * 2
-    if kw["k_scale"] is not None:
-        kv_bytes += len(pages) * bs * KV * 4 * 2
-    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + \
-        4 * (pt.numel() + 2 * pt.shape[0])
-    return nbytes, pairs * KV * G * 4 * hd
-
-
-def ragged_work(args, kw):
-    """The ragged call's work: every live flat token of a row."""
-    q, kp, vp, pt, qs, ql = args
-    ql_h, qs_h = ql.cpu().numpy(), qs.cpu().numpy()
-    queries = [(b, int(qs_h[b]) + i) for b in range(len(ql_h))
-               for i in range(int(ql_h[b]))]
-    return attention_work(q, kp, pt, queries, kw)
-
-
 def bound(nbytes: float, nops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    """The CUDA-core bound of a kernel's work (its ``*_work``): its bytes
+    over HBM's rate against its operations at the f32 peak
+    (``launch.mesh``'s H100 SXM data-sheet figures, 700 W)."""
+    tb, to = nbytes / HBM_BW * 1e3, nops / PEAK_FLOPS_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -483,7 +460,7 @@ def tc_bound_ms(nbytes: float, nops: float, kind: str) -> float:
     rate against its TF32 products at the tensor cores' peak — 3 per f32
     operation (hi.hi + hi.lo + lo.hi), 1 for bf16 inputs."""
     terms = 3 if kind == "f32" else 1
-    return max(nbytes / HBM_BYTES_PER_S, terms * nops / TF32_OPS_PER_S) * 1e3
+    return max(nbytes / HBM_BW, terms * nops / PEAK_FLOPS_TF32) * 1e3
 
 
 def ptxas_lines(name: str, instance: str = "") -> list:
@@ -536,10 +513,10 @@ def launched_splits(fn, kind: str, axis: int = 2):
 def time_case(name, timed, kernel, plain, work, flush):
     """CUDA-event times of the kernel (20 calls) and its plain version (5
     calls), L2 flushed before each, beside the bound of this call's
-    work."""
+    ``work`` (its kernel's ``*_work``: bytes, operations, rate kind)."""
     ms = time_ms(kernel, 20, flush)
     plain_ms = time_ms(plain, 5, flush)
-    nbytes, nops = work
+    nbytes, nops = work[:2]
     b_ms, b_by = bound(nbytes, nops)
     timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, bytes=nbytes, ops=nops)
@@ -690,7 +667,8 @@ def check_ragged(dev, flush):
                 name, timed,
                 lambda: ragged_mod.ragged_attention(*args, **kw),
                 lambda: ragged_mod.ragged_attention_ref(*args, **kw),
-                ragged_work(args, kw), flush)
+                ragged_mod.ragged_attention_work(*args, **kw, exact=True),
+                flush)
             t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
             t["splits"], t["merge_launches"] = launched_splits(
                 lambda: ragged_mod.ragged_attention(*args, **kw),
@@ -773,8 +751,8 @@ def check_paged(dev, flush):
                     name, timed,
                     lambda: paged_mod.paged_attention(*a8, **kw),
                     lambda: paged_mod.paged_attention_ref(*a8, **kw),
-                    attention_work(a8[0], kp, a8[3],
-                                   list(enumerate(NEAR600)), kw), flush)
+                    paged_mod.paged_attention_work(*a8, **kw, exact=True),
+                    flush)
                 t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
                 t["splits"], t["merge_launches"] = launched_splits(
                     lambda: paged_mod.paged_attention(*a8, **kw),
@@ -870,13 +848,12 @@ def check_mixed(dev, flush):
             if kind != "bf16":
                 worst = max(worst, err)
             if label in ("full bucket", "decode width 1"):
-                queries = [(b, starts[b] + i) for b in range(8)
-                           for i in range(qlens[b])]
                 t = time_case(
                     name, timed,
                     lambda: mixed_mod.mixed_attention(*args, **kw),
                     lambda: mixed_mod.mixed_attention_ref(*args, **kw),
-                    attention_work(q, kp, pt, queries, kw), flush)
+                    mixed_mod.mixed_attention_work(*args, **kw, exact=True),
+                    flush)
                 t["tc_bound_ms"] = tc_bound_ms(t["bytes"], t["ops"], kind)
                 t["splits"], t["merge_launches"] = launched_splits(
                     lambda: mixed_mod.mixed_attention(*args, **kw),
@@ -937,10 +914,10 @@ def check_gate(dev, flush):
         ms = time_ms(lambda: gate_mod.confidence_gate(x), 50, flush)
         plain_ms = time_ms(lambda: gate_mod.confidence_gate_ref(x), 20,
                            flush)
-        nbytes = x.numel() * 4 + R * 4 * 4
-        b_ms, b_by = bound(nbytes, x.numel() * 5)
+        nbytes, nops, _ = gate_mod.confidence_gate_work(x)
+        b_ms, b_by = bound(nbytes, nops)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, bytes=nbytes, ops=x.numel() * 5,
+                           bound_by=b_by, bytes=nbytes, ops=nops,
                            device_ms=device_ms(
                                lambda: gate_mod.confidence_gate(x)),
                            kernel_ms=kernel_ms(
@@ -1046,13 +1023,10 @@ def check_route(rng, dev, flush, timed):
                                  "idx/dest/keep differ")
         worst = max(worst, err)
         if not ties and kind == "f32":
-            pairs = G * gs * k
-            nbytes = x.numel() * 4 + pairs * 20
-            nops = G * gs * (3 * E + k * E + 2 * k) + pairs * 4
             t = time_case(f"moe_route {name}", timed,
                           lambda: router_mod.moe_route(x, k, cap),
                           lambda: router_mod.moe_route_ref(x, k, cap),
-                          (nbytes, nops), flush)
+                          router_mod.moe_route_work(x, k, cap), flush)
             t["device_ms"] = device_ms(
                 lambda: router_mod.moe_route(x, k, cap))
             t["kernel_ms"] = kernel_ms(
@@ -1103,11 +1077,9 @@ def check_router(dev, flush):
                                  f"or indices differ")
         worst = max(worst, err)
         if not ties:
-            nbytes = x.numel() * 4 + R * k * 8
-            nops = R * (3 * E + k * E + 2 * k)
             t = time_case(name, timed, lambda: router_mod.router_gate(x, k),
                           lambda: router_mod.router_gate_ref(x, k),
-                          (nbytes, nops), flush)
+                          router_mod.router_gate_work(x, k), flush)
             t["device_ms"] = device_ms(lambda: router_mod.router_gate(x, k))
             t["kernel_ms"] = kernel_ms(
                 lambda: router_mod.router_gate(x, k), "router_gate", flush)
@@ -1168,22 +1140,15 @@ def check_route_shards(rng, dev, flush, timed):
     if not ok:
         raise AssertionError(f"moe_route {name}: max abs err {err} or dest "
                              "differs")
-    pairs = total * k
-    nbytes = full.numel() * 4 + pairs * 20 + 2 * o * E * 4 + o * k * 12
-    nops = total * (3 * E + k * E + 2 * k) + pairs * 4
+    nbytes, nops, _ = router_mod.moe_route_work(
+        full.view(1, total, E), k, cap)
+    nbytes += 2 * o * E * 4 + o * k * 12
     t = time_case(name, timed,
                   lambda: transformer.route_data_shards(spec, logits, layout),
                   lambda: router_mod.moe_route_ref(full, k, cap),
                   (nbytes, nops), flush)
     emit(timing="moe_route", case=f"{name} k={k} cap={cap}", **t)
     return err
-
-
-def visible_pairs(S, window):
-    """(query, key) pairs a causal, optionally windowed, prefill of S
-    tokens computes."""
-    i = np.arange(S)
-    return int(np.minimum(i + 1, window if window else S).sum())
 
 
 def check_flash(dev, flush):
@@ -1264,8 +1229,7 @@ def check_flash(dev, flush):
                 q, k, v, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True)
         lib_err = (library() - want).abs().max().item()
-        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
-        nops = visible_pairs(S, window) * B * H * 4 * d
+        nbytes, nops, _ = flash_mod.flash_attention_work(q, k, v, **kw)
         t = time_case(name, timed,
                       lambda: flash_mod.flash_attention(q, k, v, **kw),
                       lambda: flash_mod.flash_attention_ref(q, k, v, **kw),
@@ -1322,12 +1286,10 @@ def check_rwkv(dev, flush):
         if not ok:
             raise AssertionError(f"rwkv6_scan {name}: {errs}")
         worst = max(worst, *errs.values())
-        nbytes = 4 * (5 * r.numel() + u.numel() + s_T.numel())
-        nops = (5 * hd * hd + 3 * hd) * T * B * H
         t = time_case(name, timed,
                       lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u),
                       lambda: rwkv_mod.rwkv6_scan_ref(r, k, v, w, u),
-                      (nbytes, nops), flush)
+                      rwkv_mod.rwkv6_scan_work(r, k, v, w, u), flush)
         t["kernel_ms"] = kernel_ms(
             lambda: rwkv_mod.rwkv6_scan(r, k, v, w, u), "rwkv6_scan", flush)
         emit(timing="rwkv6_scan", case=name,
@@ -1419,12 +1381,9 @@ def check_mamba(dev, flush):
         worst = max(worst, *errs.values())
         if label == "ragged":
             continue
-        nbytes = 4 * (sum(a.numel() for a in args) + y.numel()
-                      + h_T.numel())
-        nops = (7 * n + 1) * B * T * d
         t = time_case(name, timed, lambda: mamba_mod.mamba_scan(*args),
                       lambda: mamba_mod.mamba_scan_ref(*args),
-                      (nbytes, nops), flush)
+                      mamba_mod.mamba_scan_work(*args), flush)
         t["exponentials"] = B * T * d * n
         t["sfu_bound_ms"] = B * T * d * n / SFU_EXP_PER_S * 1e3
         t["kernel_ms"] = kernel_ms(lambda: mamba_mod.mamba_scan(*args),
@@ -5071,6 +5030,204 @@ def check_sharded_training(card: str, dev, exp_params) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the dry-run's accounting against the card
+# --------------------------------------------------------------------------
+
+# the dry-run's step kinds at card sizes, registered here (not in the
+# package) as tests/test_dryrun_small.py registers its tiny shape: phase
+# 4's 8 prompts of 640 tokens, a decode over a 640-token dense cache, and
+# phase 7b's train batches (4 x 256 tokens)
+DRYRUN_SHAPES = (shapes_lib.InputShape("card_prefill", 640, 8, "prefill"),
+                 shapes_lib.InputShape("card_decode", 640, 8, "decode"),
+                 shapes_lib.InputShape("card_train", 256, 4, "train"))
+# (case, model label, shape, meshes)
+DRYRUN_CASES = (("14a", PHI4_NAME, "card_prefill", ((1, 1), (1, 2))),
+                ("14b", PHI4_NAME, "card_decode", ((1, 1), (2, 1))),
+                ("14c", "granite-moe-3b-a800m 2 layers", "card_train",
+                 ((2, 1),)))
+# the largest share of the step the roofline may claim: above it the
+# count or a rate is wrong
+DRYRUN_SHARE_MAX = 1.05
+
+
+def dryrun_inputs(cfg, shape_name: str, dev) -> dict:
+    """A step's global inputs on the card: prompt tokens (phase 7b's
+    batch to train), or a decode's token, its position in the cache's
+    second half and a random dense cache."""
+    s = shapes_lib.SHAPES[shape_name]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    out = {}
+    for k, (shp, dt) in shapes_lib.global_inputs(cfg, shape_name,
+                                                 torch.float32).items():
+        if k == "tokens" and s.kind == "train":
+            out[k] = (sharded_train_batches()[0]
+                      % cfg.vocab_size).to(dev, torch.int32)
+        elif k in ("tokens", "token"):
+            out[k] = torch.randint(0, cfg.vocab_size, shp, generator=gen,
+                                   device=dev, dtype=dt)
+        elif k == "pos":
+            out[k] = torch.randint(s.seq_len // 2, s.seq_len, shp,
+                                   generator=gen, device=dev, dtype=dt)
+        else:
+            out[k] = torch.randn(shp, generator=gen, device=dev)
+    if s.kind == "decode":
+        out["cache"] = tree_map(lambda c: torch.randn(
+            c.shape, generator=gen, device=dev).to(c.dtype),
+            declare_cache(cfg, s.global_batch, s.seq_len))
+    return out
+
+
+def device00_bytes(cfg, args, inputs, mesh) -> int:
+    """Device ``(0, 0)``'s bytes of a step's arguments on the card: its
+    placed params, optimizer state and cache, and its rows of the batch
+    (``shard_batch``; an attention-free model's ``pos`` never read)."""
+    grids = [a for a in args if isinstance(a, list)]
+    batch = {k: v for k, v in inputs.items()
+             if k != "cache" and not (k == "pos" and cfg.attn_free)}
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        [g[0][0] for g in grids] + [shard_batch(batch, mesh)[0]]))
+
+
+def check_dryrun_case(card: str, dev, case: str, label: str, cfg, params,
+                      shape_name: str, mesh_shape) -> dict:
+    """One phase-14 case: ``dryrun.trace_cfg`` of the step on a mesh of
+    ``meta`` devices, then the same step on a mesh of ``mesh_shape``
+    over ``dev`` (``params`` placed by their specs, :func:`dryrun_inputs`)
+    once under the same counting mode after a warm-up, its kernel
+    counters set to 0 just before and read just after, and timed.  The
+    counts (FLOPs by rate, bytes, kernel calls and their work,
+    collectives) must be equal, the launches equal the traced kernel
+    calls, the argument bytes per device equal device ``(0, 0)``'s on
+    the card, and the roofline's share of the step at most
+    :data:`DRYRUN_SHARE_MAX`: the mesh's total work on the one card
+    (every device's compute and memory terms; its collectives are
+    copies on that card) over the step's median of 3 CUDA-event times.
+    The peak estimate stands beside ``max_memory_allocated`` above the
+    resident arguments (not gated).  Returns the card run's launches."""
+    d, m = mesh_shape
+    n = d * m
+    t0 = time.perf_counter()
+    meta = dryrun.trace_cfg(cfg, shape_name,
+                            make_tier_mesh(d, m, ["meta"] * n),
+                            dtype=torch.float32)
+    trace_s = time.perf_counter() - t0
+    mesh = make_tier_mesh(d, m, [dev] * n)
+    inputs = dryrun_inputs(cfg, shape_name, dev)
+    step, args = dryrun.step_call(cfg, shape_name, mesh, params, inputs)
+    arg_bytes = device00_bytes(cfg, args, inputs, mesh)
+    step(*args)                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name in COUNTED:
+        getattr(ops, name).launches = 0
+    on_card = dryrun.run_counted(step, args, n, arg_bytes)
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in COUNTED}
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = float(np.median(times))
+    rl = dryrun.record(label, shape_name, "%dx%d" % mesh_shape, cfg, meta)
+    card_bound_ms = n * max(rl.t_compute, rl.t_memory) * 1e3
+    share = card_bound_ms / step_ms
+    counts = {k: dryrun_counts(t.count) for k, t in (("meta", meta),
+                                                     ("card", on_card))}
+    calls = {k: v["calls"] for k, v in meta.count.kernels.items()}
+    problems = []
+    if counts["meta"] != counts["card"]:
+        problems.append("meta and card counts differ: "
+                        f"{dryrun_count_diff(*counts.values())}")
+    if {k: v for k, v in launches.items() if v} != calls:
+        problems.append(f"launches {launches} != traced calls {calls}")
+    if arg_bytes != meta.argument_bytes:
+        problems.append(f"argument bytes {meta.argument_bytes} != device "
+                        f"(0, 0)'s {arg_bytes}")
+    if share > DRYRUN_SHARE_MAX:
+        problems.append(f"roofline share {share} > {DRYRUN_SHARE_MAX}")
+    emit(check="dry-run accounting", card=card, case=case, model=label,
+         shape=dataclasses.asdict(shapes_lib.SHAPES[shape_name]),
+         mesh="%dx%d" % mesh_shape, devices=[str(dev)] * n, dtype="f32",
+         flops=counts["meta"]["flops"], bytes=counts["meta"]["bytes"],
+         kernel_calls=calls, collectives=dryrun_collectives(meta.count),
+         counts_equal=counts["meta"] == counts["card"], launches=launches,
+         argument_bytes=meta.argument_bytes,
+         card_argument_bytes=arg_bytes, step_ms=step_ms, step_ms_runs=times,
+         roofline=dataclasses.asdict(rl), card_bound_ms=card_bound_ms,
+         roofline_share=share,
+         peak_estimate_bytes_above_arguments=meta.count.peak_live_bytes,
+         max_memory_allocated_above_arguments=peak,
+         peak_estimate_error=(meta.count.peak_live_bytes - peak)
+         / max(peak, 1), trace_s=trace_s, card_counted_s=on_card.seconds,
+         problems=problems)
+    if problems:
+        raise AssertionError(f"dry-run {case} {label} "
+                             f"{'%dx%d' % mesh_shape}: {problems}")
+    return launches
+
+
+def dryrun_counts(c) -> dict:
+    """What must be equal between a meta trace and a card run."""
+    return {"flops": dict(c.flops), "bytes": c.bytes,
+            "kernels": {k: dict(v) for k, v in c.kernels.items()},
+            "collectives": dryrun_collectives(c)}
+
+
+def dryrun_collectives(c) -> dict:
+    """A count's collectives: events and bytes by op kind."""
+    out = {}
+    for op, nbytes, parts in c.collectives:
+        e = out.setdefault(op, {"events": 0, "bytes": 0, "deliveries": 0})
+        e["events"] += 1
+        e["bytes"] += nbytes
+        e["deliveries"] += parts
+    return out
+
+
+def dryrun_count_diff(a: dict, b: dict) -> dict:
+    return {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+
+
+def check_dryrun(card: str, dev, phi4_params) -> dict:
+    """Phase 14, the dry-run's accounting against the card (f32, TF32
+    off; :func:`check_dryrun_case` each): (14a) phi4-mini-3.8b's prefill
+    of 8 x 640 tokens on ``1x1`` and ``1x2`` (``flash_attention`` at [8,
+    24, 640, 128] and [8, 12, 640, 128] a shard), (14b) its decode over a
+    640-token dense cache on ``1x1`` and ``2x1`` (``phi4_params``: phase
+    4's weights), (14c) granite-moe-3b-a800m at its published widths cut
+    to 2 layers, a train step of 4 x 256 tokens on ``2x1`` (Adafactor,
+    ``moe_route`` [1, 1024, 40]).  Returns the launches by path."""
+    t0 = time.perf_counter()
+    for shp in DRYRUN_SHAPES:
+        shapes_lib.SHAPES[shp.name] = shp
+    phi4 = get_config(PHI4_NAME, "")
+    granite = dataclasses.replace(get_config(MOE_NAME, ""), num_periods=2)
+    models = {PHI4_NAME: (phi4, phi4_params)}
+    counts = {}
+    for case, label, shape_name, meshes in DRYRUN_CASES:
+        if label not in models:
+            models = {label: (granite, init_params(granite, 2, torch.float32,
+                                                   dev))}
+        cfg, params = models[label]
+        for shape in meshes:
+            counts[f"dry-run {case} %dx%d" % shape] = check_dryrun_case(
+                card, dev, case, label, cfg, params, shape_name, shape)
+    del models
+    torch.cuda.empty_cache()
+    emit(phase="dry-run summary", card=card, wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def first_periods(params, n: int):
     """``params`` cut to its first ``n`` periods (views of the stacked
     leaves)."""
@@ -5193,6 +5350,9 @@ def main() -> int:
     # phase 13, sharded training: LtC against the same phi4-mini-3.8b,
     # granite and rwkv6-3b cut to 2 layers, on 2x1 and 1x2 over one card
     sharded_counts = check_sharded_training(card, dev, params[1])
+    # phase 14, the dry-run's accounting against the card: phi4's prefill
+    # and decode on the same weights, granite cut to 2 layers training
+    dryrun_runs = check_dryrun(card, dev, params[1])
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)
@@ -5289,6 +5449,7 @@ def main() -> int:
     counts["rwkv"] = rwkv_counts
     counts.update(train_counts)
     counts.update(sharded_counts)
+    counts.update(dryrun_runs)
     counts.update({f"jamba {ex}": c for ex, (c, _, _) in
                    jamba_runs.items()})
     counts.update(registry_runs)
@@ -5341,16 +5502,19 @@ def main() -> int:
                       + tuple(p for p in data_runs if "dense" in p)
                       + ("musicgen auto", "qwen2-vl 8 layers auto")
                       + me_prefill + tuple(p for p in me_steps
-                                           if "rwkv6" not in p)),
+                                           if "rwkv6" not in p)
+                      + tuple(p for p in dryrun_runs if "14a" in p)),
                      ("confidence_gate", tuple(
                          p for p in counts if p not in trained_only
-                         and not p.endswith(" step"))),
+                         and not p.endswith(" step")
+                         and p not in dryrun_runs)),
                      ("router_gate", moe_paths + jamba_paths + data_moe
                       + tuple(p for p in model_exec_runs if "jamba" in p)
                       + ("train steps", "recurrent train steps",
                          "moonshot 1 + 8 layers ragged",
                          "model axis moonshot 1 + 8 step")
-                      + tuple(p for p in sharded_train if "granite" in p)),
+                      + tuple(p for p in sharded_train if "granite" in p)
+                      + tuple(p for p in dryrun_runs if "14c" in p)),
                      ("rwkv6_scan", ("rwkv", "recurrent train steps",
                                      "LtC rwkv6") + rwkv_served
                       + tuple(p for p in sharded_train if "rwkv6" in p)

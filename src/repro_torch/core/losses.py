@@ -84,7 +84,7 @@ def chunked_lm_loss(hidden, proj, labels, chunk: int = 512, mask=None):
     for s in range(0, S, chunk):
         t, c = checkpoint(_chunk_nll, hidden[:, s:s + chunk], proj,
                           labels[:, s:s + chunk], mask[:, s:s + chunk],
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + t, cnt + c
     return tot / cnt.clamp_min(1.0)
 

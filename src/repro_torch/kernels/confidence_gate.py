@@ -83,6 +83,16 @@ def gate_slices(vocab: int, head: int, splits: int,
     return list(zip(bounds[:-1], bounds[1:]))
 
 
+def confidence_gate_work(logits):
+    """(bytes, operations, rate kind) of one :func:`confidence_gate`
+    call: the logits read once and 4 values a row written; 5 f32
+    operations a logit (subtract, exponential, add, and the entropy's
+    multiply-add)."""
+    R = logits.numel() // max(logits.shape[-1], 1)
+    return (logits.numel() * logits.element_size() + R * 4 * 4,
+            logits.numel() * 5, "f32")
+
+
 def confidence_gate_ref(logits):
     """logits [..., V] -> dict(conf, entropy, argmax, logz), each [...],
     computed in f32 (in f64 for f64 logits)."""

@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import kernels
@@ -35,6 +36,29 @@ from repro_torch import kernels
 HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def visible_pairs(S: int, T: int, causal: bool = True, window=None) -> int:
+    """(query, key) pairs the kernel computes for S queries at positions
+    ``0..S-1`` over T keys: ``kpos <= qpos`` when causal, ``kpos > qpos -
+    window`` with a window."""
+    i = np.arange(S)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_work(q, k, v, *, causal: bool = True, window=None):
+    """(bytes, operations, rate kind) of one :func:`flash_attention`
+    call, from shapes alone: q, k, v read and out written once; 4·d
+    operations per visible (query, key) pair and query head; the 3xTF32
+    products on f32 inputs, one TF32 product on bf16."""
+    B, H, S, d = q.shape
+    pairs = visible_pairs(S, k.shape[2], causal, window)
+    nbytes = 2 * q.numel() * q.element_size() + \
+        2 * k.numel() * k.element_size()
+    return (nbytes, pairs * B * H * 4 * d,
+            "tf32x3" if q.dtype == torch.float32 else "tf32")
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):

@@ -37,6 +37,19 @@ STATE_DIMS = (8, 16)
 _SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def mamba_scan_work(x, dt, B_t, C_t, A):
+    """(bytes, operations, rate kind) of one :func:`mamba_scan` call:
+    the five inputs read and y and the state written once; per (b, t,
+    channel) 7n + 1 f32 operations (dt·x, and per state value dt·A, its
+    exponential, the decayed state, the input term's multiply-add and
+    the output's)."""
+    Bsz, T, d = x.shape
+    n = A.shape[1]
+    ins = sum(a.numel() for a in (x, dt, B_t, C_t, A))
+    return (4 * (ins + x.numel() + Bsz * d * n), (7 * n + 1) * Bsz * T * d,
+            "f32")
+
+
 def mamba_scan_ref(x, dt, B_t, C_t, A):
     """Step-by-step version (the JAX package's
     ``kernels/ref.py::mamba_scan_ref``, which also returns the state):

@@ -42,7 +42,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention import (
     KV_DTYPES, Q_DTYPES, TILE_ROWS, check_aligned, check_paged_args,
-    check_tile_shape, gather_pages, plan_page_splits,
+    check_tile_shape, gather_pages, plan_page_splits, rows_work,
     split_workspace)
 
 _SIG = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -52,6 +52,18 @@ def work_items(B: int, C: int, G: int) -> int:
     """The mixed kernel's grid x: ``B * ceil(C / BT)`` tiles of ``BT = 64
     // G`` slots, each row's ``C`` slots cut into whole tiles."""
     return B * -(-C // (TILE_ROWS // G))
+
+
+def mixed_attention_work(q, k_pages, v_pages, page_table, q_start, q_len,
+                         *, k_scale=None, v_scale=None, window=None,
+                         exact: bool = False):
+    """The work of one :func:`mixed_attention` call (same arguments;
+    ``paged_attention.rows_work``): row ``b``'s first ``q_len[b]``
+    slots at their positions, or from shapes alone every ``[B, C]``
+    slot."""
+    return rows_work(q, k_pages, page_table, q_start, q_len,
+                     q.shape[0] * q.shape[1], window=window,
+                     k_scale=k_scale, exact=exact)
 
 
 def mixed_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len, *,

@@ -113,6 +113,91 @@ def gather_pages(k_pages, v_pages, page_table, k_scale, v_scale):
             v.reshape(R, T, *v_pages.shape[2:]))
 
 
+def attention_rate(q, k_pages) -> str:
+    """The rate kind of the tile body's products: 3xTF32 on f32 q and
+    pools, one TF32 product on bf16 (or int8) ones."""
+    f32 = q.dtype == torch.float32 and k_pages.dtype == torch.float32
+    return "tf32x3" if f32 else "tf32"
+
+
+def paged_work(q, k_pages, page_table, queries, *, window=None,
+               k_scale=None):
+    """(bytes, operations, rate kind) one paged attention call's data
+    needs: q read and out written once, every K/V page some live query
+    of a row can see read once (with its scales), the page table and
+    per-row scalars once, and per live (query, visible key) pair 2*hd
+    multiply-adds for q.k and for p.v per query head.  ``queries``
+    lists (page-table row, position) of every live query;
+    ``page_table`` is read on the host."""
+    KV, G, hd = q.shape[-3:]
+    bs = k_pages.shape[1]
+    pt_h = page_table.cpu().numpy()
+    pages, pairs = set(), 0
+    for b, pos in queries:
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += pos - lo + 1
+        for j in range(lo // bs, pos // bs + 1):
+            pages.add(int(pt_h[b, j]))
+    kv_bytes = len(pages) * bs * KV * hd * k_pages.element_size() * 2
+    if k_scale is not None:
+        kv_bytes += len(pages) * bs * KV * 4 * 2
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + \
+        4 * (page_table.numel() + 2 * page_table.shape[0])
+    return nbytes, pairs * KV * G * 4 * hd, attention_rate(q, k_pages)
+
+
+def paged_bound_work(q, k_pages, page_table, queries: int, *, window=None,
+                     k_scale=None):
+    """:func:`paged_work` from shapes alone, for a caller that cannot
+    read the tables (a count on the ``meta`` device): the most the call
+    could need — every page of the table read once (at most the pool),
+    each of ``queries`` live queries against every key its row's pages
+    hold (the window's at most)."""
+    KV, G, hd = q.shape[-3:]
+    N, bs = k_pages.shape[:2]
+    R, P = page_table.shape
+    pages = min(R * P, N)
+    keys = P * bs if window is None else min(P * bs, window)
+    kv_bytes = pages * bs * KV * hd * k_pages.element_size() * 2
+    if k_scale is not None:
+        kv_bytes += pages * bs * KV * 4 * 2
+    nbytes = 2 * q.numel() * q.element_size() + kv_bytes + \
+        4 * (page_table.numel() + 2 * R)
+    return nbytes, queries * keys * KV * G * 4 * hd, \
+        attention_rate(q, k_pages)
+
+
+def paged_attention_work(q, k_pages, v_pages, page_table, pos, *,
+                         k_scale=None, v_scale=None, window=None,
+                         exact: bool = False):
+    """The work of one :func:`paged_attention` call (same arguments):
+    with ``exact`` each row's query at its position, read on the host
+    (:func:`paged_work`); else :func:`paged_bound_work`."""
+    if exact:
+        return paged_work(q, k_pages, page_table,
+                          list(enumerate(pos.cpu().tolist())),
+                          window=window, k_scale=k_scale)
+    return paged_bound_work(q, k_pages, page_table, q.shape[0],
+                            window=window, k_scale=k_scale)
+
+
+def rows_work(q, k_pages, page_table, q_start, q_len, slots: int, *,
+              window=None, k_scale=None, exact: bool = False):
+    """The work of a ragged or mixed call (their ``*_work``): with
+    ``exact`` row ``b``'s ``q_len[b]`` live queries from position
+    ``q_start[b]``, read on the host (:func:`paged_work`); else from
+    shapes alone, all ``slots`` query slots live
+    (:func:`paged_bound_work`)."""
+    if not exact:
+        return paged_bound_work(q, k_pages, page_table, slots,
+                                window=window, k_scale=k_scale)
+    ql_h, qs_h = q_len.cpu().tolist(), q_start.cpu().tolist()
+    queries = [(b, qs_h[b] + i) for b in range(len(ql_h))
+               for i in range(ql_h[b])]
+    return paged_work(q, k_pages, page_table, queries, window=window,
+                      k_scale=k_scale)
+
+
 def paged_attention_ref(q, k_pages, v_pages, page_table, pos, *,
                         k_scale=None, v_scale=None, window=None):
     """Gather-then-attend version of the paged decode kernel (a twin of

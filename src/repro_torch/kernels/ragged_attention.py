@@ -40,7 +40,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention import (
     KV_DTYPES, Q_DTYPES, TILE_ROWS, check_aligned, check_paged_args,
-    check_tile_shape, gather_pages, plan_page_splits,
+    check_tile_shape, gather_pages, plan_page_splits, rows_work,
     split_workspace)
 
 _SIG = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -51,6 +51,55 @@ def work_items(W: int, R: int, G: int) -> int:
     G`` tokens an item, a bound on the work items of any ``q_len`` that
     packs into ``W`` slots over ``R`` rows."""
     return -(-W // (TILE_ROWS // G)) + R
+
+
+def flat_work_layout(q_len, num_tiles: int, tile_q: int):
+    """The (tile, row) incidence of a ragged batch flattened into a work
+    list (the JAX package's ``flat_work_layout``, which its TPU kernel's
+    sequential grid walks; the CUDA kernel finds its work items on the
+    device instead).  Returns int32 tensors of length ``num_tiles + B``:
+    ``work_tile`` (each item's tile, tile-major sorted), ``work_row``
+    (its row, -1 for padding items), ``work_first`` / ``work_last`` (1
+    on each tile's first / last item), and ``row_start`` [B], the
+    exclusive prefix sum of ``q_len``.  Every tile gets at least one
+    item (a filler past ``sum(q_len)``); padding items tail the last
+    tile."""
+    i32 = torch.int32
+    q_len = torch.as_tensor(q_len).to(i32)
+    B, dev = q_len.shape[0], q_len.device
+    row_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                           torch.cumsum(q_len, 0).to(i32)])[:B]
+    row_end = row_start + q_len
+    tile_lo = (torch.arange(num_tiles, dtype=i32, device=dev)
+               * tile_q)[:, None]
+    inc = ((q_len[None, :] > 0) & (row_start[None, :] < tile_lo + tile_q)
+           & (row_end[None, :] > tile_lo))                    # [nt, B]
+    filler = inc.sum(1, keepdim=True) == 0                    # empty tiles
+    mask = torch.cat([inc, filler], 1).reshape(-1)
+    flat = torch.arange(num_tiles * (B + 1), dtype=torch.int64, device=dev)
+    # real items keep their tile-major key; non-items sort after them
+    order = torch.argsort(torch.where(mask, flat, flat + flat.shape[0]),
+                          stable=True)
+    sel = order[:num_tiles + B]
+    real = mask[sel]
+    tile_of = (sel // (B + 1)).to(i32)
+    col = (sel % (B + 1)).to(i32)
+    work_tile = torch.where(real, tile_of, num_tiles - 1).to(i32)
+    work_row = torch.where(real & (col < B), col, -1).to(i32)
+    edge = torch.full((1,), -1, dtype=i32, device=dev)
+    work_first = (work_tile != torch.cat([edge, work_tile[:-1]])).to(i32)
+    work_last = (work_tile != torch.cat([work_tile[1:], edge])).to(i32)
+    return work_tile, work_row, work_first, work_last, row_start
+
+
+def ragged_attention_work(q, k_pages, v_pages, page_table, q_start, q_len,
+                          *, k_scale=None, v_scale=None, window=None,
+                          exact: bool = False):
+    """The work of one :func:`ragged_attention` call (same arguments;
+    ``paged_attention.rows_work``): every live flat token of a row at
+    its position, or from shapes alone all ``W`` flat slots."""
+    return rows_work(q, k_pages, page_table, q_start, q_len, q.shape[0],
+                     window=window, k_scale=k_scale, exact=exact)
 
 
 def ragged_attention_ref(q, k_pages, v_pages, page_table, q_start, q_len,

@@ -90,6 +90,29 @@ def _check_logits(name: str, logits, k: int) -> None:
         raise ValueError(f"{name}: k={k} outside 1..{E}")
 
 
+def router_gate_work(logits, k: int):
+    """(bytes, operations, rate kind) of one :func:`router_gate` call:
+    per row E logits read and k (gate, index) pairs written; E
+    subtractions, exponentials and additions, k rounds of E
+    comparisons, 2k divisions."""
+    E = logits.shape[-1]
+    R = logits.numel() // E
+    return (logits.numel() * logits.element_size() + R * k * 8,
+            R * (3 * E + k * E + 2 * k), "f32")
+
+
+def moe_route_work(logits, k: int, cap: int):
+    """(bytes, operations, rate kind) of one :func:`moe_route` call:
+    the logits read, gates, idx, dest and weight written (4 + 4 + 8 + 4
+    bytes a pair), the routing's operations per row as
+    :func:`router_gate_work`'s plus 4 a pair for its rank and row (mask,
+    count, compare, multiply-add)."""
+    G, gs, E = logits.shape
+    pairs = G * gs * k
+    return (logits.numel() * logits.element_size() + pairs * 20,
+            G * gs * (3 * E + k * E + 2 * k) + pairs * 4, "f32")
+
+
 def router_gate_ref(logits, k: int):
     """logits [..., E] -> (gates [..., k] f32 renormalised, idx [..., k]
     int32), the softmax computed in f32.  A stable descending sort keeps

@@ -34,6 +34,16 @@ HEAD_DIMS = (32, 64, 128)
 _SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def rwkv6_scan_work(r, k, v, w, u):
+    """(bytes, operations, rate kind) of one :func:`rwkv6_scan` call:
+    the five inputs read and y and the state written once; per step and
+    head 5·hd² f32 operations (2·hd² for r·S, 3·hd² for the decayed
+    update w ⊙ S + k vᵀ) and 3·hd for the bonus term."""
+    B, H, T, hd = r.shape
+    return (4 * (5 * r.numel() + u.numel() + B * H * hd * hd),
+            (5 * hd * hd + 3 * hd) * T * B * H, "f32")
+
+
 def rwkv6_scan_ref(r, k, v, w, u):
     """Step-by-step version (the JAX package's
     ``kernels/ref.py::rwkv6_scan_ref``, which also returns the state):

@@ -19,22 +19,42 @@ shards) and takes placed trees (:func:`place`: ``placed[d][j]`` device
 by ``shard_batch``.  One autograd graph spans the mesh: each data shard
 runs its rows (``transformer.forward_data_shards`` in train mode, its
 model shards over their heads, units, experts and vocabulary columns
-through ``sharding.all_reduce`` / ``all_gather``, each MoE layer routed
+through ``mesh.all_reduce`` / ``all_gather``, each MoE layer routed
 once over the global batch), the loss is the mean of the shards' means,
 each replica's gradient is summed over the devices holding the same
-slice (``sharding.sync_grads``: the data-parallel all-reduce), and each
+slice (``mesh.sync_grads``: the data-parallel all-reduce), and each
 device steps its own slices (``opt.update_sharded``).  :func:`gather`
 gives the global tree back, for checkpoints and the tests.
+
+**Sharded prefill and serve.**  ``make_prefill_step(cfg, mesh=)`` and
+``make_serve_step(cfg, mesh=)`` take placed params (and, to serve, the
+dense cache placed by ``cache.cache_specs``) and the global batch: each
+data shard runs ``forward_data_shards`` in ``prefill`` / dense
+``decode`` mode over its rows, each MoE layer routed once over the
+global batch in its ``[B, S]`` token order (``transformer.MoeLayout``),
+as the JAX package's jitted step routes it; the last logits (and
+``conf``) are gathered on device ``(0, 0)``.  A mesh with a ``pod`` axis
+runs ``pod × data`` data shards (``mesh.TierMesh.grid``).  A decode
+whose batch the data axes do not divide would split the cache's
+sequence over them (``cache_specs(shard_seq=True)``): that needs
+attention split over the sequence with a log-sum-exp merge, which the
+port does not have, so ``make_serve_step(mesh=)`` raises
+NotImplementedError there.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import losses
 from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import (all_gather, axis_sizes, device_coords,
+                                     map_leaves, spec_gather, spec_slice,
+                                     sync_grads)
+from repro_torch.models import cache as cache_lib
 from repro_torch.models import params as params_lib
 from repro_torch.models import sharding, transformer
 from repro_torch.models.params import tree_map, value_and_grad
@@ -134,27 +154,29 @@ def _accumulate(loss_fn, params, batch, microbatches: int, split):
 
 def _mesh_groups(mesh) -> list:
     """Each data shard's ``ModelShards`` (None without a model axis)."""
-    D, M = mesh.devices.shape
-    return [None if M == 1 else sharding.ModelShards(mesh.model_devices(d))
-            for d in range(D)]
+    E, M = mesh.grid.shape
+    return [None if M == 1 else sharding.ModelShards(mesh.model_devices(e))
+            for e in range(E)]
 
 
 def sharded_forward(placed, cfg: ModelConfig, specs, mesh, shards,
-                    return_hidden: bool = False):
-    """The train forward of placed params on ``mesh`` over the data
-    shards' batches ``shards`` (``shard_batch``): (each data shard's
-    ``(logits or hidden, aux)`` of ``transformer.forward_data_shards``,
-    its weights — a tree, or one a model shard —, its ``ModelShards``),
-    differentiable back to the placed leaves
-    (``sharding.train_shard_params``)."""
+                    return_hidden: bool = False, mode: str = "train",
+                    caches=None, pos=None, layout=None):
+    """The forward of placed params on ``mesh`` over the data shards'
+    batches ``shards`` (``shard_batch``): (each data shard's output of
+    ``transformer.forward_data_shards`` in ``mode`` — in train mode
+    ``(logits or hidden, aux)`` —, its weights — a tree, or one a model
+    shard —, its ``ModelShards``), differentiable back to the placed
+    leaves (``sharding.train_shard_params``).  ``caches``, ``pos`` and
+    ``layout`` as ``forward_data_shards`` takes them (None: none)."""
     groups = _mesh_groups(mesh)
-    comp = sharding.train_shard_params(placed, cfg, specs, mesh.devices)
+    comp = sharding.train_shard_params(placed, cfg, specs, mesh)
     weights = [row[0] if g is None else row for row, g in zip(comp, groups)]
     n = len(shards)
     outs = transformer.forward_data_shards(
-        weights, cfg, shards, mode="train", caches=[None] * n,
-        pos=[None] * n, pages=[None] * n, groups=groups,
-        return_hidden=return_hidden)
+        weights, cfg, shards, mode=mode, caches=caches or [None] * n,
+        pos=pos or [None] * n, pages=[None] * n, groups=groups,
+        layout=layout, return_hidden=return_hidden)
     return outs, weights, groups
 
 
@@ -168,7 +190,8 @@ def _shard_mean(values, device):
 def _sharded_train_step(cfg, opt, mesh, lr, microbatches, chunked_ce):
     sharding.check_model_axis(cfg, sharding.model_axis_size(mesh))
     specs = params_lib.param_specs(cfg, mesh)
-    dev = mesh.devices[0, 0]
+    sizes = axis_sizes(mesh)
+    dev = mesh.grid[0, 0]
 
     def loss_fn(placed, shards):
         outs, weights, groups = sharded_forward(placed, cfg, specs, mesh,
@@ -188,10 +211,10 @@ def _sharded_train_step(cfg, opt, mesh, lr, microbatches, chunked_ce):
     def train_step(placed, opt_state, batch):
         m, grads = _accumulate(loss_fn, placed, batch, microbatches,
                                lambda b: shard_batch(b, mesh))
-        grads = sharding.sync_grads(grads, specs)
+        grads = sync_grads(grads, specs, sizes)
         with torch.no_grad():
             placed, opt_state = opt.update_sharded(placed, grads, opt_state,
-                                                   lr, specs)
+                                                   lr, specs, sizes)
         return placed, opt_state, m
 
     return train_step
@@ -255,7 +278,8 @@ def _sharded_ltc_step(fast_cfg, exp_cfg, opt, mesh, w, cost_c, lr):
         sharding.check_model_axis(c, sharding.model_axis_size(mesh))
     specs = params_lib.param_specs(fast_cfg, mesh)
     exp_specs = params_lib.param_specs(exp_cfg, mesh)
-    dev = mesh.devices[0, 0]
+    sizes = axis_sizes(mesh)
+    dev = mesh.grid[0, 0]
 
     def loss_fn(placed, exp_logits, shards):
         outs, _, _ = sharded_forward(placed, fast_cfg, specs, mesh, shards)
@@ -278,10 +302,10 @@ def _sharded_ltc_step(fast_cfg, exp_cfg, opt, mesh, w, cost_c, lr):
             exp_logits = [o[:, :-1] for o, _ in exp_outs]
         (_, m), grads = value_and_grad(loss_fn, placed, exp_logits, shards)
         m = {k: v.detach() for k, v in m.items()}
-        grads = sharding.sync_grads(grads, specs)
+        grads = sync_grads(grads, specs, sizes)
         with torch.no_grad():
             placed, opt_state = opt.update_sharded(placed, grads, opt_state,
-                                                   lr, specs)
+                                                   lr, specs, sizes)
         return placed, opt_state, m
 
     return train_step
@@ -292,28 +316,122 @@ def _sharded_ltc_step(fast_cfg, exp_cfg, opt, mesh, w, cost_c, lr):
 # --------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
     """``prefill_step(params, batch) -> (last logits [B, 1, V], part
-    cache)``."""
-    def prefill_step(params, batch):
-        logits, cache = transformer.forward(params, cfg, batch,
-                                            mode="prefill")
-        return logits[:, -1:], cache
+    cache)``.  With ``mesh`` (the module docstring) ``params`` is a
+    placed tree, the logits are gathered on device ``(0, 0)`` and the
+    part cache is a grid ``[e][j]`` of each device's part cache over its
+    rows, at its model shard's KV heads and recurrent widths."""
+    if mesh is None:
+        def prefill_step(params, batch):
+            logits, cache = transformer.forward(params, cfg, batch,
+                                                mode="prefill")
+            return logits[:, -1:], cache
+        return prefill_step
+
+    specs = _sharded_serving(cfg, mesh)
+
+    def prefill_step(placed, batch):
+        shards = shard_batch(batch, mesh)
+        outs, _, groups = sharded_forward(
+            placed, cfg, specs, mesh, shards, mode="prefill",
+            layout=_batch_layout(cfg, shards))
+        return (_gather_rows([lg for lg, _ in outs]),
+                [c if g else [c] for (_, c), g in zip(outs, groups)])
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """One decode step over the dense arena: next-token logits, the
     cascade gate's confidence (max softmax probability — the paper's
-    conf) and the cache, updated in place."""
-    def serve_step(params, token, pos, cache):
-        logits, new_cache = transformer.decode_step(params, cfg, token,
-                                                    cache, pos)
-        conf = torch.softmax(logits.float(), -1).amax(-1)
-        return logits, conf, new_cache
+    conf) and the cache, updated in place.  With ``mesh`` (the module
+    docstring) ``params`` and ``cache`` are placed trees (by
+    ``param_specs`` and ``cache.cache_specs``), ``token`` and ``pos``
+    the global ``[B, 1]`` batch; the logits and ``conf`` come back
+    gathered on device ``(0, 0)``, the placed cache updated in place.  A
+    batch the data axes do not divide raises NotImplementedError (the
+    sequence-split decode is not ported)."""
+    if mesh is None:
+        def serve_step(params, token, pos, cache):
+            logits, new_cache = transformer.decode_step(params, cfg, token,
+                                                        cache, pos)
+            return logits, _conf(logits), new_cache
+        return serve_step
+
+    specs = _sharded_serving(cfg, mesh)
+    n = sharding.data_axis_size(mesh)
+    m = sharding.model_axis_size(mesh)
+
+    def serve_step(placed, token, pos, cache):
+        if token.shape[0] % n:
+            raise NotImplementedError(
+                f"{cfg.name}: a decode batch of {token.shape[0]} rows over "
+                f"{n} data shards splits the cache's sequence over them "
+                "(cache_specs(shard_seq=True)); sequence-parallel decode "
+                "attention is not ported")
+        shards = shard_batch({"tokens": token, "pos": pos}, mesh)
+        caches = [[_shard_cache(c, cfg, j, m) for j, c in enumerate(row)]
+                  for row in cache]
+        outs, _, _ = sharded_forward(
+            placed, cfg, specs, mesh, shards, mode="decode",
+            caches=[row if m > 1 else row[0] for row in caches],
+            pos=[b["pos"] for b in shards],
+            layout=_batch_layout(cfg, shards))
+        logits = _gather_rows([lg for lg, _ in outs])
+        return logits, _conf(logits), cache
 
     return serve_step
+
+
+def _conf(logits):
+    return torch.softmax(logits.float(), -1).amax(-1)
+
+
+def _sharded_serving(cfg: ModelConfig, mesh):
+    """The param specs of a sharded serving step, after refusing a model
+    axis ``cfg``'s layers do not allow."""
+    sharding.check_model_axis(cfg, sharding.model_axis_size(mesh))
+    return params_lib.param_specs(cfg, mesh)
+
+
+def _gather_rows(parts):
+    """The data shards' ``[b, ...]`` outputs in shard order on the first
+    shard's device: gathered, or the one shard's."""
+    return parts[0] if len(parts) == 1 else all_gather(parts, 0)
+
+
+def _batch_layout(cfg: ModelConfig, shards):
+    """For a MoE model, the data shards' token slots in the global
+    ``[B, S]`` batch, row-major (each shard's contiguous rows): the
+    order the JAX package's jitted step routes each MoE layer in.  None
+    without MoE layers."""
+    if not any(layer.ffn.kind == "moe" for layer in cfg.layers):
+        return None
+    per = [b["tokens"].numel() for b in shards]
+    starts = np.cumsum([0] + per)
+    return transformer.MoeLayout(
+        [np.arange(a, a + p) for a, p in zip(starts, per)], int(starts[-1]))
+
+
+def _shard_cache(tree, cfg: ModelConfig, j: int, m: int):
+    """Model shard ``j`` of ``m``'s view of a device's dense cache tree
+    placed by ``cache_specs``: where the spec leaves the KV heads whole
+    (the model axis outnumbers them) the shard's own by
+    ``sharding.kv_head_range``, as its ``wk``/``wv`` columns; every
+    other leaf as placed (views: the decode's in-place writes land in
+    the placed tree)."""
+    if m == 1 or cfg.num_kv_heads % m == 0 or "attn" not in {
+            layer.mixer.kind for layer in cfg.layers}:
+        return tree
+    first, count = sharding.kv_head_range(cfg, j, m)
+    decl = cache_lib.declare_cache(cfg, 1, 1)
+
+    def leaf(t, c):
+        if "kv_heads" in c.axes:
+            return t.narrow(c.axes.index("kv_heads"), first, count)
+        return t
+    return tree_map(leaf, tree, decl)
 
 
 # --------------------------------------------------------------------------
@@ -352,18 +470,21 @@ def opt_state_shapes(opt, cfg: ModelConfig, mesh, dtype=torch.float32):
 
 def place(tree, specs, mesh) -> list:
     """``tree`` (global leaves) placed on ``mesh`` by ``specs``:
-    ``placed[d][j]`` the tree of device ``(d, j)``'s slices
-    (``sharding.spec_slice``) on its device — views where the leaf is
+    ``placed[e][j]`` the tree of grid device ``(e, j)``'s slices
+    (``mesh.spec_slice``) on its device — views where the leaf is
     already there."""
-    D, M = mesh.devices.shape
-    return [[tree_map(lambda t, s, d=d, j=j: sharding.spec_slice(
-        t, s, d, j, (D, M)).to(mesh.devices[d, j], non_blocking=True),
-        tree, specs) for j in range(M)] for d in range(D)]
+    sizes, grid = axis_sizes(mesh), mesh.grid
+    return [[tree_map(lambda t, s, e=e, j=j: spec_slice(
+        t, s, device_coords(sizes, e, j), sizes).to(grid[e, j],
+                                                    non_blocking=True),
+        tree, specs) for j in range(grid.shape[1])]
+        for e in range(grid.shape[0])]
 
 
-def gather(placed, specs, device=None):
+def gather(placed, specs, device=None, sizes=None):
     """The global tree of a placed one (the inverse of :func:`place`), on
-    ``device`` (default: device ``(0, 0)``'s)."""
-    whole = iter(sharding.map_leaves(
-        lambda s, g: sharding.spec_gather(g, s, device), specs, placed))
+    ``device`` (default: device ``(0, 0)``'s); ``sizes`` the mesh's axis
+    sizes (default the grid's ``(data, model)``)."""
+    whole = iter(map_leaves(
+        lambda s, g: spec_gather(g, s, sizes, device), specs, placed))
     return tree_map(lambda _: next(whole), placed[0][0])

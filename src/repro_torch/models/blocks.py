@@ -772,7 +772,10 @@ def moe_train_route(spec, logits):
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     kept = dest != E * G * cap
     w = torch.where(kept, gates, torch.zeros_like(gates))
-    picks = F.one_hot(idx.long(), E).float() * kept[..., None].float()
+    # one-hot by comparison: F.one_hot reads its indices' range on the
+    # host (a sync on the card, another decomposition on meta)
+    picks = (idx.long()[..., None] == torch.arange(E, device=idx.device)
+             ).float() * kept[..., None].float()
     lb = E * (probs.mean(dim=(0, 1)) * picks.sum(2).mean(dim=(0, 1))).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
     return dest, w, G * cap, {"lb_loss": lb, "z_loss": z}

@@ -35,11 +35,15 @@ description of the JAX placement (the serving engine declares each model
 shard's cache by :func:`repro_torch.models.sharding.shard_config`, whose
 ``model_shards`` sizes the recurrent leaves: a ``ShardConfig``'s
 ``[B, H / m, hd, hd]`` RWKV-6 state and ``[B, d_conv - 1, d_in / m]`` /
-``[B, d_in / m, n]`` Mamba state).  :func:`cache_specs`
-gives the dense arena's, at the JAX package's ``shard_seq=False``: the
-request rows over ``data``, which is how the engine's sharded dense
-arena splits them.  ``cache_shapes`` and the sequence-sharding options
-serve the JAX package's dry-run tooling, a later slice of the port.
+``[B, d_in / m, n]`` Mamba state).  :func:`cache_specs` gives the dense
+arena's: by default the request rows over the data axes, which is how
+the engine's sharded dense arena and the sharded serve step
+(``launch.steps.make_serve_step(mesh=)``) split them; with
+``shard_seq`` (a batch of 1, ``long_500k``) the KV sequence over the
+data axes instead, and with ``seq_over_model`` over ``model`` too where
+no KV-head dim divides it, as the JAX package's dry-run places its
+caches.  :func:`cache_shapes` gives each leaf's per-device shape on the
+``meta`` device, as ``params.param_shapes`` does for the weights.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import Layer, ModelConfig
+from repro_torch.launch.mesh import local_shape
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.sharding import shards_of
 
@@ -166,21 +171,36 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
                                       dtype), device)
 
 
-def cache_spec_leaf(c: CP, mesh) -> tuple:
-    """One paged cache leaf's partition spec on ``mesh`` (the JAX
-    package's rule, without its sequence-sharding options, which serve
-    the dense ``cache_specs`` of the tooling): ``batch`` / ``kv_blocks``
-    over the data axes when divisible, ``kv_heads`` / ``d_inner`` /
-    ``heads`` over ``model`` when divisible."""
+def cache_spec_leaf(c: CP, mesh, *, shard_seq: bool = False,
+                    seq_over_model: bool = False) -> tuple:
+    """One cache leaf's partition spec on ``mesh`` (the JAX package's
+    rule): ``batch`` / ``kv_blocks`` over the data axes (``("pod",
+    "data")`` where both exist) when divisible; ``kv_heads`` /
+    ``d_inner`` / ``heads`` over ``model`` when divisible.  With
+    ``shard_seq`` (a batch of 1) the ``kv_seq`` dim goes over the data
+    axes instead of the batch; with ``seq_over_model`` over ``model``
+    too where no KV-head dim divides the model axis (the cache would
+    otherwise be replicated across it) — both when the sequence
+    divides."""
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     data_axes = tuple(a for a in ("pod", "data") if a in sizes)
     data_total = math.prod(sizes[a] for a in data_axes) if data_axes else 1
     model = sizes.get("model", 1)
+    kv_shardable = model > 1 and any(
+        a in ("kv_heads", "d_inner", "heads") and s % model == 0
+        for a, s in zip(c.axes, c.shape))
     spec = [None] * len(c.shape)
     for i, (a, s) in enumerate(zip(c.axes, c.shape)):
-        if a in ("batch", "kv_blocks") and data_total > 1 \
-                and s % data_total == 0:
+        if a in ("batch", "kv_blocks") and not shard_seq \
+                and data_total > 1 and s % data_total == 0:
             spec[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+        elif a == "kv_seq":
+            axes = list(data_axes) if shard_seq and data_total > 1 else []
+            if seq_over_model and not kv_shardable and model > 1:
+                axes.append("model")
+            total = math.prod(sizes[x] for x in axes)
+            if axes and s % total == 0:
+                spec[i] = tuple(axes) if len(axes) > 1 else axes[0]
         elif a in ("kv_heads", "d_inner", "heads") and model > 1 \
                 and s % model == 0:
             spec[i] = "model"
@@ -204,14 +224,34 @@ def paged_cache_specs(cfg: ModelConfig, batch: int, num_blocks: int,
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int, mesh,
-                dtype=torch.float32):
+                dtype=torch.float32, shard_seq: bool = False,
+                seq_over_model: bool = False):
     """Partition specs of the dense arena (:func:`declare_cache`) on
-    ``mesh``, by :func:`cache_spec_leaf`: the JAX package's
-    ``cache_specs`` at ``shard_seq=False``, the layout of its dense
-    serving pool.  The engine's ``DenseTierSlotPool`` holds each data
-    shard's rows on its device."""
-    decl = declare_cache(cfg, batch, seq_len, dtype)
-    return tree_map(lambda c: cache_spec_leaf(c, mesh), decl)
+    ``mesh``, by :func:`cache_spec_leaf` (its options as it takes
+    them): at the defaults the layout of the JAX package's dense serving
+    pool, the request rows over the data axes.  The engine's
+    ``DenseTierSlotPool`` holds each data shard's rows on its device."""
+    return tree_map(lambda c: cache_spec_leaf(
+        c, mesh, shard_seq=shard_seq, seq_over_model=seq_over_model),
+        declare_cache(cfg, batch, seq_len, dtype))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int, mesh=None,
+                 dtype=torch.bfloat16, shard_seq: bool = False,
+                 seq_over_model: bool = False):
+    """Every dense cache leaf as an empty ``meta``-device tensor (no
+    memory): its global shape, or with ``mesh`` the shape one device
+    holds under :func:`cache_specs` (each split dim divided by the
+    product of its axes' sizes)."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape)) if mesh else {}
+
+    def leaf(c: CP):
+        spec = (cache_spec_leaf(c, mesh, shard_seq=shard_seq,
+                                seq_over_model=seq_over_model)
+                if mesh is not None else (None,) * len(c.shape))
+        return torch.empty(local_shape(c.shape, spec, sizes), dtype=c.dtype,
+                           device="meta")
+    return tree_map(leaf, declare_cache(cfg, batch, seq_len, dtype))
 
 
 def has_recurrent_state(cfg: ModelConfig) -> bool:

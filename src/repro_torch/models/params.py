@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import local_shape
 
 
 class P(NamedTuple):
@@ -351,9 +352,8 @@ heads."""
     def leaf(p: P):
         spec = (logical_to_spec(p, mesh, cfg.fsdp) if mesh is not None
                 else (None,) * len(p.shape))
-        shape = tuple(s // sizes[a] if a else s
-                      for s, a in zip(p.shape, spec))
-        return torch.empty(shape, dtype=dtype, device="meta")
+        return torch.empty(local_shape(p.shape, spec, sizes), dtype=dtype,
+                           device="meta")
     return tree_map(leaf, declare_model(cfg))
 
 

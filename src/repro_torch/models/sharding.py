@@ -9,10 +9,13 @@ cannot infer, against the mesh that ``set_mesh`` activates and
 ``active_mesh`` reads.  The port compiles nothing: each model shard's
 launches run eagerly on its own device over its own slices of the
 weights (:func:`model_shard_params`) and its own KV heads, and the
-engine calls the collectives itself (:func:`all_reduce` after each
-attention and FFN, :func:`all_gather` of the vocab-parallel logits).
-There is no compiler to constrain and no mesh context to activate, so
-those four helpers have no counterpart here.
+engine calls the collectives itself (``launch.mesh.all_reduce`` after
+each attention and FFN, ``launch.mesh.all_gather`` of the vocab-parallel
+logits).  There is no compiler to constrain and no mesh context to
+activate, so those four helpers have no counterpart here.  The
+placement helpers of trees split by their specs (``spec_slice``,
+``group_sum``, ``sync_grads``, …) live with the mesh in
+:mod:`repro_torch.launch.mesh`.
 
 The layout, as the JAX package's ``param_specs`` gives it
 (:func:`repro_torch.models.params.param_specs`): attention is
@@ -42,7 +45,10 @@ from typing import List, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import declare_model, tree_map
+from repro_torch.kernels import counting
+from repro_torch.launch.mesh import (all_gather, axis_members, axis_sizes,
+                                     device_coords, shard_leaf, spec_axes)
+from repro_torch.models.params import declare_model
 
 
 def data_axis_size(mesh) -> int:
@@ -174,19 +180,6 @@ def shard_config(cfg, m: int):
     return ShardConfig(**fields)
 
 
-def shard_leaf(t, spec: Sequence, index: int, m: int):
-    """Model shard ``index``'s slice (a view) of ``t`` along the dim
-    ``spec`` puts ``"model"`` on, of ``m`` equal slices; ``t`` itself
-    when ``spec`` splits no dim over ``model``.  ``"data"`` entries (the
-    fsdp rule) are not sliced: a data shard holds every ``d_model`` row
-    its launches read, the JAX package's all-gather done at placement."""
-    for dim, axis in enumerate(spec):
-        if axis == "model":
-            n = t.shape[dim] // m
-            return t.narrow(dim, index * n, n)
-    return t
-
-
 def _inner_rule(cfg, mixer, name: str, index: int, m: int):
     """How model shard ``index`` of ``m`` takes a recurrent mixer's leaf
     ``name`` other than by its spec, as a function of the whole leaf (or
@@ -284,136 +277,16 @@ class ModelShards:
         return len(self.devices)
 
     def replicate(self, t) -> list:
-        """``t`` on every shard's device (itself where it already is)."""
-        return [t.to(d, non_blocking=True) for d in self.devices]
-
-
-def all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum of ``parts`` (one partial a model shard, each on its
-    shard's device) on every shard's device: summed in shard order on
-    shard 0's device, then copied to each shard's.  The copies are
-    asynchronous device-to-device copies on the current streams, so no
-    host sync; where the devices are the same it is a plain add, and
-    every shard gets the one result."""
-    dev = parts[0].device
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(dev, non_blocking=True)
-    return [total.to(p.device, non_blocking=True) for p in parts]
-
-
-def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
-    """``parts`` concatenated along ``dim`` in shard order, on shard 0's
-    device (asynchronous copies, no host sync)."""
-    dev = parts[0].device
-    return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim)
+        """``t`` on every shard's device (itself where it already is): a
+        ``collective-permute`` from shard 0 to the counts."""
+        out = [t.to(d, non_blocking=True) for d in self.devices]
+        counting.collective("collective-permute", out)
+        return out
 
 
 # --------------------------------------------------------------------------
-# Training over a mesh: trees placed by their specs
+# Training over a mesh: trees placed by their specs (``launch.mesh``)
 # --------------------------------------------------------------------------
-#
-# A placed tree is a grid ``placed[d][j]`` of trees, one a device of a
-# ``(data, model)`` mesh: each leaf the device's slice of the global leaf
-# by its spec (``"data"`` dims split by ``d``, ``"model"`` dims by ``j``,
-# whole along the rest), as a JAX ``NamedSharding`` gives each device its
-# addressable shard.  A leaf the spec replicates is held by every device
-# it is replicated over.
-
-
-AXIS_INDEX = {"data": 0, "model": 1}
-
-
-def _subtrees(tree, like) -> list:
-    """The subtrees of ``tree`` at the leaves of ``like`` (the same
-    structure down to them), in ``tree_leaves`` order."""
-    out = []
-    tree_map(lambda _, t: out.append(t), like, tree)
-    return out
-
-
-def leaf_specs(tree, specs) -> list:
-    """The spec of each leaf of ``tree``, in ``tree_leaves`` order
-    (``specs`` a tree of tuples of the same structure)."""
-    return [tuple(s) for s in _subtrees(specs, tree)]
-
-
-def map_leaves(fn, specs, *grids) -> list:
-    """``fn(spec, *parts)`` for each leaf of placed trees: ``parts`` the
-    ``[d][j]`` grid of that leaf in each of ``grids`` (the first's trees
-    give the leaves; a later grid may hold a subtree at each, as an
-    optimizer's state does).  Returns the results in :func:`tree_leaves`
-    order."""
-    like = grids[0][0][0]
-    flat = [[[_subtrees(t, like) for t in row] for row in g] for g in grids]
-    return [fn(s, *([[ls[i] for ls in row] for row in f] for f in flat))
-            for i, s in enumerate(leaf_specs(like, specs))]
-
-
-def grid_of(like, per_leaf) -> list:
-    """Placed trees of ``like``'s structure from ``per_leaf``, each
-    leaf's ``[d][j]`` grid in ``tree_leaves`` order (as
-    :func:`map_leaves` returns them)."""
-    out = []
-    for d, row in enumerate(like):
-        out.append([])
-        for j, t in enumerate(row):
-            it = iter(g[d][j] for g in per_leaf)
-            out[-1].append(tree_map(lambda _: next(it), t))
-    return out
-
-
-def spec_slice(t, spec: Sequence, d: int, j: int, mesh_shape):
-    """Device ``(d, j)``'s slice (a view) of the global leaf ``t`` by
-    ``spec`` on a mesh of ``mesh_shape = (D, M)``: the ``"data"`` dim
-    narrowed to data shard ``d``'s, then :func:`shard_leaf`'s."""
-    for dim, axis in enumerate(spec):
-        if axis == "data":
-            n = t.shape[dim] // mesh_shape[0]
-            t = t.narrow(dim, d * n, n)
-    return shard_leaf(t, spec, j, mesh_shape[1])
-
-
-def spec_gather(parts, spec: Sequence, device=None):
-    """The global leaf from its slices ``parts[d][j]`` (the inverse of
-    :func:`spec_slice`), on ``device`` (default: device ``(0, 0)``'s)."""
-    device = parts[0][0].device if device is None else device
-    rows = [torch.cat([p.to(device, non_blocking=True) for p in row],
-                      list(spec).index("model")) if "model" in spec
-            else row[0].to(device, non_blocking=True) for row in parts]
-    return (torch.cat(rows, list(spec).index("data")) if "data" in spec
-            else rows[0])
-
-
-def group_sum(parts, axes) -> list:
-    """``parts[d][j]`` (one tensor a device) summed over the devices that
-    differ only along the mesh ``axes`` (``"data"``, ``"model"``): each
-    device gets its group's sum (:func:`all_reduce`, in row-major device
-    order, so every member holds the same bits).  No axis: ``parts``."""
-    axes = set(axes) & set(AXIS_INDEX)
-    if not axes:
-        return parts
-    D, M = len(parts), len(parts[0])
-    out = [[None] * M for _ in range(D)]
-    ds = range(D) if "data" in axes else None
-    ms = range(M) if "model" in axes else None
-    for d0 in ([0] if ds else range(D)):
-        for j0 in ([0] if ms else range(M)):
-            members = [(d, j) for d in (ds or [d0]) for j in (ms or [j0])]
-            for (d, j), t in zip(members, all_reduce(
-                    [parts[d][j] for d, j in members])):
-                out[d][j] = t
-    return out
-
-
-def sync_grads(grads, specs) -> list:
-    """Data-parallel (and replicated-leaf) gradient sums: each leaf's
-    gradient summed over the devices that hold the same slice of it —
-    the mesh axes its spec does not split — so that every replica takes
-    the whole gradient and steps alike.  ``grads`` and the result are
-    placed trees."""
-    return grid_of(grads, map_leaves(
-        lambda s, g: group_sum(g, set(AXIS_INDEX) - set(s)), specs, grads))
 
 
 def _get(tree, path):
@@ -422,15 +295,17 @@ def _get(tree, path):
     return tree
 
 
-def train_shard_params(placed, cfg, specs, devices):
-    """Each device's weights for the train forward, ``[d][j]``, from a
-    placed tree (``placed[d][j]``, by ``specs``; ``devices`` the mesh's
-    ``[D, M]`` device array), differentiable back to the placed leaves:
+def train_shard_params(placed, cfg, specs, mesh):
+    """Each device's weights for a sharded step's forward (train,
+    prefill or serve: ``launch.steps``), ``[e][j]`` over ``mesh``'s
+    grid, from a placed tree (``placed[e][j]``, by ``specs``),
+    differentiable back to the placed leaves:
 
-    * a leaf the spec splits over ``data`` (the fsdp rule) is gathered
-      whole along that dim on each device from its data shards' slices
-      (the JAX package's all-gather before use); its gradient comes back
-      to each slice summed over the data shards that read it;
+    * a leaf the spec splits over a data axis (the fsdp rule) is
+      gathered whole along that dim on each device from the slices of
+      the devices that split it (the JAX package's all-gather before
+      use); its gradient comes back to each slice summed over the
+      devices that read it;
     * a leaf model shard ``j`` holds other than by its spec
       (:func:`model_shard_params`: a KV head the model axis outnumbers,
       RWKV-6's per-head leaves, Mamba's ``in_proj``) is gathered whole
@@ -438,29 +313,34 @@ def train_shard_params(placed, cfg, specs, devices):
       rule;
     * every other leaf is the device's placed slice, which is its model
       shard's slice by :func:`model_shard_params` already."""
-    D, M = len(placed), len(placed[0])
+    sizes, grid = axis_sizes(mesh), mesh.grid
+    E, M = grid.shape
 
-    def fsdp(path, spec, d, j):
-        t = _get(placed[d][j], path)
-        if "data" not in spec:
+    def fsdp(path, spec, e, j):
+        t = _get(placed[e][j], path)
+        dims = [d for d, entry in enumerate(spec)
+                if entry not in (None, "model")]
+        if not dims:
             return t
-        dev = devices[d][j]
-        return torch.cat([_get(placed[e][j], path).to(dev, non_blocking=True)
-                          for e in range(D)], list(spec).index("data"))
+        axes = spec_axes(spec[dims[0]])
+        return all_gather(
+            [_get(placed[a][b], path).to(grid[e, j], non_blocking=True)
+             for a, b in axis_members(sizes, device_coords(sizes, e, j),
+                                      axes)], dims[0])
 
     out = []
-    for d in range(D):
+    for e in range(E):
         row = []
         for j in range(M):
-            def leaf(p, s, rule, path, d=d, j=j):
-                t = fsdp(path, s, d, j)
+            def leaf(p, s, rule, path, e=e, j=j):
+                t = fsdp(path, s, e, j)
                 if rule is None or M == 1:
                     return t
                 if "model" in s:
-                    t = torch.cat([fsdp(path, s, d, k).to(
-                        devices[d][j], non_blocking=True) for k in range(M)],
+                    t = all_gather([fsdp(path, s, e, k).to(
+                        grid[e, j], non_blocking=True) for k in range(M)],
                         list(s).index("model"))
                 return rule(t)
-            row.append(_shard_walk(placed[d][j], cfg, specs, j, M, leaf))
+            row.append(_shard_walk(placed[e][j], cfg, specs, j, M, leaf))
         out.append(row)
     return out

@@ -15,7 +15,9 @@ position's logits, or the final-norm hidden states, with the MoE layers'
 aux losses and, for a config with ``early_exit_periods``, each exit
 head's logits; ``cfg.remat`` recomputes each period's layers in backward
 (``torch.utils.checkpoint``), as the JAX package checkpoints its period
-scan body.
+scan body; the forward draws no random numbers, so no generator state is
+kept for the recompute (nor read from the device, which a dry-run's
+``meta`` trace could not).
 
 **Tensor parallelism** (a tier mesh's ``model`` axis): the serving steps
 take ``group=`` (a :class:`repro_torch.models.sharding.ModelShards`),
@@ -66,7 +68,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import counting
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch.mesh import all_gather, all_reduce
 from repro_torch.models import blocks
 from repro_torch.models import sharding
 from repro_torch.models.params import tree_map
@@ -114,7 +118,8 @@ def _apply_periods(params, cfg: ModelConfig, x, cache, pos, mode,
                 pos, mode, pages, aux)
         if mode == "train" and cfg.remat:
             x, out_i, aux = checkpoint(_apply_layers, *args,
-                                       use_reentrant=False)
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
             x, out_i, aux = _apply_layers(*args)
         if mode == "prefill":
@@ -263,7 +268,7 @@ def _mixer_shards(group, ps, shard_cfg, layer, xs, caches, pos, mode,
     if spec.kind == "mamba":
         firsts = [blocks.mamba_in(p["mixer"], shard_cfg, spec, h, c, mode)
                   for p, h, c in zip(ps, hs, cs)]
-        projs = sharding.all_reduce([f[2] for f in firsts])
+        projs = all_reduce([f[2] for f in firsts])
         outs = [blocks.mamba_out(p["mixer"], shard_cfg, spec, f, pr, c, mode)
                 for p, f, pr, c in zip(ps, firsts, projs, cs)]
     else:
@@ -271,7 +276,7 @@ def _mixer_shards(group, ps, shard_cfg, layer, xs, caches, pos, mode,
         outs = [mixer(p["mixer"], shard_cfg, spec, h, c, pos[j], mode,
                       pages=pages[j])
                 for j, (p, h, c) in enumerate(zip(ps, hs, cs))]
-    xs = [x + y for x, y in zip(xs, sharding.all_reduce([y for y, _ in outs]))]
+    xs = [x + y for x, y in zip(xs, all_reduce([y for y, _ in outs]))]
     return xs, [blocks.rmsnorm(x, p["norm2"], shard_cfg.norm_eps)
                 for x, p in zip(xs, ps)], [c for _, c in outs]
 
@@ -297,7 +302,7 @@ def _ffn_shards(group, ps, cfg, spec, hs, routes=None, caches=None,
         return blocks.dense_ffn(p, cfg, spec, h)
     stateless = [{}] * group.size
     if _ffn_split(ps[0]["ffn"], spec):
-        return sharding.all_reduce([ffn(p["ffn"], h, j) for j, (p, h)
+        return all_reduce([ffn(p["ffn"], h, j) for j, (p, h)
                                     in enumerate(zip(ps, hs))]), stateless
     return group.replicate(ffn(ps[0]["ffn"], hs[0], 0)), stateless
 
@@ -313,13 +318,13 @@ def _cmix_shards(group, ps, cfg, spec, hs, caches, mode):
           else [c["ffn"] for c in caches])
     gates, kvs, new = zip(*[blocks.rwkv_cmix_parts(
         p["ffn"], cfg, spec, h, c, mode) for p, h, c in zip(ps, hs, cs)])
-    kv = (sharding.all_reduce(kvs) if _ffn_split(ps[0]["ffn"], spec)
+    kv = (all_reduce(kvs) if _ffn_split(ps[0]["ffn"], spec)
           else group.replicate(kvs[0]))
     cols, o = [], 0
     for g, k in zip(gates, kv):
         cols.append(g * k[..., o:o + g.shape[-1]])
         o += g.shape[-1]
-    return group.replicate(sharding.all_gather(cols, -1)), list(new)
+    return group.replicate(all_gather(cols, -1)), list(new)
 
 
 def _embed_shards(group, params, cfg: ModelConfig, tokens, mode=None,
@@ -344,12 +349,12 @@ def _embed_shards(group, params, cfg: ModelConfig, tokens, mode=None,
             hit = ((ids >= 0) & (ids < held))[..., None]
             e = p["embed"][ids.clamp(0, held - 1)]
             parts.append(torch.where(hit, e, torch.zeros_like(e)))
-        xs = sharding.all_reduce(parts)
+        xs = all_reduce(parts)
     if mode is None or not _frontend_positions(cfg, xs[0], mode):
         return xs
     # check_model_axis holds frontend_dim divisible: each shard has rows
     rows = params[0]["frontend_proj"].shape[0]
-    emb = sharding.all_reduce([
+    emb = all_reduce([
         frontend_embeds.to(d, non_blocking=True)[..., j * rows:(j + 1) * rows]
         @ p["frontend_proj"]
         for j, (p, d) in enumerate(zip(params, group.devices))])
@@ -372,7 +377,7 @@ def _logits_shards(group, params, cfg: ModelConfig, xs, exit_head=None):
             else params[0]["exit_heads"][f"exit{exit_head}"]["proj"])
     if proj.shape[1] == cfg.vocab_size:
         return head(params[0], xs[0])
-    return sharding.all_gather([head(p, x) for p, x in zip(params, xs)], -1)
+    return all_gather([head(p, x) for p, x in zip(params, xs)], -1)
 
 
 class MoeLayout:
@@ -440,6 +445,7 @@ def route_data_shards(spec, logits, layout: MoeLayout):
                        device=dev)
     for lg, sl in zip(logits, slots):
         full.index_copy_(0, sl, lg.to(dev, non_blocking=True))
+    counting.collective("all-gather", [full[:total]])
     _, _, dest, w = kernel_ops.moe_route(
         full[:total].view(total // gs, gs, -1), spec.top_k, cap)
     k, E = spec.top_k, spec.num_experts
@@ -451,6 +457,7 @@ def route_data_shards(spec, logits, layout: MoeLayout):
         d, own = _local_dest(dest[sl], g0, n, cap, rows, E)
         out.append((d.to(lg.device, non_blocking=True),
                     w[sl].to(lg.device, non_blocking=True), own))
+    counting.collective("all-to-all", [o[:2] for o in out])
     return out
 
 
@@ -482,7 +489,7 @@ def moe_train_shards(groups, ws, cfg: ModelConfig, spec, hs):
     j)``'s layer weights; ``groups[s]`` None for a shard without a model
     axis.  Returns (each data shard's output a model shard, aux)."""
     n, E, k = len(hs), spec.num_experts, spec.top_k
-    full = sharding.all_gather([blocks.moe_logits(
+    full = all_gather([blocks.moe_logits(
         ws[s][0]["ffn"], hs[s][0].reshape(-1, cfg.d_model))
         for s in range(n)], 0)                                # [N, E]
     N = full.shape[0]
@@ -503,15 +510,18 @@ def moe_train_shards(groups, ws, cfg: ModelConfig, spec, hs):
         ws_s, w_s = ws[s], w[s * per:(s + 1) * per]
         devs = [h.device for h in hs[s]]
 
+        picks = [(d.to(dv, non_blocking=True), w_s.to(dv, non_blocking=True))
+                 for dv in devs]
+        counting.collective("all-to-all", picks)
+
         def ffn(j):
             return blocks.moe_ffn(
                 ws_s[j]["ffn"], cfg, spec, hs[s][j], shard=j, train=True,
-                route=(d.to(devs[j], non_blocking=True),
-                       w_s.to(devs[j], non_blocking=True), own))
+                route=picks[j] + (own,))
         if groups[s] is None:
             ys.append([ffn(0)])
         elif _ffn_split(ws_s[0]["ffn"], spec):
-            ys.append(sharding.all_reduce([ffn(j) for j in range(len(devs))]))
+            ys.append(all_reduce([ffn(j) for j in range(len(devs))]))
         else:
             ys.append(groups[s].replicate(ffn(0)))
     return ys, aux
@@ -639,7 +649,8 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
         args = (xs, aux, wt, ct, layers, prefix)
         if train and cfg.remat and i is not None:
             xs, aux, slots = checkpoint(run_layers, *args,
-                                        use_reentrant=False)
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
         else:
             xs, aux, slots = run_layers(*args)
         if train and i in cfg.early_exit_periods:
@@ -697,7 +708,7 @@ def lm_proj_shards(group, params, cfg: ModelConfig):
         return lm_proj(params, cfg)
     if lm_proj(params[0], cfg).shape[1] == cfg.vocab_size:
         return lm_proj(params[0], cfg)
-    return sharding.all_gather([lm_proj(p, cfg) for p in params], -1)
+    return all_gather([lm_proj(p, cfg) for p in params], -1)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str,

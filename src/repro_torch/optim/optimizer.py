@@ -10,12 +10,13 @@ API::
 ``params`` and ``grads`` are trees of tensors (dicts, lists, tuples);
 ``update`` returns new tensors and never writes the ones it is given.
 
-``opt.update_sharded(params, grads, state, lr, specs)`` is the update of
-trees placed on a ``(data, model)`` mesh (``params[d][j]`` device ``(d,
-j)``'s slices by ``specs``, :mod:`repro_torch.models.sharding`): each
-device steps its own slice of each leaf and its own replica of
-``"step"``, with the gradients already summed over each leaf's replicas
-(``sharding.sync_grads``).  SGD and AdamW act elementwise; every
+``opt.update_sharded(params, grads, state, lr, specs, sizes=None)`` is
+the update of trees placed on a mesh (``params[e][j]`` grid device ``(e,
+j)``'s slices by ``specs``, :mod:`repro_torch.launch.mesh`; ``sizes`` the
+mesh's axis sizes, default the grid's ``(data, model)``): each device
+steps its own slice of each leaf and its own replica of ``"step"``, with
+the gradients already summed over each leaf's replicas
+(``mesh.sync_grads``).  SGD and AdamW act elementwise; every
 reduction Adafactor takes over a leaf (``vr``'s mean over the last dim,
 ``vc``'s over the second-to-last, ``denom`` and the RMS clip) is summed
 over the devices whose slices split the reduced dims, so each slice
@@ -35,7 +36,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import sharding
+from repro_torch.launch.mesh import (group_sum, grid_of, map_leaves,
+                                     spec_axes)
 from repro_torch.models.params import tree_leaves, tree_map
 
 
@@ -50,7 +52,7 @@ class Optimizer(NamedTuple):
 def _elementwise_sharded(update):
     """The sharded update of an elementwise optimizer: each device's
     ``update`` of its own slices."""
-    def update_sharded(params, grads, state, lr, specs):
+    def update_sharded(params, grads, state, lr, specs, sizes=None):
         out = [[update(p, g, s, lr) for p, g, s in zip(*rows)]
                for rows in zip(params, grads, state)]
         return ([[o[0] for o in row] for row in out],
@@ -118,18 +120,19 @@ def _mean_whole(xs, dim, axes, keepdim=False):
             for x in xs]
 
 
-def _mean_placed(M: int):
+def _mean_placed(sizes: dict):
     """The mean over ``dim`` of the whole leaf whose slices ``xs`` (one a
-    device of a ``[D, M]`` mesh, row-major) are, at each slice: local
-    sums added over the devices that split the reduced dims (``axes``,
-    the mesh axes on them; :func:`sharding.group_sum`) over the whole
-    leaf's count; a plain mean where no axis splits them."""
+    grid device of a mesh of ``sizes``, row-major) are, at each slice:
+    local sums added over the devices that split the reduced dims
+    (``axes``, the spec entries on them; :func:`group_sum`) over the
+    whole leaf's count; a plain mean where no axis splits them."""
+    M = sizes["model"]
+
     def mean(xs, dim, axes, keepdim=False):
-        axes = set(axes) - {None}
+        axes = {a for entry in axes for a in spec_axes(entry)}
         if not axes:
             return _mean_whole(xs, dim, axes, keepdim)
         dims = tuple(range(xs[0].dim())) if dim is None else (dim,)
-        sizes = {"data": len(xs) // M, "model": M}
         count = 1
         for t_dim in dims:
             count *= xs[0].shape[t_dim]
@@ -137,7 +140,7 @@ def _mean_placed(M: int):
             count *= sizes[a]
         parts = [[x.sum(dim=dims, keepdim=keepdim) for x in xs[r:r + M]]
                  for r in range(0, len(xs), M)]
-        return [t / count for row in sharding.group_sum(parts, axes)
+        return [t / count for row in group_sum(parts, axes, sizes)
                 for t in row]
     return mean
 
@@ -205,11 +208,11 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
         return new_p, {"v": tree_map(lambda _: next(it), params),
                        "step": t}
 
-    def update_sharded(params, grads, state, lr, specs):
+    def update_sharded(params, grads, state, lr, specs, sizes=None):
         M = len(params[0])
         steps = [[_beta(s) for s in row] for row in state]
         betas = [b for row in steps for _, b in row]
-        mean = _mean_placed(M)
+        mean = _mean_placed(sizes or {"data": len(params), "model": M})
 
         def flat(grid):
             return [t for row in grid for t in row]
@@ -221,10 +224,10 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
             new, ns = upd(flat(ps), flat(gs), flat(ss), betas, lr, spec,
                           mean)
             return regrid(new), regrid(ns)
-        out = sharding.map_leaves(leaf, specs, params, grads,
-                                  [[s["v"] for s in row] for row in state])
-        new_v = sharding.grid_of(params, [o[1] for o in out])
-        return (sharding.grid_of(params, [o[0] for o in out]),
+        out = map_leaves(leaf, specs, params, grads,
+                         [[s["v"] for s in row] for row in state])
+        new_v = grid_of(params, [o[1] for o in out])
+        return (grid_of(params, [o[0] for o in out]),
                 [[{"v": v, "step": t} for v, (t, _) in zip(vr, sr)]
                  for vr, sr in zip(new_v, steps)])
 

@@ -53,7 +53,9 @@ def test_port_and_chip_smoke_import_no_jax():
               "optim.optimizer", "core.losses", "core.cascade",
               "core.thresholds", "core.calibration", "data.pipeline",
               "models.classifier", "checkpoint.checkpoint",
-              "launch.steps", "launch.train", "launch.serve"):
+              "launch.steps", "launch.train", "launch.serve",
+              "launch.shapes", "launch.hlo", "launch.roofline",
+              "launch.dryrun", "kernels.counting"):
         assert "repro_torch." + m in res["modules"]
 
 

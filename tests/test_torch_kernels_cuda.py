@@ -1595,17 +1595,92 @@ def test_cuda_model_shard_collectives_on_a_second_card(cuda_device):
         pytest.skip("needs two cards: the collectives between cuda:0 and "
                     "cuda:1 can only run where torch.cuda.device_count() "
                     ">= 2")
-    from repro_torch.models import sharding
+    from repro_torch.launch import mesh as mesh_lib
 
     devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
     gen = torch.Generator().manual_seed(0)
     host = [torch.randn(64, 3072, generator=gen) for _ in devs]
     parts = [h.to(d) for h, d in zip(host, devs)]
-    out = sharding.all_reduce(parts)
+    out = mesh_lib.all_reduce(parts)
     want = host[0].to(devs[0]) + host[1].to(devs[0])
     assert [o.device for o in out] == devs
     for o in out:
         assert torch.equal(o.to(devs[0]), want)
-    cat = sharding.all_gather(parts, -1)
+    cat = mesh_lib.all_gather(parts, -1)
     assert cat.device == devs[0]
     assert torch.equal(cat.cpu(), torch.cat(host, -1))
+
+
+def _count_cases(dev):
+    """(name, wrapper, args, kwargs) of every ``ops`` wrapper at one
+    shape each the kernels take, on ``dev``."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    N, bs, KV, G, hd, R, P = 17, 16, 2, 3, 64, 2, 8
+    kp, vp = rn(N, bs, KV, hd), rn(N, bs, KV, hd)
+    pt = torch.arange(1, R * P + 1, dtype=torch.int32,
+                      device=dev).reshape(R, P)
+    i32 = dict(dtype=torch.int32, device=dev)
+    qs, ql = torch.tensor([30, 0], **i32), torch.tensor([5, 9], **i32)
+    w = torch.sigmoid(rn(1, 2, 40, 64))
+    return [
+        ("confidence_gate", ops.confidence_gate, (rn(4, 3000),), {}),
+        ("router_gate", ops.router_gate, (rn(16, 40), 8), {}),
+        ("moe_route", ops.moe_route, (rn(1, 64, 40), 8, 16), {}),
+        ("ragged_attention", ops.ragged_attention,
+         (rn(16, KV, G, hd), kp, vp, pt, qs, ql), {"window": 32}),
+        ("paged_attention", ops.paged_attention,
+         (rn(R, KV, G, hd), kp, vp, pt, torch.tensor([40, 100], **i32)), {}),
+        ("mixed_attention", ops.mixed_attention,
+         (rn(R, 9, KV, G, hd), kp, vp, pt, qs, ql), {}),
+        ("flash_attention", ops.flash_attention,
+         (rn(1, 6, 80, hd), rn(1, 2, 80, hd), rn(1, 2, 80, hd)), {}),
+        ("rwkv6_scan", ops.rwkv6_scan,
+         (rn(1, 2, 40, 64), rn(1, 2, 40, 64), rn(1, 2, 40, 64), w,
+          rn(2, 64)), {}),
+        ("mamba_scan", ops.mamba_scan,
+         (rn(1, 40, 128), torch.rand(1, 40, 128, generator=g, device=dev),
+          rn(1, 40, 16), rn(1, 40, 16),
+          -torch.rand(128, 16, generator=g, device=dev)), {}),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["confidence_gate", "router_gate",
+                                  "moe_route", "ragged_attention",
+                                  "paged_attention", "mixed_attention",
+                                  "flash_attention", "rwkv6_scan",
+                                  "mamba_scan"])
+def test_wrapper_count_on_card_equals_meta(name, cuda_device):
+    """Each ``ops`` wrapper under a count (``kernels.counting``): its
+    launch on the card counts the same kernel call, work, FLOPs and
+    bytes (and no aten op) as the same call on ``meta`` tensors, which
+    returns outputs of the launch's shapes and dtypes."""
+    from repro_torch.kernels import counting
+
+    _, fn, args, kw = next(c for c in _count_cases(cuda_device)
+                           if c[0] == name)
+    with counting.Count() as card:
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args]
+    with counting.Count() as meta:
+        got = fn(*meta_args, **kw)
+
+    def summary(c):
+        return (dict(c.flops), c.bytes, c.kernels, dict(c.ops),
+                c.collectives)
+
+    assert summary(card) == summary(meta)
+    assert sum(k["calls"] for k in card.kernels.values()) == 1
+
+    def shapes(o):
+        leaves = [o[k] for k in sorted(o)] if isinstance(o, dict) else (
+            list(o) if isinstance(o, tuple) else [o])
+        return [(tuple(t.shape), t.dtype) for t in leaves]
+    assert shapes(got) == shapes(out)

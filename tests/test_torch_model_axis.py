@@ -224,7 +224,7 @@ def test_attention_shards_match_jax(smoke_weights, name):
                                        for k, v in pages.items()})
         parts.append(y)
         pools.append(pj)
-    got = sharding.all_reduce(parts)
+    got = mesh_lib.all_reduce(parts)
     total = int(q_len.sum())
     for g in got:
         np.testing.assert_allclose(g.numpy()[0, :total],
@@ -257,9 +257,9 @@ def test_dense_ffn_shards_match_jax(name):
     specs = {k: params.logical_to_spec(d, StubMesh((1, M)), False)
              for k, d in decl.items()}
     parts = [blocks.dense_ffn(
-        {k: sharding.shard_leaf(v, specs[k], j, M) for k, v in tp.items()},
+        {k: mesh_lib.shard_leaf(v, specs[k], j, M) for k, v in tp.items()},
         cfg, spec, torch.from_numpy(x)) for j in range(M)]
-    np.testing.assert_allclose(sharding.all_reduce(parts)[0].numpy(),
+    np.testing.assert_allclose(mesh_lib.all_reduce(parts)[0].numpy(),
                                np.asarray(want), **BLOCK_TOL)
 
 
@@ -289,9 +289,9 @@ def test_moe_ffn_shards_match_jax(experts, cf):
     assert specs["wo"][{"experts": 0, "ffn": 1}[split]] == "model"
     assert specs["router"] == (None, None)
     parts = [blocks.moe_ffn(
-        {k: sharding.shard_leaf(v, specs[k], j, M) for k, v in tp.items()},
+        {k: mesh_lib.shard_leaf(v, specs[k], j, M) for k, v in tp.items()},
         cfg, spec, torch.from_numpy(x), shard=j) for j in range(M)]
-    np.testing.assert_allclose(sharding.all_reduce(parts)[0].numpy(),
+    np.testing.assert_allclose(mesh_lib.all_reduce(parts)[0].numpy(),
                                np.asarray(want), **BLOCK_TOL)
 
 

@@ -126,7 +126,7 @@ def test_rwkv6_shards_match_jax():
         x.numpy()), None, None, "prefill")
     outs = [blocks.rwkv6(p, scfg, spec, x, None, None, "prefill")
             for p in ps]
-    _close(sharding.all_reduce([y for y, _ in outs])[0], want)
+    _close(mesh_lib.all_reduce([y for y, _ in outs])[0], want)
     decl = cache_lib.declare_cache(scfg, 2, 1)["period"]["block0"]["mixer"]
     for j, (_, c) in enumerate(outs):
         assert tuple(c["state"].shape) == decl["state"].shape[1:]
@@ -137,7 +137,7 @@ def test_rwkv6_shards_match_jax():
         x1.numpy()), want_c, None, "decode")
     outs1 = [blocks.rwkv6(p, scfg, spec, x1, c, None, "decode")
              for p, (_, c) in zip(ps, outs)]
-    _close(sharding.all_reduce([y for y, _ in outs1])[0], want1)
+    _close(mesh_lib.all_reduce([y for y, _ in outs1])[0], want1)
     _close(torch.cat([c["state"] for _, c in outs1], 1), want_c1["state"])
 
 
@@ -200,11 +200,11 @@ def test_mamba_shards_match_jax():
     def shards(x, caches, mode, reduce=True):
         firsts = [blocks.mamba_in(p, scfg, spec, x, c, mode)
                   for p, c in zip(ps, caches)]
-        projs = (sharding.all_reduce([f[2] for f in firsts]) if reduce
+        projs = (mesh_lib.all_reduce([f[2] for f in firsts]) if reduce
                  else [f[2] for f in firsts])
         outs = [blocks.mamba_out(p, scfg, spec, f, pr, c, mode)
                 for p, f, pr, c in zip(ps, firsts, projs, caches)]
-        return sharding.all_reduce([y for y, _ in outs])[0], \
+        return mesh_lib.all_reduce([y for y, _ in outs])[0], \
             [c for _, c in outs]
     want, want_c = jax_blocks.mamba(_jnp(full), jcfg, spec,
                                     jnp.asarray(x.numpy()), None, None,

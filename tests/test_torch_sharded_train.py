@@ -19,7 +19,7 @@ package's jitted steps on placed inputs.
   shards; ``opt_state_specs`` against JAX's for all ten configs at their
   published widths on stub ``2x4`` and ``16x16`` meshes; the per-device
   ``opt_state_shapes`` against JAX's shard shapes on ``2x4``; gradients
-  through ``sharding.all_reduce`` / ``all_gather``; the refusals;
+  through ``mesh.all_reduce`` / ``all_gather``; the refusals;
   ``transformer.forward(mode="train", group=)`` (its exit heads and
   hidden states too) and a ``chunked_ce`` step on ``2x2`` against the
   unsharded ones; Adafactor's sharded update of single leaves split on
@@ -309,7 +309,7 @@ def _replica_mismatches(placed, specs) -> list:
         return any(not torch.equal(t, grid[d if "data" in s else 0][
             j if "model" in s else 0])
             for d, row in enumerate(grid) for j, t in enumerate(row))
-    return [i for i, bad in enumerate(sharding.map_leaves(
+    return [i for i, bad in enumerate(mesh_lib.map_leaves(
         differs, specs, placed)) if bad]
 
 
@@ -480,13 +480,13 @@ def test_collectives_carry_gradients():
     parts = [torch.randn(3, 4, generator=gen, requires_grad=True)
              for _ in range(3)]
     ws = [torch.randn(3, 4, generator=gen) for _ in range(3)]
-    outs = sharding.all_reduce(parts)
+    outs = mesh_lib.all_reduce(parts)
     gr = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, ws)),
                              parts)
     for g in gr:
         torch.testing.assert_close(g, sum(ws), rtol=0, atol=1e-6)
     w = torch.randn(3, 12, generator=gen)
-    gg = torch.autograd.grad((sharding.all_gather(parts, -1) * w).sum(),
+    gg = torch.autograd.grad((mesh_lib.all_gather(parts, -1) * w).sum(),
                              parts)
     for j, g in enumerate(gg):
         assert torch.equal(g, w[:, 4 * j:4 * (j + 1)])
@@ -517,7 +517,7 @@ def test_forward_train_over_a_group_matches_unsharded():
     mesh = _cpu_mesh((1, 2))
     specs = params.param_specs(cfg, mesh)
     weights = sharding.train_shard_params(steps.place(p, specs, mesh), cfg,
-                                          specs, mesh.devices)[0]
+                                          specs, mesh)[0]
     group = sharding.ModelShards(mesh.model_devices(0))
     batch = {"tokens": torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, 24)).astype(np.int32))}
