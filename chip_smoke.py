@@ -269,6 +269,19 @@ without printing a result):
      launches equal to the traced calls, argument bytes exact, the
      roofline's share of the step at most 1.05, the peak estimate beside
      ``max_memory_allocated``.
+ 15. the sequence-split decode, after phase 14 on phase 4's gemma3-1b
+     (``check_seq_split``; alone: ``scripts/torch_seq_split_phase.py``):
+     a batch of 1 over a dense f32 cache of ``long_500k``'s 524288
+     positions (27.9 GB), the unsharded ``make_serve_step`` first, then
+     ``make_serve_step(mesh=)`` on ``2x1`` (the keys split over the data
+     shards) and on ``1x2`` and ``2x2`` with ``seq_over_model`` (over
+     every device), each over the card on the same cache drawn again,
+     4 steps from position 524280 and 2 from 200000: logits within 5e-5
+     of unsharded, argmax equal past the top-2 margin, the written K/V
+     rows on their owner, every other row unchanged, median step ms and
+     peak memory; then the dry-run's trace of ``long_500k`` on ``2x1``
+     against the card (phase 14's checks, the merges among the
+     collectives).
 
 The lines before the last are JSON records of the findings (one of them
 the ``{"kernels": [...]}`` summary) and the card's ``name, power.limit``
@@ -317,8 +330,9 @@ from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_F32,  # noqa: E402
 from repro_torch.models import (blocks, classifier,  # noqa: E402
                                 init_params, sharding, transformer)
 from repro_torch.models import params as params_lib  # noqa: E402
-from repro_torch.models.cache import (declare_cache,  # noqa: E402
-                                     declare_paged_cache, init_paged_cache)
+from repro_torch.models.cache import (cache_specs,  # noqa: E402
+                                     declare_cache, declare_paged_cache,
+                                     init_paged_cache)
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import Optimizer  # noqa: E402
 from repro_torch.serving.engine import (CascadeEngine,  # noqa: E402
@@ -5082,12 +5096,17 @@ def dryrun_inputs(cfg, shape_name: str, dev) -> dict:
 def device00_bytes(cfg, args, inputs, mesh) -> int:
     """Device ``(0, 0)``'s bytes of a step's arguments on the card: its
     placed params, optimizer state and cache, and its rows of the batch
-    (``shard_batch``; an attention-free model's ``pos`` never read)."""
+    (``shard_batch``; the whole batch where the data shards do not divide
+    it, as each runs all of it; an attention-free model's ``pos`` never
+    read)."""
     grids = [a for a in args if isinstance(a, list)]
     batch = {k: v for k, v in inputs.items()
              if k != "cache" and not (k == "pos" and cfg.attn_free)}
+    rows = next(iter(batch.values())).shape[0]
+    own = (shard_batch(batch, mesh)[0]
+           if rows % sharding.data_axis_size(mesh) == 0 else batch)
     return sum(t.numel() * t.element_size() for t in tree_leaves(
-        [g[0][0] for g in grids] + [shard_batch(batch, mesh)[0]]))
+        [g[0][0] for g in grids] + [own]))
 
 
 def check_dryrun_case(card: str, dev, case: str, label: str, cfg, params,
@@ -5228,6 +5247,199 @@ def check_dryrun(card: str, dev, phi4_params) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 15: the sequence-split decode
+# --------------------------------------------------------------------------
+
+# phase 15's decode positions: 4 steps at the end of the cache (the
+# local layers see only the last key shard, the global ones all), then 2
+# in an early shard (every later shard fully masked on every layer)
+SEQ_POSITIONS = (524280, 524281, 524282, 524283, 200000, 200001)
+# (mesh, seq_over_model) of phase 15's split runs over the card
+SEQ_MESHES = (((2, 1), False), ((1, 2), True), ((2, 2), True))
+# logits against unsharded: phase 12's teacher-forced bound
+SEQ_TOL = 5e-5
+
+
+def seq_cache(cfg, dev, seed: int = 15) -> dict:
+    """Phase 15's dense cache on the card: one row of ``long_500k``'s
+    524288 positions, every leaf a standard normal draw from a seeded
+    generator (the same cache for each run)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tree_map(lambda c: torch.randn(c.shape, generator=gen,
+                                          device=dev),
+                    declare_cache(cfg, 1, shapes_lib.SHAPES["long_500k"]
+                                  .seq_len))
+
+
+def attn_leaves(cfg, tree) -> list:
+    """``(name, [layers, 1, T, KV, hd] view)`` of each attention k/v leaf
+    of a dense cache, a period's stack flattened into its layers."""
+    out = []
+    for section, sub in declare_cache(cfg, 1, 1).items():
+        for key in sub:
+            for name in ("k", "v"):
+                t = tree[section][key]["mixer"][name]
+                out.append((f"{section}/{key}/{name}",
+                            t if section == "period" else t[None]))
+    return out
+
+
+def seq_checksums(cfg, tree, skip) -> dict:
+    """Each attention leaf's int64 sum of its f32 bit patterns, the rows
+    at the local positions ``skip`` left out: equal before and after a
+    step that writes only there."""
+    out = {}
+    for name, t in attn_leaves(cfg, tree):
+        bits = t.view(torch.int32)
+        total = bits.sum(dtype=torch.int64)
+        for p in skip:
+            total = total - bits[:, :, p].sum(dtype=torch.int64)
+        out[name] = int(total)
+    return out
+
+
+def seq_run(cfg, params, dev, mesh_shape=None, seq_over_model=False):
+    """One phase-15 run over :func:`seq_cache`: the unsharded
+    ``make_serve_step`` (``mesh_shape`` None) or the split one on a mesh
+    of ``mesh_shape`` over the card (params and cache placed by their
+    specs: views), through :data:`SEQ_POSITIONS`.  Returns each step's
+    logits and ``conf`` on the host, every written row, each device's
+    checksums before and after (owner rows left out), the step ms by
+    CUDA events and the peak memory above the resident arguments."""
+    T = shapes_lib.SHAPES["long_500k"].seq_len
+    cache = seq_cache(cfg, dev)
+    if mesh_shape is None:
+        step = steps.make_serve_step(cfg)
+        args, grid, offsets = params, [[cache]], [[0]]
+    else:
+        d, m = mesh_shape
+        mesh = make_tier_mesh(d, m, [dev] * (d * m))
+        args = steps.place(params, params_lib.param_specs(cfg, mesh), mesh)
+        specs = cache_specs(cfg, 1, T, mesh, shard_seq=1 % d != 0,
+                            seq_over_model=seq_over_model)
+        grid = steps.place(cache, specs, mesh)
+        step = steps.make_serve_step(cfg, mesh=mesh,
+                                     seq_over_model=seq_over_model,
+                                     seq_len=T)
+        # each device's first key: its view's offset into the cache
+        first = attn_leaves(cfg, cache)[0][1]
+        offsets = [[(attn_leaves(cfg, t)[0][1].storage_offset()
+                     - first.storage_offset()) // first.stride(2)
+                    for t in row] for row in grid]
+    L = attn_leaves(cfg, grid[0][0])[0][1].shape[2]
+
+    def local(e, j):
+        return [p - offsets[e][j] for p in SEQ_POSITIONS
+                if 0 <= p - offsets[e][j] < L]
+    before = [[seq_checksums(cfg, t, local(e, j)) for j, t in enumerate(row)]
+              for e, row in enumerate(grid)]
+    gen = torch.Generator().manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab_size, (len(SEQ_POSITIONS),),
+                           generator=gen, dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, confs, times = [], [], []
+    for i, p in enumerate(SEQ_POSITIONS):
+        tok = torch.full((1, 1), int(tokens[i]), dtype=torch.int32,
+                         device=dev)
+        pos = torch.full((1, 1), p, dtype=torch.int32, device=dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        lg, conf, _ = step(args, tok, pos, grid if mesh_shape else cache)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        logits.append(lg[0, 0].float().cpu())
+        confs.append(float(conf[0, 0]))
+    peak = torch.cuda.max_memory_allocated() - base
+    after = [[seq_checksums(cfg, t, local(e, j)) for j, t in enumerate(row)]
+             for e, row in enumerate(grid)]
+    # every written row through its owner's view (all views of one cache
+    # on the card)
+    rows = {}
+    for e, row in enumerate(grid):
+        for j, t in enumerate(row):
+            for p in local(e, j):
+                for name, leaf in attn_leaves(cfg, t):
+                    rows[name, p + offsets[e][j]] = leaf[:, 0, p].cpu()
+    del cache, grid
+    torch.cuda.empty_cache()
+    return {"logits": logits, "conf": confs, "rows": rows,
+            "unchanged": before == after, "step_ms": times,
+            "peak_bytes": peak}
+
+
+def check_seq_split(card: str, dev, params, meshes=SEQ_MESHES) -> dict:
+    """Phase 15, the sequence-split decode (f32, TF32 off): gemma3-1b at
+    its published widths (26 attention layers, 1 KV head of 256; 4 of 6
+    layers windowed at 512) over a dense cache of ``long_500k``'s 524288
+    positions, batch 1 (27.9 GB, :func:`seq_cache`): the unsharded step
+    first (its logits, ``conf`` and written rows to the host, its cache
+    freed), then the split step on each of ``meshes`` over the card, each
+    on the same cache drawn again, through :data:`SEQ_POSITIONS`.  Each
+    run's logits within :data:`SEQ_TOL` of unsharded, the argmax equal
+    wherever the unsharded top-1/top-2 margin exceeds the error, the
+    written K/V rows on their owner within it, every device's other rows
+    bit for bit unchanged (checksums); the median step ms and the peak
+    memory above the arguments.  Then ``dryrun.trace_cfg`` of
+    ``long_500k`` on ``2x1`` against the card (:func:`check_dryrun_case`:
+    counts equal, the merges among the collectives, roofline share at
+    most :data:`DRYRUN_SHARE_MAX`).  Returns the dry-run case's
+    launches."""
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-1b", "")
+    torch.cuda.empty_cache()
+    whole = seq_run(cfg, params, dev)
+    emit(check="sequence split", card=card, mesh="1x1",
+         positions=SEQ_POSITIONS, conf=whole["conf"],
+         step_ms=float(np.median(whole["step_ms"])),
+         step_ms_runs=whole["step_ms"], peak_bytes=whole["peak_bytes"])
+    problems = []
+    for shape, som in meshes:
+        run = seq_run(cfg, params, dev, shape, som)
+        errs = [float((a - b).abs().max())
+                for a, b in zip(run["logits"], whole["logits"])]
+        margins, argmax_ok = [], True
+        for a, b, err in zip(run["logits"], whole["logits"], errs):
+            top = torch.topk(b, 2).values
+            margins.append(float(top[0] - top[1]))
+            if margins[-1] > err and int(a.argmax()) != int(b.argmax()):
+                argmax_ok = False
+        row_err = max(float((run["rows"][k] - whole["rows"][k]).abs().max())
+                      for k in whole["rows"])
+        missing = sorted(set(whole["rows"]) ^ set(run["rows"]))
+        conf_err = max(abs(a - b) for a, b in zip(run["conf"],
+                                                  whole["conf"]))
+        label = "%dx%d" % shape
+        emit(check="sequence split", card=card, mesh=label,
+             seq_over_model=som, positions=SEQ_POSITIONS,
+             logits_max_abs_err=errs, tolerance=SEQ_TOL,
+             conf_max_abs_err=conf_err, top2_margin=margins,
+             argmax_equal_past_margin=argmax_ok,
+             written_rows_max_abs_err=row_err, rows_missing=missing,
+             other_rows_unchanged=run["unchanged"],
+             step_ms=float(np.median(run["step_ms"])),
+             step_ms_runs=run["step_ms"], peak_bytes=run["peak_bytes"])
+        if max(errs) > SEQ_TOL or conf_err > SEQ_TOL or row_err > SEQ_TOL \
+                or missing or not argmax_ok or not run["unchanged"]:
+            problems.append(label)
+    del whole
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"sequence split on {problems}")
+    launches = check_dryrun_case(card, dev, "15", "gemma3-1b", cfg, params,
+                                 "long_500k", (2, 1))
+    torch.cuda.empty_cache()
+    emit(phase="sequence split summary", card=card,
+         meshes=["%dx%d" % s for s, _ in meshes],
+         wall_s=time.perf_counter() - t0)
+    return {"sequence split 15 2x1": launches}
+
+
 def first_periods(params, n: int):
     """``params`` cut to its first ``n`` periods (views of the stacked
     leaves)."""
@@ -5353,6 +5565,10 @@ def main() -> int:
     # phase 14, the dry-run's accounting against the card: phi4's prefill
     # and decode on the same weights, granite cut to 2 layers training
     dryrun_runs = check_dryrun(card, dev, params[1])
+    # phase 15, the sequence-split decode: phase 4's gemma3-1b over a
+    # 524288-position dense cache, unsharded, then split on 2x1, 1x2 and
+    # 2x2 over the card; the dry-run's count of 2x1 against the card
+    check_seq_split(card, dev, params[0])
     # the MoE cascade: the same gemma3 weights, granite's (13.2 GB) drawn
     # from the expensive tier's seed in place of phi4's
     moe_args = main_path_args(MOE_NAME)

@@ -34,9 +34,11 @@ every period is counted) and ``donate`` (torch updates in place).  A
 pair the port cannot place is listed with its error, as JAX's
 ``--keep-going`` lists failures: a model axis of 16 that
 ``sharding.check_model_axis`` refuses (gemma3-1b, phi4-mini-3.8b,
-starcoder2-7b, rwkv6-3b, granite-moe-3b-a800m), and ``long_500k`` on a
-data axis > 1, whose batch of 1 would split the cache's sequence
-(``make_serve_step(mesh=)`` raises NotImplementedError).
+starcoder2-7b, rwkv6-3b, granite-moe-3b-a800m).  ``long_500k``'s batch
+of 1, which the data axes do not divide, splits the cache's sequence
+over them (``shapes.input_pspecs``): its trace runs the sequence-split
+decode, one merge an attention layer a group of devices that split the
+keys (``launch.mesh.lse_merge``) among its collectives.
 """
 from __future__ import annotations
 
@@ -83,14 +85,16 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def step_call(cfg, shape_name: str, mesh, params, inputs: dict):
+def step_call(cfg, shape_name: str, mesh, params, inputs: dict,
+              seq_over_model: bool = False):
     """``(step, args)``: the step of the shape's kind built over ``mesh``
     and its arguments, from global ``params`` and ``inputs`` (``tokens``
     (+ ``frontend_embeds``) to train or prefill; ``token``, ``pos`` and
     the dense ``cache`` to serve) placed by their specs: params by
     ``param_specs``, a train step's optimizer state by ``opt.init`` of
-    each device's slices, the cache by ``input_pspecs``' (the batch is
-    split by the step itself)."""
+    each device's slices, the cache by ``input_pspecs``' (with
+    ``seq_over_model``, which the serve step is built with too; the
+    batch is split, or replicated, by the step itself)."""
     kind = SHAPES[shape_name].kind
     placed = steps_lib.place(params, params_lib.param_specs(cfg, mesh), mesh)
     if kind == "train":
@@ -99,10 +103,11 @@ def step_call(cfg, shape_name: str, mesh, params, inputs: dict):
         return step, (placed, state, inputs)
     if kind == "prefill":
         return steps_lib.make_prefill_step(cfg, mesh=mesh), (placed, inputs)
-    step = steps_lib.make_serve_step(cfg, mesh=mesh)
-    cache = steps_lib.place(inputs["cache"],
-                            input_pspecs(cfg, shape_name, mesh)["cache"],
-                            mesh)
+    step = steps_lib.make_serve_step(cfg, mesh=mesh,
+                                     seq_over_model=seq_over_model,
+                                     seq_len=SHAPES[shape_name].seq_len)
+    cache = steps_lib.place(inputs["cache"], input_pspecs(
+        cfg, shape_name, mesh, seq_over_model)["cache"], mesh)
     return step, (placed, inputs["token"], inputs["pos"], cache)
 
 
@@ -149,11 +154,13 @@ def run_counted(step, args, devices: int, arg_bytes: int) -> Trace:
                  time.perf_counter() - t0)
 
 
-def trace_cfg(cfg, shape_name: str, mesh, dtype=torch.bfloat16) -> Trace:
+def trace_cfg(cfg, shape_name: str, mesh, dtype=torch.bfloat16,
+              seq_over_model: bool = False) -> Trace:
     """Trace one step of ``cfg`` at ``shape_name`` on ``mesh`` (the
     counterpart of JAX's ``lower_cfg``): per-device ``meta`` params,
-    optimizer state, inputs and cache, the step of the shape's kind run
-    once under the counting mode."""
+    optimizer state, inputs and cache (``seq_over_model`` as
+    :func:`step_call` takes it), the step of the shape's kind run once
+    under the counting mode."""
     s = SHAPES[shape_name]
     params = tree_map(lambda p: _meta(p.shape, dtype),
                       params_lib.declare_model(cfg))
@@ -162,7 +169,8 @@ def trace_cfg(cfg, shape_name: str, mesh, dtype=torch.bfloat16) -> Trace:
     if s.kind == "decode":
         inputs["cache"] = cache_shapes(cfg, s.global_batch, s.seq_len,
                                        dtype=dtype)
-    step, args = step_call(cfg, shape_name, mesh, params, inputs)
+    step, args = step_call(cfg, shape_name, mesh, params, inputs,
+                           seq_over_model)
     nbytes = argument_bytes(args) + _batch_bytes(cfg, shape_name, mesh,
                                                  dtype)
     return run_counted(step, args, num_chips(mesh), nbytes)

@@ -45,9 +45,10 @@ by its spec, whole along the dims the spec leaves unsplit, as a JAX
 spec replicates is held by every device it is replicated over.
 
 **Collectives.**  :func:`all_reduce`, :func:`all_gather`,
-:func:`spec_gather` and :func:`group_sum` are written out as device
-copies, adds and concatenations; each reports one event to an active
-count (:func:`repro_torch.kernels.counting.collective`), which
+:func:`spec_gather`, :func:`group_sum` and :func:`lse_merge` (the
+sequence-split decode's merge of softmax partials) are written out as
+device copies, adds and concatenations; each reports one event to an
+active count (:func:`repro_torch.kernels.counting.collective`), which
 ``launch.hlo`` reads as JAX reads its HLO's collectives.
 """
 from __future__ import annotations
@@ -348,6 +349,43 @@ def all_reduce(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     out = [total.to(p.device, non_blocking=True) for p in parts]
     counting.collective("all-reduce", out)
     return out
+
+
+def lse_merge(parts) -> list:
+    """Softmax partials merged over devices that each attended their own
+    keys (a sequence-split decode): ``parts[i] = (o, m, l)`` on member
+    ``i``'s device, in key order — ``o`` the output over its keys
+    normalised by its own sum (or None), ``m`` its max score (-inf where
+    it saw no key), ``l`` its sum of ``exp(score - m)``.  In device order
+    on the first part's device: the max ``M`` of the ``m``, each part's
+    weight ``w = l · exp(m - M)`` (0 for a part that saw nothing), the
+    sum ``L`` of the weights, and ``Σ w · o / L`` in ``o``'s dtype; then
+    ``(o, M, L)`` copied to every part's device, as :func:`all_reduce`
+    copies (asynchronous, no host sync).  A group of one returns its
+    part as it is."""
+    if len(parts) == 1:
+        return list(parts)
+    dev = parts[0][1].device
+    ms = [m.to(dev, non_blocking=True) for _, m, _ in parts]
+    top = ms[0]
+    for m in ms[1:]:
+        top = torch.maximum(top, m)
+    ws = [l.to(dev, non_blocking=True) * torch.exp(m - top)
+          for (_, _, l), m in zip(parts, ms)]
+    total = ws[0]
+    for w in ws[1:]:
+        total = total + w
+    out = None
+    if parts[0][0] is not None:
+        out = ws[0] * parts[0][0].to(dev, non_blocking=True)
+        for w, (o, _, _) in zip(ws[1:], parts[1:]):
+            out = out + w * o.to(dev, non_blocking=True)
+        out = (out / total).to(parts[0][0].dtype)
+    merged = [tuple(None if t is None else t.to(m.device, non_blocking=True)
+                    for t in (out, top, total)) for _, m, _ in parts]
+    counting.collective("all-reduce", [tuple(t for t in p if t is not None)
+                                       for p in merged])
+    return merged
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:

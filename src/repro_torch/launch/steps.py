@@ -34,16 +34,22 @@ data shard runs ``forward_data_shards`` in ``prefill`` / dense
 global batch in its ``[B, S]`` token order (``transformer.MoeLayout``),
 as the JAX package's jitted step routes it; the last logits (and
 ``conf``) are gathered on device ``(0, 0)``.  A mesh with a ``pod`` axis
-runs ``pod × data`` data shards (``mesh.TierMesh.grid``).  A decode
-whose batch the data axes do not divide would split the cache's
-sequence over them (``cache_specs(shard_seq=True)``): that needs
-attention split over the sequence with a log-sum-exp merge, which the
-port does not have, so ``make_serve_step(mesh=)`` raises
-NotImplementedError there.
+runs ``pod × data`` data shards (``mesh.TierMesh.grid``).
+
+**The sequence-split decode.**  A decode whose batch the data axes do
+not divide (``long_500k``'s batch of 1) takes its cache placed by
+``cache_specs(shard_seq=True)``: the sequence split over the data axes,
+and with ``seq_over_model`` over ``model`` too where no KV-head dim
+divides it.  Every data shard then runs the whole batch, and each
+attention layer attends each device's keys, the partials merged over
+the devices that split them (``transformer.SeqSplit``,
+``launch.mesh.lse_merge``), as GSPMD partitions the JAX program's
+softmax over the split keys.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -51,13 +57,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import losses
 from repro_torch.data.pipeline import shard_batch
-from repro_torch.launch.mesh import (all_gather, axis_sizes, device_coords,
-                                     map_leaves, spec_gather, spec_slice,
-                                     sync_grads)
+from repro_torch.launch.mesh import (all_gather, axis_members, axis_sizes,
+                                     device_coords, map_leaves, spec_axes,
+                                     spec_gather, spec_slice, sync_grads)
 from repro_torch.models import cache as cache_lib
 from repro_torch.models import params as params_lib
 from repro_torch.models import sharding, transformer
-from repro_torch.models.params import tree_map, value_and_grad
+from repro_torch.models.params import tree_leaves, tree_map, value_and_grad
 from repro_torch.optim import get_optimizer
 
 
@@ -161,14 +167,15 @@ def _mesh_groups(mesh) -> list:
 
 def sharded_forward(placed, cfg: ModelConfig, specs, mesh, shards,
                     return_hidden: bool = False, mode: str = "train",
-                    caches=None, pos=None, layout=None):
+                    caches=None, pos=None, layout=None, split=None):
     """The forward of placed params on ``mesh`` over the data shards'
     batches ``shards`` (``shard_batch``): (each data shard's output of
     ``transformer.forward_data_shards`` in ``mode`` — in train mode
     ``(logits or hidden, aux)`` —, its weights — a tree, or one a model
     shard —, its ``ModelShards``), differentiable back to the placed
-    leaves (``sharding.train_shard_params``).  ``caches``, ``pos`` and
-    ``layout`` as ``forward_data_shards`` takes them (None: none)."""
+    leaves (``sharding.train_shard_params``).  ``caches``, ``pos``,
+    ``layout`` and ``split`` as ``forward_data_shards`` takes them
+    (None: none)."""
     groups = _mesh_groups(mesh)
     comp = sharding.train_shard_params(placed, cfg, specs, mesh)
     weights = [row[0] if g is None else row for row, g in zip(comp, groups)]
@@ -176,7 +183,7 @@ def sharded_forward(placed, cfg: ModelConfig, specs, mesh, shards,
     outs = transformer.forward_data_shards(
         weights, cfg, shards, mode=mode, caches=caches or [None] * n,
         pos=pos or [None] * n, pages=[None] * n, groups=groups,
-        layout=layout, return_hidden=return_hidden)
+        layout=layout, return_hidden=return_hidden, split=split)
     return outs, weights, groups
 
 
@@ -342,16 +349,31 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, mesh=None):
+def make_serve_step(cfg: ModelConfig, mesh=None, seq_over_model: bool = False,
+                    seq_len=None):
     """One decode step over the dense arena: next-token logits, the
     cascade gate's confidence (max softmax probability — the paper's
     conf) and the cache, updated in place.  With ``mesh`` (the module
     docstring) ``params`` and ``cache`` are placed trees (by
-    ``param_specs`` and ``cache.cache_specs``), ``token`` and ``pos``
-    the global ``[B, 1]`` batch; the logits and ``conf`` come back
-    gathered on device ``(0, 0)``, the placed cache updated in place.  A
-    batch the data axes do not divide raises NotImplementedError (the
-    sequence-split decode is not ported)."""
+    ``param_specs`` and ``cache.cache_specs(shard_seq=, seq_over_model=)``,
+    ``shard_seq`` where the data axes do not divide the batch), ``token``
+    and ``pos`` the global ``[B, 1]`` batch; the logits and ``conf`` come
+    back on device ``(0, 0)``, the placed cache updated in place.
+
+    A batch the data axes divide is split over them (``shard_batch``)
+    and the logits gathered.  One they do not divide (``long_500k``'s
+    batch of 1) is replicated: every data shard runs the whole batch —
+    each MoE layer routed by each replica over its own row, every
+    recurrent leaf advanced alike on each — and the logits are data
+    shard 0's.  Where the placement splits the cache's sequence (over
+    the data axes under ``shard_seq``, over ``model`` too with
+    ``seq_over_model`` where no KV-head dim divides it), each attention
+    layer attends each device's keys and merges the partials
+    (:func:`_seq_split`, ``transformer.SeqSplit``).  ``seq_len``, the
+    cache's positions, is required with ``mesh`` (a placed leaf does not
+    show whether its sequence is split); a cache whose leaves do not
+    have the shapes ``cache_shapes`` gives each device raises
+    ValueError."""
     if mesh is None:
         def serve_step(params, token, pos, cache):
             logits, new_cache = transformer.decode_step(params, cfg, token,
@@ -359,29 +381,86 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
             return logits, _conf(logits), new_cache
         return serve_step
 
+    if seq_len is None:
+        raise ValueError("make_serve_step(mesh=) needs seq_len, the dense "
+                         "cache's positions")
     specs = _sharded_serving(cfg, mesh)
     n = sharding.data_axis_size(mesh)
     m = sharding.model_axis_size(mesh)
 
     def serve_step(placed, token, pos, cache):
-        if token.shape[0] % n:
-            raise NotImplementedError(
-                f"{cfg.name}: a decode batch of {token.shape[0]} rows over "
-                f"{n} data shards splits the cache's sequence over them "
-                "(cache_specs(shard_seq=True)); sequence-parallel decode "
-                "attention is not ported")
-        shards = shard_batch({"tokens": token, "pos": pos}, mesh)
-        caches = [[_shard_cache(c, cfg, j, m) for j, c in enumerate(row)]
+        B = token.shape[0]
+        shard_seq = B % n != 0
+        split = _seq_split(cfg, mesh, cache, B, seq_len, shard_seq,
+                           seq_over_model)
+        if shard_seq:
+            shards = [{"tokens": token.to(d, non_blocking=True),
+                       "pos": pos.to(d, non_blocking=True)}
+                      for d in mesh.data_devices()]
+        else:
+            shards = shard_batch({"tokens": token, "pos": pos}, mesh)
+        caches = [[c if split is not None and split.over_model
+                   else _shard_cache(c, cfg, j, m) for j, c in enumerate(row)]
                   for row in cache]
         outs, _, _ = sharded_forward(
             placed, cfg, specs, mesh, shards, mode="decode",
             caches=[row if m > 1 else row[0] for row in caches],
             pos=[b["pos"] for b in shards],
-            layout=_batch_layout(cfg, shards))
-        logits = _gather_rows([lg for lg, _ in outs])
+            layout=None if shard_seq else _batch_layout(cfg, shards),
+            split=split)
+        logits = (outs[0][0] if shard_seq
+                  else _gather_rows([lg for lg, _ in outs]))
         return logits, _conf(logits), cache
 
     return serve_step
+
+
+def _seq_split(cfg: ModelConfig, mesh, cache, B: int, T: int,
+               shard_seq: bool, seq_over_model: bool):
+    """The ``transformer.SeqSplit`` of a placed dense cache of ``B`` rows
+    and ``T`` positions (``cache[e][j]`` device ``(e, j)``'s tree) under
+    ``cache_specs(shard_seq=, seq_over_model=)``, or None where that
+    placement splits no ``kv_seq`` dim.  Device ``(e, j)`` holds the
+    keys from ``i · T / n`` (``i`` its place among the ``n`` devices that
+    split the dim, row-major over the spec's axes: the data axes, then
+    ``model``, as JAX orders them); a group is the devices that differ
+    only along those axes, in key order.  Every device's leaves must
+    have ``cache_shapes``' shapes (ValueError: a cache placed for
+    another split)."""
+    want = cache_lib.cache_shapes(cfg, B, T, mesh, shard_seq=shard_seq,
+                                  seq_over_model=seq_over_model)
+    for e, row in enumerate(cache):
+        for j, tree in enumerate(row):
+            bad = []
+            tree_map(lambda w, t: bad.append((tuple(t.shape), tuple(w.shape)))
+                     if t.shape != w.shape else None, want, tree)
+            if bad:
+                raise ValueError(
+                    f"{cfg.name}: device ({e}, {j})'s cache leaves (shape, "
+                    f"expected) {bad} are not those of a {T}-position cache "
+                    f"of {B} rows placed with shard_seq={shard_seq}, "
+                    f"seq_over_model={seq_over_model}")
+    kv = next((c for c in tree_leaves(cache_lib.declare_cache(cfg, B, T))
+               if "kv_seq" in c.axes), None)
+    if kv is None:
+        return None
+    axes = spec_axes(cache_lib.cache_spec_leaf(
+        kv, mesh, shard_seq=shard_seq,
+        seq_over_model=seq_over_model)[kv.axes.index("kv_seq")])
+    if not axes:
+        return None
+    sizes = axis_sizes(mesh)
+    L = T // math.prod(sizes[a] for a in axes)
+    E, M = mesh.grid.shape
+    offsets = [[0] * M for _ in range(E)]
+    groups = []
+    for e in range(E):
+        for j in range(M):
+            members = axis_members(sizes, device_coords(sizes, e, j), axes)
+            offsets[e][j] = members.index((e, j)) * L
+            if members not in groups:
+                groups.append(members)
+    return transformer.SeqSplit(offsets, groups, "model" in axes)
 
 
 def _conf(logits):

@@ -25,7 +25,11 @@ executors use:
 * ``"decode"``: one token per row at ``pos [B, 1]``, over a block-paged
   cache (``pages={"page_table": [B, P]}``, the paged decode kernel) or,
   with ``pages=None``, the dense ``[B, max_seq, KV, hd]`` arena (plain
-  torch: the JAX package has no kernel there).
+  torch: the JAX package has no kernel there).  A dense arena split
+  along its sequence over devices is decoded by
+  ``transformer.forward_data_shards(split=)`` from the pieces here:
+  :func:`attention_qkv`, :func:`write_owned`, :func:`split_scores` and
+  :func:`split_out` / :func:`split_out_scaled`.
 
 Decode and the paged steps update the cache in place and return the same
 dict.  The Mamba mixer (:func:`mamba`), the RWKV-6 time mix
@@ -148,21 +152,23 @@ def _quant_i8(x, eps=1e-8):
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
+def _kv_entries(cache, k, v) -> dict:
+    """The cache entries of new keys/values, by leaf: int8 with their
+    scales for a quantised cache, else in the cache's dtype."""
+    if "k_scale" in cache:
+        kq, ksc = _quant_i8(k)
+        vq, vsc = _quant_i8(v)
+        return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+
+
 def _write_kv(cache, blk, off, k, v):
     """Scatter new keys/values into the pools at (block, offset) — or
     into the dense arena at (row, position) — in place (the JAX package
     writes a new cache and donates the old buffers instead).  Duplicate writes to the null block 0 leave an unspecified
     winner there; block 0 is never attended by a live query."""
-    if "k_scale" in cache:
-        kq, ksc = _quant_i8(k)
-        vq, vsc = _quant_i8(v)
-        cache["k"].index_put_((blk, off), kq)
-        cache["v"].index_put_((blk, off), vq)
-        cache["k_scale"].index_put_((blk, off), ksc)
-        cache["v_scale"].index_put_((blk, off), vsc)
-    else:
-        cache["k"].index_put_((blk, off), k.to(cache["k"].dtype))
-        cache["v"].index_put_((blk, off), v.to(cache["v"].dtype))
+    for name, new in _kv_entries(cache, k, v).items():
+        cache[name].index_put_((blk, off), new)
 
 
 def _scales(cache) -> dict:
@@ -176,12 +182,23 @@ def _gqa_scores_to_out(q, k, v, mask, k_scale=None, v_scale=None):
     folds its per-token scales into the scores and the probabilities,
     and the probabilities meet the values in bf16, as the JAX package
     computes it."""
+    probs = torch.softmax(_masked_scores(q, k, mask, k_scale), dim=-1)
+    return _probs_to_out(probs, v, v_scale)
+
+
+def _masked_scores(q, k, mask, k_scale=None):
+    """:func:`_gqa_scores_to_out`'s f32 scores ``[B,KV,G,S,T]``, -1e30
+    where ``mask`` hides a key."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
     if k_scale is not None:
         scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
+    return torch.where(mask, scores, torch.full_like(scores, -1e30))
+
+
+def _probs_to_out(probs, v, v_scale=None):
+    """:func:`_gqa_scores_to_out`'s weighted values ``[B,S,KV,G,d]`` of
+    the probabilities ``[B,KV,G,S,T]``."""
     if v_scale is not None:
         probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
         probs = probs.to(torch.bfloat16).float()
@@ -219,19 +236,26 @@ def _train_attention(spec, q, k, v, pos):
                       for s in range(0, S, _Q_CHUNK)], dim=1)
 
 
+def attention_qkv(p, cfg: ModelConfig, spec, x, pos):
+    """A layer's queries ``[B, S, H, hd]`` and keys ``[B, S, KV, hd]``,
+    both rotated (``spec.rope``), and values ``[B, S, KV, hd]``."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q, k = apply_rope(q, k, pos, cfg, spec.rope, cfg.frontend_len)
+    return q, k, v
+
+
 def attention(p, cfg: ModelConfig, spec, x, cache, pos, mode, pages=None):
     if mode not in ("train", "prefill", "ragged_step", "mixed_step",
                     "prefill_chunk", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G = H // KV
-    q = (x @ p["wq"]).reshape(B, S, KV, G, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
-    qr, k = apply_rope(q.reshape(B, S, H, hd), k, pos, cfg, spec.rope,
-                       cfg.frontend_len)
-    q = qr.reshape(B, S, KV, G, hd)
+    qr, k, v = attention_qkv(p, cfg, spec, x, pos)
+    q = qr.reshape(B, S, KV, H // KV, hd)
 
     if mode == "train":
         out = _train_attention(spec, q, k, v, pos)
@@ -340,6 +364,74 @@ def _dense_decode(p, cfg: ModelConfig, spec, x, q, k, v, cache, pos):
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim).to(x.dtype) \
         @ p["wo"]
     return y, cache
+
+
+def write_owned(cache, pos, t0: int, k, v):
+    """The sequence-split dense decode's write on one device, whose
+    cache holds the keys ``[t0, t0 + L)`` of every row: row b's new key
+    and value (``k``, ``v`` [B, KV, hd]; int8 with their scales for a
+    quantised cache) at ``pos[b, 0] - t0`` where the device holds
+    ``pos[b, 0]``.  A device that does not writes back the entry it
+    already holds at the clamped offset, so its cache stays as it was,
+    bit for bit, and every device runs the same ops whatever ``pos`` is
+    (no host sync)."""
+    L = cache["k"].shape[1]
+    off = pos[:, 0].long() - t0
+    own = (off >= 0) & (off < L)
+    idx = off.clamp(0, L - 1)
+    rows = torch.arange(k.shape[0], device=k.device)
+    for name, new in _kv_entries(cache, k, v).items():
+        leaf = cache[name]
+        keep = own.view(-1, *[1] * (new.dim() - 1))
+        leaf.index_put_((rows, idx), torch.where(keep, new, leaf[rows, idx]))
+
+
+def _stat(t):
+    """A per-head statistic ``[B,KV,G,1,1]`` in the output's layout
+    ``[B,1,KV,G,1]``."""
+    return t.permute(0, 3, 1, 2, 4)
+
+
+def split_scores(q, cache, pos, t0: int, window):
+    """One device's share of a sequence-split dense decode: ``q``
+    [B,1,KV,G,hd] against its keys ``[t0, t0 + L)`` under the global
+    mask (``t0 + i <= pos``, and ``> pos - window``).  Returns the masked
+    scores [B,KV,G,1,L] (-1e30 where hidden, as the unsplit path), their
+    max ``m`` and ``l = Σ exp(scores - m)`` [B,1,KV,G,1].  Where the
+    device sees no key of a row (all after ``pos``, or before the
+    window), its softmax over -1e30 scores would be uniform, not empty:
+    its ``m`` is -inf there, which gives its share weight 0 in the merge
+    (``launch.mesh.lse_merge``)."""
+    idx = t0 + torch.arange(cache["k"].shape[1], device=q.device)[None, :]
+    p_row = pos[:, 0].long()[:, None]
+    mask = idx <= p_row
+    if window is not None:
+        mask &= idx > p_row - window
+    scores = _masked_scores(q, cache["k"], mask[:, None, None, None, :],
+                            cache.get("k_scale"))
+    m = scores.amax(-1, keepdim=True)
+    l = torch.exp(scores - m).sum(-1, keepdim=True)
+    seen = mask.any(-1)[:, None, None, None, None]
+    return scores, _stat(torch.where(seen, m, float("-inf"))), _stat(l)
+
+
+def split_out(scores, cache):
+    """The ``o`` of a device's ``(o, m, l)`` over an f32 or bf16 cache:
+    its values weighted by its own softmax [B,1,KV,G,hd], as the unsplit
+    path weights all of them."""
+    return _probs_to_out(torch.softmax(scores, dim=-1), cache["v"])
+
+
+def split_out_scaled(scores, cache, m, l):
+    """A device's part of the output over an int8 cache, given the merged
+    max ``m`` and sum ``l`` of every device's keys: the whole softmax's
+    probabilities ``exp(scores - m) / l`` over its keys, its ``v_scale``
+    folded in and rounded to bf16 as the unsplit path rounds them, times
+    its values — GSPMD's order.  The parts summed over the devices are
+    the output."""
+    unstat = lambda t: t.permute(0, 2, 3, 1, 4)  # noqa: E731
+    probs = torch.exp(scores - unstat(m)) / unstat(l)
+    return _probs_to_out(probs, cache["v"], cache["v_scale"])
 
 
 # --------------------------------------------------------------------------

@@ -42,8 +42,10 @@ the engine's sharded dense arena and the sharded serve step
 ``shard_seq`` (a batch of 1, ``long_500k``) the KV sequence over the
 data axes instead, and with ``seq_over_model`` over ``model`` too where
 no KV-head dim divides it, as the JAX package's dry-run places its
-caches.  :func:`cache_shapes` gives each leaf's per-device shape on the
-``meta`` device, as ``params.param_shapes`` does for the weights.
+caches and as the sharded serve step decodes over them (its
+sequence-split decode).  :func:`cache_shapes` gives each leaf's
+per-device shape on the ``meta`` device, as ``params.param_shapes``
+does for the weights.
 """
 from __future__ import annotations
 

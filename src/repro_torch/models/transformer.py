@@ -52,6 +52,13 @@ routes each MoE layer once over all of them
 (:func:`route_data_shards`, in the JAX batch's slot order,
 :class:`MoeLayout`); every other layer runs on each shard alone.
 
+**A sequence-split dense decode** (``forward_data_shards(split=)``, a
+:class:`SeqSplit`): the cache's keys are split over devices, so each
+attention layer runs on every device at once (:func:`_split_attention`:
+each attends its own keys, the partials merged over the devices that
+split them); the other layers run on each data shard alone, each data
+shard holding the whole batch.
+
 **Training over a mesh** (``launch.steps`` built with ``mesh=``):
 :func:`forward_data_shards` in ``"train"`` mode runs a step's data
 shards and their model shards as one differentiable graph — the
@@ -63,6 +70,8 @@ head's.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -70,7 +79,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import counting
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce, lse_merge
 from repro_torch.models import blocks
 from repro_torch.models import sharding
 from repro_torch.models.params import tree_map
@@ -527,9 +536,116 @@ def moe_train_shards(groups, ws, cfg: ModelConfig, spec, hs):
     return ys, aux
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A dense decode cache split along its sequence over a mesh
+    (``launch.steps.make_serve_step``): device ``(s, j)`` (data shard
+    ``s``, model shard ``j``) holds the keys from ``offsets[s][j]`` of
+    every row; each of ``groups`` lists the devices whose keys together
+    are the whole sequence, in key order; ``over_model``: the model axis
+    splits the keys too, so each of its devices holds every KV head
+    (and attends every query head) over its keys."""
+    offsets: list
+    groups: list
+    over_model: bool
+
+
+def _heads_gather(parts, dim: int, devices) -> list:
+    """``parts`` concatenated along ``dim`` on each of ``devices``: one
+    all-gather."""
+    out = [torch.cat([p.to(d, non_blocking=True) for p in parts], dim)
+           for d in devices]
+    counting.collective("all-gather", out)
+    return out
+
+
+def _split_attention(split: SeqSplit, cfg, shard_cfg, spec, ws, xs, cs,
+                     ps):
+    """An attention layer's mixer over a sequence-split dense cache, on
+    every device of the mesh (``ws``, ``xs``, ``cs``, ``ps``: data shard
+    ``s``'s weights, residuals, layer caches and positions a model
+    shard): each device projects its query and KV heads; under
+    ``over_model`` the queries (and the KV heads a shard lacks) are
+    gathered over its model shards, as its cache holds every KV head;
+    it writes the new key and value where it holds ``pos``
+    (``blocks.write_owned``) and attends its own keys
+    (``blocks.split_scores``); each group's partials are merged
+    (``launch.mesh.lse_merge``; over an int8 cache the max and sum
+    first, then each device's part of the output under them, summed —
+    the order GSPMD gives the JAX program); each device keeps its own
+    query heads' rows for its ``wo`` rows, and a data shard's model
+    shards all-reduce the products, as :func:`_mixer_shards` does.
+    Returns (the residuals, the FFN inputs, the caches) a data shard."""
+    n, m = len(xs), len(xs[0])
+    devs = [(s, j) for s in range(n) for j in range(m)]
+    hs = {(s, j): blocks.rmsnorm(xs[s][j], ws[s][j]["norm1"],
+                                 shard_cfg.norm_eps) for s, j in devs}
+    qkv = {d: blocks.attention_qkv(ws[d[0]][d[1]]["mixer"], shard_cfg, spec,
+                                   hs[d], ps[d[0]][d[1]]) for d in devs}
+    H, KV, hd = shard_cfg.num_heads, shard_cfg.num_kv_heads, cfg.head_dim
+    if split.over_model:
+        # the model axis outnumbers the KV heads: each shard computes the
+        # one its query heads read, and the first shard holding each
+        # head supplies it
+        firsts = [sharding.kv_head_range(cfg, j, m)[0] for j in range(m)]
+        holders = [firsts.index(h) for h in sorted(set(firsts))]
+        for s in range(n):
+            row = [qkv[s, j] for j in range(m)]
+            devices = [r[0].device for r in row]
+            q = _heads_gather([r[0] for r in row], 2, devices)
+            if KV < cfg.num_kv_heads:
+                k = _heads_gather([row[j][1] for j in holders], 2, devices)
+                v = _heads_gather([row[j][2] for j in holders], 2, devices)
+            else:
+                k, v = [r[1] for r in row], [r[2] for r in row]
+            for j in range(m):
+                qkv[s, j] = q[j], k[j], v[j]
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+    parts = {}
+    for s, j in devs:
+        q, k, v = qkv[s, j]
+        cache, pos = cs[s][j]["mixer"], ps[s][j]
+        t0 = split.offsets[s][j]
+        blocks.write_owned(cache, pos, t0, k[:, 0], v[:, 0])
+        parts[s, j] = blocks.split_scores(
+            q.reshape(q.shape[0], 1, KV, H // KV, hd), cache, pos, t0,
+            spec.window)
+    quant = "k_scale" in cs[0][0]["mixer"]
+    outs = {}
+    for members in split.groups:
+        if quant:
+            stats = lse_merge([(None, parts[d][1], parts[d][2])
+                               for d in members])
+            got = all_reduce([blocks.split_out_scaled(
+                parts[d][0], cs[d[0]][d[1]]["mixer"], mm, ll)
+                for d, (_, mm, ll) in zip(members, stats)])
+        else:
+            got = [o for o, _, _ in lse_merge([
+                (blocks.split_out(parts[d][0], cs[d[0]][d[1]]["mixer"]),
+                 parts[d][1], parts[d][2]) for d in members])]
+        outs.update(zip(members, got))
+    Hl = shard_cfg.num_heads
+    out_xs, out_hs = [], []
+    for s in range(n):
+        ys = []
+        for j in range(m):
+            o = outs[s, j]
+            o = o.reshape(o.shape[0], 1, H * hd)
+            if H > Hl:                           # this shard's query heads
+                o = o[..., j * Hl * hd:(j + 1) * Hl * hd]
+            ys.append(o.to(xs[s][j].dtype) @ ws[s][j]["mixer"]["wo"])
+        ys = all_reduce(ys) if m > 1 else ys
+        x = [a + y for a, y in zip(xs[s], ys)]
+        out_xs.append(x)
+        out_hs.append([blocks.rmsnorm(a, w["norm2"], shard_cfg.norm_eps)
+                       for a, w in zip(x, ws[s])])
+    return out_xs, out_hs, [[cs[s][j]["mixer"] for j in range(m)]
+                            for s in range(n)]
+
+
 def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
                         caches, pos, pages, groups, layout=None,
-                        return_hidden: bool = False):
+                        return_hidden: bool = False, split=None):
     """:func:`forward` of each data shard of a tier, the shards advanced
     layer by layer so that each MoE layer routes once over the tier's
     whole batch (:func:`route_data_shards`, in the JAX package's slot
@@ -557,7 +673,11 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
     shard 0's final-norm hidden states —, aux) a data shard: ``aux`` the
     global batch's MoE losses, on data shard 0's device, with the
     shard's ``"exit_logits"`` (each exit head's vocabulary columns
-    gathered) for a config with ``early_exit_periods``."""
+    gathered) for a config with ``early_exit_periods``.
+
+    ``split`` (a :class:`SeqSplit`; dense ``decode`` only): the dense
+    caches hold each device's share of the keys, and every attention
+    layer runs over all devices at once (:func:`_split_attention`)."""
     n = len(batches)
     m = 1 if groups[0] is None else groups[0].size
     train = mode == "train"
@@ -589,20 +709,27 @@ def forward_data_shards(params, cfg: ModelConfig, batches, *, mode: str,
             w = [[t[key] for t in wt[s]] for s in range(n)]
             c = [None if ct[s] is None else [t[key] for t in ct[s]]
                  for s in range(n)]
-            hs = []
+            if split is not None and layer.mixer.kind == "attn":
+                xs, hs, mix = _split_attention(
+                    split, cfg, shard_cfg, layer.mixer, w, xs, c,
+                    [ps[s] if groups[s] else [ps[s]] for s in range(n)])
+            else:
+                hs, mix = [], []
+                for s in range(n):
+                    if groups[s] is not None:
+                        xs[s], h, mx = _mixer_shards(
+                            groups[s], w[s], shard_cfg, layer, xs[s], c[s],
+                            ps[s], mode, pg[s])
+                    else:
+                        x, h, mx = blocks.mixer_half(
+                            w[s][0], cfg, layer, xs[s][0],
+                            None if c[s] is None else c[s][0]["mixer"],
+                            ps[s], mode, pg[s])
+                        xs[s], h, mx = [x], [h], [mx]
+                    hs.append(h)
+                    mix.append(mx)
             for s in range(n):
-                if groups[s] is not None:
-                    xs[s], h, mix = _mixer_shards(
-                        groups[s], w[s], shard_cfg, layer, xs[s], c[s],
-                        ps[s], mode, pg[s])
-                else:
-                    x, h, mix = blocks.mixer_half(
-                        w[s][0], cfg, layer, xs[s][0],
-                        None if c[s] is None else c[s][0]["mixer"], ps[s],
-                        mode, pg[s])
-                    xs[s], h, mix = [x], [h], [mix]
-                hs.append(h)
-                for j, mj in enumerate(mix):
+                for j, mj in enumerate(mix[s]):
                     slots[s][j][key] = {"mixer": mj}
             spec = layer.ffn
             if train and spec.kind == "moe":

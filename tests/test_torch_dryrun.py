@@ -515,8 +515,8 @@ def test_pod_mesh_steps_match_unsharded():
     token, pos = toks[:, :1] % cfg.vocab_size, torch.full((8, 1), S)
     placed_cache = tree_map(lambda t: t.clone(),
                             steps.place(cache, cspecs, pod))
-    got = steps.make_serve_step(cfg, mesh=pod)(placed, token, pos,
-                                               placed_cache)
+    got = steps.make_serve_step(cfg, mesh=pod, seq_len=T)(placed, token, pos,
+                                                          placed_cache)
     want = steps.make_serve_step(cfg)(p, token, pos, cache)
     torch.testing.assert_close(got[0], want[0], **SELF_TOL)
     for g, w in zip(tree_leaves(steps.gather(got[2], cspecs, sizes=sizes)),
@@ -680,8 +680,8 @@ def test_sharded_serving_steps_match_jax(arch, mesh, weights, jax_out):
     cache = tree_map(lambda t: t.clone(), steps.place(
         host, cache_lib.cache_specs(cfg, B, T, tmesh), tmesh))
     token, pos = torch.from_numpy(x["token"]), torch.from_numpy(x["pos"])
-    slg, conf, sc = steps.make_serve_step(cfg, mesh=tmesh)(placed, token,
-                                                           pos, cache)
+    slg, conf, sc = steps.make_serve_step(cfg, mesh=tmesh, seq_len=T)(
+        placed, token, pos, cache)
     np.testing.assert_allclose(slg.numpy(), want["logits"], **tol)
     np.testing.assert_allclose(conf.numpy(), want["conf"], **tol)
     one = steps.make_serve_step(cfg)(tp, token, pos,
@@ -691,13 +691,3 @@ def test_sharded_serving_steps_match_jax(arch, mesh, weights, jax_out):
     assert sc is cache
     _check_cache(sc, want["cache"], cfg, T, "serve", tol, steps._shard_cache)
 
-
-def test_serve_step_refuses_sequence_split():
-    """A decode batch the data axis does not divide (``long_500k``'s
-    batch of 1) raises NotImplementedError naming the split."""
-    cfg = get_config("phi4-mini-3.8b", "smoke")
-    tmesh = _cpu_mesh(2, 1)
-    step = steps.make_serve_step(cfg, mesh=tmesh)
-    with pytest.raises(NotImplementedError, match="sequence"):
-        step(None, torch.zeros(1, 1, dtype=torch.int32),
-             torch.zeros(1, 1, dtype=torch.int32), None)
